@@ -1,0 +1,73 @@
+"""Op layer: one entry per kernel, dispatched by the tensor's device.
+
+A CPU tensor goes to the plain PyTorch version (``kernels.ref``); a CUDA
+tensor goes to the hand-written kernel, which raises if it cannot take
+the call.  No environment variable or flag can send a CUDA tensor to the
+plain version: a switch like that would hide the kernel on the very
+path it exists for.  (The reference reads ``REPRO_KERNELS`` because
+XLA on a CPU and Pallas on a TPU are both legitimate backends there.)
+
+Each kernel wrapper counts its own launches (``<wrapper>.launches``);
+``launch_counts`` / ``reset_launch_counts`` read and clear them.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.core import hermite
+from repro_torch.kernels import dct, flash_attention, freqca_fused, ref
+
+_WRAPPERS = {
+    "band_split_spectral": dct.band_split_spectral,
+    "freqca_predict_fused_spectral":
+        freqca_fused.freqca_predict_fused_spectral,
+    "flash_attention": flash_attention.flash_attention,
+}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in _WRAPPERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in _WRAPPERS.values():
+        fn.launches = 0
+
+
+def _on_cuda(t: torch.Tensor) -> bool:
+    return t.device.type == "cuda"
+
+
+def band_split_spectral(x: torch.Tensor, rho: float = 0.0625,
+                        method: str = "dct"):
+    """Spectral band split: ``(low_spec [B, m, D], high [B, S, D])``."""
+    if _on_cuda(x):
+        return dct.band_split_spectral(x.contiguous(), rho, method)
+    return ref.band_split_spectral_ref(x, rho, method)
+
+
+def freqca_predict_spectral(low_spec: torch.Tensor, synth: torch.Tensor,
+                            high_hist: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """Fused spectral cached step: synth·low_spec + Σ_k w[:, k]·high_k."""
+    if _on_cuda(high_hist):
+        return freqca_fused.freqca_predict_fused_spectral(
+            low_spec.contiguous(), synth, high_hist.contiguous(), w)
+    return ref.freqca_predict_spectral_ref(low_spec, synth, high_hist, w)
+
+
+def hermite_weights(ts: torch.Tensor, t_query, order: int) -> torch.Tensor:
+    """Per-lane folded Hermite weights ``[B, K]`` from ``ts [B, K]`` —
+    the tiny normal-equation solves stay plain torch ops."""
+    return hermite.eval_weights(ts, t_query, order)
+
+
+def flash(q: torch.Tensor, k: torch.Tensor,
+          v: torch.Tensor) -> torch.Tensor:
+    """Non-causal MHA over ``[B, S, H, hd]`` (``q_per_kv=1``)."""
+    if _on_cuda(q):
+        return flash_attention.flash_attention(
+            q.contiguous(), k.contiguous(), v.contiguous())
+    return ref.attention_ref(q, k, v)

@@ -1,0 +1,102 @@
+"""Parameter specs, initialisation and shared layers (counterpart of
+``repro.models.common``).
+
+Parameters are plain nested dicts (and per-layer lists) of tensors.  The
+initialiser follows the reference's ``_initializer`` rules, drawn from a
+``torch.Generator`` — the same distributions, not the same bits.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch import device as device_lib
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """One leaf: its shape in the port, how it is drawn, and the shape
+    of the same leaf in the reference's (layer-stacked) tree, which the
+    fan-in rule reads."""
+    shape: Tuple[int, ...]
+    init: str = "normal"                     # normal | zeros | ones
+    ref_shape: Optional[Tuple[int, ...]] = None
+
+    def std(self) -> float:
+        """The reference's fan-in rule on its own leaf shape: dim 0 for
+        2-D and higher, dim 1 for 3-D (stacked 2-D kernels), so stacked
+        4-D attention leaves ``[n_layers, d, H, hd]`` take the layer
+        count as fan-in — copied as is, so both packages draw from one
+        distribution."""
+        shape = self.ref_shape or self.shape
+        fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
+        if len(shape) == 3:
+            fan_in = shape[1]
+        return 1.0 / math.sqrt(fan_in)
+
+
+def dense_specs(d_in: int, d_out: int, use_bias: bool = False):
+    s = {"kernel": ParamSpec((d_in, d_out))}
+    if use_bias:
+        s["bias"] = ParamSpec((d_out,), init="zeros")
+    return s
+
+
+def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
+    """Spec tree -> tensor tree, drawn from ``torch.Generator(seed)`` on
+    ``device`` (default ``cuda``; raises without one).  Each leaf is
+    drawn in float32 and cast to ``dtype``."""
+    dev = device_lib.resolve(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def draw(spec: ParamSpec) -> torch.Tensor:
+        if spec.init == "zeros":
+            return torch.zeros(spec.shape, dtype=dtype, device=dev)
+        if spec.init == "ones":
+            return torch.ones(spec.shape, dtype=dtype, device=dev)
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                        device=dev)
+        return (x * spec.std()).to(dtype)
+
+    return map_specs(draw, specs)
+
+
+def map_specs(fn, tree):
+    """Apply ``fn`` to every ParamSpec of a dict / list tree."""
+    if isinstance(tree, ParamSpec):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_specs(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_specs(fn, v) for v in tree]
+    raise TypeError(f"unsupported spec node {type(tree)!r}")
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def layernorm(x: torch.Tensor, eps: float = 1e-6,
+              scale: Optional[torch.Tensor] = None,
+              bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """LayerNorm in float32 inside, cast back to x's type."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, unbiased=False, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + eps)
+    if scale is not None:
+        y = y * scale.to(torch.float32)
+    if bias is not None:
+        y = y + bias.to(torch.float32)
+    return y.to(dtype)
+
+
+def dense(params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ params["kernel"].to(x.dtype)
+    if "bias" in params:
+        y = y + params["bias"].to(x.dtype)
+    return y

@@ -1,0 +1,213 @@
+"""Continuous-batching serving of the FreqCa sampler (counterpart of
+``repro.serving.engine.DiffusionEngine``).
+
+Requests land in a ``Scheduler`` queue; batches are cut on
+age/deadline pressure, policy-homogeneous by default, and padded to
+power-of-two bucket sizes; each batch runs the port's ``sample`` on the
+engine's device and every request gets its own ``n_full_steps``.  The
+reference compiles one executable per (shape, group, bucket) signature;
+the port runs eagerly, so ``warmup`` builds the CUDA kernels and runs
+each bucket once instead.  CUDA-graph capture per signature, and its
+accounting, come later.
+"""
+from __future__ import annotations
+
+import time
+from typing import Callable, List, NamedTuple, Optional, Sequence
+
+import torch
+
+from repro_torch import device as device_lib
+from repro_torch.core.policies import registry as policy_registry
+from repro_torch.diffusion import sampler as sampler_lib
+from repro_torch.diffusion import schedule
+from repro_torch.serving.metrics import ServeMetrics
+from repro_torch.serving.scheduler import (BatchPlan, DiffusionRequest,
+                                           Scheduler, bucket_sizes)
+
+__all__ = ["DiffusionEngine", "DiffusionRequest", "DiffusionResult"]
+
+
+class DiffusionResult(NamedTuple):
+    request_id: int
+    latents: torch.Tensor
+    n_full_steps: int        # THIS request's activated steps (per lane)
+    wall_time_s: float
+    queue_wait_s: float = 0.0
+    bucket: int = 0
+
+
+class DiffusionEngine:
+    """Continuous-batching FreqCa-cached rectified-flow sampler.
+
+    ``device`` defaults to ``cuda`` and raises when there is none;
+    ``full_fn`` / ``from_crf_fn`` must compute on that device.
+    """
+
+    def __init__(self, full_fn: Callable, from_crf_fn: Callable,
+                 latent_shape, crf_shape, policy,
+                 n_steps: int = 50, max_batch: int = 8,
+                 crf_dtype=torch.float32, max_wait_s: float = 0.0,
+                 pad_to_max: bool = False, group_policies: bool = True,
+                 shed_depth: Optional[int] = None,
+                 shed_factor: float = 4.0, shapes: Sequence = (),
+                 device=None):
+        self.device = device_lib.resolve(device)
+        self.full_fn = full_fn
+        self.from_crf_fn = from_crf_fn
+        self.latent_shape = tuple(latent_shape)      # [H, W, C]
+        self.crf_shape = tuple(crf_shape)            # per-sample CRF [S, D]
+        self.policy = policy
+        self.n_steps = n_steps
+        self.max_batch = max_batch
+        self.crf_dtype = crf_dtype
+        # multi-resolution shape ladder, shared by reference with the
+        # scheduler so submit-time validation tracks declarations
+        self.default_shape = (self.latent_shape, self.crf_shape)
+        self.shapes: List = [self.default_shape]
+        self._allowed_shapes = {self.default_shape}
+        for pair in shapes:
+            self.declare_shape(*pair)
+        self.scheduler = Scheduler(max_batch=max_batch,
+                                   max_wait_s=max_wait_s,
+                                   pad_to_max=pad_to_max,
+                                   group_policies=group_policies,
+                                   default_policy=policy,
+                                   shed_depth=shed_depth,
+                                   shed_factor=shed_factor,
+                                   default_shape=self.default_shape,
+                                   allowed_shapes=self._allowed_shapes)
+        self.metrics = ServeMetrics()
+        self._ts = schedule.timesteps(n_steps, device=self.device)
+
+    def declare_shape(self, latent_shape, crf_shape) -> tuple:
+        """Add a (latent, CRF) shape pair to the deployment's ladder."""
+        key = (tuple(latent_shape), tuple(crf_shape))
+        if key not in self._allowed_shapes:
+            self.shapes.append(key)
+            self._allowed_shapes.add(key)
+        return key
+
+    @staticmethod
+    def _shape_label(latent_shape, crf_shape) -> str:
+        return ("lat" + "x".join(str(d) for d in latent_shape)
+                + "/crf" + "x".join(str(d) for d in crf_shape))
+
+    @property
+    def buckets(self) -> List[int]:
+        return bucket_sizes(self.max_batch)
+
+    def state_bytes(self, batch: int = 1, latent_shape=None,
+                    crf_shape=None) -> int:
+        """Real cache-state footprint of the engine policy for a
+        ``batch``-lane bucket, sized on the meta device (nothing is
+        allocated)."""
+        pol = policy_registry.resolve(self.policy)
+        lat = tuple(latent_shape) if latent_shape else self.latent_shape
+        crf = tuple(crf_shape) if crf_shape else self.crf_shape
+        state = pol.init(batch, crf, self.crf_dtype, latent_shape=lat,
+                         latent_dtype=torch.float32, device="meta")
+        return pol.state_bytes(state)
+
+    def _run(self, x_init: torch.Tensor, lanes, crf_feat):
+        return sampler_lib.sample(
+            self.full_fn, self.from_crf_fn, x_init, self._ts, lanes,
+            crf_shape=(x_init.shape[0],) + tuple(crf_feat),
+            crf_dtype=self.crf_dtype)
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None) -> float:
+        """Build the CUDA kernels (on a CUDA engine) and run every bucket
+        of every declared shape once on the default policy.  Returns
+        wall seconds."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from repro_torch.kernels import build
+            build.build()
+        for lat, crf in self.shapes:
+            self.metrics.observe_state_bytes(
+                self.state_bytes(batch=1, latent_shape=lat, crf_shape=crf),
+                shape_key=self._shape_label(lat, crf))
+            for b in (buckets or self.buckets):
+                x = torch.zeros((b,) + tuple(lat), device=self.device)
+                self._run(x, self.policy, crf)
+        self._sync()
+        return time.perf_counter() - t0
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    # --- request path ----------------------------------------------------
+    def submit(self, req: DiffusionRequest,
+               now: Optional[float] = None) -> None:
+        self.scheduler.submit(req, now=now)
+
+    def build_x_init(self, plan: BatchPlan) -> torch.Tensor:
+        """[bucket, H, W, C] float32 noise batch on the engine's device:
+        each lane's noise from ``torch.Generator().manual_seed(seed)``
+        (not JAX's bits), editing lanes partially noised, padded lanes
+        zero."""
+        lat = (tuple(plan.latent_shape) if plan.latent_shape is not None
+               else self.latent_shape)
+        lanes = []
+        for r in plan.requests:
+            gen = torch.Generator().manual_seed(r.seed)
+            noise = torch.randn(lat, generator=gen, dtype=torch.float32)
+            if r.init_latents is not None:
+                ref = torch.as_tensor(r.init_latents, dtype=noise.dtype)
+                noise = schedule.add_noise(ref.cpu(), noise,
+                                           r.edit_strength)
+            lanes.append(noise)
+        lanes += [torch.zeros(lat)] * (plan.bucket - plan.n_real)
+        return torch.stack(lanes).to(self.device)
+
+    def execute_plan(self, plan: BatchPlan) -> List[DiffusionResult]:
+        """Run one formed batch and build the per-request results."""
+        lanes = plan.lane_policies(self.policy)
+        if all(p == lanes[0] for p in lanes):
+            lanes = lanes[0]
+        crf = (tuple(plan.crf_shape) if plan.crf_shape is not None
+               else self.crf_shape)
+        lat = (tuple(plan.latent_shape) if plan.latent_shape is not None
+               else self.latent_shape)
+        x_init = self.build_x_init(plan)
+        t0 = time.perf_counter()
+        res = self._run(x_init, lanes, crf)
+        self._sync()
+        wall = time.perf_counter() - t0
+        lane_full = [int(v) for v in res.n_full_lanes.tolist()]
+        self.metrics.observe_batch(
+            plan.bucket, plan.n_real, wall, res.n_full, self.n_steps,
+            lane_full=lane_full[:plan.n_real], group_key=plan.group_key,
+            shape_key=self._shape_label(lat, crf))
+        self.metrics.observe_shed_events(self.scheduler.shed_events)
+        out = []
+        for i, r in enumerate(plan.requests):   # padded lanes never leak
+            wait = max(0.0, plan.formed_at - r.submit_time)
+            self.metrics.observe_request(wait, wait + wall,
+                                         n_full=lane_full[i])
+            out.append(DiffusionResult(r.request_id, res.x[i], lane_full[i],
+                                       wall, wait, plan.bucket))
+        return out
+
+    def run_batch(self, reqs: Optional[Sequence[DiffusionRequest]] = None,
+                  flush: bool = True,
+                  now: Optional[float] = None) -> List[DiffusionResult]:
+        """Cut and serve one batch (``flush=True`` drains immediately)."""
+        for r in (reqs or ()):
+            self.submit(r, now=now)
+        self.metrics.observe_queue_depth(self.scheduler.depth)
+        plan = self.scheduler.form_batch(now=now, flush=flush)
+        if plan is None:
+            return []
+        return self.execute_plan(plan)
+
+    def serve_until_drained(self, flush: bool = True,
+                            poll_s: float = 0.005) -> List[DiffusionResult]:
+        out: List[DiffusionResult] = []
+        while self.scheduler.depth:
+            served = self.run_batch(flush=flush)
+            out.extend(served)
+            if not served:   # scheduler holding back: wait, don't spin
+                time.sleep(poll_s)
+        return out

@@ -1,0 +1,71 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+Every test here needs an sm_90 device and carries the ``hopper`` marker;
+without one it skips (the CUDA kernels have no interpret mode).  On the
+card:  ``PYTHONPATH=src python -m pytest -q -m hopper tests/``.
+
+Tolerances, as max |kernel − plain| / max |plain|: float32 1e-5 (the
+two sum in different orders), bf16 2e-2 (one rounding of the output,
+and the plain attention's bf16 rounding of probabilities).
+"""
+import pytest
+import torch
+
+from repro_torch.core import frequency
+from repro_torch.kernels import ops, ref
+
+pytestmark = pytest.mark.hopper
+TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (sm_90)")
+    if torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs compute capability (9, 0)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    for g, w in zip(got, want, strict=True):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert float(err) <= TOL[dtype], float(err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("method", ["dct", "fft"])
+def test_band_split_kernel(card, dtype, method):
+    x = torch.randn(2, 320, 200, device=card).to(dtype)
+    ops.reset_launch_counts()
+    got = ops.band_split_spectral(x, 0.0625, method)
+    assert ops.launch_counts()["band_split_spectral"] == 1
+    _close(got, ref.band_split_spectral_ref(x, 0.0625, method), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_spectral_kernel(card, dtype):
+    s, d = 320, 200
+    basis = frequency.low_band_basis(s, 0.0625, "fft", device=card)
+    low = torch.randn(2, basis.shape[0], d, device=card).to(dtype)
+    hist = torch.randn(2, 3, s, d, device=card).to(dtype)
+    w = torch.randn(2, 3, device=card)
+    ops.reset_launch_counts()
+    got = ops.freqca_predict_spectral(low, basis.T, hist, w)
+    assert ops.launch_counts()["freqca_predict_fused_spectral"] == 1
+    _close((got,), (ref.freqca_predict_spectral_ref(low, basis.T, hist, w),),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,t,hd", [(200, 200, 64), (64, 130, 128)])
+def test_flash_kernel(card, dtype, s, t, hd):
+    q = torch.randn(2, s, 3, hd, device=card).to(dtype)
+    k, v = (torch.randn(2, t, 3, hd, device=card).to(dtype) for _ in "kv")
+    ops.reset_launch_counts()
+    got = ops.flash(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 1
+    _close((got,), (ref.attention_ref(q, k, v),), dtype)

@@ -1,0 +1,41 @@
+"""The port stands alone: no module of ``src/repro_torch`` — and not
+``chip_smoke.py`` — imports ``jax`` or anything of ``repro``."""
+import ast
+import importlib
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+FILES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, f"{path}: relative import"
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_repro_imports(path):
+    bad = [name for name in _imports(path) if _forbidden(name)]
+    assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_every_port_module_imports_without_a_card():
+    """Every module imports here, with no card, nvcc or triton: kernels
+    are built and loaded at first launch, never at import."""
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO / "src").with_suffix("")
+        name = ".".join(p for p in rel.parts if p != "__init__")
+        importlib.import_module(name)

@@ -1,0 +1,148 @@
+"""Port parity: the plain versions of the port's three kernels against
+the Pallas kernels run in interpret mode, on the CPU; and the op
+layer's device dispatch.
+
+Tolerance 1e-5 absolute (float32 inputs of unit scale; the two sides
+sum in different orders).  The CUDA kernels themselves are held against
+these plain versions on the card (``tests/test_torch_cuda.py`` and
+``chip_smoke.py``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import frequency as jfreq
+from repro.core.policies import base as jbase
+from repro.kernels import dct as jdct
+from repro.kernels import flash_attention as jfa
+from repro.kernels import freqca_fused as jfused
+from repro_torch.core.policies import base as tbase
+from repro_torch.kernels import (build, dct, flash_attention, freqca_fused,
+                                 ops, ref)
+
+ATOL = 1e-5
+
+
+@pytest.mark.parametrize("method", ["dct", "fft", "none"])
+@pytest.mark.parametrize("s,d,rho", [(64, 32, 0.0625), (128, 64, 0.125)])
+def test_band_split_spectral_matches_pallas(method, s, d, rho):
+    x = np.random.default_rng(1).standard_normal((2, s, d)).astype(
+        np.float32)
+    want_low, want_high = jdct.band_split_spectral(
+        jnp.asarray(x), rho, method, block_d=32, interpret=True)
+    got_low, got_high = ops.band_split_spectral(torch.from_numpy(x), rho,
+                                                method)
+    np.testing.assert_allclose(got_low.numpy(), np.asarray(want_low),
+                               atol=ATOL)
+    np.testing.assert_allclose(got_high.numpy(), np.asarray(want_high),
+                               atol=ATOL)
+
+
+def _rings(k, b, s, d, seed):
+    """The same ring in both packages after K+1 pushes (head wrapped)."""
+    rng = np.random.default_rng(seed)
+    jring = jbase.ring_init(b, k, (s, d))
+    tring = tbase.ring_init(b, k, (s, d))
+    for t in np.linspace(1.0, 0.4, k + 1).astype(np.float32):
+        v = rng.standard_normal((b, s, d)).astype(np.float32)
+        jring = jbase.ring_push(jring, jnp.asarray(v), t)
+        tring = tbase.ring_push(tring, torch.from_numpy(v), torch.tensor(t))
+    return jring, tring
+
+
+@pytest.mark.parametrize("method", ["dct", "fft"])
+@pytest.mark.parametrize("k,order", [(3, 2), (4, 2)])
+def test_fused_spectral_matches_pallas(method, k, order):
+    s, d, rho, b = 64, 32, 0.125, 2
+    jring, tring = _rings(k, b, s, d, seed=2)
+    basis = jfreq.low_band_basis(s, rho, method)
+    low = np.random.default_rng(3).standard_normal(
+        (b, basis.shape[0], d)).astype(np.float32)
+    t_q = np.float32(0.3)
+    jw = jbase.ring_slot_weights(jring, t_q, order)
+    want = jfused.freqca_predict_fused_spectral(
+        jnp.asarray(low), basis.T, jring.vals, jw, block_s=32, block_d=32,
+        interpret=True)
+    tw = tbase.ring_slot_weights(tring, torch.tensor(t_q), order)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=ATOL)
+    synth = torch.from_numpy(np.array(basis)).T
+    got = ops.freqca_predict_spectral(torch.from_numpy(low), synth,
+                                      tring.vals, tw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+
+
+@pytest.mark.parametrize("s,h,hd", [(64, 2, 16), (96, 3, 64)])
+def test_flash_attention_matches_pallas(s, h, hd):
+    rng = np.random.default_rng(4)
+    q, k, v = (rng.standard_normal((2, s, h, hd)).astype(np.float32)
+               for _ in range(3))
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), 1, causal=False,
+                               q_block=32, kv_block=32, interpret=True)
+    got = ops.flash(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def test_attention_ref_is_the_full_logits_branch():
+    """bf16 rounds the probabilities before PV, as dit.py:131 does."""
+    from repro.models import dit as jdit
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.standard_normal((1, 24, 2, 16)).astype(np.float32)
+               for _ in range(3))
+    p_out = np.eye(32, dtype=np.float32).reshape(2, 16, 32)
+    want = jdit._joint_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), jnp.asarray(p_out),
+                                 jnp.float32)
+    got = ref.attention_ref(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(got.reshape(1, 24, 32).numpy(),
+                               np.asarray(want), atol=ATOL)
+    qb, kb, vb = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    assert ref.attention_ref(qb, kb, vb).dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("call", ["band_split", "fused", "flash"])
+def test_kernel_wrappers_refuse_cpu_tensors(call):
+    """A wrapper launches its kernel or raises: it never computes the
+    plain version itself (the op layer alone routes CPU tensors)."""
+    x = torch.zeros((1, 64, 64, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        if call == "band_split":
+            dct.band_split_spectral(x[0], 0.0625, "dct")
+        elif call == "fused":
+            freqca_fused.freqca_predict_fused_spectral(
+                torch.zeros((1, 4, 64)), torch.zeros((64, 4)),
+                torch.zeros((1, 3, 64, 64)), torch.zeros((1, 3)))
+        else:
+            flash_attention.flash_attention(x, x, x)
+
+
+def test_cpu_dispatch_leaves_launch_counts_untouched():
+    ops.reset_launch_counts()
+    x = torch.randn(1, 64, 32)
+    ops.band_split_spectral(x)
+    ops.flash(*(torch.randn(1, 64, 2, 64) for _ in range(3)))
+    assert ops.launch_counts() == {"band_split_spectral": 0,
+                                   "freqca_predict_fused_spectral": 0,
+                                   "flash_attention": 0}
+
+
+def test_build_targets_sm90a_and_hashes_sources():
+    assert "-gencode=arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
+    paths = {build.lib_path(n) for n in build.KERNELS}
+    assert len(paths) == len(build.KERNELS)
+    assert all(p.parent == build.BUILD_DIR for p in paths)
+    for name in build.KERNELS:
+        assert (build.CSRC / f"{name}.cu").exists()
+
+
+def test_dtype_code_rejects_other_types():
+    assert build.dtype_code(torch.zeros(1)) == 0
+    assert build.dtype_code(torch.zeros(1, dtype=torch.bfloat16)) == 1
+    with pytest.raises(TypeError):
+        build.dtype_code(torch.zeros(1, dtype=torch.float16))
+
+
+def test_jax_stays_on_cpu():
+    assert jax.default_backend() == "cpu"

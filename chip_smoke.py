@@ -4,21 +4,30 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device    — card name, power limit and compute capability (9, 0);
-2. build     — nvcc builds the three kernels from ``csrc/`` in parallel;
+2. build     — nvcc builds the five kernels from ``csrc/`` in parallel;
 3. kernels   — each kernel against its plain PyTorch version at the
-               shapes the FLUX.1-dev main path gives it, in bf16 and
-               float32, with the stated tolerance, plus its time, the
-               plain version's time, the bound and (attention) the
-               PyTorch library call's time;
+               shapes the FLUX.1-dev paths give it, in bf16 and float32,
+               with the stated tolerance, plus its time, the plain
+               version's time, the bound and, where one PyTorch call
+               computes the same function, that call's time;
 4. reference — a small DiT served on the card (kernels forced) agrees
-               with the same requests served on the CPU (plain versions);
-5. serve     — a ``DiffusionEngine`` at full flux1-dev width serves four
+               with the same requests served on the CPU (plain
+               versions), and so does a dit-small sampling loop driven by
+               the legacy function-style cache API;
+5. analysis  — at full flux1-dev width: the uncached reference
+               trajectory, the paper's Fig-2 band statistics (kernel
+               route against the plain transform route) and the legacy
+               cache API over that trajectory; launch counters show the
+               path ran the band-split and fused legacy-step kernels;
+6. serve     — a ``DiffusionEngine`` at full flux1-dev width serves four
                1024² requests under FreqCa, then one under ``none``;
-               launch counters show the main path ran the kernels.
+               launch counters show the main path ran its kernels.
 
-The last line is ``{"ok": true, "device": {...}}``; the line before it
-is the card's name and power limit, and before that a ``kernels`` JSON
-line.  Run from the repository root:  ``python3 chip_smoke.py``.
+The flux1-dev parameters (~26 GB in bf16) are built once for phases 5
+and 6.  The last line is ``{"ok": true, "device": {...}}``; the line
+before it is the card's name and power limit, and before that a
+``kernels`` JSON line.  Run from the repository root:
+``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -40,7 +49,11 @@ PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
 # order of long float32 sums; bf16 by one rounding of the output (and,
 # for attention, the plain version's bf16 rounding of probabilities)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
-N_STEPS = 20                          # Euler steps of the serve phase
+N_STEPS = 20                          # Euler steps of the full-width phases
+# the kernels of the served main path (the others run on the analysis
+# path)
+SERVE_KERNELS = ("band_split_spectral", "freqca_predict_fused_spectral",
+                 "flash_attention")
 
 
 def log(msg: str) -> None:
@@ -70,9 +83,11 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str):
+def bound_ms(nbytes: float, flops: float, op_dtype: str):
+    """The larger of bytes over the memory rate and operations over the
+    peak rate of the type the function computes in."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[op_dtype] * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -113,14 +128,14 @@ def kernel_phase(main_dtype: dict) -> dict:
     rows = {}
 
     def row(name, dtype, kern, plain, nbytes, flops, library=None,
-            reps=10):
+            reps=10, op_dtype=None):
         got, want = kern(), plain()
         err, rel = compare(name, dtype, got, want)
         del got, want
         t_k = time_ms(kern, reps)
         t_p = time_ms(plain, reps)
         t_l = time_ms(library, reps) if library is not None else None
-        b_ms, b_by = bound_ms(nbytes, flops, dtype)
+        b_ms, b_by = bound_ms(nbytes, flops, op_dtype or dtype)
         log(f"kernel {name} [{dtype}] max_abs_err={err:.3e} "
             f"max_rel_err={rel:.3e} (tol {TOLERANCE[dtype]:.0e}) "
             f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} "
@@ -167,6 +182,63 @@ def kernel_phase(main_dtype: dict) -> dict:
                 ref.freqca_predict_spectral_ref(low, synth, hist, w),
             nb, fl)
         del low, hist
+        # the token-axis basis product: as dct_tokens (DCT-II basis) and
+        # as the band split (projection L, high in the same epilogue),
+        # on the CRF of two lanes.  Its arithmetic is float32 whatever
+        # x's type, as in the reference, so the float32 peak bounds it.
+        # The kernels line reports the dct_tokens row: its bound counts
+        # exactly the dense product, and torch.matmul computes the same
+        # function.  The band split runs that same dense product; its
+        # own rank-m work (low = Cₘᵀ(Cₘ·x)) is logged beside it.
+        x = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
+        nb_x = B * S * D * es
+        c = frequency.dct_basis(S, device=dev)
+        row("token_basis_matmul", dtype_name,
+            lambda x=x, c=c: dct.token_basis_matmul(c, x),
+            lambda x=x, c=c: ref.token_basis_matmul_ref(c, x),
+            S * S * 4 + 2 * nb_x, 2 * B * S * S * D,
+            library=lambda x=x, c=c: torch.matmul(c, x.float()), reps=5,
+            op_dtype="float32")
+        for method in ("dct", "fft"):
+            name = f"token_basis_matmul[band_split {method}]"
+            row(name, dtype_name,
+                lambda x=x, method=method: dct.band_split(x, 0.0625, method),
+                lambda x=x, method=method: ref.band_split_ref(x, 0.0625,
+                                                              method),
+                S * S * 4 + 3 * nb_x, 2 * B * S * S * D, reps=5,
+                op_dtype="float32")
+            m = frequency.spectral_kept_bins(S, 0.0625, method)
+            b_ms, b_by = bound_ms(m * S * 4 + 3 * nb_x,
+                                  2 * (2 * B * m * S * D), "float32")
+            log(f"kernel {name} [{dtype_name}] the rank-{m} split's own "
+                f"bound_ms={b_ms:.4f} ({b_by})")
+        # the legacy cached step: K-major history, one shared ts [K].  The
+        # row times the launch alone (weights on the device already),
+        # which is what its bytes bound describes; the wrapper adds the
+        # Hermite fold's small launches, host-bound, and is logged apart.
+        hist = torch.randn((K, B, S, D), generator=gen, device=dev).to(dt)
+        ts = torch.tensor([0.75, 0.5, 0.25], device=dev)
+        t_q = torch.tensor(0.2, device=dev)
+        w = freqca_fused.hermite_eval_weights(ts, t_q, 2)
+        row("freqca_predict_fused", dtype_name,
+            lambda x=x, hist=hist, w=w:
+                freqca_fused.launch_fused(x, hist, w),
+            lambda x=x, hist=hist, w=w: (
+                x.float() + torch.einsum("k,kbsd->bsd", w, hist.float())
+            ).to(x.dtype),
+            (K + 2) * nb_x + K * 4, 2 * K * B * S * D)
+        wrap = (lambda x=x, hist=hist, ts=ts, t_q=t_q:
+                freqca_fused.freqca_predict_fused(x, hist, ts, t_q, 2))
+        plain = (lambda x=x, hist=hist, ts=ts, t_q=t_q:
+                 ref.freqca_predict_ref(x, hist, ts, t_q, 2))
+        err, rel = compare("freqca_predict_fused (wrapper)", dtype_name,
+                           wrap(), plain())
+        log(f"kernel freqca_predict_fused [{dtype_name}] wrapper with its "
+            f"Hermite fold: max_abs_err={err:.3e} max_rel_err={rel:.3e} "
+            f"wrapper_ms={time_ms(wrap, 10):.4f} "
+            f"plain_ms={time_ms(plain, 10):.4f}")
+        del x, hist
+        torch.cuda.empty_cache()
         # joint attention of one FLUX block: 512 text + 4096 image tokens,
         # at one lane and at the serve phase's two (the kernels line's row)
         for lanes in (1, 2):
@@ -209,12 +281,12 @@ def redraw_zero_leaves(params, seed: int, std: float = 0.02):
                                device=leaf.device) * std)
 
 
-def make_fns(params, cfg, side: int, text):
+def make_fns(params, cfg, side: int, text=None):
     from repro_torch.models import dit
 
     def full_fn(x, t):
         out = dit.dit_forward(params, x, t.expand(x.shape[0]), cfg,
-                              text[:x.shape[0]])
+                              None if text is None else text[:x.shape[0]])
         return out.velocity, out.crf
 
     def from_crf_fn(crf, t):
@@ -261,9 +333,10 @@ def reference_phase(devices=("cpu", "cuda")) -> None:
                                      for i in range(2)])
                 latents[idx, method] = torch.stack(
                     [r.latents for r in res]).cpu()
-                if dev == "cuda" and min(ops.launch_counts().values()) < 1:
+                counts = ops.launch_counts()
+                if dev == "cuda" and min(counts[k] for k in SERVE_KERNELS) < 1:
                     raise AssertionError(f"reference run skipped a kernel: "
-                                         f"{ops.launch_counts()}")
+                                         f"{counts}")
     finally:
         dit._FLASH_MIN_SEQ = saved
     for method in ("dct", "fft"):
@@ -273,6 +346,77 @@ def reference_phase(devices=("cpu", "cuda")) -> None:
             "(tol 1e-4)")
         if not torch.isfinite(got).all() or rel > 1e-4:
             raise AssertionError(f"reference [{method}]: rel L2 {rel:.3e}")
+    legacy_reference(devices)
+
+
+def legacy_loop(full_fn, from_crf_fn, x0, ts, policy, crf_shape):
+    """Euler sampling driven by the legacy function-style cache API
+    (``kind="freqca"``, ``low_order=0``): ``update`` on activated steps
+    (the band-split kernel on the card), and on cached steps the fused
+    legacy step ``ops.freqca_predict`` (the plain version on the CPU).
+    Returns ``(x, full steps)``."""
+    from repro_torch.core import cache
+    from repro_torch.kernels import ops
+    state = cache.init_state(policy, crf_shape, device=x0.device)
+    x, n_full = x0, 0
+    for i in range(ts.shape[0] - 1):
+        t_now, t_next = ts[i], ts[i + 1]
+        if bool(cache.should_activate(policy, state, i)):
+            v, crf = full_fn(x, t_now)
+            state = cache.update(policy, state, crf, t_now)
+            n_full += 1
+        else:
+            crf_hat = ops.freqca_predict(state.low_hist[-1], state.high_hist,
+                                         state.ts_high, t_now,
+                                         policy.high_order)
+            v = from_crf_fn(crf_hat, t_now)
+        x = x + (t_next - t_now).to(x.dtype) * v.to(x.dtype)
+    return x, n_full
+
+
+def legacy_reference(devices=("cpu", "cuda")) -> None:
+    """dit-small (S = 256, D = 128) sampled through the legacy API on
+    the card, with the band-split and fused legacy-step kernels, agrees
+    with the same loop on the CPU through the plain versions."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import cache
+    from repro_torch.diffusion import schedule
+    from repro_torch.kernels import ops
+    from repro_torch.models import dit
+    cfg, side = configs.get_config("dit-small"), 32
+    crf_shape = (2, (side // cfg.patch_size) ** 2, cfg.d_model)
+    params_cpu = dit.init_params(cfg, seed=6, device="cpu")
+    redraw_zero_leaves(params_cpu, seed=7)
+    x0_cpu = torch.randn((2, side, side, cfg.in_channels),
+                         generator=torch.Generator().manual_seed(8))
+    out = {}
+    for idx, dev in enumerate(devices):
+        full_fn, from_crf_fn = make_fns(_to(params_cpu, dev), cfg, side)
+        for method in ("dct", "fft"):
+            policy = cache.CachePolicy(kind="freqca", interval=3,
+                                       method=method, rho=0.125)
+            ops.reset_launch_counts()
+            x, n_full = legacy_loop(full_fn, from_crf_fn, x0_cpu.to(dev),
+                                    schedule.timesteps(10, device=dev),
+                                    policy, crf_shape)
+            out[idx, method] = x.cpu(), n_full
+            counts = ops.launch_counts()
+            if dev == "cuda" and min(counts["token_basis_matmul"],
+                                     counts["freqca_predict_fused"]) < 1:
+                raise AssertionError(f"legacy reference skipped a kernel: "
+                                     f"{counts}")
+    for method in ("dct", "fft"):
+        (want, n_want), (got, n_got) = out[0, method], out[1, method]
+        rel = ((got - want).norm() / want.norm()).item()
+        log(f"reference legacy freqca [{method}] dit-small card vs CPU: "
+            f"rel L2 {rel:.3e} (tol 1e-4), full steps {n_got}/{n_want} "
+            "of 10")
+        if not torch.isfinite(got).all() or rel > 1e-4 or n_got != n_want:
+            raise AssertionError(f"legacy reference [{method}]: rel L2 "
+                                 f"{rel:.3e}, full steps {n_got} vs "
+                                 f"{n_want}")
 
 
 def _to(tree, dev):
@@ -283,19 +427,15 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def serve_phase(n_steps: int, cfg=None, side: int = 128,
-                device: str = "cuda") -> dict:
+def flux_model(cfg=None, side: int = 128, device: str = "cuda") -> dict:
     """flux1-dev at full width, bf16, 1024² (latent 128x128x16, CRF
-    4096x3072), FreqCa(interval=5, dct), max_batch=2."""
+    4096x3072), random weights from a seed: built once, shared by the
+    analysis and serve phases."""
     import torch
 
     from repro_torch import configs
-    from repro_torch.core.policies import FreqCaPolicy, NoCachePolicy
-    from repro_torch.kernels import ops
     from repro_torch.models import dit
-    from repro_torch.serving.engine import DiffusionEngine, DiffusionRequest
     cfg = cfg or configs.get_config("flux1-dev")
-    crf_shape = ((side // cfg.patch_size) ** 2, cfg.d_model)
     t0 = time.perf_counter()
     params = dit.init_params(cfg, seed=0, device=device)
     redraw_zero_leaves(params, seed=1)
@@ -303,9 +443,165 @@ def serve_phase(n_steps: int, cfg=None, side: int = 128,
     text = torch.randn((2, cfg.n_text_tokens, cfg.text_dim), device=device,
                        generator=torch.Generator(device=device)
                        .manual_seed(2)).to(dit.torch_dtype(cfg.dtype))
-    log(f"serve: {cfg.arch_id} params {n_params / 1e9:.3f} B in "
+    log(f"model: {cfg.arch_id} params {n_params / 1e9:.3f} B in "
         f"{time.perf_counter() - t0:.1f} s")
     full_fn, from_crf_fn = make_fns(params, cfg, side, text)
+    return dict(cfg=cfg, side=side, device=device, text=text,
+                full_fn=full_fn, from_crf_fn=from_crf_fn,
+                crf_shape=((side // cfg.patch_size) ** 2, cfg.d_model))
+
+
+FIG2_INTERVALS = (1, 2, 4, 8)
+FIG2_BANDS = [(m, r) for m in ("dct", "fft") for r in (0.0625, 0.25)]
+
+
+def fig2_stats(crfs, split) -> dict:
+    """The paper's Fig-2 statistics over a CRF trajectory ``[T, B, S,
+    D]``, with the arithmetic of ``benchmarks/fig2_freq_analysis.py``:
+    per (method, rho), the mean temporal cosine similarity of each band
+    at intervals 1, 2, 4, 8, and each band's continuity ratio
+    ||second difference|| / ||first difference|| (differences taken in
+    float32); also the low band's share of the energy over the
+    trajectory.  ``split(z, rho, method) -> (low, high)``."""
+    import torch
+
+    from repro_torch.core import frequency
+    t = crfs.shape[0]
+    out = {}
+    for method, rho in FIG2_BANDS:
+        lows, highs = zip(*(split(crfs[i], rho, method) for i in range(t)))
+        stats = {}
+        for band, series in (("low", lows), ("high", highs)):
+            for k in FIG2_INTERVALS:
+                sims = [frequency.cosine_similarity(series[i],
+                                                    series[i + k]).item()
+                        for i in range(0, t - k, max(1, (t - k) // 8))]
+                stats[f"sim_{band}@{k}"] = sum(sims) / len(sims)
+            f = [s.float() for s in series]
+            n1 = sum((f[i + 1] - f[i]).square().sum() for i in range(t - 1))
+            n2 = sum((f[i + 2] - 2 * f[i + 1] + f[i]).square().sum()
+                     for i in range(t - 2))
+            stats[f"cont_{band}"] = (torch.sqrt(n2)
+                                     / torch.clamp(torch.sqrt(n1),
+                                                   min=1e-9)).item()
+            del f
+        e_low = sum(x.float().square().sum() for x in lows)
+        e_high = sum(x.float().square().sum() for x in highs)
+        stats["low_energy_share"] = (e_low / (e_low + e_high)).item()
+        out[method, rho] = stats
+        del lows, highs
+    return out
+
+
+def analysis_phase(model: dict, n_steps: int) -> dict:
+    """The paper's frequency analysis and the legacy cache API at the
+    model's width: the uncached trajectory of two lanes, its Fig-2
+    statistics through ``frequency.decompose`` (the band-split kernel
+    on the card) held against the same statistics from the plain
+    transform route, then ``freqca`` (dct, fft), ``taylorseer`` and
+    ``fora`` over that trajectory, each cached ``freqca`` step also
+    through the fused legacy step.  Returns the phase's launch
+    counts."""
+    import torch
+
+    from repro_torch.core import cache, frequency
+    from repro_torch.diffusion import sampler, schedule
+    from repro_torch.kernels import ops, ref
+    dev, side, cfg = model["device"], model["side"], model["cfg"]
+    x0 = torch.randn((2, side, side, cfg.in_channels), device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(3))
+    ts = schedule.timesteps(n_steps, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, crfs = sampler.reference_features(model["full_fn"], x0, ts)
+    if not torch.isfinite(crfs).all():
+        raise AssertionError("analysis: non-finite CRFs")
+    log(f"analysis: reference trajectory {tuple(crfs.shape)} "
+        f"{crfs.dtype} in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    kern = fig2_stats(crfs, lambda z, rho, m: frequency.decompose(z, rho, m))
+    t_kern = time.perf_counter() - t0
+    plain = fig2_stats(crfs, ref.band_split_ref)
+    diff = max(abs(kern[b][k] - plain[b][k]) for b in kern for k in kern[b])
+    for (method, rho), stats in kern.items():
+        log(f"analysis fig2 [{method} rho={rho}] " + " ".join(
+            f"{k}={v:.4f}" for k, v in stats.items()))
+    log(f"analysis fig2: {t_kern:.1f} s; kernel vs plain route: max |diff| "
+        f"{diff:.2e} over {sum(len(v) for v in kern.values())} statistics "
+        "(tol 1e-3)")
+    if not diff <= 1e-3:
+        raise AssertionError(f"analysis fig2: kernel vs plain {diff:.2e}")
+
+    n_fig2 = ops.launch_counts()["token_basis_matmul"]
+    interval = 5
+    specs = [cache.CachePolicy(kind="freqca", interval=interval, method=m)
+             for m in ("dct", "fft")]
+    specs += [cache.CachePolicy(kind=k, interval=interval)
+              for k in ("taylorseer", "fora")]
+    n_freqca_act = n_fused = 0
+    for spec in specs:
+        state = cache.init_state(spec, tuple(crfs.shape[1:]), device=dev)
+        n_act, mse, fused_rel = 0, [], 0.0
+        for i in range(n_steps):
+            if bool(cache.should_activate(spec, state, i)):
+                state = cache.update(spec, state, crfs[i], ts[i])
+                n_act += 1
+                continue
+            pred = cache.predict(spec, state, ts[i])
+            true = crfs[i].float()
+            mse.append(((pred.float() - true).square().sum()
+                        / true.square().sum()).item())
+            if spec.kind == "freqca":
+                fused = ops.freqca_predict(state.low_hist[-1],
+                                           state.high_hist, state.ts_high,
+                                           ts[i], spec.high_order)
+                _, rel = compare("freqca_predict_fused (legacy step)",
+                                 "float32", fused, pred)
+                fused_rel = max(fused_rel, rel)
+                n_fused += 1
+        name = spec.kind + (f"[{spec.method}]" if spec.kind == "freqca"
+                            else "")
+        log(f"analysis legacy {name} interval={interval}: {n_act} full + "
+            f"{n_steps - n_act} cached steps; relative MSE vs the true CRF "
+            f"mean {sum(mse) / len(mse):.4e} max {max(mse):.4e}; "
+            f"cache_bytes {cache.cache_bytes(state, spec)} "
+            f"(raw {cache.cache_bytes(state)})"
+            + (f"; fused step vs cache.predict max rel err {fused_rel:.2e} "
+               "(tol 1e-4)" if spec.kind == "freqca" else ""))
+        want_act = len([i for i in range(n_steps) if i % interval == 0
+                        or i < cache._needed_history(spec)])
+        if n_act != want_act or not all(math.isfinite(e) for e in mse):
+            raise AssertionError(f"analysis legacy {name}: {n_act} full "
+                                 f"steps, expected {want_act}")
+        if spec.kind == "freqca":
+            n_freqca_act += n_act
+        del state
+    counts = ops.launch_counts()
+    want = {"token_basis_matmul": n_fig2 + n_freqca_act,
+            "freqca_predict_fused": n_fused}
+    log(f"analysis: launch counts {counts}; Fig-2 band splits {n_fig2} "
+        f"(expected {n_steps * len(FIG2_BANDS)})")
+    on_card = torch.device(dev).type == "cuda"   # the CPU launches none
+    if on_card and (n_fig2 != n_steps * len(FIG2_BANDS) or any(
+            counts[k] != v for k, v in want.items())):
+        raise AssertionError(f"analysis: launches {counts}, expected "
+                             f"{want} and {n_steps * len(FIG2_BANDS)} "
+                             "Fig-2 band splits")
+    return counts
+
+
+def serve_phase(model: dict, n_steps: int) -> dict:
+    """Four requests under FreqCa(interval=5, dct), max_batch=2, then
+    one under ``none``."""
+    import torch
+
+    from repro_torch.core.policies import FreqCaPolicy, NoCachePolicy
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import DiffusionEngine, DiffusionRequest
+    cfg, side, device = model["cfg"], model["side"], model["device"]
+    crf_shape, text = model["crf_shape"], model["text"]
+    full_fn, from_crf_fn = model["full_fn"], model["from_crf_fn"]
     eng = DiffusionEngine(full_fn, from_crf_fn, (side, side, 16), crf_shape,
                           FreqCaPolicy(interval=5, method="dct"),
                           n_steps=n_steps, max_batch=2, device=device)
@@ -388,7 +684,8 @@ def _leaves(tree):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-serve", action="store_true",
-                    help="stop after the kernel and reference phases")
+                    help="stop after the kernel and reference phases "
+                         "(skips both full-width phases)")
     args = ap.parse_args(argv)
 
     import torch
@@ -415,16 +712,25 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
 
+    # each kernel's row is the type its path runs it in: the served CRF
+    # is bf16 with float32 rings, and the legacy cache state float32
     main_dtype = {"band_split_spectral": "bfloat16",
                   "freqca_predict_fused_spectral": "float32",
-                  "flash_attention": "bfloat16"}
+                  "flash_attention": "bfloat16",
+                  "token_basis_matmul": "bfloat16",
+                  "freqca_predict_fused": "float32"}
     rows = kernel_phase(main_dtype)
     reference_phase()
-    # launches are read only from the serve phase's counters; without
-    # that phase nothing was counted and the line says null
+    # launches are read from the counters of the phase that runs each
+    # kernel's path; without those phases nothing was counted and the
+    # line says null
     counts = {}
     if not args.skip_serve:
-        counts = serve_phase(N_STEPS)
+        model = flux_model()
+        analysis = analysis_phase(model, N_STEPS)
+        serve = serve_phase(model, N_STEPS)
+        counts = {k: (serve if k in SERVE_KERNELS else analysis)[k]
+                  for k in main_dtype}
 
     replaces = {
         "band_split_spectral": ("src/repro_torch/kernels/csrc/"
@@ -436,6 +742,12 @@ def main(argv=None) -> int:
         "flash_attention": ("src/repro_torch/kernels/csrc/"
                             "flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:79"),
+        "token_basis_matmul": ("src/repro_torch/kernels/csrc/"
+                               "token_basis_matmul.cu",
+                               "src/repro/kernels/dct.py:40"),
+        "freqca_predict_fused": ("src/repro_torch/kernels/csrc/"
+                                 "freqca_fused.cu",
+                                 "src/repro/kernels/freqca_fused.py:42"),
     }
     kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
                     launches=counts.get(name), **rows[name])

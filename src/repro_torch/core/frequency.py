@@ -1,20 +1,28 @@
-"""Frequency bases of the FreqCa band split (paper §3.2, eq. 1).
+"""Frequency decomposition of cached features (paper §3.2, eq. 1).
 
-Counterpart of ``repro.core.frequency``: the DCT-II basis, the low-pass
-bin rule and the real orthonormal low-band basis ``B: [m, S]`` with
-``L = Bᵀ B``.  The bases are built once per ``(S, rho, method)`` in
-float64 numpy and cast on use.
+Counterpart of ``repro.core.frequency``: the DCT-II basis and transform,
+the low-pass bin rule, the real orthonormal low-band basis ``B: [m, S]``
+with ``L = Bᵀ B``, and ``decompose``, which splits a feature into
+complementary low and high bands with ``low + high == z``.  The bases
+are built once per ``(S, rho, method)`` in float64 numpy and cast on
+use.
 """
 from __future__ import annotations
 
 import functools
 import math
-from typing import Literal, Optional
+from typing import Literal, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 Method = Literal["fft", "dct", "none"]
+_F32 = torch.float32
+
+
+class Bands(NamedTuple):
+    low: torch.Tensor
+    high: torch.Tensor
 
 
 @functools.lru_cache(maxsize=None)
@@ -25,6 +33,31 @@ def _dct_basis_np(n: int) -> np.ndarray:
     basis = np.cos(np.pi * (2 * i + 1) * k / (2 * n)) * math.sqrt(2.0 / n)
     basis[0] *= 1.0 / math.sqrt(2.0)
     return basis
+
+
+@functools.lru_cache(maxsize=None)
+def _dct_basis_t(n: int, dtype, device) -> torch.Tensor:
+    return torch.as_tensor(_dct_basis_np(n), dtype=dtype, device=device)
+
+
+def dct_basis(n: int, dtype=_F32,
+              device: Optional[torch.device] = None) -> torch.Tensor:
+    """``C: [n, n]`` on ``device`` (cached per device; callers must not
+    write to it)."""
+    return _dct_basis_t(n, dtype, torch.device(device or "cpu"))
+
+
+def dct(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    """Orthonormal DCT-II along ``axis`` (float32 arithmetic)."""
+    c = dct_basis(x.shape[axis], device=x.device)
+    xm = torch.movedim(x, axis, -1).to(_F32)
+    return torch.movedim(xm @ c.T, -1, axis).to(x.dtype)
+
+
+def idct(x: torch.Tensor, axis: int = -2) -> torch.Tensor:
+    c = dct_basis(x.shape[axis], device=x.device)
+    xm = torch.movedim(x, axis, -1).to(_F32)
+    return torch.movedim(xm @ c, -1, axis).to(x.dtype)
 
 
 def low_pass_mask_np(n: int, rho: float, method: Method) -> np.ndarray:
@@ -47,6 +80,11 @@ def low_pass_mask_np(n: int, rho: float, method: Method) -> np.ndarray:
 def kept_bins(n: int, rho: float, method: Method) -> int:
     """Number of low-frequency bins ``low_pass_mask_np`` keeps."""
     return int(low_pass_mask_np(n, rho, method).sum())
+
+
+def low_pass_mask(n: int, rho: float, method: Method,
+                  device: Optional[torch.device] = None) -> torch.Tensor:
+    return torch.as_tensor(low_pass_mask_np(n, rho, method), device=device)
 
 
 def spectral_kept_bins(n: int, rho: float, method: Method) -> int:
@@ -104,3 +142,61 @@ def low_band_basis(n: int, rho: float, method: Method,
     the hot path never re-uploads it)."""
     return _low_band_basis_t(n, rho, method, dtype,
                              torch.device(device or "cpu"))
+
+
+def transform_bands(z: torch.Tensor, rho: float, method: Method,
+                    axis: int = -2) -> Bands:
+    """The reference's transform path of ``decompose``: mask the DCT-II
+    or FFT spectrum along ``axis`` in float32, transform back, cast to
+    ``z.dtype``; ``high = z − low`` in ``z``'s type.  Plain PyTorch on
+    any device and layout, and the oracle of the band-split kernel."""
+    if method == "none":
+        return Bands(low=torch.zeros_like(z), high=z)
+    n = z.shape[axis]
+    shape = [1] * z.ndim
+    shape[axis] = n
+    mask = low_pass_mask(n, rho, method, device=z.device).reshape(shape)
+    if method == "fft":
+        zf = torch.fft.fft(z.to(_F32), dim=axis)
+        low = torch.fft.ifft(torch.where(mask, zf, 0), dim=axis).real
+        low = low.to(z.dtype)
+        return Bands(low=low, high=z - low)
+    if method == "dct":
+        zf = dct(z.to(_F32), axis=axis)
+        low = idct(torch.where(mask, zf, 0.0), axis=axis).to(z.dtype)
+        return Bands(low=low, high=z - low)
+    raise ValueError(f"unknown band-split method {method!r}")
+
+
+def decompose(z: torch.Tensor, rho: float, method: Method,
+              axis: int = -2) -> Bands:
+    """Split features into complementary low/high bands (paper eq. 1).
+
+    ``z: [..., S, D]`` with the token axis at ``axis``; ``rho`` is the
+    fraction of the spectrum kept as low frequency.  Returns
+    spatial-domain bands with ``low + high == z``.  A CUDA tensor in the
+    ``[B, S, D]`` token layout goes to the band-split kernel
+    (``ops.band_split``) whatever S and D are; every other call takes the
+    plain transform path (``transform_bands``).
+    """
+    if method == "none":
+        return Bands(low=torch.zeros_like(z), high=z)
+    if z.ndim == 3 and axis in (1, -2):
+        from repro_torch.kernels import ops   # lazy: ops imports us
+        if ops._on_cuda(z):
+            low, high = ops.band_split(z, rho, method)
+            return Bands(low=low, high=high)
+    return transform_bands(z, rho, method, axis)
+
+
+def band_energies(z: torch.Tensor, rho: float, method: Method,
+                  axis: int = -2) -> Tuple[torch.Tensor, torch.Tensor]:
+    b = decompose(z, rho, method, axis)
+    return (b.low.to(_F32).square().sum(), b.high.to(_F32).square().sum())
+
+
+def cosine_similarity(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    af = a.to(_F32).ravel()
+    bf = b.to(_F32).ravel()
+    return torch.dot(af, bf) / torch.clamp(
+        torch.linalg.norm(af) * torch.linalg.norm(bf), min=1e-12)

@@ -48,6 +48,19 @@ def normal_system(ts: torch.Tensor, order: int):
     return basis, g
 
 
+def fit_coefficients(ts: torch.Tensor, values: torch.Tensor,
+                     order: int) -> torch.Tensor:
+    """Least-squares Hermite fit: ``ts [K]``, ``values [K, ...]`` ->
+    coefficients ``[order+1, ...]``.  The shapes are kept (no flatten)
+    and the solve only moves axes, as in the reference."""
+    basis, g = normal_system(ts, order)
+    rhs = torch.einsum("km,k...->m...", basis, values.to(_F32))
+    if rhs.ndim == 1:
+        return torch.linalg.solve(g, rhs)
+    coeffs = torch.linalg.solve(g, torch.movedim(rhs, 0, -2))
+    return torch.movedim(coeffs, -2, 0)
+
+
 def eval_weights(ts: torch.Tensor, t_query, order: int) -> torch.Tensor:
     """Weights w st. prediction = Σ_k w_k · hist_k.  ``ts: [..., K]``
     -> ``[..., K]`` (one fold per leading index, e.g. per lane)."""
@@ -66,3 +79,10 @@ def predict(ts: torch.Tensor, values: torch.Tensor, t_query,
     w = eval_weights(ts, t_query, order)
     out = torch.tensordot(w, values.to(_F32), dims=([0], [0]))
     return out.to(values.dtype)
+
+
+def predict_from_coeffs(coeffs: torch.Tensor, ts: torch.Tensor, t_query,
+                        order: int) -> torch.Tensor:
+    """Evaluate fitted coefficients ``[order+1, ...]`` at ``t_query``."""
+    basis_q = hermite_basis(normalize_times(ts, t_query), order)
+    return torch.einsum("m,m...->...", basis_q, coeffs.to(_F32))

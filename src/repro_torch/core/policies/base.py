@@ -162,6 +162,20 @@ def lane_select(mask: torch.Tensor, new, old):
     return tree_map(sel, new, old)
 
 
+def lane_mean_abs(x: torch.Tensor) -> torch.Tensor:
+    """mean |x| per lane over all non-batch axes -> [B] float32."""
+    return x.to(_F32).abs().mean(dim=tuple(range(1, x.ndim)))
+
+
+def lane_rel_norm(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Per-lane relative L2 error ||pred − target|| / ||target|| -> [B]."""
+    axes = tuple(range(1, target.ndim))
+    p, t = pred.to(_F32), target.to(_F32)
+    num = (p - t).square().sum(dim=axes).sqrt()
+    den = t.square().sum(dim=axes).sqrt()
+    return num / torch.clamp(den, min=1e-6)
+
+
 @dataclasses.dataclass(frozen=True)
 class Policy:
     """Base cache policy: scheduled activation every ``interval`` steps

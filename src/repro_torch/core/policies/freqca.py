@@ -16,7 +16,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.core import frequency
-from repro_torch.core.policies import base
+from repro_torch.core.policies import base, registry
 from repro_torch.kernels import ops
 
 _F32 = torch.float32
@@ -128,3 +128,11 @@ class FreqCaPolicy(base.Policy):
         high = (base.ring_last(state.high) if self.high_order == 0 else
                 base.ring_predict(state.high, ctx.t_now, self.high_order))
         return low + high
+
+
+@registry.register("freqca")
+def _from_spec(spec) -> FreqCaPolicy:
+    return FreqCaPolicy(interval=spec.interval, method=spec.method,
+                        rho=spec.rho, low_order=spec.low_order,
+                        high_order=spec.high_order,
+                        token_axis=spec.token_axis)

@@ -7,7 +7,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.policies import base
+from repro_torch.core.policies import base, registry
 
 
 class NoCacheState(NamedTuple):
@@ -37,3 +37,8 @@ class NoCachePolicy(base.Policy):
     def predict(self, state, ctx):
         return torch.zeros((ctx.batch,) + tuple(ctx.feat_shape),
                            dtype=ctx.crf_dtype, device=state.n_valid.device)
+
+
+@registry.register("none")
+def _from_spec(spec) -> NoCachePolicy:
+    return NoCachePolicy(interval=1)

@@ -9,23 +9,56 @@ bank exposes the policy protocol batched over lanes plus two flags:
   the sampler branches on one lane's decision;
 * ``always_full`` — the ``none`` policy; no branch at all.
 
-Banks mixing different policies per lane (``MixedBank``) arrive with the
-adaptive policies; a grouped scheduler never cuts such a batch from this
-slice's two policies.
+``register(name)`` decorates a ``spec -> Policy`` factory; ``resolve``
+takes a policy object (passed through) or a spec with a ``.kind`` (the
+legacy ``repro_torch.core.cache.CachePolicy``).  ``freqca_eb`` is not
+registered yet: it needs the sampler's error-feedback hooks.
+
+Banks mixing different policies per lane (``MixedBank``) are not ported
+yet; ``bank`` raises for them.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple, Union
+from typing import Callable, Dict, Sequence, Tuple, Union
 
 from repro_torch.core.policies import base
 
+_FACTORIES: Dict[str, Callable] = {}
+
+
+def register(name: str):
+    """Decorator: register a ``spec -> Policy`` factory under ``name``."""
+    def deco(factory: Callable) -> Callable:
+        _FACTORIES[name] = factory
+        return factory
+    return deco
+
+
+def _ensure_builtin() -> None:
+    # imported for their registrations; lazy, as they import this module
+    from repro_torch.core.policies import (foca, fora, freqca,  # noqa: F401
+                                           freqca_a, none, taylorseer,
+                                           teacache)
+
+
+def available() -> Tuple[str, ...]:
+    _ensure_builtin()
+    return tuple(sorted(_FACTORIES))
+
 
 def resolve(policy) -> base.Policy:
-    """The port takes policy objects only (the reference's deprecated
-    string-kind specs are not ported)."""
+    """Policy object (passed through) or ``.kind`` spec -> Policy."""
     if isinstance(policy, base.Policy):
         return policy
-    raise TypeError(f"expected a Policy, got {policy!r}")
+    kind = getattr(policy, "kind", None)
+    if kind is None:
+        raise TypeError(
+            f"expected a Policy or a spec with a .kind, got {policy!r}")
+    _ensure_builtin()
+    if kind not in _FACTORIES:
+        raise KeyError(f"unknown cache policy {kind!r}; "
+                       f"registered: {available()}")
+    return _FACTORIES[kind](policy)
 
 
 def compatibility_key(policy) -> Tuple:
@@ -79,7 +112,7 @@ class UniformBank(PolicyBank):
 
 def bank(policy: Union[base.Policy, Sequence[base.Policy]],
          batch: int) -> PolicyBank:
-    """Policy / per-lane sequence of equal policies -> PolicyBank."""
+    """Policy / spec / per-lane sequence of equal ones -> PolicyBank."""
     if isinstance(policy, (list, tuple)):
         lanes = tuple(resolve(p) for p in policy)
         if len(lanes) != batch:

@@ -79,3 +79,23 @@ def sample(full_fn: Callable, from_crf_fn: Callable, x_init: torch.Tensor,
             traj.append(x)
     return SampleResult(x=x, n_full=n_full, n_full_lanes=used,
                         trajectory=torch.stack(traj) if traj else None)
+
+
+def reference_features(full_fn: Callable, x_init: torch.Tensor,
+                       ts: torch.Tensor):
+    """Run the uncached sampler and keep each step's output.
+
+    Returns ``(x, xs [T, B, ...], crfs [T, B, S, D])``: the final
+    latents, the latents after each of the T steps and the CRF of each
+    step's forward.  The paper's Fig-2 frequency analysis and the Fig-4
+    MSE ablation read these trajectories.
+    """
+    x = x_init
+    xs, crfs = [], []
+    for i in range(ts.shape[0] - 1):
+        t_now, t_next = ts[i], ts[i + 1]
+        v, crf = full_fn(x, t_now)
+        x = x + (t_next - t_now).to(x.dtype) * v.to(x.dtype)
+        xs.append(x)
+        crfs.append(crf)
+    return x, torch.stack(xs), torch.stack(crfs)

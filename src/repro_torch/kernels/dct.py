@@ -1,14 +1,25 @@
-"""Spectral band split — the FreqCa cache update — as a CUDA kernel.
+"""Token-axis band split as CUDA kernels.
 
-``band_split_spectral`` is the wrapper of ``csrc/band_split_spectral.cu``
-(the port of ``repro.kernels.dct.band_split_spectral``).  It takes CUDA
-tensors only; the op layer (``kernels.ops``) sends CPU tensors to the
-plain version in ``kernels.ref``.
+* ``band_split_spectral`` wraps ``csrc/band_split_spectral.cu`` (the
+  port of ``repro.kernels.dct.band_split_spectral``): the FreqCa cache
+  update of the policy objects.
+* ``token_basis_matmul`` wraps ``csrc/token_basis_matmul.cu`` (the port
+  of ``repro.kernels.dct.token_basis_matmul``): ``y = basis @ x`` over
+  the token axis.  ``band_split`` applies it with the spatial low-pass
+  projection ``L = Cᵀ diag(mask) C`` and writes ``high = x − low`` in
+  the same epilogue; ``frequency.decompose`` and ``ops.dct_tokens``
+  reach it.
+
+The wrappers take CUDA tensors only; the op layer (``kernels.ops``)
+sends CPU tensors to the plain versions in ``kernels.ref``.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import frequency
@@ -46,3 +57,85 @@ def band_split_spectral(x: torch.Tensor, rho: float, method: str = "dct"):
 
 
 band_split_spectral.launches = 0
+
+
+# unbounded, as frequency's bases are: a multi-resolution deployment
+# keeps one projection per (s, rho, method) live (64 MiB of float32 at
+# S = 4096), and a bounded cache would rebuild them on every revisit
+@functools.lru_cache(maxsize=None)
+def _band_split_basis_np(s: int, rho: float, method: str) -> np.ndarray:
+    """Low-pass projection ``L = Cᵀ diag(mask) C`` ``[s, s]`` float64
+    (symmetric and idempotent).  The kept bins come from
+    ``frequency.low_pass_mask_np``.  dct: ``C_keptᵀ C_kept`` over the
+    kept rows only.  fft: the circulant real projection
+    ``Re(ifft(mask · fft(I)))``, masking the rows of the DFT of the
+    identity instead of forming ``diag(mask) @ F`` densely."""
+    mask = frequency.low_pass_mask_np(s, rho, method)
+    if method == "dct":
+        c = frequency._dct_basis_np(s)[mask]
+        return c.T @ c
+    if method != "fft":
+        raise ValueError(f"unknown band-split method {method!r}")
+    f = np.fft.fft(np.eye(s), axis=0)
+    return np.real(np.fft.ifft(mask[:, None] * f, axis=0))
+
+
+@functools.lru_cache(maxsize=None)
+def _band_split_basis_t(s: int, rho: float, method: str,
+                        device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(_band_split_basis_np(s, rho, method),
+                           dtype=torch.float32, device=device)
+
+
+def band_split_basis(s: int, rho: float, method: str = "dct",
+                     device: Optional[torch.device] = None) -> torch.Tensor:
+    """``L: [s, s]`` float32 on ``device`` (cached per device, so the
+    hot path never re-uploads it; callers must not write to it)."""
+    return _band_split_basis_t(s, rho, method,
+                               torch.device(device or "cpu"))
+
+
+def _basis_matmul(basis: torch.Tensor, x: torch.Tensor, with_high: bool):
+    """Launch ``token_basis_matmul``: ``low = basis @ x[b]`` and, with
+    ``with_high``, ``high = x − low`` rounded as the reference rounds
+    it (after the cast of low to x's type)."""
+    build.require_cuda("token_basis_matmul", basis, x)
+    if x.ndim != 3 or basis.shape != (x.shape[1], x.shape[1]):
+        raise ValueError(f"token_basis_matmul: basis {tuple(basis.shape)} "
+                         f"and x {tuple(x.shape)}; expected [S, S] and "
+                         "[B, S, D]")
+    if basis.dtype != torch.float32:
+        raise TypeError("token_basis_matmul: the basis must be float32")
+    b, s, d = x.shape
+    low = torch.empty_like(x)
+    high = torch.empty_like(x) if with_high else None
+    lib = build.load("token_basis_matmul")
+    fn = lib.token_basis_matmul
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    status = fn(basis.data_ptr(), x.data_ptr(), low.data_ptr(),
+                None if high is None else high.data_ptr(), b, s, d,
+                build.dtype_code(x),
+                torch.cuda.current_stream(x.device).cuda_stream)
+    build.check(lib, "token_basis_matmul", status)
+    token_basis_matmul.launches += 1
+    return low, high
+
+
+def token_basis_matmul(basis: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y[b, s, d] = Σ_k basis[s, k]·x[b, k, d]``: basis ``[S, S]``,
+    x ``[B, S, D]`` float32 or bf16; float32 arithmetic, output in x's
+    type."""
+    return _basis_matmul(basis.to(torch.float32).contiguous(), x, False)[0]
+
+
+token_basis_matmul.launches = 0
+
+
+def band_split(x: torch.Tensor, rho: float, method: str = "dct"):
+    """FreqCa band split as one projection product: ``(low, high)`` of
+    ``x [B, S, D]`` with ``low = L x`` and ``high = x − low``, both in
+    x's type (one ``token_basis_matmul`` launch)."""
+    build.require_cuda("band_split", x)
+    basis = band_split_basis(x.shape[-2], rho, method, device=x.device)
+    return _basis_matmul(basis, x, True)

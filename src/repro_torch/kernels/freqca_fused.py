@@ -1,10 +1,15 @@
-"""Fused FreqCa cached step — spectral synthesis plus the K-entry
-Hermite FMA — as a CUDA kernel.
+"""Fused FreqCa cached steps as CUDA kernels.
 
-``freqca_predict_fused_spectral`` is the wrapper of
-``csrc/freqca_fused_spectral.cu`` (the port of
-``repro.kernels.freqca_fused.freqca_predict_fused_spectral``).  CUDA
-tensors only; the op layer sends CPU tensors to ``kernels.ref``.
+* ``freqca_predict_fused_spectral`` wraps ``csrc/freqca_fused_spectral.cu``
+  (the port of
+  ``repro.kernels.freqca_fused.freqca_predict_fused_spectral``):
+  spectral synthesis plus the K-entry Hermite FMA, per lane.
+* ``freqca_predict_fused`` wraps ``csrc/freqca_fused.cu`` (the port of
+  ``repro.kernels.freqca_fused.freqca_predict_fused``): the legacy
+  cached step ``low + Σ_k w_k·hist_k`` over a K-major history with one
+  shared ``ts [K]``.
+
+CUDA tensors only; the op layer sends CPU tensors to ``kernels.ref``.
 """
 from __future__ import annotations
 
@@ -12,6 +17,7 @@ import ctypes
 
 import torch
 
+from repro_torch.core import hermite
 from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
@@ -59,3 +65,57 @@ def freqca_predict_fused_spectral(low_spec: torch.Tensor,
 
 
 freqca_predict_fused_spectral.launches = 0
+
+
+def hermite_eval_weights(ts: torch.Tensor, t_query,
+                         order: int) -> torch.Tensor:
+    """Weights w with prediction = Σ_k w_k·hist_k — an alias of
+    :func:`repro_torch.core.hermite.eval_weights`, so the folded kernel
+    path and the explicit fit share one normal-equation setup."""
+    return hermite.eval_weights(ts, t_query, order)
+
+
+def freqca_predict_fused(low: torch.Tensor, high_hist: torch.Tensor,
+                         ts: torch.Tensor, t_query,
+                         order: int) -> torch.Tensor:
+    """ẑ = low + Hermite(high_hist)(t_query), one pass.
+
+    low ``[B, S, D]``; high_hist ``[K, B, S, D]`` of low's type; ts
+    ``[K]``.  The K folded weights stay a float32 tensor on the device
+    (no host read); float32 accumulation, output in low's type.
+    """
+    if tuple(ts.shape) != (high_hist.shape[0],):
+        raise ValueError(f"freqca_predict_fused: ts {tuple(ts.shape)} for "
+                         f"a history of {high_hist.shape[0]}")
+    build.require_cuda("freqca_predict_fused", low, high_hist)
+    w = hermite_eval_weights(ts.to(low.device), t_query, order)
+    return launch_fused(low, high_hist, w)
+
+
+def launch_fused(low: torch.Tensor, high_hist: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """The kernel launch of ``freqca_predict_fused`` with the folded
+    weights ``w [K]`` already on the device: low + Σ_k w_k·high_hist_k."""
+    k = high_hist.shape[0]
+    if high_hist.shape[1:] != low.shape or tuple(w.shape) != (k,):
+        raise ValueError(
+            f"freqca_predict_fused: low {tuple(low.shape)}, high_hist "
+            f"{tuple(high_hist.shape)}, w {tuple(w.shape)}")
+    if low.dtype != high_hist.dtype:
+        raise TypeError("low and high_hist must share one type")
+    w = w.to(torch.float32).contiguous()
+    build.require_cuda("freqca_predict_fused", low, high_hist, w)
+    out = torch.empty_like(low)
+    lib = build.load("freqca_fused")
+    fn = lib.freqca_fused
+    fn.argtypes = [_P, _P, _P, _P, ctypes.c_long, _I, _I, _P]
+    fn.restype = _I
+    status = fn(low.data_ptr(), high_hist.data_ptr(), w.data_ptr(),
+                out.data_ptr(), low.numel(), k, build.dtype_code(low),
+                torch.cuda.current_stream(low.device).cuda_stream)
+    build.check(lib, "freqca_predict_fused", status)
+    freqca_predict_fused.launches += 1
+    return out
+
+
+freqca_predict_fused.launches = 0

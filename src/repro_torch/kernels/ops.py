@@ -16,7 +16,7 @@ from typing import Dict
 
 import torch
 
-from repro_torch.core import hermite
+from repro_torch.core import frequency, hermite
 from repro_torch.kernels import dct, flash_attention, freqca_fused, ref
 
 _WRAPPERS = {
@@ -24,6 +24,8 @@ _WRAPPERS = {
     "freqca_predict_fused_spectral":
         freqca_fused.freqca_predict_fused_spectral,
     "flash_attention": flash_attention.flash_attention,
+    "token_basis_matmul": dct.token_basis_matmul,
+    "freqca_predict_fused": freqca_fused.freqca_predict_fused,
 }
 
 
@@ -38,6 +40,34 @@ def reset_launch_counts() -> None:
 
 def _on_cuda(t: torch.Tensor) -> bool:
     return t.device.type == "cuda"
+
+
+def dct_tokens(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal DCT-II along the token axis of ``[B, S, D]`` (the
+    DCT-II basis through ``token_basis_matmul``)."""
+    basis = frequency.dct_basis(x.shape[-2], device=x.device)
+    if _on_cuda(x):
+        return dct.token_basis_matmul(basis, x.contiguous())
+    return ref.token_basis_matmul_ref(basis, x)
+
+
+def band_split(x: torch.Tensor, rho: float = 0.0625, method: str = "dct"):
+    """FreqCa band split ``(low, high)`` of ``[B, S, D]`` as one
+    projection product (``frequency.decompose``'s kernel route)."""
+    if _on_cuda(x):
+        return dct.band_split(x.contiguous(), rho, method)
+    return ref.band_split_ref(x, rho, method)
+
+
+def freqca_predict(low: torch.Tensor, high_hist: torch.Tensor,
+                   ts: torch.Tensor, t_query, order: int = 2) -> torch.Tensor:
+    """Fused legacy cached step: ẑ = low + Hermite(high_hist)(t) with
+    low ``[B, S, D]``, a K-major high_hist ``[K, B, S, D]`` and ts
+    ``[K]``."""
+    if _on_cuda(high_hist):
+        return freqca_fused.freqca_predict_fused(
+            low.contiguous(), high_hist.contiguous(), ts, t_query, order)
+    return ref.freqca_predict_ref(low, high_hist, ts, t_query, order)
 
 
 def band_split_spectral(x: torch.Tensor, rho: float = 0.0625,

@@ -11,9 +11,32 @@ import math
 
 import torch
 
-from repro_torch.core import frequency
+from repro_torch.core import frequency, hermite
 
 _F32 = torch.float32
+
+
+def token_basis_matmul_ref(basis: torch.Tensor,
+                           x: torch.Tensor) -> torch.Tensor:
+    """``y[b, s, d] = Σ_k basis[s, k]·x[b, k, d]`` in float32, cast to
+    x.dtype."""
+    return torch.einsum("sk,bkd->bsd", basis.to(_F32),
+                        x.to(_F32)).to(x.dtype)
+
+
+def band_split_ref(x: torch.Tensor, rho: float, method: str = "dct"):
+    """``(low, high)`` of ``x [B, S, D]`` by ``decompose``'s transform
+    path (not the projection matmul the kernel runs)."""
+    bands = frequency.transform_bands(x, rho, method, axis=-2)
+    return bands.low, bands.high
+
+
+def freqca_predict_ref(low: torch.Tensor, high_hist: torch.Tensor,
+                       ts: torch.Tensor, t_query, order: int) -> torch.Tensor:
+    """``low + Hermite(high_hist)(t_query)``: the legacy cached step of
+    ``kind="freqca", low_order=0``; output in low.dtype."""
+    high = hermite.predict(ts, high_hist, t_query, order)
+    return (low.to(_F32) + high.to(_F32)).to(low.dtype)
 
 
 def band_split_spectral_ref(x: torch.Tensor, rho: float,

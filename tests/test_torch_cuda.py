@@ -69,3 +69,39 @@ def test_flash_kernel(card, dtype, s, t, hd):
     got = ops.flash(q, k, v)
     assert ops.launch_counts()["flash_attention"] == 1
     _close((got,), (ref.attention_ref(q, k, v),), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("call", ["dct_tokens", "dct", "fft", "decompose"])
+def test_token_basis_matmul_kernel(card, dtype, call):
+    """Ragged S and D (neither a multiple of the 128-wide tiles);
+    ``decompose`` on a CUDA ``[B, S, D]`` tensor reaches the kernel."""
+    x = torch.randn(2, 200, 136, device=card).to(dtype)
+    ops.reset_launch_counts()
+    if call == "dct_tokens":
+        got = (ops.dct_tokens(x),)
+        want = (ref.token_basis_matmul_ref(
+            frequency.dct_basis(200, device=card), x),)
+    elif call == "decompose":
+        got = tuple(frequency.decompose(x, 0.0625, "fft"))
+        want = ref.band_split_ref(x, 0.0625, "fft")
+    else:
+        got = ops.band_split(x, 0.0625, call)
+        want = ref.band_split_ref(x, 0.0625, call)
+    assert ops.launch_counts()["token_basis_matmul"] == 1
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 48), (2, 33, 7)])
+def test_freqca_predict_fused_kernel(card, dtype, shape):
+    """(2, 33, 7) has 462 elements: not a multiple of the 16-byte
+    vector, so every element takes the scalar tail."""
+    low = torch.randn(shape, device=card).to(dtype)
+    hist = torch.randn((3,) + shape, device=card).to(dtype)
+    ts = torch.tensor([0.75, 0.5, 0.25], device=card)
+    t_q = torch.tensor(0.2, device=card)
+    ops.reset_launch_counts()
+    got = ops.freqca_predict(low, hist, ts, t_q, 2)
+    assert ops.launch_counts()["freqca_predict_fused"] == 1
+    _close((got,), (ref.freqca_predict_ref(low, hist, ts, t_q, 2),), dtype)

@@ -1,10 +1,16 @@
-"""Port parity: the plain versions of the port's three kernels against
-the Pallas kernels run in interpret mode, on the CPU; and the op
-layer's device dispatch.
+"""Port parity: the plain versions of the port's kernels against the
+Pallas kernels run in interpret mode, on the CPU; and the op layer's
+device dispatch.
 
-Tolerance 1e-5 absolute (float32 inputs of unit scale; the two sides
-sum in different orders).  The CUDA kernels themselves are held against
-these plain versions on the card (``tests/test_torch_cuda.py`` and
+Tolerance 1e-5 absolute for float32 (inputs of unit scale; the two
+sides sum in different orders), 1e-4 where a Hermite forecast
+extrapolates (it amplifies the solve's float32 round-off).  bf16
+outputs are one or two roundings apart: relative 2^-7 (one bf16 step)
+for a single rounding of the same float32 sum; where the plain version
+rounds the forecast before adding the low band and the Pallas kernel
+does not, two half steps at the largest magnitude, 2^-7 of it,
+absolute.  The CUDA kernels themselves are held against these
+plain versions on the card (``tests/test_torch_cuda.py`` and
 ``chip_smoke.py``).
 """
 import jax
@@ -18,6 +24,7 @@ from repro.core.policies import base as jbase
 from repro.kernels import dct as jdct
 from repro.kernels import flash_attention as jfa
 from repro.kernels import freqca_fused as jfused
+from repro_torch.core import frequency as tfreq
 from repro_torch.core.policies import base as tbase
 from repro_torch.kernels import (build, dct, flash_attention, freqca_fused,
                                  ops, ref)
@@ -102,7 +109,84 @@ def test_attention_ref_is_the_full_logits_branch():
     assert ref.attention_ref(qb, kb, vb).dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("call", ["band_split", "fused", "flash"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,d", [(64, 32), (128, 128), (256, 64)])
+def test_token_basis_matmul_matches_pallas(s, d, dtype):
+    x = np.random.default_rng(11).standard_normal((2, s, d)).astype(
+        np.float32)
+    basis = jfreq.dct_basis(s)
+    want = jdct.token_basis_matmul(basis, jnp.asarray(x).astype(dtype),
+                                   block_s=64, block_d=32, block_k=64,
+                                   interpret=True)
+    xt = torch.from_numpy(x).to(getattr(torch, dtype))
+    got = ops.dct_tokens(xt)
+    assert got.dtype == xt.dtype and got.shape == xt.shape
+    np.testing.assert_array_equal(tfreq.dct_basis(s).numpy(),
+                                  np.asarray(basis))
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want, rtol=2**-7,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("method", ["dct", "fft"])
+@pytest.mark.parametrize("s,d,rho", [(64, 32, 0.0625), (128, 64, 0.125),
+                                     (256, 48, 0.25)])
+def test_band_split_matches_pallas(method, s, d, rho):
+    x = np.random.default_rng(12).standard_normal((2, s, d)).astype(
+        np.float32)
+    want_low, want_high = jdct.band_split(jnp.asarray(x), rho, method,
+                                          interpret=True)
+    got_low, got_high = ops.band_split(torch.from_numpy(x), rho, method)
+    np.testing.assert_allclose(got_low.numpy(), np.asarray(want_low),
+                               atol=ATOL)
+    np.testing.assert_allclose(got_high.numpy(), np.asarray(want_high),
+                               atol=ATOL)
+    np.testing.assert_allclose((got_low + got_high).numpy(), x, atol=ATOL)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,order", [(2, 1), (3, 1), (3, 2)])
+def test_freqca_predict_fused_matches_pallas(k, order, dtype):
+    """The legacy cached step over a K-major history.  (K = 2 at order
+    2 fits three coefficients to two points: its weights exist only
+    through the 1e-6 jitter and are float32 noise, so it is left out.)"""
+    rng = np.random.default_rng(13)
+    b, s, d = 2, 64, 32
+    low = rng.standard_normal((b, s, d)).astype(np.float32)
+    hist = rng.standard_normal((k, b, s, d)).astype(np.float32)
+    ts = _GRID[[2, 5, 10][-k:]]
+    t_q = _GRID[12]
+    jd = getattr(jnp, dtype)
+    want = jfused.freqca_predict_fused(
+        jnp.asarray(low).astype(jd), jnp.asarray(hist).astype(jd),
+        jnp.asarray(ts), t_q, order, block_s=32, block_d=32, interpret=True)
+    td = getattr(torch, dtype)
+    got = ops.freqca_predict(torch.from_numpy(low).to(td),
+                             torch.from_numpy(hist).to(td),
+                             torch.from_numpy(ts), torch.tensor(t_q), order)
+    assert got.dtype == td and got.shape == (b, s, d)
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+    else:
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   atol=2**-7 * np.abs(want).max())
+    tw = freqca_fused.hermite_eval_weights(torch.from_numpy(ts),
+                                           torch.tensor(t_q), order)
+    jw = jfused.hermite_eval_weights(jnp.asarray(ts), t_q, order)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=ATOL)
+
+
+# times of a 20-step grid, as the samplers step through them
+_GRID = (1.0 - np.arange(21) / 20).astype(np.float32)
+
+
+@pytest.mark.parametrize("call", ["band_split", "fused", "flash",
+                                  "token_basis_matmul", "band_split_full",
+                                  "freqca_predict_fused"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: it never computes the
     plain version itself (the op layer alone routes CPU tensors)."""
@@ -114,8 +198,16 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
             freqca_fused.freqca_predict_fused_spectral(
                 torch.zeros((1, 4, 64)), torch.zeros((64, 4)),
                 torch.zeros((1, 3, 64, 64)), torch.zeros((1, 3)))
-        else:
+        elif call == "flash":
             flash_attention.flash_attention(x, x, x)
+        elif call == "token_basis_matmul":
+            dct.token_basis_matmul(torch.eye(64), x[0])
+        elif call == "band_split_full":
+            dct.band_split(x[0], 0.0625, "dct")
+        else:
+            freqca_fused.freqca_predict_fused(
+                x[0], torch.zeros((3, 64, 64, 64)), torch.ones(3),
+                torch.tensor(0.5), 2)
 
 
 def test_cpu_dispatch_leaves_launch_counts_untouched():
@@ -123,9 +215,15 @@ def test_cpu_dispatch_leaves_launch_counts_untouched():
     x = torch.randn(1, 64, 32)
     ops.band_split_spectral(x)
     ops.flash(*(torch.randn(1, 64, 2, 64) for _ in range(3)))
+    ops.dct_tokens(x)
+    ops.band_split(x)
+    ops.freqca_predict(x, torch.randn(3, 1, 64, 32),
+                       torch.tensor([0.9, 0.8, 0.7]), torch.tensor(0.6))
     assert ops.launch_counts() == {"band_split_spectral": 0,
                                    "freqca_predict_fused_spectral": 0,
-                                   "flash_attention": 0}
+                                   "flash_attention": 0,
+                                   "token_basis_matmul": 0,
+                                   "freqca_predict_fused": 0}
 
 
 def test_build_targets_sm90a_and_hashes_sources():

@@ -1,9 +1,11 @@
-"""Port parity for the whole slice as a library: the same parameters and
-``x0`` sampled by ``repro`` and by the port under ``none`` and under
-FreqCa with dct and fft, on the CPU.
+"""Port parity for the sampler as a library: the same parameters and
+``x0`` sampled by ``repro`` and by the port under ``none``, FreqCa with
+dct and fft, and every other registered policy (golden equivalence), on
+the CPU; and the uncached reference trajectory of the frequency
+analysis.
 
-Activation counts must be equal; latents agree to 1e-5 relative to
-their largest magnitude (float32 over 10 Euler steps).
+Activation counts must be equal; latents and CRFs agree to 1e-5
+relative to their largest magnitude (float32 over 10 Euler steps).
 """
 import jax
 import jax.numpy as jnp
@@ -138,3 +140,57 @@ def test_per_lane_masks_keep_each_lane_on_its_own_schedule(model):
         want = solo.x[0]
         torch.testing.assert_close(got.x[lane], want, rtol=0,
                                    atol=1e-5 * float(want.abs().max()))
+
+
+# every policy this slice adds, at settings where each lane caches some
+# steps.  The adaptive thresholds sit clear of what these inputs
+# measure: TeaCache's accumulator reads ~0.031 two steps after a reset
+# and ~0.046 three steps after (threshold 0.038); FreqCa-A's projected
+# error stays below 1.0 one step after a full step and reads 1.63 or
+# more when it fires (threshold 1.5).
+GOLDEN = {
+    "taylorseer": lambda pkg: pkg.TaylorSeerPolicy(interval=3),
+    "fora": lambda pkg: pkg.ForaPolicy(interval=3),
+    "foca": lambda pkg: pkg.FoCaPolicy(interval=4, high_order=1),
+    "teacache": lambda pkg: pkg.TeaCachePolicy(tea_threshold=0.038),
+    "freqca_a": lambda pkg: pkg.FreqCaAdaptivePolicy(
+        method="dct", rho=0.25, tea_threshold=1.5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GOLDEN))
+def test_golden_equivalence_of_new_policies(model, name):
+    """Each new policy object, through the port's sampler, activates on
+    the same steps per lane as ``repro``'s and gives the same latents."""
+    cj, ct, ((jfull, jcrf), (tfull, tcrf)) = model
+    jp, tp = GOLDEN[name](jpol), GOLDEN[name](tpol)
+    x0 = np.random.default_rng(9).standard_normal(
+        (2, SIDE, SIDE, cj.in_channels)).astype(np.float32)
+    crf_shape = (2, (SIDE // 2) ** 2, cj.d_model)
+    want = jsampler.sample(jfull, jcrf, jnp.asarray(x0),
+                           jschedule.timesteps(STEPS), jp, crf_shape)
+    got = tsampler.sample(tfull, tcrf, torch.from_numpy(x0),
+                          tschedule.timesteps(STEPS), tp, crf_shape)
+    assert got.n_full == int(want.n_full)
+    np.testing.assert_array_equal(got.n_full_lanes.numpy(),
+                                  np.asarray(want.n_full_lanes))
+    assert int(got.n_full_lanes.min()) < STEPS
+    want_x = np.asarray(want.x)
+    np.testing.assert_allclose(got.x.numpy(), want_x,
+                               atol=1e-5 * np.abs(want_x).max())
+
+
+def test_reference_features_match_reference(model):
+    cj, _, ((jfull, _), (tfull, _)) = model
+    x0 = np.random.default_rng(10).standard_normal(
+        (2, SIDE, SIDE, cj.in_channels)).astype(np.float32)
+    want = jsampler.reference_features(jfull, jnp.asarray(x0),
+                                       jschedule.timesteps(6))
+    got = tsampler.reference_features(tfull, torch.from_numpy(x0),
+                                      tschedule.timesteps(6))
+    assert got[1].shape == (6, 2, SIDE, SIDE, cj.in_channels)
+    assert got[2].shape == (6, 2, (SIDE // 2) ** 2, cj.d_model)
+    assert torch.equal(got[1][-1], got[0])
+    for g, w in zip(got, want, strict=True):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, atol=1e-5 * np.abs(w).max())

@@ -4,16 +4,19 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device    — card name, power limit and compute capability (9, 0);
-2. build     — nvcc builds the five kernels from ``csrc/`` in parallel;
+2. build     — nvcc builds the six kernels from ``csrc/`` in parallel;
 3. kernels   — each kernel against its plain PyTorch version at the
-               shapes the FLUX.1-dev paths give it, in bf16 and float32,
+               shapes its paths give it (FLUX.1-dev, one yi-9b attention
+               layer, one mamba2-370m SSD layer), in bf16 and float32,
                with the stated tolerance, plus its time, the plain
                version's time, the bound and, where one PyTorch call
                computes the same function, that call's time;
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
-               versions), and so does a dit-small sampling loop driven by
-               the legacy function-style cache API;
+               versions), and so do a dit-small sampling loop driven by
+               the legacy function-style cache API, two full-width
+               mamba2-370m layers as a denoiser and two yi-9b-shaped
+               layers through the LM forward at 2048 tokens;
 5. analysis  — at full flux1-dev width: the uncached reference
                trajectory, the paper's Fig-2 band statistics (kernel
                route against the plain transform route) and the legacy
@@ -21,17 +24,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
                path ran the band-split and fused legacy-step kernels;
 6. serve     — a ``DiffusionEngine`` at full flux1-dev width serves four
                1024² requests under FreqCa, then one under ``none``;
-               launch counters show the main path ran its kernels.
+               launch counters show the main path ran its kernels;
+7. backbone  — FreqCa on an assigned architecture: mamba2-370m (48
+               layers, d 1024) as the denoiser at S 4096, four requests
+               served by the engine, 48 SSD launches per full forward;
+8. lm        — yi-9b (48 layers, d 4096) ``transformer.forward`` on one
+               32768-token sequence, 48 causal GQA flash launches; the
+               flash launch at that shape held against its plain version
+               on the first and the last 1024 queries.
 
 The flux1-dev parameters (~26 GB in bf16) are built once for phases 5
-and 6.  The last line is ``{"ok": true, "device": {...}}``; the line
-before it is the card's name and power limit, and before that a
-``kernels`` JSON line.  Run from the repository root:
-``python3 chip_smoke.py``.
+and 6 and freed before phase 7.  The last line is ``{"ok": true,
+"device": {...}}``; the line before it is the card's name and power
+limit, and before that a ``kernels`` JSON line.  Run from the repository
+root: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import subprocess
@@ -83,11 +94,15 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(nbytes: float, flops: float, op_dtype: str):
+def bound_ms(nbytes: float, flops, op_dtype: str):
     """The larger of bytes over the memory rate and operations over the
-    peak rate of the type the function computes in."""
+    peak rate of the type the function computes in.  ``flops`` may be a
+    dict {type: operations} for a function whose products run in more
+    than one type; their times add."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[op_dtype] * 1e3
+    if not isinstance(flops, dict):
+        flops = {op_dtype: flops}
+    t_ops = sum(f / PEAK_FLOPS[d] for d, f in flops.items()) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -258,19 +273,122 @@ def kernel_phase(main_dtype: dict) -> dict:
                 reps=5)
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
+        lm_attention_rows(row, dt, dtype_name, gen)
+        ssd_rows(row, dt, dtype_name, gen)
     return rows
 
 
-def redraw_zero_leaves(params, seed: int, std: float = 0.02):
-    """Give the AdaLN-zero leaves (``mod``, ``final_mod``, ``final_proj``)
-    random values.  The reference initialises them to zero, which makes
-    every block an identity and the velocity exactly zero; with random
-    weights and no trained checkpoint, redrawing them is what makes the
-    blocks and the velocity non-trivial, so the run exercises the model."""
+def attention_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs a self-attention over s tokens keeps: query i
+    sees keys [max(0, i − window + 1), i + 1 if causal else s)."""
+    return sum((i + 1 if causal else s) - (max(0, i - window + 1)
+                                           if window else 0)
+               for i in range(s))
+
+
+def lm_attention_rows(row, dt, dtype_name: str, gen) -> None:
+    """The LM's attention forms at one yi-9b layer's shape, 4096 tokens:
+    32 query heads on 4 kv heads of 128 — causal GQA (bf16 and float32),
+    the same with a 1024 window (bf16) and non-causal GQA (bf16).  The
+    library call is SDPA with GQA (a boolean mask for the window).  The
+    bound counts the (query, key) pairs each mask keeps."""
     import torch
-    leaves = [params["final_mod"]["kernel"], params["final_mod"]["bias"],
-              params["final_proj"]]
-    for layer in params["single"]:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+    dev = torch.device("cuda")
+    es = torch.finfo(dt).bits // 8
+    s, hq, hkv, hd = 4096, 32, 4, 128
+    q = torch.randn((1, s, hq, hd), generator=gen, device=dev).to(dt)
+    k, v = (torch.randn((1, s, hkv, hd), generator=gen, device=dev).to(dt)
+            for _ in "kv")
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    forms = [("causal", True, 0), ("window1024", True, 1024),
+             ("noncausal", False, 0)]
+    if dtype_name == "float32":
+        forms = forms[:1]
+    for label, causal, window in forms:
+        mask = None
+        if window:
+            i = torch.arange(s, device=dev)
+            mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None]
+                                                 - window)
+
+        def lib(mask=mask, causal=causal):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+        row(f"flash_attention[{label} gqa 32/4]", dtype_name,
+            lambda causal=causal, window=window:
+                flash_attention.flash_attention(q, k, v, hq // hkv, causal,
+                                                window),
+            lambda causal=causal, window=window:
+                ref.attention_ref(q, k, v, hq // hkv, causal, window),
+            (2 * hq + 2 * hkv) * s * hd * es,
+            4 * hq * hd * attention_pairs(s, causal, window),
+            library=lib, reps=5)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def ssd_flops(b: int, s: int, h: int, p: int, n: int, q: int,
+              dtype_name: str) -> dict:
+    """The operations the scan needs, by the type of their operands.
+    With T = Q(Q+1)/2, the (i, j <= i) pairs of a chunk: C Bᵀ on the
+    kept triangle, 2·T·N once per (batch, chunk) — B and C are one group
+    shared by every head — with x's type as operands (bf16 products
+    accumulate exactly in float32 on the tensor cores); per (batch,
+    chunk, head) the masked scores · x, 2·T·P, and C · state plus the
+    state update, 4·Q·N·P, both on float32 operands."""
+    tri, chunks = q * (q + 1) // 2, b * (s // q)
+    ops = {"float32": chunks * h * (2 * tri * p + 4 * q * n * p)}
+    ops[dtype_name] = ops.get(dtype_name, 0) + chunks * 2 * tri * n
+    return ops
+
+
+def ssd_rows(row, dt, dtype_name: str, gen) -> None:
+    """One mamba2-370m layer's SSD scan at two lanes of 4096 tokens: x
+    [2, 4096, 32, 64], B and C [2, 4096, 128] as column slices of the
+    conv output (strided, as the block passes them), dt float32, chunk
+    256.  The bound counts the operations of ``ssd_flops`` at the peak
+    of their operands' type.  No single PyTorch call computes the
+    scan."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+    dev = torch.device("cuda")
+    es = torch.finfo(dt).bits // 8
+    b, s, h, p, n, q = 2, 4096, 32, 64, 128, 256
+    xbc = (torch.randn((b, s, h * p + 2 * n), generator=gen, device=dev)
+           * 0.5).to(dt)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dts = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev) - 2.0)
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.3)
+    row("ssd_chunk_scan", dtype_name,
+        lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm, q),
+        lambda: ref.ssd_chunk_scan_ref(x, dts, a, bm, cm, q),
+        2 * b * s * h * p * es + 2 * b * s * n * es + b * s * h * 4 + h * 4,
+        ssd_flops(b, s, h, p, n, q, dtype_name), reps=5)
+    del xbc, x, bm, cm
+    torch.cuda.empty_cache()
+
+
+def redraw_zero_leaves(params, seed: int, std: float = 0.02):
+    """Give the zero-initialised leaves (a DiT's AdaLN-zero ``mod`` and
+    ``final_mod``, and ``final_proj`` of a DiT or a backbone denoiser)
+    random values.  The reference initialises them to zero, which makes
+    every DiT block an identity and the velocity exactly zero; with
+    random weights and no trained checkpoint, redrawing them is what
+    makes the blocks and the velocity non-trivial, so the run exercises
+    the model."""
+    import torch
+    leaves = []
+    if "final_mod" in params:
+        leaves += [params["final_mod"]["kernel"], params["final_mod"]["bias"]]
+    leaves.append(params["final_proj"])
+    for layer in params.get("single", []):
         leaves += [layer["mod"]["kernel"], layer["mod"]["bias"]]
     for layer in params.get("double", []):
         for s in ("img", "txt"):
@@ -347,6 +465,140 @@ def reference_phase(devices=("cpu", "cuda")) -> None:
         if not torch.isfinite(got).all() or rel > 1e-4:
             raise AssertionError(f"reference [{method}]: rel L2 {rel:.3e}")
     legacy_reference(devices)
+    backbone_reference(devices)
+    lm_reference(devices)
+
+
+def rel_l2(got, want) -> float:
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def backbone_reference(devices=("cpu", "cuda")) -> None:
+    """Two layers of mamba2-370m at full width (d 1024, 32 SSD heads of
+    64, d_state 128), float32, as the denoiser over a 64x64x4 latent (S
+    1024: four chunks of 256), on the card (the SSD kernel in each
+    layer) against the CPU (its plain version); rel L2 1e-4."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, dit
+    cfg = dataclasses.replace(configs.get_config("mamba2-370m"), n_layers=2,
+                              dtype="float32")
+    params_cpu = common.init_params(dit.backbone_denoiser_specs(cfg), seed=10,
+                                    device="cpu")
+    params_cpu["final_proj"].normal_(0.0, 0.02,
+                                     generator=torch.Generator()
+                                     .manual_seed(11))
+    gen = torch.Generator().manual_seed(12)
+    lat = torch.randn((1, 64, 64, 4), generator=gen)
+    t = torch.tensor([0.7])
+    outs = {}
+    for dev in devices:
+        ops.reset_launch_counts()
+        out = dit.backbone_denoiser_forward(_to(params_cpu, dev), lat.to(dev),
+                                            t.to(dev), cfg)
+        outs[dev] = out
+        n = ops.launch_counts()["ssd_chunk_scan"]
+        if torch.device(dev).type == "cuda" and n != cfg.n_layers:
+            raise AssertionError(f"backbone reference: {n} SSD launches, "
+                                 f"expected {cfg.n_layers}")
+    want, got = outs[devices[0]], outs[devices[1]]
+    for name in ("velocity", "crf"):
+        rel = rel_l2(getattr(got, name), getattr(want, name))
+        log(f"reference mamba2-370m x2 backbone [{name}] card vs CPU: rel L2 "
+            f"{rel:.3e} (tol 1e-4)")
+        if not torch.isfinite(getattr(got, name)).all() or rel > 1e-4:
+            raise AssertionError(f"backbone reference [{name}]: {rel:.3e}")
+
+
+def lm_params(cfg, n_layers: int, seed: int, device: str):
+    """Random params of ``cfg`` cut to its first ``n_layers`` layers,
+    drawn from the full depth's distribution (the reference's fan-in rule
+    gives the stacked attention leaves std 1/sqrt(n_layers))."""
+    import torch
+
+    from repro_torch.models import common, transformer
+    specs = transformer.lm_specs(cfg)
+    specs["stack"] = specs["stack"][:n_layers]
+    return common.init_params(specs, seed=seed, device=device,
+                              dtype=getattr(torch, cfg.dtype))
+
+
+def lm_reference(devices=("cpu", "cuda")) -> None:
+    """Two layers of a yi-9b-shaped config (d 4096, 32 query heads on 4
+    kv heads of 128, d_ff 11008; vocabulary cut to 8192), float32,
+    through ``transformer.forward`` at 2048 tokens, so that every
+    attention takes the causal GQA flash route on the card; against the
+    CPU (blockwise attention); rel L2 1e-3.  The looser bound is the
+    model's conditioning, not the kernel's (whose float32 rows hold it
+    to ~3e-7 of its plain version): drawn as the full 48-layer model is,
+    the stacked attention projections have std 1/sqrt(48) (the
+    reference's fan-in rule), so at d 4096 the logits are large (the
+    check logs the first layer's largest) and a softmax that sharp turns
+    float32 summation-order differences of the card and the CPU into
+    ~1e-4 of each layer's output.  A control, the card's forward with
+    TF32 matmuls, must fail the limit (on an H100 80GB HBM3: 3.6e-2,
+    against the float32 route's 3.7e-4)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    full = dataclasses.replace(configs.get_config("yi-9b"), vocab_size=8192,
+                               dtype="float32")
+    cfg = dataclasses.replace(full, n_layers=2)
+    params_cpu = lm_params(full, 2, seed=13, device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 2048),
+                           generator=torch.Generator().manual_seed(14))
+    outs = {}
+    for dev in devices:
+        ops.reset_launch_counts()
+        params = _to(params_cpu, dev)
+        outs[dev] = transformer.forward(params, tokens.to(dev), cfg)
+        n = ops.launch_counts()["flash_attention"]
+        if torch.device(dev).type == "cuda" and n != cfg.n_layers:
+            raise AssertionError(f"lm reference: {n} flash launches, "
+                                 f"expected {cfg.n_layers}")
+    # a control for the limit: the card's forward again with TF32 matmuls
+    # (products of operands rounded to 10 mantissa bits)
+    control = None
+    if torch.device(devices[1]).type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = transformer.forward(params, tokens.to(devices[1]), cfg)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    del params
+    # the first layer's logits, head 0, the first 256 queries
+    from repro_torch.models import attention, common
+    layer = params_cpu["stack"][0]["l0"]
+    x = common.rmsnorm(layer["norm1"],
+                       common.embed(params_cpu["embed"], tokens))
+    q, k, _ = attention._qkv(layer["attn"], x, cfg,
+                             torch.arange(2048).expand(1, 2048))
+    logits = q[0, :256, 0] @ k[0, :, 0].T / cfg.head_dim ** 0.5
+    log(f"reference yi-9b x2: layer-0 logits (head 0, 256 queries) max |.| "
+        f"{logits.abs().max().item():.1f}, std {logits.std().item():.1f}")
+    want, got = outs[devices[0]], outs[devices[1]]
+    for name in ("logits", "crf"):
+        rel = rel_l2(getattr(got, name), getattr(want, name))
+        ctrl = (None if control is None else
+                rel_l2(getattr(control, name), getattr(want, name)))
+        log(f"reference yi-9b x2 forward at S=2048 [{name}] card vs CPU: rel "
+            f"L2 {rel:.3e} (tol 1e-3)" + ("" if ctrl is None else
+                                          f", the TF32 control: {ctrl:.3e}"))
+        if not torch.isfinite(getattr(got, name)).all() or rel > 1e-3:
+            raise AssertionError(f"lm reference [{name}]: {rel:.3e}")
+        # the limit must tell the float32 route from a lower-precision one
+        if ctrl is not None and not ctrl > 1e-3:
+            raise AssertionError(f"lm reference [{name}]: the TF32 control "
+                                 f"{ctrl:.3e} passes the 1e-3 limit")
 
 
 def legacy_loop(full_fn, from_crf_fn, x0, ts, policy, crf_shape):
@@ -673,6 +925,185 @@ def serve_phase(model: dict, n_steps: int) -> dict:
     return counts
 
 
+def backbone_phase(n_steps: int, cfg=None, side: int = 128,
+                   device: str = "cuda") -> dict:
+    """FreqCa on an assigned architecture at full width: mamba2-370m (48
+    SSD layers, d 1024) in bf16 as the denoiser over 128x128x4 latents (S
+    4096, CRF [4096, 1024]), served by the ``DiffusionEngine`` under
+    ``FreqCaPolicy(interval=5, dct, rho=1/16)`` with float32 rings,
+    ``max_batch=2``, four requests.  Each full forward runs the SSD
+    kernel once per layer.  (``cfg``, ``side`` and ``device`` let the
+    phase be rehearsed small on the CPU, with the CUDA memory and sync
+    calls stubbed.)"""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.policies import FreqCaPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, dit
+    from repro_torch.serving.engine import DiffusionEngine, DiffusionRequest
+    cfg, dev = cfg or configs.get_config("mamba2-370m"), device
+    dtype = getattr(torch, cfg.dtype)
+    t0 = time.perf_counter()
+    params = common.init_params(dit.backbone_denoiser_specs(cfg), seed=20,
+                                device=dev, dtype=dtype)
+    redraw_zero_leaves(params, seed=21)
+    log(f"backbone: {cfg.arch_id} denoiser params "
+        f"{sum(p.numel() for p in _leaves(params)) / 1e6:.1f} M in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def full_fn(x, t):
+        out = dit.backbone_denoiser_forward(params, x, t.expand(x.shape[0]),
+                                            cfg)
+        return out.velocity, out.crf
+
+    def from_crf_fn(crf, t):
+        return dit.backbone_denoiser_from_crf(params, crf, cfg, side, side)
+    latent, crf_shape = (side, side, 4), ((side // 2) ** 2, cfg.d_model)
+    eng = DiffusionEngine(full_fn, from_crf_fn, latent, crf_shape,
+                          FreqCaPolicy(interval=5, method="dct", rho=1 / 16),
+                          n_steps=n_steps, max_batch=2, device=dev)
+    log(f"backbone: warmup {eng.warmup():.1f} s")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    for i in range(4):
+        eng.submit(DiffusionRequest(request_id=i, seed=200 + i))
+    results = eng.serve_until_drained()
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = eng.metrics.n_batches
+    fulls = [r.n_full_steps for r in results]
+    want_full = len([i for i in range(n_steps) if i % 5 == 0 or i < 3])
+    log(f"backbone: {len(results)} requests in {n_batches} batches, "
+        f"n_full_steps per request {fulls}, batch walls (s) "
+        f"{[round(w, 3) for w in eng.metrics.batch_walls]}, peak memory "
+        f"{peak / 2**30:.2f} GiB; launch counts {counts}")
+    if len(results) != 4 or fulls != [want_full] * 4:
+        raise AssertionError(f"backbone: expected 4 requests with "
+                             f"{want_full} full steps, got {fulls}")
+    per_batch = {"ssd_chunk_scan": want_full * cfg.n_layers,
+                 "band_split_spectral": want_full,
+                 "freqca_predict_fused_spectral": n_steps - want_full}
+    on_card = torch.device(dev).type == "cuda"   # the CPU launches none
+    for name, n in per_batch.items():
+        if on_card and counts[name] != n * n_batches:
+            raise AssertionError(f"backbone {name}: {counts[name]} launches, "
+                                 f"expected {n} per batch x {n_batches}")
+    if not all(torch.isfinite(r.latents).all() and
+               tuple(r.latents.shape) == latent for r in results):
+        raise AssertionError("backbone: latents of wrong shape or "
+                             "non-finite")
+    x2 = torch.randn((2,) + latent, device=dev)
+    t = torch.tensor(0.75, device=dev)
+    log(f"backbone: one full forward, 2 lanes: "
+        f"{time_ms(lambda: full_fn(x2, t), reps=3):.2f} ms "
+        f"({cfg.n_layers} SSD launches)")
+    return counts
+
+
+def lm_phase(cfg=None, s: int = 32768, device: str = "cuda") -> dict:
+    """yi-9b at full width and depth (48 layers, d 4096, 32 query heads
+    on 4 kv heads of 128, d_ff 11008, vocabulary 64000), bf16 from a
+    seed, through ``transformer.forward`` on one sequence of 32768 tokens
+    (the assigned prefill length): every layer's attention runs the
+    causal GQA flash kernel, which is then held against its plain
+    version at that shape.  (``cfg``, ``s`` and ``device`` let the
+    phase be rehearsed small on the CPU, with the CUDA memory and sync
+    calls stubbed.)"""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    cfg, dev = cfg or configs.get_config("yi-9b"), device
+    t0 = time.perf_counter()
+    params = lm_params(cfg, cfg.n_layers, seed=30, device=dev)
+    log(f"lm: {cfg.arch_id} params "
+        f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B in "
+        f"{time.perf_counter() - t0:.1f} s")
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(31))
+    forms, real_flash = [], ops.flash
+
+    def flash_spy(q, k, v, q_per_kv=1, causal=False, window=0):
+        forms.append((q_per_kv, causal, window))
+        return real_flash(q, k, v, q_per_kv, causal, window)
+    walls = []
+    ops.flash = flash_spy
+    try:
+        for rep in range(2):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ops.reset_launch_counts()
+            forms.clear()
+            t0 = time.perf_counter()
+            out = transformer.forward(params, tokens, cfg)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+            finite = bool(torch.isfinite(out.logits).all())
+            shape = tuple(out.logits.shape)
+            del out
+    finally:
+        ops.flash = real_flash
+    peak = torch.cuda.max_memory_allocated()
+    log(f"lm: forward [1, {s}] walls (s) {[round(w, 3) for w in walls]}, "
+        f"flash launches {counts['flash_attention']} (forms q_per_kv, "
+        f"causal, window: {sorted(set(forms))}), logits {shape} finite "
+        f"{finite}, peak memory {peak / 2**30:.2f} GiB")
+    on_card = torch.device(dev).type == "cuda"   # the CPU launches none
+    if on_card and (counts["flash_attention"] != cfg.n_layers or
+                    set(forms) != {(cfg.q_per_kv, True, 0)}):
+        raise AssertionError(f"lm: flash launches {counts}, forms {forms}")
+    if not finite or shape != (1, s, cfg.vocab_size):
+        raise AssertionError(f"lm: logits {shape}, finite {finite}")
+    # the forward's attention launch at its own shape (bf16 [1, S, 32/4,
+    # 128], causal GQA), held against the plain version on the first and
+    # the last 1024 queries with every key they see (the plain version's
+    # [32, S, S] float32 logits for all queries would not fit); then,
+    # where the forward's time goes: that launch alone beside its bound
+    # and SDPA
+    from repro_torch.kernels import ref
+    from repro_torch.models import attention
+    hd, hkv, g = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
+    gen = torch.Generator(device=dev).manual_seed(32)
+    q = torch.randn((1, s, cfg.n_heads, hd), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, s, hkv, hd), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in "kv")
+    got = ops.flash(q, k, v, g, causal=True)
+    n_q = min(1024, s)
+    for q0 in (0, s - n_q):
+        want = ref.sdpa_ref(q[:, q0:q0 + n_q], k[:, :q0 + n_q],
+                            v[:, :q0 + n_q],
+                            attention.causal_mask(n_q, offset=q0, device=dev),
+                            g)
+        err, rel = compare("flash_attention[lm]", "bfloat16",
+                           got[:, q0:q0 + n_q].contiguous(), want)
+        log(f"lm: causal GQA flash [1, {s}, {cfg.n_heads}/{hkv}, {hd}] bf16, "
+            f"queries {q0}:{q0 + n_q} vs plain: max_abs_err={err:.3e} "
+            f"max_rel_err={rel:.3e} (tol {TOLERANCE['bfloat16']:.0e})")
+        del want
+    del got
+    if on_card:
+        import torch.nn.functional as F
+        t_k = time_ms(lambda: ops.flash(q, k, v, g, causal=True), reps=2)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        t_l = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=2)
+        b_ms, b_by = bound_ms(
+            (2 * cfg.n_heads + 2 * hkv) * s * hd * 2,
+            4 * cfg.n_heads * hd * attention_pairs(s, True, 0), "bfloat16")
+        log(f"lm: breakdown: causal GQA flash [1, {s}, {cfg.n_heads}/{hkv}, "
+            f"{hd}] {t_k:.3f} ms per layer x {cfg.n_layers} = "
+            f"{t_k * cfg.n_layers / 1e3:.3f} s of the forward; bound "
+            f"{b_ms:.4f} ms ({b_by}); library (SDPA) {t_l:.3f} ms")
+    return counts
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -685,7 +1116,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel and reference phases "
-                         "(skips both full-width phases)")
+                         "(skips the four full-width phases)")
     args = ap.parse_args(argv)
 
     import torch
@@ -718,19 +1149,28 @@ def main(argv=None) -> int:
                   "freqca_predict_fused_spectral": "float32",
                   "flash_attention": "bfloat16",
                   "token_basis_matmul": "bfloat16",
-                  "freqca_predict_fused": "float32"}
+                  "freqca_predict_fused": "float32",
+                  "ssd_chunk_scan": "bfloat16"}
     rows = kernel_phase(main_dtype)
     reference_phase()
-    # launches are read from the counters of the phase that runs each
-    # kernel's path; without those phases nothing was counted and the
-    # line says null
-    counts = {}
+    # launches are read from the counters of the phases that run each
+    # kernel's paths (reset just before each, read just after) and
+    # summed; without those phases nothing was counted and the line
+    # says null
+    by_phase = {}
     if not args.skip_serve:
         model = flux_model()
-        analysis = analysis_phase(model, N_STEPS)
-        serve = serve_phase(model, N_STEPS)
-        counts = {k: (serve if k in SERVE_KERNELS else analysis)[k]
-                  for k in main_dtype}
+        by_phase["analysis"] = analysis_phase(model, N_STEPS)
+        by_phase["serve"] = serve_phase(model, N_STEPS)
+        del model       # free flux1-dev (~26 GB) before the next models
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_phase["backbone"] = backbone_phase(N_STEPS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_phase["lm"] = lm_phase()
+    paths = {name: [ph for ph in by_phase if by_phase[ph][name] > 0]
+             for name in main_dtype}
 
     replaces = {
         "band_split_spectral": ("src/repro_torch/kernels/csrc/"
@@ -748,10 +1188,25 @@ def main(argv=None) -> int:
         "freqca_predict_fused": ("src/repro_torch/kernels/csrc/"
                                  "freqca_fused.cu",
                                  "src/repro/kernels/freqca_fused.py:42"),
+        "ssd_chunk_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                           "src/repro/kernels/ssd_scan.py:68"),
     }
-    kernels = [dict(name=name, route="cuda", source=src, replaces=rep,
-                    launches=counts.get(name), **rows[name])
-               for name, (src, rep) in replaces.items()]
+    kernels = []
+    for name, (src, rep) in replaces.items():
+        k = dict(name=name, route="cuda", source=src, replaces=rep,
+                 launches=(sum(by_phase[ph][name] for ph in paths[name])
+                           if by_phase else None), **rows[name])
+        if by_phase:
+            k["launches_by_phase"] = {ph: by_phase[ph][name]
+                                      for ph in paths[name]}
+        if name == "flash_attention":
+            k["forms"] = ("all: non-causal MHA (this row's times: the DiT "
+                          "joint attention, bf16 [2, 4608, 24, 128]); "
+                          "causal GQA, sliding-window and non-causal GQA "
+                          "(rows flash_attention[... gqa 32/4] of the "
+                          "kernel phase; the lm phase's launches are causal "
+                          "GQA)")
+        kernels.append(k)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""Carry ``repro``'s DiT parameters into the port.
+"""Carry ``repro``'s parameters into the port.
 
-``repro`` keeps a pytree with layer-stacked blocks (``single`` /
-``double`` leaves ``[n_layers, ...]``) and attention projections shaped
-``wq/wk/wv [d, H, hd]``, ``wo [H, hd, d]``.  The port keeps per-layer
-lists and ``[d, d]`` projections.  The tree arrives as numpy
-(``jax.tree.map(np.asarray, params)``), so this module needs no JAX.
+``repro`` keeps a pytree with layer-stacked blocks (the DiT's ``single``
+/ ``double`` leaves ``[n_layers, ...]``; an LM's or backbone's
+``stack`` leaves ``[n_groups, ...]`` under ``l{i}``) and attention
+projections shaped ``wq/wk/wv [d, H, hd]``, ``wo [H, hd, d]``.  The
+port keeps per-layer (per-group) lists and matrix projections.  The tree
+arrives as numpy (``jax.tree.map(np.asarray, params)``), so this module
+needs no JAX.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
-from repro_torch.configs.base import DiTConfig
+from repro_torch.configs.base import DiTConfig, ModelConfig
+from repro_torch.models import blocks
 
 _ATTN_MATS = ("wq", "wk", "wv", "wo")
 
@@ -34,20 +37,20 @@ def _block(tree, d: int):
     return out
 
 
+def _to_torch(tree, dev, dtype):
+    if isinstance(tree, dict):
+        return {k: _to_torch(v, dev, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_torch(v, dev, dtype) for v in tree]
+    t = torch.tensor(np.asarray(tree))   # copies: jax's are read-only
+    return t.to(device=dev, dtype=dtype or t.dtype)
+
+
 def params_from_jax_numpy(tree, cfg: DiTConfig, device=None, dtype=None):
     """``repro`` DiT params (numpy pytree) -> the port's parameters on
     ``device`` (default ``cuda``), in ``dtype`` (default: as given)."""
     dev = device_lib.resolve(device)
     d = cfg.d_model
-
-    def to_t(tree_):
-        if isinstance(tree_, dict):
-            return {k: to_t(v) for k, v in tree_.items()}
-        if isinstance(tree_, list):
-            return [to_t(v) for v in tree_]
-        t = torch.tensor(np.asarray(tree_))   # copies: jax's are read-only
-        return t.to(device=dev, dtype=dtype or t.dtype)
-
     out = {k: v for k, v in tree.items() if k not in ("single", "double")}
     out["single"] = [_block(_take(tree["single"], i), d)
                      for i in range(cfg.n_layers)]
@@ -56,4 +59,36 @@ def params_from_jax_numpy(tree, cfg: DiTConfig, device=None, dtype=None):
             {s: _block(_take(tree["double"][s], i), d)
              for s in ("img", "txt")}
             for i in range(cfg.n_double)]
-    return to_t(out)
+    return _to_torch(out, dev, dtype)
+
+
+def _lm_block(tree):
+    """One group position of an LM stack: the attention leaves
+    ``[d, H, hd]`` / ``[H, hd, d]`` become ``[d, H·hd]`` / ``[H·hd, d]``;
+    everything else (norms, FFN, the SSM leaves) is kept as it is."""
+    out = dict(tree)
+    if "attn" in tree:
+        attn = dict(tree["attn"])
+        for name in ("wq", "wk", "wv"):
+            w = np.asarray(attn[name])
+            attn[name] = w.reshape(w.shape[0], -1)
+        wo = np.asarray(attn["wo"])
+        attn["wo"] = wo.reshape(-1, wo.shape[-1])
+        out["attn"] = attn
+    return out
+
+
+def lm_params_from_jax_numpy(tree, cfg: ModelConfig, device=None,
+                             dtype=None):
+    """``repro`` LM or backbone-denoiser params (numpy pytree: ``stack``
+    leaves ``[n_groups, ...]`` under ``l{i}``, beside the embedding,
+    head, norms or patch / time projections) -> the port's parameters,
+    ``params["stack"]`` a list of ``n_groups`` dicts ``{"l{i}": block}``,
+    on ``device`` (default ``cuda``), in ``dtype`` (default: as
+    given)."""
+    dev = device_lib.resolve(device)
+    _, n_groups, plan = blocks._layer_plan(cfg)
+    out = {k: v for k, v in tree.items() if k != "stack"}
+    out["stack"] = [{f"l{i}": _lm_block(_take(tree["stack"][f"l{i}"], g))
+                     for i in range(len(plan))} for g in range(n_groups)]
+    return _to_torch(out, dev, dtype)

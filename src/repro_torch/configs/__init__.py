@@ -1,25 +1,47 @@
-"""Architecture registry of the port: the DiT configs of this slice."""
+"""Architecture registry of the port: the DiT configs and the assigned
+backbones it runs (``yi-9b``, ``mamba2-370m``)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Union
 
-from repro_torch.configs import dit_small, flux1_dev
-from repro_torch.configs.base import DiTConfig
+from repro_torch.configs import dit_small, flux1_dev, mamba2_370m, yi_9b
+from repro_torch.configs.base import DiTConfig, ModelConfig
 
-REGISTRY: Dict[str, DiTConfig] = {
-    m.CONFIG.arch_id: m.CONFIG for m in (dit_small, flux1_dev)
+REGISTRY: Dict[str, Union[ModelConfig, DiTConfig]] = {
+    m.CONFIG.arch_id: m.CONFIG
+    for m in (dit_small, flux1_dev, yi_9b, mamba2_370m)
 }
 
 
-def get_config(arch_id: str) -> DiTConfig:
+def get_config(arch_id: str):
     return REGISTRY[arch_id]
 
 
-def reduced(cfg: DiTConfig) -> DiTConfig:
-    """CPU-runnable smoke variant of the same family (2 layers,
-    d_model 64) — the DiT branch of ``repro.configs.reduced``."""
+def reduced(cfg):
+    """CPU-runnable smoke variant of the same family, as
+    ``repro.configs.reduced``: a DiT keeps 2 layers at d_model 64; a
+    ``ModelConfig`` 2 layers (a hybrid one group) at d_model 128, head
+    width 32, at most 4 experts, a 16-wide SSM state in chunks of 16."""
+    if isinstance(cfg, DiTConfig):
+        return dataclasses.replace(
+            cfg, n_layers=2, n_double=min(cfg.n_double, 1), d_model=64,
+            n_heads=4, d_ff=128, text_dim=min(cfg.text_dim, 32),
+            n_text_tokens=min(cfg.n_text_tokens, 8), dtype="float32")
+    n_layers = 2 if cfg.family != "hybrid" else cfg.attn_every
+    d_model, head_dim = 128, 32
+    n_heads = d_model // head_dim
+    moe = None
+    if cfg.moe is not None:
+        moe = dataclasses.replace(cfg.moe, n_experts=4,
+                                  top_k=min(cfg.moe.top_k, 2))
+    ssm = None
+    if cfg.ssm is not None:
+        ssm = dataclasses.replace(cfg.ssm, d_state=16, head_dim=32, chunk=16)
     return dataclasses.replace(
-        cfg, n_layers=2, n_double=min(cfg.n_double, 1), d_model=64,
-        n_heads=4, d_ff=128, text_dim=min(cfg.text_dim, 32),
-        n_text_tokens=min(cfg.n_text_tokens, 8), dtype="float32")
+        cfg, n_layers=n_layers, d_model=d_model, n_heads=n_heads,
+        n_kv_heads=max(1, n_heads // 2), d_ff=0 if cfg.d_ff == 0 else 256,
+        vocab_size=512, head_dim=head_dim, moe=moe, ssm=ssm,
+        n_enc_layers=min(cfg.n_enc_layers, 2),
+        n_prefix_tokens=16 if cfg.n_prefix_tokens else 0,
+        sliding_window=0, dtype="float32", remat=False)

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/build.py -> the checkout's root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("band_split_spectral", "freqca_fused_spectral", "flash_attention",
-           "token_basis_matmul", "freqca_fused")
+           "token_basis_matmul", "freqca_fused", "ssd_scan")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,24 +1,45 @@
-// Non-causal flash attention (q_per_kv = 1), the joint attention of
-// every MMDiT block.
+// Flash attention in every form of the TPU kernel: non-causal (the
+// joint attention of every MMDiT block), causal, sliding-window, and
+// grouped-query (GQA, the LM's self-attention).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py::
-// flash_attention (_flash_kernel) in its non-causal, q_per_kv = 1 form;
-// the causal, sliding-window and GQA forms wait for the LM slice.
-//   o[b, s, h] = softmax_t(q[b, s, h] · k[b, t, h] / sqrt(hd)) · v[b, t, h]
-// q, k, v, o: [B, S|T, H, hd] contiguous, float32 or bf16; online
-// softmax with float32 running max, normaliser and accumulator; masked
-// logits are -1e30 and the normaliser is floored at 1e-30, as in the
-// TPU kernel.  The probabilities are not rounded to the input type for
-// the PV product (the reference's full-logits path rounds them to v's
-// type first, hence the two differ at bf16 by that rounding).
+// flash_attention (_flash_kernel).
+//   o[b, s, h] = softmax_t(q[b, s, h] · k[b, t, h / g] / sqrt(hd)) ·
+//                v[b, t, h / g]                      (g = q_per_kv)
+// q, o: [B, S, H, hd]; k, v: [B, T, H / g, hd]; contiguous, float32 or
+// bf16.  Query head h reads kv head h / g through the index map: k and v
+// are never copied per group.  Masks, with positions counted from 0 in
+// both q and k as in the TPU kernel: causal keeps k_pos <= q_pos, a
+// window w > 0 keeps k_pos > q_pos - w.  Online softmax with float32
+// running max, normaliser and accumulator; a masked logit is the finite
+// -1e30 (never -inf, so exp(m_old - m_new) of a row that has seen only
+// masked keys is exp(0) = 1, not NaN) and the normaliser is floored at
+// 1e-30, as in the TPU kernel.  A block visits only the key tiles that
+// some of its rows can see: under the causal mask none wholly above the
+// diagonal (half the work), under a window none wholly before it.  A
+// skipped tile is exact: for a row that later sees a real key, the
+// reference's contribution of a wholly masked tile is wiped by
+// exp(-1e30 - m) = 0.  (A row with no key at all — only possible when a
+// non-causal window lies wholly past T — averages the keys its block
+// visits, where the reference averages all T; self-attention never has
+// such a row.)  S and T need not be multiples of the tiles: ragged
+// edges are masked.  The probabilities are not rounded to the input
+// type for the PV product (the reference's full-logits path rounds them
+// to v's type first, hence the two differ at bf16 by that rounding).
 //
-// What bounds it on an H100: operations.  4·B·H·S·T·hd FLOP — at
-// FLUX's joint sequence (S = T = 4608, 24 heads of 128) 261 GFLOP per
-// lane, 264 us at the 989 TFLOP/s bf16 tensor-core peak, against
-// ~113 MB of q, k, v and o traffic (34 us).
+// What bounds it on an H100: operations.  4·B·H·S·T·hd FLOP unmasked
+// (half that causal) — at FLUX's joint sequence (S = T = 4608, 24 heads
+// of 128) 261 GFLOP per lane, 264 us at the 989 TFLOP/s bf16
+// tensor-core peak, against ~113 MB of q, k, v and o traffic (34 us);
+// yi-9b's causal prefill at 32768 tokens, 8.8 TFLOP per layer.
 //
-// Design: a block owns 64 queries of one (b, h) and walks the keys in
-// tiles of 64 held in shared memory; logits never reach device memory.
+// Design: a block owns 64 queries of one (b, h) and walks its visible
+// keys in tiles of 64 held in shared memory; logits never reach device
+// memory.  Under the causal mask the blocks with the most tiles (the
+// last queries) are scheduled first.  A tile whose every key every query
+// of the block keeps skips the mask arithmetic (most tiles of the causal
+// form); the unmasked form is a separate instantiation that tests only
+// the ragged edge.
 // - bf16 (the main path): 4 warps of 16 query rows each run
 //   mma.sync m16n8k16 with float32 accumulation.  q stays in registers
 //   as A fragments; k and v tiles are read with ldmatrix (v transposed)
@@ -41,6 +62,38 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kLD = kBQ + 4;   // padded stride of the transposed tiles
 constexpr float kNegInf = -1e30f;
 
+// The masks of one attention call.  q and k positions count from 0.
+struct Mask {
+  int Tk;       // keys
+  int causal;   // keep k <= q
+  int window;   // > 0: keep k > q - window
+
+  __device__ __forceinline__ bool ok(int kpos, int qpos) const {
+    return kpos < Tk && (!causal || kpos <= qpos) &&
+           (window <= 0 || kpos > qpos - window);
+  }
+  // every query in [q0, q0 + kBQ) keeps every key in [k0, k0 + kBK): the
+  // tile needs no mask (the non-causal tiles of a multiple-of-64 T, and
+  // the causal tiles wholly below the diagonal)
+  __device__ __forceinline__ bool full(int k0, int q0) const {
+    return k0 + kBK <= Tk && (!causal || k0 + kBK - 1 <= q0) &&
+           (window <= 0 || k0 > q0 + kBQ - 1 - window);
+  }
+  // [t0, t1): the key tiles some query in [q0, q0 + kBQ) can see
+  __device__ __forceinline__ void tiles(int q0, int& t0, int& t1) const {
+    const int k_end = causal ? min(Tk, q0 + kBQ) : Tk;
+    const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+    t0 = k_begin / kBK;
+    t1 = (k_end + kBK - 1) / kBK;
+  }
+};
+
+// the block's query tile: under the causal mask the last tiles (the most
+// keys) first, so the longest blocks are not the tail of the grid
+__device__ __forceinline__ int query_tile(const Mask& mk) {
+  return mk.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+}
+
 __device__ __forceinline__ void load4(const float* p, bool ok,
                                       float (&v)[4]) {
   if (ok) {
@@ -57,11 +110,11 @@ constexpr size_t smem_bytes() {
   return (2 * HD * kLD + kBK * HD + kBK * kLD) * sizeof(float);
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool MASKED>
 __global__ void __launch_bounds__(rt::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
-                 int H, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
+                 int Hkv, Mask mk, float scale) {
   constexpr int NG = HD / 64;   // float4 column groups per thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -70,12 +123,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Ps = Vs + kBK * HD;
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int q0 = blockIdx.x * kBQ;
+  const int Tk = mk.Tk;
+  const int q0 = query_tile(mk) * kBQ;
   const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const long rs = (long)H * HD;   // token stride
+  const int hkv = h / (H / Hkv);   // GQA: query head h reads kv head h / g
+  const long rs = (long)H * HD;    // token stride of q and o
+  const long rk = (long)Hkv * HD;  // token stride of k and v
   const T* qp = q + (long)b * S * rs + (long)h * HD;
-  const T* kp = k + (long)b * Tk * rs + (long)h * HD;
-  const T* vp = v + (long)b * Tk * rs + (long)h * HD;
+  const T* kp = k + (long)b * Tk * rk + (long)hkv * HD;
+  const T* vp = v + (long)b * Tk * rk + (long)hkv * HD;
   T* op = o + (long)b * S * rs + (long)h * HD;
 
   float vals[4];
@@ -95,17 +151,19 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NG * 4; ++c) acc[i][c] = 0.f;
   }
 
-  for (int k0 = 0; k0 < Tk; k0 += kBK) {
+  int t0, t1;
+  mk.tiles(q0, t0, t1);
+  for (int k0 = t0 * kBK; k0 < t1 * kBK; k0 += kBK) {
     __syncthreads();   // the previous tile's Ks / Vs / Ps are consumed
     for (int e = tid; e < kBK * (HD / 4); e += rt::kThreads) {
       const int j = e % kBK, d = (e / kBK) * 4, gj = k0 + j;
-      load4(kp + gj * rs + d, gj < Tk, vals);
+      load4(kp + gj * rk + d, gj < Tk, vals);
 #pragma unroll
       for (int c = 0; c < 4; ++c) Ks[(d + c) * kLD + j] = vals[c];
     }
     for (int e = tid; e < kBK * (HD / 4); e += rt::kThreads) {
       const int j = e / (HD / 4), d = (e % (HD / 4)) * 4, gj = k0 + j;
-      load4(vp + gj * rs + d, gj < Tk, vals);
+      load4(vp + gj * rk + d, gj < Tk, vals);
       *reinterpret_cast<float4*>(&Vs[j * HD + d]) =
           make_float4(vals[0], vals[1], vals[2], vals[3]);
     }
@@ -126,12 +184,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     // online softmax; a row's 64 logits live in the 16 threads of one
     // half-warp (same ty), so xor-shuffles over 8..1 reduce a row
+    const bool full = MASKED && mk.full(k0, q0);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       float mx = kNegInf;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = (k0 + tx * 4 + j < Tk) ? s[i][j] * scale : kNegInf;
+        const int kpos = k0 + tx * 4 + j;
+        const bool ok = MASKED ? full || mk.ok(kpos, q0 + ty * 4 + i)
+                               : kpos < Tk;
+        s[i][j] = ok ? s[i][j] * scale : kNegInf;
         mx = fmaxf(mx, s[i][j]);
       }
 #pragma unroll
@@ -266,13 +328,13 @@ constexpr size_t mma_smem_bytes() {
 // One block of 4 warps owns 64 queries of one (b, h); each warp 16 rows.
 // Fragment layouts are those of mma.m16n8k16 (g = lane / 4, t = lane % 4):
 // a thread holds rows g and g + 8, columns 2t, 2t + 1 of each 8-wide tile.
-template <int HD>
+template <int HD, bool MASKED>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int S, int Tk, int H,
-                     float scale_log2) {
+                     __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                     Mask mk, float scale_log2) {
   constexpr int LDK = HD + 8;      // padded rows: conflict-free ldmatrix
   constexpr int NKS = HD / 16;     // k-steps of the QKᵀ product
   constexpr int NCT = HD / 8;      // 8-wide output column tiles
@@ -283,12 +345,16 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
-  const int q0 = blockIdx.x * kBQ + warp * 16;
+  const int Tk = mk.Tk;
+  const int qb0 = query_tile(mk) * kBQ;   // the block's first query
+  const int q0 = qb0 + warp * 16;         // this warp's first query
   const int b = blockIdx.y / H, h = blockIdx.y % H;
+  const int hkv = h / (H / Hkv);          // GQA index map, no k/v copy
   const long rs = (long)H * HD;
+  const long rk = (long)Hkv * HD;
   const __nv_bfloat16* qp = q + (long)b * S * rs + (long)h * HD;
-  const __nv_bfloat16* kp = k + (long)b * Tk * rs + (long)h * HD;
-  const __nv_bfloat16* vp = v + (long)b * Tk * rs + (long)h * HD;
+  const __nv_bfloat16* kp = k + (long)b * Tk * rk + (long)hkv * HD;
+  const __nv_bfloat16* vp = v + (long)b * Tk * rk + (long)hkv * HD;
   __nv_bfloat16* op = o + (long)b * S * rs + (long)h * HD;
 
   // this warp's 16 query rows as A fragments, kept in registers
@@ -316,16 +382,18 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const int j = e / (HD / 8), c = (e % (HD / 8)) * 8, gj = k0 + j;
       const long row = gj < Tk ? gj : 0;   // in-bounds address, 0 bytes
       const int bytes = gj < Tk ? 16 : 0;
-      cp_async16(&ks[j * LDK + c], kp + row * rs + c, bytes);
-      cp_async16(&vs[j * LDK + c], vp + row * rs + c, bytes);
+      cp_async16(&ks[j * LDK + c], kp + row * rk + c, bytes);
+      cp_async16(&vs[j * LDK + c], vp + row * rk + c, bytes);
     }
   };
-  const int n_tiles = (Tk + kBK - 1) / kBK;
-  load_tile(0, 0);
+  int t0, t1;
+  mk.tiles(qb0, t0, t1);
+  const int n_tiles = t1 - t0;
+  if (n_tiles > 0) load_tile(0, t0 * kBK);
   cp_async_commit();
 
   for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = it * kBK;
+    const int k0 = (t0 + it) * kBK;
     if (it + 1 < n_tiles) load_tile((it + 1) % 2, k0 + kBK);
     cp_async_commit();       // (an empty group on the last tile)
     cp_async_wait_one();     // this tile has landed
@@ -351,6 +419,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // online softmax over rows g (ri = 0) and g + 8 (ri = 1); a row's
     // 64 logits sit in the 4 threads of one quad
+    const bool full = MASKED && mk.full(k0, qb0);
 #pragma unroll
     for (int ri = 0; ri < 2; ++ri) {
       float mx = kNegInf;
@@ -358,7 +427,9 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int nt = 0; nt < NNT; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool ok = k0 + 8 * nt + 2 * t + e < Tk;
+          const int kpos = k0 + 8 * nt + 2 * t + e;
+          const bool ok = MASKED ? full || mk.ok(kpos, q0 + g + 8 * ri)
+                                 : kpos < Tk;
           float& x = s[nt][2 * ri + e];
           x = ok ? x * scale_log2 : kNegInf;   // logits in log2 units
           mx = fmaxf(mx, x);
@@ -422,57 +493,69 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HD, bool MASKED>
 int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int Tk, int H, cudaStream_t st) {
+               int S, int H, int Hkv, Mask mk, cudaStream_t st) {
   const size_t smem = mma_smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_mma_kernel<HD, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
   // softmax runs in base 2: fold log2(e) into the logit scale
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
-  flash_fwd_mma_kernel<HD><<<grid, kWarps * 32, smem, st>>>(
+  flash_fwd_mma_kernel<HD, MASKED><<<grid, kWarps * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      Tk, H, scale_log2);
+      H, Hkv, mk, scale_log2);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <typename T, int HD, bool MASKED>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int Tk, int H, cudaStream_t st) {
+           int S, int H, int Hkv, Mask mk, cudaStream_t st) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, HD, MASKED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, HD><<<grid, rt::kThreads, smem, st>>>(
+  flash_fwd_kernel<T, HD, MASKED><<<grid, rt::kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, Tk, H,
+      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, mk,
       1.0f / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o [B, S, H, hd]; k, v [B, Tk, H, hd]; one type; contiguous and
-// 16-byte aligned; hd in {64, 128}.  bf16 runs on the tensor cores,
-// float32 on the float32 FMA path.
+// q, o [B, S, H, hd]; k, v [B, Tk, Hkv, hd] with H a multiple of Hkv;
+// one type; contiguous and 16-byte aligned; hd in {64, 128}; causal 0/1,
+// window 0 (none) or > 0.  bf16 runs on the tensor cores, float32 on the
+// float32 FMA path.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
-                                   int Tk, int H, int hd, int dtype,
+                                   int Tk, int H, int Hkv, int hd,
+                                   int causal, int window, int dtype,
                                    void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  const Mask mk{Tk, causal, window};
+  // the unmasked form (the DiT's) keeps only the ragged-edge test
+  const bool m = causal || window > 0;
   if (dtype == rt::kBF16 && hd == 64)
-    return launch_mma<64>(q, k, v, o, B, S, Tk, H, st);
+    return (m ? launch_mma<64, true> : launch_mma<64, false>)(
+        q, k, v, o, B, S, H, Hkv, mk, st);
   if (dtype == rt::kBF16 && hd == 128)
-    return launch_mma<128>(q, k, v, o, B, S, Tk, H, st);
+    return (m ? launch_mma<128, true> : launch_mma<128, false>)(
+        q, k, v, o, B, S, H, Hkv, mk, st);
   if (dtype == rt::kF32 && hd == 64)
-    return launch<float, 64>(q, k, v, o, B, S, Tk, H, st);
+    return (m ? launch<float, 64, true> : launch<float, 64, false>)(
+        q, k, v, o, B, S, H, Hkv, mk, st);
   if (dtype == rt::kF32 && hd == 128)
-    return launch<float, 128>(q, k, v, o, B, S, Tk, H, st);
+    return (m ? launch<float, 128, true> : launch<float, 128, false>)(
+        q, k, v, o, B, S, H, Hkv, mk, st);
   return cudaErrorInvalidValue;
 }

@@ -17,7 +17,8 @@ from typing import Dict
 import torch
 
 from repro_torch.core import frequency, hermite
-from repro_torch.kernels import dct, flash_attention, freqca_fused, ref
+from repro_torch.kernels import (dct, flash_attention, freqca_fused, ref,
+                                 ssd_scan)
 
 _WRAPPERS = {
     "band_split_spectral": dct.band_split_spectral,
@@ -26,6 +27,7 @@ _WRAPPERS = {
     "flash_attention": flash_attention.flash_attention,
     "token_basis_matmul": dct.token_basis_matmul,
     "freqca_predict_fused": freqca_fused.freqca_predict_fused,
+    "ssd_chunk_scan": ssd_scan.ssd_chunk_scan,
 }
 
 
@@ -94,10 +96,25 @@ def hermite_weights(ts: torch.Tensor, t_query, order: int) -> torch.Tensor:
     return hermite.eval_weights(ts, t_query, order)
 
 
-def flash(q: torch.Tensor, k: torch.Tensor,
-          v: torch.Tensor) -> torch.Tensor:
-    """Non-causal MHA over ``[B, S, H, hd]`` (``q_per_kv=1``)."""
+def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          q_per_kv: int = 1, causal: bool = False,
+          window: int = 0) -> torch.Tensor:
+    """Attention over ``q [B, S, Hq, hd]``, ``k, v [B, T, Hkv, hd]``:
+    non-causal MHA for the DiT's joint attention; causal, windowed and
+    GQA for the LM's self-attention."""
     if _on_cuda(q):
         return flash_attention.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous())
-    return ref.attention_ref(q, k, v)
+            q.contiguous(), k.contiguous(), v.contiguous(), q_per_kv,
+            causal, window)
+    return ref.attention_ref(q, k, v, q_per_kv, causal, window)
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
+        C: torch.Tensor, chunk: int = 256) -> torch.Tensor:
+    """Mamba2 SSD chunk scan ``y [b, s, h, p]`` (no D-skip): ``x [b, s,
+    h, p]``, ``dt [b, s, h]``, ``A [h]``, ``B, C [b, s, n]``.  The kernel
+    reads x, B and C through their strides (they are column slices of
+    the block's conv output)."""
+    if _on_cuda(x):
+        return ssd_scan.ssd_chunk_scan(x, dt.float(), A.float(), B, C, chunk)
+    return ref.ssd_chunk_scan_ref(x, dt, A, B, C, chunk)

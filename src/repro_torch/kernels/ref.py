@@ -2,8 +2,10 @@
 
 Each is both the CPU path of the op layer and the oracle its CUDA
 kernel is held against on the card (with TF32 off).  They repeat the
-reference's arithmetic (``repro.kernels.ref`` and the full-logits
-branch of ``repro.models.dit._joint_attention``), not the kernels'.
+reference's arithmetic (``repro.kernels.ref``, the full-logits
+attention of ``repro.models.attention._sdpa`` and
+``repro.models.dit._joint_attention``, and the SSD scan of
+``repro.kernels.ssd_scan``), not the kernels'.
 """
 from __future__ import annotations
 
@@ -60,16 +62,116 @@ def freqca_predict_spectral_ref(low_spec: torch.Tensor, synth: torch.Tensor,
     return (low + high).to(high_hist.dtype)
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor,
-                  v: torch.Tensor) -> torch.Tensor:
-    """Non-causal MHA, ``q, k, v: [B, S, H, hd] -> [B, S, H, hd]``.
+NEG_INF = -1e30      # masked logits, as the reference's attention
+NEG_CLIP = -60.0     # the SSD kernel's exp underflow guard
 
-    The full-logits branch of the reference's joint attention: float32
-    logits and softmax, probabilities rounded to ``v.dtype`` before the
-    PV product (the CUDA kernel keeps them in float32 — the source of
-    their bf16 difference)."""
-    hd = q.shape[-1]
-    logits = torch.einsum("bshk,bthk->bhst", q.to(_F32),
+
+def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             mask=None, q_per_kv: int = 1) -> torch.Tensor:
+    """Full-logits GQA attention (the reference's ``_sdpa``), ``q [B, S,
+    Hq, hd]``, ``k, v [B, T, Hkv, hd] -> [B, S, Hq, hd]``; query head
+    ``h`` reads kv head ``h // q_per_kv``; ``mask [B?, S, T]`` bool or
+    None.  Float32 logits; a masked logit is −1e30, not −inf, so a row
+    with no key left is a uniform average, not NaN; probabilities rounded
+    to ``v.dtype`` before the PV product (the CUDA kernel keeps them
+    near float32 — the source of their bf16 difference)."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, q_per_kv, hd)
+    logits = torch.einsum("bsgqk,btgk->bgqst", qg.to(_F32),
                           k.to(_F32)) / math.sqrt(hd)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
     probs = torch.softmax(logits, dim=-1).to(v.dtype)
-    return torch.einsum("bhst,bthk->bshk", probs, v)
+    out = torch.einsum("bgqst,btgk->bsgqk", probs, v)
+    return out.reshape(b, s, hq, hd)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_per_kv: int = 1, causal: bool = False,
+                  window: int = 0) -> torch.Tensor:
+    """The flash kernel's plain version: ``sdpa_ref`` under the masks the
+    kernel takes — causal keeps ``k_pos <= q_pos``, a window ``k_pos >
+    q_pos − window``, both positions counted from 0.  Unmasked it is the
+    full-logits branch of the DiT's joint attention."""
+    mask = None
+    if causal or window > 0:
+        q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
+        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
+        mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window > 0:
+            mask &= k_pos > q_pos - window
+        mask = mask[None]
+    return sdpa_ref(q, k, v, mask, q_per_kv)
+
+
+def ssd_chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor,
+                       chunk: int = 256, return_state: bool = False):
+    """Mamba2 SSD chunk scan with the TPU kernel's own arithmetic
+    (``repro.kernels.ssd_scan._ssd_kernel``), ``x [b, s, h, p]``, ``dt
+    [b, s, h]``, ``A [h]``, ``B, C [b, s, n] -> y [b, s, h, p]`` in x's
+    type; no D-skip.  ``return_state`` also returns the final state
+    ``[b, h, p, n]`` in float32, as the reference's ``ssd_chunked``
+    does.  Per chunk, in float32 with the ``[n, p]`` state of
+    each (b, h) carried across chunks:
+    ``y = ((C Bᵀ) ∘ L)(dt ∘ x) + exp(cum) ∘ (C · state)`` with
+    ``L_ij = exp(cum_i − cum_j)`` for ``j <= i``, then the state decays
+    by ``exp(cum_last)`` and gains ``Σ_j exp(cum_last − cum_j) dt_j
+    B_jᵀ x_j``.  Every ``exp`` clips its argument at −60; the upper
+    triangle is selected away (``where``), never multiplied by a 0/1
+    mask, since ``exp`` of it can overflow."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"ssd_chunk_scan: S={s} is not a multiple of the "
+                         f"chunk {q}")
+    a = A.to(_F32)
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    state = torch.zeros((b, h, n, p), dtype=_F32, device=x.device)
+    ys = []
+    for c0 in range(0, s, q):
+        xc = x[:, c0:c0 + q].to(_F32)                 # [b, q, h, p]
+        dtc = dt[:, c0:c0 + q].to(_F32)               # [b, q, h]
+        bc = B[:, c0:c0 + q].to(_F32)                 # [b, q, n]
+        cc = C[:, c0:c0 + q].to(_F32)
+        cum = torch.cumsum(dtc * a, dim=1)            # [b, q, h]
+        diff = cum[:, :, None, :] - cum[:, None, :, :]          # [b, i, j, h]
+        lmat = torch.where(tri[None, :, :, None],
+                           torch.exp(diff.clamp(min=NEG_CLIP)), 0.0)
+        scores = torch.einsum("bin,bjn->bij", cc, bc)[..., None] * lmat
+        y = torch.einsum("bijh,bjhp->bihp", scores * dtc[:, None], xc)
+        decay_in = torch.exp(cum.clamp(min=NEG_CLIP))[..., None]
+        y = y + decay_in * torch.einsum("bin,bhnp->bihp", cc, state)
+        decay_out = torch.exp((cum[:, -1:] - cum).clamp(min=NEG_CLIP))
+        wb = torch.einsum("bjn,bjh->bjhn", bc, dtc * decay_out)
+        last = torch.exp(cum[:, -1].clamp(min=NEG_CLIP))[..., None, None]
+        state = last * state + torch.einsum("bjhn,bjhp->bhnp", wb, xc)
+        ys.append(y)
+    y = torch.cat(ys, dim=1).to(x.dtype)
+    return (y, state.transpose(-1, -2)) if return_state else y
+
+
+def ssd_naive_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor):
+    """The per-token SSD recurrence, the ground-truth semantics
+    (``repro.kernels.ref.ssd_naive_ref``): ``state ← exp(dt·A)·state +
+    dt·x ⊗ B``, ``y = state · C``.  Returns ``(y [b, s, h, p]`` in x's
+    type, ``final state [b, h, p, n]`` float32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    a = A.to(_F32)
+    state = torch.zeros((b, h, p, n), dtype=_F32, device=x.device)
+    ys = []
+    for i in range(s):
+        x_t, dt_t = x[:, i].to(_F32), dt[:, i].to(_F32)
+        b_t, c_t = B[:, i].to(_F32), C[:, i].to(_F32)
+        decay = torch.exp(dt_t * a)                             # [b, h]
+        dbx = torch.einsum("bh,bn,bhp->bhpn", dt_t, b_t, x_t)
+        state = state * decay[:, :, None, None] + dbx
+        ys.append(torch.einsum("bhpn,bn->bhp", state, c_t))
+    return torch.stack(ys, dim=1).to(x.dtype), state

@@ -1,0 +1,82 @@
+"""Mamba2 SSD chunk scan as a CUDA kernel.
+
+``ssd_chunk_scan`` is the wrapper of ``csrc/ssd_scan.cu`` (the
+counterpart of ``repro.kernels.ssd_scan``).  CUDA tensors only; the op
+layer sends CPU tensors to ``ref.ssd_chunk_scan_ref``.  ``x``, ``B`` and
+``C`` may be column slices of one ``[b, s, ·]`` tensor (as the mamba2
+block's are): the kernel reads them through their batch and token
+strides, so nothing is copied.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_long
+HEAD_DIM = 64          # the head width the kernel is instantiated for
+MAX_STATE = 128        # largest d_state (a multiple of 8)
+TILE = 64              # the chunk is a multiple of this, at most 256
+
+
+def _strided_ok(t: torch.Tensor, inner: tuple) -> bool:
+    """The innermost strides are ``inner`` (elements)."""
+    return tuple(t.stride()[-len(inner):]) == inner
+
+
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor,
+                   chunk: int = 256) -> torch.Tensor:
+    """x [b, s, h, 64]; dt [b, s, h] float32; A [h] float32; B, C [b, s,
+    n] in x's type -> y [b, s, h, 64] in x's type."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    if dt.shape != (b, s, h) or A.shape != (h,) or B.shape != (b, s, n) \
+            or C.shape != B.shape:
+        raise ValueError(f"ssd_chunk_scan: x {tuple(x.shape)}, dt "
+                         f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
+                         f"{tuple(B.shape)}, C {tuple(C.shape)}")
+    if p != HEAD_DIM or n > MAX_STATE or n % 8:
+        raise ValueError(f"ssd_chunk_scan: head_dim {p} (needs "
+                         f"{HEAD_DIM}), d_state {n} (needs a multiple of 8 "
+                         f"up to {MAX_STATE})")
+    if q % TILE or q > 4 * TILE or s % q:
+        raise ValueError(f"ssd_chunk_scan: chunk {q} must be a multiple of "
+                         f"{TILE} up to {4 * TILE} dividing S={s}")
+    if not x.dtype == B.dtype == C.dtype or dt.dtype != torch.float32 \
+            or A.dtype != torch.float32:
+        raise TypeError("ssd_chunk_scan: x, B, C share one type; dt and A "
+                        "are float32")
+    dev = x.device
+    for t in (x, dt, A, B, C):
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"ssd_chunk_scan: expected CUDA tensors on one "
+                             f"device, got {t.device}")
+    if not (_strided_ok(x, (p, 1)) and _strided_ok(dt, (1,))
+            and _strided_ok(B, (1,)) and _strided_ok(C, (1,))
+            and A.is_contiguous()):
+        raise ValueError("ssd_chunk_scan: x needs contiguous heads, dt, B "
+                         "and C a contiguous last axis")
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    lib = build.load("ssd_scan")
+    fn = lib.ssd_chunk_scan_fwd
+    fn.argtypes = [_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P,
+                   _I, _I, _I, _I, _I, _I, _P]
+    fn.restype = _I
+    status = fn(x.data_ptr(), x.stride(0), x.stride(1),
+                dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
+                B.data_ptr(), B.stride(0), B.stride(1),
+                C.data_ptr(), C.stride(0), C.stride(1), y.data_ptr(),
+                b, s, h, n, q, build.dtype_code(x),
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, "ssd_chunk_scan", status)
+    ssd_chunk_scan.launches += 1
+    return y
+
+
+ssd_chunk_scan.launches = 0

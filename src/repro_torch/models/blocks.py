@@ -1,0 +1,121 @@
+"""Decoder blocks and layer stacks, full-sequence path (counterpart of
+``repro.models.blocks``).
+
+A block = pre-norm mixer (attention or Mamba2 SSD) + pre-norm dense
+SwiGLU FFN.  The reference scans one stacked group of layers; the port
+keeps ``params["stack"]`` as a list of ``n_groups`` groups, each a dict
+``{"l{i}": block}`` over the group's positions, and loops over it.  A
+config with experts raises ``NotImplementedError`` (MoE waits), as do
+caches and decode.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention, common, mlp, ssm
+
+
+class BlockAux(NamedTuple):
+    load_balance_loss: torch.Tensor
+    router_z_loss: torch.Tensor
+    drop_fraction: torch.Tensor
+
+    @classmethod
+    def zero(cls, device=None):
+        z = torch.zeros((), dtype=torch.float32, device=device)
+        return cls(z, z, z)
+
+    def __add__(self, other):
+        return BlockAux(*[a + b for a, b in zip(self, other, strict=True)])
+
+
+def _no_moe(is_moe: bool) -> None:
+    if is_moe:
+        raise NotImplementedError("MoE layers are not ported yet")
+
+
+def block_specs(cfg: ModelConfig, kind: str, is_moe: bool, stack: int = 1):
+    _no_moe(is_moe)
+    s: Dict[str, Any] = {"norm1": common.rmsnorm_specs(cfg.d_model)}
+    if kind == "attn":
+        s["attn"] = attention.attn_specs(cfg, stack)
+    else:
+        s["ssm"] = ssm.ssm_specs(cfg, stack)
+    if cfg.d_ff > 0:
+        s["norm2"] = common.rmsnorm_specs(cfg.d_model)
+        s["ffn"] = mlp.mlp_specs(cfg, stack)
+    return s
+
+
+def _mixer_full(params, x, cfg: ModelConfig, kind: str, window: int,
+                causal: bool = True):
+    if kind == "attn":
+        return attention.self_attention(params["attn"], x, cfg, window=window,
+                                        causal=causal)
+    return ssm.ssm_block(params["ssm"], x, cfg)
+
+
+def _ffn(params, x, cfg: ModelConfig,
+         is_moe: bool) -> Tuple[torch.Tensor, BlockAux]:
+    _no_moe(is_moe)
+    return mlp.mlp(params["ffn"], x), BlockAux.zero(x.device)
+
+
+def block_full(params, x, cfg: ModelConfig, kind: str, is_moe: bool,
+               window: int = 0, causal: bool = True):
+    """Full-sequence block (prefill / denoiser)."""
+    h = x + _mixer_full(params, common.rmsnorm(params["norm1"], x,
+                                               cfg.norm_eps),
+                        cfg, kind, window, causal)
+    if "ffn" not in params:
+        return h, BlockAux.zero(x.device)
+    f, aux = _ffn(params, common.rmsnorm(params["norm2"], h, cfg.norm_eps),
+                  cfg, is_moe)
+    return h + f, aux
+
+
+def _layer_plan(cfg: ModelConfig):
+    """(group_size, n_groups, [(kind, is_moe)] per position in a group):
+    homogeneous stacks are groups of one layer, hybrid stacks groups of
+    ``attn_every`` layers."""
+    kinds = cfg.layer_kinds()
+    moes = tuple(cfg.is_moe_layer(i) for i in range(cfg.n_layers))
+    if cfg.family == "hybrid" and cfg.attn_every > 0:
+        gs = cfg.attn_every
+        if cfg.n_layers % gs:
+            raise ValueError("n_layers must be a multiple of attn_every")
+        plan = tuple(zip(kinds[:gs], moes[:gs], strict=True))
+        for g in range(cfg.n_layers // gs):
+            if tuple(zip(kinds[g * gs:(g + 1) * gs], moes[g * gs:(g + 1) * gs],
+                         strict=True)) != plan:
+                raise ValueError("every group must have the same plan")
+        return gs, cfg.n_layers // gs, plan
+    if any(k != kinds[0] for k in kinds) or any(m != moes[0] for m in moes):
+        raise ValueError("a non-hybrid stack must be homogeneous")
+    return 1, cfg.n_layers, ((kinds[0], moes[0]),)
+
+
+def stack_specs(cfg: ModelConfig):
+    _, ng, plan = _layer_plan(cfg)
+    return [{f"l{i}": block_specs(cfg, kind, is_moe, ng)
+             for i, (kind, is_moe) in enumerate(plan)} for _ in range(ng)]
+
+
+def stack_full(params, x, cfg: ModelConfig, window: int = 0,
+               causal: bool = True):
+    """Run the layer stack over a sequence.  Returns ``(hidden, aux)``;
+    ``hidden`` is the Cumulative Residual Feature (CRF): the input plus
+    every residual update.  ``aux`` is the mean over layers, as the
+    reference's."""
+    _, ng, plan = _layer_plan(cfg)
+    h = x
+    aux = BlockAux.zero(x.device)
+    for group in params:
+        for i, (kind, is_moe) in enumerate(plan):
+            h, a = block_full(group[f"l{i}"], h, cfg, kind, is_moe,
+                              window=window, causal=causal)
+            aux = aux + a
+    return h, BlockAux(*(a / (ng * len(plan)) for a in aux))

@@ -22,15 +22,21 @@ class ParamSpec:
     of the same leaf in the reference's (layer-stacked) tree, which the
     fan-in rule reads."""
     shape: Tuple[int, ...]
-    init: str = "normal"                     # normal | zeros | ones
+    init: str = "normal"                     # normal | zeros | ones | embed
     ref_shape: Optional[Tuple[int, ...]] = None
+    scale: Optional[float] = None            # stddev override
 
     def std(self) -> float:
-        """The reference's fan-in rule on its own leaf shape: dim 0 for
-        2-D and higher, dim 1 for 3-D (stacked 2-D kernels), so stacked
-        4-D attention leaves ``[n_layers, d, H, hd]`` take the layer
-        count as fan-in — copied as is, so both packages draw from one
-        distribution."""
+        """The reference's rules: an explicit ``scale`` wins; ``embed``
+        draws with 0.02; otherwise the fan-in rule on the reference's
+        own leaf shape: dim 0 for 2-D and higher, dim 1 for 3-D (stacked
+        2-D kernels), so stacked 4-D attention leaves ``[n_layers, d, H,
+        hd]`` take the layer count as fan-in — copied as is, so both
+        packages draw from one distribution."""
+        if self.scale is not None:
+            return self.scale
+        if self.init == "embed":
+            return 0.02
         shape = self.ref_shape or self.shape
         fan_in = shape[0] if len(shape) >= 2 else max(shape[0], 1)
         if len(shape) == 3:
@@ -100,3 +106,47 @@ def dense(params, x: torch.Tensor) -> torch.Tensor:
     if "bias" in params:
         y = y + params["bias"].to(x.dtype)
     return y
+
+
+def rmsnorm_specs(d: int):
+    return {"scale": ParamSpec((d,), init="ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm computed in float32, cast back to x's type."""
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    var = x.square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(dtype)
+
+
+def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """Split-half (not interleaved) RoPE.  x: [..., seq, heads,
+    head_dim]; positions: [..., seq]."""
+    freqs = rope_frequencies(x.shape[-1], theta, x.device)      # [hd/2]
+    angles = positions[..., :, None].to(torch.float32) * freqs  # [.., s, hd/2]
+    angles = angles[..., None, :]                               # heads
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def embed_specs(vocab: int, d: int):
+    return {"embedding": ParamSpec((vocab, d), init="embed")}
+
+
+def embed(params, tokens: torch.Tensor) -> torch.Tensor:
+    return params["embedding"][tokens]
+
+
+def unembed(params, x: torch.Tensor) -> torch.Tensor:
+    return x @ params["embedding"].T.to(x.dtype)

@@ -12,6 +12,10 @@ projections ``wq/wk/wv [d, H, hd]`` and ``wo [H, hd, d]`` are stored as
 ``[d, d]`` matrices.  ``double_block`` computes the joint attention once
 and projects each stream's slice with its own ``wo`` (the reference
 computes the same attention once per stream).
+
+``backbone_denoiser_*`` wrap an assigned LM architecture (a
+``ModelConfig``, e.g. mamba2-370m) as the denoiser: patch and time
+embeddings around its non-causal layer stack, whose output is the CRF.
 """
 from __future__ import annotations
 
@@ -21,9 +25,9 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import DiTConfig
+from repro_torch.configs.base import DiTConfig, ModelConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.models import common
+from repro_torch.models import blocks, common
 from repro_torch.models.common import ParamSpec
 
 
@@ -263,3 +267,51 @@ def dit_from_crf(params, crf: torch.Tensor, t: torch.Tensor,
     """FreqCa skip path: predicted CRF -> velocity (final layer only)."""
     cond = _time_cond(params, t, cfg, crf.dtype)
     return _final_layer(params, crf, cond, cfg, h, w)
+
+
+# ---------------------------------------------------------------------------
+# assigned-architecture backbones as denoisers
+# ---------------------------------------------------------------------------
+
+def backbone_denoiser_specs(cfg: ModelConfig, patch_size: int = 2,
+                            in_channels: int = 4, time_dim: int = 256):
+    pdim = patch_size * patch_size * in_channels
+    return {
+        "patch_proj": common.dense_specs(pdim, cfg.d_model, use_bias=True),
+        "time_mlp1": common.dense_specs(time_dim, cfg.d_model,
+                                        use_bias=True),
+        "time_mlp2": common.dense_specs(cfg.d_model, cfg.d_model,
+                                        use_bias=True),
+        "stack": blocks.stack_specs(cfg),
+        "final_norm": common.rmsnorm_specs(cfg.d_model),
+        "final_proj": ParamSpec((cfg.d_model, pdim), init="zeros"),
+    }
+
+
+def backbone_denoiser_forward(params, latents: torch.Tensor, t: torch.Tensor,
+                              cfg: ModelConfig, patch_size: int = 2,
+                              time_dim: int = 256) -> DenoiserOutput:
+    """latents [B, H, W, C]; t [B] -> (velocity, CRF [B, S, d])."""
+    b, hh, ww, c = latents.shape
+    dtype = torch_dtype(cfg.dtype)
+    x = common.dense(params["patch_proj"],
+                     patchify(latents.to(dtype), patch_size))
+    x = x + _pos_embedding(x.shape[1], cfg.d_model, x.device).to(dtype)[None]
+    emb = timestep_embedding(t, time_dim).to(dtype)
+    temb = common.dense(params["time_mlp2"],
+                        F.silu(common.dense(params["time_mlp1"], emb)))
+    x = x + temb[:, None, :]
+    h, _ = blocks.stack_full(params["stack"], x, cfg, causal=False)
+    velocity = backbone_denoiser_from_crf(params, h, cfg, hh, ww, patch_size,
+                                          c)
+    return DenoiserOutput(velocity=velocity, crf=h)
+
+
+def backbone_denoiser_from_crf(params, crf: torch.Tensor, cfg: ModelConfig,
+                               h: int, w: int, patch_size: int = 2,
+                               in_channels: int = 4) -> torch.Tensor:
+    """FreqCa skip path of a backbone denoiser: final norm and
+    projection only."""
+    y = common.rmsnorm(params["final_norm"], crf, cfg.norm_eps)
+    y = y @ params["final_proj"].to(y.dtype)
+    return unpatchify(y, h, w, patch_size, in_channels)

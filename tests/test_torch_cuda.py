@@ -5,8 +5,10 @@ without one it skips (the CUDA kernels have no interpret mode).  On the
 card:  ``PYTHONPATH=src python -m pytest -q -m hopper tests/``.
 
 Tolerances, as max |kernel − plain| / max |plain|: float32 1e-5 (the
-two sum in different orders), bf16 2e-2 (one rounding of the output,
-and the plain attention's bf16 rounding of probabilities).
+two sum in different orders; 1e-4 for the SSD scan, whose chunk sums
+run over 256 tokens and whose decays multiply), bf16 2e-2 (one rounding
+of the output, and the plain attention's bf16 rounding of
+probabilities).
 """
 import pytest
 import torch
@@ -105,3 +107,45 @@ def test_freqca_predict_fused_kernel(card, dtype, shape):
     got = ops.freqca_predict(low, hist, ts, t_q, 2)
     assert ops.launch_counts()["freqca_predict_fused"] == 1
     _close((got,), (ref.freqca_predict_ref(low, hist, ts, t_q, 2),), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hq,hkv,hd,causal,window", [
+    (200, 4, 1, 128, True, 0),      # causal GQA, ragged S
+    (256, 8, 2, 64, True, 48),      # causal, window inside a tile
+    (192, 4, 2, 128, False, 0),     # non-causal GQA
+    (130, 2, 2, 64, False, 70),     # non-causal window, ragged
+])
+def test_flash_kernel_masked_and_gqa_forms(card, dtype, s, hq, hkv, hd,
+                                           causal, window):
+    """Each new form against the plain masked GQA attention; tiles
+    wholly above the diagonal or before the window are skipped."""
+    q = torch.randn(2, s, hq, hd, device=card).to(dtype)
+    k, v = (torch.randn(2, s, hkv, hd, device=card).to(dtype) for _ in "kv")
+    ops.reset_launch_counts()
+    got = ops.flash(q, k, v, hq // hkv, causal=causal, window=window)
+    assert ops.launch_counts()["flash_attention"] == 1
+    _close((got,), (ref.attention_ref(q, k, v, hq // hkv, causal, window),),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk,n", [(512, 256, 128), (384, 128, 64),
+                                       (256, 64, 16)])
+def test_ssd_chunk_scan_kernel(card, dtype, s, chunk, n):
+    """x, B and C as column slices of one conv output (strided, as the
+    mamba2 block passes them); float32 dt."""
+    b, h, p = 2, 3, 64
+    xbc = torch.randn(b, s, h * p + 2 * n, device=card) * 0.5
+    xbc = xbc.to(dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(torch.randn(b, s, h, device=card))
+    a = -torch.exp(torch.randn(h, device=card) * 0.3)
+    ops.reset_launch_counts()
+    got = ops.ssd(x, dt, a, bm, cm, chunk)
+    assert ops.launch_counts()["ssd_chunk_scan"] == 1
+    want = ref.ssd_chunk_scan_ref(x, dt, a, bm, cm, chunk)
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert got.dtype == dtype and float(err) <= tol, float(err)

@@ -39,3 +39,16 @@ def test_every_port_module_imports_without_a_card():
         rel = path.relative_to(REPO / "src").with_suffix("")
         name = ".".join(p for p in rel.parts if p != "__init__")
         importlib.import_module(name)
+
+
+@pytest.mark.parametrize("name", [
+    "repro_torch.configs.yi_9b", "repro_torch.configs.mamba2_370m",
+    "repro_torch.models.attention", "repro_torch.models.mlp",
+    "repro_torch.models.ssm", "repro_torch.models.blocks",
+    "repro_torch.models.transformer", "repro_torch.kernels.ssd_scan"])
+def test_assigned_backbone_modules_are_walked(name):
+    """The third slice's modules are among the files walked above."""
+    walked = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
+              for p in FILES if p.is_relative_to(REPO / "src")}
+    assert name in walked
+    importlib.import_module(name)

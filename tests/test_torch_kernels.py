@@ -24,10 +24,13 @@ from repro.core.policies import base as jbase
 from repro.kernels import dct as jdct
 from repro.kernels import flash_attention as jfa
 from repro.kernels import freqca_fused as jfused
+from repro.kernels import ref as jref
+from repro.kernels import ssd_scan as jssd
+from repro.models import attention as jattn
 from repro_torch.core import frequency as tfreq
 from repro_torch.core.policies import base as tbase
 from repro_torch.kernels import (build, dct, flash_attention, freqca_fused,
-                                 ops, ref)
+                                 ops, ref, ssd_scan)
 
 ATOL = 1e-5
 
@@ -90,6 +93,82 @@ def test_flash_attention_matches_pallas(s, h, hd):
                                q_block=32, kv_block=32, interpret=True)
     got = ops.flash(*(torch.from_numpy(a) for a in (q, k, v)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+def _rel_close(got, want, rtol=ATOL):
+    """max |got − want| <= rtol · max |want| (float32, unit-scale)."""
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(np.asarray(got, np.float32), want,
+                               atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("s,hq,hkv", [(64, 4, 2), (128, 8, 8), (64, 6, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 24),
+                                           (False, 0)])
+def test_flash_forms_match_pallas(s, hq, hkv, causal, window):
+    """Every (causal, window, q_per_kv) case of repro's own flash test:
+    the port's plain attention (the op layer's CPU route) against the
+    Pallas kernel in interpret mode and the reference's ``_sdpa``.
+    Tolerance 1e-5 relative to the largest output (float32)."""
+    rng = np.random.default_rng(14)
+    q = rng.standard_normal((2, s, hq, 16)).astype(np.float32)
+    k, v = (rng.standard_normal((2, s, hkv, 16)).astype(np.float32)
+            for _ in "kv")
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), hq // hkv, causal=causal,
+                               window=window, q_block=32, kv_block=32,
+                               interpret=True)
+    got = ops.flash(*(torch.from_numpy(a) for a in (q, k, v)), hq // hkv,
+                    causal=causal, window=window)
+    _rel_close(got.numpy(), want)
+    mask = (jattn.causal_mask(s, window=window) if causal
+            else jnp.ones((1, s, s), bool))
+    _rel_close(got.numpy(), jattn._sdpa(jnp.asarray(q), jnp.asarray(k),
+                                        jnp.asarray(v), mask, hq // hkv))
+
+
+def _ssd_inputs(b, s, h, p, n, seed):
+    """repro's own SSD test inputs, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((b, s, h, p)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a = -np.exp(rng.standard_normal(h) * 0.3).astype(np.float32)
+    bm = (rng.standard_normal((b, s, n)) * 0.5).astype(np.float32)
+    cm = (rng.standard_normal((b, s, n)) * 0.5).astype(np.float32)
+    return x, dt, a, bm, cm
+
+
+@pytest.mark.parametrize("s,chunk", [(32, 8), (64, 16), (128, 32),
+                                     (64, 64)])
+def test_ssd_chunk_scan_ref_matches_pallas_and_naive(s, chunk):
+    """The port's plain SSD scan (the op layer's CPU route) against the
+    Pallas kernel in interpret mode, and both naive recurrences.
+    Tolerance 1e-5 relative to the largest output (float32)."""
+    ins = _ssd_inputs(2, s, 2, 16, 8, seed=15)
+    want = jssd.ssd_chunk_scan(*(jnp.asarray(a) for a in ins), chunk,
+                               interpret=True)
+    got = ops.ssd(*(torch.from_numpy(a) for a in ins), chunk)
+    assert got.shape == (2, s, 2, 16) and got.dtype == torch.float32
+    _rel_close(got.numpy(), want)
+    naive, state = ref.ssd_naive_ref(*(torch.from_numpy(a) for a in ins))
+    jnaive, jstate = jref.ssd_naive_ref(*(jnp.asarray(a) for a in ins))
+    _rel_close(naive.numpy(), jnaive)
+    _rel_close(state.numpy(), jstate)
+    _rel_close(got.numpy(), naive.numpy())
+
+
+def test_ssd_chunk_scan_ref_keeps_bf16_and_clips():
+    """Output in x's type; a decay past the −60 clip stays finite (the
+    upper triangle's overflowing exp is selected away, not multiplied)."""
+    x, dt, a, bm, cm = (torch.from_numpy(t) for t in
+                        _ssd_inputs(1, 32, 2, 16, 8, seed=16))
+    y = ref.ssd_chunk_scan_ref(x.to(torch.bfloat16), dt * 40.0, a,
+                               bm.to(torch.bfloat16), cm.to(torch.bfloat16),
+                               32)
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y).all()
+    with pytest.raises(ValueError, match="multiple of the chunk"):
+        ref.ssd_chunk_scan_ref(x[:, :24], dt[:, :24], a, bm[:, :24],
+                               cm[:, :24], 16)
 
 
 def test_attention_ref_is_the_full_logits_branch():
@@ -186,7 +265,8 @@ _GRID = (1.0 - np.arange(21) / 20).astype(np.float32)
 
 @pytest.mark.parametrize("call", ["band_split", "fused", "flash",
                                   "token_basis_matmul", "band_split_full",
-                                  "freqca_predict_fused"])
+                                  "freqca_predict_fused", "flash_causal_gqa",
+                                  "ssd"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: it never computes the
     plain version itself (the op layer alone routes CPU tensors)."""
@@ -204,6 +284,12 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
             dct.token_basis_matmul(torch.eye(64), x[0])
         elif call == "band_split_full":
             dct.band_split(x[0], 0.0625, "dct")
+        elif call == "flash_causal_gqa":
+            flash_attention.flash_attention(x, x[:, :, :16], x[:, :, :16], 4,
+                                            causal=True, window=16)
+        elif call == "ssd":
+            ssd_scan.ssd_chunk_scan(x, x[..., 0], torch.zeros(64),
+                                    x[:, :, 0], x[:, :, 0], 64)
         else:
             freqca_fused.freqca_predict_fused(
                 x[0], torch.zeros((3, 64, 64, 64)), torch.ones(3),
@@ -219,11 +305,36 @@ def test_cpu_dispatch_leaves_launch_counts_untouched():
     ops.band_split(x)
     ops.freqca_predict(x, torch.randn(3, 1, 64, 32),
                        torch.tensor([0.9, 0.8, 0.7]), torch.tensor(0.6))
+    ops.flash(torch.randn(1, 64, 4, 64), *(torch.randn(1, 64, 1, 64)
+                                           for _ in "kv"), 4, causal=True)
+    ops.ssd(*(torch.from_numpy(t) for t in _ssd_inputs(1, 64, 2, 64, 16, 0)),
+            64)
     assert ops.launch_counts() == {"band_split_spectral": 0,
                                    "freqca_predict_fused_spectral": 0,
                                    "flash_attention": 0,
                                    "token_basis_matmul": 0,
-                                   "freqca_predict_fused": 0}
+                                   "freqca_predict_fused": 0,
+                                   "ssd_chunk_scan": 0}
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "state", "chunk", "types"])
+def test_ssd_wrapper_rejects_shapes_the_kernel_lacks(bad):
+    """Checked before the device: the kernel takes head_dim 64, d_state a
+    multiple of 8 up to 128, a chunk a multiple of 64 up to 256."""
+    b, s, h, p, n, chunk = 1, 128, 2, 64, 16, 64
+    if bad == "head_dim":
+        p = 32
+    elif bad == "state":
+        n = 12
+    elif bad == "chunk":
+        chunk = 32
+    x, dt, a, bm, cm = (torch.from_numpy(t) for t in
+                        _ssd_inputs(b, s, h, p, n, seed=17))
+    if bad == "types":
+        dt = dt.to(torch.bfloat16)
+    with pytest.raises(TypeError if bad == "types" else ValueError,
+                       match="ssd_chunk_scan"):
+        ssd_scan.ssd_chunk_scan(x, dt, a, bm, cm, chunk)
 
 
 def test_build_targets_sm90a_and_hashes_sources():

@@ -5,6 +5,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device    — card name, power limit and compute capability (9, 0);
 2. build     — nvcc builds the six kernels from ``csrc/`` in parallel;
+               the flash library's SASS must hold wgmma (HGMMA) and TMA
+               loads (UTMALDG), and ptxas must report no spills, no
+               ignored setmaxnreg (C7508) and no serialised wgmma
+               (C7512) for its bf16 kernels;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer), in bf16 and float32,
@@ -45,6 +49,7 @@ import argparse
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -57,8 +62,10 @@ HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
               "float32": 67e12}       # float32 outside the tensor cores
 # max |kernel − plain| / max |plain| allowed: float32 differs by the
-# order of long float32 sums; bf16 by one rounding of the output (and,
-# for attention, the plain version's bf16 rounding of probabilities)
+# order of long float32 sums; bf16 by one rounding of the output (for
+# attention, kernel and plain version both round the probabilities to
+# bf16 before P·V, so they differ by the order of the sums, the
+# unnormalised rounding of the kernel's p and the output's rounding)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 N_STEPS = 20                          # Euler steps of the full-width phases
 # the kernels of the served main path (the others run on the analysis
@@ -128,6 +135,42 @@ def compare(name: str, dtype: str, got, want):
     return err, rel
 
 
+def rate(flops: float, ms: float, b_ms: float) -> str:
+    """A kernel's rate and its share of the bound, for the log."""
+    return (f"rate={flops / ms / 1e9:.1f} TFLOP/s "
+            f"bound/ms={b_ms / ms:.3f}")
+
+
+def flash_build_checks() -> None:
+    """The bf16 flash kernel is the Hopper design: its library's SASS
+    holds wgmma (HGMMA) and TMA loads (UTMALDG), and ptxas reports no
+    spills, no ignored setmaxnreg (warning C7508) and no wgmma
+    serialised for want of registers (warning C7512) for it."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run(
+        [str(cuobjdump), "-sass", str(build.lib_path("flash_attention"))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    report = build.ptxas_log("flash_attention")
+    spills = {}
+    for entry in report.split("Compiling entry function")[1:]:
+        if "flash_fwd_hopper_kernel" in entry.splitlines()[0]:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", entry)
+            spills[entry.split("'")[1]] = (int(m.group(1)) + int(m.group(2))
+                                           if m else -1)
+    warnings = {w: w in report for w in ("C7508", "C7512")}
+    log(f"flash SASS: {counts}; bf16 instantiations {len(spills)}, spill "
+        f"bytes {sorted(set(spills.values()))}; "
+        + ", ".join(f"{w} {'present' if on else 'absent'}"
+                    for w, on in warnings.items()))
+    if min(counts.values()) == 0 or not spills or any(spills.values()) or \
+            any(warnings.values()):
+        raise AssertionError(f"flash build: SASS {counts}, spills {spills}, "
+                             f"warnings {warnings}")
+
+
 def kernel_phase(main_dtype: dict) -> dict:
     """Each kernel vs its plain version at FLUX shapes; returns the
     main-path dtype's row per kernel."""
@@ -155,7 +198,9 @@ def kernel_phase(main_dtype: dict) -> dict:
             f"max_rel_err={rel:.3e} (tol {TOLERANCE[dtype]:.0e}) "
             f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} "
             f"({b_by}) library_ms="
-            f"{'null' if t_l is None else f'{t_l:.4f}'}")
+            f"{'null' if t_l is None else f'{t_l:.4f}'}"
+            + (f" {rate(flops, t_k, b_ms)}" if name.startswith("flash")
+               else ""))
         if dtype == main_dtype.get(name):
             rows[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
                           "bound_ms": b_ms, "bound_by": b_by,
@@ -1094,13 +1139,14 @@ def lm_phase(cfg=None, s: int = 32768, device: str = "cuda") -> dict:
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
         t_l = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), reps=2)
-        b_ms, b_by = bound_ms(
-            (2 * cfg.n_heads + 2 * hkv) * s * hd * 2,
-            4 * cfg.n_heads * hd * attention_pairs(s, True, 0), "bfloat16")
+        flops = 4 * cfg.n_heads * hd * attention_pairs(s, True, 0)
+        b_ms, b_by = bound_ms((2 * cfg.n_heads + 2 * hkv) * s * hd * 2,
+                              flops, "bfloat16")
         log(f"lm: breakdown: causal GQA flash [1, {s}, {cfg.n_heads}/{hkv}, "
             f"{hd}] {t_k:.3f} ms per layer x {cfg.n_layers} = "
             f"{t_k * cfg.n_layers / 1e3:.3f} s of the forward; bound "
-            f"{b_ms:.4f} ms ({b_by}); library (SDPA) {t_l:.3f} ms")
+            f"{b_ms:.4f} ms ({b_by}); library (SDPA) {t_l:.3f} ms; "
+            f"{rate(flops, t_k, b_ms)}")
     return counts
 
 
@@ -1138,10 +1184,11 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     secs = build.build()
     log(f"build: {secs} (wall {time.perf_counter() - t0:.1f} s)")
-    for name, text in build.ptxas_report.items():
-        for line in text.splitlines():
+    for name in build.KERNELS:
+        for line in build.ptxas_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
+    flash_build_checks()
 
     # each kernel's row is the type its path runs it in: the served CRF
     # is bf16 with float32 rings, and the legacy cache state float32

@@ -32,8 +32,6 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-# ptxas' register / shared-memory / spill report of each build
-ptxas_report: Dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -52,11 +50,19 @@ def lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def ptxas_log(name: str) -> str:
+    """nvcc's output for the library of ``name`` (ptxas' registers,
+    shared memory, spills and warnings per kernel), kept beside it."""
+    return lib_path(name).with_suffix(".ptxas").read_text()
+
+
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     """Compile every missing library of ``names`` (default: all) in
     parallel; returns ``{name: seconds}`` for those built.  Raises with
     nvcc's output if any build fails."""
-    names = [n for n in (names or KERNELS) if not lib_path(n).exists()]
+    names = [n for n in (names or KERNELS)
+             if not (lib_path(n).exists()
+                     and lib_path(n).with_suffix(".ptxas").exists())]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for n in names:
@@ -69,10 +75,10 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     for n, (proc, tmp, t0) in procs.items():
         out, _ = proc.communicate()
         seconds[n] = time.perf_counter() - t0
-        ptxas_report[n] = out
         if proc.returncode != 0:
             failed.append(f"--- nvcc {n} (exit {proc.returncode}):\n{out}")
             continue
+        lib_path(n).with_suffix(".ptxas").write_text(out)
         os.replace(tmp, lib_path(n))   # atomic: no half-written library
     if failed:
         raise RuntimeError("kernel build failed\n" + "\n".join(failed))

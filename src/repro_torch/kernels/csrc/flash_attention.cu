@@ -23,42 +23,74 @@
 // non-causal window lies wholly past T — averages the keys its block
 // visits, where the reference averages all T; self-attention never has
 // such a row.)  S and T need not be multiples of the tiles: ragged
-// edges are masked.  The probabilities are not rounded to the input
-// type for the PV product (the reference's full-logits path rounds them
-// to v's type first, hence the two differ at bf16 by that rounding).
+// edges are masked.  Under the causal mask the query tiles with the most
+// keys are scheduled first.  Blocks that read one kv head are neighbours
+// in the grid, so L2 serves their shared k and v: in the bf16 kernel the
+// q_per_kv heads of a group at one query tile, then the group's next
+// query tile (group-major); in the float32 kernel the query tiles of a
+// head, then the next head of its group.  A tile whose every key
+// every query of a row block keeps skips the mask arithmetic (most tiles
+// of the causal form); the unmasked form is a separate instantiation
+// that tests only the ragged edge.
 //
 // What bounds it on an H100: operations.  4·B·H·S·T·hd FLOP unmasked
 // (half that causal) — at FLUX's joint sequence (S = T = 4608, 24 heads
 // of 128) 261 GFLOP per lane, 264 us at the 989 TFLOP/s bf16
 // tensor-core peak, against ~113 MB of q, k, v and o traffic (34 us);
-// yi-9b's causal prefill at 32768 tokens, 8.8 TFLOP per layer.
+// yi-9b's causal prefill at 32768 tokens, 8.8 TFLOP per layer (8.9 ms).
+// Beside the two products, each logit costs an exp2 on the SFU (16 a
+// clock per SM) and ~8 float32 operations (scale, max, subtract, sum,
+// convert; 128 a clock): at hd 128 that is ~1/8 of a clock per logit,
+// as much as its 4·hd = 512 FLOP take on the tensor cores (~4096 a
+// clock).  Unless the two overlap, the kernel runs at half the peak.
 //
-// Design: a block owns 64 queries of one (b, h) and walks its visible
-// keys in tiles of 64 held in shared memory; logits never reach device
-// memory.  Under the causal mask the blocks with the most tiles (the
-// last queries) are scheduled first.  A tile whose every key every query
-// of the block keeps skips the mask arithmetic (most tiles of the causal
-// form); the unmasked form is a separate instantiation that tests only
-// the ragged edge.
-// - bf16 (the main path): 4 warps of 16 query rows each run
-//   mma.sync m16n8k16 with float32 accumulation.  q stays in registers
-//   as A fragments; k and v tiles are read with ldmatrix (v transposed)
-//   from rows padded by 16 bytes, which makes the reads conflict-free.
-//   The logits' accumulator layout is the A layout of the PV product,
-//   so p never leaves registers; it enters that product as two bf16
-//   terms (hi + lo, ~16 mantissa bits), which doubles the PV mma count
-//   but keeps p near float32.  The k/v tiles are double-buffered:
-//   cp.async copies the next tile while the warps multiply this one.
-//   The softmax runs in base 2 (log2 e folded into the logit scale).
+// bf16 (the main path), designed for Hopper: one block of three
+// warpgroups owns 128 queries of one (b, h).
+// - Warpgroup 0 is the producer.  One of its threads issues TMA loads
+//   (cp.async.bulk.tensor, 4-D maps over [B, S, H, hd] and [B, T, Hkv,
+//   hd], box of one head) of the q tile once and of each k and v tile
+//   into a ring of two stages in shared memory; each load completes on
+//   an mbarrier with its byte count.  TMA zero-fills rows past S or T.
+//   The 128-byte swizzle caps a box's row at 64 bf16, so an hd-128 tile
+//   arrives as two 64-wide halves.  Consumers free a stage's k and its
+//   v through two more mbarriers, so the producer keeps the next tiles
+//   in flight while they multiply.  setmaxnreg takes the producer down
+//   to 24 registers and the consumers up to 240.
+// - Warpgroups 1 and 2 each own 64 query rows.  S = Q·Kᵀ is wgmma
+//   m64nBKk16 with both operands read from the swizzled tiles through
+//   descriptors (K-major as TMA lays them; k-steps 4-7 of hd 128 point
+//   into the second half).  The softmax runs in registers in base 2
+//   (log2 e folded into the logit scale); a row's logits sit in the 4
+//   threads of a quad.  The logits' accumulator layout is the A register
+//   layout of the next wgmma, so P is rounded once to bf16 in place and
+//   O += P·V runs with A from registers and V read from shared memory as
+//   an MN-major operand (the descriptor's transpose bit; nothing is
+//   transposed in memory).  The kernel and the plain version both round
+//   the probabilities to bf16 before P·V.
+// - The overlap: each consumer issues S of tile i and then P·V of tile
+//   i - 1, waits for S alone and runs tile i's softmax while P·V runs
+//   on the tensor cores; the output rows take tile i's rescale once P·V
+//   is done.  The two consumers also run out of step with each other.
+// - Tiles: S, the output and P of the previous tile are live together,
+//   BK/2 + hd/2 + BK/4 registers a thread.  ptxas (CUDA 12.9) allocated
+//   the consumers no more than the 168 registers a thread that 384
+//   threads get at launch, whatever setmaxnreg grants at run time, so
+//   at hd 128 the key tile is 96 (136 live registers; 128 keys spilled,
+//   112 too).  hd 64 keeps 128 keys.  Shared memory at hd 128: q 32 KB
+//   + 2 stages x (k 24 KB + v 24 KB) = 128 KB; one block per SM.
 // - float32: plain float32 FMAs from shared memory (256 threads, 4x4
 //   logits and 4x(hd/16) outputs per thread), q and k tiles transposed
 //   with a padded stride so the inner loops read conflict-free float4s.
+// The host code fetches cuTensorMapEncodeTiled through
+// cudaGetDriverEntryPoint, so the library links no libcuda.
+#include <cuda.h>   // CUtensorMap and its enums (types only)
+
 #include "common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // queries per block
-constexpr int kBK = 64;        // keys per tile
+constexpr int kBQ = 64;        // float32: queries per block
+constexpr int kBK = 64;        // float32: keys per tile
 constexpr int kLD = kBQ + 4;   // padded stride of the transposed tiles
 constexpr float kNegInf = -1e30f;
 
@@ -72,19 +104,21 @@ struct Mask {
     return kpos < Tk && (!causal || kpos <= qpos) &&
            (window <= 0 || kpos > qpos - window);
   }
-  // every query in [q0, q0 + kBQ) keeps every key in [k0, k0 + kBK): the
-  // tile needs no mask (the non-causal tiles of a multiple-of-64 T, and
+  // every query in [q0, q0 + BQ) keeps every key in [k0, k0 + BK): the
+  // tile needs no mask (the non-causal tiles of a multiple-of-BK T, and
   // the causal tiles wholly below the diagonal)
+  template <int BQ = kBQ, int BK = kBK>
   __device__ __forceinline__ bool full(int k0, int q0) const {
-    return k0 + kBK <= Tk && (!causal || k0 + kBK - 1 <= q0) &&
-           (window <= 0 || k0 > q0 + kBQ - 1 - window);
+    return k0 + BK <= Tk && (!causal || k0 + BK - 1 <= q0) &&
+           (window <= 0 || k0 > q0 + BQ - 1 - window);
   }
-  // [t0, t1): the key tiles some query in [q0, q0 + kBQ) can see
+  // [t0, t1): the key tiles some query in [q0, q0 + BQ) can see
+  template <int BQ = kBQ, int BK = kBK>
   __device__ __forceinline__ void tiles(int q0, int& t0, int& t1) const {
-    const int k_end = causal ? min(Tk, q0 + kBQ) : Tk;
+    const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
     const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-    t0 = k_begin / kBK;
-    t1 = (k_end + kBK - 1) / kBK;
+    t0 = k_begin / BK;
+    t1 = (k_end + BK - 1) / BK;
   }
 };
 
@@ -92,6 +126,27 @@ struct Mask {
 // keys) first, so the longest blocks are not the tail of the grid
 __device__ __forceinline__ int query_tile(const Mask& mk) {
   return mk.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+}
+
+// bf16: the block's query tile, batch and head in group-major order.  In
+// the order blocks are issued (x fastest, then y), the q_per_kv query
+// heads of one kv head at one query tile are neighbours, then come that
+// group's next query tile (under the causal mask the last tiles, the most
+// keys, first) and then the next kv head: blocks that read the same k
+// and v tiles run at the same time, so L2 serves them.
+struct BlockTile {
+  int qt, b, h, hkv;
+};
+__device__ __forceinline__ BlockTile group_major_tile(const Mask& mk, int H,
+                                                      int Hkv) {
+  const int g = H / Hkv, n_qt = gridDim.x;
+  int r = blockIdx.y * gridDim.x + blockIdx.x;
+  const int j = r % g;
+  r /= g;
+  const int qi = r % n_qt;
+  r /= n_qt;
+  const int hkv = r % Hkv;
+  return {mk.causal ? n_qt - 1 - qi : qi, r / Hkv, hkv * g + j, hkv};
 }
 
 __device__ __forceinline__ void load4(const float* p, bool ok,
@@ -253,39 +308,214 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// --- bf16: tensor-core (mma.sync m16n8k16) version ----------------------
+// --- bf16: Hopper version (TMA, mbarriers, wgmma, warp-specialised) ---
 
-constexpr int kWarps = 4;            // 16 query rows per warp
+constexpr int kHQ = 128;             // queries per block (2 x 64 rows)
+constexpr int kStages = 2;           // k / v ring depth
+constexpr int kRow = 128;            // bytes of a swizzled row: 64 bf16
+constexpr int kHThreads = 3 * 128;   // producer + two consumer warpgroups
+constexpr int kConsumerWarps = 8;
+
+template <int HD>
+struct Tiles {
+  static constexpr int kKeys = HD == 128 ? 96 : 128;   // keys per k / v tile
+  static constexpr int kHalves = HD / 64;              // 64-wide halves
+  static constexpr uint32_t kQHalf = kHQ * kRow;
+  static constexpr uint32_t kKHalf = kKeys * kRow;
+  static constexpr uint32_t kQ = kHalves * kQHalf;   // q tile bytes
+  static constexpr uint32_t kKV = kHalves * kKHalf;  // k (or v) tile bytes
+  // 1024 bytes of slack to align the swizzled tiles, q, the ring of k
+  // and v stages, then the mbarriers
+  static constexpr size_t kSmem =
+      1024 + kQ + 2 * kStages * kKV + 8 * (1 + 4 * kStages);
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(bar), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
+// arrive once and add the bytes the TMA loads will bring to this phase
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
 }
 
-// d += a · b for one 16x8x16 bf16 tile, float32 accumulation
-__device__ __forceinline__ void mma_bf16(float (&d)[4],
-                                         const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+// Wait for the phase of the given parity to complete.  A wait that lasts
+// ~10 s is a deadlock: trap, so the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > 20000000000LL) __trap();
+}
+
+// one box of a 4-D tensor map (hd, heads, tokens, batch) into shared
+// memory; completes on bar with its bytes
+__device__ __forceinline__ void tma_load(const CUtensorMap* map, uint32_t dst,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+         "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// wait until at most N committed groups are in flight (they complete in
+// order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// pin the registers a wgmma reads or writes: the compiler may not move
+// their other accesses across this point (placed before wgmma.fence and
+// after the wait that completes the product)
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
+}
+
+#define D8(i)                                                          \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),          \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+
+// S = Q·Kᵀ: A (64 x 16) and B (N x 16) from shared memory, both K-major
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<96>(float (&d)[48], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24),
+        D8(32), D8(40)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24),
+        D8(32), D8(40), D8(48), D8(56)
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// O += P·V: A = P (64 x 16) from registers, B = V (16 x 128) from shared
+// memory, MN-major (the transpose bit)
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24),
+        D8(32), D8(40), D8(48), D8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O += P·V: A = P (64 x 16) from registers, B = V (16 x 64) from shared
+// memory, MN-major (the transpose bit)
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : D8(0), D8(8), D8(16), D8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+#undef D8
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -293,222 +523,329 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// p = hi + lo with hi, lo bf16: the PV product then sees p to ~16
-// mantissa bits, so the probabilities are not rounded to bf16
-__device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(p0, p1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(p0 - hf.x, p1 - hf.y);
+// One 64 x BK tile of logits s (wgmma accumulator layout, see below)
+// against the running max m and normaliser l of this thread's two rows:
+// scale to log2 units, mask, p = exp2(s − m_new) in place.  Returns in
+// corr the factors exp2(m_old − m_new) that rescale the output rows.
+template <int BK, bool MASKED>
+__device__ __forceinline__ void online_softmax(float (&s)[BK / 2],
+                                               float (&m_r)[2],
+                                               float (&l_r)[2],
+                                               float (&corr)[2],
+                                               const Mask& mk, int k0, int qw,
+                                               int r0, int t,
+                                               float scale_log2) {
+  // a tile every row of the warpgroup keeps skips the mask arithmetic,
+  // and its scale is folded into the exponent (one FFMA a logit)
+  const bool full = MASKED ? mk.full<64, BK>(k0, qw) : k0 + BK <= mk.Tk;
+  float sc = scale_log2;
+  if (!full) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int kpos = k0 + 8 * (i / 4) + 2 * t + i % 2;
+      const int qpos = r0 + 8 * ((i / 2) % 2);
+      const bool ok = MASKED ? mk.ok(kpos, qpos) : kpos < mk.Tk;
+      s[i] = ok ? s[i] * scale_log2 : kNegInf;
+    }
+    sc = 1.f;
+  }
+  // a row's BK logits sit in the 4 threads of a quad
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m_r[r], mx * sc);   // sc > 0 keeps the max
+    corr[r] = ex2(m_r[r] - m_new);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * r + e];
+        x = ex2(fmaf(x, sc, -m_new));
+        sum += x;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    l_r[r] = l_r[r] * corr[r] + sum;
+    m_r[r] = m_new;
+  }
 }
 
-// 16-byte global -> shared copy that bypasses registers; src_bytes = 0
-// zero-fills the destination (rows past the end of the sequence)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(src_bytes));
+// P in bf16, rounded once: the logits' accumulator registers 8kk .. 8kk
+// + 7, packed in pairs, are the A fragment of k-step kk of P·V
+template <int BK>
+__device__ __forceinline__ void to_a_fragments(const float (&s)[BK / 2],
+                                               uint32_t (&pa)[BK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      pa[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// wait until at most one committed group (the prefetch) is in flight
-__device__ __forceinline__ void cp_async_wait_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-template <int HD>
-constexpr size_t mma_smem_bytes() {
-  return 2 * 2 * kBK * (HD + 8) * sizeof(__nv_bfloat16);   // 2 stages x (k, v)
-}
-
-// One block of 4 warps owns 64 queries of one (b, h); each warp 16 rows.
-// Fragment layouts are those of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-// a thread holds rows g and g + 8, columns 2t, 2t + 1 of each 8-wide tile.
+// Block: warpgroup 0 loads, warpgroups 1 and 2 each own 64 query rows.
+// wgmma fragment layouts (warp w of the warpgroup, g = lane / 4, t =
+// lane % 4): accumulator register 4j + 2r + e holds row 16w + g + 8r,
+// column 8j + 2t + e.
 template <int HD, bool MASKED>
-__global__ void __launch_bounds__(kWarps * 32, 2)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                     const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v,
-                     __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
-                     Mask mk, float scale_log2) {
-  constexpr int LDK = HD + 8;      // padded rows: conflict-free ldmatrix
-  constexpr int NKS = HD / 16;     // k-steps of the QKᵀ product
-  constexpr int NCT = HD / 8;      // 8-wide output column tiles
-  constexpr int NNT = kBK / 8;     // 8-wide key tiles
-  constexpr int TILE = kBK * LDK;  // elements of one k (or v) tile
-  // two stages of (k, v): the next tile's copy overlaps this tile's mma
-  extern __shared__ __align__(16) __nv_bfloat16 kv_smem[];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const int Tk = mk.Tk;
-  const int qb0 = query_tile(mk) * kBQ;   // the block's first query
-  const int q0 = qb0 + warp * 16;         // this warp's first query
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int hkv = h / (H / Hkv);          // GQA index map, no k/v copy
-  const long rs = (long)H * HD;
-  const long rk = (long)Hkv * HD;
-  const __nv_bfloat16* qp = q + (long)b * S * rs + (long)h * HD;
-  const __nv_bfloat16* kp = k + (long)b * Tk * rk + (long)hkv * HD;
-  const __nv_bfloat16* vp = v + (long)b * Tk * rk + (long)hkv * HD;
-  __nv_bfloat16* op = o + (long)b * S * rs + (long)h * HD;
-
-  // this warp's 16 query rows as A fragments, kept in registers
-  uint32_t qa[NKS][4];
-#pragma unroll
-  for (int ks = 0; ks < NKS; ++ks)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + g + 8 * (r % 2);
-      const int col = 16 * ks + 2 * t + 8 * (r / 2);
-      qa[ks][r] = row < S ? *reinterpret_cast<const uint32_t*>(
-                                qp + row * rs + col)
-                          : 0u;
-    }
-
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  float acc[NCT][4];
-#pragma unroll
-  for (int c = 0; c < NCT; ++c) acc[c][0] = acc[c][1] = acc[c][2] = acc[c][3] = 0.f;
-
-  auto load_tile = [&](int stage, int k0) {
-    __nv_bfloat16* ks = kv_smem + stage * 2 * TILE;
-    __nv_bfloat16* vs = ks + TILE;
-    for (int e = tid; e < kBK * (HD / 8); e += kWarps * 32) {
-      const int j = e / (HD / 8), c = (e % (HD / 8)) * 8, gj = k0 + j;
-      const long row = gj < Tk ? gj : 0;   // in-bounds address, 0 bytes
-      const int bytes = gj < Tk ? 16 : 0;
-      cp_async16(&ks[j * LDK + c], kp + row * rk + c, bytes);
-      cp_async16(&vs[j * LDK + c], vp + row * rk + c, bytes);
-    }
+__global__ void __launch_bounds__(kHThreads, 1)
+flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                        Mask mk, float scale_log2) {
+  using L = Tiles<HD>;
+  constexpr int BK = L::kKeys;
+  extern __shared__ uint8_t smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  const uint32_t sq = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t sk = sq + L::kQ;                // stage st: + st * kKV
+  const uint32_t sv = sk + kStages * L::kKV;
+  // mbarriers: q full, then per stage k full, v full, k empty, v empty
+  const uint32_t bars = sv + kStages * L::kKV;
+  const uint32_t q_full = bars;
+  auto bar = [&](int kind, int st) {
+    return bars + 8 * (1 + kind * kStages + st);
   };
+  auto k_full = [&](int st) { return bar(0, st); };
+  auto v_full = [&](int st) { return bar(1, st); };
+  auto k_empty = [&](int st) { return bar(2, st); };
+  auto v_empty = [&](int st) { return bar(3, st); };
+
+  // GQA: query head h reads kv head hkv = h / g
+  const BlockTile bt = group_major_tile(mk, H, Hkv);
+  const int q0 = bt.qt * kHQ, b = bt.b, h = bt.h, hkv = bt.hkv;
   int t0, t1;
-  mk.tiles(qb0, t0, t1);
+  mk.tiles<kHQ, BK>(q0, t0, t1);
   const int n_tiles = t1 - t0;
-  if (n_tiles > 0) load_tile(0, t0 * kBK);
-  cp_async_commit();
 
-  for (int it = 0; it < n_tiles; ++it) {
-    const int k0 = (t0 + it) * kBK;
-    if (it + 1 < n_tiles) load_tile((it + 1) % 2, k0 + kBK);
-    cp_async_commit();       // (an empty group on the last tile)
-    cp_async_wait_one();     // this tile has landed
-    __syncthreads();
-    const __nv_bfloat16* Ks = kv_smem + (it % 2) * 2 * TILE;
-    const __nv_bfloat16* Vs = Ks + TILE;
-
-    // logits: 16 x 64 per warp
-    float s[NNT][4];
-#pragma unroll
-    for (int nt = 0; nt < NNT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    const int mi = lane / 8, mr = lane % 8;   // ldmatrix: matrix, row
-#pragma unroll
-    for (int ks = 0; ks < NKS; ++ks)
-#pragma unroll
-      for (int nt = 0; nt < NNT; nt += 2) {
-        uint32_t kb[4];
-        ldmatrix_x4(kb, &Ks[(8 * (nt + mi / 2) + mr) * LDK + 16 * ks +
-                            8 * (mi % 2)]);
-        mma_bf16(s[nt], qa[ks], kb[0], kb[1]);
-        mma_bf16(s[nt + 1], qa[ks], kb[2], kb[3]);
-      }
-
-    // online softmax over rows g (ri = 0) and g + 8 (ri = 1); a row's
-    // 64 logits sit in the 4 threads of one quad
-    const bool full = MASKED && mk.full(k0, qb0);
-#pragma unroll
-    for (int ri = 0; ri < 2; ++ri) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int nt = 0; nt < NNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = k0 + 8 * nt + 2 * t + e;
-          const bool ok = MASKED ? full || mk.ok(kpos, q0 + g + 8 * ri)
-                                 : kpos < Tk;
-          float& x = s[nt][2 * ri + e];
-          x = ok ? x * scale_log2 : kNegInf;   // logits in log2 units
-          mx = fmaxf(mx, x);
-        }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[ri], mx);
-      const float corr = exp2f(m_r[ri] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int nt = 0; nt < NNT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float& x = s[nt][2 * ri + e];
-          x = exp2f(x - m_new);
-          sum += x;
-        }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      l_r[ri] = l_r[ri] * corr + sum;
-      m_r[ri] = m_new;
-#pragma unroll
-      for (int c = 0; c < NCT; ++c) {
-        acc[c][2 * ri] *= corr;
-        acc[c][2 * ri + 1] *= corr;
-      }
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(k_empty(st), kConsumerWarps);
+      mbar_init(v_empty(st), kConsumerWarps);
     }
-
-    // acc += p · v: the logits' accumulator layout is the A layout of
-    // the next product (key tiles 2kk, 2kk + 1 form k-step kk)
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      uint32_t ph[4], pl[4];
-      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-      for (int c = 0; c < NCT; c += 2) {
-        uint32_t vb[4];
-        ldmatrix_x4_trans(vb, &Vs[(16 * kk + 8 * (mi % 2) + mr) * LDK +
-                                  8 * (c + mi / 2)]);
-        mma_bf16(acc[c], ph, vb[0], vb[1]);
-        mma_bf16(acc[c], pl, vb[0], vb[1]);
-        mma_bf16(acc[c + 1], ph, vb[2], vb[3]);
-        mma_bf16(acc[c + 1], pl, vb[2], vb[3]);
-      }
-    }
-    __syncthreads();   // this stage is consumed before it is refilled
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
+  if (threadIdx.x < 128) {
+    // producer: one thread issues every load; a stage's k and v are
+    // freed apart (k after Q·Kᵀ, v after P·V one tile later)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::kQ);
+      for (int hf = 0; hf < L::kHalves; ++hf)
+        tma_load(&tq, sq + hf * L::kQHalf, q_full, 64 * hf, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int st = it % kStages, k0 = (t0 + it) * BK;
+        // the parity of the phase that freed the stage's previous tile
+        const uint32_t freed = ((it / kStages) & 1) ^ 1;
+        const uint32_t ks = sk + st * L::kKV, vs = sv + st * L::kKV;
+        if (it >= kStages) mbar_wait(k_empty(st), freed);
+        mbar_expect_tx(k_full(st), L::kKV);
+        for (int hf = 0; hf < L::kHalves; ++hf)
+          tma_load(&tk, ks + hf * L::kKHalf, k_full(st), 64 * hf, hkv, k0, b);
+        if (it >= kStages) mbar_wait(v_empty(st), freed);
+        mbar_expect_tx(v_full(st), L::kKV);
+        for (int hf = 0; hf < L::kHalves; ++hf)
+          tma_load(&tv, vs + hf * L::kKHalf, v_full(st), 64 * hf, hkv, k0, b);
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int c = threadIdx.x / 128 - 1;   // consumer: rows 64c .. 64c + 63
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int qw = q0 + 64 * c;                   // the warpgroup's first row
+    const int r0 = qw + 16 * warp + lane / 4;     // rows r0 and r0 + 8
+    const uint32_t q_rows = sq + 64 * c * kRow;
+    auto release = [&](uint32_t bar_addr) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_addr);
+    };
+    // S = Q·Kᵀ of the tile in stage st, 64 x BK per warpgroup: a k-step
+    // is 16 columns (32 bytes) of a swizzled 128-byte row, and k-steps
+    // 4-7 of hd 128 read the second 64-wide half
+    // (a descriptor's low bits are the address in 16-byte units: a
+    // step within the tiles adds a constant)
+    const uint64_t dq = desc(q_rows, 16, 1024), dk = desc(sk, 16, 1024);
+    const uint64_t dv = desc(sv, L::kKHalf, 1024);
+    auto issue_qk = [&](float (&s)[BK / 2], int st) {
+      const uint64_t dks = dk + st * (L::kKV >> 4);
 #pragma unroll
-  for (int ri = 0; ri < 2; ++ri) {
-    const int row = q0 + g + 8 * ri;
-    if (row >= S) continue;
-    const float l = fmaxf(l_r[ri], 1e-30f);
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<BK>(s, dq + (((kk / 4) * L::kQHalf + off) >> 4),
+                     dks + (((kk / 4) * L::kKHalf + off) >> 4), kk > 0);
+      }
+      wgmma_commit();
+    };
+    // O += P·V of the tile in stage st: a k-step is 16 keys (16 rows of
+    // 128 bytes) of v, an MN-major operand; the two 64-wide halves of hd
+    // 128 sit kKHalf bytes apart (the leading byte offset)
+    auto issue_pv = [&](float (&acc)[HD / 2], uint32_t (&pa)[BK / 16][4],
+                        int st) {
+      const uint64_t dvs = dv + st * (L::kKV >> 4);
 #pragma unroll
-    for (int c = 0; c < NCT; ++c)
-      *reinterpret_cast<uint32_t*>(op + row * rs + 8 * c + 2 * t) =
-          pack_bf16(acc[c][2 * ri] / l, acc[c][2 * ri + 1] / l);
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_rs<HD>(acc, pa[kk], dvs + ((kk * 16 * kRow) >> 4));
+      wgmma_commit();
+    };
+
+    float acc[HD / 2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f}, corr[2];
+    float s[BK / 2];
+    uint32_t pa[BK / 16][4];
+
+    // Software pipeline: while tile it's softmax runs on the SFU and the
+    // FMA units, the tensor cores run P·V of tile it - 1.  The output
+    // rows are rescaled by tile it's factors once that P·V is done.
+    mbar_wait(q_full, 0);
+    if (n_tiles > 0) {
+      mbar_wait(k_full(0), 0);
+      fence_regs(s);
+      wgmma_fence();
+      issue_qk(s, 0);
+      wgmma_wait<0>();
+      fence_regs(s);
+      release(k_empty(0));
+      online_softmax<BK, MASKED>(s, m_r, l_r, corr, mk, t0 * BK, qw, r0, t,
+                                 scale_log2);
+      to_a_fragments<BK>(s, pa);
+    }
+    for (int it = 1; it < n_tiles; ++it) {
+      const int st = it % kStages, prev = (it - 1) % kStages;
+      mbar_wait(k_full(st), (it / kStages) & 1);
+      fence_regs(s);
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+      wgmma_fence();
+      issue_qk(s, st);
+      mbar_wait(v_full(prev), ((it - 1) / kStages) & 1);
+      issue_pv(acc, pa, prev);
+      wgmma_wait<1>();   // Q·Kᵀ of tile it is done, P·V of it - 1 runs on
+      fence_regs(s);
+      release(k_empty(st));
+      online_softmax<BK, MASKED>(s, m_r, l_r, corr, mk, (t0 + it) * BK, qw,
+                                 r0, t, scale_log2);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      release(v_empty(prev));
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          acc[4 * j + 2 * r] *= corr[r];
+          acc[4 * j + 2 * r + 1] *= corr[r];
+        }
+      to_a_fragments<BK>(s, pa);
+    }
+    if (n_tiles > 0) {
+      const int last = (n_tiles - 1) % kStages;
+      mbar_wait(v_full(last), ((n_tiles - 1) / kStages) & 1);
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) fence_regs(pa[kk]);
+      wgmma_fence();
+      issue_pv(acc, pa, last);
+      wgmma_wait<0>();
+      fence_regs(acc);
+    }
+
+    const long rs = (long)H * HD;   // token stride of o
+    __nv_bfloat16* op = o + (long)b * S * rs + (long)h * HD;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      if (row >= S) continue;
+      // one reciprocal per row, not a division per element
+      const float inv = rcp(fmaxf(l_r[r], 1e-30f));
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j)
+        *reinterpret_cast<uint32_t*>(op + row * rs + 8 * j + 2 * t) =
+            pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+    }
   }
 }
 
+// cuTensorMapEncodeTiled, a libcuda function, fetched through the
+// runtime's entry-point query (nothing links libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the 4-D map (hd, heads, tokens, batch) of a contiguous bf16 [B, T, Hh,
+// HD] tensor, boxes of 64 x 1 x rows x 1 with the 128-byte swizzle; rows
+// past T read as zeros
+int tensor_map(CUtensorMap* map, const void* base, int B, int T, int Hh,
+               int HD, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)Hh, (cuuint64_t)T,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)HD * 2, (cuuint64_t)Hh * HD * 2,
+                                 (cuuint64_t)T * Hh * HD * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 template <int HD, bool MASKED>
-int launch_mma(const void* q, const void* k, const void* v, void* o, int B,
-               int S, int H, int Hkv, Mask mk, cudaStream_t st) {
-  const size_t smem = mma_smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_mma_kernel<HD, MASKED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+int launch_hopper(const void* q, const void* k, const void* v, void* o,
+                  int B, int S, int H, int Hkv, Mask mk, cudaStream_t st) {
+  CUtensorMap tq, tk, tv;
+  int err = tensor_map(&tq, q, B, S, H, HD, kHQ);
+  const int keys = Tiles<HD>::kKeys;
+  if (err == cudaSuccess) err = tensor_map(&tk, k, B, mk.Tk, Hkv, HD, keys);
+  if (err == cudaSuccess) err = tensor_map(&tv, v, B, mk.Tk, Hkv, HD, keys);
   if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
+  const size_t smem = Tiles<HD>::kSmem;
+  err = cudaFuncSetAttribute(flash_fwd_hopper_kernel<HD, MASKED>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + kHQ - 1) / kHQ, B * H);
   // softmax runs in base 2: fold log2(e) into the logit scale
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
-  flash_fwd_mma_kernel<HD, MASKED><<<grid, kWarps * 32, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S,
-      H, Hkv, mk, scale_log2);
+  flash_fwd_hopper_kernel<HD, MASKED><<<grid, kHThreads, smem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, Hkv, mk, scale_log2);
   return cudaGetLastError();
 }
 
@@ -533,8 +870,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 // q, o [B, S, H, hd]; k, v [B, Tk, Hkv, hd] with H a multiple of Hkv;
 // one type; contiguous and 16-byte aligned; hd in {64, 128}; causal 0/1,
-// window 0 (none) or > 0.  bf16 runs on the tensor cores, float32 on the
-// float32 FMA path.
+// window 0 (none) or > 0.  bf16 runs the Hopper kernel, float32 the
+// float32 FMA kernel.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int B, int S,
                                    int Tk, int H, int Hkv, int hd,
@@ -546,10 +883,10 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   // the unmasked form (the DiT's) keeps only the ragged-edge test
   const bool m = causal || window > 0;
   if (dtype == rt::kBF16 && hd == 64)
-    return (m ? launch_mma<64, true> : launch_mma<64, false>)(
+    return (m ? launch_hopper<64, true> : launch_hopper<64, false>)(
         q, k, v, o, B, S, H, Hkv, mk, st);
   if (dtype == rt::kBF16 && hd == 128)
-    return (m ? launch_mma<128, true> : launch_mma<128, false>)(
+    return (m ? launch_hopper<128, true> : launch_hopper<128, false>)(
         q, k, v, o, B, S, H, Hkv, mk, st);
   if (dtype == rt::kF32 && hd == 64)
     return (m ? launch<float, 64, true> : launch<float, 64, false>)(

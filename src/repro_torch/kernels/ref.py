@@ -73,8 +73,9 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``h`` reads kv head ``h // q_per_kv``; ``mask [B?, S, T]`` bool or
     None.  Float32 logits; a masked logit is −1e30, not −inf, so a row
     with no key left is a uniform average, not NaN; probabilities rounded
-    to ``v.dtype`` before the PV product (the CUDA kernel keeps them
-    near float32 — the source of their bf16 difference)."""
+    to ``v.dtype`` before the PV product, as the bf16 CUDA kernel rounds
+    its (unnormalised) probabilities, so at bf16 the two differ by the
+    order of their sums and the output's rounding."""
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, q_per_kv, hd)

@@ -7,8 +7,10 @@ card:  ``PYTHONPATH=src python -m pytest -q -m hopper tests/``.
 Tolerances, as max |kernel − plain| / max |plain|: float32 1e-5 (the
 two sum in different orders; 1e-4 for the SSD scan, whose chunk sums
 run over 256 tokens and whose decays multiply), bf16 2e-2 (one rounding
-of the output, and the plain attention's bf16 rounding of
-probabilities).
+of the output; for attention, kernel and plain version both round the
+probabilities to bf16 before P·V, so they differ by the order of the
+sums, the kernel's rounding of unnormalised probabilities and the
+output's rounding).
 """
 import pytest
 import torch
@@ -63,8 +65,13 @@ def test_fused_spectral_kernel(card, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,t,hd", [(200, 200, 64), (64, 130, 128)])
+@pytest.mark.parametrize("s,t,hd", [(200, 200, 64), (64, 130, 128),
+                                    (200, 200, 128), (64, 130, 64),
+                                    (300, 77, 128), (300, 77, 64)])
 def test_flash_kernel(card, dtype, s, t, hd):
+    """S and T off the tile edges (the bf16 kernel's tiles are 128
+    queries by 96 keys at hd 128, 128 by 128 at hd 64); T = 77 is
+    shorter than one key tile."""
     q = torch.randn(2, s, 3, hd, device=card).to(dtype)
     k, v = (torch.randn(2, t, 3, hd, device=card).to(dtype) for _ in "kv")
     ops.reset_launch_counts()
@@ -115,6 +122,11 @@ def test_freqca_predict_fused_kernel(card, dtype, shape):
     (256, 8, 2, 64, True, 48),      # causal, window inside a tile
     (192, 4, 2, 128, False, 0),     # non-causal GQA
     (130, 2, 2, 64, False, 70),     # non-causal window, ragged
+    (300, 16, 2, 128, True, 0),     # q_per_kv 8 (yi-9b), ragged
+    (520, 16, 2, 64, False, 0),     # non-causal, q_per_kv 8, hd 64
+    (1000, 8, 1, 128, True, 50),    # window narrower than a key tile
+    (1000, 8, 8, 64, True, 300),    # window wider than a key tile
+    (700, 8, 1, 128, False, 300),   # non-causal window wider than a tile
 ])
 def test_flash_kernel_masked_and_gqa_forms(card, dtype, s, hq, hkv, hd,
                                            causal, window):
@@ -127,6 +139,24 @@ def test_flash_kernel_masked_and_gqa_forms(card, dtype, s, hq, hkv, hd,
     assert ops.launch_counts()["flash_attention"] == 1
     _close((got,), (ref.attention_ref(q, k, v, hq // hkv, causal, window),),
            dtype)
+
+
+@pytest.mark.parametrize("s,hq,hkv,hd,causal", [
+    (333, 32, 4, 128, True),        # yi-9b's heads, causal GQA
+    (333, 2, 2, 64, False),
+])
+def test_flash_kernel_sharp_softmax(card, s, hq, hkv, hd, causal):
+    """bf16 with q scaled so that the logits' std is ~80: the sharp
+    softmax of the random yi-9b weights (the reference's init gives the
+    stacked attention projections std 1/sqrt(n_layers))."""
+    q = (torch.randn(2, s, hq, hd, device=card) * 80.0).to(torch.bfloat16)
+    k, v = (torch.randn(2, s, hkv, hd, device=card).to(torch.bfloat16)
+            for _ in "kv")
+    ops.reset_launch_counts()
+    got = ops.flash(q, k, v, hq // hkv, causal=causal)
+    assert ops.launch_counts()["flash_attention"] == 1
+    _close((got,), (ref.attention_ref(q, k, v, hq // hkv, causal),),
+           torch.bfloat16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

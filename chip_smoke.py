@@ -8,7 +8,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the flash library's SASS must hold wgmma (HGMMA) and TMA
                loads (UTMALDG), and ptxas must report no spills, no
                ignored setmaxnreg (C7508) and no serialised wgmma
-               (C7512) for its bf16 kernels;
+               (C7512) for its bf16 kernels; the SASS of
+               token_basis_matmul and ssd_scan must hold mma.sync
+               (HMMA), with no spills in any of their kernels;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer), in bf16 and float32,
@@ -60,6 +62,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
+              "tf32": 495e12,         # dense tensor-core TF32
               "float32": 67e12}       # float32 outside the tensor cores
 # max |kernel − plain| / max |plain| allowed: float32 differs by the
 # order of long float32 sums; bf16 by one rounding of the output (for
@@ -135,10 +138,40 @@ def compare(name: str, dtype: str, got, want):
     return err, rel
 
 
+def log_bound(label: str, nbytes: float, flops, op_dtype: str) -> None:
+    """Log a bound beside a row's own (another peak or another count)."""
+    b_ms, b_by = bound_ms(nbytes, flops, op_dtype)
+    log(f"kernel {label} bound_ms={b_ms:.4f} ({b_by})")
+
+
 def rate(flops: float, ms: float, b_ms: float) -> str:
     """A kernel's rate and its share of the bound, for the log."""
     return (f"rate={flops / ms / 1e9:.1f} TFLOP/s "
             f"bound/ms={b_ms / ms:.3f}")
+
+
+def sass(name: str) -> str:
+    """The SASS of kernel ``name``'s library (cuobjdump)."""
+    from repro_torch.kernels import build
+    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
+    return subprocess.run(
+        [str(cuobjdump), "-sass", str(build.lib_path(name))],
+        capture_output=True, text=True, check=True, timeout=300).stdout
+
+
+def ptxas_spills(name: str, entry: str = "") -> dict:
+    """{kernel: spill bytes (stores + loads)} from the ptxas report of
+    ``name``'s library, for the kernels whose mangled name holds
+    ``entry``; -1 where the report gives no spill line."""
+    from repro_torch.kernels import build
+    spills = {}
+    for part in build.ptxas_log(name).split("Compiling entry function")[1:]:
+        if entry in part.splitlines()[0]:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", part)
+            spills[part.split("'")[1]] = (int(m.group(1)) + int(m.group(2))
+                                          if m else -1)
+    return spills
 
 
 def flash_build_checks() -> None:
@@ -147,19 +180,10 @@ def flash_build_checks() -> None:
     spills, no ignored setmaxnreg (warning C7508) and no wgmma
     serialised for want of registers (warning C7512) for it."""
     from repro_torch.kernels import build
-    cuobjdump = Path(build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run(
-        [str(cuobjdump), "-sass", str(build.lib_path("flash_attention"))],
-        capture_output=True, text=True, check=True, timeout=300).stdout
-    counts = {op: sass.count(op) for op in ("HGMMA", "UTMALDG")}
+    code = sass("flash_attention")
+    counts = {op: code.count(op) for op in ("HGMMA", "UTMALDG")}
     report = build.ptxas_log("flash_attention")
-    spills = {}
-    for entry in report.split("Compiling entry function")[1:]:
-        if "flash_fwd_hopper_kernel" in entry.splitlines()[0]:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", entry)
-            spills[entry.split("'")[1]] = (int(m.group(1)) + int(m.group(2))
-                                           if m else -1)
+    spills = ptxas_spills("flash_attention", "flash_fwd_hopper_kernel")
     warnings = {w: w in report for w in ("C7508", "C7512")}
     log(f"flash SASS: {counts}; bf16 instantiations {len(spills)}, spill "
         f"bytes {sorted(set(spills.values()))}; "
@@ -169,6 +193,20 @@ def flash_build_checks() -> None:
             any(warnings.values()):
         raise AssertionError(f"flash build: SASS {counts}, spills {spills}, "
                              f"warnings {warnings}")
+
+
+def mma_build_checks() -> None:
+    """token_basis_matmul and the SSD scan run their products on the
+    tensor cores: each library's SASS holds mma.sync (HMMA), and ptxas
+    reports no spills for any of its kernels."""
+    for name in ("token_basis_matmul", "ssd_scan"):
+        hmma = sass(name).count("HMMA")
+        spills = ptxas_spills(name)
+        log(f"{name} SASS: HMMA {hmma}; kernels {len(spills)}, spill bytes "
+            f"{sorted(set(spills.values()))}")
+        if hmma == 0 or not spills or any(spills.values()):
+            raise AssertionError(f"{name} build: HMMA {hmma}, spills "
+                                 f"{spills}")
 
 
 def kernel_phase(main_dtype: dict) -> dict:
@@ -245,33 +283,44 @@ def kernel_phase(main_dtype: dict) -> dict:
         # the token-axis basis product: as dct_tokens (DCT-II basis) and
         # as the band split (projection L, high in the same epilogue),
         # on the CRF of two lanes.  Its arithmetic is float32 whatever
-        # x's type, as in the reference, so the float32 peak bounds it.
-        # The kernels line reports the dct_tokens row: its bound counts
-        # exactly the dense product, and torch.matmul computes the same
-        # function.  The band split runs that same dense product; its
-        # own rank-m work (low = Cₘᵀ(Cₘ·x)) is logged beside it.
+        # x's type, as in the reference, and the kernel runs it on the
+        # TF32 tensor cores: the least the card could take is the dense
+        # product once at the TF32 peak, the bound of the kernels line.
+        # Logged beside it: the same product at the float32 FMA peak,
+        # and the design's own count (2 TF32 products for bf16 x, exact
+        # in TF32; 3 for float32 x).  The kernels line reports the
+        # dct_tokens row, which torch.matmul computes too.  The band
+        # split runs that same dense product; its own rank-m work (low =
+        # Cₘᵀ(Cₘ·x)) is logged beside it.
         x = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
         nb_x = B * S * D * es
         c = frequency.dct_basis(S, device=dev)
+        dense = 2 * B * S * S * D
+        n_tf32 = 2 if dtype_name == "bfloat16" else 3
         row("token_basis_matmul", dtype_name,
             lambda x=x, c=c: dct.token_basis_matmul(c, x),
             lambda x=x, c=c: ref.token_basis_matmul_ref(c, x),
-            S * S * 4 + 2 * nb_x, 2 * B * S * S * D,
+            S * S * 4 + 2 * nb_x, dense,
             library=lambda x=x, c=c: torch.matmul(c, x.float()), reps=5,
-            op_dtype="float32")
+            op_dtype="tf32")
+        log_bound(f"token_basis_matmul [{dtype_name}] at the float32 FMA "
+                  "peak", S * S * 4 + 2 * nb_x, dense, "float32")
+        log_bound(f"token_basis_matmul [{dtype_name}] the design's "
+                  f"({n_tf32} TF32 products)", S * S * 4 + 2 * nb_x,
+                  n_tf32 * dense, "tf32")
         for method in ("dct", "fft"):
             name = f"token_basis_matmul[band_split {method}]"
             row(name, dtype_name,
                 lambda x=x, method=method: dct.band_split(x, 0.0625, method),
                 lambda x=x, method=method: ref.band_split_ref(x, 0.0625,
                                                               method),
-                S * S * 4 + 3 * nb_x, 2 * B * S * S * D, reps=5,
-                op_dtype="float32")
+                S * S * 4 + 3 * nb_x, dense, reps=5, op_dtype="tf32")
+            log_bound(f"{name} [{dtype_name}] at the float32 FMA peak",
+                      S * S * 4 + 3 * nb_x, dense, "float32")
             m = frequency.spectral_kept_bins(S, 0.0625, method)
-            b_ms, b_by = bound_ms(m * S * 4 + 3 * nb_x,
-                                  2 * (2 * B * m * S * D), "float32")
-            log(f"kernel {name} [{dtype_name}] the rank-{m} split's own "
-                f"bound_ms={b_ms:.4f} ({b_by})")
+            log_bound(f"{name} [{dtype_name}] the rank-{m} split's own",
+                      m * S * 4 + 3 * nb_x, 2 * (2 * B * m * S * D),
+                      "float32")
         # the legacy cached step: K-major history, one shared ts [K].  The
         # row times the launch alone (weights on the device already),
         # which is what its bytes bound describes; the wrapper adds the
@@ -395,9 +444,11 @@ def ssd_rows(row, dt, dtype_name: str, gen) -> None:
     """One mamba2-370m layer's SSD scan at two lanes of 4096 tokens: x
     [2, 4096, 32, 64], B and C [2, 4096, 128] as column slices of the
     conv output (strided, as the block passes them), dt float32, chunk
-    256.  The bound counts the operations of ``ssd_flops`` at the peak
-    of their operands' type.  No single PyTorch call computes the
-    scan."""
+    256.  The bound counts the operations of ``ssd_flops`` at the bf16
+    tensor-core peak, where the kernel runs every product (the least the
+    card could take); the same operations at their operands' peaks
+    (float32 FMAs for the per-head products) are logged beside it.  No
+    single PyTorch call computes the scan."""
     import torch
 
     from repro_torch.kernels import ref, ssd_scan
@@ -411,11 +462,23 @@ def ssd_rows(row, dt, dtype_name: str, gen) -> None:
     dts = torch.nn.functional.softplus(
         torch.randn((b, s, h), generator=gen, device=dev) - 2.0)
     a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.3)
+    nbytes = 2 * b * s * h * p * es + 2 * b * s * n * es + b * s * h * 4 \
+        + h * 4
+    need = ssd_flops(b, s, h, p, n, q, dtype_name)
     row("ssd_chunk_scan", dtype_name,
         lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm, q),
         lambda: ref.ssd_chunk_scan_ref(x, dts, a, bm, cm, q),
-        2 * b * s * h * p * es + 2 * b * s * n * es + b * s * h * 4 + h * 4,
-        ssd_flops(b, s, h, p, n, q, dtype_name), reps=5)
+        nbytes, {"bfloat16": sum(need.values())}, reps=5)
+    log_bound(f"ssd_chunk_scan [{dtype_name}] at its operands' peaks",
+              nbytes, need, dtype_name)
+    # the design's own count: every product on the tensor cores in bf16;
+    # at bf16 C Bᵀ takes 1 product and each per-head product 2 (one
+    # float32 operand split into hi + lo), at float32 all take 3
+    need = ssd_flops(b, s, h, p, n, q, "bfloat16")
+    k = (1, 2) if dtype_name == "bfloat16" else (3, 3)
+    log_bound(f"ssd_chunk_scan [{dtype_name}] the design's (bf16 products: "
+              f"C Bᵀ x{k[0]}, per head x{k[1]})", nbytes,
+              k[0] * need["bfloat16"] + k[1] * need["float32"], "bfloat16")
     del xbc, x, bm, cm
     torch.cuda.empty_cache()
 
@@ -1189,6 +1252,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     flash_build_checks()
+    mma_build_checks()
 
     # each kernel's row is the type its path runs it in: the served CRF
     # is bf16 with float32 rings, and the legacy cache state float32

@@ -1,6 +1,6 @@
-// Shared device helpers of the port's kernels: float32/bf16 conversion
-// and one 64x64 float32 SIMT tile product that the two FreqCa cache
-// kernels build on.
+// Shared device helpers of the port's kernels: float32/bf16 conversion,
+// paired stores, and one 64x64 float32 SIMT tile product that the two
+// FreqCa cache kernels build on.
 //
 // Every kernel reads float32 or bf16 and accumulates in float32.  The
 // tile product is plain FMAs from shared memory: simple and exact to
@@ -34,6 +34,15 @@ __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);  // round to nearest even, as torch does
+}
+
+// p[0], p[1] <- a, b rounded to T, as one 8- or 4-byte store (p aligned
+// to two elements)
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 // acc[i][j] += sum_k A(m0 + 4*ty + i, k) * B(k, n0 + 4*tx + j)

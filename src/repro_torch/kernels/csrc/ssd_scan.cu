@@ -2,16 +2,16 @@
 // every mamba2 layer.
 //
 // Replaces the Pallas kernel repro/kernels/ssd_scan.py::ssd_chunk_scan
-// (_ssd_kernel).  Per (batch, head), chunks of Q tokens in sequence,
-// with the [N, P] state carried in float32 from one chunk to the next;
-// within a chunk (a = A of the head, cum = inclusive cumsum of dt·a):
+// (_ssd_kernel).  Per (batch, head), chunks of Q tokens, with the [N, P]
+// state carried in float32 from one chunk to the next; within a chunk
+// (a = A of the head, cum = inclusive cumsum of dt·a over the chunk):
 //   y     = ((C Bᵀ) ∘ L)(dt ∘ x) + exp(cum) ∘ (C · state),
 //           L_ij = exp(cum_i − cum_j) for j <= i, else 0
 //   state ← exp(cum_Q) · state + Σ_j exp(cum_Q − cum_j) dt_j B_jᵀ x_j
-// Every exp clips its argument at −60, as the TPU kernel does; the upper
-// triangle of L is selected away, never multiplied by a 0/1 mask (its
-// exp can overflow, and inf·0 is NaN).  No D-skip and no gating: those
-// stay in the surrounding block.  Arithmetic in float32; y in x's type.
+// Every exp clips its argument at −60, per chunk, as the TPU kernel does;
+// the upper triangle of L is selected away, never multiplied by a 0/1
+// mask (its exp can overflow, and inf·0 is NaN).  No D-skip and no
+// gating: those stay in the surrounding block.  y in x's type.
 //   x  [b, s, h, P]  float32 or bf16, any batch and token strides, heads
 //                    and P contiguous (x is a column slice of the conv
 //                    output, so the wrapper passes strides and copies
@@ -19,259 +19,605 @@
 //   dt [b, s, h]     float32, any batch and token strides
 //   A  [h]           float32
 //   B, C [b, s, N]   x's type, any batch and token strides: one group
-//                    shared by every head, indexed by batch (the TPU
-//                    wrapper materialises a copy per head; this kernel
-//                    reads the one copy)
+//                    shared by every head
 //   y  [b, s, h, P]  contiguous
 //
-// What bounds it on an H100: operations.  Per chunk and head, 2·Q²·N
-// (C Bᵀ) + 2·Q²·P (the masked product with x) + 4·Q·N·P (C · state and
-// the state update) FLOP; at mamba2-370m's shapes (Q 256, N 128, P 64,
-// 32 heads) and two lanes of 4096 tokens, 34.4 GFLOP per layer, 0.51 ms
-// at the 67 TFLOP/s float32 peak, against ~36 MB of traffic (0.011 ms).
+// What bounds it on an H100: memory traffic, and little of it.  Counted
+// on the kept triangle, with C Bᵀ once per (batch, chunk), mamba2-370m's
+// layer at two lanes of 4096 tokens (Q 256, N 128, P 64, 32 heads) needs
+// 13.17 GFLOP: 0.013 ms at the bf16 tensor-core peak, where this design
+// runs every product (0.19 ms if the per-head products were float32
+// FMAs), against ~72 MB of traffic in bf16 (0.022 ms).
 //
-// Design: one block of 256 threads per (batch, head) walks the chunks in
-// order; the state stays in shared memory.  The TPU kernel holds the
-// whole [Q, Q] score tile in VMEM; at Q = 256 that is 256 KiB in float32,
-// more than a block's 227 KB, so the chunk's rows are tiled by 64: for
-// each row tile I, C_I (transposed) stays in shared memory; it takes
-// exp(cum) ∘ (C_I · state), then for each column tile J <= I (tiles
-// wholly above the diagonal are skipped) the 64x64 scores C_I B_Jᵀ,
-// masked and decayed, are staged in shared memory and multiplied by
-// (dt ∘ x)_J.  The state update follows with B_J (j-major) and the
-// decay-weighted x_J.  The in-chunk cumsum is a block-wide prefix sum
-// (warp shuffles, then the warps' totals).  Every product is plain
-// float32 FMAs, each thread a 4x4 output tile read as float4s from
-// padded shared-memory rows.  At two lanes the grid has b·h = 64 blocks
-// for 132 SMs; half the operations (C Bᵀ) are the same for every head
-// and could be shared — both are left to a later kernel.
+// Design: the SSD decomposition of the public mamba_ssm kernels (chunk
+// state, state passing, chunk scan), four launches per call, so that the
+// chunks of a head run in parallel and only an [N, P] elementwise
+// recurrence stays sequential:
+//  1. gram: G = C Bᵀ [Q, Q] once per (batch, chunk), for the 64x64
+//     tiles on or below the diagonal, into a float32 workspace; 4 warps
+//     a tile.
+//  2. chunk state: per (batch, chunk, head), 8 warps: cum (a block
+//     prefix sum), then the chunk's own contribution
+//     Σ_j exp(cum_Q − cum_j) dt_j B_jᵀ x_j [N, P] into a float32
+//     workspace, and exp(cum_Q) beside it.
+//  3. state passing: per (batch, head) and element of [N, P], in order
+//     over the chunks, state_c = exp(cum_Q,c)·state_{c−1} + contrib_c;
+//     the state entering each chunk overwrites its contribution.
+//  4. chunk out: per (batch, chunk, head), 8 warps of 32 rows: cum again
+//     (the same code, so the same values), exp(cum) ∘ (C · state_in),
+//     then ((G ∘ L) ∘ dt)(x) tile by tile of 64 keys, skipping tiles
+//     and 16-key steps wholly above the diagonal.
+// At two lanes passes 2 and 4 have 1024 blocks (the old kernel 64, one
+// per (batch, head), walking 16 chunks in order).  Passes 2-4 are
+// templated on the head width P; 64 (mamba2's) is instantiated.
+//
+// Precision: every product runs on the tensor cores as bf16 mma.sync
+// m16n8k16 with float32 accumulation.  A bf16 operand (x, B, C of a
+// bf16 call) is exact; a float32 operand (G ∘ L ∘ dt, B weighted by
+// dt·decay, the state; x, B and C of a float32 call) is split into
+// bf16 hi + lo as it is staged to shared memory (hi + lo holds ~16
+// significant bits, 2^-18 relative).  Products: hi·hi, plus hi·lo where
+// the right operand is split, plus lo·hi where the left one is; lo·lo
+// is dropped.  So at bf16: C Bᵀ one product (exact products, as the old
+// kernel's float32 FMAs of bf16 values), the per-head products two
+// each; at float32 three each.  Shared rows are padded by 16 bytes, so
+// the ldmatrix reads are free of bank conflicts.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kP = 64;         // head width (mamba2's SSM head_dim)
-constexpr int kNMax = 128;     // largest state width
-constexpr int kT = 64;         // tile rows and columns
-constexpr int kQMax = 256;     // largest chunk (one token per thread)
-constexpr int kLD = kT + 4;    // padded stride of the transposed tiles
-constexpr int kLDN = kNMax + 4;   // padded stride of the j-major B tile
-constexpr float kClip = -60.f;    // exp underflow guard of the TPU kernel
+using bf16 = __nv_bfloat16;
 
-constexpr size_t smem_floats() {
-  return kNMax * kP                  // state [N][P]
-         + kNMax * kLD               // C_I transposed [N][64]; B_J [64][N]
-         + kNMax * kLD               // B_J transposed [N][64]
-         + kT * kP                   // (weighted) x_J [64][P]
-         + kT * kLD                  // scores transposed [64 (j)][64 (i)]
-         + 2 * kQMax + 16;           // cum, dt, warp totals
+constexpr int kP = 64;           // the head width instantiated (mamba2's)
+constexpr int kNMax = 128;       // largest state width
+constexpr int kT = 64;           // tile rows and columns
+constexpr int kQMax = 256;       // largest chunk (one token per thread)
+constexpr int kThreads = 256;    // passes 2 and 4: 8 warps
+constexpr int kGramThreads = 128;
+constexpr int kLD = kT + 8;      // padded bf16 row of a 64-wide tile
+constexpr int kLDN = kNMax + 8;  // padded bf16 row of an N-wide tile
+constexpr float kClip = -60.f;   // exp underflow guard of the TPU kernel
+
+// --- fragments -----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
+// A fragment (16 x 16) of rows m0.., depth k0.. from a tile stored
+// [m][k] (row stride ld)
+__device__ __forceinline__ void lda_mk(uint32_t (&r)[4], const bf16* s,
+                                       int ld, int m0, int k0) {
+  const int l = threadIdx.x % 32, mi = l / 8;
+  ldsm(r, s + (m0 + (mi % 2) * 8 + l % 8) * ld + k0 + (mi / 2) * 8);
 }
+// the same from a tile stored [k][m]
+__device__ __forceinline__ void lda_km(uint32_t (&r)[4], const bf16* s,
+                                       int ld, int m0, int k0) {
+  const int l = threadIdx.x % 32, mi = l / 8;
+  ldsm_t(r, s + (k0 + (mi / 2) * 8 + l % 8) * ld + m0 + (mi % 2) * 8);
+}
+// B fragments (16 x 8) of the two column tiles n0 and n0 + 8: r[0..1]
+// and r[2..3]; from a tile stored [k][n], and from one stored [n][k]
+__device__ __forceinline__ void ldb_kn(uint32_t (&r)[4], const bf16* s,
+                                       int ld, int k0, int n0) {
+  const int l = threadIdx.x % 32, mi = l / 8;
+  ldsm_t(r, s + (k0 + (mi % 2) * 8 + l % 8) * ld + n0 + (mi / 2) * 8);
+}
+__device__ __forceinline__ void ldb_nk(uint32_t (&r)[4], const bf16* s,
+                                       int ld, int k0, int n0) {
+  const int l = threadIdx.x % 32, mi = l / 8;
+  ldsm(r, s + (n0 + (mi / 2) * 8 + l % 8) * ld + k0 + (mi % 2) * 8);
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// d += a·b over the planes: lo·hi where a is split, hi·lo where b is,
+// then hi·hi.  a[0] / a[1] = hi / lo fragments; b[0] / b[1] the hi / lo
+// x4 fragments of two column tiles, of which tile `half` is taken.
+template <bool kALo, bool kBLo>
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const uint32_t (&a)[2][4],
+                                          const uint32_t (&b)[2][4],
+                                          int half) {
+  if constexpr (kALo) mma(d, a[1], b[0][2 * half], b[0][2 * half + 1]);
+  if constexpr (kBLo) mma(d, a[0], b[1][2 * half], b[1][2 * half + 1]);
+  mma(d, a[0], b[0][2 * half], b[0][2 * half + 1]);
+}
+
+// --- staging -------------------------------------------------------------
+
+// v = 8 consecutive elements at p as float32 (zeros unless valid);
+// vec: p is 16-byte aligned
+template <typename T>
+__device__ __forceinline__ void load8(const T* p, bool vec, bool valid,
+                                      float (&v)[8]) {
+  if (!valid) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = 0.f;
+  } else if (vec) {
+    if constexpr (sizeof(T) == 2) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        v[2 * i] = f.x;
+        v[2 * i + 1] = f.y;
+      }
+    } else {
+      const float4 a = reinterpret_cast<const float4*>(p)[0];
+      const float4 b = reinterpret_cast<const float4*>(p)[1];
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) v[i] = rt::to_f32(p[i]);
+  }
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 h) {
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+// store v as bf16 at hi[0..8) and, with kLo, its remainder v − hi at
+// lo[0..8); both 16-byte aligned
+template <bool kLo>
+__device__ __forceinline__ void put8(bf16* hi, bf16* lo,
+                                     const float (&v)[8]) {
+  uint32_t h[4], r[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 hh = __floats2bfloat162_rn(v[2 * i], v[2 * i + 1]);
+    h[i] = bits(hh);
+    if constexpr (kLo) {
+      const float2 f = __bfloat1622float2(hh);
+      r[i] = bits(__floats2bfloat162_rn(v[2 * i] - f.x, v[2 * i + 1] - f.y));
+    }
+  }
+  *reinterpret_cast<uint4*>(hi) = make_uint4(h[0], h[1], h[2], h[3]);
+  if constexpr (kLo)
+    *reinterpret_cast<uint4*>(lo) = make_uint4(r[0], r[1], r[2], r[3]);
+}
+
+// dts[i] = dt of token i of the chunk, cum = its inclusive prefix sum of
+// dt·a (warp shuffles, then the warps' totals); 256 threads, Q <= 256.
+// Passes 2 and 4 both call it, so both see the same cum.
+__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dtp,
+                                             long dt_ss, float a, int Q,
+                                             float* dts, float* cum,
+                                             float* wsum) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  float v = 0.f;
+  if (tid < Q) {
+    const float d = dtp[tid * dt_ss];
+    dts[tid] = d;
+    v = d * a;
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u = __shfl_up_sync(0xffffffffu, v, off);
+    if (lane >= off) v += u;
+  }
+  if (lane == 31) wsum[warp] = v;
+  __syncthreads();
+  float pre = 0.f;
+  for (int w = 0; w < warp; ++w) pre += wsum[w];
+  if (tid < Q) cum[tid] = v + pre;
+  __syncthreads();
+}
+
+// --- pass 1: G = C Bᵀ per (batch, chunk) ---------------------------------
 
 template <typename T>
-__global__ void __launch_bounds__(rt::kThreads)
-ssd_chunk_scan_kernel(const T* __restrict__ x, long x_sb, long x_ss,
-                      const float* __restrict__ dt, long dt_sb, long dt_ss,
-                      const float* __restrict__ A,
-                      const T* __restrict__ Bm, long b_sb, long b_ss,
-                      const T* __restrict__ Cm, long c_sb, long c_ss,
-                      T* __restrict__ y, int S, int H, int N, int Q) {
-  extern __shared__ __align__(16) float smem[];
-  float* st = smem;                  // [N][P] the carried state
-  float* Ct = st + kNMax * kP;       // [N][kLD]; the state update: Bs
-  float* Bt = Ct + kNMax * kLD;      // [N][kLD]
-  float* Xs = Bt + kNMax * kLD;      // [64][P]
-  float* Ss = Xs + kT * kP;          // [64][kLD]
-  float* cum = Ss + kT * kLD;        // [Q]
-  float* dts = cum + kQMax;          // [Q]
-  float* wsum = dts + kQMax;         // [8]
+__global__ void __launch_bounds__(kGramThreads)
+ssd_gram_kernel(const T* __restrict__ Cm, long c_sb, long c_ss,
+                const T* __restrict__ Bm, long b_sb, long b_ss,
+                float* __restrict__ G, int N, int Q, bool vec) {
+  constexpr bool kLo = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Cs = reinterpret_cast<bf16*>(smem);   // [2][64][kLDN]
+  bf16* Bs = Cs + 2 * kT * kLDN;              // [2][64][kLDN]
+  const int c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  int I = 0;   // tile (I, J <= I) of the lower triangle
+  while ((I + 1) * (I + 2) / 2 <= static_cast<int>(blockIdx.x)) ++I;
+  const int J = blockIdx.x - I * (I + 1) / 2;
+  const int np = (N + 15) & ~15;   // N padded to the mma depth with zeros
+  const T* cp = Cm + b * c_sb + static_cast<long>(c * Q + I * kT) * c_ss;
+  const T* bp = Bm + b * b_sb + static_cast<long>(c * Q + J * kT) * b_ss;
+  for (int e = threadIdx.x; e < kT * np / 8; e += kGramThreads) {
+    const int r = e / (np / 8), n = (e % (np / 8)) * 8;
+    float v[8];
+    load8(cp + r * c_ss + n, vec, n < N, v);
+    put8<kLo>(Cs + r * kLDN + n, Cs + (kT + r) * kLDN + n, v);
+    load8(bp + r * b_ss + n, vec, n < N, v);
+    put8<kLo>(Bs + r * kLDN + n, Bs + (kT + r) * kLDN + n, v);
+  }
+  __syncthreads();
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int lane = tid % 32, warp = tid / 32;
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const float a = A[h];
-  const T* xp = x + b * x_sb + (long)h * kP;
-  const float* dtp = dt + b * dt_sb + h;
+  const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
+            t = threadIdx.x % 4;
+  float acc[8][4] = {};
+  for (int k = 0; k < np; k += 16) {
+    uint32_t a[2][4];
+    lda_mk(a[0], Cs, kLDN, warp * 16, k);
+    if constexpr (kLo) lda_mk(a[1], Cs + kT * kLDN, kLDN, warp * 16, k);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t bb[2][4];
+      ldb_nk(bb[0], Bs, kLDN, k, q * 16);
+      if constexpr (kLo) ldb_nk(bb[1], Bs + kT * kLDN, kLDN, k, q * 16);
+      mma_split<kLo, kLo>(acc[2 * q], a, bb, 0);
+      mma_split<kLo, kLo>(acc[2 * q + 1], a, bb, 1);
+    }
+  }
+  float* gp = G + (static_cast<long>(b * nc + c) * Q + I * kT + warp * 16 + g)
+                      * Q + J * kT + 2 * t;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    rt::store2(gp + nt * 8, acc[nt][0], acc[nt][1]);
+    rt::store2(gp + 8 * Q + nt * 8, acc[nt][2], acc[nt][3]);
+  }
+}
+
+// --- pass 2: each chunk's own state contribution -------------------------
+
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads)
+ssd_chunk_state_kernel(const T* __restrict__ x, long x_sb, long x_ss,
+                       const float* __restrict__ dt, long dt_sb, long dt_ss,
+                       const float* __restrict__ A,
+                       const T* __restrict__ Bm, long b_sb, long b_ss,
+                       float* __restrict__ st, float* __restrict__ decay,
+                       int H, int N, int Q, bool vec) {
+  constexpr bool kLo = sizeof(T) == 4;
+  constexpr int kLP = P + 8;      // padded bf16 row of a P-wide tile
+  constexpr int kNT = P / 8;      // n8 tiles over P
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ws = reinterpret_cast<bf16*>(smem);   // [2][64 (j)][kLDN (n)]
+  bf16* Xs = Ws + 2 * kT * kLDN;              // [2][64 (j)][kLP (p)]
+  float* dts = reinterpret_cast<float*>(Xs + 2 * kT * kLP);
+  float* cum = dts + kQMax;
+  float* wj = cum + kQMax;
+  float* wsum = wj + kQMax;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int c0 = c * Q, tid = threadIdx.x;
+  const int np = (N + 15) & ~15;
+  chunk_cumsum(dt + b * dt_sb + c0 * dt_ss + h, dt_ss, A[h], Q, dts, cum,
+               wsum);
+  const float cum_last = cum[Q - 1];
+  for (int i = tid; i < Q; i += kThreads)
+    wj[i] = dts[i] * expf(fmaxf(cum_last - cum[i], kClip));
+  if (tid == 0)
+    decay[(static_cast<long>(b) * nc + c) * gridDim.x + h] =
+        expf(fmaxf(cum_last, kClip));
+
+  const T* xp = x + b * x_sb + static_cast<long>(h) * P;
   const T* bp = Bm + b * b_sb;
-  const T* cp = Cm + b * c_sb;
-  T* yp = y + (long)b * S * H * kP + (long)h * kP;
-  const long y_ss = (long)H * kP;
-
-  for (int e = tid; e < kNMax * kP; e += rt::kThreads) st[e] = 0.f;
-
-  // rows [r0, r0 + 64) of a [., N] operand, transposed: dst[n][i]
-  auto load_t = [&](float* dst, const T* src, long ss, int r0) {
-    for (int e = tid; e < kT * N; e += rt::kThreads) {
-      const int i = e / N, n = e % N;
-      dst[n * kLD + i] = rt::to_f32(src[(r0 + i) * ss + n]);
-    }
-  };
-  // rows [r0, r0 + 64) of x, each scaled by w(row): Xs[j][p]
-  auto load_x = [&](int c0, int r0, auto w) {
-    for (int e = tid; e < kT * kP; e += rt::kThreads) {
-      const int j = e / kP, p = e % kP;
-      Xs[e] = w(r0 + j) * rt::to_f32(xp[(c0 + r0 + j) * x_ss + p]);
-    }
-  };
-
-  for (int c0 = 0; c0 < S; c0 += Q) {
-    // cum = inclusive prefix sum of dt·a over the chunk
-    float v = 0.f;
-    if (tid < Q) {
-      const float d = dtp[(c0 + tid) * dt_ss];
-      dts[tid] = d;
-      v = d * a;
-    }
+  const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+  float acc[kNT][4] = {};
+  for (int j0 = 0; j0 < Q; j0 += kT) {
+    __syncthreads();   // wj is written; the previous tiles are consumed
+    for (int e = tid; e < kT * np / 8; e += kThreads) {
+      const int j = e / (np / 8), n = (e % (np / 8)) * 8;
+      float v[8];
+      load8(bp + static_cast<long>(c0 + j0 + j) * b_ss + n, vec, n < N, v);
+      const float w = wj[j0 + j];
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const float u = __shfl_up_sync(0xffffffffu, v, off);
-      if (lane >= off) v += u;
+      for (int i = 0; i < 8; ++i) v[i] *= w;
+      put8<true>(Ws + j * kLDN + n, Ws + (kT + j) * kLDN + n, v);
     }
-    if (lane == 31) wsum[warp] = v;
-    __syncthreads();   // (also: the previous chunk's state is written)
-    float pre = 0.f;
-    for (int w = 0; w < warp; ++w) pre += wsum[w];
-    if (tid < Q) cum[tid] = v + pre;
+    for (int e = tid; e < kT * P / 8; e += kThreads) {
+      const int j = e / (P / 8), p = (e % (P / 8)) * 8;
+      float v[8];
+      load8(xp + static_cast<long>(c0 + j0 + j) * x_ss + p, vec, true, v);
+      put8<kLo>(Xs + j * kLP + p, Xs + (kT + j) * kLP + p, v);
+    }
     __syncthreads();
-    const float cum_last = cum[Q - 1];
-
-    for (int I = 0; I < Q / kT; ++I) {
-      load_t(Ct, cp + (long)c0 * c_ss, c_ss, I * kT);
-      __syncthreads();
-      // the carried state: exp(cum_i) · (C_I · state)
-      float acc[4][4] = {};
-      for (int n = 0; n < N; ++n) {
-        const float4 cv = ld4(&Ct[n * kLD + ty * 4]);
-        const float4 sv = ld4(&st[n * kP + tx * 4]);
-        const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
-        const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
+    if (warp * 16 < np) {
+      // contrib[n, p] += Σ_j W[j, n] x[j, p]: A = Wᵀ (stored [j][n])
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int k = 0; k < kT; k += 16) {
+        uint32_t a[2][4];
+        lda_km(a[0], Ws, kLDN, warp * 16, k);
+        lda_km(a[1], Ws + kT * kLDN, kLDN, warp * 16, k);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(cr[i], sr[j], acc[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float d = expf(fmaxf(cum[I * kT + ty * 4 + i], kClip));
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] *= d;
-      }
-      // in-chunk: ((C_I B_Jᵀ) ∘ L_IJ)(dt ∘ x)_J for the tiles J <= I
-      for (int J = 0; J <= I; ++J) {
-        __syncthreads();   // the previous Bt / Xs / Ss are consumed
-        load_t(Bt, bp + (long)c0 * b_ss, b_ss, J * kT);
-        load_x(c0, J * kT, [&](int r) { return dts[r]; });
-        __syncthreads();
-        float sc[4][4] = {};
-        for (int n = 0; n < N; ++n) {
-          const float4 cv = ld4(&Ct[n * kLD + ty * 4]);
-          const float4 bv = ld4(&Bt[n * kLD + tx * 4]);
-          const float cr[4] = {cv.x, cv.y, cv.z, cv.w};
-          const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(cr[i], br[j], sc[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int gi = I * kT + ty * 4 + i;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int gj = J * kT + tx * 4 + j;
-            sc[i][j] = gj <= gi
-                ? sc[i][j] * expf(fmaxf(cum[gi] - cum[gj], kClip)) : 0.f;
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          *reinterpret_cast<float4*>(&Ss[(tx * 4 + j) * kLD + ty * 4]) =
-              make_float4(sc[0][j], sc[1][j], sc[2][j], sc[3][j]);
-        __syncthreads();
-#pragma unroll 4
-        for (int j = 0; j < kT; ++j) {
-          const float4 sv = ld4(&Ss[j * kLD + ty * 4]);
-          const float4 xv = ld4(&Xs[j * kP + tx * 4]);
-          const float sr[4] = {sv.x, sv.y, sv.z, sv.w};
-          const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int p = 0; p < 4; ++p) acc[i][p] = fmaf(sr[i], xr[p], acc[i][p]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        T* row = yp + (c0 + I * kT + ty * 4 + i) * y_ss + tx * 4;
-#pragma unroll
-        for (int p = 0; p < 4; ++p) row[p] = rt::from_f32<T>(acc[i][p]);
-      }
-      __syncthreads();   // Ct is consumed before the next row tile
-    }
-
-    // state ← exp(cum_Q)·state + Σ_j (exp(cum_Q − cum_j) dt_j x_j) ⊗ B_j;
-    // thread (tn, tp) owns state rows tn·8.. and columns tp·4..
-    const int tn = tid / 16, tp = tid % 16;
-    const bool rows_ok = tn * 8 < N;
-    const float d_last = expf(fmaxf(cum_last, kClip));
-    float ns[8][4];
-#pragma unroll
-    for (int k = 0; k < 8; ++k)
-#pragma unroll
-      for (int p = 0; p < 4; ++p)
-        ns[k][p] = rows_ok ? d_last * st[(tn * 8 + k) * kP + tp * 4 + p] : 0.f;
-    for (int J = 0; J < Q / kT; ++J) {
-      __syncthreads();
-      float* Bs = Ct;   // B_J j-major: Bs[j][n]
-      for (int e = tid; e < kT * N; e += rt::kThreads) {
-        const int j = e / N, n = e % N;
-        Bs[j * kLDN + n] = rt::to_f32(bp[(long)(c0 + J * kT + j) * b_ss + n]);
-      }
-      load_x(c0, J * kT, [&](int r) {
-        return dts[r] * expf(fmaxf(cum_last - cum[r], kClip));
-      });
-      __syncthreads();
-      if (rows_ok) {
-#pragma unroll 4
-        for (int j = 0; j < kT; ++j) {
-          const float4 xv = ld4(&Xs[j * kP + tp * 4]);
-          const float4 b0 = ld4(&Bs[j * kLDN + tn * 8]);
-          const float4 b1 = ld4(&Bs[j * kLDN + tn * 8 + 4]);
-          const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-          const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int k = 0; k < 8; ++k)
-#pragma unroll
-            for (int p = 0; p < 4; ++p) ns[k][p] = fmaf(br[k], xr[p], ns[k][p]);
+        for (int q = 0; q < kNT / 2; ++q) {
+          uint32_t bb[2][4];
+          ldb_kn(bb[0], Xs, kLP, k, q * 16);
+          if constexpr (kLo) ldb_kn(bb[1], Xs + kT * kLP, kLP, k, q * 16);
+          mma_split<true, kLo>(acc[2 * q], a, bb, 0);
+          mma_split<true, kLo>(acc[2 * q + 1], a, bb, 1);
         }
       }
     }
-    __syncthreads();   // every thread has read the old state
-    if (rows_ok) {
+  }
+  float* sp = st + ((static_cast<long>(b) * nc + c) * gridDim.x + h) * N * P;
+  const int n = warp * 16 + g;
 #pragma unroll
-      for (int k = 0; k < 8; ++k)
+  for (int nt = 0; nt < kNT; ++nt) {
+    const int p = nt * 8 + 2 * t;
+    if (n < N) rt::store2(sp + n * P + p, acc[nt][0], acc[nt][1]);
+    if (n + 8 < N) rt::store2(sp + (n + 8) * P + p, acc[nt][2], acc[nt][3]);
+  }
+}
+
+// --- pass 3: the recurrence over chunks, per state element ---------------
+
+template <int P>
+__global__ void __launch_bounds__(kThreads)
+ssd_state_pass_kernel(float* __restrict__ st,
+                      const float* __restrict__ decay, int Bn, int nc,
+                      int H, int N) {
+  const long per = static_cast<long>(N) * P / 4;   // float4s of a state
+  const long idx = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (idx >= Bn * H * per) return;
+  const int bh = static_cast<int>(idx / per);
+  const long r = idx % per;
+  const int b = bh / H, h = bh % H;
+  float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
+  constexpr int kU = 4;   // chunks whose loads are in flight together
+  for (int c0 = 0; c0 < nc; c0 += kU) {
+    float4 v[kU];
+    float d[kU];
 #pragma unroll
-        for (int p = 0; p < 4; ++p) st[(tn * 8 + k) * kP + tp * 4 + p] = ns[k][p];
+    for (int u = 0; u < kU; ++u) {
+      if (c0 + u >= nc) break;
+      const long o = (static_cast<long>(b) * nc + c0 + u) * H + h;
+      v[u] = reinterpret_cast<const float4*>(st + o * N * P)[r];
+      d[u] = decay[o];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (c0 + u >= nc) break;
+      const long o = (static_cast<long>(b) * nc + c0 + u) * H + h;
+      reinterpret_cast<float4*>(st + o * N * P)[r] = run;
+      run = make_float4(d[u] * run.x + v[u].x, d[u] * run.y + v[u].y,
+                        d[u] * run.z + v[u].z, d[u] * run.w + v[u].w);
     }
   }
 }
 
-template <typename T>
-int launch(const void* x, long x_sb, long x_ss, const float* dt, long dt_sb,
-           long dt_ss, const float* A, const void* Bm, long b_sb, long b_ss,
-           const void* Cm, long c_sb, long c_ss, void* y, int Bn, int S,
-           int H, int N, int Q, cudaStream_t st) {
-  const size_t smem = smem_floats() * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_chunk_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  ssd_chunk_scan_kernel<T><<<Bn * H, rt::kThreads, smem, st>>>(
-      static_cast<const T*>(x), x_sb, x_ss, dt, dt_sb, dt_ss, A,
-      static_cast<const T*>(Bm), b_sb, b_ss, static_cast<const T*>(Cm), c_sb,
-      c_ss, static_cast<T*>(y), S, H, N, Q);
+// --- pass 4: the chunk's output ------------------------------------------
+
+template <typename T, int P>
+__host__ __device__ constexpr size_t out_tiles_bytes() {
+  constexpr int lo = sizeof(T) == 4 ? 2 : 1;
+  constexpr size_t carried = lo * kQMax * kLD + 2 * kT * (P + 8);  // Cs, Ss
+  constexpr size_t diag = 2 * kQMax * kLD + lo * kT * (P + 8);     // Ms, Xs
+  return (carried > diag ? carried : diag) * sizeof(bf16);
+}
+
+// two blocks an SM (registers capped at 128; shared memory 83 / 92 KB)
+template <typename T, int P>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
+                     const float* __restrict__ dt, long dt_sb, long dt_ss,
+                     const float* __restrict__ A,
+                     const T* __restrict__ Cm, long c_sb, long c_ss,
+                     const float* __restrict__ G,
+                     const float* __restrict__ st, T* __restrict__ y, int S,
+                     int N, int Q, bool vec) {
+  constexpr bool kLo = sizeof(T) == 4;
+  constexpr int kPl = kLo ? 2 : 1;   // planes of a tile of x's type
+  constexpr int kLP = P + 8;         // padded bf16 row of a P-wide tile
+  constexpr int kNT = P / 8;         // n8 tiles over P
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem);
+  float* dts = reinterpret_cast<float*>(smem + out_tiles_bytes<T, P>());
+  float* cum = dts + kQMax;
+  float* wsum = cum + kQMax;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int H = gridDim.x, c0 = c * Q, tid = threadIdx.x;
+  const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+  const int rw = warp * 32;          // the warp's 32 rows of the chunk
+  const bool active = rw < Q;
+  const int np = (N + 15) & ~15;
+  chunk_cumsum(dt + b * dt_sb + c0 * dt_ss + h, dt_ss, A[h], Q, dts, cum,
+               wsum);
+  float acc[2][kNT][4] = {};
+
+  // the carried state: exp(cum_i) · (C_i · state_in); zero in chunk 0
+  if (c > 0) {
+    bf16* Cs = tiles;                  // [kPl][kQMax][kLD] (i, n)
+    bf16* Ss = Cs + kPl * kQMax * kLD;  // [2][64][kLP] (n, p)
+    const T* cp = Cm + b * c_sb + static_cast<long>(c0) * c_ss;
+    const float* sp = st + ((static_cast<long>(b) * nc + c) * H + h) * N * P;
+    for (int n0 = 0; n0 < np; n0 += kT) {
+      const int kt = min(kT, np - n0);
+      __syncthreads();   // the previous tiles are consumed
+      for (int e = tid; e < Q * kt / 8; e += kThreads) {
+        const int i = e / (kt / 8), n = (e % (kt / 8)) * 8;
+        float v[8];
+        load8(cp + i * c_ss + n0 + n, vec, n0 + n < N, v);
+        put8<kLo>(Cs + i * kLD + n, Cs + (kQMax + i) * kLD + n, v);
+      }
+      for (int e = tid; e < kt * P / 8; e += kThreads) {
+        const int n = e / (P / 8), p = (e % (P / 8)) * 8;
+        float v[8];
+        load8(sp + (n0 + n) * P + p, true, n0 + n < N, v);
+        put8<true>(Ss + n * kLP + p, Ss + (kT + n) * kLP + p, v);
+      }
+      __syncthreads();
+      if (active) {
+        for (int k = 0; k < kt; k += 16) {
+          uint32_t a[2][2][4];
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            lda_mk(a[mt][0], Cs, kLD, rw + mt * 16, k);
+            if constexpr (kLo)
+              lda_mk(a[mt][1], Cs + kQMax * kLD, kLD, rw + mt * 16, k);
+          }
+#pragma unroll
+          for (int q = 0; q < kNT / 2; ++q) {
+            uint32_t bb[2][4];
+            ldb_kn(bb[0], Ss, kLP, k, q * 16);
+            ldb_kn(bb[1], Ss + kT * kLP, kLP, k, q * 16);
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt) {
+              mma_split<kLo, true>(acc[mt][2 * q], a[mt], bb, 0);
+              mma_split<kLo, true>(acc[mt][2 * q + 1], a[mt], bb, 1);
+            }
+          }
+        }
+      }
+    }
+    if (active) {
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const float d0 = expf(fmaxf(cum[rw + mt * 16 + g], kClip));
+        const float d1 = expf(fmaxf(cum[rw + mt * 16 + g + 8], kClip));
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          acc[mt][nt][0] *= d0;
+          acc[mt][nt][1] *= d0;
+          acc[mt][nt][2] *= d1;
+          acc[mt][nt][3] *= d1;
+        }
+      }
+    }
+  }
+
+  // in-chunk: (G ∘ L ∘ dt)(x), one tile of 64 keys at a time
+  bf16* Ms = tiles;                    // [2][kQMax][kLD] (i, j)
+  bf16* Xs = Ms + 2 * kQMax * kLD;     // [kPl][64][kLP] (j, p)
+  const float* gp = G + (static_cast<long>(b) * nc + c) * Q * Q;
+  const T* xp = x + b * x_sb + static_cast<long>(h) * P;
+  for (int j0 = 0; j0 < Q; j0 += kT) {
+    __syncthreads();   // the previous tiles are consumed
+    for (int e = tid; e < kT * P / 8; e += kThreads) {
+      const int j = e / (P / 8), p = (e % (P / 8)) * 8;
+      float v[8];
+      load8(xp + static_cast<long>(c0 + j0 + j) * x_ss + p, vec, true, v);
+      put8<kLo>(Xs + j * kLP + p, Xs + (kT + j) * kLP + p, v);
+    }
+    // rows below j0 see none of these keys and are not staged
+    for (int e = tid; e < (Q - j0) * kT / 8; e += kThreads) {
+      const int i = j0 + e / (kT / 8), jq = (e % (kT / 8)) * 8;
+      float v[8];
+      load8(gp + static_cast<long>(i) * Q + j0 + jq, true, j0 + jq <= i, v);
+      const float ci = cum[i];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int j = j0 + jq + u;
+        v[u] = j <= i ? v[u] * expf(fmaxf(ci - cum[j], kClip)) * dts[j]
+                      : 0.f;
+      }
+      put8<true>(Ms + i * kLD + jq, Ms + (kQMax + i) * kLD + jq, v);
+    }
+    __syncthreads();
+    if (!active) continue;
+#pragma unroll
+    for (int k = 0; k < kT; k += 16) {
+      if (j0 + k > rw + 31) break;   // these keys are after every row
+      uint32_t bb[kNT / 2][2][4];
+#pragma unroll
+      for (int q = 0; q < kNT / 2; ++q) {
+        ldb_kn(bb[q][0], Xs, kLP, k, q * 16);
+        if constexpr (kLo) ldb_kn(bb[q][1], Xs + kT * kLP, kLP, k, q * 16);
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int rm = rw + mt * 16;
+        if (j0 + k > rm + 15) continue;
+        uint32_t a[2][4];
+        lda_mk(a[0], Ms, kLD, rm, k);
+        lda_mk(a[1], Ms + kQMax * kLD, kLD, rm, k);
+#pragma unroll
+        for (int q = 0; q < kNT / 2; ++q) {
+          mma_split<true, kLo>(acc[mt][2 * q], a, bb[q], 0);
+          mma_split<true, kLo>(acc[mt][2 * q + 1], a, bb[q], 1);
+        }
+      }
+    }
+  }
+
+  if (!active) return;
+  T* yp = y + (static_cast<long>(b) * S + c0) * H * P + h * P;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = rw + mt * 16 + g + half * 8;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+        rt::store2(yp + static_cast<long>(i) * H * P + nt * 8 + 2 * t,
+               acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
+    }
+}
+
+// --- launch ------------------------------------------------------------------
+
+bool aligned16(const void* p, long stride_bytes_a, long stride_bytes_b) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && stride_bytes_a % 16 == 0
+         && stride_bytes_b % 16 == 0;
+}
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+template <typename T, int P>
+int launch(const void* xv, long x_sb, long x_ss, const float* dt, long dt_sb,
+           long dt_ss, const float* A, const void* Bv, long b_sb, long b_ss,
+           const void* Cv, long c_sb, long c_ss, void* yv, float* G,
+           float* st, float* decay, int Bn, int S, int H, int N, int Q,
+           cudaStream_t s) {
+  const T* x = static_cast<const T*>(xv);
+  const T* Bm = static_cast<const T*>(Bv);
+  const T* Cm = static_cast<const T*>(Cv);
+  const long es = sizeof(T);
+  const bool vec = aligned16(x, x_sb * es, x_ss * es) &&
+                   aligned16(Bm, b_sb * es, b_ss * es) &&
+                   aligned16(Cm, c_sb * es, c_ss * es);
+  const int nc = S / Q, tq = Q / kT;
+  const size_t gram_smem = 4 * kT * kLDN * sizeof(bf16);
+  const size_t state_smem =
+      (2 * kT * kLDN + 2 * kT * (P + 8)) * sizeof(bf16) + (3 * kQMax + 8) * 4;
+  const size_t out_smem = out_tiles_bytes<T, P>() + (2 * kQMax + 8) * 4;
+  cudaError_t err;
+  if ((err = allow_smem(ssd_gram_kernel<T>, gram_smem)) ||
+      (err = allow_smem(ssd_chunk_state_kernel<T, P>, state_smem)) ||
+      (err = allow_smem(ssd_chunk_out_kernel<T, P>, out_smem)))
+    return err;
+  ssd_gram_kernel<T><<<dim3(tq * (tq + 1) / 2, nc, Bn), kGramThreads,
+                       gram_smem, s>>>(Cm, c_sb, c_ss, Bm, b_sb, b_ss, G, N,
+                                       Q, vec);
+  if ((err = cudaGetLastError())) return err;
+  ssd_chunk_state_kernel<T, P><<<dim3(H, nc, Bn), kThreads, state_smem, s>>>(
+      x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Bm, b_sb, b_ss, st, decay, H, N,
+      Q, vec);
+  if ((err = cudaGetLastError())) return err;
+  const long groups = static_cast<long>(Bn) * H * N * P / 4;
+  const unsigned pass_blocks =
+      static_cast<unsigned>((groups + kThreads - 1) / kThreads);
+  ssd_state_pass_kernel<P><<<pass_blocks, kThreads, 0, s>>>(st, decay, Bn,
+                                                            nc, H, N);
+  if ((err = cudaGetLastError())) return err;
+  ssd_chunk_out_kernel<T, P><<<dim3(H, nc, Bn), kThreads, out_smem, s>>>(
+      x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Cm, c_sb, c_ss, G, st,
+      static_cast<T*>(yv), S, N, Q, vec);
   return cudaGetLastError();
 }
 
@@ -281,25 +627,31 @@ int launch(const void* x, long x_sb, long x_ss, const float* dt, long dt_sb,
 // strides in elements); dt [Bn, S, H] float32 (head stride 1); A [H]
 // float32; B, C [Bn, S, N] in x's type (element stride 1); y [Bn, S, H,
 // 64] contiguous.  N a multiple of 8 up to 128; Q a multiple of 64 up to
-// 256 that divides S.
+// 256 that divides S.  Workspaces, float32 and contiguous: G [Bn, S/Q,
+// Q, Q], st [Bn, S/Q, H, N, 64], decay [Bn, S/Q, H].
 extern "C" int ssd_chunk_scan_fwd(const void* x, long x_sb, long x_ss,
                                   const void* dt, long dt_sb, long dt_ss,
                                   const void* A, const void* Bm, long b_sb,
                                   long b_ss, const void* Cm, long c_sb,
-                                  long c_ss, void* y, int Bn, int S, int H,
-                                  int N, int Q, int dtype, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+                                  long c_ss, void* y, void* G, void* st,
+                                  void* decay, int Bn, int S, int H, int N,
+                                  int Q, int dtype, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (N <= 0 || N > kNMax || N % 8 || Q <= 0 || Q > kQMax || Q % kT ||
       S % Q)
     return cudaErrorInvalidValue;
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(A);
+  float* g = static_cast<float*>(G);
+  float* sf = static_cast<float*>(st);
+  float* df = static_cast<float*>(decay);
   if (dtype == rt::kF32)
-    return launch<float>(x, x_sb, x_ss, dtf, dt_sb, dt_ss, af, Bm, b_sb,
-                         b_ss, Cm, c_sb, c_ss, y, Bn, S, H, N, Q, st);
+    return launch<float, kP>(x, x_sb, x_ss, dtf, dt_sb, dt_ss, af, Bm,
+                             b_sb, b_ss, Cm, c_sb, c_ss, y, g, sf, df, Bn, S,
+                             H, N, Q, s);
   if (dtype == rt::kBF16)
-    return launch<__nv_bfloat16>(x, x_sb, x_ss, dtf, dt_sb, dt_ss, af, Bm,
-                                 b_sb, b_ss, Cm, c_sb, c_ss, y, Bn, S, H, N,
-                                 Q, st);
+    return launch<bf16, kP>(x, x_sb, x_ss, dtf, dt_sb, dt_ss, af, Bm, b_sb,
+                            b_ss, Cm, c_sb, c_ss, y, g, sf, df, Bn, S, H, N,
+                            Q, s);
   return cudaErrorInvalidValue;
 }

@@ -8,132 +8,287 @@
 //   high[b] = x[b] − round_T(y[b])          [S, D]   (when requested)
 // basis [S, S] float32 row-major (the DCT-II basis for dct_tokens, the
 // low-pass projection L = Cᵀ diag(mask) C for band_split); x float32 or
-// bf16; both operands in float32, as the reference casts them, float32
+// bf16; float32 operands as the reference casts them, float32
 // accumulation; outputs in x's type.  high subtracts the ROUNDED low,
 // as the reference does (it forms x − low after the cast).
 //
 // What bounds it on an H100: operations.  The product is 2·S²·D FLOP
 // per lane (103 GFLOP at S = 4096, D = 3072) against ~84 MB moved per
-// lane in bf16; in float32 arithmetic outside the tensor cores
-// (67 TFLOP/s) that is ~1.5 ms of FMAs per lane against ~25 us of bytes.
-// TF32 mma would be 7x faster but keeps a 10-bit mantissa, which misses
-// the float32 tolerance; 3xTF32 splitting is later work.
+// lane in bf16.  Once at the TF32 tensor-core peak (495 TFLOP/s) that is
+// 0.21 ms a lane, the least the card could take; in float32 FMAs (67
+// TFLOP/s) 1.5 ms.  But one TF32 product keeps a 10-bit mantissa and
+// misses the float32 tolerance.
 //
-// Design: a classic float32 SIMT GEMM.  A 256-thread block owns a
-// 128x128 output tile of one lane (the basis is shared across the
-// batch, so the lane is a grid axis) and walks the reduction in 16-deep
-// stages, double-buffered in shared memory with a register prefetch of
-// the next stage.  Each thread keeps an 8x8 register tile (two 4-wide
-// halves per axis, so its float4 shared-memory reads are conflict
-// free), and registers are capped so two blocks share an SM.  The
-// prefetch holds x in its own type and converts bf16 (exactly) only
-// when it stores the stage, so the loads stay in flight during the
-// current stage's FMAs; no float32 copy of x is made.  Ragged S and D
-// are masked at load and store, so any shape runs.
+// Design: float32 accuracy from TF32 tensor-core products (mma.sync
+// m16n8k8 .tf32, float32 accumulation).  A float32 operand v is split
+// into hi = tf32(v) and lo = tf32(v − hi); every product of two TF32
+// values is exact in float32, so
+//   a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi       (float32 x: 3 products)
+// misses only a_lo·b_lo (~2^-22 relative) and the order of the float32
+// sums.  A bf16 x is exact in TF32 (8-bit significand), so a bf16 call
+// needs only a_lo·x + a_hi·x: 2 products, 412 GFLOP at [2, 4096, 3072]
+// (0.83 ms at the TF32 peak; a float32 call 3 products, 1.25 ms).  The
+// split happens in registers as a warp reads its fragments from shared
+// memory, so the stages hold the operands as they are in memory.  The
+// tensor cores' float32 accumulation rounds toward zero, so a long sum
+// drifts (3.5e-5 relative at S = 4096 when the whole reduction ran in
+// one accumulator); each 32-deep stage accumulates apart and joins the
+// result by float32 adds, which round to nearest.
+//
+// A 256-thread block (8 warps as 4 x 2) owns a 128x128 output tile of
+// one lane (the basis is shared across the batch, so the lane is a grid
+// axis); each warp a 32x64 tile, 2x8 mma tiles (fewer basis values to
+// split per product than a 64x32 tile).  The reduction runs in 32-deep
+// stages through a 3-stage cp.async ring (16-byte copies, the next two
+// stages in flight while the warps multiply the current one).  Shared
+// rows are padded (basis rows to 36 floats, x rows to 136 elements) so
+// that the fragment reads hit 32 distinct banks.  One block per SM, no
+// register cap: no spills.  Ragged S and D are zero-filled at load and
+// masked at store; where a row of the basis or x is not 16-byte aligned
+// (S % 4 or D % (16 / sizeof(T)) non-zero) the stages are filled by
+// plain loads instead of cp.async.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kBM = 128;        // output rows (tokens) per block
 constexpr int kBN = 128;        // output columns (features) per block
-constexpr int kBK = 16;         // reduction depth per stage
-constexpr int kBlock = 256;     // threads per block
-constexpr int kPad = 4;         // As row padding: the transposed store
-                                // then hits each bank at most twice
-constexpr int kLoads = kBM * kBK / kBlock;   // elements per thread/stage
+constexpr int kBK = 32;         // reduction depth per stage
+constexpr int kStages = 3;      // cp.async ring depth
+constexpr int kWarpsM = 4;      // warps along the output rows
+constexpr int kWarpsN = 2;      // warps along the output columns
+constexpr int kBlock = 32 * kWarpsM * kWarpsN;
+constexpr int kMT = kBM / kWarpsM / 16;   // m16 tiles of a warp
+constexpr int kNT = kBN / kWarpsN / 8;    // n8 tiles of a warp
+constexpr int kLDA = kBK + 4;   // padded basis row (floats)
+constexpr int kLDB = kBN + 8;   // padded x row (elements of x's type)
 
 template <typename T>
-__global__ void __launch_bounds__(kBlock, 2)
+__host__ __device__ constexpr size_t stage_bytes() {
+  return kBM * kLDA * sizeof(float) + kBK * kLDB * sizeof(T);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ uint32_t tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+// v = hi + lo to ~2^-22 relative, both TF32
+__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(v);
+  lo = tf32(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two neighbouring elements as float32
+__device__ __forceinline__ float2 load2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock, 1)
 token_basis_matmul_kernel(const float* __restrict__ basis,
                           const T* __restrict__ x, T* __restrict__ y,
-                          T* __restrict__ high, int S, int D) {
-  __shared__ __align__(16) float As[2][kBK][kBM + kPad];
-  __shared__ __align__(16) float Bs[2][kBK][kBN];
+                          T* __restrict__ high, int S, int D, bool vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int kVecB = 16 / sizeof(T);      // x elements per 16 bytes
   const long lane = static_cast<long>(blockIdx.z) * S * D;
   const T* __restrict__ xb = x + lane;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
+  const int tid = threadIdx.x, warp = tid / 32, ln = tid % 32;
+  const int g = ln / 4, t = ln % 4;
+  const int wm = (warp / kWarpsN) * kMT * 16;
+  const int wn = (warp % kWarpsN) * kNT * 8;
 
-  float ra[kLoads];
-  T rb[kLoads];
-  // stage k0 of A = basis[m0:m0+128, k0:k0+16] and B = x[b][k0:k0+16,
-  // n0:n0+128] into registers; out-of-range elements read as zero
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int r = 0; r < kLoads; ++r) {
-      const int e = tid + r * kBlock;
-      const int gi = m0 + e / kBK, ga = k0 + e % kBK;
-      ra[r] = (gi < S && ga < S) ? basis[static_cast<long>(gi) * S + ga]
-                                 : 0.f;
-      const int gb = k0 + e / kBN, gn = n0 + e % kBN;
-      rb[r] = (gb < S && gn < D) ? xb[static_cast<long>(gb) * D + gn]
-                                 : rt::from_f32<T>(0.f);
-    }
+  auto As = [&](int st) {
+    return reinterpret_cast<float*>(smem + st * stage_bytes<T>());
   };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int r = 0; r < kLoads; ++r) {
-      const int e = tid + r * kBlock;
-      As[buf][e % kBK][e / kBK] = ra[r];
-      Bs[buf][e / kBN][e % kBN] = rt::to_f32(rb[r]);
-    }
+  auto Bs = [&](int st) {
+    return reinterpret_cast<T*>(smem + st * stage_bytes<T>() +
+                                kBM * kLDA * sizeof(float));
   };
 
-  float acc[8][8] = {};
+  // stage st <- basis[m0:+128, k0:+32] and x[b][k0:+32, n0:+128];
+  // out-of-range elements are zero
+  auto load = [&](int st, int k0) {
+    float* a = As(st);
+    T* bt = Bs(st);
+    if (vec) {
+#pragma unroll
+      for (int r = 0; r < kBM * kBK / 4 / kBlock; ++r) {
+        const int e = tid + r * kBlock;
+        const int i = e / (kBK / 4), c = (e % (kBK / 4)) * 4;
+        const bool ok = m0 + i < S && k0 + c < S;
+        cp_async16(a + i * kLDA + c,
+                   ok ? basis + static_cast<long>(m0 + i) * S + k0 + c
+                      : basis, ok);
+      }
+#pragma unroll
+      for (int r = 0; r < kBK * kBN / kVecB / kBlock; ++r) {
+        const int e = tid + r * kBlock;
+        const int k = e / (kBN / kVecB), c = (e % (kBN / kVecB)) * kVecB;
+        const bool ok = k0 + k < S && n0 + c < D;
+        cp_async16(bt + k * kLDB + c,
+                   ok ? xb + static_cast<long>(k0 + k) * D + n0 + c : xb, ok);
+      }
+    } else {
+      for (int e = tid; e < kBM * kBK; e += kBlock) {
+        const int i = e / kBK, c = e % kBK;
+        a[i * kLDA + c] = (m0 + i < S && k0 + c < S)
+            ? basis[static_cast<long>(m0 + i) * S + k0 + c] : 0.f;
+      }
+      for (int e = tid; e < kBK * kBN; e += kBlock) {
+        const int k = e / kBN, c = e % kBN;
+        bt[k * kLDB + c] = (k0 + k < S && n0 + c < D)
+            ? xb[static_cast<long>(k0 + k) * D + n0 + c]
+            : rt::from_f32<T>(0.f);
+      }
+    }
+  };
+
+  float acc[kMT][kNT][4] = {};
   const int n_stages = (S + kBK - 1) / kBK;
-  load(0);
-  store(0);
-  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_stages) load(s, s * kBK);
+    cp_async_commit();
+  }
   for (int st = 0; st < n_stages; ++st) {
-    const int cur = st & 1;
-    const bool more = st + 1 < n_stages;
-    if (more) load((st + 1) * kBK);
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][ty * 4]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[cur][kk][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][tx * 4]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + tx * 4]);
-      const float ar[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float br[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
-    }
-    // the other buffer was last read in the previous stage, before the
-    // barrier that ended it
-    if (more) store(cur ^ 1);
+    cp_async_wait<kStages - 2>();
+    // stage st has landed for every thread, and every warp is done with
+    // the buffer that the prefetch below overwrites (read at st − 1)
     __syncthreads();
-  }
+    if (st + kStages - 1 < n_stages)
+      load((st + kStages - 1) % kStages, (st + kStages - 1) * kBK);
+    cp_async_commit();
 
+    const float* a = As(st % kStages);
+    const T* bt = Bs(st % kStages);
+    // the stage's products accumulate on the tensor cores, whose float32
+    // sums round toward zero; they then join acc by float32 adds, which
+    // round to nearest, so the truncation does not build up over S
+    float part[kMT][kNT][4] = {};
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (r >= S) continue;
+    for (int kk = 0; kk < kBK; kk += 8) {
+      // B fragments: (k = t, n = g) and (k = t + 4, n = g) of each tile
+      uint32_t bh[kNT][2], bl[kNT][2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (c >= D) continue;
-      const long off = lane + static_cast<long>(r) * D + c;
-      const T lo = rt::from_f32<T>(acc[i][j]);
-      y[off] = lo;
-      if (high != nullptr)
-        high[off] = rt::from_f32<T>(rt::to_f32(x[off]) - rt::to_f32(lo));
+      for (int nt = 0; nt < kNT; ++nt) {
+        const T* br = bt + (kk + t) * kLDB + wn + nt * 8 + g;
+        const float b[2] = {rt::to_f32(br[0]), rt::to_f32(br[4 * kLDB])};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          if constexpr (sizeof(T) == 4)
+            split(b[i], bh[nt][i], bl[nt][i]);
+          else
+            bh[nt][i] = __float_as_uint(b[i]);   // bf16 is exact in TF32
+        }
+      }
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt) {
+        // A fragment: rows g, g + 8 and columns t, t + 4
+        const float* ar = a + (wm + mt * 16 + g) * kLDA + kk + t;
+        uint32_t ah[4], al[4];
+        split(ar[0], ah[0], al[0]);
+        split(ar[8 * kLDA], ah[1], al[1]);
+        split(ar[4], ah[2], al[2]);
+        split(ar[8 * kLDA + 4], ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < kNT; ++nt) {
+          mma_tf32(part[mt][nt], al, bh[nt][0], bh[nt][1]);
+          if constexpr (sizeof(T) == 4)
+            mma_tf32(part[mt][nt], ah, bl[nt][0], bl[nt][1]);
+          mma_tf32(part[mt][nt], ah, bh[nt][0], bh[nt][1]);
+        }
+      }
     }
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
   }
+  cp_async_wait<0>();
+
+  // accumulator (mt, nt): elements {0, 1} at row g, columns 2t and
+  // 2t + 1; {2, 3} at row g + 8.  Where x's rows are aligned (vec: D
+  // even) the two columns are stored as one pair.
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = m0 + wm + mt * 16 + g + half * 8;
+      if (r >= S) continue;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt) {
+        const int c = n0 + wn + nt * 8 + 2 * t;
+        const long off = lane + static_cast<long>(r) * D + c;
+        const float v[2] = {acc[mt][nt][half * 2],
+                            acc[mt][nt][half * 2 + 1]};
+        if (vec && c + 1 < D) {
+          rt::store2(y + off, v[0], v[1]);
+          if (high != nullptr) {
+            const float2 xv = load2(x + off);
+            rt::store2(high + off, xv.x - rt::to_f32(rt::from_f32<T>(v[0])),
+                   xv.y - rt::to_f32(rt::from_f32<T>(v[1])));
+          }
+          continue;
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          if (c + e >= D) continue;
+          const T lo = rt::from_f32<T>(v[e]);
+          y[off + e] = lo;
+          if (high != nullptr)
+            high[off + e] =
+                rt::from_f32<T>(rt::to_f32(x[off + e]) - rt::to_f32(lo));
+        }
+      }
+    }
 }
 
 template <typename T>
 int launch(const float* basis, const void* x, void* y, void* high, int B,
            int S, int D, cudaStream_t st) {
+  const size_t smem = kStages * stage_bytes<T>();
+  cudaError_t err = cudaFuncSetAttribute(
+      token_basis_matmul_kernel<T>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const bool vec = S % 4 == 0 && D % (16 / sizeof(T)) == 0 &&
+                   reinterpret_cast<uintptr_t>(basis) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0;
   const dim3 grid((D + kBN - 1) / kBN, (S + kBM - 1) / kBM, B);
-  token_basis_matmul_kernel<T><<<grid, kBlock, 0, st>>>(
+  token_basis_matmul_kernel<T><<<grid, kBlock, smem, st>>>(
       basis, static_cast<const T*>(x), static_cast<T*>(y),
-      static_cast<T*>(high), S, D);
+      static_cast<T*>(high), S, D, vec);
   return cudaGetLastError();
 }
 

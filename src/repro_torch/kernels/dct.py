@@ -5,10 +5,12 @@
   update of the policy objects.
 * ``token_basis_matmul`` wraps ``csrc/token_basis_matmul.cu`` (the port
   of ``repro.kernels.dct.token_basis_matmul``): ``y = basis @ x`` over
-  the token axis.  ``band_split`` applies it with the spatial low-pass
-  projection ``L = Cᵀ diag(mask) C`` and writes ``high = x − low`` in
-  the same epilogue; ``frequency.decompose`` and ``ops.dct_tokens``
-  reach it.
+  the token axis, to float32 accuracy on the TF32 tensor cores (the
+  float32 basis split into TF32 hi + lo: two products for a bf16 x,
+  which TF32 holds exactly, three for a float32 x, split too).
+  ``band_split`` applies it with the spatial low-pass projection
+  ``L = Cᵀ diag(mask) C`` and writes ``high = x − low`` in the same
+  epilogue; ``frequency.decompose`` and ``ops.dct_tokens`` reach it.
 
 The wrappers take CUDA tensors only; the op layer (``kernels.ops``)
 sends CPU tensors to the plain versions in ``kernels.ref``.
@@ -124,8 +126,8 @@ def _basis_matmul(basis: torch.Tensor, x: torch.Tensor, with_high: bool):
 
 def token_basis_matmul(basis: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``y[b, s, d] = Σ_k basis[s, k]·x[b, k, d]``: basis ``[S, S]``,
-    x ``[B, S, D]`` float32 or bf16; float32 arithmetic, output in x's
-    type."""
+    x ``[B, S, D]`` float32 or bf16; float32 accuracy (split TF32
+    products, float32 sums), output in x's type."""
     return _basis_matmul(basis.to(torch.float32).contiguous(), x, False)[0]
 
 

@@ -157,6 +157,52 @@ def ssd_chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (y, state.transpose(-1, -2)) if return_state else y
 
 
+def ssd_chunk_scan_parallel_ref(x: torch.Tensor, dt: torch.Tensor,
+                                A: torch.Tensor, B: torch.Tensor,
+                                C: torch.Tensor,
+                                chunk: int = 256) -> torch.Tensor:
+    """The CUDA kernel's chunk-parallel algorithm in plain float32 (for
+    the tests; the op layer's CPU route is ``ssd_chunk_scan_ref``).  The
+    same function as ``ssd_chunk_scan_ref``, computed in its four passes:
+    ``G = C Bᵀ`` once per (lane, chunk), shared by the heads; each
+    chunk's own contribution ``Σ_j exp(cum_Q − cum_j) dt_j B_jᵀ x_j``;
+    the states passed over the chunks, ``state_c = exp(cum_Q)·state_{c−1}
+    + contrib_c`` (the recurrence, never one cumulative exp across
+    chunks); then ``y = exp(cum) ∘ (C · state_{c−1}) + ((G ∘ L) ∘ dt)
+    x``.  Every exp clips at −60 within its chunk."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"ssd_chunk_scan: S={s} is not a multiple of the "
+                         f"chunk {q}")
+    nc = s // q
+    xc = x.to(_F32).reshape(b, nc, q, h, p)
+    dtc = dt.to(_F32).reshape(b, nc, q, h)
+    bc = B.to(_F32).reshape(b, nc, q, n)
+    cc = C.to(_F32).reshape(b, nc, q, n)
+    cum = torch.cumsum(dtc * A.to(_F32), dim=2)              # [b, c, q, h]
+    gram = torch.einsum("bcin,bcjn->bcij", cc, bc)           # pass 1
+    w = dtc * torch.exp((cum[:, :, -1:] - cum).clamp(min=NEG_CLIP))
+    contrib = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc, w, xc)  # pass 2
+    decay = torch.exp(cum[:, :, -1].clamp(min=NEG_CLIP))     # [b, c, h]
+    state = torch.zeros((b, h, n, p), dtype=_F32, device=x.device)
+    entering = []
+    for c in range(nc):                                       # pass 3
+        entering.append(state)
+        state = decay[:, c, :, None, None] * state + contrib[:, c]
+    state_in = torch.stack(entering, dim=1)                  # [b, c, h, n, p]
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [b, c, i, j, h]
+    lmat = torch.where(tri[..., None], torch.exp(diff.clamp(min=NEG_CLIP)),
+                       0.0)
+    m = gram[..., None] * lmat * dtc[:, :, None]             # pass 4
+    y = torch.exp(cum.clamp(min=NEG_CLIP))[..., None] * torch.einsum(
+        "bcin,bchnp->bcihp", cc, state_in)
+    y = y + torch.einsum("bcijh,bcjhp->bcihp", m, xc)
+    return y.reshape(b, s, h, p).to(x.dtype)
+
+
 def ssd_naive_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   B: torch.Tensor, C: torch.Tensor):
     """The per-token SSD recurrence, the ground-truth semantics

@@ -6,6 +6,15 @@ layer sends CPU tensors to ``ref.ssd_chunk_scan_ref``.  ``x``, ``B`` and
 ``C`` may be column slices of one ``[b, s, ·]`` tensor (as the mamba2
 block's are): the kernel reads them through their batch and token
 strides, so nothing is copied.
+
+The kernel is chunk-parallel (``ref.ssd_chunk_scan_parallel_ref`` is
+its algorithm in plain PyTorch): ``C Bᵀ`` once per (lane, chunk), each
+chunk's own state contribution per (lane, chunk, head), the state
+passed from chunk to chunk per (lane, head), then each chunk's output
+per (lane, chunk, head); every product on the tensor cores (bf16
+operands, a float32 one split into bf16 hi + lo).  The wrapper
+allocates the float32 workspaces of those passes; one call counts as
+one launch.
 """
 from __future__ import annotations
 
@@ -63,15 +72,22 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError("ssd_chunk_scan: x needs contiguous heads, dt, B "
                          "and C a contiguous last axis")
     y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    nc = s // q
+    f32 = dict(dtype=torch.float32, device=dev)
+    gram = torch.empty((b, nc, q, q), **f32)          # C Bᵀ per chunk
+    # each chunk's own contribution, overwritten by the state entering it
+    states = torch.empty((b, nc, h, n, p), **f32)
+    decay = torch.empty((b, nc, h), **f32)            # exp(cum_Q) per chunk
     lib = build.load("ssd_scan")
     fn = lib.ssd_chunk_scan_fwd
     fn.argtypes = [_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P,
-                   _I, _I, _I, _I, _I, _I, _P]
+                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     status = fn(x.data_ptr(), x.stride(0), x.stride(1),
                 dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
                 B.data_ptr(), B.stride(0), B.stride(1),
                 C.data_ptr(), C.stride(0), C.stride(1), y.data_ptr(),
+                gram.data_ptr(), states.data_ptr(), decay.data_ptr(),
                 b, s, h, n, q, build.dtype_code(x),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "ssd_chunk_scan", status)

@@ -82,15 +82,20 @@ def test_flash_kernel(card, dtype, s, t, hd):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("call", ["dct_tokens", "dct", "fft", "decompose"])
-def test_token_basis_matmul_kernel(card, dtype, call):
+@pytest.mark.parametrize("shape", [(2, 200, 136), (1, 77, 9),
+                                   (2, 4096, 3072)])
+def test_token_basis_matmul_kernel(card, dtype, call, shape):
     """Ragged S and D (neither a multiple of the 128-wide tiles);
+    (1, 77, 9) has rows that are not 16-byte aligned, so the stages are
+    filled by plain loads; (2, 4096, 3072) is the analysis path's shape,
+    128 stages of the cp.async ring per block, so its steady state runs.
     ``decompose`` on a CUDA ``[B, S, D]`` tensor reaches the kernel."""
-    x = torch.randn(2, 200, 136, device=card).to(dtype)
+    x = torch.randn(*shape, device=card).to(dtype)
     ops.reset_launch_counts()
     if call == "dct_tokens":
         got = (ops.dct_tokens(x),)
         want = (ref.token_basis_matmul_ref(
-            frequency.dct_basis(200, device=card), x),)
+            frequency.dct_basis(shape[1], device=card), x),)
     elif call == "decompose":
         got = tuple(frequency.decompose(x, 0.0625, "fft"))
         want = ref.band_split_ref(x, 0.0625, "fft")
@@ -99,6 +104,28 @@ def test_token_basis_matmul_kernel(card, dtype, call):
         want = ref.band_split_ref(x, 0.0625, call)
     assert ops.launch_counts()["token_basis_matmul"] == 1
     _close(got, want, dtype)
+
+
+def test_token_basis_matmul_split_is_live(card):
+    """float32: random unit-scale x under the DCT basis, where a single
+    TF32 product keeps ~11 bits and misses 1e-5.  The kernel (TF32 hi + lo
+    splits, three products) passes 1e-5; the control, torch.matmul with
+    TF32 allowed, must fail the same check, so the split is what passes."""
+    x = torch.randn(2, 512, 256, device=card)
+    basis = frequency.dct_basis(512, device=card)
+    want = ref.token_basis_matmul_ref(basis, x)
+    ops.reset_launch_counts()
+    got = ops.dct_tokens(x)
+    assert ops.launch_counts()["token_basis_matmul"] == 1
+    _close((got,), (want,), torch.float32)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = torch.matmul(basis, x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    err = (tf32 - want).abs().max() / want.abs().max()
+    assert float(err) > TOL[torch.float32], float(err)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -160,18 +187,31 @@ def test_flash_kernel_sharp_softmax(card, s, hq, hkv, hd, causal):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("s,chunk,n", [(512, 256, 128), (384, 128, 64),
-                                       (256, 64, 16)])
-def test_ssd_chunk_scan_kernel(card, dtype, s, chunk, n):
+@pytest.mark.parametrize("s,chunk,n,dt_scale", [
+    (512, 256, 128, 1.0), (384, 128, 64, 1.0), (256, 64, 16, 1.0),
+    (192, 64, 24, 1.0),             # N padded to 32 in the kernel
+    (4096, 256, 128, 1.0),          # mamba2-370m's 16 chunks of 256
+    (1024, 128, 128, 20.0),         # decays clipped at −60
+])
+def test_ssd_chunk_scan_kernel(card, dtype, s, chunk, n, dt_scale):
     """x, B and C as column slices of one conv output (strided, as the
-    mamba2 block passes them); float32 dt."""
+    mamba2 block passes them); float32 dt, scaled by dt_scale.  N 24 is
+    not a multiple of the kernel's 16-wide steps, so the state is padded
+    with zeros; 16 chunks pass the states over many chunks; at dt_scale
+    20 cum falls below −60 inside every chunk, so decays are clipped
+    inside chunks and the state crosses chunks through the clipped
+    exp(cum_Q)."""
     b, h, p = 2, 3, 64
     xbc = torch.randn(b, s, h * p + 2 * n, device=card) * 0.5
     xbc = xbc.to(dtype)
     x = xbc[..., :h * p].reshape(b, s, h, p)
     bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
     dt = torch.nn.functional.softplus(torch.randn(b, s, h, device=card))
+    dt = dt * dt_scale
     a = -torch.exp(torch.randn(h, device=card) * 0.3)
+    if dt_scale > 1:
+        cum = (dt * a).reshape(b, s // chunk, chunk, h).cumsum(dim=2)
+        assert float(cum[:, :, -1].max()) < -60.0
     ops.reset_launch_counts()
     got = ops.ssd(x, dt, a, bm, cm, chunk)
     assert ops.launch_counts()["ssd_chunk_scan"] == 1

@@ -171,6 +171,34 @@ def test_ssd_chunk_scan_ref_keeps_bf16_and_clips():
                                cm[:, :24], 16)
 
 
+@pytest.mark.parametrize("s,chunk,dt_scale", [(64, 16, 1.0), (128, 32, 1.0),
+                                              (64, 64, 1.0), (128, 32, 3.0),
+                                              (96, 32, 12.0),
+                                              (128, 16, 40.0)])
+def test_ssd_chunk_parallel_decomposition_matches_pallas(s, chunk, dt_scale):
+    """The CUDA kernel's chunk-parallel algorithm (C Bᵀ once per lane and
+    chunk, per-chunk contributions, states passed over the chunks, then
+    each chunk's output) against the sequential plain scan and the
+    Pallas kernel in interpret mode.  dt_scale 3 takes cum below −60
+    late in a chunk, 12 and 40 early in every chunk (so does a chunk of
+    64 at dt_scale 1 for one head), so decays are
+    clipped inside chunks and the state crosses chunks through clipped
+    decays; the clip applies per chunk in all three.  Tolerance 1e-5
+    relative to the largest output (float32)."""
+    x, dt, a, bm, cm = _ssd_inputs(2, s, 3, 16, 8, seed=18)
+    dt = (dt * dt_scale).astype(np.float32)
+    cum = np.cumsum((dt * a).reshape(2, s // chunk, chunk, 3), axis=2)
+    assert cum.min() < -60.0 or dt_scale == 1.0
+    ins = (x, dt, a, bm, cm)
+    want = jssd.ssd_chunk_scan(*(jnp.asarray(t) for t in ins), chunk,
+                               interpret=True)
+    tins = [torch.from_numpy(t) for t in ins]
+    got = ref.ssd_chunk_scan_parallel_ref(*tins, chunk)
+    assert got.shape == (2, s, 3, 16) and torch.isfinite(got).all()
+    _rel_close(got.numpy(), want)
+    _rel_close(got.numpy(), ref.ssd_chunk_scan_ref(*tins, chunk).numpy())
+
+
 def test_attention_ref_is_the_full_logits_branch():
     """bf16 rounds the probabilities before PV, as dit.py:131 does."""
     from repro.models import dit as jdit

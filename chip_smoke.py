@@ -9,11 +9,14 @@ Phases, each of which raises (and so exits non-zero) on failure:
                loads (UTMALDG), and ptxas must report no spills, no
                ignored setmaxnreg (C7508) and no serialised wgmma
                (C7512) for its bf16 kernels; the SASS of
-               token_basis_matmul and ssd_scan must hold mma.sync
-               (HMMA), with no spills in any of their kernels;
+               token_basis_matmul, ssd_scan, band_split_spectral and
+               freqca_fused_spectral must hold mma.sync (HMMA), with no
+               spills in any of their kernels;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
-               layer, one mamba2-370m SSD layer), in bf16 and float32,
+               layer, one mamba2-370m SSD layer; the FreqCa cache
+               kernels also at mamba2-370m's CRF width), in bf16 and
+               float32,
                with the stated tolerance, plus its time, the plain
                version's time, the bound and, where one PyTorch call
                computes the same function, that call's time;
@@ -196,10 +199,12 @@ def flash_build_checks() -> None:
 
 
 def mma_build_checks() -> None:
-    """token_basis_matmul and the SSD scan run their products on the
-    tensor cores: each library's SASS holds mma.sync (HMMA), and ptxas
-    reports no spills for any of its kernels."""
-    for name in ("token_basis_matmul", "ssd_scan"):
+    """token_basis_matmul, the SSD scan and the two FreqCa cache kernels
+    run their products on the tensor cores: each library's SASS holds
+    mma.sync (HMMA), and ptxas reports no spills for any of its
+    kernels."""
+    for name in ("token_basis_matmul", "ssd_scan", "band_split_spectral",
+                 "freqca_fused_spectral"):
         hmma = sass(name).count("HMMA")
         spills = ptxas_spills(name)
         log(f"{name} SASS: HMMA {hmma}; kernels {len(spills)}, spill bytes "
@@ -220,6 +225,9 @@ def kernel_phase(main_dtype: dict) -> dict:
                                      ops, ref)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    # the backbone-width rows draw from their own generator, so that the
+    # other rows' inputs do not depend on them
+    gen_bb = torch.Generator(device=dev).manual_seed(1)
     B, S, D, K = 2, 4096, 3072, 3
     rows = {}
 
@@ -237,7 +245,9 @@ def kernel_phase(main_dtype: dict) -> dict:
             f"kernel_ms={t_k:.4f} plain_ms={t_p:.4f} bound_ms={b_ms:.4f} "
             f"({b_by}) library_ms="
             f"{'null' if t_l is None else f'{t_l:.4f}'}"
-            + (f" {rate(flops, t_k, b_ms)}" if name.startswith("flash")
+            + (f" {rate(flops, t_k, b_ms)}" if name.startswith(
+                ("flash", "band_split_spectral",
+                 "freqca_predict_fused_spectral"))
                else ""))
         if dtype == main_dtype.get(name):
             rows[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
@@ -247,39 +257,66 @@ def kernel_phase(main_dtype: dict) -> dict:
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
         es = torch.finfo(dt).bits // 8
-        # band split: the CRF of two lanes, dct and fft widths
-        x = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
-        for method in ("dct", "fft"):
-            m = frequency.spectral_kept_bins(S, 0.0625, method)
-            name = "band_split_spectral"
-            nb = 2 * B * S * D * es + B * m * D * es + m * S * 4
-            fl = B * 2 * (2 * m * S * D)
-            row(name if method == "dct" else name + "[fft]", dtype_name,
-                lambda x=x, method=method: dct.band_split_spectral(
-                    x, 0.0625, method),
-                lambda x=x, method=method: ref.band_split_spectral_ref(
-                    x, 0.0625, method),
-                nb, fl)
-        del x
-        # fused cached step: ring of K=3, per-lane weights
-        m = frequency.spectral_kept_bins(S, 0.0625, "dct")
-        low = torch.randn((B, m, D), generator=gen, device=dev).to(dt)
-        hist = torch.randn((B, K, S, D), generator=gen, device=dev).to(dt)
-        synth = frequency.low_band_basis(S, 0.0625, "dct", device=dev).T
-        ts = torch.tensor([[0.9, 0.85, 0.75], [0.75, 0.9, 0.85]],
-                          device=dev)
-        w = ops.hermite_weights(ts, torch.tensor(0.7, device=dev), 2)
-        nb = ((B * m * D + B * K * S * D + B * S * D) * es
-              + (S * m + w.numel()) * 4)
-        fl = B * (2 * S * m * D + 2 * K * S * D)
-        row("freqca_predict_fused_spectral", dtype_name,
-            lambda low=low, hist=hist, w=w:
-                freqca_fused.freqca_predict_fused_spectral(low, synth, hist,
-                                                           w),
-            lambda low=low, hist=hist, w=w:
-                ref.freqca_predict_spectral_ref(low, synth, hist, w),
-            nb, fl)
-        del low, hist
+        # The two FreqCa cache kernels, on the CRF of two lanes at FLUX
+        # width (the band split in dct and fft) and at mamba2-370m's
+        # (d 1024).  Their arithmetic is float32 whatever the CRF's
+        # type, run on the TF32 tensor cores: the bound of the kernels
+        # line counts the function's products once at the TF32 peak.
+        # Logged beside it: the same work at the float32 FMA peak, and
+        # the design's own count of TF32 products (the basis always
+        # split hi + lo; a bf16 operand exact in TF32, a float32 one
+        # split: the band split 2 + 3 products in bf16, 3 + 3 in
+        # float32; the cached step 2 or 3).
+        n_op = 2 if dtype_name == "bfloat16" else 3
+        for d, methods in ((D, ("dct", "fft")), (1024, ("dct",))):
+            wide = "" if d == D else f"D={d}"
+            g = gen if d == D else gen_bb
+            x = torch.randn((B, S, d), generator=g, device=dev).to(dt)
+            for method in methods:
+                m = frequency.spectral_kept_bins(S, 0.0625, method)
+                tag = ", ".join(t for t in ("" if method == "dct" else method,
+                                            wide) if t)
+                name = "band_split_spectral" + (f"[{tag}]" if tag else "")
+                nb = 2 * B * S * d * es + B * m * d * es + m * S * 4
+                prod = 2 * B * m * S * d
+                row(name, dtype_name,
+                    lambda x=x, method=method: dct.band_split_spectral(
+                        x, 0.0625, method),
+                    lambda x=x, method=method: ref.band_split_spectral_ref(
+                        x, 0.0625, method),
+                    nb, 2 * prod, op_dtype="tf32")
+                log_bound(f"{name} [{dtype_name}] at the float32 FMA peak",
+                          nb, 2 * prod, "float32")
+                log_bound(f"{name} [{dtype_name}] the design's ({n_op} + 3 "
+                          "TF32 products)", nb, (n_op + 3) * prod, "tf32")
+            del x
+            # fused cached step: ring of K=3, per-lane weights
+            m = frequency.spectral_kept_bins(S, 0.0625, "dct")
+            low = torch.randn((B, m, d), generator=g, device=dev).to(dt)
+            hist = torch.randn((B, K, S, d), generator=g, device=dev).to(dt)
+            synth = frequency.low_band_basis(S, 0.0625, "dct", device=dev).T
+            ts = torch.tensor([[0.9, 0.85, 0.75], [0.75, 0.9, 0.85]],
+                              device=dev)
+            w = ops.hermite_weights(ts, torch.tensor(0.7, device=dev), 2)
+            nb = ((B * m * d + B * K * S * d + B * S * d) * es
+                  + (S * m + w.numel()) * 4)
+            prod, fma = 2 * B * S * m * d, 2 * B * K * S * d
+            name = "freqca_predict_fused_spectral" + (f"[{wide}]" if wide
+                                                      else "")
+            row(name, dtype_name,
+                lambda low=low, hist=hist, w=w, synth=synth:
+                    freqca_fused.freqca_predict_fused_spectral(low, synth,
+                                                               hist, w),
+                lambda low=low, hist=hist, w=w, synth=synth:
+                    ref.freqca_predict_spectral_ref(low, synth, hist, w),
+                nb, prod + fma, op_dtype="tf32")
+            log_bound(f"{name} [{dtype_name}] at the float32 FMA peak", nb,
+                      prod + fma, "float32")
+            log_bound(f"{name} [{dtype_name}] the design's ({n_op} TF32 "
+                      "products)", nb, {"tf32": n_op * prod, "float32": fma},
+                      "tf32")
+            del low, hist
+            torch.cuda.empty_cache()
         # the token-axis basis product: as dct_tokens (DCT-II basis) and
         # as the band split (projection L, high in the same epilogue),
         # on the CRF of two lanes.  Its arithmetic is float32 whatever

@@ -2,7 +2,9 @@
 
 * ``band_split_spectral`` wraps ``csrc/band_split_spectral.cu`` (the
   port of ``repro.kernels.dct.band_split_spectral``): the FreqCa cache
-  update of the policy objects.
+  update of the policy objects, two products on the TF32 tensor cores
+  to float32 accuracy (``low = B·x``, its reduction over S split in
+  slices, then ``high = x − Bᵀ·low``).
 * ``token_basis_matmul`` wraps ``csrc/token_basis_matmul.cu`` (the port
   of ``repro.kernels.dct.token_basis_matmul``): ``y = basis @ x`` over
   the token axis, to float32 accuracy on the TF32 tensor cores (the
@@ -42,10 +44,16 @@ def band_split_spectral(x: torch.Tensor, rho: float, method: str = "dct"):
     b, s, d = x.shape
     basis = frequency.low_band_basis(s, rho, method, device=x.device)
     m = basis.shape[0]
+    lib = build.load("band_split_spectral")
+    slices = lib.band_split_spectral_slices
+    slices.argtypes = [_I, _I, _I, _I]
+    slices.restype = _I
     low = torch.empty((b, m, d), dtype=x.dtype, device=x.device)
     high = torch.empty_like(x)
-    low32 = torch.empty((b, m, d), dtype=torch.float32, device=x.device)
-    lib = build.load("band_split_spectral")
+    # the float32 partials of pass 1's slices of S; the first ends as
+    # the unrounded low band that pass 2 reads
+    low32 = torch.empty((slices(b, s, d, m), b, m, d), dtype=torch.float32,
+                        device=x.device)
     fn = lib.band_split_spectral
     fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
     fn.restype = _I

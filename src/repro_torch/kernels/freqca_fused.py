@@ -3,7 +3,8 @@
 * ``freqca_predict_fused_spectral`` wraps ``csrc/freqca_fused_spectral.cu``
   (the port of
   ``repro.kernels.freqca_fused.freqca_predict_fused_spectral``):
-  spectral synthesis plus the K-entry Hermite FMA, per lane.
+  spectral synthesis on the TF32 tensor cores (float32-accurate) plus
+  the K-entry Hermite FMA, per lane.
 * ``freqca_predict_fused`` wraps ``csrc/freqca_fused.cu`` (the port of
   ``repro.kernels.freqca_fused.freqca_predict_fused``): the legacy
   cached step ``low + Σ_k w_k·hist_k`` over a K-major history with one
@@ -33,7 +34,8 @@ def freqca_predict_fused_spectral(low_spec: torch.Tensor,
     low_spec [B, m, D]; synth [S, m] (``low_band_basis(S).T``);
     high_hist [B, K, S, D] in ring-slot order, of low_spec's type;
     w [B, K] per-lane folded Hermite weights.  Output [B, S, D] in
-    high_hist's type.
+    high_hist's type.  The kernel reads synth's transpose, S-contiguous:
+    for the view ``basis.T`` that is the basis itself, with no copy.
     """
     b, k, s, d = high_hist.shape
     m = synth.shape[1]
@@ -45,9 +47,9 @@ def freqca_predict_fused_spectral(low_spec: torch.Tensor,
             f"high_hist {tuple(high_hist.shape)}, w {tuple(w.shape)}")
     if low_spec.dtype != high_hist.dtype:
         raise TypeError("low_spec and high_hist must share one type")
-    synth = synth.to(torch.float32).contiguous()
+    basis = synth.to(torch.float32).T.contiguous()     # [m, S]
     w = w.to(torch.float32).contiguous()
-    build.require_cuda("freqca_predict_fused_spectral", low_spec, synth,
+    build.require_cuda("freqca_predict_fused_spectral", low_spec, basis,
                        high_hist, w)
     out = torch.empty((b, s, d), dtype=high_hist.dtype,
                       device=high_hist.device)
@@ -55,7 +57,7 @@ def freqca_predict_fused_spectral(low_spec: torch.Tensor,
     fn = lib.freqca_fused_spectral
     fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
-    status = fn(low_spec.data_ptr(), synth.data_ptr(), high_hist.data_ptr(),
+    status = fn(low_spec.data_ptr(), basis.data_ptr(), high_hist.data_ptr(),
                 w.data_ptr(), out.data_ptr(), b, k, s, d, m,
                 build.dtype_code(high_hist),
                 torch.cuda.current_stream(out.device).cuda_stream)

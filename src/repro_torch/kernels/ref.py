@@ -62,6 +62,83 @@ def freqca_predict_spectral_ref(low_spec: torch.Tensor, synth: torch.Tensor,
     return (low + high).to(high_hist.dtype)
 
 
+def tf32_round(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> TF32 as ``cvt.rna.tf32.f32`` rounds it: to nearest on
+    the 13 low mantissa bits, ties away from zero, which are then
+    cleared (the value stays a float32)."""
+    bits = v.to(_F32).contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(_F32)
+
+
+_TF32_STAGE = 32     # the TF32 kernels' reduction depth per stage
+
+
+def tf32_split_matmul(a: torch.Tensor, b: torch.Tensor,
+                      slices: int = 1) -> torch.Tensor:
+    """``a @ b`` (``a [M, K]``, ``b [..., K, N]``) as the TF32 kernels
+    compute it (``csrc/common.cuh``'s ``Tf32Tile``; for the tests, as
+    ``ssd_chunk_scan_parallel_ref`` is): the float32 ``a`` split into
+    TF32 ``hi + lo``; a float32 ``b`` split too, 3 products ``a_lo·b_hi
+    + a_hi·b_lo + a_hi·b_hi``; a bf16 ``b`` is exact in TF32, 2 products
+    ``a_lo·b + a_hi·b``.  A product of two TF32 values is exact in
+    float32; each 32-deep stage sums in float32 on its own and the
+    stages join in order by float32 adds.  ``slices`` splits K as
+    ``band_split_spectral``'s first pass splits S: ``ceil(stages /
+    slices)`` stages a slice, each slice summed so, then the slices
+    added in order."""
+    a = a.to(_F32)
+    a_hi = tf32_round(a)
+    a_lo = tf32_round(a - a_hi)
+    bf = b.to(_F32)
+    if b.dtype == torch.bfloat16:
+        pairs = [(a_lo, bf), (a_hi, bf)]
+    else:
+        b_hi = tf32_round(bf)
+        pairs = [(a_lo, b_hi), (a_hi, tf32_round(bf - b_hi)), (a_hi, b_hi)]
+    k = a.shape[-1]
+    stages = -(-k // _TF32_STAGE)
+    step = -(-stages // slices) * _TF32_STAGE
+    out = None
+    for s0 in range(0, k, step):
+        acc = None
+        for k0 in range(s0, min(k, s0 + step), _TF32_STAGE):
+            ks = slice(k0, min(k, k0 + _TF32_STAGE))
+            part = None
+            for x, y in pairs:
+                p = x[:, ks] @ y[..., ks, :]
+                part = p if part is None else part + p
+            acc = part if acc is None else acc + part
+        out = acc if out is None else out + acc
+    return out
+
+
+def band_split_spectral_tf32_ref(x: torch.Tensor, rho: float,
+                                 method: str = "dct", slices: int = 1):
+    """``band_split_spectral`` as its CUDA kernel computes it (for the
+    tests): ``low32 = B·x`` by ``tf32_split_matmul`` with S split in
+    ``slices``, then ``high = x − Bᵀ·low32`` (3 products, low32 being
+    float32); both cast to x.dtype."""
+    basis = frequency.low_band_basis(x.shape[-2], rho, method,
+                                     device=x.device)
+    low32 = tf32_split_matmul(basis, x, slices)
+    high = x.to(_F32) - tf32_split_matmul(basis.T, low32)
+    return low32.to(x.dtype), high.to(x.dtype)
+
+
+def freqca_predict_spectral_tf32_ref(low_spec: torch.Tensor,
+                                     synth: torch.Tensor,
+                                     high_hist: torch.Tensor,
+                                     w: torch.Tensor) -> torch.Tensor:
+    """``freqca_predict_fused_spectral`` as its CUDA kernel computes it
+    (for the tests): ``synth·low_spec`` by ``tf32_split_matmul``, then
+    the K weighted history entries added in slot order."""
+    out = tf32_split_matmul(synth, low_spec)
+    w = w.to(_F32)
+    for k in range(high_hist.shape[1]):
+        out = out + w[:, k, None, None] * high_hist[:, k].to(_F32)
+    return out.to(high_hist.dtype)
+
+
 NEG_INF = -1e30      # masked logits, as the reference's attention
 NEG_CLIP = -60.0     # the SSD kernel's exp underflow guard
 

@@ -40,10 +40,21 @@ def _close(got, want, dtype):
         assert float(err) <= TOL[dtype], float(err)
 
 
+# (S, D) at the edges of the two TF32 kernels' tiles: pass 1 and its
+# 128 x 128 tiles split the reduction over S in slices, pass 2 and the
+# cached step take 128 x 64 tiles.  S 320 and D 200 are off every tile
+# edge; (77, 9) has rows that are not 16-byte aligned (plain loads, the
+# history read from global memory); S 4000 is 125 stages, so pass 1's
+# last slice is short; (4096, 256) is deep (fft: m = 257, a masked K
+# tail and a 1-row third tile of spectral rows).
+_SPECTRAL_SHAPES = [(320, 200), (77, 9), (4000, 136), (4096, 256)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("method", ["dct", "fft"])
-def test_band_split_kernel(card, dtype, method):
-    x = torch.randn(2, 320, 200, device=card).to(dtype)
+@pytest.mark.parametrize("s,d", _SPECTRAL_SHAPES)
+def test_band_split_kernel(card, dtype, method, s, d):
+    x = torch.randn(2, s, d, device=card).to(dtype)
     ops.reset_launch_counts()
     got = ops.band_split_spectral(x, 0.0625, method)
     assert ops.launch_counts()["band_split_spectral"] == 1
@@ -51,17 +62,105 @@ def test_band_split_kernel(card, dtype, method):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_fused_spectral_kernel(card, dtype):
-    s, d = 320, 200
-    basis = frequency.low_band_basis(s, 0.0625, "fft", device=card)
+@pytest.mark.parametrize("method", ["dct", "fft"])
+@pytest.mark.parametrize("s,d", _SPECTRAL_SHAPES)
+@pytest.mark.parametrize("k", [3, 6])
+def test_fused_spectral_kernel(card, dtype, method, s, d, k):
+    """K 6 float32 entries are more than shared memory holds beside the
+    operand ring (4), so the last two are read from global memory."""
+    basis = frequency.low_band_basis(s, 0.0625, method, device=card)
     low = torch.randn(2, basis.shape[0], d, device=card).to(dtype)
-    hist = torch.randn(2, 3, s, d, device=card).to(dtype)
-    w = torch.randn(2, 3, device=card)
+    hist = torch.randn(2, k, s, d, device=card).to(dtype)
+    w = torch.randn(2, k, device=card)
     ops.reset_launch_counts()
     got = ops.freqca_predict_spectral(low, basis.T, hist, w)
     assert ops.launch_counts()["freqca_predict_fused_spectral"] == 1
     _close((got,), (ref.freqca_predict_spectral_ref(low, basis.T, hist, w),),
            dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_spectral_kernel_reads_synth_strided(card, dtype):
+    """The policy's synth is the view basis.T; a contiguous copy of it
+    gives bitwise the same output."""
+    basis = frequency.low_band_basis(4096, 0.0625, "fft", device=card)
+    low = torch.randn(2, basis.shape[0], 256, device=card).to(dtype)
+    hist = torch.randn(2, 3, 4096, 256, device=card).to(dtype)
+    w = torch.randn(2, 3, device=card)
+    assert not basis.T.is_contiguous()
+    got = ops.freqca_predict_spectral(low, basis.T, hist, w)
+    assert torch.equal(got, ops.freqca_predict_spectral(
+        low, basis.T.contiguous(), hist, w))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["band_split", "fused"])
+def test_spectral_kernels_are_deterministic(card, dtype, kernel):
+    """No float atomics: pass 1's slices are added in a fixed order, so
+    two launches give bitwise-equal outputs."""
+    x = torch.randn(2, 4096, 1024, device=card).to(dtype)
+    if kernel == "band_split":
+        def run():
+            return ops.band_split_spectral(x, 0.0625, "dct")
+    else:
+        basis = frequency.low_band_basis(4096, 0.0625, "dct", device=card)
+        low = torch.randn(2, basis.shape[0], 1024, device=card).to(dtype)
+        hist = torch.stack([x, 0.5 * x, -x], dim=1)
+        w = torch.randn(2, 3, device=card)
+
+        def run():
+            return (ops.freqca_predict_spectral(low, basis.T, hist, w),)
+    for a, b in zip(run(), run(), strict=True):
+        assert torch.equal(a, b)
+
+
+def _tf32_matmul(a, b):
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()
+                 / want.float().abs().max())
+
+
+def test_band_split_spectral_split_is_live(card):
+    """float32 at S 4096: the kernel (TF32 hi + lo splits) passes 1e-5;
+    the control, the same two products by torch.matmul with TF32
+    allowed, fails the same check, so the split is what passes."""
+    x = torch.randn(2, 4096, 256, device=card)
+    want = ref.band_split_spectral_ref(x, 0.0625, "dct")
+    ops.reset_launch_counts()
+    got = ops.band_split_spectral(x, 0.0625, "dct")
+    assert ops.launch_counts()["band_split_spectral"] == 1
+    _close(got, want, torch.float32)
+    basis = frequency.low_band_basis(4096, 0.0625, "dct", device=card)
+    low = _tf32_matmul(basis, x)
+    high = x - _tf32_matmul(basis.T, low)
+    err = max(_rel_err(low, want[0]), _rel_err(high, want[1]))
+    assert err > TOL[torch.float32], err
+
+
+def test_fused_spectral_split_is_live(card):
+    """float32 at S 4096, as above: the cached step's kernel passes
+    1e-5, the synthesis by torch.matmul with TF32 allowed fails it.
+    Weights of scale 0.1 keep the output the synthesis's, so that its
+    error is what the check sees."""
+    basis = frequency.low_band_basis(4096, 0.0625, "dct", device=card)
+    low = torch.randn(2, basis.shape[0], 256, device=card)
+    hist = torch.randn(2, 3, 4096, 256, device=card)
+    w = 0.1 * torch.randn(2, 3, device=card)
+    want = ref.freqca_predict_spectral_ref(low, basis.T, hist, w)
+    ops.reset_launch_counts()
+    got = ops.freqca_predict_spectral(low, basis.T, hist, w)
+    assert ops.launch_counts()["freqca_predict_fused_spectral"] == 1
+    _close((got,), (want,), torch.float32)
+    tf32 = _tf32_matmul(basis.T, low) + torch.einsum("bk,bksd->bsd", w, hist)
+    assert _rel_err(tf32, want) > TOL[torch.float32], _rel_err(tf32, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -83,6 +83,87 @@ def test_fused_spectral_matches_pallas(method, k, order):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
 
 
+def test_tf32_round_is_cvt_rna():
+    """The twin's TF32 rounding: nearest on the 13 low mantissa bits,
+    ties away from zero (1 + 2^-11 is a tie: up, where round-to-even
+    would give 1), the 13 bits then clear, within 2^-11 relative."""
+    tie = np.float32(1 + 2**-11)
+    got = ref.tf32_round(torch.tensor([tie, -tie, 1 + 2**-12, 1 + 2**-10,
+                                       1 + 2**-11 + 2**-20]))
+    np.testing.assert_array_equal(
+        got.numpy(), np.float32([1 + 2**-10, -(1 + 2**-10), 1, 1 + 2**-10,
+                                 1 + 2**-10]))
+    v = torch.from_numpy(np.random.default_rng(20).standard_normal(
+        4096).astype(np.float32))
+    r = ref.tf32_round(v)
+    assert int((r.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    assert float(((r - v).abs() / v.abs()).max()) <= 2**-11
+
+
+@pytest.mark.parametrize("method", ["dct", "fft", "none"])
+@pytest.mark.parametrize("s,d,rho,slices", [(64, 32, 0.0625, 1),
+                                            (128, 64, 0.125, 2),
+                                            (320, 32, 0.0625, 4)])
+def test_band_split_spectral_tf32_twin_matches_pallas(method, s, d, rho,
+                                                      slices):
+    """The CUDA kernel's arithmetic (TF32 hi + lo products, each 32-deep
+    stage summed apart, pass 1's reduction over S in slices added in
+    order; 320 tokens are 10 stages, slices of 3, 3, 3 and 1) against
+    the Pallas kernel in interpret mode and the plain version, float32
+    within 1e-5."""
+    x = np.random.default_rng(21).standard_normal((2, s, d)).astype(
+        np.float32)
+    want = jdct.band_split_spectral(jnp.asarray(x), rho, method, block_d=32,
+                                    interpret=True)
+    xt = torch.from_numpy(x)
+    got = ref.band_split_spectral_tf32_ref(xt, rho, method, slices)
+    plain = ref.band_split_spectral_ref(xt, rho, method)
+    for g, w, p in zip(got, want, plain, strict=True):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+        np.testing.assert_allclose(g.numpy(), p.numpy(), atol=ATOL)
+
+
+@pytest.mark.parametrize("method", ["dct", "fft"])
+@pytest.mark.parametrize("k,order", [(3, 2), (4, 2)])
+def test_fused_spectral_tf32_twin_matches_pallas(method, k, order):
+    """The cached step's CUDA arithmetic (TF32 hi + lo synthesis, the
+    history added in slot order) against the Pallas kernel in interpret
+    mode and the plain version, float32 within 1e-5; all three take the
+    same folded weights."""
+    s, d, rho, b = 64, 32, 0.125, 2
+    jring, tring = _rings(k, b, s, d, seed=22)
+    basis = jfreq.low_band_basis(s, rho, method)
+    low = np.random.default_rng(23).standard_normal(
+        (b, basis.shape[0], d)).astype(np.float32)
+    jw = jbase.ring_slot_weights(jring, np.float32(0.3), order)
+    want = jfused.freqca_predict_fused_spectral(
+        jnp.asarray(low), basis.T, jring.vals, jw, block_s=32, block_d=32,
+        interpret=True)
+    args = (torch.from_numpy(low), torch.from_numpy(np.array(basis)).T,
+            tring.vals, torch.from_numpy(np.array(jw)))
+    got = ref.freqca_predict_spectral_tf32_ref(*args)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    np.testing.assert_allclose(
+        got.numpy(), ref.freqca_predict_spectral_ref(*args).numpy(),
+        atol=ATOL)
+
+
+def test_single_tf32_product_misses_float32_tolerance():
+    """Control of the twins: at S 512 one emulated TF32 product (both
+    operands rounded once, as a TF32 matmul runs) misses 1e-5 against
+    the float64 product, where the split product passes it."""
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal((2, 512, 64)).astype(np.float32)
+    basis = tfreq.low_band_basis(512, 0.0625, "dct")
+    want = np.einsum("ms,bsd->bmd", basis.double().numpy(),
+                     x.astype(np.float64))
+    xt = torch.from_numpy(x)
+    single = ref.tf32_round(basis) @ ref.tf32_round(xt)
+    split = ref.tf32_split_matmul(basis, xt)
+    assert np.abs(single.numpy() - want).max() > ATOL
+    np.testing.assert_allclose(split.numpy(), want, atol=ATOL)
+
+
 @pytest.mark.parametrize("s,h,hd", [(64, 2, 16), (96, 3, 64)])
 def test_flash_attention_matches_pallas(s, h, hd):
     rng = np.random.default_rng(4)

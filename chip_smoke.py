@@ -15,17 +15,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer; the FreqCa cache
-               kernels also at mamba2-370m's CRF width), in bf16 and
-               float32,
-               with the stated tolerance, plus its time, the plain
-               version's time, the bound and, where one PyTorch call
-               computes the same function, that call's time;
+               kernels also at mamba2-370m's CRF width and at one FLUX
+               lane, as a mixed-policy batch launches them), in bf16 and
+               float32, with the stated tolerance, plus its time, the
+               plain version's time, the bound and, where one PyTorch
+               call computes the same function, that call's time;
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
-               versions), and so do a dit-small sampling loop driven by
-               the legacy function-style cache API, two full-width
-               mamba2-370m layers as a denoiser and two yi-9b-shaped
-               layers through the LM forward at 2048 tokens;
+               versions), and so does a mixed batch of a FreqCa and a
+               ``freqca_eb`` request on a variant of it whose budget
+               both skips and fires; so do a dit-small sampling loop
+               driven by the legacy function-style cache API, two
+               full-width mamba2-370m layers as a denoiser and two
+               yi-9b-shaped layers through the LM forward at 2048
+               tokens;
 5. analysis  — at full flux1-dev width: the uncached reference
                trajectory, the paper's Fig-2 band statistics (kernel
                route against the plain transform route) and the legacy
@@ -34,16 +37,24 @@ Phases, each of which raises (and so exits non-zero) on failure:
 6. serve     — a ``DiffusionEngine`` at full flux1-dev width serves four
                1024² requests under FreqCa, then one under ``none``;
                launch counters show the main path ran its kernels;
-7. backbone  — FreqCa on an assigned architecture: mamba2-370m (48
+7. slo       — at full flux1-dev width, an ``AsyncDiffusionEngine``
+               cutting mixed-policy batches serves one FreqCa request
+               and three ``freqca_eb`` requests with a ``max_error``
+               tier (a ``MixedBank`` batch and a uniform one), then two
+               of them alone: each lane matches its solo run, realized
+               errors stay within the budget, the metrics' wire format
+               round-trips and merges, and the launch counters equal the
+               launches the recorded per-step masks imply;
+8. backbone  — FreqCa on an assigned architecture: mamba2-370m (48
                layers, d 1024) as the denoiser at S 4096, four requests
                served by the engine, 48 SSD launches per full forward;
-8. lm        — yi-9b (48 layers, d 4096) ``transformer.forward`` on one
+9. lm        — yi-9b (48 layers, d 4096) ``transformer.forward`` on one
                32768-token sequence, 48 causal GQA flash launches; the
                flash launch at that shape held against its plain version
                on the first and the last 1024 queries.
 
 The flux1-dev parameters (~26 GB in bf16) are built once for phases 5
-and 6 and freed before phase 7.  The last line is ``{"ok": true,
+to 7 and freed before phase 8.  The last line is ``{"ok": true,
 "device": {...}}``; the line before it is the card's name and power
 limit, and before that a ``kernels`` JSON line.  Run from the repository
 root: ``python3 chip_smoke.py``.
@@ -74,6 +85,14 @@ PEAK_FLOPS = {"bfloat16": 989e12,     # dense tensor-core bf16
 # unnormalised rounding of the kernel's p and the output's rounding)
 TOLERANCE = {"float32": 1e-4, "bfloat16": 2e-2}
 N_STEPS = 20                          # Euler steps of the full-width phases
+# the slo phase: the realized-error and latent tolerances of an eb lane
+# served in a batch of two against the same request served alone (bf16
+# dense layers at batch 2 against batch 1); and the margin, as a share of
+# the budget, that a measured spend must keep from it (the warmup's
+# smallest rate below a tier, for that tier to count as leaving a cached
+# step; every spend of the small card-vs-CPU run, so float32 cannot tie)
+SLO_REL_TOL = 5e-2
+SLO_TIER_MARGIN = 0.05
 # the kernels of the served main path (the others run on the analysis
 # path)
 SERVE_KERNELS = ("band_split_spectral", "freqca_predict_fused_spectral",
@@ -228,6 +247,9 @@ def kernel_phase(main_dtype: dict) -> dict:
     # the backbone-width rows draw from their own generator, so that the
     # other rows' inputs do not depend on them
     gen_bb = torch.Generator(device=dev).manual_seed(1)
+    # and so do the one-lane rows (how a MixedBank lane launches the two
+    # cache kernels)
+    gen_b1 = torch.Generator(device=dev).manual_seed(2)
     B, S, D, K = 2, 4096, 3072, 3
     rows = {}
 
@@ -258,27 +280,30 @@ def kernel_phase(main_dtype: dict) -> dict:
         dt = getattr(torch, dtype_name)
         es = torch.finfo(dt).bits // 8
         # The two FreqCa cache kernels, on the CRF of two lanes at FLUX
-        # width (the band split in dct and fft) and at mamba2-370m's
-        # (d 1024).  Their arithmetic is float32 whatever the CRF's
-        # type, run on the TF32 tensor cores: the bound of the kernels
-        # line counts the function's products once at the TF32 peak.
+        # width (the band split in dct and fft), at mamba2-370m's (d
+        # 1024), and of one lane at FLUX width.  Their arithmetic is
+        # float32 whatever the CRF's type, run on the TF32 tensor cores:
+        # the bound of the kernels line counts the function's products
+        # once at the TF32 peak.
         # Logged beside it: the same work at the float32 FMA peak, and
         # the design's own count of TF32 products (the basis always
         # split hi + lo; a bf16 operand exact in TF32, a float32 one
         # split: the band split 2 + 3 products in bf16, 3 + 3 in
         # float32; the cached step 2 or 3).
         n_op = 2 if dtype_name == "bfloat16" else 3
-        for d, methods in ((D, ("dct", "fft")), (1024, ("dct",))):
-            wide = "" if d == D else f"D={d}"
-            g = gen if d == D else gen_bb
-            x = torch.randn((B, S, d), generator=g, device=dev).to(dt)
+        for b, d, methods, g in ((B, D, ("dct", "fft"), gen),
+                                 (B, 1024, ("dct",), gen_bb),
+                                 (1, D, ("dct",), gen_b1)):
+            wide = ", ".join(t for t in ("" if d == D else f"D={d}",
+                                         "" if b == B else f"B={b}") if t)
+            x = torch.randn((b, S, d), generator=g, device=dev).to(dt)
             for method in methods:
                 m = frequency.spectral_kept_bins(S, 0.0625, method)
                 tag = ", ".join(t for t in ("" if method == "dct" else method,
                                             wide) if t)
                 name = "band_split_spectral" + (f"[{tag}]" if tag else "")
-                nb = 2 * B * S * d * es + B * m * d * es + m * S * 4
-                prod = 2 * B * m * S * d
+                nb = 2 * b * S * d * es + b * m * d * es + m * S * 4
+                prod = 2 * b * m * S * d
                 row(name, dtype_name,
                     lambda x=x, method=method: dct.band_split_spectral(
                         x, 0.0625, method),
@@ -292,15 +317,15 @@ def kernel_phase(main_dtype: dict) -> dict:
             del x
             # fused cached step: ring of K=3, per-lane weights
             m = frequency.spectral_kept_bins(S, 0.0625, "dct")
-            low = torch.randn((B, m, d), generator=g, device=dev).to(dt)
-            hist = torch.randn((B, K, S, d), generator=g, device=dev).to(dt)
+            low = torch.randn((b, m, d), generator=g, device=dev).to(dt)
+            hist = torch.randn((b, K, S, d), generator=g, device=dev).to(dt)
             synth = frequency.low_band_basis(S, 0.0625, "dct", device=dev).T
             ts = torch.tensor([[0.9, 0.85, 0.75], [0.75, 0.9, 0.85]],
-                              device=dev)
+                              device=dev)[:b]
             w = ops.hermite_weights(ts, torch.tensor(0.7, device=dev), 2)
-            nb = ((B * m * d + B * K * S * d + B * S * d) * es
+            nb = ((b * m * d + b * K * S * d + b * S * d) * es
                   + (S * m + w.numel()) * 4)
-            prod, fma = 2 * B * S * m * d, 2 * B * K * S * d
+            prod, fma = 2 * b * S * m * d, 2 * b * K * S * d
             name = "freqca_predict_fused_spectral" + (f"[{wide}]" if wide
                                                       else "")
             row(name, dtype_name,
@@ -600,6 +625,7 @@ def reference_phase(devices=("cpu", "cuda")) -> None:
                 if dev == "cuda" and min(counts[k] for k in SERVE_KERNELS) < 1:
                     raise AssertionError(f"reference run skipped a kernel: "
                                          f"{counts}")
+        slo_reference(cfg, text_cpu, side, devices)
     finally:
         dit._FLASH_MIN_SEQ = saved
     for method in ("dct", "fft"):
@@ -612,6 +638,81 @@ def reference_phase(devices=("cpu", "cuda")) -> None:
     legacy_reference(devices)
     backbone_reference(devices)
     lm_reference(devices)
+
+
+def slo_reference(cfg, text_cpu, side: int,
+                  devices=("cpu", "cuda")) -> None:
+    """The error-budget path where it caches: the reference phase's small
+    DiT, its zero-initialised leaves redrawn with std 5e-4 (the flux1-dev
+    run's band rates exceed every tier, so its eb lanes never cache),
+    serves one FreqCa and one ``freqca_eb`` request (``max_error`` 0.2)
+    in one mixed-policy batch on each device.  Card and CPU must agree:
+    per-request full steps and budget events exactly, realized error and
+    latents to 1e-4 relative; every spend the budget is held against
+    sits at least ``SLO_TIER_MARGIN`` of it clear, so the float32
+    threshold cannot tie."""
+    import torch
+
+    from repro_torch.core.policies import (FreqCaErrorBudgetPolicy,
+                                           FreqCaPolicy)
+    from repro_torch.kernels import ops
+    from repro_torch.models import dit
+    from repro_torch.serving.engine import DiffusionEngine, DiffusionRequest
+    params_cpu = dit.init_params(cfg, seed=3, device="cpu")
+    redraw_zero_leaves(params_cpu, seed=7, std=5e-4)
+    text_one = text_cpu[:1].expand(2, -1, -1)   # one prompt, both lanes
+    fq = FreqCaPolicy(interval=3, method="dct", rho=0.125)
+    eb = FreqCaErrorBudgetPolicy(method="dct", rho=0.125)
+    spends, decide = [], FreqCaErrorBudgetPolicy.decide
+
+    def spy(self, state, ctx):
+        spend = state.acc + (state.rate_low + state.rate_high)
+        spends.extend((v, self.budget) for v, n in zip(
+            spend.tolist(), state.n_valid.tolist(), strict=True)
+            if n >= self.needed_history + 1)
+        return decide(self, state, ctx)
+    out = {}
+    FreqCaErrorBudgetPolicy.decide = spy
+    try:
+        for dev in devices:
+            full_fn, from_crf_fn = make_fns(_to(params_cpu, dev), cfg, side,
+                                            text_one.to(dev))
+            eng = DiffusionEngine(full_fn, from_crf_fn, (side, side, 16),
+                                  ((side // 2) ** 2, cfg.d_model), fq,
+                                  n_steps=10, max_batch=2,
+                                  group_policies=False, device=dev)
+            ops.reset_launch_counts()
+            res = eng.run_batch([
+                DiffusionRequest(request_id=0, seed=8),
+                DiffusionRequest(request_id=1, seed=9, policy=eb,
+                                 max_error=0.2)])
+            counts = ops.launch_counts()
+            if dev == "cuda" and min(counts[k] for k in SERVE_KERNELS) < 1:
+                raise AssertionError(f"reference slo run skipped a kernel: "
+                                     f"{counts}")
+            out[dev] = {r.request_id: r for r in res}
+    finally:
+        FreqCaErrorBudgetPolicy.decide = decide
+    margin = min(abs(v - b) / b for v, b in spends)
+    (want, got) = (out[d] for d in devices)
+    eb_err = (abs(got[1].realized_error - want[1].realized_error)
+              / want[1].realized_error)
+    lat = max(rel_l2(got[i].latents, want[i].latents) for i in (0, 1))
+    full = [[r[i].n_full_steps for i in (0, 1)] for r in (got, want)]
+    log(f"reference slo (freqca + freqca_eb at max_error 0.2, mixed "
+        f"batch) card vs CPU: full steps {full[0]} / {full[1]}, budget events "
+        f"{got[1].budget_events} / {want[1].budget_events}, realized "
+        f"{got[1].realized_error:.6f} / {want[1].realized_error:.6f} (rel "
+        f"diff {eb_err:.2e}), latents rel L2 {lat:.2e} (tol 1e-4); spends "
+        f"at least {margin:.3f} of the budget clear of it")
+    if (margin < SLO_TIER_MARGIN or want[1].budget_events < 1
+            or want[1].n_full_steps >= 10
+            or full[0] != full[1]
+            or got[1].budget_events != want[1].budget_events
+            or not eb_err <= 1e-4 or not lat <= 1e-4
+            or not want[1].realized_error <= 0.2 + 1e-6):
+        raise AssertionError("reference slo: card and CPU disagree, or the "
+                             "run does not exercise the budget")
 
 
 def rel_l2(got, want) -> float:
@@ -843,7 +944,7 @@ def flux_model(cfg=None, side: int = 128, device: str = "cuda") -> dict:
     log(f"model: {cfg.arch_id} params {n_params / 1e9:.3f} B in "
         f"{time.perf_counter() - t0:.1f} s")
     full_fn, from_crf_fn = make_fns(params, cfg, side, text)
-    return dict(cfg=cfg, side=side, device=device, text=text,
+    return dict(cfg=cfg, side=side, device=device, text=text, params=params,
                 full_fn=full_fn, from_crf_fn=from_crf_fn,
                 crf_shape=((side // cfg.patch_size) ** 2, cfg.d_model))
 
@@ -1070,6 +1171,259 @@ def serve_phase(model: dict, n_steps: int) -> dict:
     return counts
 
 
+def _eb_rates(bank, state):
+    """Per lane: (rate_low, rate_high, n_valid) for freqca_eb lanes of a
+    bank's pre-decide state, None for the other lanes."""
+    from repro_torch.core.policies import registry
+    if isinstance(bank, registry.MixedBank):
+        return [(st.rate_low.item(), st.rate_high.item(), st.n_valid.item())
+                if pol.uses_error_feedback else None
+                for pol, st in zip(bank.policies, state, strict=True)]
+    if not bank.uses_error_feedback:
+        return [None] * bank.batch
+    return list(zip(state.rate_low.tolist(), state.rate_high.tolist(),
+                    state.n_valid.tolist(), strict=True))
+
+
+def _calibrated_rates(steps, n_valid: int):
+    """(rate_low, rate_high) of every eb lane's decision in ``steps``
+    whose lane had ``n_valid`` or more full steps behind it."""
+    return [(r[0], r[1]) for _, _, rates in steps for r in rates
+            if r is not None and r[2] >= n_valid]
+
+
+def _rates_text(rates) -> str:
+    if not rates:
+        return "no eb band rates"
+    lo, hi = zip(*rates)
+    return (f"eb band rates after calibration (rate_low, rate_high) min "
+            f"{min(lo):.4f} / {min(hi):.4f}, max {max(lo):.4f} / "
+            f"{max(hi):.4f}, smallest sum "
+            f"{min(a + b for a, b in rates):.4f} over {len(rates)} "
+            "decisions")
+
+
+def slo_launches(steps, cfg) -> dict:
+    """The launches the recorded decide steps imply: per step, whether
+    the batch ran its full forward (flash in every joint-attention
+    layer), which lanes split their CRF (the band split: every FreqCa
+    lane of a MixedBank on a full step, one batched split of a
+    UniformBank, and one more for measure_error where the lane reads
+    error feedback) and which predicted (the fused cached step: every
+    step of a lane-varying bank, cached steps of a scalar one)."""
+    from repro_torch.core.policies import FreqCaPolicy, registry
+    want = {"band_split_spectral": 0, "freqca_predict_fused_spectral": 0,
+            "flash_attention": 0}
+    for bank, mask, _ in steps:
+        pols = (bank.policies if isinstance(bank, registry.MixedBank)
+                else (bank.policy,))
+        full = bank.always_full or (mask[0] if bank.scalar_decision
+                                    else any(mask))
+        for pol in pols:
+            if not isinstance(pol, FreqCaPolicy):
+                continue
+            if full:
+                want["band_split_spectral"] += \
+                    1 + int(pol.uses_error_feedback)
+            if not full or not bank.scalar_decision:
+                want["freqca_predict_fused_spectral"] += 1
+        if full:
+            want["flash_attention"] += cfg.n_double + cfg.n_layers
+    return want
+
+
+def slo_phase(model: dict, n_steps: int) -> dict:
+    """Per-request quality SLOs at the model's width: an
+    ``AsyncDiffusionEngine`` over a ``DiffusionEngine`` that cuts
+    mixed-policy batches (``group_policies=False``, ``max_batch=2``)
+    serves four requests: r0 under FreqCa(interval=5, dct), r1-r3 under
+    ``freqca_eb`` with a ``max_error`` tier.  [r0, r1] must run as a
+    ``MixedBank`` and [r2, r3] as a per-lane ``UniformBank``; r1 and r2
+    are then served again alone, and each must match its lane (masks,
+    full steps and budget events exactly; realized error and latents
+    within ``SLO_REL_TOL``) with its realized error within its budget.
+    The metrics' wire format must round-trip and merge.  The banks'
+    ``decide`` is spied on to record each step's mask, and the launch
+    counters must equal the launches those masks imply.  The tier is
+    chosen from the band rates the warmup measures: the strictest tier
+    its smallest rate stays ``SLO_TIER_MARGIN`` below (so a cached step
+    is possible), else 1.0."""
+    import torch
+
+    from repro_torch.core.policies import (ERROR_TIERS,
+                                           FreqCaErrorBudgetPolicy,
+                                           FreqCaPolicy, registry)
+    from repro_torch.kernels import ops
+    from repro_torch.serving.async_engine import AsyncDiffusionEngine
+    from repro_torch.serving.engine import DiffusionEngine, DiffusionRequest
+    from repro_torch.serving.metrics import ServeMetrics
+    cfg, side, device = model["cfg"], model["side"], model["device"]
+    on_card = torch.device(device).type == "cuda"
+    freqca = FreqCaPolicy(interval=5, method="dct")
+    eb_base = FreqCaErrorBudgetPolicy(method="dct")
+    eb_warm = eb_base.with_budget(1.0)
+    # one prompt for every lane, so a lane's result cannot depend on
+    # its position in a batch
+    text = model["text"][:1].expand(2, -1, -1)
+    full_fn, from_crf_fn = make_fns(model["params"], cfg, side, text)
+    eng = DiffusionEngine(full_fn, from_crf_fn,
+                          (side, side, 16), model["crf_shape"], freqca,
+                          n_steps=n_steps, max_batch=2,
+                          group_policies=False, device=device)
+    aeng = AsyncDiffusionEngine(eng)
+    steps, plans = [], []
+    real = {cls: cls.decide for cls in (registry.UniformBank,
+                                        registry.MixedBank)}
+
+    def spy(cls):
+        def decide(self, state, ctx):
+            rates = _eb_rates(self, state)
+            new, mask = real[cls](self, state, ctx)
+            steps.append((self, [bool(m) for m in mask.tolist()], rates))
+            return new, mask
+        return decide
+    real_execute = eng.execute_plan
+
+    def execute_spy(plan):
+        plans.append([r.request_id for r in plan.requests])
+        return real_execute(plan)
+    eng.execute_plan = execute_spy
+    for cls in real:
+        cls.decide = spy(cls)
+    try:
+        t0 = time.perf_counter()
+        aeng.warmup(policies=[eb_warm],
+                    lane_policy_sets=[(freqca, eb_warm)])
+        warm_s = time.perf_counter() - t0
+        post = _calibrated_rates(steps, eb_base.needed_history + 1)
+        if not post:
+            raise AssertionError("slo: the warmup measured no band rate")
+        r_min = min(a + b for a, b in post)
+        tier = next((t for t in ERROR_TIERS
+                     if r_min <= t * (1 - SLO_TIER_MARGIN)), 1.0)
+        eb = eb_base.with_budget(tier)   # what the scheduler stamps
+        log(f"slo: warmup {warm_s:.1f} s, {eng.compiled_buckets()} "
+            f"signatures; {_rates_text(post)}; tier {tier}")
+
+        steps.clear()
+        ops.reset_launch_counts()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        first = eng.metrics.n_batches
+        reqs = [DiffusionRequest(request_id=0, seed=300, policy=freqca)]
+        reqs += [DiffusionRequest(request_id=i, seed=300 + i, policy=eb_base,
+                                  max_error=tier) for i in (1, 2, 3)]
+        t0 = time.perf_counter()
+        with aeng.scheduler.cv:        # all four queued before any cut
+            futs = [aeng.submit(r) for r in reqs]
+        res = {f.result(timeout=900).request_id: f.result() for f in futs}
+        snap_a = aeng.metrics_dict()
+        for rid, seed in ((11, 301), (12, 302)):
+            fut = aeng.submit(DiffusionRequest(request_id=rid, seed=seed,
+                                               policy=eb_base,
+                                               max_error=tier))
+            res[rid] = fut.result(timeout=900)
+        aeng.shutdown(drain=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated() if on_card else 0
+    finally:
+        for cls, fn in real.items():
+            cls.decide = fn
+        aeng.shutdown(drain=False, timeout=900)
+    walls = eng.metrics.batch_walls[first:]
+    log(f"slo: cuts {plans}, batch walls (s) "
+        f"{[round(w, 3) for w in walls]}, phase wall {wall:.1f} s, peak "
+        f"memory {peak / 2**30:.2f} GiB; served requests' "
+        + _rates_text(_calibrated_rates(steps, eb.needed_history + 1)))
+    for rid in sorted(res):
+        r = res[rid]
+        log(f"slo: request {rid} bucket {r.bucket} n_full_steps "
+            f"{r.n_full_steps} budget_events {r.budget_events} "
+            f"realized_error {r.realized_error}")
+
+    # the cuts, and the bank each ran under
+    banks = []
+    for bank, _, _ in steps:
+        if not banks or banks[-1] is not bank:
+            banks.append(bank)
+    if plans != [[0, 1], [2, 3], [11], [12]] or len(banks) != 4:
+        raise AssertionError(f"slo: cuts {plans}, {len(banks)} banks")
+    kinds = [(type(b).__name__, getattr(b, "policies", None)
+              or (b.policy,) * b.batch) for b in banks]
+    want_kinds = [("MixedBank", (freqca, eb)), ("UniformBank", (eb, eb)),
+                  ("UniformBank", (eb,)), ("UniformBank", (eb,))]
+    if kinds != want_kinds:
+        raise AssertionError(f"slo: banks {kinds}, expected {want_kinds}")
+    masks = [[m for bk, m, _ in steps if bk is b] for b in banks]
+    lane_masks = {rid: [m[lane] for m in masks[k]] for rid, k, lane in
+                  ((0, 0, 0), (1, 0, 1), (2, 1, 0), (11, 2, 0), (12, 3, 0))}
+    log("slo: per-step masks (1 = full) " + "; ".join(
+        f"r{k} {''.join(str(int(v)) for v in m)}"
+        for k, m in lane_masks.items()))
+
+    # each eb lane against its solo run
+    want_r0 = len([i for i in range(n_steps) if i % 5 == 0 or i < 3])
+    if res[0].n_full_steps != want_r0 or res[0].realized_error != 0.0:
+        raise AssertionError(f"slo: the freqca lane ran "
+                             f"{res[0].n_full_steps} full steps (want "
+                             f"{want_r0}), realized {res[0].realized_error}")
+    for lane, solo in ((1, 11), (2, 12)):
+        a, b = res[lane], res[solo]
+        err_rel = (abs(a.realized_error - b.realized_error)
+                   / max(abs(b.realized_error), 1e-12))
+        lat_rel = rel_l2(a.latents, b.latents)
+        log(f"slo: r{lane} in its batch vs alone: n_full_steps "
+            f"{a.n_full_steps}/{b.n_full_steps}, budget_events "
+            f"{a.budget_events}/{b.budget_events}, realized_error rel diff "
+            f"{err_rel:.3e}, latents rel L2 {lat_rel:.3e} (tol "
+            f"{SLO_REL_TOL:.0e})")
+        if (lane_masks[lane] != lane_masks[solo]
+                or a.n_full_steps != b.n_full_steps
+                or a.budget_events != b.budget_events
+                or err_rel > SLO_REL_TOL or not lat_rel <= SLO_REL_TOL):
+            raise AssertionError(f"slo: r{lane} differs from its solo run")
+    for rid in (1, 2, 3, 11, 12):
+        if not res[rid].realized_error <= tier + 1e-6:
+            raise AssertionError(f"slo: r{rid} realized "
+                                 f"{res[rid].realized_error} > {tier}")
+    for r in res.values():
+        if tuple(r.latents.shape) != (side, side, 16) or \
+                not torch.isfinite(r.latents).all():
+            raise AssertionError("slo: latents of wrong shape or "
+                                 "non-finite")
+
+    # the metrics' wire format
+    snap_b = aeng.metrics_dict()
+    if ServeMetrics.from_dict(snap_b).to_dict() != snap_b:
+        raise AssertionError("slo: to_dict . from_dict is not the identity")
+    merged = ServeMetrics.merge([snap_a, snap_b])
+    sums = {k: (getattr(merged, k), snap_a[k] + snap_b[k])
+            for k in ("compile_hits", "compile_misses", "full_steps",
+                      "budget_events_total")}
+    if any(got != want for got, want in sums.values()) or \
+            merged.n_requests != (len(snap_a["request_latencies"])
+                                  + len(snap_b["request_latencies"])):
+        raise AssertionError(f"slo: merge {sums}")
+    summary = eng.metrics.summary()
+    log(f"slo: metrics requests {summary['requests']}, batches "
+        f"{summary['batches']}, budget_events {summary['budget_events']}, "
+        f"realized_error p95 {summary['realized_error_p95']}, compile "
+        f"hits/misses {summary['compile_hits']}/{summary['compile_misses']}"
+        f", signatures {summary['compiled_signatures']}; merge of two "
+        f"snapshots {merged.n_requests} requests")
+
+    want = slo_launches(steps, cfg)
+    log(f"slo: launch counts {counts}; implied by the masks {want}")
+    if on_card and any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"slo: launches {counts}, the masks imply "
+                             f"{want}")
+    return counts
+
+
 def backbone_phase(n_steps: int, cfg=None, side: int = 128,
                    device: str = "cuda") -> dict:
     """FreqCa on an assigned architecture at full width: mamba2-370m (48
@@ -1262,7 +1616,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel and reference phases "
-                         "(skips the four full-width phases)")
+                         "(skips the five full-width phases)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1310,6 +1664,7 @@ def main(argv=None) -> int:
         model = flux_model()
         by_phase["analysis"] = analysis_phase(model, N_STEPS)
         by_phase["serve"] = serve_phase(model, N_STEPS)
+        by_phase["slo"] = slo_phase(model, N_STEPS)
         del model       # free flux1-dev (~26 GB) before the next models
         gc.collect()
         torch.cuda.empty_cache()

@@ -5,8 +5,9 @@
 ``stack`` leaves ``[n_groups, ...]`` under ``l{i}``) and attention
 projections shaped ``wq/wk/wv [d, H, hd]``, ``wo [H, hd, d]``.  The
 port keeps per-layer (per-group) lists and matrix projections.  The tree
-arrives as numpy (``jax.tree.map(np.asarray, params)``), so this module
-needs no JAX.
+arrives as numpy (``jax.tree.map(np.asarray, params)``) or as a
+checkpoint file of the reference's format (``params_from_checkpoint``),
+so this module needs no JAX.
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.checkpointing import checkpoint
 from repro_torch.configs.base import DiTConfig, ModelConfig
 from repro_torch.models import blocks
 
@@ -42,7 +44,8 @@ def _to_torch(tree, dev, dtype):
         return {k: _to_torch(v, dev, dtype) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_torch(v, dev, dtype) for v in tree]
-    t = torch.tensor(np.asarray(tree))   # copies: jax's are read-only
+    t = (tree.clone() if isinstance(tree, torch.Tensor)
+         else torch.tensor(np.asarray(tree)))   # copies: jax's are read-only
     return t.to(device=dev, dtype=dtype or t.dtype)
 
 
@@ -60,6 +63,16 @@ def params_from_jax_numpy(tree, cfg: DiTConfig, device=None, dtype=None):
              for s in ("img", "txt")}
             for i in range(cfg.n_double)]
     return _to_torch(out, dev, dtype)
+
+
+def params_from_checkpoint(directory: str, step: int, cfg: DiTConfig,
+                           device=None, dtype=None, name: str = "dit"):
+    """The port's DiT parameters from a checkpoint of ``repro``'s DiT
+    params (``repro.checkpointing.checkpoint.save(directory, step,
+    params, name)``; ``launch/train.py`` names its files ``dit``), on
+    ``device`` (default ``cuda``), in ``dtype`` (default: as saved)."""
+    tree = checkpoint.unflatten(checkpoint.load_flat(directory, step, name))
+    return params_from_jax_numpy(tree, cfg, device=device, dtype=dtype)
 
 
 def _lm_block(tree):

@@ -54,6 +54,18 @@ def tree_clone(tree):
     return tree_map(torch.clone, tree)
 
 
+class ErrorFeedback(NamedTuple):
+    """Per-lane realized-error report extracted from a policy state.
+
+    ``realized`` is the largest accumulated prediction error a lane
+    committed between two consecutive full forwards (what a request's
+    ``max_error`` bounds); ``events`` counts the full forwards the budget
+    triggered (warm-up fills excluded).
+    """
+    realized: torch.Tensor         # [B] float32 — peak inter-full error
+    events: torch.Tensor           # [B] int32 — budget-triggered fulls
+
+
 class StepContext(NamedTuple):
     """Per-step observation handed to the policy by the sampler.
 
@@ -187,6 +199,10 @@ class Policy:
     # True when decide() can return lane-varying masks (adaptive
     # policies); False lets the sampler branch on one lane's decision
     per_lane: ClassVar[bool] = False
+    # True when the policy consumes realized-error observations: the
+    # sampler then measures the prediction error on every full step and
+    # feeds it back through ``observe``
+    uses_error_feedback: ClassVar[bool] = False
 
     # --- protocol --------------------------------------------------------
     def init(self, batch: int, feat_shape: Tuple[int, ...],
@@ -208,11 +224,34 @@ class Policy:
     def predict(self, state, ctx: StepContext) -> torch.Tensor:
         raise NotImplementedError
 
+    # --- error feedback (optional) ---------------------------------------
+    def measure_error(self, state, crf: torch.Tensor,
+                      ctx: StepContext) -> torch.Tensor:
+        """Realized prediction error against the fresh CRF, per lane.
+
+        Called by the sampler on full steps *before* ``update`` pushes
+        the fresh feature (only when ``uses_error_feedback``), so the
+        state still holds the cache the lane would have served.  The
+        default scores the whole-feature relative L2 of ``predict``.
+        """
+        return lane_rel_norm(self.predict(state, ctx), crf)
+
+    def observe(self, state, realized_error: torch.Tensor,
+                ctx: StepContext):
+        """Ingest a realized-error measurement (no-op by default).  Runs
+        on full steps after ``update``; the bank merges the result back
+        into the activated lanes only."""
+        return state
+
+    def error_feedback(self, state) -> Optional[ErrorFeedback]:
+        """The realized-error report of a final state, or ``None`` for
+        policies that track no feedback."""
+        return None
+
     def with_budget(self, max_error: Optional[float]) -> "Policy":
-        """Specialize to a per-request error budget: this slice's
-        policies take none (the error-feedback hooks of the reference —
-        ``measure_error``, ``observe``, ``error_feedback`` — arrive with
-        ``freqca_eb``)."""
+        """Specialize to a per-request error budget.  ``None`` (no SLO)
+        and policies without error feedback return ``self`` unchanged,
+        so request grouping stays as it was."""
         return self
 
     # --- metadata --------------------------------------------------------

@@ -9,6 +9,12 @@ and one device-to-host read of it chooses between the full branch
 lane activates, and each lane's velocity is selected per lane, so a lane
 behaves exactly as it would alone in the batch.
 
+When some lane's policy consumes error feedback (``freqca_eb``), a full
+step measures the prediction the cache would have served against the
+fresh CRF (pre-update state), pushes the CRF, then feeds the
+measurement back (``observe``), in the reference's order; the feedback
+report is read off the final state once, after the loop.
+
 The denoiser is abstract: ``full_fn(x, t) -> (velocity, crf)`` and
 ``from_crf_fn(crf, t) -> velocity``, with ``t`` a 0-d float32 tensor.
 """
@@ -29,6 +35,9 @@ class SampleResult(NamedTuple):
     n_full: int                            # batch forwards (compute)
     n_full_lanes: Optional[torch.Tensor] = None   # [B] activated steps/lane
     trajectory: Optional[torch.Tensor] = None
+    # [B]-shaped realized-error report when any lane's policy consumes
+    # error feedback (freqca_eb), else None
+    feedback: Optional[policy_base.ErrorFeedback] = None
 
 
 def sample(full_fn: Callable, from_crf_fn: Callable, x_init: torch.Tensor,
@@ -63,7 +72,12 @@ def sample(full_fn: Callable, from_crf_fn: Callable, x_init: torch.Tensor,
             act = bool(mask[0] if bank.scalar_decision else mask.any())
         if act:
             v_full, crf = full_fn(x, t_now)
-            state = bank.apply_update(state, crf, ctx, mask)
+            if bank.uses_error_feedback:
+                err = bank.measure_error(state, crf, ctx)
+                state = bank.apply_update(state, crf, ctx, mask)
+                state = bank.observe(state, err, ctx, mask)
+            else:
+                state = bank.apply_update(state, crf, ctx, mask)
             v = v_full
             if not bank.scalar_decision:
                 # lanes that did not activate keep their own schedule
@@ -78,7 +92,8 @@ def sample(full_fn: Callable, from_crf_fn: Callable, x_init: torch.Tensor,
         if return_trajectory:
             traj.append(x)
     return SampleResult(x=x, n_full=n_full, n_full_lanes=used,
-                        trajectory=torch.stack(traj) if traj else None)
+                        trajectory=torch.stack(traj) if traj else None,
+                        feedback=bank.error_feedback(state))
 
 
 def reference_features(full_fn: Callable, x_init: torch.Tensor,

@@ -2,18 +2,27 @@
 ``repro.serving.engine.DiffusionEngine``).
 
 Requests land in a ``Scheduler`` queue; batches are cut on
-age/deadline pressure, policy-homogeneous by default, and padded to
-power-of-two bucket sizes; each batch runs the port's ``sample`` on the
-engine's device and every request gets its own ``n_full_steps``.  The
-reference compiles one executable per (shape, group, bucket) signature;
-the port runs eagerly, so ``warmup`` builds the CUDA kernels and runs
-each bucket once instead.  CUDA-graph capture per signature, and its
-accounting, come later.
+age/deadline pressure, policy-homogeneous by default
+(``group_policies=False`` keeps mixed-policy cuts, served through a
+``MixedBank``), and padded to power-of-two bucket sizes; each batch
+runs the port's ``sample`` on the engine's device and every request
+gets its own ``n_full_steps`` and, under an error-feedback policy, its
+realized error and budget events.
+
+The reference compiles one executable per (shape, lane-policy
+signature, bucket) triple; the port runs eagerly, so ``warmup`` builds
+the CUDA kernels and runs each warmed triple once, and the compile
+accounting counts triples (see ``repro_torch.serving.metrics``).
+CUDA-graph capture per signature comes later.
+
+``execute_plan`` is shared with
+``repro_torch.serving.async_engine.AsyncDiffusionEngine``, whose single
+worker thread is then its only caller.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -35,6 +44,11 @@ class DiffusionResult(NamedTuple):
     wall_time_s: float
     queue_wait_s: float = 0.0
     bucket: int = 0
+    # quality SLO report (error-feedback policies only): peak cache
+    # error accumulated between full forwards, and how many fulls the
+    # budget triggered for this request's lane
+    realized_error: Optional[float] = None
+    budget_events: Optional[int] = None
 
 
 class DiffusionEngine:
@@ -79,6 +93,8 @@ class DiffusionEngine:
                                    allowed_shapes=self._allowed_shapes)
         self.metrics = ServeMetrics()
         self._ts = schedule.timesteps(n_steps, device=self.device)
+        # (crf shape, lane-policy signature, bucket) triples run so far
+        self._signatures: set = set()
 
     def declare_shape(self, latent_shape, crf_shape) -> tuple:
         """Add a (latent, CRF) shape pair to the deployment's ladder."""
@@ -109,27 +125,82 @@ class DiffusionEngine:
                          latent_dtype=torch.float32, device="meta")
         return pol.state_bytes(state)
 
-    def _run(self, x_init: torch.Tensor, lanes, crf_feat):
-        return sampler_lib.sample(
-            self.full_fn, self.from_crf_fn, x_init, self._ts, lanes,
+    # --- signature accounting --------------------------------------------
+    @staticmethod
+    def _normalize_signature(lanes):
+        """Collapse an all-equal lane assignment to the single policy so
+        uniform batches of any composition share the per-bucket ladder."""
+        lanes = tuple(lanes)
+        if all(p == lanes[0] for p in lanes):
+            return lanes[0]
+        return lanes
+
+    def metrics_dict(self) -> Dict:
+        """Lossless ``ServeMetrics`` snapshot (plain Python values, safe
+        to ship across a process boundary)."""
+        return self.metrics.to_dict()
+
+    def compiled_buckets(self) -> int:
+        """Distinct (shape, lane-policy signature, bucket) triples run so
+        far — the port's counterpart of the reference's jit-cache
+        probe."""
+        return len(self._signatures)
+
+    def signature_budget(self, n_groups: int = 1) -> int:
+        """Upper bound on signatures for steady-state traffic:
+        ``shapes x groups x buckets``."""
+        return len(self.shapes) * max(n_groups, 1) * len(self.buckets)
+
+    def _run(self, x_init: torch.Tensor, sig, crf_feat):
+        """Sample one batch under a lane-policy signature, recording the
+        (shape, signature, bucket) triple as a hit or a miss."""
+        triple = (tuple(crf_feat), sig, x_init.shape[0])
+        self.metrics.observe_compile(hit=triple in self._signatures)
+        self._signatures.add(triple)
+        res = sampler_lib.sample(
+            self.full_fn, self.from_crf_fn, x_init, self._ts, sig,
             crf_shape=(x_init.shape[0],) + tuple(crf_feat),
             crf_dtype=self.crf_dtype)
+        self.metrics.observe_compiled_signatures(len(self._signatures))
+        return res
 
-    def warmup(self, buckets: Optional[Sequence[int]] = None) -> float:
-        """Build the CUDA kernels (on a CUDA engine) and run every bucket
-        of every declared shape once on the default policy.  Returns
-        wall seconds."""
+    def warmup(self, buckets: Optional[Sequence[int]] = None,
+               lane_policy_sets: Sequence[Sequence[object]] = (),
+               policies: Sequence[object] = (),
+               shapes: Sequence = ()) -> float:
+        """Build the CUDA kernels (on a CUDA engine), then run every warmed
+        signature once, with the reference's semantics: every bucket of
+        the default policy (or ``buckets``), a full bucket ladder for each
+        extra uniform policy in ``policies``, and each per-lane
+        assignment in ``lane_policy_sets`` (its length must be a bucket
+        size) — all of it at every declared shape, ``shapes`` adding
+        (latent_shape, crf_shape) pairs to the ladder first.  The triple
+        count is then at most ``signature_budget``.  Returns wall
+        seconds."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
             from repro_torch.kernels import build
             build.build()
+        for pair in shapes:
+            self.declare_shape(*pair)
         for lat, crf in self.shapes:
             self.metrics.observe_state_bytes(
                 self.state_bytes(batch=1, latent_shape=lat, crf_shape=crf),
                 shape_key=self._shape_label(lat, crf))
-            for b in (buckets or self.buckets):
+        sigs = [(b, self.policy) for b in (buckets or self.buckets)]
+        for pol in policies:
+            sigs.extend((b, pol) for b in self.buckets
+                        if pol != self.policy)
+        for lanes in lane_policy_sets:
+            lanes = tuple(lanes)
+            if len(lanes) not in self.buckets:
+                raise ValueError(f"lane policy set of length {len(lanes)} "
+                                 f"matches no bucket in {self.buckets}")
+            sigs.append((len(lanes), self._normalize_signature(lanes)))
+        for lat, crf in self.shapes:
+            for b, sig in sigs:
                 x = torch.zeros((b,) + tuple(lat), device=self.device)
-                self._run(x, self.policy, crf)
+                self._run(x, sig, crf)
         self._sync()
         return time.perf_counter() - t0
 
@@ -162,33 +233,48 @@ class DiffusionEngine:
         return torch.stack(lanes).to(self.device)
 
     def execute_plan(self, plan: BatchPlan) -> List[DiffusionResult]:
-        """Run one formed batch and build the per-request results."""
-        lanes = plan.lane_policies(self.policy)
-        if all(p == lanes[0] for p in lanes):
-            lanes = lanes[0]
+        """Run one formed batch and build the per-request results.  The
+        single execution path of the sync entry points (``run_batch``) and of
+        ``AsyncDiffusionEngine``'s worker; one thread at a time."""
+        sig = self._normalize_signature(plan.lane_policies(self.policy))
         crf = (tuple(plan.crf_shape) if plan.crf_shape is not None
                else self.crf_shape)
         lat = (tuple(plan.latent_shape) if plan.latent_shape is not None
                else self.latent_shape)
         x_init = self.build_x_init(plan)
         t0 = time.perf_counter()
-        res = self._run(x_init, lanes, crf)
+        res = self._run(x_init, sig, crf)
         self._sync()
         wall = time.perf_counter() - t0
-        lane_full = [int(v) for v in res.n_full_lanes.tolist()]
+        n = plan.n_real
+        lane_full = [int(v) for v in res.n_full_lanes[:n].tolist()]
+        lane_err = lane_ev = None
+        if res.feedback is not None:
+            lane_err = [float(v) for v in res.feedback.realized[:n].tolist()]
+            lane_ev = [int(v) for v in res.feedback.events[:n].tolist()]
         self.metrics.observe_batch(
-            plan.bucket, plan.n_real, wall, res.n_full, self.n_steps,
-            lane_full=lane_full[:plan.n_real], group_key=plan.group_key,
+            plan.bucket, n, wall, res.n_full, self.n_steps,
+            lane_full=lane_full, group_key=plan.group_key,
+            lane_errors=lane_err, lane_events=lane_ev,
             shape_key=self._shape_label(lat, crf))
         self.metrics.observe_shed_events(self.scheduler.shed_events)
         out = []
         for i, r in enumerate(plan.requests):   # padded lanes never leak
+            err = lane_err[i] if lane_err is not None else None
+            ev = lane_ev[i] if lane_ev is not None else None
             wait = max(0.0, plan.formed_at - r.submit_time)
             self.metrics.observe_request(wait, wait + wall,
-                                         n_full=lane_full[i])
+                                         n_full=lane_full[i],
+                                         realized_error=err,
+                                         budget_events=ev)
             out.append(DiffusionResult(r.request_id, res.x[i], lane_full[i],
-                                       wall, wait, plan.bucket))
+                                       wall, wait, plan.bucket,
+                                       realized_error=err,
+                                       budget_events=ev))
         return out
+
+    # the reference's pre-async name
+    _execute = execute_plan
 
     def run_batch(self, reqs: Optional[Sequence[DiffusionRequest]] = None,
                   flush: bool = True,

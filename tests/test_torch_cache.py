@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro.core import cache as jcache
+from repro.core import policies as jpol
 from repro_torch.core import cache as tcache
 from repro_torch.core import policies as tpol
 
@@ -118,7 +119,7 @@ _PORT_CLASSES = {
     "freqca": tpol.FreqCaPolicy, "freqca_a": tpol.FreqCaAdaptivePolicy,
     "taylorseer": tpol.TaylorSeerPolicy, "foca": tpol.FoCaPolicy,
     "fora": tpol.ForaPolicy, "teacache": tpol.TeaCachePolicy,
-    "none": tpol.NoCachePolicy,
+    "none": tpol.NoCachePolicy, "freqca_eb": tpol.FreqCaErrorBudgetPolicy,
 }
 
 
@@ -150,8 +151,8 @@ def _fields(pol):
 
 
 def test_unregistered_kinds_raise():
-    assert "freqca_eb" not in tpol.available()
-    with pytest.raises(KeyError, match="freqca_eb"):
-        tpol.resolve(tcache.CachePolicy(kind="freqca_eb"))
+    assert tpol.available() == jpol.available()
+    with pytest.raises(KeyError, match="spectralcache"):
+        tpol.resolve(tcache.CachePolicy(kind="spectralcache"))
     with pytest.raises(TypeError):
         tpol.resolve(42)

@@ -50,11 +50,16 @@ def _close(got, want, dtype):
 _SPECTRAL_SHAPES = [(320, 200), (77, 9), (4000, 136), (4096, 256)]
 
 
+# batch 1 is how a MixedBank lane launches both kernels; 3 is odd
+_BATCHES = [1, 2, 3]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("method", ["dct", "fft"])
 @pytest.mark.parametrize("s,d", _SPECTRAL_SHAPES)
-def test_band_split_kernel(card, dtype, method, s, d):
-    x = torch.randn(2, s, d, device=card).to(dtype)
+@pytest.mark.parametrize("b", _BATCHES)
+def test_band_split_kernel(card, dtype, method, s, d, b):
+    x = torch.randn(b, s, d, device=card).to(dtype)
     ops.reset_launch_counts()
     got = ops.band_split_spectral(x, 0.0625, method)
     assert ops.launch_counts()["band_split_spectral"] == 1
@@ -65,13 +70,14 @@ def test_band_split_kernel(card, dtype, method, s, d):
 @pytest.mark.parametrize("method", ["dct", "fft"])
 @pytest.mark.parametrize("s,d", _SPECTRAL_SHAPES)
 @pytest.mark.parametrize("k", [3, 6])
-def test_fused_spectral_kernel(card, dtype, method, s, d, k):
+@pytest.mark.parametrize("b", _BATCHES)
+def test_fused_spectral_kernel(card, dtype, method, s, d, k, b):
     """K 6 float32 entries are more than shared memory holds beside the
     operand ring (4), so the last two are read from global memory."""
     basis = frequency.low_band_basis(s, 0.0625, method, device=card)
-    low = torch.randn(2, basis.shape[0], d, device=card).to(dtype)
-    hist = torch.randn(2, k, s, d, device=card).to(dtype)
-    w = torch.randn(2, k, device=card)
+    low = torch.randn(b, basis.shape[0], d, device=card).to(dtype)
+    hist = torch.randn(b, k, s, d, device=card).to(dtype)
+    w = torch.randn(b, k, device=card)
     ops.reset_launch_counts()
     got = ops.freqca_predict_spectral(low, basis.T, hist, w)
     assert ops.launch_counts()["freqca_predict_fused_spectral"] == 1

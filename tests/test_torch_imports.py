@@ -45,9 +45,13 @@ def test_every_port_module_imports_without_a_card():
     "repro_torch.configs.yi_9b", "repro_torch.configs.mamba2_370m",
     "repro_torch.models.attention", "repro_torch.models.mlp",
     "repro_torch.models.ssm", "repro_torch.models.blocks",
-    "repro_torch.models.transformer", "repro_torch.kernels.ssd_scan"])
+    "repro_torch.models.transformer", "repro_torch.kernels.ssd_scan",
+    "repro_torch.core.policies.freqca_eb",
+    "repro_torch.serving.async_engine", "repro_torch.serving.metrics",
+    "repro_torch.checkpointing.checkpoint"])
 def test_assigned_backbone_modules_are_walked(name):
-    """The third slice's modules are among the files walked above."""
+    """The third and seventh slices' modules are among the files walked
+    above."""
     walked = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
               for p in FILES if p.is_relative_to(REPO / "src")}
     assert name in walked

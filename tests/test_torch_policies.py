@@ -119,8 +119,12 @@ def test_bank_flags_and_mixed_lanes():
     assert bank.scalar_decision and not bank.always_full
     assert tpol.bank(tpol.NoCachePolicy(), 1).always_full
     assert isinstance(tpol.bank([fq, fq], 2), tpol.UniformBank)
-    with pytest.raises(NotImplementedError):
-        tpol.bank([fq, tpol.NoCachePolicy()], 2)
+    mixed = tpol.bank([fq, tpol.NoCachePolicy()], 2)
+    assert isinstance(mixed, tpol.MixedBank)
+    assert not mixed.scalar_decision and not mixed.always_full
+    assert not mixed.uses_error_feedback
+    assert tpol.bank([tpol.NoCachePolicy(interval=1),
+                      tpol.NoCachePolicy(interval=2)], 2).always_full
     with pytest.raises(ValueError):
         tpol.bank([fq], 2)
     with pytest.raises(TypeError):

@@ -4,14 +4,15 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device    — card name, power limit and compute capability (9, 0);
-2. build     — nvcc builds the six kernels from ``csrc/`` in parallel;
+2. build     — nvcc builds the seven kernel libraries from ``csrc/`` in
+               parallel;
                the flash library's SASS must hold wgmma (HGMMA) and TMA
                loads (UTMALDG), and ptxas must report no spills, no
                ignored setmaxnreg (C7508) and no serialised wgmma
                (C7512) for its bf16 kernels; the SASS of
-               token_basis_matmul, ssd_scan, band_split_spectral and
-               freqca_fused_spectral must hold mma.sync (HMMA), with no
-               spills in any of their kernels;
+               token_basis_matmul, ssd_scan, band_split_spectral,
+               freqca_fused_spectral and flash_attention_bwd must hold
+               mma.sync (HMMA), with no spills in any of their kernels;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer; the FreqCa cache
@@ -19,7 +20,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                lane, as a mixed-policy batch launches them), in bf16 and
                float32, with the stated tolerance, plus its time, the
                plain version's time, the bound and, where one PyTorch
-               call computes the same function, that call's time;
+               call computes the same function, that call's time; the
+               flash backward (bf16) at the DiT, train and causal GQA
+               shapes, its two launches bitwise equal, and the forward
+               that writes the log-sum-exp;
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
                versions), and so does a mixed batch of a FreqCa and a
@@ -28,7 +32,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                driven by the legacy function-style cache API, two
                full-width mamba2-370m layers as a denoiser and two
                yi-9b-shaped layers through the LM forward at 2048
-               tokens;
+               tokens; and one training step of a small DiT at S 1024
+               (flash forward and backward kernels) with its AdamW
+               update;
 5. analysis  — at full flux1-dev width: the uncached reference
                trajectory, the paper's Fig-2 band statistics (kernel
                route against the plain transform route) and the legacy
@@ -51,13 +57,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
 9. lm        — yi-9b (48 layers, d 4096) ``transformer.forward`` on one
                32768-token sequence, 48 causal GQA flash launches; the
                flash launch at that shape held against its plain version
-               on the first and the last 1024 queries.
+               on the first and the last 1024 queries;
+10. train    — ``launch.train.train_dit`` at full flux1-dev width (16
+               single blocks, 2.7 B parameters) for 4 steps on two 1024²
+               latents (S 4096): 16 flash forward and 16 backward
+               launches a step, finite losses, every used leaf's
+               gradient non-zero; its checkpoint, reloaded through
+               ``bridge``, serves one FreqCa request (6 full steps).
 
 The flux1-dev parameters (~26 GB in bf16) are built once for phases 5
-to 7 and freed before phase 8.  The last line is ``{"ok": true,
-"device": {...}}``; the line before it is the card's name and power
-limit, and before that a ``kernels`` JSON line.  Run from the repository
-root: ``python3 chip_smoke.py``.
+to 7 and freed before phase 8; each later phase frees its model.  The
+last line is ``{"ok": true, "device": {...}}``; the line before it is
+the card's name and power limit, and before that a ``kernels`` JSON
+line.  Run from the repository root: ``python3 chip_smoke.py``.
 """
 from __future__ import annotations
 
@@ -218,12 +230,12 @@ def flash_build_checks() -> None:
 
 
 def mma_build_checks() -> None:
-    """token_basis_matmul, the SSD scan and the two FreqCa cache kernels
-    run their products on the tensor cores: each library's SASS holds
-    mma.sync (HMMA), and ptxas reports no spills for any of its
-    kernels."""
+    """token_basis_matmul, the SSD scan, the two FreqCa cache kernels
+    and the flash backward run their products on the tensor cores: each
+    library's SASS holds mma.sync (HMMA), and ptxas reports no spills
+    for any of its kernels."""
     for name in ("token_basis_matmul", "ssd_scan", "band_split_spectral",
-                 "freqca_fused_spectral"):
+                 "freqca_fused_spectral", "flash_attention_bwd"):
         hmma = sass(name).count("HMMA")
         spills = ptxas_spills(name)
         log(f"{name} SASS: HMMA {hmma}; kernels {len(spills)}, spill bytes "
@@ -254,13 +266,13 @@ def kernel_phase(main_dtype: dict) -> dict:
     rows = {}
 
     def row(name, dtype, kern, plain, nbytes, flops, library=None,
-            reps=10, op_dtype=None):
+            reps=10, op_dtype=None, library_ms=None):
         got, want = kern(), plain()
         err, rel = compare(name, dtype, got, want)
         del got, want
         t_k = time_ms(kern, reps)
         t_p = time_ms(plain, reps)
-        t_l = time_ms(library, reps) if library is not None else None
+        t_l = time_ms(library, reps) if library is not None else library_ms
         b_ms, b_by = bound_ms(nbytes, flops, op_dtype or dtype)
         log(f"kernel {name} [{dtype}] max_abs_err={err:.3e} "
             f"max_rel_err={rel:.3e} (tol {TOLERANCE[dtype]:.0e}) "
@@ -431,6 +443,8 @@ def kernel_phase(main_dtype: dict) -> dict:
             torch.cuda.empty_cache()
         lm_attention_rows(row, dt, dtype_name, gen)
         ssd_rows(row, dt, dtype_name, gen)
+        if dtype_name == "bfloat16":
+            flash_bwd_rows(row, gen)
     return rows
 
 
@@ -484,6 +498,88 @@ def lm_attention_rows(row, dt, dtype_name: str, gen) -> None:
             4 * hq * hd * attention_pairs(s, causal, window),
             library=lib, reps=5)
     del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+
+
+def flash_bwd_rows(row, gen) -> None:
+    """The flash backward (bf16) beside its recompute twin: at the DiT
+    joint shape [2, 4608, 24, 128] (the kernels line's row), at the train
+    phase's [2, 4096, 24, 128] and in causal GQA at one yi-9b layer's [1,
+    4096, 32/4, 128]; and, at the DiT shape, the forward that writes the
+    log-sum-exp, re-timed beside the plain forward's row."""
+    for label, shape, causal in (
+            ("", (2, 4608, 24, 24), False),
+            ("[train 2x4096]", (2, 4096, 24, 24), False),
+            ("[causal gqa 32/4]", (1, 4096, 32, 4), True)):
+        flash_bwd_row(row, gen, label, shape, causal)
+
+
+def flash_bwd_row(row, gen, label: str, shape, causal: bool) -> None:
+    """One backward row at ``shape`` (B, S, Hq, Hkv), head width 128.  It
+    checks dQ, dK and dV (each logged) and that two launches are bitwise
+    equal.  The bound counts 10·hd·H FLOP a kept (query, key) pair (S
+    again, dV, dP, dQ, dK) at the bf16 peak; the design's two-pass
+    recompute, 14, is logged beside it.  The library time is SDPA's
+    backward: ``torch.autograd.grad`` through
+    ``F.scaled_dot_product_attention`` less its forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    b, s, hq, hkv = shape
+    g, hd = hq // hkv, 128
+    q = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in "kv")
+    do = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    pairs = b * attention_pairs(s, causal, 0)
+    if not label:
+        # the forward with its log-sum-exp written, as training runs it
+        row("flash_attention[lse]", "bfloat16",
+            lambda: fa.flash_attention(q, k, v, return_lse=True),
+            lambda: ref.attention_lse_ref(q, k, v),
+            4 * q.numel() * 2 + b * hq * s * 4, 4 * hq * hd * pairs, reps=5)
+    o, lse = fa.flash_attention(q, k, v, g, causal, return_lse=True)
+    name = "flash_attention_bwd" + label
+
+    def kern():
+        return fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal)
+
+    def plain():
+        return ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal)
+    got, again, want = kern(), kern(), plain()
+    errs = [compare(f"{name} d{x}", "bfloat16", a, w)[1]
+            for x, a, w in zip("qkv", got, want, strict=True)]
+    same = all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+    log(f"kernel {name} [bfloat16] max_rel_err dq={errs[0]:.3e} "
+        f"dk={errs[1]:.3e} dv={errs[2]:.3e}; two launches bitwise equal: "
+        f"{same}")
+    if not same:
+        raise AssertionError(f"{name}: two launches differ")
+    del got, again, want
+    torch.cuda.empty_cache()
+    leaves = [a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v)]
+    d_out = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                              enable_gqa=g > 1)
+    t_fwd = time_ms(sdpa, 5)
+    t_both = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, d_out), 5)
+    # q, o, dO read and dq written; k, v read and dk, dv written; lse
+    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + b * hq * s * 4
+    row(name, "bfloat16", kern, plain, nbytes, 10 * hq * hd * pairs, reps=5,
+        library_ms=t_both - t_fwd)
+    log(f"kernel {name}: SDPA forward {t_fwd:.4f} ms, forward + backward "
+        f"{t_both:.4f} ms")
+    log_bound(f"{name} [bfloat16] the design's (14 FLOP per pair and head "
+              "width: S and dP twice)", nbytes, 14 * hq * hd * pairs,
+              "bfloat16")
+    del q, k, v, do, o, lse, leaves, d_out
     torch.cuda.empty_cache()
 
 
@@ -638,6 +734,7 @@ def reference_phase(devices=("cpu", "cuda")) -> None:
     legacy_reference(devices)
     backbone_reference(devices)
     lm_reference(devices)
+    train_reference(devices)
 
 
 def slo_reference(cfg, text_cpu, side: int,
@@ -845,6 +942,95 @@ def lm_reference(devices=("cpu", "cuda")) -> None:
         if ctrl is not None and not ctrl > 1e-3:
             raise AssertionError(f"lm reference [{name}]: the TF32 control "
                                  f"{ctrl:.3e} passes the 1e-3 limit")
+
+
+def train_reference(devices=("cpu", "cuda")) -> None:
+    """One DiT training step on the card (the flash forward and backward
+    kernels in every layer) against the same step on the CPU (autograd
+    through the plain attention): a small DiT at S 1024 (latent
+    64x64x16, patch 2; d 256, 4 heads of 64, 2 single blocks, d_ff 1024),
+    bf16 activations over float32 parameters, one ``rf_loss`` gradient on
+    a shapes batch of two with the same t and noise on both devices, then
+    one AdamW update (lr 1e-3, no warmup).  Tolerances: the loss 1e-2
+    relative; each gradient leaf and each updated parameter 3e-2
+    relative L2 (bf16 dense layers, attention and their transposes
+    summed in other orders on the two devices).  The update itself is
+    logged, not held: AdamW's first step is ~lr·sign(g), and where a
+    gradient entry is near 0 its sign differs between the devices.  So
+    every leaf that initialises to zero (the AdaLN-zero leaves, the final
+    projection, the dense biases) is redrawn with std 0.02: a zero leaf's
+    updated value would be that step alone, its sign flips unscaled."""
+    import torch
+
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.configs.base import DiTConfig
+    from repro_torch.data import synthetic
+    from repro_torch.diffusion import training
+    from repro_torch.kernels import ops
+    from repro_torch.models import dit
+    from repro_torch.optim import adamw
+    cfg = DiTConfig(arch_id="train-smoke", n_layers=2, d_model=256,
+                    n_heads=4, d_ff=1024, patch_size=2, in_channels=16,
+                    dtype="bfloat16")
+    side = 64
+    params_cpu = dit.init_params(cfg, seed=50, device="cpu",
+                                 dtype=torch.float32)
+    gen = torch.Generator().manual_seed(51)
+    for p in adamw.leaves(params_cpu):
+        if not p.any():
+            p.normal_(0.0, 0.02, generator=gen)
+    latents = synthetic.shapes_batch(gen, 2, size=side, channels=16)
+    t = torch.sigmoid(torch.randn((2,), generator=gen))
+    noise = torch.randn(latents.shape, generator=gen)
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=100,
+                                weight_decay=1e-4)
+    out = {}
+    for dev in devices:
+        params = adamw.tree_map(
+            lambda p, dev=dev: p.to(dev, copy=True).requires_grad_(True),
+            params_cpu)
+        ops.reset_launch_counts()
+        loss, _ = training.rf_loss(
+            lambda p, x, tt: dit.dit_forward(p, x, tt, cfg).velocity, params,
+            {"latents": latents.to(dev)}, t=t.to(dev), noise=noise.to(dev))
+        loss.backward()
+        grads = adamw.tree_map(lambda p: p.grad, params)
+        adamw.update(opt_cfg, grads, adamw.init(opt_cfg, params), params)
+        counts = ops.launch_counts()
+        if torch.device(dev).type == "cuda" and not (
+                counts["flash_attention"] == counts["flash_attention_bwd"]
+                == cfg.n_layers):
+            raise AssertionError(f"train reference: launches {counts}, "
+                                 f"expected {cfg.n_layers} forward and "
+                                 "backward flash launches")
+        flat = checkpoint._flatten_with_paths
+        out[dev] = (loss.item(),
+                    {k: g.cpu() for k, g in flat(grads).items()},
+                    {k: p.detach().cpu() for k, p in flat(params).items()})
+    (l_want, g_want, p_want), (l_got, g_got, p_got) = (out[d]
+                                                       for d in devices)
+    before = checkpoint._flatten_with_paths(params_cpu)
+    loss_rel = abs(l_got - l_want) / abs(l_want)
+
+    def worst(rels):
+        k = max(rels, key=rels.get)
+        return rels[k], k
+    grad_rel = worst({k: rel_l2(g_got[k], g_want[k]) for k in g_want})
+    param_rel = worst({k: rel_l2(p_got[k], p_want[k]) for k in p_want})
+    step_rel = worst({k: rel_l2(p_got[k] - before[k], p_want[k] - before[k])
+                      for k in p_want})
+    finite = all(bool(torch.isfinite(g).all()) for g in g_got.values())
+    log(f"reference train step (DiT d 256, S 1024, bf16 over float32 "
+        f"params) card vs CPU: loss {l_got:.6f} / {l_want:.6f} (rel "
+        f"{loss_rel:.2e}, tol 1e-2); worst gradient leaf rel L2 "
+        f"{grad_rel[0]:.2e} ({grad_rel[1]}; tol 3e-2) over {len(g_got)} "
+        f"leaves; worst updated parameter rel L2 {param_rel[0]:.2e} "
+        f"({param_rel[1]}; tol 3e-2); worst AdamW step rel L2 "
+        f"{step_rel[0]:.2e} ({step_rel[1]}; logged)")
+    grad_rel, param_rel = grad_rel[0], param_rel[0]
+    if not (finite and loss_rel <= 1e-2 and grad_rel <= 3e-2
+            and param_rel <= 3e-2):
+        raise AssertionError("train reference: card and CPU disagree")
 
 
 def legacy_loop(full_fn, from_crf_fn, x0, ts, policy, crf_shape):
@@ -1604,6 +1790,173 @@ def lm_phase(cfg=None, s: int = 32768, device: str = "cuda") -> dict:
     return counts
 
 
+TRAIN_LAYERS = 16     # single blocks of the train phase's flux1-dev cut
+TRAIN_STEPS = 4
+
+
+def train_config():
+    """flux1-dev at full width for training: d 3072, 24 heads of 128,
+    d_ff 12288, patch 2, 16 latent channels, text_dim 4096, bf16.  The
+    reference's ``train_dit`` passes no text, so its double blocks never
+    run: ``n_double=0``; the 38 single blocks are cut to 16 so that the
+    parameters (bf16), their gradients and AdamW's float32 moments (12
+    bytes a parameter in all) fit one 80 GB card beside the
+    activations."""
+    import dataclasses
+
+    from repro_torch import configs
+    return dataclasses.replace(configs.get_config("flux1-dev"), n_double=0,
+                               n_layers=TRAIN_LAYERS)
+
+
+def train_phase(cfg=None, size: int = 128, batch: int = 2,
+                steps: int = TRAIN_STEPS, n_steps: int = N_STEPS,
+                device: str = "cuda") -> dict:
+    """``launch.train.train_dit`` at full flux1-dev width (``train_config``)
+    on shapes batches of two 1024² latents (128x128x16, S 4096): every
+    step runs 16 flash forward launches, each with its backward kernel.
+    Logs per step the loss, grad norm, lr, the forward, backward and
+    AdamW times (CUDA events) and the step wall, tokens/s and peak
+    memory; checks the losses are finite and that on step 1 every leaf
+    the forward uses has a finite non-zero gradient while ``text_proj``
+    (no text in training) has none.  Then the saved checkpoint is loaded
+    through ``bridge.params_from_checkpoint`` into a ``DiffusionEngine``
+    under ``FreqCaPolicy(interval=5)`` and serves one request of 20 steps
+    with random text embeddings (512x4096): 6 full steps, kernels 1-3 on
+    the trained weights.  Returns the launch counts of the training
+    (``train``) and of the request (``train_serve``).  (``cfg``,
+    ``size``, ``steps`` and ``device`` let the phase be rehearsed small
+    on the CPU.)"""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpointing import bridge, checkpoint
+    from repro_torch.core.policies import FreqCaPolicy
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import dit
+    from repro_torch.serving.engine import DiffusionEngine, DiffusionRequest
+    cfg, dev = cfg or train_config(), torch.device(device)
+    on_card = dev.type == "cuda"
+    s_img = (size // cfg.patch_size) ** 2
+    params = dit.init_params(cfg, seed=40, device=dev)
+    redraw_zero_leaves(params, seed=41)
+    n_params = sum(p.numel() for p in _leaves(params))
+    paths = checkpoint._flatten_with_paths(params)
+    log(f"train: {cfg.arch_id} cut to n_double {cfg.n_double}, n_layers "
+        f"{cfg.n_layers} (d {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.dtype}): params "
+        f"{n_params / 1e9:.3f} B; batch {batch} x {size}² latents (S "
+        f"{s_img}), {steps} steps")
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    records, bad = [], []
+
+    def on_step(i, metrics, grads):
+        records.append(metrics)
+        if i:
+            return
+        for path, g in checkpoint._flatten_with_paths(grads).items():
+            used = not path.startswith("text_proj/")
+            if used != (g is not None) or (used and not (
+                    bool(torch.isfinite(g).all()) and bool(g.any()))):
+                bad.append(path)
+        if sorted(checkpoint._flatten_with_paths(grads)) != sorted(paths):
+            bad.append("tree")
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained = train.train_dit(cfg, steps, batch, str(ckpt_dir), seed=40,
+                              log_every=1, size=size, device=dev,
+                              params=params, on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    for i, m in enumerate(records):
+        log(f"train: step {i} loss {m['loss']:.6f} grad_norm "
+            f"{m['grad_norm']:.4e} lr {m['lr']:.3e}" + (
+                f"; forward {m['forward_ms']:.1f} ms, backward "
+                f"{m['backward_ms']:.1f} ms, AdamW {m['adamw_ms']:.1f} ms, "
+                f"step wall {m['step_ms']:.1f} ms, "
+                f"{batch * s_img / m['step_ms'] * 1e3:.0f} tokens/s"
+                if on_card else ""))
+    log(f"train: {steps} steps and the save in {wall:.1f} s (the save "
+        f"{wall - sum(m.get('step_ms', 0) for m in records) / 1e3:.1f} s); "
+        f"peak memory {peak / 2**30:.2f} GiB; launch counts {counts}; step "
+        f"1 gradients: {len(paths)} leaves, off {bad}")
+    if len(records) != steps or bad or not all(
+            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            for m in records):
+        raise AssertionError(f"train: losses {records}, gradient leaves "
+                             f"off {bad}")
+    want = {"flash_attention": steps * cfg.n_layers,
+            "flash_attention_bwd": steps * cfg.n_layers}
+    if on_card and (any(counts[k] != n for k, n in want.items())
+                    or sum(counts.values()) != sum(want.values())):
+        raise AssertionError(f"train: launches {counts}, expected {want}")
+    del trained, params
+    gc.collect()
+    if on_card:
+        # where a step's attention time goes: the two kernels alone at
+        # the step's shape, times the layers
+        qkv = torch.randn((batch, s_img, cfg.n_heads, cfg.head_dim),
+                          device=dev).to(torch.bfloat16)
+        o, lse = fa.flash_attention(qkv, qkv, qkv, return_lse=True)
+        f_ms = time_ms(lambda: fa.flash_attention(qkv, qkv, qkv,
+                                                  return_lse=True), 5)
+        b_ms = time_ms(lambda: fa.flash_attention_bwd(qkv, qkv, qkv, o, lse,
+                                                      qkv), 5)
+        last = records[-1]
+        log(f"train: breakdown of the last step ({last['step_ms']:.1f} ms): "
+            f"forward {last['forward_ms']:.1f} ms, of it flash "
+            f"{cfg.n_layers} x {f_ms:.3f} = {cfg.n_layers * f_ms:.1f} ms; "
+            f"backward {last['backward_ms']:.1f} ms, of it flash backward "
+            f"{cfg.n_layers} x {b_ms:.3f} = {cfg.n_layers * b_ms:.1f} ms; "
+            f"AdamW {last['adamw_ms']:.1f} ms")
+        del qkv, o, lse
+        torch.cuda.empty_cache()
+
+    # serve one request from the checkpoint
+    t0 = time.perf_counter()
+    served = bridge.params_from_checkpoint(str(ckpt_dir), steps, cfg,
+                                           device=dev)
+    load_s = time.perf_counter() - t0
+    text = torch.randn((1, cfg.n_text_tokens, cfg.text_dim), device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(42)
+                       ).to(dit.torch_dtype(cfg.dtype))
+    full_fn, from_crf_fn = make_fns(served, cfg, size, text)
+    eng = DiffusionEngine(full_fn, from_crf_fn, (size, size, cfg.in_channels),
+                          (s_img, cfg.d_model), FreqCaPolicy(interval=5),
+                          n_steps=n_steps, max_batch=1, device=dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    (res,) = eng.run_batch([DiffusionRequest(request_id=0, seed=43)])
+    serve_s = time.perf_counter() - t0
+    serve_counts = ops.launch_counts()
+    want_full = len([i for i in range(n_steps) if i % 5 == 0 or i < 3])
+    log(f"train: checkpoint loaded in {load_s:.1f} s; one FreqCa request "
+        f"served from it in {serve_s:.2f} s, {res.n_full_steps} full steps "
+        f"of {n_steps}; launch counts {serve_counts}")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if res.n_full_steps != want_full or not bool(
+            torch.isfinite(res.latents).all()) or tuple(
+            res.latents.shape) != (size, size, cfg.in_channels):
+        raise AssertionError(f"train: the served request: {res.n_full_steps} "
+                             f"full steps, latents {tuple(res.latents.shape)}")
+    want = {"band_split_spectral": want_full,
+            "freqca_predict_fused_spectral": n_steps - want_full,
+            "flash_attention": want_full * cfg.n_layers}
+    if on_card and (any(serve_counts[k] != n for k, n in want.items())
+                    or sum(serve_counts.values()) != sum(want.values())):
+        raise AssertionError(f"train: served launches {serve_counts}, "
+                             f"expected {want}")
+    return {"train": counts, "train_serve": serve_counts}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -1616,7 +1969,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel and reference phases "
-                         "(skips the five full-width phases)")
+                         "(skips the six full-width phases)")
     args = ap.parse_args(argv)
 
     import torch
@@ -1652,7 +2005,8 @@ def main(argv=None) -> int:
                   "flash_attention": "bfloat16",
                   "token_basis_matmul": "bfloat16",
                   "freqca_predict_fused": "float32",
-                  "ssd_chunk_scan": "bfloat16"}
+                  "ssd_chunk_scan": "bfloat16",
+                  "flash_attention_bwd": "bfloat16"}
     rows = kernel_phase(main_dtype)
     reference_phase()
     # launches are read from the counters of the phases that run each
@@ -1672,6 +2026,9 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_phase["lm"] = lm_phase()
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_phase.update(train_phase())
     paths = {name: [ph for ph in by_phase if by_phase[ph][name] > 0]
              for name in main_dtype}
 
@@ -1693,6 +2050,9 @@ def main(argv=None) -> int:
                                  "src/repro/kernels/freqca_fused.py:42"),
         "ssd_chunk_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                            "src/repro/kernels/ssd_scan.py:68"),
+        "flash_attention_bwd": (
+            "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "none: XLA autodiff of repro/models/dit.py:_joint_attention"),
     }
     kernels = []
     for name, (src, rep) in replaces.items():
@@ -1709,6 +2069,12 @@ def main(argv=None) -> int:
                           "(rows flash_attention[... gqa 32/4] of the "
                           "kernel phase; the lm phase's launches are causal "
                           "GQA)")
+        if name == "flash_attention_bwd":
+            k["forms"] = ("all four, bf16 (this row's times: the DiT joint "
+                          "attention [2, 4608, 24, 128]; rows "
+                          "flash_attention_bwd[train 2x4096] and [causal "
+                          "gqa 32/4] of the kernel phase); the train "
+                          "phase's launches are non-causal MHA")
         kernels.append(k)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

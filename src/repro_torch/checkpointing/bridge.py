@@ -7,7 +7,8 @@ projections shaped ``wq/wk/wv [d, H, hd]``, ``wo [H, hd, d]``.  The
 port keeps per-layer (per-group) lists and matrix projections.  The tree
 arrives as numpy (``jax.tree.map(np.asarray, params)``) or as a
 checkpoint file of the reference's format (``params_from_checkpoint``),
-so this module needs no JAX.
+so this module needs no JAX.  ``params_to_jax_numpy`` goes the other
+way, so that a checkpoint the port saves restores in ``repro``.
 """
 from __future__ import annotations
 
@@ -63,6 +64,56 @@ def params_from_jax_numpy(tree, cfg: DiTConfig, device=None, dtype=None):
              for s in ("img", "txt")}
             for i in range(cfg.n_double)]
     return _to_torch(out, dev, dtype)
+
+
+def _unblock(tree, n_heads: int):
+    """One port block back to the reference's leaf shapes: ``wq/wk/wv
+    [d, d] -> [d, H, hd]``, ``wo [d, d] -> [H, hd, d]``."""
+    out = {k: (_unblock(v, n_heads) if isinstance(v, dict) else v)
+           for k, v in tree.items()}
+    if "wq" in out:
+        d = out["wq"].shape[0]
+        for name in ("wq", "wk", "wv"):
+            out[name] = out[name].reshape(d, n_heads, d // n_heads)
+        out["wo"] = out["wo"].reshape(n_heads, d // n_heads, d)
+    return out
+
+
+def _stack(layers):
+    """Per-layer trees -> one tree of ``[n_layers, ...]`` leaves."""
+    first = layers[0]
+    if isinstance(first, dict):
+        return {k: _stack([layer[k] for layer in layers]) for k in first}
+    return torch.stack(layers)
+
+
+def _to_cpu(tree):
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_cpu(v) for v in tree]
+    return tree.detach().cpu()
+
+
+def params_to_jax_numpy(params, cfg: DiTConfig):
+    """The port's DiT parameters (or a tree of their gradients) ->
+    ``repro``'s tree: the per-layer lists re-stacked into ``[n_layers,
+    ...]`` leaves, the attention projections in the reference's shapes;
+    the exact inverse of ``params_from_jax_numpy``.  Leaves are CPU
+    tensors in their own types (``.numpy()`` gives the reference's
+    arrays, except bf16, which numpy lacks and which ``checkpoint.save``
+    writes as the reference's files hold it), so ``checkpoint.save(dir,
+    step, tree, name="dit")`` writes what
+    ``repro.checkpointing.checkpoint.restore`` loads."""
+    params = _to_cpu(params)     # stacked on the host, not on the card
+    out = {k: v for k, v in params.items() if k not in ("single", "double")}
+    out["single"] = _stack([_unblock(layer, cfg.n_heads)
+                            for layer in params["single"]])
+    if "double" in params:
+        out["double"] = {s: _stack([_unblock(layer[s], cfg.n_heads)
+                                    for layer in params["double"]])
+                         for s in ("img", "txt")}
+    return out
 
 
 def params_from_checkpoint(directory: str, step: int, cfg: DiTConfig,

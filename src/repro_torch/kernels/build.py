@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # src/repro_torch/kernels/build.py -> the checkout's root
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("band_split_spectral", "freqca_fused_spectral", "flash_attention",
-           "token_basis_matmul", "freqca_fused", "ssd_scan")
+           "token_basis_matmul", "freqca_fused", "ssd_scan",
+           "flash_attention_bwd")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -116,6 +117,23 @@ def require_cuda(name: str, *tensors) -> None:
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name}: expected contiguous, 16-byte "
                              "aligned tensors")
+
+
+def needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on ``tensors``: grad mode is
+    on and one of them requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        t.requires_grad for t in tensors if isinstance(t, torch.Tensor))
+
+
+def require_no_grad(name: str, *tensors) -> None:
+    """Raise where autograd would need a backward the kernel lacks: its
+    output is written through a pointer and has no ``grad_fn``, so a
+    graph through it would stop there without a word."""
+    if needs_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward yet; call it under "
+            "torch.no_grad() or on tensors that need no gradient")
 
 
 def check(lib: ctypes.CDLL, name: str, status: int) -> None:

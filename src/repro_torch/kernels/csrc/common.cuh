@@ -1,6 +1,7 @@
 // Shared device helpers of the port's kernels: float32/bf16 conversion,
 // paired stores, cp.async copies, the TF32 split and mma.sync that make
-// float32-accurate products on the tensor cores, and one block tile
+// float32-accurate products on the tensor cores, bf16 ldmatrix
+// fragments and mma.sync, and one block tile
 // product built on them (Tf32Tile) that the two FreqCa cache kernels
 // share.
 //
@@ -84,6 +85,66 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
+// bf16 fragments of mma.sync m16n8k16 (float32 accumulators) loaded
+// with ldmatrix from padded shared tiles (the SSD scan and the flash
+// backward)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void ldsm(uint32_t (&r)[4],
+                                     const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4],
+                                       const __nv_bfloat16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// A fragment (16 x 16) of rows m0.., depth k0.. from a tile stored
+// [m][k] (row stride ld)
+__device__ __forceinline__ void lda_mk(uint32_t (&r)[4],
+                                       const __nv_bfloat16* s, int ld,
+                                       int m0, int k0) {
+  const int l = threadIdx.x % 32, mi = l / 8;
+  ldsm(r, s + (m0 + (mi % 2) * 8 + l % 8) * ld + k0 + (mi / 2) * 8);
+}
+// the same from a tile stored [k][m]
+__device__ __forceinline__ void lda_km(uint32_t (&r)[4],
+                                       const __nv_bfloat16* s, int ld,
+                                       int m0, int k0) {
+  const int l = threadIdx.x % 32, mi = l / 8;
+  ldsm_t(r, s + (k0 + (mi / 2) * 8 + l % 8) * ld + m0 + (mi % 2) * 8);
+}
+// B fragments (16 x 8) of the two column tiles n0 and n0 + 8: r[0..1]
+// and r[2..3]; from a tile stored [k][n], and from one stored [n][k]
+__device__ __forceinline__ void ldb_kn(uint32_t (&r)[4],
+                                       const __nv_bfloat16* s, int ld,
+                                       int k0, int n0) {
+  const int l = threadIdx.x % 32, mi = l / 8;
+  ldsm_t(r, s + (k0 + (mi % 2) * 8 + l % 8) * ld + n0 + (mi / 2) * 8);
+}
+__device__ __forceinline__ void ldb_nk(uint32_t (&r)[4],
+                                       const __nv_bfloat16* s, int ld,
+                                       int k0, int n0) {
+  const int l = threadIdx.x % 32, mi = l / 8;
+  ldsm(r, s + (n0 + (mi / 2) * 8 + l % 8) * ld + k0 + (mi % 2) * 8);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 // Block tile product on the TF32 tensor cores, to float32 accuracy:
 //   acc += Σ_{k ∈ [k_begin, k_end)} A(i, k)·B(k, n)
 // over the BM x BN output tile at (m0, n0) of an M x N product, with

@@ -81,6 +81,10 @@
 // - float32: plain float32 FMAs from shared memory (256 threads, 4x4
 //   logits and 4x(hd/16) outputs per thread), q and k tiles transposed
 //   with a padded stride so the inner loops read conflict-free float4s.
+// For the backward (flash_attention_bwd.cu) both kernels can also write
+// each row's log-sum-exp, m·ln 2 + ln l in the base-2 kernel; that form
+// is a separate instantiation (LSE), so the launches that do not ask for
+// it run the kernel as it is without it.
 // The host code fetches cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint, so the library links no libcuda.
 #include <cuda.h>   // CUtensorMap and its enums (types only)
@@ -165,11 +169,12 @@ constexpr size_t smem_bytes() {
   return (2 * HD * kLD + kBK * HD + kBK * kLD) * sizeof(float);
 }
 
-template <typename T, int HD, bool MASKED>
+template <typename T, int HD, bool MASKED, bool LSE>
 __global__ void __launch_bounds__(rt::kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int S, int H,
-                 int Hkv, Mask mk, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int Hkv, Mask mk,
+                 float scale) {
   constexpr int NG = HD / 64;   // float4 column groups per thread
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;
@@ -299,6 +304,10 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int gi = q0 + ty * 4 + i;
     if (gi >= S) continue;
     const float l = fmaxf(l_r[i], 1e-30f);
+    // the row's log-sum-exp for the backward (the 16 threads of a row
+    // hold the same m and l); blockIdx.y is b·H + h
+    if (LSE && tx == 0)
+      lse[(long)blockIdx.y * S + gi] = m_r[i] + logf(l);
 #pragma unroll
     for (int g = 0; g < NG; ++g)
 #pragma unroll
@@ -592,12 +601,13 @@ __device__ __forceinline__ void to_a_fragments(const float (&s)[BK / 2],
 // wgmma fragment layouts (warp w of the warpgroup, g = lane / 4, t =
 // lane % 4): accumulator register 4j + 2r + e holds row 16w + g + 8r,
 // column 8j + 2t + e.
-template <int HD, bool MASKED>
+template <int HD, bool MASKED, bool LSE>
 __global__ void __launch_bounds__(kHThreads, 1)
 flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        __nv_bfloat16* __restrict__ o, int S, int H, int Hkv,
+                        __nv_bfloat16* __restrict__ o,
+                        float* __restrict__ lse, int S, int H, int Hkv,
                         Mask mk, float scale_log2) {
   using L = Tiles<HD>;
   constexpr int BK = L::kKeys;
@@ -770,7 +780,14 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
       const int row = r0 + 8 * r;
       if (row >= S) continue;
       // one reciprocal per row, not a division per element
-      const float inv = rcp(fmaxf(l_r[r], 1e-30f));
+      const float l = fmaxf(l_r[r], 1e-30f);
+      const float inv = rcp(l);
+      // the row's natural log-sum-exp for the backward: m is in the
+      // base-2 units of the scaled logits (the 4 threads of a quad hold
+      // the same m and l)
+      if (LSE && t == 0)
+        lse[((long)b * H + h) * S + row] =
+            m_r[r] * 0.6931471805599453f + logf(l);
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
         *reinterpret_cast<uint32_t*>(op + row * rs + 8 * j + 2 * t) =
@@ -827,9 +844,10 @@ int tensor_map(CUtensorMap* map, const void* base, int B, int T, int Hh,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-template <int HD, bool MASKED>
+template <int HD, bool MASKED, bool LSE>
 int launch_hopper(const void* q, const void* k, const void* v, void* o,
-                  int B, int S, int H, int Hkv, Mask mk, cudaStream_t st) {
+                  float* lse, int B, int S, int H, int Hkv, Mask mk,
+                  cudaStream_t st) {
   CUtensorMap tq, tk, tv;
   int err = tensor_map(&tq, q, B, S, H, HD, kHQ);
   const int keys = Tiles<HD>::kKeys;
@@ -837,33 +855,43 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess) err = tensor_map(&tv, v, B, mk.Tk, Hkv, HD, keys);
   if (err != cudaSuccess) return err;
   const size_t smem = Tiles<HD>::kSmem;
-  err = cudaFuncSetAttribute(flash_fwd_hopper_kernel<HD, MASKED>,
+  err = cudaFuncSetAttribute(flash_fwd_hopper_kernel<HD, MASKED, LSE>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kHQ - 1) / kHQ, B * H);
   // softmax runs in base 2: fold log2(e) into the logit scale
   const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
-  flash_fwd_hopper_kernel<HD, MASKED><<<grid, kHThreads, smem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), S, H, Hkv, mk, scale_log2);
+  flash_fwd_hopper_kernel<HD, MASKED, LSE><<<grid, kHThreads, smem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, Hkv, mk,
+      scale_log2);
   return cudaGetLastError();
 }
 
-template <typename T, int HD, bool MASKED>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int S, int H, int Hkv, Mask mk, cudaStream_t st) {
+template <typename T, int HD, bool MASKED, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int Hkv, Mask mk, cudaStream_t st) {
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD, MASKED>,
+      flash_fwd_kernel<T, HD, MASKED, LSE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, HD, MASKED><<<grid, rt::kThreads, smem, st>>>(
+  flash_fwd_kernel<T, HD, MASKED, LSE><<<grid, rt::kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), S, H, Hkv, mk,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, mk,
       1.0f / sqrtf(static_cast<float>(HD)));
   return cudaGetLastError();
+}
+
+using Launch = int (*)(const void*, const void*, const void*, void*, float*,
+                      int, int, int, int, Mask, cudaStream_t);
+
+// the instantiation of a (masked, lse) pair
+template <Launch MT, Launch MF, Launch UT, Launch UF>
+Launch pick(bool masked, bool lse) {
+  return masked ? (lse ? MT : MF) : (lse ? UT : UF);
 }
 
 }  // namespace
@@ -871,9 +899,12 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 // q, o [B, S, H, hd]; k, v [B, Tk, Hkv, hd] with H a multiple of Hkv;
 // one type; contiguous and 16-byte aligned; hd in {64, 128}; causal 0/1,
 // window 0 (none) or > 0.  bf16 runs the Hopper kernel, float32 the
-// float32 FMA kernel.
+// float32 FMA kernel.  lse, when not null, receives each row's natural
+// log-sum-exp of the scaled, masked logits, float32 [B, H, S] (what the
+// backward recomputes P from); null writes nothing else.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int B, int S,
+                                   const void* v, void* o, float* lse,
+                                   int B, int S,
                                    int Tk, int H, int Hkv, int hd,
                                    int causal, int window, int dtype,
                                    void* stream) {
@@ -882,17 +913,29 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const Mask mk{Tk, causal, window};
   // the unmasked form (the DiT's) keeps only the ragged-edge test
   const bool m = causal || window > 0;
+  // the form without the log-sum-exp is a separate instantiation: the
+  // serving and prefill launches run the kernel as it was without it
   if (dtype == rt::kBF16 && hd == 64)
-    return (m ? launch_hopper<64, true> : launch_hopper<64, false>)(
-        q, k, v, o, B, S, H, Hkv, mk, st);
+    return pick<launch_hopper<64, true, true>, launch_hopper<64, true, false>,
+                launch_hopper<64, false, true>,
+                launch_hopper<64, false, false>>(m, lse != nullptr)(
+        q, k, v, o, lse, B, S, H, Hkv, mk, st);
   if (dtype == rt::kBF16 && hd == 128)
-    return (m ? launch_hopper<128, true> : launch_hopper<128, false>)(
-        q, k, v, o, B, S, H, Hkv, mk, st);
+    return pick<launch_hopper<128, true, true>,
+                launch_hopper<128, true, false>,
+                launch_hopper<128, false, true>,
+                launch_hopper<128, false, false>>(m, lse != nullptr)(
+        q, k, v, o, lse, B, S, H, Hkv, mk, st);
   if (dtype == rt::kF32 && hd == 64)
-    return (m ? launch<float, 64, true> : launch<float, 64, false>)(
-        q, k, v, o, B, S, H, Hkv, mk, st);
+    return pick<launch<float, 64, true, true>, launch<float, 64, true, false>,
+                launch<float, 64, false, true>,
+                launch<float, 64, false, false>>(m, lse != nullptr)(
+        q, k, v, o, lse, B, S, H, Hkv, mk, st);
   if (dtype == rt::kF32 && hd == 128)
-    return (m ? launch<float, 128, true> : launch<float, 128, false>)(
-        q, k, v, o, B, S, H, Hkv, mk, st);
+    return pick<launch<float, 128, true, true>,
+                launch<float, 128, true, false>,
+                launch<float, 128, false, true>,
+                launch<float, 128, false, false>>(m, lse != nullptr)(
+        q, k, v, o, lse, B, S, H, Hkv, mk, st);
   return cudaErrorInvalidValue;
 }

@@ -78,58 +78,14 @@ constexpr int kLD = kT + 8;      // padded bf16 row of a 64-wide tile
 constexpr int kLDN = kNMax + 8;  // padded bf16 row of an N-wide tile
 constexpr float kClip = -60.f;   // exp underflow guard of the TPU kernel
 
-// --- fragments -----------------------------------------------------------
+// --- fragments (common.cuh) ---------------------------------------------
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldsm(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-__device__ __forceinline__ void ldsm_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
+using rt::lda_km;
+using rt::lda_mk;
+using rt::ldb_kn;
+using rt::ldb_nk;
+using rt::mma_bf16;
 
-// A fragment (16 x 16) of rows m0.., depth k0.. from a tile stored
-// [m][k] (row stride ld)
-__device__ __forceinline__ void lda_mk(uint32_t (&r)[4], const bf16* s,
-                                       int ld, int m0, int k0) {
-  const int l = threadIdx.x % 32, mi = l / 8;
-  ldsm(r, s + (m0 + (mi % 2) * 8 + l % 8) * ld + k0 + (mi / 2) * 8);
-}
-// the same from a tile stored [k][m]
-__device__ __forceinline__ void lda_km(uint32_t (&r)[4], const bf16* s,
-                                       int ld, int m0, int k0) {
-  const int l = threadIdx.x % 32, mi = l / 8;
-  ldsm_t(r, s + (k0 + (mi / 2) * 8 + l % 8) * ld + m0 + (mi % 2) * 8);
-}
-// B fragments (16 x 8) of the two column tiles n0 and n0 + 8: r[0..1]
-// and r[2..3]; from a tile stored [k][n], and from one stored [n][k]
-__device__ __forceinline__ void ldb_kn(uint32_t (&r)[4], const bf16* s,
-                                       int ld, int k0, int n0) {
-  const int l = threadIdx.x % 32, mi = l / 8;
-  ldsm_t(r, s + (k0 + (mi % 2) * 8 + l % 8) * ld + n0 + (mi / 2) * 8);
-}
-__device__ __forceinline__ void ldb_nk(uint32_t (&r)[4], const bf16* s,
-                                       int ld, int k0, int n0) {
-  const int l = threadIdx.x % 32, mi = l / 8;
-  ldsm(r, s + (n0 + (mi / 2) * 8 + l % 8) * ld + k0 + (mi % 2) * 8);
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 // d += a·b over the planes: lo·hi where a is split, hi·lo where b is,
 // then hi·hi.  a[0] / a[1] = hi / lo fragments; b[0] / b[1] the hi / lo
 // x4 fragments of two column tiles, of which tile `half` is taken.
@@ -138,9 +94,9 @@ __device__ __forceinline__ void mma_split(float (&d)[4],
                                           const uint32_t (&a)[2][4],
                                           const uint32_t (&b)[2][4],
                                           int half) {
-  if constexpr (kALo) mma(d, a[1], b[0][2 * half], b[0][2 * half + 1]);
-  if constexpr (kBLo) mma(d, a[0], b[1][2 * half], b[1][2 * half + 1]);
-  mma(d, a[0], b[0][2 * half], b[0][2 * half + 1]);
+  if constexpr (kALo) mma_bf16(d, a[1], b[0][2 * half], b[0][2 * half + 1]);
+  if constexpr (kBLo) mma_bf16(d, a[0], b[1][2 * half], b[1][2 * half + 1]);
+  mma_bf16(d, a[0], b[0][2 * half], b[0][2 * half + 1]);
 }
 
 // --- staging -------------------------------------------------------------

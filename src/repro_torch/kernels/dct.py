@@ -37,6 +37,7 @@ def band_split_spectral(x: torch.Tensor, rho: float, method: str = "dct"):
     """``(low_spec [B, m, D], high [B, S, D])`` of ``x [B, S, D]`` with
     ``m = frequency.spectral_kept_bins(S, rho, method)``; outputs in
     x's type, float32 accumulation."""
+    build.require_no_grad("band_split_spectral", x)
     build.require_cuda("band_split_spectral", x)
     if x.ndim != 3:
         raise ValueError(f"band_split_spectral takes [B, S, D], got "
@@ -109,6 +110,7 @@ def _basis_matmul(basis: torch.Tensor, x: torch.Tensor, with_high: bool):
     """Launch ``token_basis_matmul``: ``low = basis @ x[b]`` and, with
     ``with_high``, ``high = x − low`` rounded as the reference rounds
     it (after the cast of low to x's type)."""
+    build.require_no_grad("token_basis_matmul", basis, x)
     build.require_cuda("token_basis_matmul", basis, x)
     if x.ndim != 3 or basis.shape != (x.shape[1], x.shape[1]):
         raise ValueError(f"token_basis_matmul: basis {tuple(basis.shape)} "
@@ -146,6 +148,7 @@ def band_split(x: torch.Tensor, rho: float, method: str = "dct"):
     """FreqCa band split as one projection product: ``(low, high)`` of
     ``x [B, S, D]`` with ``low = L x`` and ``high = x − low``, both in
     x's type (one ``token_basis_matmul`` launch)."""
+    build.require_no_grad("band_split", x)
     build.require_cuda("band_split", x)
     basis = band_split_basis(x.shape[-2], rho, method, device=x.device)
     return _basis_matmul(basis, x, True)

@@ -1,10 +1,13 @@
-"""Flash attention as a CUDA kernel: non-causal, causal, sliding-window
-and grouped-query forms.
+"""Flash attention as CUDA kernels: non-causal, causal, sliding-window
+and grouped-query forms, forward and backward.
 
 ``flash_attention`` is the wrapper of ``csrc/flash_attention.cu`` (the
-counterpart of ``repro.kernels.flash_attention``).  CUDA tensors only;
-the op layer sends CPU tensors to ``ref.attention_ref``.  Any S and T
-are taken: the kernel masks ragged tile edges.
+counterpart of ``repro.kernels.flash_attention``); with ``return_lse``
+it also returns each row's log-sum-exp, which ``flash_attention_bwd``
+(``csrc/flash_attention_bwd.cu``, bf16) recomputes the probabilities
+from.  CUDA tensors only; the op layer sends CPU tensors to
+``ref.attention_ref``, which autograd differentiates.  Any S and T are
+taken: the kernels mask ragged tile edges.
 """
 from __future__ import annotations
 
@@ -16,43 +19,97 @@ from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-HEAD_DIMS = (64, 128)   # the head widths the kernel is instantiated for
+HEAD_DIMS = (64, 128)   # the head widths the kernels are instantiated for
+
+
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           q_per_kv: int, window: int) -> int:
+    """Raise on what the kernels do not take; returns the kv heads."""
+    b, s, h, hd = q.shape
+    t = k.shape[1]
+    if q_per_kv < 1 or h % q_per_kv or window < 0:
+        raise ValueError(f"{name}: {h} heads, q_per_kv {q_per_kv}, window "
+                         f"{window}")
+    hkv = h // q_per_kv
+    if k.shape != (b, t, hkv, hd) or v.shape != k.shape:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, q_per_kv {q_per_kv}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS}")
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"{name}: q, k, v must share one type")
+    return hkv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_per_kv: int = 1, causal: bool = False,
-                    window: int = 0) -> torch.Tensor:
+                    window: int = 0, return_lse: bool = False):
     """q [B, S, H, hd]; k, v [B, T, H / q_per_kv, hd] -> [B, S, H, hd].
     Causal keeps ``k_pos <= q_pos``, ``window > 0`` keeps ``k_pos >
-    q_pos − window``."""
+    q_pos − window``.  With ``return_lse``, ``(out, lse)`` with lse [B,
+    H, S] float32, the row log-sum-exp of the scaled, masked logits."""
     b, s, h, hd = q.shape
-    t = k.shape[1]
-    if q_per_kv < 1 or h % q_per_kv or window < 0:
-        raise ValueError(f"flash_attention: {h} heads, q_per_kv {q_per_kv},"
-                         f" window {window}")
-    hkv = h // q_per_kv
-    if k.shape != (b, t, hkv, hd) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: q {tuple(q.shape)}, k "
-                         f"{tuple(k.shape)}, v {tuple(v.shape)}, q_per_kv "
-                         f"{q_per_kv}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {hd} not in "
-                         f"{HEAD_DIMS}")
-    if not q.dtype == k.dtype == v.dtype:
-        raise TypeError("flash_attention: q, k, v must share one type")
+    hkv = _check("flash_attention", q, k, v, q_per_kv, window)
     build.require_cuda("flash_attention", q, k, v)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _P]
     fn.restype = _I
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                b, s, t, h, hkv, hd, int(causal), window,
-                build.dtype_code(q),
+                None if lse is None else lse.data_ptr(), b, s, k.shape[1], h,
+                hkv, hd, int(causal), window, build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention", status)
     flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        q_per_kv: int = 1, causal: bool = False,
+                        window: int = 0):
+    """``(dq, dk, dv)`` of ``flash_attention`` from its output ``o``, its
+    ``lse`` and the output's gradient ``do``: q, o, do [B, S, H, hd]; k,
+    v [B, T, H / q_per_kv, hd]; lse [B, H, S] float32; bf16 only (the
+    float32 backward is not written yet).  Each gradient in its input's
+    type, float32 accumulation; no atomics, so two calls are bitwise
+    equal."""
+    b, s, h, hd = q.shape
+    hkv = _check("flash_attention_bwd", q, k, v, q_per_kv, window)
+    if q.dtype != torch.bfloat16:
+        raise NotImplementedError(
+            f"flash_attention_bwd: {q.dtype} inputs; the backward kernel "
+            "takes bfloat16 only (a float32 one is queued in ROADMAP.md)")
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} "
+                         f"{o.dtype} and do {tuple(do.shape)} {do.dtype} "
+                         f"must match q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, s) or lse.dtype != torch.float32:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
+                         f"{lse.dtype}, expected {(b, h, s)} float32")
+    build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    dsum = torch.empty_like(lse)      # D = rowsum(dO ∘ O), the kernel's
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    fn.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    fn.restype = _I
+    status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), dsum.data_ptr(), b, s, k.shape[1], h, hkv, hd,
+                int(causal), window, build.dtype_code(q),
+                torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(lib, "flash_attention_bwd", status)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

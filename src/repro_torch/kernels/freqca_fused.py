@@ -37,6 +37,8 @@ def freqca_predict_fused_spectral(low_spec: torch.Tensor,
     high_hist's type.  The kernel reads synth's transpose, S-contiguous:
     for the view ``basis.T`` that is the basis itself, with no copy.
     """
+    build.require_no_grad("freqca_predict_fused_spectral", low_spec, synth,
+                          high_hist, w)
     b, k, s, d = high_hist.shape
     m = synth.shape[1]
     if low_spec.shape != (b, m, d) or synth.shape != (s, m) \
@@ -86,6 +88,8 @@ def freqca_predict_fused(low: torch.Tensor, high_hist: torch.Tensor,
     ``[K]``.  The K folded weights stay a float32 tensor on the device
     (no host read); float32 accumulation, output in low's type.
     """
+    build.require_no_grad("freqca_predict_fused", low, high_hist, ts,
+                          t_query)
     if tuple(ts.shape) != (high_hist.shape[0],):
         raise ValueError(f"freqca_predict_fused: ts {tuple(ts.shape)} for "
                          f"a history of {high_hist.shape[0]}")
@@ -98,6 +102,7 @@ def launch_fused(low: torch.Tensor, high_hist: torch.Tensor,
                  w: torch.Tensor) -> torch.Tensor:
     """The kernel launch of ``freqca_predict_fused`` with the folded
     weights ``w [K]`` already on the device: low + Σ_k w_k·high_hist_k."""
+    build.require_no_grad("freqca_predict_fused", low, high_hist, w)
     k = high_hist.shape[0]
     if high_hist.shape[1:] != low.shape or tuple(w.shape) != (k,):
         raise ValueError(

@@ -9,6 +9,11 @@ XLA on a CPU and Pallas on a TPU are both legitimate backends there.)
 
 Each kernel wrapper counts its own launches (``<wrapper>.launches``);
 ``launch_counts`` / ``reset_launch_counts`` read and clear them.
+
+Gradients: on CUDA, ``flash`` is a ``torch.autograd.Function`` whose
+backward is the flash backward kernel; the other kernels have no
+backward, and their wrappers raise when autograd would need one.  On the
+CPU, autograd differentiates the plain versions.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ _WRAPPERS = {
     "freqca_predict_fused_spectral":
         freqca_fused.freqca_predict_fused_spectral,
     "flash_attention": flash_attention.flash_attention,
+    "flash_attention_bwd": flash_attention.flash_attention_bwd,
     "token_basis_matmul": dct.token_basis_matmul,
     "freqca_predict_fused": freqca_fused.freqca_predict_fused,
     "ssd_chunk_scan": ssd_scan.ssd_chunk_scan,
@@ -96,16 +102,40 @@ def hermite_weights(ts: torch.Tensor, t_query, order: int) -> torch.Tensor:
     return hermite.eval_weights(ts, t_query, order)
 
 
+class FlashAttentionFn(torch.autograd.Function):
+    """The flash kernel with its backward kernel: the forward keeps
+    ``q, k, v``, the output and the row log-sum-exp only when a gradient
+    is needed; the backward recomputes the probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_per_kv: int, causal: bool, window: int):
+        ctx.form = (q_per_kv, causal, window)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention.flash_attention(q, k, v, q_per_kv, causal,
+                                                   window)
+        out, lse = flash_attention.flash_attention(
+            q, k, v, q_per_kv, causal, window, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention.flash_attention_bwd(
+            q, k, v, out, lse, d_out.contiguous(), *ctx.form)
+        return dq, dk, dv, None, None, None
+
+
 def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           q_per_kv: int = 1, causal: bool = False,
           window: int = 0) -> torch.Tensor:
     """Attention over ``q [B, S, Hq, hd]``, ``k, v [B, T, Hkv, hd]``:
     non-causal MHA for the DiT's joint attention; causal, windowed and
-    GQA for the LM's self-attention."""
+    GQA for the LM's self-attention.  Differentiable on both devices."""
     if _on_cuda(q):
-        return flash_attention.flash_attention(
-            q.contiguous(), k.contiguous(), v.contiguous(), q_per_kv,
-            causal, window)
+        return FlashAttentionFn.apply(q.contiguous(), k.contiguous(),
+                                      v.contiguous(), q_per_kv, causal,
+                                      window)
     return ref.attention_ref(q, k, v, q_per_kv, causal, window)
 
 

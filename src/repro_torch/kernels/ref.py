@@ -143,6 +143,21 @@ NEG_INF = -1e30      # masked logits, as the reference's attention
 NEG_CLIP = -60.0     # the SSD kernel's exp underflow guard
 
 
+def _logits(q: torch.Tensor, k: torch.Tensor, mask,
+            q_per_kv: int) -> torch.Tensor:
+    """Float32 logits ``[B, Hkv, q_per_kv, S, T]`` of ``q [B, S, Hq,
+    hd]`` against ``k [B, T, Hkv, hd]``, scaled by 1/sqrt(hd), masked
+    logits −1e30."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, q_per_kv, hd)
+    logits = torch.einsum("bsgqk,btgk->bgqst", qg.to(_F32),
+                          k.to(_F32)) / math.sqrt(hd)
+    if mask is not None:
+        logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    return logits
+
+
 def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              mask=None, q_per_kv: int = 1) -> torch.Tensor:
     """Full-logits GQA attention (the reference's ``_sdpa``), ``q [B, S,
@@ -154,36 +169,85 @@ def sdpa_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     its (unnormalised) probabilities, so at bf16 the two differ by the
     order of their sums and the output's rounding."""
     b, s, hq, hd = q.shape
-    hkv = k.shape[2]
-    qg = q.reshape(b, s, hkv, q_per_kv, hd)
-    logits = torch.einsum("bsgqk,btgk->bgqst", qg.to(_F32),
-                          k.to(_F32)) / math.sqrt(hd)
-    if mask is not None:
-        logits = torch.where(mask[:, None, None], logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    probs = torch.softmax(_logits(q, k, mask, q_per_kv), dim=-1).to(v.dtype)
     out = torch.einsum("bgqst,btgk->bsgqk", probs, v)
     return out.reshape(b, s, hq, hd)
+
+
+def attention_mask(s: int, t: int, causal: bool, window: int,
+                   device=None):
+    """``[1, S, T]`` bool mask of the flash kernel's forms, or None
+    unmasked: causal keeps ``k_pos <= q_pos``, a window ``k_pos > q_pos
+    − window``, both positions counted from 0."""
+    if not (causal or window > 0):
+        return None
+    q_pos = torch.arange(s, device=device)[:, None]
+    k_pos = torch.arange(t, device=device)[None, :]
+    mask = torch.ones((s, t), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= k_pos > q_pos - window
+    return mask[None]
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   q_per_kv: int = 1, causal: bool = False,
                   window: int = 0) -> torch.Tensor:
     """The flash kernel's plain version: ``sdpa_ref`` under the masks the
-    kernel takes — causal keeps ``k_pos <= q_pos``, a window ``k_pos >
-    q_pos − window``, both positions counted from 0.  Unmasked it is the
-    full-logits branch of the DiT's joint attention."""
-    mask = None
-    if causal or window > 0:
-        q_pos = torch.arange(q.shape[1], device=q.device)[:, None]
-        k_pos = torch.arange(k.shape[1], device=q.device)[None, :]
-        mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool,
-                          device=q.device)
-        if causal:
-            mask &= k_pos <= q_pos
-        if window > 0:
-            mask &= k_pos > q_pos - window
-        mask = mask[None]
+    kernel takes (``attention_mask``).  Unmasked it is the full-logits
+    branch of the DiT's joint attention."""
+    mask = attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
     return sdpa_ref(q, k, v, mask, q_per_kv)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      q_per_kv: int = 1, causal: bool = False,
+                      window: int = 0):
+    """``attention_ref``'s output and the row log-sum-exp of its scaled,
+    masked logits, ``lse [B, Hq, S]`` float32 (what the flash forward
+    writes for its backward)."""
+    b, s, hq, _ = q.shape
+    mask = attention_mask(s, k.shape[1], causal, window, q.device)
+    lse = torch.logsumexp(_logits(q, k, mask, q_per_kv), dim=-1)
+    return sdpa_ref(q, k, v, mask, q_per_kv), lse.reshape(b, hq, s)
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                      q_per_kv: int = 1, causal: bool = False,
+                      window: int = 0):
+    """``(dq, dk, dv)`` of ``attention_ref`` by the standard recompute
+    from the forward's output ``o`` and row log-sum-exp ``lse [B, Hq,
+    S]``, each in its input's type, step by step in float32:
+    ``P = exp(q·kᵀ/√hd − lse)`` (a masked logit −1e30, so its P is 0),
+    ``dV = Pᵀ·dO``, ``D = rowsum(dO ∘ O)``, ``dS = P ∘ (dO·Vᵀ − D)``,
+    ``dQ = dS·K/√hd``, ``dK = dSᵀ·Q/√hd``; under GQA a kv head's dK and
+    dV sum over its ``q_per_kv`` query heads.  P is rounded to
+    ``v.dtype`` before ``Pᵀ·dO`` and dS before both of its products,
+    where the bf16 CUDA kernel rounds them (its tensor-core operands);
+    the scale is applied after the products.  So at bf16 the two differ
+    by the order of their float32 sums and the outputs' rounding.  A row
+    that sees no key at all (only a non-causal window past T can make
+    one) is outside the recompute: its forward averages, its P here is
+    1 per key."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    mask = attention_mask(s, k.shape[1], causal, window, q.device)
+    p = torch.exp(_logits(q, k, mask, q_per_kv)
+                  - lse.to(_F32).reshape(b, hkv, q_per_kv, s, 1))
+    dog = do.reshape(b, s, hkv, q_per_kv, hd).to(_F32)
+    og = o.reshape(b, s, hkv, q_per_kv, hd).to(_F32)
+    dv = torch.einsum("bgqst,bsgqk->btgk", p.to(v.dtype).to(_F32), dog)
+    d_row = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]   # [b,g,q,s,1]
+    dp = torch.einsum("bsgqk,btgk->bgqst", dog, v.to(_F32))
+    ds = (p * (dp - d_row)).to(v.dtype).to(_F32)
+    scale = 1.0 / math.sqrt(hd)
+    dq = torch.einsum("bgqst,btgk->bsgqk", ds, k.to(_F32)) * scale
+    dk = torch.einsum("bgqst,bsgqk->btgk", ds,
+                      q.reshape(b, s, hkv, q_per_kv, hd).to(_F32)) * scale
+    return (dq.reshape(b, s, hq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def ssd_chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -42,6 +42,7 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    chunk: int = 256) -> torch.Tensor:
     """x [b, s, h, 64]; dt [b, s, h] float32; A [h] float32; B, C [b, s,
     n] in x's type -> y [b, s, h, 64] in x's type."""
+    build.require_no_grad("ssd_chunk_scan", x, dt, A, B, C)
     b, s, h, p = x.shape
     n = B.shape[-1]
     q = min(chunk, s)

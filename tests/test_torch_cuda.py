@@ -324,3 +324,126 @@ def test_ssd_chunk_scan_kernel(card, dtype, s, chunk, n, dt_scale):
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}[dtype]
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert got.dtype == dtype and float(err) <= tol, float(err)
+
+
+# the flash backward: (S, Hq, Hkv, hd, causal, window) in the four forms,
+# S off the tiles (128 keys / queries a block, 64 streamed queries
+# and 64 streamed keys)
+_BWD_FORMS = [
+    (200, 3, 3, 64, False, 0),      # non-causal MHA, ragged
+    (300, 4, 4, 128, False, 0),
+    (333, 4, 4, 128, True, 0),      # causal
+    (256, 8, 2, 64, True, 48),      # causal window inside a tile
+    (1000, 8, 8, 128, True, 300),   # window wider than a tile
+    (300, 16, 2, 128, True, 0),     # causal GQA, q_per_kv 8 (yi-9b)
+    (520, 8, 2, 64, False, 0),      # non-causal GQA
+    (130, 4, 1, 128, False, 70),    # non-causal window, GQA
+]
+
+
+def _bwd_inputs(card, s, hq, hkv, hd, dtype=torch.bfloat16, b=2):
+    q = torch.randn(b, s, hq, hd, device=card).to(dtype)
+    k, v = (torch.randn(b, s, hkv, hd, device=card).to(dtype) for _ in "kv")
+    do = torch.randn(b, s, hq, hd, device=card).to(dtype)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hq,hkv,hd,causal,window", _BWD_FORMS)
+def test_flash_kernel_lse(card, dtype, s, hq, hkv, hd, causal, window):
+    """The forward with the log-sum-exp written: the output equals the
+    one without it, bit for bit, and lse the twin's to 1e-5 absolute
+    (values ~log T, float32)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _bwd_inputs(card, s, hq, hkv, hd, dtype)
+    g = hq // hkv
+    out, lse = fa.flash_attention(q, k, v, g, causal, window,
+                                  return_lse=True)
+    assert torch.equal(out, fa.flash_attention(q, k, v, g, causal, window))
+    want_out, want_lse = ref.attention_lse_ref(q, k, v, g, causal, window)
+    _close((out,), (want_out,), dtype)
+    assert lse.shape == (2, hq, s) and lse.dtype == torch.float32
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * float(
+        want_lse.abs().max())
+
+
+@pytest.mark.parametrize("s,hq,hkv,hd,causal,window", _BWD_FORMS)
+def test_flash_bwd_kernel(card, s, hq, hkv, hd, causal, window):
+    """dQ, dK, dV against the recompute twin on the same o and lse (bf16
+    2e-2, as the forward: both round P and dS to bf16 as operands), and
+    two launches bitwise equal (no atomics)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(card, s, hq, hkv, hd)
+    g = hq // hkv
+    o, lse = fa.flash_attention(q, k, v, g, causal, window, return_lse=True)
+    ops.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window)
+    assert ops.launch_counts()["flash_attention_bwd"] == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again, strict=True))
+    _close(got, ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal,
+                                      window), torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal,hkv", [(False, 4), (True, 2)])
+def test_flash_autograd_function(card, causal, hkv):
+    """``ops.flash`` under autograd: the forward kernel saves o and lse,
+    the backward kernel gives the gradients of a loss through it, equal
+    to autograd through the plain version within bf16 2e-2."""
+    q, k, v, do = _bwd_inputs(card, 160, 4, hkv, 64)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash(*leaves, 4 // hkv, causal=causal)
+    (out.float() * do.float()).sum().backward()
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    plain = [x.clone().requires_grad_() for x in (q, k, v)]
+    want = torch.autograd.grad(ref.attention_ref(*plain, 4 // hkv, causal),
+                               plain, do)
+    _close(tuple(x.grad for x in leaves), want, torch.bfloat16)
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        ops.flash(q, k, v, 4 // hkv, causal=causal)
+    assert ops.launch_counts()["flash_attention_bwd"] == 0
+
+
+def test_flash_bwd_refuses_float32(card):
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(card, 64, 2, 2, 64, torch.float32)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    with pytest.raises(NotImplementedError):
+        fa.flash_attention_bwd(q, k, v, o, lse, do)
+
+
+def _guarded_cuda_calls(card):
+    from repro_torch.kernels import dct, freqca_fused, ssd_scan
+    x = torch.randn(1, 64, 64, device=card, requires_grad=True)
+    hist = torch.randn(1, 3, 64, 64, device=card)
+    yield "band_split_spectral", lambda: dct.band_split_spectral(x, 0.0625)
+    yield "token_basis_matmul", lambda: dct.token_basis_matmul(
+        torch.eye(64, device=card), x)
+    yield "band_split", lambda: dct.band_split(x, 0.0625)
+    yield "freqca_predict_fused_spectral", \
+        lambda: freqca_fused.freqca_predict_fused_spectral(
+            x[:, :4], torch.zeros((64, 4), device=card), hist,
+            torch.zeros((1, 3), device=card))
+    yield "freqca_predict_fused", lambda: freqca_fused.freqca_predict_fused(
+        x, hist[0][:, None], torch.ones(3, device=card),
+        torch.tensor(0.5, device=card), 2)
+    yield "ssd_chunk_scan", lambda: ssd_scan.ssd_chunk_scan(
+        x.reshape(1, 64, 1, 64), x[..., 0].reshape(1, 64, 1).detach(),
+        torch.ones(1, device=card), x[..., :16], x[..., :16], 64)
+
+
+@pytest.mark.parametrize("name", ["band_split_spectral", "token_basis_matmul",
+                                  "band_split",
+                                  "freqca_predict_fused_spectral",
+                                  "freqca_predict_fused", "ssd_chunk_scan"])
+def test_guarded_wrappers_raise_under_grad_on_the_card(card, name):
+    """A grad-requiring CUDA input to a kernel with no backward raises;
+    it never returns a detached result.  No launch is counted."""
+    call = dict(_guarded_cuda_calls(card))[name]
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="no backward"):
+        call()
+    assert not any(ops.launch_counts().values())

@@ -48,10 +48,12 @@ def test_every_port_module_imports_without_a_card():
     "repro_torch.models.transformer", "repro_torch.kernels.ssd_scan",
     "repro_torch.core.policies.freqca_eb",
     "repro_torch.serving.async_engine", "repro_torch.serving.metrics",
-    "repro_torch.checkpointing.checkpoint"])
+    "repro_torch.checkpointing.checkpoint", "repro_torch.optim.adamw",
+    "repro_torch.data.synthetic", "repro_torch.diffusion.training",
+    "repro_torch.launch.train"])
 def test_assigned_backbone_modules_are_walked(name):
-    """The third and seventh slices' modules are among the files walked
-    above."""
+    """The third, seventh and eighth slices' modules are among the files
+    walked above."""
     walked = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
               for p in FILES if p.is_relative_to(REPO / "src")}
     assert name in walked

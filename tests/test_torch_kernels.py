@@ -421,6 +421,7 @@ def test_cpu_dispatch_leaves_launch_counts_untouched():
     assert ops.launch_counts() == {"band_split_spectral": 0,
                                    "freqca_predict_fused_spectral": 0,
                                    "flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "token_basis_matmul": 0,
                                    "freqca_predict_fused": 0,
                                    "ssd_chunk_scan": 0}

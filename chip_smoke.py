@@ -6,12 +6,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
 1. device    — card name, power limit and compute capability (9, 0);
 2. build     — nvcc builds the seven kernel libraries from ``csrc/`` in
                parallel;
-               the flash library's SASS must hold wgmma (HGMMA) and TMA
-               loads (UTMALDG), and ptxas must report no spills, no
-               ignored setmaxnreg (C7508) and no serialised wgmma
-               (C7512) for its bf16 kernels; the SASS of
-               token_basis_matmul, ssd_scan, band_split_spectral,
-               freqca_fused_spectral and flash_attention_bwd must hold
+               the SASS of the two flash libraries (forward and
+               backward) must hold wgmma (HGMMA) and TMA loads
+               (UTMALDG), and ptxas must report no spills, no ignored
+               setmaxnreg (C7508) and no serialised wgmma (C7512) for
+               the forward's bf16 kernels and every backward kernel;
+               the SASS of token_basis_matmul, ssd_scan,
+               band_split_spectral and freqca_fused_spectral must hold
                mma.sync (HMMA), with no spills in any of their kernels;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
@@ -22,8 +23,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                plain version's time, the bound and, where one PyTorch
                call computes the same function, that call's time; the
                flash backward (bf16) at the DiT, train and causal GQA
-               shapes, its two launches bitwise equal, and the forward
-               that writes the log-sum-exp;
+               shapes, its two launches bitwise equal, each of its three
+               launches timed apart, and the forward that writes the
+               log-sum-exp;
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
                versions), and so does a mixed batch of a FreqCa and a
@@ -209,33 +211,36 @@ def ptxas_spills(name: str, entry: str = "") -> dict:
 
 
 def flash_build_checks() -> None:
-    """The bf16 flash kernel is the Hopper design: its library's SASS
+    """The two bf16 flash libraries are the Hopper design: each one's SASS
     holds wgmma (HGMMA) and TMA loads (UTMALDG), and ptxas reports no
-    spills, no ignored setmaxnreg (warning C7508) and no wgmma
-    serialised for want of registers (warning C7512) for it."""
+    spills, no ignored setmaxnreg (warning C7508) and no wgmma serialised
+    for want of registers (warning C7512): for the forward's bf16
+    kernels, and for every kernel of the backward."""
     from repro_torch.kernels import build
-    code = sass("flash_attention")
-    counts = {op: code.count(op) for op in ("HGMMA", "UTMALDG")}
-    report = build.ptxas_log("flash_attention")
-    spills = ptxas_spills("flash_attention", "flash_fwd_hopper_kernel")
-    warnings = {w: w in report for w in ("C7508", "C7512")}
-    log(f"flash SASS: {counts}; bf16 instantiations {len(spills)}, spill "
-        f"bytes {sorted(set(spills.values()))}; "
-        + ", ".join(f"{w} {'present' if on else 'absent'}"
-                    for w, on in warnings.items()))
-    if min(counts.values()) == 0 or not spills or any(spills.values()) or \
-            any(warnings.values()):
-        raise AssertionError(f"flash build: SASS {counts}, spills {spills}, "
-                             f"warnings {warnings}")
+    for name, entry in (("flash_attention", "flash_fwd_hopper_kernel"),
+                        ("flash_attention_bwd", "")):
+        code = sass(name)
+        counts = {op: code.count(op) for op in ("HGMMA", "UTMALDG")}
+        report = build.ptxas_log(name)
+        spills = ptxas_spills(name, entry)
+        warnings = {w: w in report for w in ("C7508", "C7512")}
+        log(f"{name} SASS: {counts}; kernels checked {len(spills)}, spill "
+            f"bytes {sorted(set(spills.values()))}; "
+            + ", ".join(f"{w} {'present' if on else 'absent'}"
+                        for w, on in warnings.items()))
+        if min(counts.values()) == 0 or not spills or any(spills.values()) \
+                or any(warnings.values()):
+            raise AssertionError(f"{name} build: SASS {counts}, spills "
+                                 f"{spills}, warnings {warnings}")
 
 
 def mma_build_checks() -> None:
-    """token_basis_matmul, the SSD scan, the two FreqCa cache kernels
-    and the flash backward run their products on the tensor cores: each
-    library's SASS holds mma.sync (HMMA), and ptxas reports no spills
-    for any of its kernels."""
+    """token_basis_matmul, the SSD scan and the two FreqCa cache kernels
+    run their products on the tensor cores: each library's SASS holds
+    mma.sync (HMMA), and ptxas reports no spills for any of its
+    kernels."""
     for name in ("token_basis_matmul", "ssd_scan", "band_split_spectral",
-                 "freqca_fused_spectral", "flash_attention_bwd"):
+                 "freqca_fused_spectral"):
         hmma = sass(name).count("HMMA")
         spills = ptxas_spills(name)
         log(f"{name} SASS: HMMA {hmma}; kernels {len(spills)}, spill bytes "
@@ -514,13 +519,73 @@ def flash_bwd_rows(row, gen) -> None:
         flash_bwd_row(row, gen, label, shape, causal)
 
 
+def bwd_design_flops(b: int, s: int, t: int, hq: int, hkv: int, hd: int,
+                     causal: bool, window: int = 0) -> dict:
+    """The operations the backward kernel's passes run, as it walks its
+    tiles (``flash_attention_bwd.cu``): pass (b), per 128-key block and
+    kv head, each warpgroup's 64 keys against every streamed 64-query
+    tile of the block's query range that keeps some pair, for each of
+    the group's query heads, four products (Sᵀ, dPᵀ, dV, dK) of 2·hd a
+    pair; pass (c), per 128-query block and head, each warpgroup's 64
+    queries against every streamed key tile (128 at hd 128, 64 at hd 64)
+    of the block's range that keeps some pair, three products (S, dP,
+    dQ).  Masked and ragged pairs inside a visited tile count.  Returns
+    {"kv": ..., "q": ...}."""
+    bm, bn = 64, 128 if hd == 128 else 64
+
+    def none(k0, bk, q0, bq):
+        return (q0 >= s or k0 >= t or (causal and k0 > q0 + bq - 1)
+                or (window > 0 and k0 + bk - 1 <= q0 - window))
+    kv = 0
+    for k0 in range(0, t, 128):
+        q_begin = k0 if causal else 0
+        q_end = min(s, min(k0 + 128, t) - 1 + window) if window else s
+        for q0 in range(q_begin // bm * bm, q_end, bm):
+            kv += sum(64 * bm for kw in (k0, k0 + 64)
+                      if not none(kw, 64, q0, bm))
+    q = 0
+    for q0 in range(0, s, 128):
+        k_end = min(t, q0 + 128) if causal else t
+        k_begin = max(0, q0 - window + 1) if window else 0
+        for k0 in range(k_begin // bn * bn, k_end, bn):
+            q += sum(64 * bn for qw in (q0, q0 + 64)
+                     if not none(k0, bn, qw, 64))
+    return {"kv": b * hq * 8 * hd * kv, "q": b * hq * 6 * hd * q}
+
+
+def device_ms(fn, reps: int) -> dict:
+    """{kernel: ms per call of ``fn``} from ``torch.profiler``'s device
+    times over ``reps`` calls after one warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None)
+        if us is None:
+            us = e.cuda_time_total
+        if us > 0:
+            m = re.search(r"(flash_bwd_\w+?)_kernel", e.key)
+            name = m.group(1) if m else e.key[:60]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+    return out
+
+
 def flash_bwd_row(row, gen, label: str, shape, causal: bool) -> None:
     """One backward row at ``shape`` (B, S, Hq, Hkv), head width 128.  It
     checks dQ, dK and dV (each logged) and that two launches are bitwise
     equal.  The bound counts 10·hd·H FLOP a kept (query, key) pair (S
-    again, dV, dP, dQ, dK) at the bf16 peak; the design's two-pass
-    recompute, 14, is logged beside it.  The library time is SDPA's
-    backward: ``torch.autograd.grad`` through
+    again, dV, dP, dQ, dK) at the bf16 peak; logged beside it: the
+    operations the kernel's tiles run (``bwd_design_flops``, S and dP in
+    both passes: 14 a pair where the tiles hold no masked pair) and
+    each launch's own device time (``torch.profiler``: the statistics
+    pass, dK/dV, dQ) beside its share of them.  The library time is
+    SDPA's backward: ``torch.autograd.grad`` through
     ``F.scaled_dot_product_attention`` less its forward."""
     import torch
     import torch.nn.functional as F
@@ -576,9 +641,22 @@ def flash_bwd_row(row, gen, label: str, shape, causal: bool) -> None:
         library_ms=t_both - t_fwd)
     log(f"kernel {name}: SDPA forward {t_fwd:.4f} ms, forward + backward "
         f"{t_both:.4f} ms")
-    log_bound(f"{name} [bfloat16] the design's (14 FLOP per pair and head "
-              "width: S and dP twice)", nbytes, 14 * hq * hd * pairs,
-              "bfloat16")
+    design = bwd_design_flops(b, s, s, hq, hkv, hd, causal)
+    total = sum(design.values())
+    per_pair = total / (hq * hd * pairs)
+    log_bound(f"{name} [bfloat16] the design's ({per_pair:.2f} FLOP per "
+              "kept pair and head width: S and dP in both passes)",
+              nbytes, total, "bfloat16")
+    # each launch's device time; the two product passes beside the
+    # operations their tiles run
+    parts = []
+    for n, ms in sorted(device_ms(kern, 5).items()):
+        ops_n = design.get(n.removeprefix("flash_bwd_"))
+        parts.append(f"{n} {ms:.4f} ms" + ("" if ops_n is None else (
+            f" ({rate(ops_n, ms, bound_ms(0, ops_n, 'bfloat16')[0])}, "
+            "of its tiles' operations)")))
+    log(f"kernel {name} per launch (torch.profiler, 5 calls): "
+        + "; ".join(parts))
     del q, k, v, do, o, lse, leaves, d_out
     torch.cuda.empty_cache()
 

@@ -86,8 +86,7 @@ __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
 }
 
 // bf16 fragments of mma.sync m16n8k16 (float32 accumulators) loaded
-// with ldmatrix from padded shared tiles (the SSD scan and the flash
-// backward)
+// with ldmatrix from padded shared tiles (the SSD scan)
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }

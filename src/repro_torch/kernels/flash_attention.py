@@ -79,8 +79,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``lse`` and the output's gradient ``do``: q, o, do [B, S, H, hd]; k,
     v [B, T, H / q_per_kv, hd]; lse [B, H, S] float32; bf16 only (the
     float32 backward is not written yet).  Each gradient in its input's
-    type, float32 accumulation; no atomics, so two calls are bitwise
-    equal."""
+    type, float32 accumulation on the tensor cores (wgmma).  Three
+    launches: the row statistics, dK and dV (one block per key tile and
+    kv head), dQ (one per query tile and head); a fourth sums, in a
+    fixed order, the partial dK and dV of blocks that split a GQA group
+    where the grid is small.  Each gradient row is written once and
+    nothing is summed by atomics, so two calls are bitwise equal."""
     b, s, h, hd = q.shape
     hkv = _check("flash_attention_bwd", q, k, v, q_per_kv, window)
     if q.dtype != torch.bfloat16:
@@ -97,14 +101,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"{lse.dtype}, expected {(b, h, s)} float32")
     build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
-    dsum = torch.empty_like(lse)      # D = rowsum(dO ∘ O), the kernel's
     lib = build.load("flash_attention_bwd")
+    scratch = lib.flash_attention_bwd_scratch
+    scratch.argtypes, scratch.restype = [_I] * 6, ctypes.c_long
+    # the kernel's row statistics (lse·log2 e and D = rowsum(dO ∘ O)) and,
+    # where it splits a GQA group over blocks, their partial dK and dV
+    stats = torch.empty(scratch(b, s, k.shape[1], h, hkv, hd),
+                        dtype=torch.float32, device=q.device)
     fn = lib.flash_attention_bwd
     fn.argtypes = [_P] * 10 + [_I] * 9 + [_P]
     fn.restype = _I
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), dsum.data_ptr(), b, s, k.shape[1], h, hkv, hd,
+                dv.data_ptr(), stats.data_ptr(), b, s, k.shape[1], h, hkv, hd,
                 int(causal), window, build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention_bwd", status)

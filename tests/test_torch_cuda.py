@@ -327,8 +327,8 @@ def test_ssd_chunk_scan_kernel(card, dtype, s, chunk, n, dt_scale):
 
 
 # the flash backward: (S, Hq, Hkv, hd, causal, window) in the four forms,
-# S off the tiles (128 keys / queries a block, 64 streamed queries
-# and 64 streamed keys)
+# S off the tiles (128 keys / queries a block, two warpgroups of 64;
+# streamed tiles of 64 queries, and of 128 keys at hd 128, 64 at hd 64)
 _BWD_FORMS = [
     (200, 3, 3, 64, False, 0),      # non-causal MHA, ragged
     (300, 4, 4, 128, False, 0),
@@ -338,12 +338,28 @@ _BWD_FORMS = [
     (300, 16, 2, 128, True, 0),     # causal GQA, q_per_kv 8 (yi-9b)
     (520, 8, 2, 64, False, 0),      # non-causal GQA
     (130, 4, 1, 128, False, 70),    # non-causal window, GQA
+    (777, 4, 4, 64, False, 0),      # 7 key tiles, 13 streamed, S ragged
+    (512, 4, 4, 128, False, 0),     # whole tiles only (no ragged edge)
+    (700, 16, 2, 128, True, 0),     # causal GQA q_per_kv 8, 6 key tiles
+    (450, 8, 1, 64, True, 0),       # causal GQA q_per_kv 8 at hd 64
+    (50, 2, 2, 128, True, 0),       # one tile, the second warpgroup idle
+    (1152, 32, 4, 64, True, 0),     # 72 kv blocks: on 132 SMs the group's
+                                    # 8 heads split over 4 blocks of 2
+]
+# (S, T, Hq, Hkv, hd, causal, window) with T != S: every query sees a
+# key (no window past T)
+_BWD_CROSS = [
+    (200, 328, 4, 4, 128, False, 0),
+    (333, 190, 4, 2, 64, False, 0),
+    (300, 420, 8, 2, 128, True, 0),
+    (260, 390, 4, 4, 64, True, 100),
 ]
 
 
-def _bwd_inputs(card, s, hq, hkv, hd, dtype=torch.bfloat16, b=2):
+def _bwd_inputs(card, s, hq, hkv, hd, dtype=torch.bfloat16, b=2, t=None):
     q = torch.randn(b, s, hq, hd, device=card).to(dtype)
-    k, v = (torch.randn(b, s, hkv, hd, device=card).to(dtype) for _ in "kv")
+    k, v = (torch.randn(b, t or s, hkv, hd, device=card).to(dtype)
+            for _ in "kv")
     do = torch.randn(b, s, hq, hd, device=card).to(dtype)
     return q, k, v, do
 
@@ -372,9 +388,21 @@ def test_flash_bwd_kernel(card, s, hq, hkv, hd, causal, window):
     """dQ, dK, dV against the recompute twin on the same o and lse (bf16
     2e-2, as the forward: both round P and dS to bf16 as operands), and
     two launches bitwise equal (no atomics)."""
+    _check_flash_bwd(_bwd_inputs(card, s, hq, hkv, hd), hq // hkv, causal,
+                     window)
+
+
+@pytest.mark.parametrize("s,t,hq,hkv,hd,causal,window", _BWD_CROSS)
+def test_flash_bwd_kernel_cross_lengths(card, s, t, hq, hkv, hd, causal,
+                                        window):
+    """The same with T keys for S queries, T != S."""
+    _check_flash_bwd(_bwd_inputs(card, s, hq, hkv, hd, t=t), hq // hkv,
+                     causal, window)
+
+
+def _check_flash_bwd(inputs, g, causal, window):
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, do = _bwd_inputs(card, s, hq, hkv, hd)
-    g = hq // hkv
+    q, k, v, do = inputs
     o, lse = fa.flash_attention(q, k, v, g, causal, window, return_lse=True)
     ops.reset_launch_counts()
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window)

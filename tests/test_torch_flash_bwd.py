@@ -27,23 +27,34 @@ from repro.models import dit as jdit
 from repro_torch.kernels import (build, dct, flash_attention, freqca_fused,
                                  ops, ref, ssd_scan)
 
-# (B, S, Hq, Hkv, causal, window): the four forms of the kernel
+# (B, S, Hq, Hkv, causal, window[, T]): the four forms of the kernel,
+# T = S unless given; then the shapes of the kernel's tiles (128 keys or
+# queries a block, 64 or 128 streamed): several key tiles, S off every
+# tile, q_per_kv 8 (at 1152 tokens the kernel splits each group's heads
+# over blocks), and T longer or shorter than S
 FORMS = {
     "noncausal": (2, 40, 3, 3, False, 0),
     "causal": (1, 37, 4, 4, True, 0),
     "window": (2, 45, 2, 2, True, 9),
     "gqa": (1, 33, 8, 2, True, 0),
     "gqa_noncausal_window": (2, 30, 4, 1, False, 12),
+    "noncausal_tiles": (1, 777, 4, 4, False, 0),
+    "gqa8_tiles": (1, 700, 16, 2, True, 0),
+    "gqa8_split": (1, 1152, 32, 4, True, 0),
+    "longer_keys": (2, 200, 4, 4, False, 0, 328),
+    "shorter_keys_gqa": (1, 333, 4, 2, False, 0, 190),
+    "causal_longer_keys": (1, 300, 8, 2, True, 0, 420),
+    "window_longer_keys": (1, 260, 4, 4, True, 100, 390),
 }
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 
 def _inputs(form, dtype, hd, seed=0):
-    b, s, hq, hkv, causal, window = FORMS[form]
+    b, s, hq, hkv, causal, window, *t = FORMS[form]
     g = torch.Generator().manual_seed(seed)
     q = torch.randn((b, s, hq, hd), generator=g).to(dtype)
-    k, v = (torch.randn((b, s, hkv, hd), generator=g).to(dtype)
+    k, v = (torch.randn((b, t[0] if t else s, hkv, hd), generator=g).to(dtype)
             for _ in "kv")
     do = torch.randn((b, s, hq, hd), generator=g).to(dtype)
     return q, k, v, do, hq // hkv, causal, window
@@ -73,9 +84,9 @@ def test_bwd_ref_matches_autograd(form, dtype, hd):
         assert _err(gt, w) <= TOL[dtype]
 
 
-def _numpy_mask(s, causal, window):
-    qp, kp = np.arange(s)[:, None], np.arange(s)[None, :]
-    m = np.ones((s, s), bool)
+def _numpy_mask(s, causal, window, t):
+    qp, kp = np.arange(s)[:, None], np.arange(t)[None, :]
+    m = np.ones((s, t), bool)
     if causal:
         m &= kp <= qp
     if window:
@@ -101,7 +112,7 @@ def test_bwd_ref_matches_reference_vjp(form, dtype, hd):
             return jdit._joint_attention(a, bb, c, eye, JNP[dtype]).reshape(
                 b, s, hq, hd)
     else:
-        mask = jnp.asarray(_numpy_mask(s, causal, window))
+        mask = jnp.asarray(_numpy_mask(s, causal, window, k.shape[1]))
 
         def fn(a, bb, c):
             return jattn._sdpa(a, bb, c, mask, g)
@@ -125,7 +136,7 @@ def test_lse_ref_is_logsumexp_of_the_logits(form, dtype):
     assert torch.equal(out, ref.attention_ref(q, k, v, g, causal, window))
     kr = k.float().repeat_interleave(g, dim=2)
     logits = torch.einsum("bshd,bthd->bhst", q.float(), kr) / hd ** 0.5
-    mask = torch.from_numpy(_numpy_mask(s, causal, window))
+    mask = torch.from_numpy(_numpy_mask(s, causal, window, k.shape[1]))
     logits = logits.masked_fill(~mask[:, None], float("-inf"))
     want = torch.logsumexp(logits, dim=-1)
     assert float((lse - want).abs().max()) <= 1e-5 * float(want.abs().max())

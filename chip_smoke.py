@@ -65,10 +65,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
                latents (S 4096): 16 flash forward and 16 backward
                launches a step, finite losses, every used leaf's
                gradient non-zero; its checkpoint, reloaded through
-               ``bridge``, serves one FreqCa request (6 full steps).
+               ``bridge``, serves one FreqCa request (6 full steps);
+11. launcher — ``launch.serve.main`` in this process at dit-small, three
+               times: closed-loop bursts, the threaded open loop and two
+               replica processes; every request its 4 full steps, a
+               finite PSNR against the uncached run, 0 steady-state
+               first runs; kernels 1 and 2 held against their plain
+               versions at its shapes;
+12. fleet    — two replica processes on the card behind a
+               ``FleetRouter``, each with its own copy of the train
+               phase's flux1-dev cut (shipped as a numpy tree): six
+               1024² requests, one replica SIGKILLed mid-stream, every
+               future resolved once, the slot restarted and serving two
+               more, six more timed; then the same engine in this
+               process serves the same requests: 6 full steps each,
+               latents bitwise at the same bucket, kernels 1-3 launched.
 
 The flux1-dev parameters (~26 GB in bf16) are built once for phases 5
-to 7 and freed before phase 8; each later phase frees its model.  The
+to 7 and freed before phase 8; each later phase frees its model (each
+fleet replica holds its own 5.5 GB copy).  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``kernels`` JSON
 line.  Run from the repository root: ``python3 chip_smoke.py``.
@@ -890,6 +905,12 @@ def slo_reference(cfg, text_cpu, side: int,
                              "run does not exercise the budget")
 
 
+def full_steps(n_steps: int, interval: int) -> int:
+    """A FreqCa request's full steps: every ``interval``-th, and the
+    first three (the history its Hermite forecast needs)."""
+    return len([i for i in range(n_steps) if i % interval == 0 or i < 3])
+
+
 def rel_l2(got, want) -> float:
     got, want = got.float().cpu(), want.float().cpu()
     return ((got - want).norm() / want.norm()).item()
@@ -1380,7 +1401,7 @@ def serve_phase(model: dict, n_steps: int) -> dict:
     peak = torch.cuda.max_memory_allocated()
     n_batches = eng.metrics.n_batches
     full = sorted(r.n_full_steps for r in results)
-    want_full = len([i for i in range(n_steps) if i % 5 == 0 or i < 3])
+    want_full = full_steps(n_steps, 5)
     log(f"serve: {len(results)} requests in {n_batches} batches, "
         f"n_full_steps per request {[r.n_full_steps for r in results]}, "
         f"batch walls (s) {[round(w, 3) for w in eng.metrics.batch_walls]}, "
@@ -1630,7 +1651,7 @@ def slo_phase(model: dict, n_steps: int) -> dict:
         for k, m in lane_masks.items()))
 
     # each eb lane against its solo run
-    want_r0 = len([i for i in range(n_steps) if i % 5 == 0 or i < 3])
+    want_r0 = full_steps(n_steps, 5)
     if res[0].n_full_steps != want_r0 or res[0].realized_error != 0.0:
         raise AssertionError(f"slo: the freqca lane ran "
                              f"{res[0].n_full_steps} full steps (want "
@@ -1738,7 +1759,7 @@ def backbone_phase(n_steps: int, cfg=None, side: int = 128,
     peak = torch.cuda.max_memory_allocated()
     n_batches = eng.metrics.n_batches
     fulls = [r.n_full_steps for r in results]
-    want_full = len([i for i in range(n_steps) if i % 5 == 0 or i < 3])
+    want_full = full_steps(n_steps, 5)
     log(f"backbone: {len(results)} requests in {n_batches} batches, "
         f"n_full_steps per request {fulls}, batch walls (s) "
         f"{[round(w, 3) for w in eng.metrics.batch_walls]}, peak memory "
@@ -2015,7 +2036,7 @@ def train_phase(cfg=None, size: int = 128, batch: int = 2,
     (res,) = eng.run_batch([DiffusionRequest(request_id=0, seed=43)])
     serve_s = time.perf_counter() - t0
     serve_counts = ops.launch_counts()
-    want_full = len([i for i in range(n_steps) if i % 5 == 0 or i < 3])
+    want_full = full_steps(n_steps, 5)
     log(f"train: checkpoint loaded in {load_s:.1f} s; one FreqCa request "
         f"served from it in {serve_s:.2f} s, {res.n_full_steps} full steps "
         f"of {n_steps}; launch counts {serve_counts}")
@@ -2035,6 +2056,466 @@ def train_phase(cfg=None, size: int = 128, batch: int = 2,
     return {"train": counts, "train_serve": serve_counts}
 
 
+LAUNCHER_ARGS = ["--requests", "10", "--steps", "10", "--train-steps", "10",
+                 "--batch", "4"]
+# dB: every launcher request against its uncached twin.  Measured 39.75
+# min on the H100 and 40.67 on the CPU, in every mode; the control (the
+# next request's uncached output) at most 5.34 and 5.36 dB.  It catches
+# a wrong lane, not a stale cache, whose output on this barely trained
+# model need not fall far from FreqCa's; the cache kernels' own checks
+# at the launcher's shape guard that path.
+LAUNCHER_PSNR_FLOOR = 30.0
+LAUNCHER_MODES = {"burst": [],
+                  "poisson": ["--arrival", "poisson", "--clients", "2"],
+                  "replicas": ["--replicas", "2"]}
+
+
+def cache_kernel_checks(b: int, s: int, d: int, device: str) -> None:
+    """Kernels 1 and 2 against their plain versions at the float32 CRF
+    of a dit-small batch (``[b, s, d]``, rings of 3), the shapes the
+    launcher's engines give them; not timed, not counted."""
+    import torch
+
+    from repro_torch.core import frequency
+    from repro_torch.kernels import dct, freqca_fused, ops, ref
+    gen = torch.Generator(device=device).manual_seed(5)
+    x = torch.randn((b, s, d), generator=gen, device=device)
+    errs = [compare("band_split_spectral[dit-small]", "float32",
+                    dct.band_split_spectral(x, 0.0625, "dct"),
+                    ref.band_split_spectral_ref(x, 0.0625, "dct"))]
+    m = frequency.spectral_kept_bins(s, 0.0625, "dct")
+    low = torch.randn((b, m, d), generator=gen, device=device)
+    hist = torch.randn((b, 3, s, d), generator=gen, device=device)
+    synth = frequency.low_band_basis(s, 0.0625, "dct", device=device).T
+    ts = torch.tensor([[0.9, 0.85, 0.75]], device=device).expand(b, 3)
+    w = ops.hermite_weights(ts, torch.tensor(0.7, device=device), 2)
+    errs.append(compare(
+        "freqca_predict_fused_spectral[dit-small]", "float32",
+        freqca_fused.freqca_predict_fused_spectral(low, synth, hist, w),
+        ref.freqca_predict_spectral_ref(low, synth, hist, w)))
+    log(f"launcher: kernels 1 and 2 at [{b}, {s}, {d}] float32 against "
+        f"their plain versions: max rel err {errs[0][1]:.3e} / "
+        f"{errs[1][1]:.3e} (tol {TOLERANCE['float32']:.0e})")
+
+
+def launcher_phase(device: str = "cuda") -> dict:
+    """``repro_torch.launch.serve.main`` in this process, three times, at
+    dit-small (8 blocks, d 128, S 256, float32; 10 training steps, 10
+    requests of 10 steps, FreqCa interval 5, max batch 4, every fifth an
+    edit): closed-loop bursts, the threaded open loop (Poisson arrivals,
+    two clients) and two replica processes (``--replicas 2``).  Each run
+    must give every request 4 full steps (steps 0, 1, 2, 5), a PSNR
+    against the uncached run (for the fleet, an uncached engine in this
+    process on the weights the launcher trained) of at least
+    ``LAUNCHER_PSNR_FLOOR`` and 0 steady-state first runs.  The control,
+    each request's output against the uncached output of the next
+    request (a cache that serves another lane's history), must fall
+    below the floor.  Returns the launch counts of the in-process runs
+    (the replicas' launches happen in their own processes and are not
+    read here; the fleet phase reads its replicas'): S 256 is below the
+    flash threshold, so kernels 1 and 2 only, one band split per full
+    step and one fused step per cached step of each batch, warmup
+    included."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core.policies import NoCachePolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import DiffusionEngine
+    cfg_args = ["--device", device] if device != "cuda" else []
+    args = serve.build_parser().parse_args(LAUNCHER_ARGS)
+    want_full = full_steps(args.steps, args.interval)
+    if device == "cuda":
+        cache_kernel_checks(args.batch, 256, 128, device)
+    ops.reset_launch_counts()
+    n_runs = 0
+    for mode, extra in LAUNCHER_MODES.items():
+        t0 = time.perf_counter()
+        res = serve.main(LAUNCHER_ARGS + extra + cfg_args)
+        wall = time.perf_counter() - t0
+        if mode == "replicas":
+            outs = res["outs"]
+            steady = [pr["steady_recompiles"]
+                      for pr in res["summary"]["per_replica"].values()]
+            # the uncached run of the fleet's stream, on the weights the
+            # launcher trained and shipped
+            full_fn, from_crf_fn = serve.dit_fns(
+                res["params"], configs.get_config("dit-small"))
+            eng = DiffusionEngine(full_fn, from_crf_fn, (32, 32, 4),
+                                  (256, 128), NoCachePolicy(),
+                                  n_steps=args.steps, max_batch=args.batch,
+                                  device=device)
+            bursts = serve.mixed_stream(args.requests, 32, 4,
+                                        edit_every=args.edit_every)
+            uncached, _ = serve.serve_stream(eng, bursts)
+            uncached.sort(key=lambda o: o.request_id)
+            routing = res["summary"]["routing"]
+            detail = (f"routing {routing['submitted']} submitted, "
+                      f"{routing['resolved']} resolved; steady recompiles "
+                      f"per replica {steady}")
+        else:
+            outs, uncached = res["freqca"]["outs"], res["full"]["outs"]
+            steady = [res["freqca"]["steady_recompiles"],
+                      res["full"]["steady_recompiles"]]
+            n_runs += (res["freqca"]["warmup_compiles"]
+                       + res["freqca"]["summary"]["batches"])
+            detail = (f"freqca {res['freqca']['wall']:.2f} s, uncached "
+                      f"{res['full']['wall']:.2f} s; steady recompiles "
+                      f"{steady}")
+        n = len(uncached)
+        ps = [serve.psnr(f.latents, u.latents)
+              for f, u in zip(outs, uncached, strict=True)]
+        control = [serve.psnr(f.latents, uncached[(i + 1) % n].latents)
+                   for i, f in enumerate(outs)]
+        fulls = [o.n_full_steps for o in outs]
+        log(f"launcher: {mode}: {len(outs)} requests, full steps {fulls}; "
+            f"PSNR vs uncached min {min(ps):.2f} / mean "
+            f"{sum(ps) / len(ps):.2f} dB (floor {LAUNCHER_PSNR_FLOOR}; the "
+            f"next request's uncached output: max {max(control):.2f} dB); "
+            f"{detail}; wall {wall:.1f} s (training included)")
+        if (sorted(o.request_id for o in outs) != list(range(args.requests))
+                or fulls != [want_full] * args.requests
+                or not min(ps) >= LAUNCHER_PSNR_FLOOR
+                or not max(control) < LAUNCHER_PSNR_FLOOR
+                or any(s != 0 for s in steady)
+                or not all(bool(torch.isfinite(torch.as_tensor(o.latents))
+                                .all()) for o in outs)):
+            raise AssertionError(f"launcher: {mode} run failed its checks")
+    counts = ops.launch_counts()
+    want = {"band_split_spectral": want_full * n_runs,
+            "freqca_predict_fused_spectral": (args.steps - want_full)
+            * n_runs}
+    log(f"launcher: launch counts {counts} (in-process runs: {n_runs} "
+        f"sampler runs of FreqCa, warmup included)")
+    if device == "cuda" and (any(counts[k] != n for k, n in want.items())
+                             or sum(counts.values()) != sum(want.values())):
+        raise AssertionError(f"launcher: launches {counts}, expected {want}")
+    return counts
+
+
+FLEET_REQUESTS = 6
+# a fleet lane served at another bucket than its in-process twin (a
+# batch of 1 against 2 in bf16) may differ by more than the last bit;
+# the tolerance of the slo phase's batch-of-2 against solo lanes
+FLEET_REL_TOL = SLO_REL_TOL
+
+
+def fleet_factory(*args, **kw):
+    """The port's ``launch.serve.fleet_engine_factory``, with two additions
+    in whichever process builds the engine, neither of them on the
+    fleet's wire protocol:
+
+    - a check that the engine is on the device asked for (the card,
+      unless a rehearsal asks for the CPU) and, on the card, that the
+      memory allocated there once it is built holds at least the bytes of
+      the weights it was sent (``args[0]``, the wire tree): the
+      parameters sit on the card;
+    - the process's own launch counts: the counters are set to 0 once
+      the engine's warmup is done, and ``metrics_dict`` (the snapshot a
+      replica answers ``("metrics",)`` with) carries them as
+      ``launch_counts``.  ``ServeMetrics.merge`` reads the fields it
+      knows, so the fleet's own accounting leaves the key alone."""
+    import os
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    eng = serve.fleet_engine_factory(*args, **kw)
+    want = torch.device(kw.get("device") or "cuda").type
+    wire_bytes = sum(a.nbytes for a in _leaves(args[0]))
+    on_card = want == "cuda"
+    held = torch.cuda.memory_allocated() if on_card else None
+    if eng.device.type != want or (on_card and held < wire_bytes):
+        raise AssertionError(f"fleet: engine on {eng.device} holding {held} "
+                             f"bytes on the card for {wire_bytes} bytes of "
+                             f"weights; asked for {want}")
+    log(f"fleet: pid {os.getpid()} built its engine on {eng.device}: "
+        f"{wire_bytes / 2**30:.2f} GiB of weights"
+        + (f"; {held / 2**30:.2f} GiB allocated on the card" if on_card
+           else ""))
+    warmup, metrics_dict = eng.warmup, eng.metrics_dict
+
+    def warmup_then_reset(*a, **k):
+        secs = warmup(*a, **k)
+        ops.reset_launch_counts()
+        return secs
+
+    def metrics_with_launches():
+        return dict(metrics_dict(), launch_counts=ops.launch_counts())
+    eng.warmup, eng.metrics_dict = warmup_then_reset, metrics_with_launches
+    return eng
+
+
+def free_g() -> str:
+    out = subprocess.run(["free", "-g"], capture_output=True, text=True,
+                         timeout=60).stdout.splitlines()
+    return " | ".join(" ".join(line.split()) for line in out[:2])
+
+
+def fleet_request(rid: int, size: int, channels: int, policy=None):
+    """Request ``rid`` of the fleet phase: seed 200 + rid; request 2 an
+    edit of a shapes latent (``torch.Generator`` seed 1000 + rid,
+    strength 0.5)."""
+    import torch
+
+    from repro_torch.data import synthetic
+    from repro_torch.serving.engine import DiffusionRequest
+    if rid == 2:
+        ref = synthetic.shapes_batch(
+            torch.Generator().manual_seed(1000 + rid), 1, size=size,
+            channels=channels, device="cpu")[0]
+        return DiffusionRequest(request_id=rid, seed=200 + rid,
+                                init_latents=ref, edit_strength=0.5,
+                                policy=policy)
+    return DiffusionRequest(request_id=rid, seed=200 + rid, policy=policy)
+
+
+def _wait(pred, timeout_s: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"fleet: timed out waiting for {what}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def fleet_phase(cfg=None, size: int = 128, n_steps: int = N_STEPS,
+                device: str = "cuda") -> dict:
+    """Two replica processes on the one card behind a ``FleetRouter``,
+    each holding its own copy of flux1-dev at full width cut as the train
+    phase cuts it (``train_config``: 16 single blocks, ``n_double=0`` —
+    ``fleet_engine_factory`` passes no text, so double blocks would never
+    run), shipped through its pipe as a numpy tree (bf16 as raw bits).
+    ``FreqCaPolicy(interval=5, dct)``, 20 steps, ``max_batch=2``,
+    ``max_restarts=1``.
+
+    Wave 1: six 1024² requests (latent 128x128x16, S 4096), the third an
+    edit; the replica with the most in-flight work (the lower index on a
+    tie) is SIGKILLed at once, mid-batch.  Every future resolves exactly
+    once; the counters read submitted == resolved == 6, failed == 0,
+    duplicate_results == 0, replicas_lost == 1 and, once the supervisor
+    has restarted the slot, restarts == 1.  Wave 2: two requests naming
+    the default policy explicitly, a new affinity group, which the router
+    places on one replica (the least-loaded).  Wave 3: six more requests
+    across both replicas, timed.  The restarted replica must have served
+    at least two requests by then (its own metrics).
+
+    Launches (``fleet``): each replica counts its own from the end of its
+    warmup (``fleet_factory``); after wave 3 the router reads both
+    replicas' counts (the survivor of the kill and the restarted one),
+    each of which must be its batches times one batch's launches: kernels
+    1, 2 and 3, 16 flash launches a full forward.  The killed
+    incarnation's launches die with it and are not read.
+
+    Oracle (``fleet_oracle``): after ``shutdown``, this process builds
+    the same engine from the same factory and weights and serves all 14
+    requests (wave 3 timed apart): per request ``n_full_steps == 6``,
+    latents bitwise equal where the fleet served the lane at the same
+    bucket, else within ``FLEET_REL_TOL`` (relative L2); its launches
+    again its batches times one batch's.  Logs each replica's boot
+    (spawn -> ready), the restart, and requests/s of wave 3 in the fleet
+    against in this process, on the same card.  Returns both phases'
+    launch counts.  (``cfg``, ``size`` and ``device`` let the phase be
+    rehearsed small on the CPU.)"""
+    import functools
+
+    import torch
+
+    from repro_torch.checkpointing import bridge
+    from repro_torch.core.policies import FreqCaPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.models import dit
+    from repro_torch.serving.fleet import FleetRouter
+    cfg, on_card = cfg or train_config(), device == "cuda"
+    interval, max_batch = 5, 2
+    want_full = full_steps(n_steps, interval)
+    per_batch = {"band_split_spectral": want_full,
+                 "freqca_predict_fused_spectral": n_steps - want_full,
+                 "flash_attention": want_full * (cfg.n_double + cfg.n_layers)}
+
+    def launches_ok(counts, n_batches) -> bool:
+        return (all(counts[k] == n * n_batches for k, n in per_batch.items())
+                and sum(counts.values())
+                == sum(per_batch.values()) * n_batches)
+    t0 = time.perf_counter()
+    params = dit.init_params(cfg, seed=50, device=device)
+    redraw_zero_leaves(params, seed=51)
+    n_params = sum(p.numel() for p in _leaves(params))
+    wire = bridge.params_to_wire(params, cfg)
+    del params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    log(f"fleet: {cfg.arch_id} cut to n_double {cfg.n_double}, n_layers "
+        f"{cfg.n_layers} (d {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.dtype}): {n_params / 1e9:.3f}"
+        f" B parameters, built and turned into the wire tree in "
+        f"{time.perf_counter() - t0:.1f} s; {size}² latents (S "
+        f"{(size // cfg.patch_size) ** 2}); host memory (free -g): "
+        f"{free_g()}")
+    factory = functools.partial(
+        fleet_factory, wire, cfg, size, n_steps, max_batch, 0.05, "dct",
+        interval, None, True, None, 4.0, device=device)
+    router = FleetRouter(factory, n_replicas=2, max_restarts=1,
+                         health_interval_s=0.1, boot_timeout_s=600.0)
+    channels = cfg.in_channels
+    reqs = [fleet_request(i, size, channels) for i in range(FLEET_REQUESTS)]
+    explicit = FreqCaPolicy(interval=interval, method="dct")
+    wave2 = [fleet_request(FLEET_REQUESTS + i, size, channels,
+                           policy=explicit) for i in range(2)]
+    wave3 = [fleet_request(FLEET_REQUESTS + 2 + i, size, channels)
+             for i in range(FLEET_REQUESTS)]
+    outs = {}
+    try:
+        t0 = time.perf_counter()
+        router.start()
+        log(f"fleet: both replicas ready {time.perf_counter() - t0:.1f} s "
+            f"after the first spawn; host memory (free -g): {free_g()}")
+        boots = [round(r.boot_s, 1) for r in router.replicas]
+        for r in router.replicas:
+            log(f"fleet: replica {r.idx} pid {r.meta['pid']}: spawn -> "
+                f"ready {r.boot_s:.1f} s, of it warmup {r.meta['warmup_s']:.1f}"
+                f" s ({r.meta['warmup_compiles']} signatures run once, the "
+                f"port's count of first runs)")
+        # wave 1, and the crash
+        futs = [router.submit(r) for r in reqs]
+        with router._lock:
+            inflight = [len(r.inflight) for r in router.replicas]
+            victim = max(router.replicas,
+                         key=lambda r: (len(r.inflight), -r.idx))
+        victim.proc.kill()
+        t_kill = time.perf_counter()
+        log(f"fleet: in flight per replica {inflight}; SIGKILL replica "
+            f"{victim.idx} (pid {victim.meta['pid']})")
+        for f in futs:
+            res = f.result(timeout=600)
+            outs[res.request_id] = res
+        wave1_s = time.perf_counter() - t_kill
+        restart_s = _wait(lambda: router.replicas[victim.idx] is not victim
+                          and router.replicas[victim.idx].healthy, 600,
+                          "the restart")
+        restart_s += wave1_s
+        st = router.status()
+        c, sup = st["counters"], st["supervisor"]
+        newcomer = router.replicas[victim.idx]
+        log(f"fleet: wave 1 resolved {wave1_s:.1f} s after the kill; the "
+            f"slot rejoined {restart_s:.1f} s after it (spawn -> ready "
+            f"{newcomer.boot_s:.1f} s, backoff {sup['restart_backoff_s']} "
+            f"s); counters {c}; supervisor {sup}")
+        if (sorted(outs) != list(range(FLEET_REQUESTS))
+                or c["submitted"] != FLEET_REQUESTS
+                or c["resolved"] != FLEET_REQUESTS or c["failed"] != 0
+                or c["duplicate_results"] != 0 or c["replicas_lost"] != 1
+                or sup["restarts"] != 1 or st["healthy_replicas"] != 2):
+            raise AssertionError(f"fleet: crash accounting {st}")
+        # wave 2: a new group starts on the restarted replica
+        futs = [router.submit(r) for r in wave2]
+        with router._lock:
+            placed = [len(r.inflight) for r in router.replicas]
+        for f in futs:
+            res = f.result(timeout=600)
+            outs[res.request_id] = res
+        # wave 3: both replicas, timed
+        t0 = time.perf_counter()
+        futs = [router.submit(r) for r in wave3]
+        for f in futs:
+            res = f.result(timeout=600)
+            outs[res.request_id] = res
+        fleet_s = time.perf_counter() - t0
+        fleet_m = router.fleet_metrics()
+        fm = dict(fleet_m.summary(), per_replica_launches={
+            i: snap["launch_counts"]
+            for i, snap in fleet_m.per_replica.items()})
+    finally:
+        router.shutdown(drain=True)
+    per = fm["per_replica"]
+    served = {i: (p["requests"], p["batches"], p["steady_recompiles"])
+              for i, p in per.items()}
+    replica_counts = {i: fm["per_replica_launches"][i] for i in per}
+    fleet_counts = {k: sum(c[k] for c in replica_counts.values())
+                    for k in ops.launch_counts()}
+    log(f"fleet: wave 2 placed {placed} per replica; wave 3 "
+        f"{len(wave3)} requests in {fleet_s:.2f} s = "
+        f"{len(wave3) / fleet_s:.3f} req/s across 2 replicas; per replica "
+        f"(requests, batches, steady first runs) {served}; routing "
+        f"{fm['routing']}")
+    log(f"fleet: launches read from the replicas after wave 3 (each from "
+        f"the end of its warmup; the killed incarnation's not read): "
+        f"{replica_counts}; together {fleet_counts}")
+    if (sorted(placed) != [0, 2] or per[victim.idx]["requests"] < 2
+            or any(p["steady_recompiles"] != 0 for p in per.values())
+            or sorted(outs) != list(range(FLEET_REQUESTS + 8))):
+        raise AssertionError(f"fleet: after the restart {placed}, {per}")
+    if on_card and not all(launches_ok(replica_counts[i], per[i]["batches"])
+                           for i in per):
+        raise AssertionError(f"fleet: replica launches {replica_counts}, "
+                             f"expected {per_batch} per batch x "
+                             f"{ {i: p['batches'] for i, p in per.items()} }")
+
+    # the oracle: the same engine in this process
+    t0 = time.perf_counter()
+    eng = factory()
+    warm_s = eng.warmup()
+    log(f"fleet: in-process engine built in {time.perf_counter() - t0:.1f}"
+        f" s (warmup {warm_s:.1f} s)")
+    ops.reset_launch_counts()
+    for r in reqs + wave2:
+        eng.submit(r)
+    want = {o.request_id: o for o in eng.serve_until_drained()}
+    t0 = time.perf_counter()
+    for r in wave3:
+        eng.submit(r)
+    want.update({o.request_id: o for o in eng.serve_until_drained()})
+    local_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    n_batches = eng.metrics.n_batches
+    same = diff = 0
+    worst = 0.0
+    for rid, o in sorted(outs.items()):
+        w = want[rid]
+        got = torch.as_tensor(o.latents)
+        ref = w.latents.cpu()
+        if o.n_full_steps != want_full or w.n_full_steps != want_full \
+                or not bool(torch.isfinite(got).all()) \
+                or tuple(got.shape) != (size, size, channels):
+            raise AssertionError(f"fleet: request {rid}: full steps "
+                                 f"{o.n_full_steps} / {w.n_full_steps}")
+        if o.bucket == w.bucket:
+            same += 1
+            if not torch.equal(got, ref):
+                raise AssertionError(f"fleet: request {rid} differs from the"
+                                     f" in-process engine at bucket "
+                                     f"{o.bucket}")
+        else:
+            diff += 1
+            rel = rel_l2(got, ref)
+            worst = max(worst, rel)
+            if not rel <= FLEET_REL_TOL:
+                raise AssertionError(f"fleet: request {rid}: rel L2 {rel:.3e}"
+                                     f" > {FLEET_REL_TOL}")
+    log(f"fleet: oracle: {len(outs)} requests, every one {want_full} full "
+        f"steps; {same} at the fleet's bucket, bitwise equal; {diff} at "
+        f"another, worst rel L2 {worst:.3e} (tol {FLEET_REL_TOL}); wave 3 "
+        f"in this process {local_s:.2f} s = {len(wave3) / local_s:.3f} "
+        f"req/s; launch counts {counts} over {n_batches} batches")
+    if on_card:
+        log(f"fleet: on {nvidia_smi()}: spawn -> ready {boots} s, restart "
+            f"(kill -> rejoined) {restart_s:.1f} s; wave 3 "
+            f"{len(wave3) / fleet_s:.3f} req/s across two replica "
+            f"processes against {len(wave3) / local_s:.3f} req/s in this "
+            f"process")
+    if on_card and not launches_ok(counts, n_batches):
+        raise AssertionError(f"fleet: oracle launches {counts}, expected "
+                             f"{per_batch} per batch x {n_batches}")
+    del eng, want, wire
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"fleet": fleet_counts, "fleet_oracle": counts}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -2047,7 +2528,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel and reference phases "
-                         "(skips the six full-width phases)")
+                         "(skips the six full-width phases, the launcher "
+                         "and the fleet)")
     args = ap.parse_args(argv)
 
     import torch
@@ -2107,6 +2589,10 @@ def main(argv=None) -> int:
         gc.collect()
         torch.cuda.empty_cache()
         by_phase.update(train_phase())
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_phase["launcher"] = launcher_phase()
+        by_phase.update(fleet_phase())
     paths = {name: [ph for ph in by_phase if by_phase[ph][name] > 0]
              for name in main_dtype}
 

@@ -116,6 +116,43 @@ def params_to_jax_numpy(params, cfg: DiTConfig):
     return out
 
 
+def params_to_wire(params, cfg: DiTConfig):
+    """The port's DiT parameters -> the numpy tree a fleet worker is sent
+    (``launch/serve.fleet_engine_factory``): ``repro``'s layout
+    (``params_to_jax_numpy``), so a float32 tree is exactly the
+    reference's ``tree_map(np.asarray, params)``.  numpy has no bf16, so
+    a bf16 leaf travels as its raw bits in a ``uint16`` array (no float32
+    detour: half the bytes, no rounding); ``params_from_wire`` reads
+    them back as bf16 under a bf16 config."""
+    def leaf(t):
+        if t.dtype == torch.bfloat16:
+            return t.contiguous().view(torch.int16).numpy().view(np.uint16)
+        return t.numpy()
+    return _map(leaf, params_to_jax_numpy(params, cfg))
+
+
+def params_from_wire(tree, cfg: DiTConfig, device=None):
+    """Inverse of ``params_to_wire`` (and the reference's numpy pytree
+    as it is): ``uint16`` leaves are bf16 bits, allowed only when
+    ``cfg.dtype`` is bf16; the parameters land on ``device`` (default
+    ``cuda``)."""
+    def leaf(a):
+        a = np.asarray(a)
+        if a.dtype != np.uint16:
+            return a
+        if cfg.dtype != "bfloat16":
+            raise TypeError(f"uint16 (bf16 bits) leaf in a {cfg.dtype} "
+                            f"{cfg.arch_id} tree")
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return params_from_jax_numpy(_map(leaf, tree), cfg, device=device)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def params_from_checkpoint(directory: str, step: int, cfg: DiTConfig,
                            device=None, dtype=None, name: str = "dit"):
     """The port's DiT parameters from a checkpoint of ``repro``'s DiT

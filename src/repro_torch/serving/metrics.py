@@ -17,7 +17,9 @@ number of triples seen (``DiffusionEngine.compiled_buckets()``).
 
 One ``ServeMetrics`` instance per engine.  Recording is thread-safe:
 client threads and the async engine's worker record concurrently under
-one plain ``threading.Lock``; ``summary()`` aggregates.
+one lock from the sanitizer factory (``make_lock``: a plain
+``threading.Lock`` unless ``REPRO_SANITIZE=1``); ``summary()``
+aggregates.
 
 Fleet aggregation rides on three methods: ``to_dict()`` is the lossless
 wire snapshot (plain lists / ints / floats, safe to pickle across a
@@ -33,6 +35,13 @@ from __future__ import annotations
 import dataclasses
 import threading
 from typing import Dict, List, Optional
+
+from repro_torch.analysis.runtime import make_lock
+
+
+def _metrics_lock() -> threading.Lock:
+    """Default-factory hook: sanitizer-aware lock construction."""
+    return make_lock("ServeMetrics._lock")
 
 
 # snapshot schema: counters sum under merge, lists concatenate, and the
@@ -111,7 +120,7 @@ class ServeMetrics:
     # ``cache_state_bytes_per_lane`` stays the ladder maximum
     state_bytes_by_shape: Dict = dataclasses.field(default_factory=dict)
     _lock: threading.Lock = dataclasses.field(
-        default_factory=threading.Lock, repr=False, compare=False)
+        default_factory=_metrics_lock, repr=False, compare=False)
 
     # --- recording -------------------------------------------------------
     def observe_compile(self, hit: bool) -> None:
@@ -324,7 +333,7 @@ class ServeMetrics:
                 shape_batches={k: list(v)
                                for k, v in self.shape_batches.items()},
                 state_bytes_by_shape=dict(self.state_bytes_by_shape),
-                _lock=threading.Lock(),
+                _lock=_metrics_lock(),
             )
 
     # --- serialization / fleet merge -------------------------------------

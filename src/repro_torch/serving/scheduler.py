@@ -1,8 +1,9 @@
 """Request queue + bucketed batch formation for the diffusion engine.
 
-A copy of ``repro.serving.scheduler`` (the scheduler is framework-free),
-with a plain ``threading.Condition`` in place of the reference's
-sanitizer factory and the port's policy registry.
+A copy of ``repro.serving.scheduler`` (the scheduler is framework-free)
+with the port's policy registry; its condition variable comes from the
+port's copy of the reference's sanitizer factory
+(``repro_torch.analysis.runtime.make_condition``).
 
 The seed engine padded every batch to ``max_batch`` — a single request
 paid full-batch latency.  The scheduler instead quantises batch sizes to
@@ -58,10 +59,10 @@ sleep-polling.
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from typing import List, NamedTuple, Optional, Tuple
 
+from repro_torch.analysis.runtime import make_condition
 
 
 class ShapeMismatchError(ValueError):
@@ -310,7 +311,9 @@ class Scheduler:
         self.shed_events = 0
         self.queue: List[DiffusionRequest] = []
         self.submitted = 0
-        self.cv = threading.Condition(threading.RLock())
+        # sanitizer-aware: a plain Condition(RLock()) unless
+        # REPRO_SANITIZE=1, then lock-order-instrumented
+        self.cv = make_condition("Scheduler.cv")
         self._key_cache: dict = {}   # policy/spec -> compatibility key
         self._pol_cache: dict = {}   # (policy, budget) -> effective Policy
 

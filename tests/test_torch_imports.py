@@ -50,11 +50,32 @@ def test_every_port_module_imports_without_a_card():
     "repro_torch.serving.async_engine", "repro_torch.serving.metrics",
     "repro_torch.checkpointing.checkpoint", "repro_torch.optim.adamw",
     "repro_torch.data.synthetic", "repro_torch.diffusion.training",
-    "repro_torch.launch.train"])
+    "repro_torch.launch.train", "repro_torch.launch.serve",
+    "repro_torch.analysis.runtime", "repro_torch.analysis.graphs",
+    "repro_torch.serving.fleet.router", "repro_torch.serving.fleet.worker",
+    "repro_torch.serving.fleet.supervisor",
+    "repro_torch.serving.fleet.faults",
+    "repro_torch.serving.fleet.fleet_metrics"])
 def test_assigned_backbone_modules_are_walked(name):
-    """The third, seventh and eighth slices' modules are among the files
-    walked above."""
+    """The third, seventh, eighth and tenth slices' modules are among the
+    files walked above."""
     walked = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
               for p in FILES if p.is_relative_to(REPO / "src")}
     assert name in walked
     importlib.import_module(name)
+
+
+def test_fleet_worker_imports_no_torch():
+    """A spawned replica imports the fleet package (for ``worker_main``)
+    before it applies its env; torch must come in only with the factory,
+    after the env, so the env can still pin threads or the card."""
+    import subprocess
+    import sys
+    code = ("import sys, repro_torch.serving.fleet.worker, "
+            "repro_torch.serving.fleet; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('torch', 'numpy', 'jax')))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(REPO / "src")})
+    assert out.stdout.strip() == "[]"

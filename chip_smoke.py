@@ -4,7 +4,7 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device    — card name, power limit and compute capability (9, 0);
-2. build     — nvcc builds the seven kernel libraries from ``csrc/`` in
+2. build     — nvcc builds the eight kernel libraries from ``csrc/`` in
                parallel;
                the SASS of the two flash libraries (forward and
                backward) must hold wgmma (HGMMA) and TMA loads
@@ -14,6 +14,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the SASS of token_basis_matmul, ssd_scan,
                band_split_spectral and freqca_fused_spectral must hold
                mma.sync (HMMA), with no spills in any of their kernels;
+               the SSD-scan backward (float32 FMA tiles) must report no
+               spills in any kernel;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer; the FreqCa cache
@@ -25,7 +27,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                flash backward (bf16) at the DiT, train and causal GQA
                shapes, its two launches bitwise equal, each of its three
                launches timed apart, and the forward that writes the
-               log-sum-exp;
+               log-sum-exp; the SSD-scan backward at one mamba2-370m
+               layer in bf16 and float32, each output to its stated
+               tolerance, two launches bitwise equal;
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
                versions), and so does a mixed batch of a FreqCa and a
@@ -34,9 +38,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
                driven by the legacy function-style cache API, two
                full-width mamba2-370m layers as a denoiser and two
                yi-9b-shaped layers through the LM forward at 2048
-               tokens; and one training step of a small DiT at S 1024
+               tokens; one training step of a small DiT at S 1024
                (flash forward and backward kernels) with its AdamW
-               update;
+               update; and one LM training step each of 2 mamba2-370m
+               layers (float32, SSD forward and backward kernels) and 2
+               yi-9b-shaped layers (bf16, causal GQA flash forward and
+               backward) at S 2048, with their AdamW updates;
 5. analysis  — at full flux1-dev width: the uncached reference
                trajectory, the paper's Fig-2 band statistics (kernel
                route against the plain transform route) and the legacy
@@ -57,22 +64,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
                layers, d 1024) as the denoiser at S 4096, four requests
                served by the engine, 48 SSD launches per full forward;
 9. lm        — yi-9b (48 layers, d 4096) ``transformer.forward`` on one
-               32768-token sequence, 48 causal GQA flash launches; the
-               flash launch at that shape held against its plain version
-               on the first and the last 1024 queries;
+               32768-token sequence, 48 causal GQA flash launches; then
+               ``make_prefill_step`` on the same tokens, its last-token
+               logits equal to the forward's last row; the flash launch
+               at that shape held against its plain version on the first
+               and the last 1024 queries;
 10. train    — ``launch.train.train_dit`` at full flux1-dev width (16
                single blocks, 2.7 B parameters) for 4 steps on two 1024²
                latents (S 4096): 16 flash forward and 16 backward
                launches a step, finite losses, every used leaf's
                gradient non-zero; its checkpoint, reloaded through
                ``bridge``, serves one FreqCa request (6 full steps);
-11. launcher — ``launch.serve.main`` in this process at dit-small, three
+11. lm_train — ``launch.train.train_lm`` for 4 steps at S 4096, bf16,
+               the stack rematerialised: mamba2-370m at full depth (48
+               layers) on batch 8, 96 SSD forward and 48 SSD backward
+               launches a step; yi-9b at full width cut to 16 layers
+               (3.3 B parameters) on batch 2, 32 flash forward and 16
+               backward launches a step; finite losses, every leaf's
+               gradient non-zero; yi's checkpoint reloaded through
+               ``bridge`` runs one ``make_prefill_step``;
+12. launcher — ``launch.serve.main`` in this process at dit-small, three
                times: closed-loop bursts, the threaded open loop and two
                replica processes; every request its 4 full steps, a
                finite PSNR against the uncached run, 0 steady-state
                first runs; kernels 1 and 2 held against their plain
                versions at its shapes;
-12. fleet    — two replica processes on the card behind a
+13. fleet    — two replica processes on the card behind a
                ``FleetRouter``, each with its own copy of the train
                phase's flux1-dev cut (shipped as a numpy tree): six
                1024² requests, one replica SIGKILLed mid-stream, every
@@ -265,6 +282,19 @@ def mma_build_checks() -> None:
                                  f"{spills}")
 
 
+def fma_build_checks() -> None:
+    """The SSD-scan backward runs its products as float32 FMA tiles (no
+    tensor cores yet): ptxas must report no spills for any of its
+    kernels; the HMMA count of its SASS is logged (0 for this design)."""
+    name = "ssd_scan_bwd"
+    hmma = sass(name).count("HMMA")
+    spills = ptxas_spills(name)
+    log(f"{name} SASS: HMMA {hmma}; kernels {len(spills)}, spill bytes "
+        f"{sorted(set(spills.values()))}")
+    if not spills or any(spills.values()):
+        raise AssertionError(f"{name} build: spills {spills}")
+
+
 def kernel_phase(main_dtype: dict) -> dict:
     """Each kernel vs its plain version at FLUX shapes; returns the
     main-path dtype's row per kernel."""
@@ -286,10 +316,15 @@ def kernel_phase(main_dtype: dict) -> dict:
     rows = {}
 
     def row(name, dtype, kern, plain, nbytes, flops, library=None,
-            reps=10, op_dtype=None, library_ms=None):
-        got, want = kern(), plain()
-        err, rel = compare(name, dtype, got, want)
-        del got, want
+            reps=10, op_dtype=None, library_ms=None, checked=None):
+        """``checked``: (max abs err, max rel err) the caller already
+        held to its own per-output tolerances, else ``compare``'s."""
+        if checked is None:
+            got, want = kern(), plain()
+            err, rel = compare(name, dtype, got, want)
+            del got, want
+        else:
+            err, rel = checked
         t_k = time_ms(kern, reps)
         t_p = time_ms(plain, reps)
         t_l = time_ms(library, reps) if library is not None else library_ms
@@ -463,6 +498,7 @@ def kernel_phase(main_dtype: dict) -> dict:
             torch.cuda.empty_cache()
         lm_attention_rows(row, dt, dtype_name, gen)
         ssd_rows(row, dt, dtype_name, gen)
+        ssd_bwd_rows(row, dt, dtype_name)
         if dtype_name == "bfloat16":
             flash_bwd_rows(row, gen)
     return rows
@@ -734,6 +770,122 @@ def ssd_rows(row, dt, dtype_name: str, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def ssd_bwd_flops(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
+    """The operations the scan's gradients need, counted on the kept
+    triangles (T = Q(Q+1)/2 pairs a chunk): C Bᵀ again, 2·T·N once per
+    (batch, chunk); per (batch, chunk, head) dy·xᵀ and Mᵀ·dy, 2·T·P
+    each, Z·B and Zᵀ·C, 2·T·N each, and five [Q, N, P] products of
+    2·Q·N·P (the forward's state again, its gradient's own share, B·D,
+    S·dy and D·x)."""
+    tri, chunks = q * (q + 1) // 2, b * (s // q)
+    return chunks * 2 * tri * n + chunks * h * (
+        4 * tri * p + 4 * tri * n + 10 * q * n * p)
+
+
+# the SSD-scan backward's tolerances per output, as max |kernel − plain|
+# / max |plain|: dx, dB and dC as any output of the type (TOLERANCE); ddt
+# in float32 whatever the type, 1e-4 (float32 sums over 256-token chunks,
+# the states recomputed by the forward's bf16 hi + lo products, ~2^-16);
+# dA 1e-3 (a sum over every token of dt·R whose terms cancel: two
+# float32 runs of exact formulas differ by up to 1.5e-4 of it)
+SSD_BWD_TOL = {"ddt": 1e-4, "dA": 1e-3}
+
+
+def ssd_bwd_check(name: str, dtype_name: str, got, again, want):
+    """Kernel 8's outputs against the plain version's, each to its own
+    tolerance, and two launches bitwise equal; returns (max abs err,
+    max rel err) over the outputs."""
+    import torch
+    err = worst = 0.0
+    parts = []
+    for out, g, a, w in zip(("dx", "ddt", "dA", "dB", "dC"), got, again, want,
+                            strict=True):
+        tol = SSD_BWD_TOL.get(out, TOLERANCE[dtype_name])
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"{name} {out}: {g.shape}/{g.dtype} vs "
+                                 f"plain {w.shape}/{w.dtype}")
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name} {out}: non-finite kernel output")
+        d = (g.float() - w.float()).abs().max().item()
+        rel = d / max(w.float().abs().max().item(), 1e-30)
+        parts.append(f"{out}={rel:.3e} (tol {tol:.0e})")
+        if rel > tol:
+            raise AssertionError(f"{name} [{dtype_name}] {out}: max rel err "
+                                 f"{rel:.3e} > {tol:.0e}")
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name} [{dtype_name}] {out}: two "
+                                 "launches differ")
+        err, worst = max(err, d), max(worst, rel)
+    log(f"kernel {name} [{dtype_name}] max_rel_err " + " ".join(parts)
+        + "; two launches bitwise equal: True")
+    return err, worst
+
+
+def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
+    """Kernel 8, the SSD-scan backward, at one mamba2-370m layer's shape
+    (as ``ssd_rows``: x [2, 4096, 32, 64] and B, C [2, 4096, 128] as
+    column slices of one conv output, dt float32, chunk 256) with a
+    random output gradient, from its own generator: each output against
+    the plain version (``SSD_BWD_TOL``), two launches bitwise equal.
+    The bound counts ``ssd_bwd_flops`` at the bf16 tensor-core peak (the
+    least the card could take); the same operations at the float32 FMA
+    peak, where this design runs them, are logged beside it.  No single
+    PyTorch call computes the gradients (library null); as a yardstick
+    only, autograd of the plain forward is timed and logged.  Then
+    ``ops.ssd`` under autograd: one forward and one backward launch."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, ssd_scan
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    es = torch.finfo(dt).bits // 8
+    b, s, h, p, n, q = 2, 4096, 32, 64, 128, 256
+    xbc = (torch.randn((b, s, h * p + 2 * n), generator=gen, device=dev)
+           * 0.5).to(dt)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dts = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=dev) - 2.0)
+    a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.3)
+    dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(dt)
+    name = "ssd_chunk_scan_bwd"
+
+    def kern():
+        return ssd_scan.ssd_chunk_scan_bwd(x, dts, a, bm, cm, dy, q)
+
+    def plain():
+        return ref.ssd_chunk_scan_bwd_ref(x, dts, a, bm, cm, dy, q)
+    checked = ssd_bwd_check(name, dtype_name, kern(), kern(), plain())
+    torch.cuda.empty_cache()
+    # x, dy, dx; B, C, dB, dC; dt, ddt; A, dA
+    nbytes = (3 * b * s * h * p + 4 * b * s * n) * es + 2 * b * s * h * 4 \
+        + 2 * h * 4
+    need = ssd_bwd_flops(b, s, h, p, n, q)
+    row(name, dtype_name, kern, plain, nbytes, {"bfloat16": need}, reps=5,
+        checked=checked)
+    log_bound(f"{name} [{dtype_name}] at the float32 FMA peak (this "
+              "design's products)", nbytes, need, "float32")
+    leaves = [t.detach().clone().requires_grad_() for t in (x, dts, a, bm, cm)]
+
+    def autograd_plain():
+        y = ref.ssd_chunk_scan_ref(*leaves, q)
+        return torch.autograd.grad(y, leaves, dy)
+    t_fwd = time_ms(lambda: ref.ssd_chunk_scan_ref(*leaves, q), 2)
+    t_both = time_ms(autograd_plain, 2)
+    log(f"kernel {name} [{dtype_name}] yardstick only: autograd of the "
+        f"plain forward {t_both - t_fwd:.4f} ms (forward {t_fwd:.4f} ms, "
+        f"forward + backward {t_both:.4f} ms)")
+    ops.reset_launch_counts()
+    y = ops.ssd(*leaves, q)
+    y.backward(dy)
+    counts = ops.launch_counts()
+    if counts["ssd_chunk_scan"] != 1 or counts["ssd_chunk_scan_bwd"] != 1:
+        raise AssertionError(f"{name}: ops.ssd under autograd launched "
+                             f"{counts}")
+    del xbc, x, bm, cm, dy, leaves, y
+    torch.cuda.empty_cache()
+
+
 def redraw_zero_leaves(params, seed: int, std: float = 0.02):
     """Give the zero-initialised leaves (a DiT's AdaLN-zero ``mod`` and
     ``final_mod``, and ``final_proj`` of a DiT or a backbone denoiser)
@@ -828,6 +980,7 @@ def reference_phase(devices=("cpu", "cuda")) -> None:
     backbone_reference(devices)
     lm_reference(devices)
     train_reference(devices)
+    lm_train_reference(devices)
 
 
 def slo_reference(cfg, text_cpu, side: int,
@@ -1130,6 +1283,126 @@ def train_reference(devices=("cpu", "cuda")) -> None:
     if not (finite and loss_rel <= 1e-2 and grad_rel <= 3e-2
             and param_rel <= 3e-2):
         raise AssertionError("train reference: card and CPU disagree")
+
+
+def lm_train_reference(devices=("cpu", "cuda")) -> None:
+    """One LM training step of each backbone on the card (its kernels
+    forward and backward, every layer rematerialised) against the same
+    step on the CPU (autograd through the plain versions), then one AdamW
+    update (lr 1e-3, no warmup), on a Markov token batch of one sequence
+    of 2048 tokens, so that every layer takes its kernel route:
+
+    - mamba2-370m, 2 layers at full width (d 1024, 32 SSD heads of 64,
+      d_state 128, chunk 256; vocabulary cut to 8192), float32: the SSD
+      scan's float32 forward and backward kernels.  Tolerances: the loss
+      1e-4 relative, each gradient leaf 1e-3 relative L2 (float32 dense
+      layers summed in other orders; the kernels' own outputs within
+      1e-4 of their plain versions);
+    - yi-9b, 2 layers at full width (d 4096, 32 query heads on 4 kv heads
+      of 128; d_ff cut to 2048 and the vocabulary to 8192), bf16
+      activations over float32 parameters: the causal GQA flash forward
+      and backward.  Its attention projections are drawn with std
+      1/sqrt(fan-in): drawn as the 48-layer model's (std 1/sqrt(48), the
+      reference's rule for stacked 4-D leaves), the logits' std is ~84
+      and the softmax so sharp that bf16 rounding alone moves a gradient
+      leaf by O(1) (the first run of this check: 0.30 relative L2 card
+      vs CPU on layer 0's norm1 scale, the losses 1.3e-4 apart).
+      Tolerances: the loss 1e-2; each gradient leaf 5e-2, since the
+      CPU's bf16 step alone lies some 2.5e-2 from its float32 step
+      (logged each run as the control) and two bf16 runs that round in
+      other places can lie ~1.4x that apart.
+
+    Each updated parameter is held to 3e-2 relative L2 (AdamW's first
+    step is ~lr·sign(g), which flips where a gradient entry is near 0;
+    the zero-initialised leaves are redrawn with std 0.02, as in
+    ``train_reference``).  Launches on the card: two forward launches of
+    the layer's kernel and one backward per layer."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.models import common, transformer
+    from repro_torch.optim import adamw
+    cases = (
+        ("mamba2-370m", dataclasses.replace(
+            configs.get_config("mamba2-370m"), n_layers=2, vocab_size=8192,
+            dtype="float32"), ("ssd_chunk_scan", "ssd_chunk_scan_bwd"),
+         (1e-4, 1e-3)),
+        ("yi-9b", dataclasses.replace(configs.get_config("yi-9b"), n_layers=2,
+                                      vocab_size=8192, d_ff=2048),
+         ("flash_attention", "flash_attention_bwd"), (1e-2, 5e-2)))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=100)
+    flat = checkpoint._flatten_with_paths
+
+    def step(params_cpu, data, cfg, dev):
+        params = adamw.tree_map(
+            lambda p: p.to(dev, copy=True).requires_grad_(True), params_cpu)
+        ops.reset_launch_counts()
+        loss, _ = transformer.loss_fn(
+            params, {k: v.to(dev) for k, v in data.items()}, cfg)
+        loss.backward()
+        grads = adamw.tree_map(lambda p: p.grad, params)
+        adamw.update(opt_cfg, grads, adamw.init(opt_cfg, params), params)
+        return (loss.item(), {k: g.cpu() for k, g in flat(grads).items()},
+                {k: p.detach().cpu() for k, p in flat(params).items()},
+                ops.launch_counts())
+
+    def worst(rels):
+        k = max(rels, key=rels.get)
+        return rels[k], k
+    for seed, (arch, cfg, kernels, (l_tol, g_tol)) in enumerate(cases,
+                                                                start=60):
+        params_cpu = common.init_params(transformer.lm_specs(cfg), seed=seed,
+                                        device="cpu")
+        gen = torch.Generator().manual_seed(seed + 10)
+        for p in adamw.leaves(params_cpu):
+            if not p.any():
+                p.normal_(0.0, 0.02, generator=gen)
+        for group in params_cpu["stack"]:
+            for w in group["l0"].get("attn", {}).values():
+                w.copy_(torch.randn(w.shape, generator=gen)
+                        / w.shape[0] ** 0.5)
+        data = synthetic.lm_batch(gen, 1, 2048, cfg.vocab_size)
+        out = {}
+        for dev in devices:
+            out[dev] = step(params_cpu, data, cfg, dev)
+            counts = out[dev][3]
+            want = {kernels[0]: 2 * cfg.n_layers, kernels[1]: cfg.n_layers}
+            if torch.device(dev).type == "cuda" and (
+                    any(counts[k] != n for k, n in want.items())
+                    or sum(counts.values()) != sum(want.values())):
+                raise AssertionError(f"lm train reference {arch}: launches "
+                                     f"{counts}, expected {want}")
+        (l_want, g_want, p_want, _), (l_got, g_got, p_got, _) = (
+            out[d] for d in devices)
+        loss_rel = abs(l_got - l_want) / abs(l_want)
+        grad_rel = worst({k: rel_l2(g_got[k], g_want[k]) for k in g_want})
+        param_rel = worst({k: rel_l2(p_got[k], p_want[k]) for k in p_want})
+        control = ""
+        if cfg.dtype != "float32":
+            # the control: the CPU's own step in float32
+            g32 = step(params_cpu, data,
+                       dataclasses.replace(cfg, dtype="float32"),
+                       devices[0])[1]
+            c = worst({k: rel_l2(g_want[k], g32[k]) for k in g32})
+            control = (f"; the control, the CPU's {cfg.dtype} step against "
+                       f"its float32 step: worst leaf {c[0]:.2e} ({c[1]})")
+        finite = all(bool(torch.isfinite(g).all()) for g in g_got.values())
+        log(f"reference lm train step ({arch}, {cfg.n_layers} layers, d "
+            f"{cfg.d_model}, {cfg.dtype}, S 2048) card vs CPU: loss "
+            f"{l_got:.6f} / {l_want:.6f} (rel {loss_rel:.2e}, tol "
+            f"{l_tol:.0e}); worst gradient leaf rel L2 {grad_rel[0]:.2e} "
+            f"({grad_rel[1]}; tol {g_tol:.0e}) over {len(g_got)} leaves; "
+            f"worst updated parameter rel L2 {param_rel[0]:.2e} "
+            f"({param_rel[1]}; tol 3e-2)" + control)
+        if not (finite and loss_rel <= l_tol and grad_rel[0] <= g_tol
+                and param_rel[0] <= 3e-2):
+            raise AssertionError(f"lm train reference {arch}: card and CPU "
+                                 "disagree")
 
 
 def legacy_loop(full_fn, from_crf_fn, x0, ts, policy, crf_shape):
@@ -1830,6 +2103,7 @@ def lm_phase(cfg=None, s: int = 32768, device: str = "cuda") -> dict:
             counts = ops.launch_counts()
             finite = bool(torch.isfinite(out.logits).all())
             shape = tuple(out.logits.shape)
+            last = out.logits[:, -1].float()
             del out
     finally:
         ops.flash = real_flash
@@ -1844,6 +2118,29 @@ def lm_phase(cfg=None, s: int = 32768, device: str = "cuda") -> dict:
         raise AssertionError(f"lm: flash launches {counts}, forms {forms}")
     if not finite or shape != (1, s, cfg.vocab_size):
         raise AssertionError(f"lm: logits {shape}, finite {finite}")
+    # the prefill step on the same parameters and tokens: the last
+    # token's logits only, equal to the forward's last row
+    from repro_torch.launch import steps
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    pre = steps.make_prefill_step(cfg)(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    pre_wall = time.perf_counter() - t0
+    pre_counts = ops.launch_counts()
+    pre_rel = ((pre.float() - last).abs().max()
+               / last.abs().max()).item()
+    log(f"lm: make_prefill_step [1, {s}] -> {tuple(pre.shape)} in "
+        f"{pre_wall:.3f} s, {pre_counts['flash_attention']} flash launches; "
+        f"against the forward's last row: max_rel_err {pre_rel:.3e} (tol "
+        f"{TOLERANCE['bfloat16']:.0e}), bitwise "
+        f"{torch.equal(pre.float(), last)}")
+    if tuple(pre.shape) != (1, cfg.vocab_size) or not (
+            pre_rel <= TOLERANCE["bfloat16"]) or (
+            on_card and (pre_counts["flash_attention"] != cfg.n_layers
+                         or sum(pre_counts.values()) != cfg.n_layers)):
+        raise AssertionError(f"lm: prefill {tuple(pre.shape)}, rel err "
+                             f"{pre_rel:.3e}, launches {pre_counts}")
+    del pre, last
     # the forward's attention launch at its own shape (bf16 [1, S, 32/4,
     # 128], causal GQA), held against the plain version on the first and
     # the last 1024 queries with every key they see (the plain version's
@@ -1886,7 +2183,7 @@ def lm_phase(cfg=None, s: int = 32768, device: str = "cuda") -> dict:
             f"{t_k * cfg.n_layers / 1e3:.3f} s of the forward; bound "
             f"{b_ms:.4f} ms ({b_by}); library (SDPA) {t_l:.3f} ms; "
             f"{rate(flops, t_k, b_ms)}")
-    return counts
+    return {"lm": counts, "lm_prefill": pre_counts}
 
 
 TRAIN_LAYERS = 16     # single blocks of the train phase's flux1-dev cut
@@ -2054,6 +2351,232 @@ def train_phase(cfg=None, size: int = 128, batch: int = 2,
         raise AssertionError(f"train: served launches {serve_counts}, "
                              f"expected {want}")
     return {"train": counts, "train_serve": serve_counts}
+
+
+LM_TRAIN_STEPS = 4
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_MAMBA_BATCH = 8     # train_4k's global batch of 256, cut
+LM_TRAIN_YI_LAYERS = 16      # yi-9b's 48 layers, cut
+LM_TRAIN_YI_BATCH = 2
+
+
+def lm_train_run(label: str, cfg, params, batch: int, seq: int, steps: int,
+                 kernels, dev, ckpt_dir: str = "") -> dict:
+    """``launch.train.train_lm`` from ``params`` for ``steps`` steps; logs
+    each step's loss, grad norm, lr, forward / backward / AdamW ms, step
+    wall and tokens/s, and the peak memory; checks finite losses, that
+    on step 0 every leaf has a finite non-zero gradient, and that the
+    launches are the plan's: under remat two forward launches of the
+    layer's kernel (``kernels[0]``) and one backward (``kernels[1]``) per
+    layer and step, and nothing else.  Returns the launch counts and the
+    last step's metrics."""
+    import torch
+
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    on_card = dev.type == "cuda"
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"{label}: {cfg.arch_id} {cfg.n_layers} layers (d {cfg.d_model}, "
+        f"{cfg.dtype}, remat {cfg.remat}): params {n_params / 1e9:.3f} B; "
+        f"batch {batch} x {seq} tokens, {steps} steps")
+    records, bad = [], []
+
+    def on_step(i, metrics, grads):
+        records.append(metrics)
+        if i == 0:
+            bad.extend(path for path, g in
+                       checkpoint._flatten_with_paths(grads).items()
+                       if g is None or not (bool(torch.isfinite(g).all())
+                                            and bool(g.any())))
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    trained, losses = train.train_lm(cfg, steps, batch, seq, ckpt_dir,
+                                     seed=80, log_every=1, device=dev,
+                                     params=params, on_step=on_step)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    for i, m in enumerate(records):
+        log(f"{label}: step {i} loss {m['loss']:.6f} grad_norm "
+            f"{m['grad_norm']:.4e} lr {m['lr']:.3e}" + (
+                f"; forward {m['forward_ms']:.1f} ms, backward "
+                f"{m['backward_ms']:.1f} ms, AdamW {m['adamw_ms']:.1f} ms, "
+                f"step wall {m['step_ms']:.1f} ms, "
+                f"{batch * seq / m['step_ms'] * 1e3:.0f} tokens/s"
+                if on_card else ""))
+    log(f"{label}: {steps} steps" + (" and the save" if ckpt_dir else "")
+        + f" in {wall:.1f} s; peak memory {peak / 2**30:.2f} GiB; launch "
+        f"counts {counts}; step 0 gradients off: {bad}")
+    if len(records) != steps or bad or not all(
+            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            for m in records):
+        raise AssertionError(f"{label}: losses {losses}, gradient leaves "
+                             f"off {bad}")
+    want = {kernels[0]: steps * 2 * cfg.n_layers,
+            kernels[1]: steps * cfg.n_layers}
+    if on_card and (any(counts[k] != n for k, n in want.items())
+                    or sum(counts.values()) != sum(want.values())):
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+    return {"counts": counts, "last": records[-1], "params": trained}
+
+
+def lm_train_phase(mamba_cfg=None, yi_cfg=None, yi_draw=None,
+                   seq: int = LM_TRAIN_SEQ, steps: int = LM_TRAIN_STEPS,
+                   device: str = "cuda") -> dict:
+    """LM training at full width through ``launch.train.train_lm``
+    (AdamW, lr 1e-3 with 10 warmup steps, the stack rematerialised,
+    synthetic Markov tokens), ``steps`` steps at ``seq`` tokens, bf16:
+
+    - mamba2-370m at full depth (48 SSD layers, d 1024, 32 heads of 64,
+      d_state 128, chunk 256), batch 8 (``train_4k``'s global batch of
+      256 cut to what one card holds): per step 96 forward and 48
+      backward SSD launches;
+    - yi-9b at full width (d 4096, 32/4 heads of 128, d_ff 11008) cut to
+      16 of its 48 layers, drawn as the 48-layer model's (3.3 B
+      parameters: bf16 weights and gradients and float32 moments,
+      ~40 GB), batch 2: per step 32 causal GQA flash forward and 16
+      backward launches.  Its checkpoint (~6.6 GB, under
+      ``build/lm_train_ckpt/``, removed after) reloads through
+      ``bridge`` and runs one ``make_prefill_step`` call, equal to the
+      trained parameters' own.
+
+    Logs where each step's backward goes: the backward kernel alone at
+    the step's shape, times the layers.  (The configs and ``device``
+    let the phase be rehearsed small on the CPU.)"""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpointing import bridge, checkpoint
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.launch import steps as step_lib
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    out = {}
+    # mamba2-370m, full depth
+    cfg = mamba_cfg or configs.get_config("mamba2-370m")
+    run = lm_train_run("lm_train_mamba2", cfg,
+                       lm_params(cfg, cfg.n_layers, seed=70, device=dev),
+                       LM_TRAIN_MAMBA_BATCH, seq, steps,
+                       ("ssd_chunk_scan", "ssd_chunk_scan_bwd"), dev)
+    out["lm_train_mamba2"] = run["counts"]
+    last = run["last"]
+    del run
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        # the two SSD kernels alone at the step's shape (bf16 x [8, 4096,
+        # 32, 64] and B, C as column slices), times the launches a step
+        ssm = cfg.ssm
+        h, n = cfg.d_model * ssm.expand // ssm.head_dim, ssm.d_state
+        b = LM_TRAIN_MAMBA_BATCH
+        xbc = torch.randn((b, seq, h * 64 + 2 * n), device=dev).to(
+            torch.bfloat16)
+        x = xbc[..., :h * 64].reshape(b, seq, h, 64)
+        bm, cm = xbc[..., h * 64:h * 64 + n], xbc[..., h * 64 + n:]
+        dts = torch.nn.functional.softplus(torch.randn((b, seq, h),
+                                                       device=dev))
+        a = -torch.ones((h,), device=dev)
+        dy = torch.randn((b, seq, h, 64), device=dev).to(torch.bfloat16)
+        f_ms = time_ms(lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm,
+                                                       ssm.chunk), 3)
+        b_ms = time_ms(lambda: ssd_scan.ssd_chunk_scan_bwd(
+            x, dts, a, bm, cm, dy, ssm.chunk), 3)
+        log(f"lm_train_mamba2: breakdown of the last step "
+            f"({last['step_ms']:.1f} ms): forward {last['forward_ms']:.1f} "
+            f"ms; backward {last['backward_ms']:.1f} ms, of it the SSD "
+            f"backward {cfg.n_layers} x {b_ms:.3f} = "
+            f"{cfg.n_layers * b_ms:.1f} ms "
+            f"({cfg.n_layers * b_ms / last['backward_ms']:.1%}) and the "
+            f"remat's SSD forward {cfg.n_layers} x {f_ms:.3f} = "
+            f"{cfg.n_layers * f_ms:.1f} ms; the forward's SSD "
+            f"{cfg.n_layers * f_ms:.1f} ms; AdamW {last['adamw_ms']:.1f} ms")
+        del xbc, x, bm, cm, dts, dy
+        torch.cuda.empty_cache()
+
+    # yi-9b, 16 of 48 layers
+    full = yi_draw or configs.get_config("yi-9b")
+    cfg = yi_cfg or dataclasses.replace(full, n_layers=LM_TRAIN_YI_LAYERS)
+    ckpt_dir = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    run = lm_train_run("lm_train_yi", cfg,
+                       lm_params(full, cfg.n_layers, seed=71, device=dev),
+                       LM_TRAIN_YI_BATCH, seq, steps,
+                       ("flash_attention", "flash_attention_bwd"), dev,
+                       ckpt_dir=str(ckpt_dir))
+    out["lm_train_yi"] = run["counts"]
+    trained, last = run["params"], run["last"]
+    del run
+    if on_card:
+        # the two flash kernels alone at the step's shape (bf16 [2, 4096,
+        # 32/4, 128], causal), times the launches a step
+        g = torch.Generator(device=dev).manual_seed(72)
+        q = torch.randn((LM_TRAIN_YI_BATCH, seq, cfg.n_heads, cfg.head_dim),
+                        generator=g, device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((LM_TRAIN_YI_BATCH, seq, cfg.n_kv_heads,
+                             cfg.head_dim), generator=g, device=dev).to(
+            torch.bfloat16) for _ in "kv")
+        o, lse = fa.flash_attention(q, k, v, cfg.q_per_kv, True,
+                                    return_lse=True)
+        f_ms = time_ms(lambda: fa.flash_attention(
+            q, k, v, cfg.q_per_kv, True, return_lse=True), 3)
+        b_ms = time_ms(lambda: fa.flash_attention_bwd(
+            q, k, v, o, lse, q, cfg.q_per_kv, True), 3)
+        log(f"lm_train_yi: breakdown of the last step "
+            f"({last['step_ms']:.1f} ms): forward {last['forward_ms']:.1f} "
+            f"ms, of it flash {cfg.n_layers} x {f_ms:.3f} = "
+            f"{cfg.n_layers * f_ms:.1f} ms; backward "
+            f"{last['backward_ms']:.1f} ms, of it flash backward "
+            f"{cfg.n_layers} x {b_ms:.3f} = {cfg.n_layers * b_ms:.1f} ms and "
+            f"the remat's flash forward {cfg.n_layers * f_ms:.1f} ms; AdamW "
+            f"{last['adamw_ms']:.1f} ms")
+        del q, k, v, o, lse
+        torch.cuda.empty_cache()
+    # the checkpoint, reloaded through bridge, serves one prefill
+    t0 = time.perf_counter()
+    tree = checkpoint.unflatten(checkpoint.load_flat(str(ckpt_dir), steps,
+                                                     cfg.arch_id))
+    reloaded = bridge.lm_params_from_jax_numpy(tree, cfg, device=dev)
+    load_s = time.perf_counter() - t0
+    del tree
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    flat = checkpoint._flatten_with_paths
+    mine, back = flat(trained), flat(reloaded)
+    same = sorted(mine) == sorted(back) and all(
+        torch.equal(mine[k], back[k]) for k in mine)
+    del mine, back
+    tokens = synthetic.lm_batch(torch.Generator(device=dev).manual_seed(73),
+                                1, seq, cfg.vocab_size, device=dev)["tokens"]
+    prefill = step_lib.make_prefill_step(cfg)
+    want = prefill(trained, {"tokens": tokens}).float()
+    ops.reset_launch_counts()
+    got = prefill(reloaded, {"tokens": tokens}).float()
+    counts = ops.launch_counts()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"lm_train_yi: checkpoint reloaded through bridge in {load_s:.1f} "
+        f"s (every leaf equal to the trained one: {same}); "
+        f"make_prefill_step [1, {seq}] -> {tuple(got.shape)}, finite "
+        f"{bool(torch.isfinite(got).all())}, against the trained "
+        f"parameters' max_rel_err {rel:.3e} (tol "
+        f"{TOLERANCE['bfloat16']:.0e}); launches {counts}")
+    if not same or tuple(got.shape) != (1, cfg.vocab_size) or not bool(
+            torch.isfinite(got).all()) or not rel <= TOLERANCE["bfloat16"]:
+        raise AssertionError("lm_train_yi: the reloaded checkpoint's "
+                             "prefill")
+    if on_card and (counts["flash_attention"] != cfg.n_layers
+                    or sum(counts.values()) != cfg.n_layers):
+        raise AssertionError(f"lm_train_yi: prefill launches {counts}")
+    out["lm_train_prefill"] = counts
+    del trained, reloaded
+    return out
 
 
 LAUNCHER_ARGS = ["--requests", "10", "--steps", "10", "--train-steps", "10",
@@ -2528,7 +3051,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel and reference phases "
-                         "(skips the six full-width phases, the launcher "
+                         "(skips the seven full-width phases, the launcher "
                          "and the fleet)")
     args = ap.parse_args(argv)
 
@@ -2557,6 +3080,7 @@ def main(argv=None) -> int:
                 log(f"ptxas {name}: {line.strip()}")
     flash_build_checks()
     mma_build_checks()
+    fma_build_checks()
 
     # each kernel's row is the type its path runs it in: the served CRF
     # is bf16 with float32 rings, and the legacy cache state float32
@@ -2566,7 +3090,8 @@ def main(argv=None) -> int:
                   "token_basis_matmul": "bfloat16",
                   "freqca_predict_fused": "float32",
                   "ssd_chunk_scan": "bfloat16",
-                  "flash_attention_bwd": "bfloat16"}
+                  "flash_attention_bwd": "bfloat16",
+                  "ssd_chunk_scan_bwd": "bfloat16"}
     rows = kernel_phase(main_dtype)
     reference_phase()
     # launches are read from the counters of the phases that run each
@@ -2585,10 +3110,13 @@ def main(argv=None) -> int:
         by_phase["backbone"] = backbone_phase(N_STEPS)
         gc.collect()
         torch.cuda.empty_cache()
-        by_phase["lm"] = lm_phase()
+        by_phase.update(lm_phase())
         gc.collect()
         torch.cuda.empty_cache()
         by_phase.update(train_phase())
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_phase.update(lm_train_phase())
         gc.collect()
         torch.cuda.empty_cache()
         by_phase["launcher"] = launcher_phase()
@@ -2617,6 +3145,10 @@ def main(argv=None) -> int:
         "flash_attention_bwd": (
             "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             "none: XLA autodiff of repro/models/dit.py:_joint_attention"),
+        "ssd_chunk_scan_bwd": (
+            "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "none: XLA autodiff of src/repro/models/ssm.py:93 ssd_chunked, "
+            "through ssm_block :156-172"),
     }
     kernels = []
     for name, (src, rep) in replaces.items():
@@ -2638,7 +3170,13 @@ def main(argv=None) -> int:
                           "attention [2, 4608, 24, 128]; rows "
                           "flash_attention_bwd[train 2x4096] and [causal "
                           "gqa 32/4] of the kernel phase); the train "
-                          "phase's launches are non-causal MHA")
+                          "phase's launches are non-causal MHA, the "
+                          "lm_train_yi phase's causal GQA")
+        if name == "ssd_chunk_scan_bwd":
+            k["forms"] = ("bf16 and float32 x, B, C (this row: bf16, one "
+                          "mamba2-370m layer [2, 4096, 32, 64], N 128, "
+                          "chunk 256); the lm_train_mamba2 phase's "
+                          "launches are bf16 at batch 8")
         kernels.append(k)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -7,8 +7,9 @@ projections shaped ``wq/wk/wv [d, H, hd]``, ``wo [H, hd, d]``.  The
 port keeps per-layer (per-group) lists and matrix projections.  The tree
 arrives as numpy (``jax.tree.map(np.asarray, params)``) or as a
 checkpoint file of the reference's format (``params_from_checkpoint``),
-so this module needs no JAX.  ``params_to_jax_numpy`` goes the other
-way, so that a checkpoint the port saves restores in ``repro``.
+so this module needs no JAX.  ``params_to_jax_numpy`` and
+``lm_params_to_jax_numpy`` go the other way, so that a checkpoint the
+port saves restores in ``repro``.
 """
 from __future__ import annotations
 
@@ -171,9 +172,9 @@ def _lm_block(tree):
     if "attn" in tree:
         attn = dict(tree["attn"])
         for name in ("wq", "wk", "wv"):
-            w = np.asarray(attn[name])
+            w = attn[name]      # numpy, or a CPU tensor (bf16 from a file)
             attn[name] = w.reshape(w.shape[0], -1)
-        wo = np.asarray(attn["wo"])
+        wo = attn["wo"]
         attn["wo"] = wo.reshape(-1, wo.shape[-1])
         out["attn"] = attn
     return out
@@ -193,3 +194,35 @@ def lm_params_from_jax_numpy(tree, cfg: ModelConfig, device=None,
     out["stack"] = [{f"l{i}": _lm_block(_take(tree["stack"][f"l{i}"], g))
                      for i in range(len(plan))} for g in range(n_groups)]
     return _to_torch(out, dev, dtype)
+
+
+def _lm_unblock(tree, cfg: ModelConfig):
+    """One port group position back to the reference's leaf shapes:
+    ``wq [d, H·hd] -> [d, H, hd]``, ``wk, wv [d, Hkv·hd] -> [d, Hkv,
+    hd]``, ``wo [H·hd, d] -> [H, hd, d]``; the rest as it is."""
+    out = dict(tree)
+    if "attn" in tree:
+        attn, hd = dict(tree["attn"]), cfg.head_dim
+        for name, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
+                            ("wv", cfg.n_kv_heads)):
+            attn[name] = attn[name].reshape(attn[name].shape[0], heads, hd)
+        attn["wo"] = attn["wo"].reshape(cfg.n_heads, hd, -1)
+        out["attn"] = attn
+    return out
+
+
+def lm_params_to_jax_numpy(params, cfg: ModelConfig):
+    """The port's LM parameters (or a tree of their gradients) ->
+    ``repro``'s tree: the per-group list re-stacked into ``stack`` leaves
+    ``[n_groups, ...]`` under ``l{i}``, the attention projections in the
+    reference's shapes; the exact inverse of ``lm_params_from_jax_numpy``.
+    Leaves are CPU tensors in their own types, so ``checkpoint.save(dir,
+    step, tree, name=cfg.arch_id)`` writes what
+    ``repro.checkpointing.checkpoint.restore`` loads."""
+    params = _to_cpu(params)     # stacked on the host, not on the card
+    _, _, plan = blocks._layer_plan(cfg)
+    out = {k: v for k, v in params.items() if k != "stack"}
+    out["stack"] = {f"l{i}": _stack([_lm_unblock(group[f"l{i}"], cfg)
+                                     for group in params["stack"]])
+                    for i in range(len(plan))}
+    return out

@@ -570,7 +570,7 @@ int launch(const void* xv, long x_sb, long x_ss, const float* dt, long dt_sb,
       static_cast<unsigned>((groups + kThreads - 1) / kThreads);
   ssd_state_pass_kernel<P><<<pass_blocks, kThreads, 0, s>>>(st, decay, Bn,
                                                             nc, H, N);
-  if ((err = cudaGetLastError())) return err;
+  if ((err = cudaGetLastError()) || yv == nullptr) return err;
   ssd_chunk_out_kernel<T, P><<<dim3(H, nc, Bn), kThreads, out_smem, s>>>(
       x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Cm, c_sb, c_ss, G, st,
       static_cast<T*>(yv), S, N, Q, vec);
@@ -584,7 +584,9 @@ int launch(const void* xv, long x_sb, long x_ss, const float* dt, long dt_sb,
 // float32; B, C [Bn, S, N] in x's type (element stride 1); y [Bn, S, H,
 // 64] contiguous.  N a multiple of 8 up to 128; Q a multiple of 64 up to
 // 256 that divides S.  Workspaces, float32 and contiguous: G [Bn, S/Q,
-// Q, Q], st [Bn, S/Q, H, N, 64], decay [Bn, S/Q, H].
+// Q, Q], st [Bn, S/Q, H, N, 64], decay [Bn, S/Q, H].  With y null only
+// passes 1-3 run, which leave C Bᵀ in G and the state entering each
+// chunk in st: what the backward (ssd_scan_bwd.cu) recomputes.
 extern "C" int ssd_chunk_scan_fwd(const void* x, long x_sb, long x_ss,
                                   const void* dt, long dt_sb, long dt_ss,
                                   const void* A, const void* Bm, long b_sb,

@@ -10,10 +10,12 @@ XLA on a CPU and Pallas on a TPU are both legitimate backends there.)
 Each kernel wrapper counts its own launches (``<wrapper>.launches``);
 ``launch_counts`` / ``reset_launch_counts`` read and clear them.
 
-Gradients: on CUDA, ``flash`` is a ``torch.autograd.Function`` whose
-backward is the flash backward kernel; the other kernels have no
-backward, and their wrappers raise when autograd would need one.  On the
-CPU, autograd differentiates the plain versions.
+Gradients: on CUDA, ``flash`` and ``ssd`` are ``torch.autograd.Function``s
+whose backwards are kernels too (the flash backward, the SSD-scan
+backward); the other kernels have no backward, and their wrappers raise
+when autograd would need one (so does the raw SSD-scan wrapper, called
+under grad outside its Function).  On the CPU, autograd differentiates
+the plain versions.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ _WRAPPERS = {
     "token_basis_matmul": dct.token_basis_matmul,
     "freqca_predict_fused": freqca_fused.freqca_predict_fused,
     "ssd_chunk_scan": ssd_scan.ssd_chunk_scan,
+    "ssd_chunk_scan_bwd": ssd_scan.ssd_chunk_scan_bwd,
 }
 
 
@@ -139,12 +142,32 @@ def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return ref.attention_ref(q, k, v, q_per_kv, causal, window)
 
 
+class SSDChunkScanFn(torch.autograd.Function):
+    """The SSD scan kernel with its backward kernel: the forward keeps
+    its inputs only, and only when a gradient is needed; the backward
+    reruns the forward's first passes from them."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, B, C, chunk: int):
+        ctx.chunk = chunk
+        if any(ctx.needs_input_grad[:5]):
+            ctx.save_for_backward(x, dt, A, B, C)
+        return ssd_scan.ssd_chunk_scan(x, dt, A, B, C, chunk)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, dt, A, B, C = ctx.saved_tensors
+        grads = ssd_scan.ssd_chunk_scan_bwd(x, dt, A, B, C, dy, ctx.chunk)
+        return (*(g if need else None for g, need in
+                  zip(grads, ctx.needs_input_grad[:5], strict=True)), None)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B: torch.Tensor,
         C: torch.Tensor, chunk: int = 256) -> torch.Tensor:
     """Mamba2 SSD chunk scan ``y [b, s, h, p]`` (no D-skip): ``x [b, s,
     h, p]``, ``dt [b, s, h]``, ``A [h]``, ``B, C [b, s, n]``.  The kernel
     reads x, B and C through their strides (they are column slices of
-    the block's conv output)."""
+    the block's conv output).  Differentiable on both devices."""
     if _on_cuda(x):
-        return ssd_scan.ssd_chunk_scan(x, dt.float(), A.float(), B, C, chunk)
+        return SSDChunkScanFn.apply(x, dt.float(), A.float(), B, C, chunk)
     return ref.ssd_chunk_scan_ref(x, dt, A, B, C, chunk)

@@ -250,6 +250,17 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dv.to(v.dtype))
 
 
+def _tril_exp(diff: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
+    """``exp(max(diff, −60))`` where ``keep``, else 0.  The dropped
+    entries are selected away before the exp as well as after it: the
+    upper triangle's exp overflows at real chunk lengths (cum falls by
+    ~177 over 256 tokens at mamba2's init), and autograd through a
+    ``where`` over an infinite branch gives 0·inf = NaN.  The values are
+    those of one ``where`` after the exp."""
+    return torch.where(keep, torch.exp(torch.where(keep, diff, 0.0)
+                                       .clamp(min=NEG_CLIP)), 0.0)
+
+
 def ssd_chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        B: torch.Tensor, C: torch.Tensor,
                        chunk: int = 256, return_state: bool = False):
@@ -265,7 +276,7 @@ def ssd_chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     by ``exp(cum_last)`` and gains ``Σ_j exp(cum_last − cum_j) dt_j
     B_jᵀ x_j``.  Every ``exp`` clips its argument at −60; the upper
     triangle is selected away (``where``), never multiplied by a 0/1
-    mask, since ``exp`` of it can overflow."""
+    mask, since ``exp`` of it can overflow (``_tril_exp``)."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     q = min(chunk, s)
@@ -283,8 +294,7 @@ def ssd_chunk_scan_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         cc = C[:, c0:c0 + q].to(_F32)
         cum = torch.cumsum(dtc * a, dim=1)            # [b, q, h]
         diff = cum[:, :, None, :] - cum[:, None, :, :]          # [b, i, j, h]
-        lmat = torch.where(tri[None, :, :, None],
-                           torch.exp(diff.clamp(min=NEG_CLIP)), 0.0)
+        lmat = _tril_exp(diff, tri[None, :, :, None])
         scores = torch.einsum("bin,bjn->bij", cc, bc)[..., None] * lmat
         y = torch.einsum("bijh,bjhp->bihp", scores * dtc[:, None], xc)
         decay_in = torch.exp(cum.clamp(min=NEG_CLIP))[..., None]
@@ -335,13 +345,113 @@ def ssd_chunk_scan_parallel_ref(x: torch.Tensor, dt: torch.Tensor,
     state_in = torch.stack(entering, dim=1)                  # [b, c, h, n, p]
     tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [b, c, i, j, h]
-    lmat = torch.where(tri[..., None], torch.exp(diff.clamp(min=NEG_CLIP)),
-                       0.0)
+    lmat = _tril_exp(diff, tri[..., None])
     m = gram[..., None] * lmat * dtc[:, :, None]             # pass 4
     y = torch.exp(cum.clamp(min=NEG_CLIP))[..., None] * torch.einsum(
         "bcin,bchnp->bcihp", cc, state_in)
     y = y + torch.einsum("bcijh,bcjhp->bcihp", m, xc)
     return y.reshape(b, s, h, p).to(x.dtype)
+
+
+def ssd_chunk_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
+                           A: torch.Tensor, B: torch.Tensor,
+                           C: torch.Tensor, dy: torch.Tensor,
+                           chunk: int = 256):
+    """``(dx, ddt, dA, dB, dC)`` of ``ssd_chunk_scan_ref`` (y only, the
+    −60 clip included) for the output gradient ``dy [b, s, h, p]``: the
+    plain version of the SSD-scan backward kernel and its oracle.  dx,
+    dB and dC in their inputs' types, ddt ``[b, s, h]`` and dA ``[h]``
+    float32.  Written out, in float32, per chunk (head h, a = A_h; E(u)
+    = exp(max(u, −60)), whose derivative is E(u) where u ≥ −60 and 0
+    below, as autograd of ``clamp(min=−60)`` gives it):
+
+    - the forward's states, S_c entering chunk c, and their gradients
+      D_c (of the state leaving chunk c) by the reverse recurrence
+      ``D_{c−1} = E(cum_Q,c)·D_c + Σ_i E(cum_i) C_iᵀ dy_i``, D_last = 0;
+    - M_ij = (C_i·B_j) L_ij and Z_ij = (dy_i·x_j) L_ij dt_j for j ≤ i
+      (L_ij = E(cum_i − cum_j)); w_j = dt_j E(cum_Q − cum_j);
+    - ``dx_j = dt_j Σ_i M_ij dy_i + w_j (B_j D)``;
+      ``dC_i = Σ_j Z_ij B_j + E(cum_i) S dy_i``;
+      ``dB_j = Σ_i Z_ij C_i + w_j D x_j``, each summed over heads;
+    - ddt_j directly: ``Σ_i M_ij (dy_i·x_j) + E(cum_Q − cum_j) z_j``
+      with z_j = x_j·(B_j D);
+    - the gradient of cum: P_ij = M_ij (dy_i·x_j) dt_j (j < i, unclipped
+      entries) into cum_i and out of cum_j; ``E(cum_i) dy_i·(C_i S)``
+      into cum_i; T_j = E(cum_Q − cum_j) dt_j z_j (j < Q−1, unclipped)
+      into cum_Q and out of cum_j; ``E(cum_Q) ⟨D, S⟩`` into cum_Q.  The
+      diagonal of P and the last T add and take the same amount, so both
+      are left out, as in the kernel;
+    - cum = cumsum(dt·a) folded back: R = the reverse cumsum of dcum,
+      ``ddt += a R``, ``dA = Σ dt R`` over batch and tokens."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"ssd_chunk_scan: S={s} is not a multiple of the "
+                         f"chunk {q}")
+    nc = s // q
+    xc = x.to(_F32).reshape(b, nc, q, h, p)
+    dyc = dy.to(_F32).reshape(b, nc, q, h, p)
+    dtc = dt.to(_F32).reshape(b, nc, q, h)
+    bc = B.to(_F32).reshape(b, nc, q, n)
+    cc = C.to(_F32).reshape(b, nc, q, n)
+    a = A.to(_F32)
+    cum = torch.cumsum(dtc * a, dim=2)                       # [b, c, q, h]
+    cum_q = cum[:, :, -1]                                    # [b, c, h]
+    u_out = cum[:, :, -1:] - cum
+    e_out = torch.exp(u_out.clamp(min=NEG_CLIP))             # E(cum_Q − cum_j)
+    w = dtc * e_out
+    e_in = torch.exp(cum.clamp(min=NEG_CLIP))                # E(cum_i)
+    decay = torch.exp(cum_q.clamp(min=NEG_CLIP))             # E(cum_Q)
+    contrib = torch.einsum("bcjn,bcjh,bcjhp->bchnp", bc, w, xc)
+    own = torch.einsum("bcin,bcih,bcihp->bchnp", cc, e_in, dyc)
+    state = torch.zeros((b, h, n, p), dtype=_F32, device=x.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = decay[:, c, :, None, None] * state + contrib[:, c]
+    s_in = torch.stack(s_in, dim=1)                          # [b, c, h, n, p]
+    run = torch.zeros_like(state)
+    d_out = [None] * nc
+    for c in reversed(range(nc)):
+        d_out[c] = run
+        run = decay[:, c, :, None, None] * run + own[:, c]
+    d_out = torch.stack(d_out, dim=1)                        # [b, c, h, n, p]
+
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    strict = tri.tril(-1)[..., None]
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]     # [b, c, i, j, h]
+    lmat = _tril_exp(diff, tri[..., None])
+    gram = torch.einsum("bcin,bcjn->bcij", cc, bc)
+    dg = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    m = gram[..., None] * lmat
+    z = dg * lmat * dtc[:, :, None]
+    k = m * dg
+    pmat = torch.where(strict & (diff >= NEG_CLIP), k * dtc[:, :, None], 0.0)
+    v = torch.einsum("bcjn,bchnp->bcjhp", bc, d_out)         # B_j D
+    dx = (dtc[..., None] * torch.einsum("bcijh,bcihp->bcjhp", m, dyc)
+          + w[..., None] * v)
+    dc = (torch.einsum("bcijh,bcjn->bcin", z, bc)
+          + torch.einsum("bcih,bcihp,bchnp->bcin", e_in, dyc, s_in))
+    db = (torch.einsum("bcijh,bcin->bcjn", z, cc)
+          + torch.einsum("bcjh,bcjhp,bchnp->bcjn", w, xc, d_out))
+    zj = (xc * v).sum(-1)                                    # [b, c, j, h]
+    ddt = k.sum(2) + e_out * zj
+    not_last = torch.arange(q, device=x.device) < q - 1
+    t = torch.where(not_last[:, None] & (u_out >= NEG_CLIP),
+                    e_out * dtc * zj, 0.0)
+    y_state = torch.einsum("bcin,bchnp->bcihp", cc, s_in)
+    dcum = (pmat.sum(3) - pmat.sum(2) - t
+            + torch.where(cum >= NEG_CLIP, e_in * (dyc * y_state).sum(-1),
+                          0.0))
+    frob = (d_out * s_in).sum((-1, -2))                      # ⟨D, S⟩
+    dcum[:, :, -1] += (torch.where(cum_q >= NEG_CLIP, decay * frob, 0.0)
+                       + t.sum(2))
+    rev = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), 2), (2,))
+    ddt = ddt + a * rev
+    da = (dtc * rev).sum((0, 1, 2))
+    return (dx.reshape(b, s, h, p).to(x.dtype), ddt.reshape(b, s, h), da,
+            db.reshape(b, s, n).to(B.dtype), dc.reshape(b, s, n).to(C.dtype))
 
 
 def ssd_naive_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -1,4 +1,4 @@
-"""Mamba2 SSD chunk scan as a CUDA kernel.
+"""Mamba2 SSD chunk scan as CUDA kernels, forward and backward.
 
 ``ssd_chunk_scan`` is the wrapper of ``csrc/ssd_scan.cu`` (the
 counterpart of ``repro.kernels.ssd_scan``).  CUDA tensors only; the op
@@ -15,6 +15,12 @@ per (lane, chunk, head); every product on the tensor cores (bf16
 operands, a float32 one split into bf16 hi + lo).  The wrapper
 allocates the float32 workspaces of those passes; one call counts as
 one launch.
+
+``ssd_chunk_scan_bwd`` is the wrapper of ``csrc/ssd_scan_bwd.cu``, the
+gradients of the scan with respect to all five inputs
+(``ref.ssd_chunk_scan_bwd_ref`` is its plain version); the op layer's
+``SSDChunkScanFn`` calls it.  The reference has no such kernel: XLA
+differentiates ``repro.models.ssm.ssd_chunked``.
 """
 from __future__ import annotations
 
@@ -37,44 +43,50 @@ def _strided_ok(t: torch.Tensor, inner: tuple) -> bool:
     return tuple(t.stride()[-len(inner):]) == inner
 
 
-def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-                   B: torch.Tensor, C: torch.Tensor,
-                   chunk: int = 256) -> torch.Tensor:
-    """x [b, s, h, 64]; dt [b, s, h] float32; A [h] float32; B, C [b, s,
-    n] in x's type -> y [b, s, h, 64] in x's type."""
-    build.require_no_grad("ssd_chunk_scan", x, dt, A, B, C)
+def _check(name: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+           B: torch.Tensor, C: torch.Tensor, chunk: int):
+    """Raise on what the kernels do not take; returns (b, s, h, p, n, q)."""
     b, s, h, p = x.shape
     n = B.shape[-1]
     q = min(chunk, s)
     if dt.shape != (b, s, h) or A.shape != (h,) or B.shape != (b, s, n) \
             or C.shape != B.shape:
-        raise ValueError(f"ssd_chunk_scan: x {tuple(x.shape)}, dt "
+        raise ValueError(f"{name}: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)}, C {tuple(C.shape)}")
     if p != HEAD_DIM or n > MAX_STATE or n % 8:
-        raise ValueError(f"ssd_chunk_scan: head_dim {p} (needs "
+        raise ValueError(f"{name}: head_dim {p} (needs "
                          f"{HEAD_DIM}), d_state {n} (needs a multiple of 8 "
                          f"up to {MAX_STATE})")
     if q % TILE or q > 4 * TILE or s % q:
-        raise ValueError(f"ssd_chunk_scan: chunk {q} must be a multiple of "
+        raise ValueError(f"{name}: chunk {q} must be a multiple of "
                          f"{TILE} up to {4 * TILE} dividing S={s}")
     if not x.dtype == B.dtype == C.dtype or dt.dtype != torch.float32 \
             or A.dtype != torch.float32:
-        raise TypeError("ssd_chunk_scan: x, B, C share one type; dt and A "
+        raise TypeError(f"{name}: x, B, C share one type; dt and A "
                         "are float32")
     dev = x.device
     for t in (x, dt, A, B, C):
         if t.device.type != "cuda" or t.device != dev:
-            raise ValueError(f"ssd_chunk_scan: expected CUDA tensors on one "
+            raise ValueError(f"{name}: expected CUDA tensors on one "
                              f"device, got {t.device}")
     if not (_strided_ok(x, (p, 1)) and _strided_ok(dt, (1,))
             and _strided_ok(B, (1,)) and _strided_ok(C, (1,))
             and A.is_contiguous()):
-        raise ValueError("ssd_chunk_scan: x needs contiguous heads, dt, B "
+        raise ValueError(f"{name}: x needs contiguous heads, dt, B "
                          "and C a contiguous last axis")
-    y = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    return b, s, h, p, n, q
+
+
+def _forward(x, dt, A, B, C, q: int, y):
+    """The forward library's passes into new float32 workspaces: all
+    four with ``y`` given (written), passes 1-3 with ``y`` None.  Returns
+    the workspaces ``(gram, states, decay)``: C Bᵀ per chunk, the state
+    entering each chunk (after pass 3) and exp(cum_Q) per chunk."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
     nc = s // q
-    f32 = dict(dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=x.device)
     gram = torch.empty((b, nc, q, q), **f32)          # C Bᵀ per chunk
     # each chunk's own contribution, overwritten by the state entering it
     states = torch.empty((b, nc, h, n, p), **f32)
@@ -87,13 +99,82 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     status = fn(x.data_ptr(), x.stride(0), x.stride(1),
                 dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
                 B.data_ptr(), B.stride(0), B.stride(1),
-                C.data_ptr(), C.stride(0), C.stride(1), y.data_ptr(),
+                C.data_ptr(), C.stride(0), C.stride(1),
+                None if y is None else y.data_ptr(),
                 gram.data_ptr(), states.data_ptr(), decay.data_ptr(),
                 b, s, h, n, q, build.dtype_code(x),
-                torch.cuda.current_stream(dev).cuda_stream)
+                torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "ssd_chunk_scan", status)
+    return gram, states, decay
+
+
+def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor,
+                   chunk: int = 256) -> torch.Tensor:
+    """x [b, s, h, 64]; dt [b, s, h] float32; A [h] float32; B, C [b, s,
+    n] in x's type -> y [b, s, h, 64] in x's type."""
+    build.require_no_grad("ssd_chunk_scan", x, dt, A, B, C)
+    b, s, h, p, n, q = _check("ssd_chunk_scan", x, dt, A, B, C, chunk)
+    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
+    _forward(x, dt, A, B, C, q, y)
     ssd_chunk_scan.launches += 1
     return y
 
 
 ssd_chunk_scan.launches = 0
+
+
+def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
+                       chunk: int = 256):
+    """``(dx, ddt, dA, dB, dC)`` of ``ssd_chunk_scan`` for the output
+    gradient ``dy [b, s, h, 64]`` (x's type), the wrapper of
+    ``csrc/ssd_scan_bwd.cu``: x, B, C as the forward takes them (strided
+    column slices allowed); dx, dB, dC in x's type, ddt ``[b, s, h]``
+    and dA ``[h]`` float32.  It reruns the forward's passes 1-3 (C Bᵀ
+    and the state entering each chunk, so nothing but the inputs is
+    saved), then the backward's launches; dB, dC and dA are summed from
+    float32 partials in a fixed order (no atomics), so two calls are
+    bitwise equal.  One call counts as one launch."""
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"ssd_chunk_scan_bwd: dy {tuple(dy.shape)} "
+                         f"{dy.dtype} on {dy.device} must match x "
+                         f"{tuple(x.shape)} {x.dtype} on {x.device}")
+    b, s, h, p, n, q = _check("ssd_chunk_scan_bwd", x, dt, A, B, C, chunk)
+    dy = dy.contiguous()
+    gram, states, decay = _forward(x, dt, A, B, C, q, None)
+    dev, nc = x.device, s // q
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    ddt = torch.empty((b, s, h), **f32)
+    dA = torch.empty((h,), **f32)
+    dB = torch.empty((b, s, n), dtype=x.dtype, device=dev)
+    dC = torch.empty_like(dB)
+    # the state's gradient per chunk; dB and dC per head; four per-token
+    # partials of ddt; dA per chunk
+    dstate = torch.empty((b, nc, h, n, p), **f32)
+    dbw = torch.empty((b, s, h, n), **f32)
+    dcw = torch.empty_like(dbw)
+    tok = torch.empty((4, b, s, h), **f32)
+    daw = torch.empty((b, nc, h), **f32)
+    lib = build.load("ssd_scan_bwd")
+    fn = lib.ssd_chunk_scan_bwd
+    fn.argtypes = ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L]
+                   + [_P] * 14 + [_I] * 6 + [_P])
+    fn.restype = _I
+    status = fn(x.data_ptr(), x.stride(0), x.stride(1),
+                dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
+                B.data_ptr(), B.stride(0), B.stride(1),
+                C.data_ptr(), C.stride(0), C.stride(1), dy.data_ptr(),
+                gram.data_ptr(), states.data_ptr(), decay.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+                dC.data_ptr(), dstate.data_ptr(), dbw.data_ptr(),
+                dcw.data_ptr(), tok.data_ptr(), daw.data_ptr(),
+                b, s, h, n, q, build.dtype_code(x),
+                torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, "ssd_chunk_scan_bwd", status)
+    ssd_chunk_scan_bwd.launches += 1
+    return dx, ddt, dA, dB, dC
+
+
+ssd_chunk_scan_bwd.launches = 0

@@ -1,0 +1,106 @@
+"""Step builders (counterpart of ``repro.launch.steps``): the LM train
+step with AdamW and gradient accumulation, and the prefill step.
+
+``make_train_step`` and ``make_prefill_step`` keep the reference's
+arithmetic and return values; they run eagerly on the tensors' device
+(on the card the scan and attention kernels and their backwards).  The
+AdamW update is in place (``optim.adamw.update``), so the parameters a
+train step returns are the ones it was given.  The mesh, the
+``constrain`` sharding hooks, ``build`` / ``input_specs`` /
+``build_dit`` and the decode step wait for the sharding and dry-run part
+of ``ROADMAP.md`` §1 item 6 (the decode path for item 4); enc-dec,
+modality-prefix and MoE configs raise (item 5).
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import blocks, common, transformer
+from repro_torch.optim import adamw
+
+
+def param_bytes(cfg: ModelConfig, bytes_per: int = 2) -> int:
+    """Total parameter bytes of an LM config from its specs, no
+    allocation (the reference's ``repro.sharding.partitioning
+    .param_bytes``; the port's per-group leaves hold the same elements
+    as the reference's stacked ones)."""
+    leaves = []
+    common.map_specs(leaves.append, transformer.lm_specs(cfg))
+    return sum(math.prod(s.shape) * bytes_per for s in leaves)
+
+
+def make_train_step(cfg: ModelConfig,
+                    opt_cfg: Optional[adamw.AdamWConfig] = None,
+                    microbatch: int = 1):
+    """``(train_step, opt_cfg)``: ``train_step(params, opt_state, batch)
+    -> (params, opt_state, metrics)`` takes the gradient of
+    ``transformer.loss_fn`` with respect to every leaf (each is made to
+    require grad) and applies one AdamW update in place.  The default
+    optimizer keeps bf16 moments above 2e11 parameter bytes, else
+    float32, as the reference's.  ``microbatch > 1`` is gradient
+    accumulation: the batch splits into ``microbatch`` sub-batches along
+    its first axis, run in order, each gradient added in float32 divided
+    by the count, and each metric the mean over the sub-batches; an
+    unused leaf's gradient is zero (``None`` without accumulation, which
+    AdamW counts as zero).  The metrics are the loss's and AdamW's
+    (``grad_norm``, ``lr``), as 0-d tensors."""
+    transformer.check_ported(cfg, "make_train_step")
+    opt_cfg = opt_cfg or adamw.AdamWConfig(
+        moment_dtype="bfloat16" if param_bytes(cfg) > 2e11 else "float32")
+
+    def grads_of(params, flat, batch):
+        loss, metrics = transformer.loss_fn(params, batch, cfg)
+        return metrics, torch.autograd.grad(loss, flat, allow_unused=True)
+
+    def train_step(params, opt_state, batch):
+        flat = [p.requires_grad_(True) for p in adamw.leaves(params)]
+        if microbatch > 1:
+            acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                   for p in flat]
+            runs = []
+            for k in range(microbatch):
+                one = {key: v.reshape((microbatch, v.shape[0] // microbatch)
+                                      + tuple(v.shape[1:]))[k]
+                       for key, v in batch.items()}
+                metrics, grads = grads_of(params, flat, one)
+                for a, g in zip(acc, grads, strict=True):
+                    if g is not None:
+                        a.add_(g.to(torch.float32) / microbatch)
+                runs.append({k2: m.detach() for k2, m in metrics.items()})
+                del grads
+            grads = acc
+            metrics = {key: torch.stack([r[key] for r in runs]).mean()
+                       for key in runs[0]}
+        else:
+            metrics, grads = grads_of(params, flat, batch)
+            metrics = {key: m.detach() for key, m in metrics.items()}
+        it = iter(grads)
+        tree = adamw.tree_map(lambda _: next(it), params)
+        params, opt_state, om = adamw.update(opt_cfg, tree, opt_state, params)
+        metrics.update(om)
+        return params, opt_state, metrics
+
+    return train_step, opt_cfg
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, batch) -> [B, vocab]``: the full-sequence
+    forward of ``batch["tokens"]`` without remat and under
+    ``torch.no_grad``, then the last token's logits only (the ``[B, S,
+    vocab]`` tensor never exists)."""
+    transformer.check_ported(cfg, "make_prefill_step")
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        x = common.embed(params["embed"], batch["tokens"]).to(
+            getattr(torch, cfg.dtype))
+        h, _ = blocks.stack_full(params["stack"], x, cfg, remat=False)
+        hn = common.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
+        w = transformer._embedding_matrix(params, cfg)
+        return (hn @ w.to(hn.dtype))[:, 0]
+
+    return prefill_step

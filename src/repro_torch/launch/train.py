@@ -1,13 +1,19 @@
 """Training launcher (counterpart of ``repro.launch.train``).
 
-``--arch dit-small`` (default) trains the DiT denoiser on the procedural
-shapes dataset with the rectified-flow loss, AdamW and a warmup-cosine
-schedule, then saves the parameters in the reference's checkpoint
-format.  Any DiT config of the registry trains the same way; LM
-training is not ported yet (``train_lm`` raises).
+Two modes:
+* ``--arch dit-small`` (default) trains the DiT denoiser on the
+  procedural shapes dataset with the rectified-flow loss, AdamW and a
+  warmup-cosine schedule (any DiT config of the registry trains the
+  same way);
+* ``--arch yi-9b`` or ``--arch mamba2-370m`` (``--reduced`` for the
+  CPU-sized variant) trains the LM on the synthetic Markov token stream
+  with the next-token loss (``train_lm``).
+Both save the parameters in the reference's checkpoint format.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dit-small \\
+      --reduced --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b \\
       --reduced --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch dit-small \\
       --steps 300 --ckpt results/dit_small    # on the card
@@ -23,10 +29,10 @@ import torch
 from repro_torch import configs as config_lib
 from repro_torch import device as device_lib
 from repro_torch.checkpointing import bridge, checkpoint
-from repro_torch.configs.base import DiTConfig
+from repro_torch.configs.base import DiTConfig, ModelConfig
 from repro_torch.data import synthetic
 from repro_torch.diffusion import training
-from repro_torch.models import dit
+from repro_torch.models import common, dit, transformer
 from repro_torch.optim import adamw
 
 
@@ -37,48 +43,31 @@ def _mark(events: list, on_card: bool) -> None:
         events[-1].record()
 
 
-def train_dit(cfg: DiTConfig, steps: int, batch: int, ckpt_dir: str,
-              seed: int = 0, log_every: int = 20, size: int = 32,
-              device=None, params=None,
-              on_step: Optional[Callable] = None):
-    """The reference's loop: AdamW(lr 2e-3, 50 warmup steps, cosine over
-    ``steps``, weight decay 1e-4); step i draws a shapes batch at
-    ``size`` and the loss's times and noise from one generator seeded
-    ``seed·7919 + i``; the velocity is ``dit_forward`` with no text (so
-    no double block and no ``text_proj`` runs, as in the reference).
-    Starts from ``params`` if given (trained in place), else from
-    ``dit.init_params(cfg, seed)``.  After step i, ``on_step(i, metrics,
-    grads)`` sees the step's metrics — ``loss``, ``grad_norm``, ``lr``
+def _train(params, draw, loss_of, opt_cfg: adamw.AdamWConfig, steps: int,
+           dev, on_step: Optional[Callable], log_every: int, log_line):
+    """The loop both trainers share: per step i, ``batch = draw(i)``,
+    ``loss_of(params, batch)`` (a 0-d loss tensor), its backward and one
+    AdamW update in place; the metrics ``loss``, ``grad_norm``, ``lr``
     and, on the card, ``forward_ms``, ``backward_ms``, ``adamw_ms`` (CUDA
-    events) and ``step_ms`` (host clock, data included) — and the
-    gradient tree (``None`` for an unused leaf).  Each step reads its
-    loss on the host, so each step ends in a synchronise.  Saves the
-    parameters to ``ckpt_dir`` (if set) as ``dit_{steps:08d}`` in the
-    reference's layout; returns them, no longer requiring grad."""
-    dev = device_lib.resolve(device)
-    if params is None:
-        params = dit.init_params(cfg, seed=seed, device=dev)
+    events) and ``step_ms`` (host clock, data included) go to
+    ``on_step(i, metrics, grads)`` with the gradient tree (``None`` for
+    an unused leaf), and every ``log_every`` steps ``log_line(i,
+    metrics, seconds so far)`` is printed.  Each step reads its loss on
+    the host, so each step ends in a synchronise.  Returns the
+    parameters, no longer requiring grad, and the per-step metrics."""
     flat = adamw.leaves(params)
     for p in flat:
         p.requires_grad_(True)
-    opt_cfg = adamw.AdamWConfig(lr=2e-3, warmup_steps=50, total_steps=steps,
-                                weight_decay=1e-4)
     opt_state = adamw.init(opt_cfg, params)
-
-    def apply_fn(p, x_t, t):
-        return dit.dit_forward(p, x_t, t, cfg).velocity
-
     on_card = dev.type == "cuda"
+    history = []
     t_start = time.time()
     for i in range(steps):
         t0 = time.perf_counter()
-        gen = torch.Generator(device=dev).manual_seed(seed * 7919 + i)
-        latents = synthetic.shapes_batch(gen, batch, size=size,
-                                         channels=cfg.in_channels, device=dev)
+        batch = draw(i)
         events = []
         _mark(events, on_card)
-        loss, _ = training.rf_loss(apply_fn, params, {"latents": latents},
-                                   gen)
+        loss = loss_of(params, batch)
         _mark(events, on_card)
         loss.backward()
         _mark(events, on_card)
@@ -94,18 +83,56 @@ def train_dit(cfg: DiTConfig, steps: int, batch: int, ckpt_dir: str,
                                       "adamw_ms")):
                 metrics[name] = events[j].elapsed_time(events[j + 1])
             metrics["step_ms"] = (time.perf_counter() - t0) * 1e3
+        history.append(metrics)
         if on_step is not None:
             on_step(i, metrics, grads)
-        del grads
+        del grads, loss
         for p in flat:
             p.grad = None
         if i % log_every == 0 or i == steps - 1:
-            print(f"step {i:5d} loss {metrics['loss']:.4f} "
-                  f"grad_norm {metrics['grad_norm']:.3e} "
-                  f"lr {metrics['lr']:.2e} ({time.time() - t_start:.1f}s)",
-                  flush=True)
+            print(log_line(i, metrics, time.time() - t_start), flush=True)
     for p in flat:
         p.requires_grad_(False)
+    return params, history
+
+
+def train_dit(cfg: DiTConfig, steps: int, batch: int, ckpt_dir: str,
+              seed: int = 0, log_every: int = 20, size: int = 32,
+              device=None, params=None,
+              on_step: Optional[Callable] = None):
+    """The reference's loop: AdamW(lr 2e-3, 50 warmup steps, cosine over
+    ``steps``, weight decay 1e-4); step i draws a shapes batch at
+    ``size`` and the loss's times and noise from one generator seeded
+    ``seed·7919 + i``; the velocity is ``dit_forward`` with no text (so
+    no double block and no ``text_proj`` runs, as in the reference).
+    Starts from ``params`` if given (trained in place), else from
+    ``dit.init_params(cfg, seed)``.  ``on_step`` and the metrics as
+    ``_train`` gives them.  Saves the parameters to ``ckpt_dir`` (if set)
+    as ``dit_{steps:08d}`` in the reference's layout; returns them, no
+    longer requiring grad."""
+    dev = device_lib.resolve(device)
+    if params is None:
+        params = dit.init_params(cfg, seed=seed, device=dev)
+    opt_cfg = adamw.AdamWConfig(lr=2e-3, warmup_steps=50, total_steps=steps,
+                                weight_decay=1e-4)
+
+    def draw(i):
+        gen = torch.Generator(device=dev).manual_seed(seed * 7919 + i)
+        return gen, synthetic.shapes_batch(gen, batch, size=size,
+                                           channels=cfg.in_channels,
+                                           device=dev)
+
+    def loss_of(p, drawn):
+        gen, latents = drawn
+        return training.rf_loss(
+            lambda q, x_t, t: dit.dit_forward(q, x_t, t, cfg).velocity, p,
+            {"latents": latents}, gen)[0]
+
+    params, _ = _train(
+        params, draw, loss_of, opt_cfg, steps, dev, on_step, log_every,
+        lambda i, m, sec: f"step {i:5d} loss {m['loss']:.4f} grad_norm "
+                          f"{m['grad_norm']:.3e} lr {m['lr']:.2e} "
+                          f"({sec:.1f}s)")
     if ckpt_dir:
         checkpoint.save(ckpt_dir, steps, bridge.params_to_jax_numpy(params,
                                                                     cfg),
@@ -114,14 +141,42 @@ def train_dit(cfg: DiTConfig, steps: int, batch: int, ckpt_dir: str,
     return params
 
 
-def train_lm(cfg, steps: int, batch: int, seq: int, ckpt_dir: str,
-             seed: int = 0, log_every: int = 5):
-    """Not ported yet: the LM-training slice (``ROADMAP.md`` §1) brings
-    ``transformer.loss_fn``, ``chunked_cross_entropy`` and this loop,
-    with a backward for the SSD scan."""
-    raise NotImplementedError(
-        f"train_lm ({cfg.arch_id}): LM training is not ported yet; it is "
-        "the LM-training slice queued in ROADMAP.md §1")
+def train_lm(cfg: ModelConfig, steps: int, batch: int, seq: int,
+             ckpt_dir: str, seed: int = 0, log_every: int = 5, device=None,
+             params=None, on_step: Optional[Callable] = None):
+    """The reference's loop: AdamW(lr 1e-3, 10 warmup steps, cosine over
+    ``steps``) on ``transformer.loss_fn`` (the stack rematerialised where
+    ``cfg.remat``); step i draws ``lm_batch(batch, seq)`` from a
+    generator seeded ``seed·104729 + i``.  Starts from ``params`` if
+    given (trained in place), else from the config's specs drawn with
+    ``seed``.  ``on_step`` and the metrics as ``_train`` gives them.
+    Saves the parameters to ``ckpt_dir`` (if set) as
+    ``{cfg.arch_id}_{steps:08d}`` in the reference's layout; returns
+    ``(params, losses)``, the parameters no longer requiring grad.
+    Enc-dec, modality-prefix and MoE configs raise
+    ``NotImplementedError`` (``ROADMAP.md`` §1 item 5)."""
+    transformer.check_ported(cfg, "train_lm")
+    dev = device_lib.resolve(device)
+    if params is None:
+        params = common.init_params(transformer.lm_specs(cfg), seed=seed,
+                                    device=dev,
+                                    dtype=getattr(torch, cfg.dtype))
+    opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps)
+
+    def draw(i):
+        gen = torch.Generator(device=dev).manual_seed(seed * 104729 + i)
+        return synthetic.lm_batch(gen, batch, seq, cfg.vocab_size, device=dev)
+
+    params, history = _train(
+        params, draw, lambda p, b: transformer.loss_fn(p, b, cfg)[0],
+        opt_cfg, steps, dev, on_step, log_every,
+        lambda i, m, sec: f"step {i:4d} loss {m['loss']:.4f}")
+    if ckpt_dir:
+        checkpoint.save(ckpt_dir, steps,
+                        bridge.lm_params_to_jax_numpy(params, cfg),
+                        name=cfg.arch_id)
+        print("saved", ckpt_dir, flush=True)
+    return params, [m["loss"] for m in history]
 
 
 def main(argv=None):
@@ -141,7 +196,8 @@ def main(argv=None):
     if isinstance(cfg, DiTConfig):
         train_dit(cfg, args.steps, args.batch, args.ckpt, device=args.device)
     else:
-        train_lm(cfg, args.steps, args.batch, args.seq, args.ckpt)
+        train_lm(cfg, args.steps, args.batch, args.seq, args.ckpt,
+                 device=args.device)
 
 
 if __name__ == "__main__":

@@ -4,15 +4,17 @@
 A block = pre-norm mixer (attention or Mamba2 SSD) + pre-norm dense
 SwiGLU FFN.  The reference scans one stacked group of layers; the port
 keeps ``params["stack"]`` as a list of ``n_groups`` groups, each a dict
-``{"l{i}": block}`` over the group's positions, and loops over it.  A
+``{"l{i}": block}`` over the group's positions, and loops over it, each
+group rematerialised in the backward where the config asks for it.  A
 config with experts raises ``NotImplementedError`` (MoE waits), as do
 caches and decode.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention, common, mlp, ssm
@@ -104,18 +106,39 @@ def stack_specs(cfg: ModelConfig):
              for i, (kind, is_moe) in enumerate(plan)} for _ in range(ng)]
 
 
+def _group_full(group, h, cfg: ModelConfig, plan, window: int,
+                causal: bool):
+    """One group of blocks: ``(hidden, the group's summed aux)``."""
+    aux = BlockAux.zero(h.device)
+    for i, (kind, is_moe) in enumerate(plan):
+        h, a = block_full(group[f"l{i}"], h, cfg, kind, is_moe,
+                          window=window, causal=causal)
+        aux = aux + a
+    return h, aux
+
+
 def stack_full(params, x, cfg: ModelConfig, window: int = 0,
-               causal: bool = True):
+               causal: bool = True, remat: Optional[bool] = None):
     """Run the layer stack over a sequence.  Returns ``(hidden, aux)``;
     ``hidden`` is the Cumulative Residual Feature (CRF): the input plus
     every residual update.  ``aux`` is the mean over layers, as the
-    reference's."""
+    reference's.  ``remat`` (default ``cfg.remat``, the reference's
+    rule) recomputes each group in the backward instead of keeping its
+    activations: under grad each group runs in
+    ``torch.utils.checkpoint.checkpoint`` (non-reentrant), the
+    counterpart of the reference's ``jax.checkpoint`` of the scan body.
+    With grad off it changes nothing; the values are the same either
+    way."""
     _, ng, plan = _layer_plan(cfg)
+    use_remat = (cfg.remat if remat is None else remat) \
+        and torch.is_grad_enabled()
     h = x
     aux = BlockAux.zero(x.device)
     for group in params:
-        for i, (kind, is_moe) in enumerate(plan):
-            h, a = block_full(group[f"l{i}"], h, cfg, kind, is_moe,
-                              window=window, causal=causal)
-            aux = aux + a
+        if use_remat:
+            h, a = checkpoint(_group_full, group, h, cfg, plan, window,
+                              causal, use_reentrant=False)
+        else:
+            h, a = _group_full(group, h, cfg, plan, window, causal)
+        aux = aux + a
     return h, BlockAux(*(a / (ng * len(plan)) for a in aux))

@@ -5,9 +5,11 @@ The in-projection yields the gate ``z``, the conv input ``xbc`` and
 ``dt``; a depthwise causal conv, then the SSD scan over ``x``, ``B``
 and ``C`` (column slices of the conv output), the D-skip, a gated
 RMSNorm and the out-projection.  ``ssm_block`` runs the scan through
-the op layer: the chunk-scan kernel on a CUDA tensor, its plain version
-``ref.ssd_chunk_scan_ref`` on the CPU (which also stands for the
-reference's ``ssd_chunked``: asked, it returns the final state).  The
+the op layer: the chunk-scan kernel on a CUDA tensor, under autograd
+with the SSD-scan backward kernel (``ops.SSDChunkScanFn``), so the
+block trains on the card; its plain version ``ref.ssd_chunk_scan_ref``
+on the CPU (which also stands for the reference's ``ssd_chunked``:
+asked, it returns the final state), differentiated by autograd.  The
 recurrent step and decode wait for the decode slice.
 """
 from __future__ import annotations

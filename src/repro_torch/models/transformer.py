@@ -4,14 +4,18 @@
 ``forward`` returns the Cumulative Residual Feature (CRF) next to the
 logits: the final pre-norm hidden state.  On a CUDA tensor every
 attention layer at 2048 tokens or more runs the causal GQA flash kernel
-and every mamba2 layer the SSD chunk-scan kernel.  The loss and decode
-wait for later slices.
+and every mamba2 layer the SSD chunk-scan kernel, each with its
+backward kernel under autograd.  ``loss_fn`` is the next-token
+cross-entropy of training, through ``chunked_cross_entropy`` so that
+the ``[B, S, vocab]`` logits never exist at once.  Decode waits for the
+decode slice; the modality prefix and MoE raise.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import blocks, common
@@ -59,3 +63,69 @@ def _embedding_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
         return params["embed"]["embedding"].T
     return params["head"]["kernel"]
+
+
+def _ce_chunk(hc: torch.Tensor, lc: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """Σ of the masked next-token NLL over one chunk ``hc [B, c, d]``,
+    ``lc [B, c]`` (−1 masked), in float32."""
+    logits = (hc @ w.to(hc.dtype)).to(torch.float32)
+    valid = lc >= 0
+    gold_ids = torch.clamp(lc, min=0).to(torch.int64)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, gold_ids[..., None])[..., 0]
+    return torch.sum((logz - gold) * valid)
+
+
+def chunked_cross_entropy(params, h: torch.Tensor, labels: torch.Tensor,
+                          cfg: ModelConfig, chunk: int = 512) -> torch.Tensor:
+    """Sequence-chunked mean cross-entropy so the ``[B, S, vocab]``
+    logits never exist at once: h is the final-normed hidden ``[B, S,
+    d]``, labels ``[B, S]`` with −1 masked.  The chunk is the largest
+    divisor of S at most ``chunk``; the NLL is summed in float32 over the
+    valid positions and divided by their count (at least 1).  Under grad
+    each chunk's body runs in ``torch.utils.checkpoint`` (non-reentrant),
+    so its logits are recomputed in the backward, as the reference's
+    ``jax.checkpoint`` of the scan body recomputes them."""
+    b, s, _ = h.shape
+    c = min(chunk, s)
+    while s % c:          # largest divisor of s at most `chunk`
+        c -= 1
+    w = _embedding_matrix(params, cfg)
+    remat = torch.is_grad_enabled()
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, s, c):
+        hc, lc = h[:, c0:c0 + c], labels[:, c0:c0 + c]
+        tot = tot + (checkpoint(_ce_chunk, hc, lc, w, use_reentrant=False)
+                     if remat else _ce_chunk(hc, lc, w))
+    cnt = torch.sum(labels >= 0)
+    return tot / torch.clamp(cnt, min=1)
+
+
+def check_ported(cfg: ModelConfig, what: str) -> None:
+    """Raise ``NotImplementedError`` for the LM configs the port does not
+    train or prefill yet: enc-dec, modality-prefix and MoE."""
+    if cfg.is_encdec or cfg.n_prefix_tokens > 0 or cfg.moe is not None:
+        raise NotImplementedError(
+            f"{what} ({cfg.arch_id}): enc-dec, modality-prefix and MoE "
+            "configs are not ported yet (ROADMAP.md §1 item 5)")
+
+
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """Next-token cross-entropy of ``batch["tokens"] [B, S]`` against
+    ``batch["labels"]`` (−1 masked), the reference's ``loss_fn``: the
+    stack (rematerialised under grad where ``cfg.remat``), the final
+    norm, then ``chunked_cross_entropy``.  Returns ``(loss, metrics)``
+    with metrics ``loss``, ``lb_loss`` and ``drop_fraction`` (the last
+    two the stack's aux, zero without experts).  Configs with a
+    modality prefix, experts or an encoder raise ``NotImplementedError``
+    (``ROADMAP.md`` §1 item 5)."""
+    check_ported(cfg, "loss_fn")
+    x = common.embed(params["embed"], batch["tokens"]).to(
+        getattr(torch, cfg.dtype))
+    h, aux = blocks.stack_full(params["stack"], x, cfg)
+    hn = common.rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    loss = chunked_cross_entropy(params, hn, batch["labels"], cfg)
+    metrics = {"loss": loss, "lb_loss": aux.load_balance_loss,
+               "drop_fraction": aux.drop_fraction}
+    return loss, metrics

@@ -424,7 +424,8 @@ def test_cpu_dispatch_leaves_launch_counts_untouched():
                                    "flash_attention_bwd": 0,
                                    "token_basis_matmul": 0,
                                    "freqca_predict_fused": 0,
-                                   "ssd_chunk_scan": 0}
+                                   "ssd_chunk_scan": 0,
+                                   "ssd_chunk_scan_bwd": 0}
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "state", "chunk", "types"])

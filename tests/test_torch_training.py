@@ -385,8 +385,3 @@ def test_reference_checkpoint_loads_into_the_port(tmp_path):
     pt = bridge.params_from_checkpoint(str(tmp_path), 2, ct, device="cpu")
     got, want = _forward_pair(cj, ct, pj, pt, with_text=True)
     np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max())
-
-
-def test_train_lm_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="LM-training slice"):
-        ttrain.main(["--arch", "yi-9b", "--reduced", "--device", "cpu"])

@@ -11,11 +11,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                (UTMALDG), and ptxas must report no spills, no ignored
                setmaxnreg (C7508) and no serialised wgmma (C7512) for
                the forward's bf16 kernels and every backward kernel;
-               the SASS of token_basis_matmul, ssd_scan,
+               the SASS of token_basis_matmul, ssd_scan, ssd_scan_bwd,
                band_split_spectral and freqca_fused_spectral must hold
                mma.sync (HMMA), with no spills in any of their kernels;
-               the SSD-scan backward (float32 FMA tiles) must report no
-               spills in any kernel;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer; the FreqCa cache
@@ -29,7 +27,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                launches timed apart, and the forward that writes the
                log-sum-exp; the SSD-scan backward at one mamba2-370m
                layer in bf16 and float32, each output to its stated
-               tolerance, two launches bitwise equal;
+               tolerance, two launches bitwise equal, each launch timed
+               apart;
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
                versions), and so does a mixed batch of a FreqCa and a
@@ -267,12 +266,12 @@ def flash_build_checks() -> None:
 
 
 def mma_build_checks() -> None:
-    """token_basis_matmul, the SSD scan and the two FreqCa cache kernels
-    run their products on the tensor cores: each library's SASS holds
-    mma.sync (HMMA), and ptxas reports no spills for any of its
-    kernels."""
-    for name in ("token_basis_matmul", "ssd_scan", "band_split_spectral",
-                 "freqca_fused_spectral"):
+    """token_basis_matmul, the SSD scan and its backward and the two
+    FreqCa cache kernels run their products on the tensor cores: each
+    library's SASS holds mma.sync (HMMA), and ptxas reports no spills for
+    any of its kernels."""
+    for name in ("token_basis_matmul", "ssd_scan", "ssd_scan_bwd",
+                 "band_split_spectral", "freqca_fused_spectral"):
         hmma = sass(name).count("HMMA")
         spills = ptxas_spills(name)
         log(f"{name} SASS: HMMA {hmma}; kernels {len(spills)}, spill bytes "
@@ -280,19 +279,6 @@ def mma_build_checks() -> None:
         if hmma == 0 or not spills or any(spills.values()):
             raise AssertionError(f"{name} build: HMMA {hmma}, spills "
                                  f"{spills}")
-
-
-def fma_build_checks() -> None:
-    """The SSD-scan backward runs its products as float32 FMA tiles (no
-    tensor cores yet): ptxas must report no spills for any of its
-    kernels; the HMMA count of its SASS is logged (0 for this design)."""
-    name = "ssd_scan_bwd"
-    hmma = sass(name).count("HMMA")
-    spills = ptxas_spills(name)
-    log(f"{name} SASS: HMMA {hmma}; kernels {len(spills)}, spill bytes "
-        f"{sorted(set(spills.values()))}")
-    if not spills or any(spills.values()):
-        raise AssertionError(f"{name} build: spills {spills}")
 
 
 def kernel_phase(main_dtype: dict) -> dict:
@@ -605,8 +591,12 @@ def bwd_design_flops(b: int, s: int, t: int, hq: int, hkv: int, hd: int,
 
 
 def device_ms(fn, reps: int) -> dict:
-    """{kernel: ms per call of ``fn``} from ``torch.profiler``'s device
-    times over ``reps`` calls after one warm-up call."""
+    """{kernel: (ms per call of ``fn``, launches recorded)} from
+    ``torch.profiler``'s device times over ``reps`` calls after one
+    warm-up call; each launch of the flash backward and of the SSD scan's
+    forward and backward libraries keyed by its kernel's name.  The
+    profiler can drop launches in a process that has run long (the
+    lm_train phase), so the counts are returned beside the times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -621,9 +611,10 @@ def device_ms(fn, reps: int) -> dict:
         if us is None:
             us = e.cuda_time_total
         if us > 0:
-            m = re.search(r"(flash_bwd_\w+?)_kernel", e.key)
+            m = re.search(r"((?:flash_bwd|ssd)_\w+?)_kernel", e.key)
             name = m.group(1) if m else e.key[:60]
-            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+            ms, n = out.get(name, (0.0, 0))
+            out[name] = (ms + us / 1e3 / reps, n + e.count)
     return out
 
 
@@ -701,7 +692,7 @@ def flash_bwd_row(row, gen, label: str, shape, causal: bool) -> None:
     # each launch's device time; the two product passes beside the
     # operations their tiles run
     parts = []
-    for n, ms in sorted(device_ms(kern, 5).items()):
+    for n, (ms, _) in sorted(device_ms(kern, 5).items()):
         ops_n = design.get(n.removeprefix("flash_bwd_"))
         parts.append(f"{n} {ms:.4f} ms" + ("" if ops_n is None else (
             f" ({rate(ops_n, ms, bound_ms(0, ops_n, 'bfloat16')[0])}, "
@@ -772,14 +763,33 @@ def ssd_rows(row, dt, dtype_name: str, gen) -> None:
 
 def ssd_bwd_flops(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
     """The operations the scan's gradients need, counted on the kept
-    triangles (T = Q(Q+1)/2 pairs a chunk): C Bᵀ again, 2·T·N once per
-    (batch, chunk); per (batch, chunk, head) dy·xᵀ and Mᵀ·dy, 2·T·P
-    each, Z·B and Zᵀ·C, 2·T·N each, and five [Q, N, P] products of
-    2·Q·N·P (the forward's state again, its gradient's own share, B·D,
-    S·dy and D·x)."""
+    triangles (T = Q(Q+1)/2 pairs a chunk): per (batch, chunk) C Bᵀ
+    again, 2·T·N, and Z·B and Zᵀ·C, 2·T·N each, on Z summed over the
+    heads (dB and dC sum over heads, and Σ_h (Z^h B) = (Σ_h Z^h) B; the
+    sum's T·H additions are not counted); per (batch, chunk, head) dy·xᵀ
+    and Mᵀ·dy, 2·T·P each, and five [Q, N, P] products of 2·Q·N·P (the
+    forward's state again, its gradient's own share, B·D, S·dy and
+    D·x)."""
     tri, chunks = q * (q + 1) // 2, b * (s // q)
-    return chunks * 2 * tri * n + chunks * h * (
-        4 * tri * p + 4 * tri * n + 10 * q * n * p)
+    return chunks * 6 * tri * n + chunks * h * (4 * tri * p + 10 * q * n * p)
+
+
+def ssd_bwd_design_flops(b: int, s: int, h: int, p: int, n: int, q: int,
+                         dtype_name: str) -> int:
+    """The operations kernel 8's design runs on the tensor cores, on
+    whole 64 x 64 tiles (the chunk's Q/64 (Q/64 + 1)/2 tile pairs; N
+    padded to 16), each product counted as many times as the design
+    repeats it: dy·xᵀ once at bf16, the others twice (one split
+    operand); all three times at float32.  The forward's rerun passes 1-3
+    included (C Bᵀ and the chunk states)."""
+    tq, chunks, np_ = q // 64, b * (s // q), -(-n // 16) * 16
+    pairs = tq * (tq + 1) // 2
+    one, two = (1, 2) if dtype_name == "bfloat16" else (3, 3)
+    tile = 2 * 64 * 64
+    per_chunk = pairs * tile * np_ * one + 2 * pairs * tile * np_ * two
+    per_head = (pairs * tile * p * (one + two)      # dy·xᵀ, (dt ∘ M)ᵀ dy
+                + 5 * 2 * q * np_ * p * two)        # the five state products
+    return chunks * (per_chunk + h * per_head)
 
 
 # the SSD-scan backward's tolerances per output, as max |kernel − plain|
@@ -821,25 +831,36 @@ def ssd_bwd_check(name: str, dtype_name: str, got, again, want):
     return err, worst
 
 
-def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
-    """Kernel 8, the SSD-scan backward, at one mamba2-370m layer's shape
-    (as ``ssd_rows``: x [2, 4096, 32, 64] and B, C [2, 4096, 128] as
-    column slices of one conv output, dt float32, chunk 256) with a
-    random output gradient, from its own generator: each output against
-    the plain version (``SSD_BWD_TOL``), two launches bitwise equal.
-    The bound counts ``ssd_bwd_flops`` at the bf16 tensor-core peak (the
-    least the card could take); the same operations at the float32 FMA
-    peak, where this design runs them, are logged beside it.  No single
-    PyTorch call computes the gradients (library null); as a yardstick
-    only, autograd of the plain forward is timed and logged.  Then
-    ``ops.ssd`` under autograd: one forward and one backward launch."""
-    import torch
+def ssd_bwd_split(label: str, fn, reps: int) -> None:
+    """Log each launch of one kernel-8 call ``fn`` apart: the forward's
+    passes 1-3 that the wrapper reruns (``ssd_gram``, ``ssd_chunk_state``,
+    ``ssd_state_pass``) and the backward's own launches (``ssd_bwd_*``),
+    device times from ``torch.profiler``.  Each of them launches once a
+    call, so a launch's time is its mean over the launches the profiler
+    recorded; where it recorded fewer than ``reps``, the log says so."""
+    rec = device_ms(fn, reps)
+    parts = {n: ms * reps / k for n, (ms, k) in rec.items()}
+    short = {n: k for n, (_, k) in rec.items() if k != reps}
+    total = sum(parts.values())
+    log(f"{label} per launch (torch.profiler, {reps} calls, sum "
+        f"{total:.4f} ms): " + "; ".join(
+            f"{n} {ms:.4f} ms ({ms / total:.1%})"
+            for n, ms in sorted(parts.items(), key=lambda kv: -kv[1]))
+        + (f"; launches recorded other than {reps}: {short}" if short
+           else ""))
 
-    from repro_torch.kernels import ops, ref, ssd_scan
+
+def ssd_bwd_inputs(b: int, dt, s: int = 4096, h: int = 32, n: int = 128):
+    """Kernel 8's inputs on ``b`` lanes of ``s`` tokens, ``h`` heads of 64
+    and state ``n`` (by default one mamba2-370m layer's widths): x, B and
+    C as column slices of one conv output at 0.5, dt = softplus(N(0, 1) −
+    2) float32, A = −exp(N(0, 0.3)), and a random output gradient dy, on
+    the card from a generator of its own (seed 3); returns (x, dt, A, B,
+    C, dy)."""
+    import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    es = torch.finfo(dt).bits // 8
-    b, s, h, p, n, q = 2, 4096, 32, 64, 128, 256
+    p = 64
     xbc = (torch.randn((b, s, h * p + 2 * n), generator=gen, device=dev)
            * 0.5).to(dt)
     x = xbc[..., :h * p].reshape(b, s, h, p)
@@ -848,6 +869,80 @@ def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
         torch.randn((b, s, h), generator=gen, device=dev) - 2.0)
     a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.3)
     dy = torch.randn((b, s, h, p), generator=gen, device=dev).to(dt)
+    return x, dts, a, bm, cm, dy
+
+
+def ab_trace() -> None:
+    """The pieces this tree's SSD work touches, for an A/B of two trees
+    in one call; it checks nothing.  Kernel 6's time and kernel 8's
+    per-launch split at the kernel phase's shape (bf16; kernel 8 also
+    float32) and kernel 8's at the lm_train phase's batch of 8 (bf16),
+    inputs from ``ssd_bwd_inputs``, call times from CUDA events; then the
+    backbone phase (its batch walls; kernel 6 in every full forward) and
+    yi-9b's lm_train run (16 layers, batch 2, no checkpoint: its step
+    walls; no SSD kernel), each in this fresh process.  It runs the
+    kernel sources and the package of the tree it is imported from, so
+    from the root of an earlier checkout it measures that tree:
+    ``python3 -c 'import chip_smoke; chip_smoke.ab_trace()'``."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import build, ssd_scan
+    log(f"ab_trace: {nvidia_smi()}; build {build.build()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    q = 256
+    for b, dt in ((2, torch.bfloat16), (2, torch.float32),
+                  (LM_TRAIN_MAMBA_BATCH, torch.bfloat16)):
+        x, dts, a, bm, cm, dy = ssd_bwd_inputs(b, dt)
+        label = f"ab_trace {list(x.shape)} {dt}"
+        if b == 2 and dt == torch.bfloat16:
+            fwd = time_ms(lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm,
+                                                          q), 10)
+            log(f"{label}: kernel 6 {fwd:.4f} ms a call (CUDA events)")
+
+        def kern():
+            return ssd_scan.ssd_chunk_scan_bwd(x, dts, a, bm, cm, dy, q)
+        log(f"{label}: kernel 8 {time_ms(kern, 5):.4f} ms a call (CUDA "
+            "events)")
+        ssd_bwd_split(f"{label}: kernel 8", kern, 5)
+        del x, dts, a, bm, cm, dy
+        torch.cuda.empty_cache()
+    backbone_phase(N_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = configs.get_config("yi-9b")
+    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_YI_LAYERS)
+    lm_train_run("ab_trace lm_train_yi", cfg,
+                 lm_params(full, cfg.n_layers, seed=71,
+                           device=torch.device("cuda")),
+                 LM_TRAIN_YI_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS,
+                 ("flash_attention", "flash_attention_bwd"),
+                 torch.device("cuda"))
+
+
+def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
+    """Kernel 8, the SSD-scan backward, at one mamba2-370m layer's shape
+    (as ``ssd_rows``: x [2, 4096, 32, 64] and B, C [2, 4096, 128] as
+    column slices of one conv output, dt float32, chunk 256) with a
+    random output gradient, from its own generator: each output against
+    the plain version (``SSD_BWD_TOL``), two launches bitwise equal.
+    The bound counts ``ssd_bwd_flops`` at the bf16 tensor-core peak (the
+    least the card could take, where this design runs every product);
+    the design's own count (``ssd_bwd_design_flops``: split products
+    repeated, whole tiles) is logged beside it, and each launch's device
+    time (``ssd_bwd_split``).  No single PyTorch call computes the
+    gradients (library null); as a yardstick only, autograd of the plain
+    forward is timed and logged.  Then ``ops.ssd`` under autograd: one
+    forward and one backward launch."""
+    import torch
+
+    from repro_torch.kernels import ops, ref, ssd_scan
+    es = torch.finfo(dt).bits // 8
+    b, s, h, p, n, q = 2, 4096, 32, 64, 128, 256
+    x, dts, a, bm, cm, dy = ssd_bwd_inputs(b, dt)
     name = "ssd_chunk_scan_bwd"
 
     def kern():
@@ -863,8 +958,12 @@ def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
     need = ssd_bwd_flops(b, s, h, p, n, q)
     row(name, dtype_name, kern, plain, nbytes, {"bfloat16": need}, reps=5,
         checked=checked)
-    log_bound(f"{name} [{dtype_name}] at the float32 FMA peak (this "
-              "design's products)", nbytes, need, "float32")
+    ssd_bwd_split(f"kernel {name} [{dtype_name}]", kern, 5)
+    log_bound(f"{name} [{dtype_name}] the design's (bf16 products: dy·xᵀ "
+              f"x{1 if dtype_name == 'bfloat16' else 3}, the others "
+              f"x{2 if dtype_name == 'bfloat16' else 3}, on whole tiles)",
+              nbytes, ssd_bwd_design_flops(b, s, h, p, n, q, dtype_name),
+              "bfloat16")
     leaves = [t.detach().clone().requires_grad_() for t in (x, dts, a, bm, cm)]
 
     def autograd_plain():
@@ -882,7 +981,7 @@ def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
     if counts["ssd_chunk_scan"] != 1 or counts["ssd_chunk_scan_bwd"] != 1:
         raise AssertionError(f"{name}: ops.ssd under autograd launched "
                              f"{counts}")
-    del xbc, x, bm, cm, dy, leaves, y
+    del x, bm, cm, dy, leaves, y
     torch.cuda.empty_cache()
 
 
@@ -2456,7 +2555,7 @@ def lm_train_phase(mamba_cfg=None, yi_cfg=None, yi_draw=None,
     from repro_torch.checkpointing import bridge, checkpoint
     from repro_torch.data import synthetic
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ops, ssd_scan
+    from repro_torch.kernels import ops, ref, ssd_scan
     from repro_torch.launch import steps as step_lib
     dev = torch.device(device)
     on_card = dev.type == "cuda"
@@ -2474,22 +2573,25 @@ def lm_train_phase(mamba_cfg=None, yi_cfg=None, yi_draw=None,
     if on_card:
         torch.cuda.empty_cache()
         # the two SSD kernels alone at the step's shape (bf16 x [8, 4096,
-        # 32, 64] and B, C as column slices), times the launches a step
+        # 32, 64] and B, C as column slices), times the launches a step;
+        # kernel 8 held against its plain version at this shape first
         ssm = cfg.ssm
-        h, n = cfg.d_model * ssm.expand // ssm.head_dim, ssm.d_state
-        b = LM_TRAIN_MAMBA_BATCH
-        xbc = torch.randn((b, seq, h * 64 + 2 * n), device=dev).to(
-            torch.bfloat16)
-        x = xbc[..., :h * 64].reshape(b, seq, h, 64)
-        bm, cm = xbc[..., h * 64:h * 64 + n], xbc[..., h * 64 + n:]
-        dts = torch.nn.functional.softplus(torch.randn((b, seq, h),
-                                                       device=dev))
-        a = -torch.ones((h,), device=dev)
-        dy = torch.randn((b, seq, h, 64), device=dev).to(torch.bfloat16)
+        x, dts, a, bm, cm, dy = ssd_bwd_inputs(
+            LM_TRAIN_MAMBA_BATCH, torch.bfloat16, seq,
+            cfg.d_model * ssm.expand // ssm.head_dim, ssm.d_state)
+
+        def kern():
+            return ssd_scan.ssd_chunk_scan_bwd(x, dts, a, bm, cm, dy,
+                                               ssm.chunk)
+        ssd_bwd_check(f"ssd_chunk_scan_bwd {list(x.shape)}", "bfloat16",
+                      kern(), kern(), ref.ssd_chunk_scan_bwd_ref(
+                          x, dts, a, bm, cm, dy, ssm.chunk))
+        torch.cuda.empty_cache()
         f_ms = time_ms(lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm,
                                                        ssm.chunk), 3)
-        b_ms = time_ms(lambda: ssd_scan.ssd_chunk_scan_bwd(
-            x, dts, a, bm, cm, dy, ssm.chunk), 3)
+        b_ms = time_ms(kern, 3)
+        ssd_bwd_split(f"lm_train_mamba2: the SSD backward {list(x.shape)} "
+                      "bf16", kern, 3)
         log(f"lm_train_mamba2: breakdown of the last step "
             f"({last['step_ms']:.1f} ms): forward {last['forward_ms']:.1f} "
             f"ms; backward {last['backward_ms']:.1f} ms, of it the SSD "
@@ -2499,7 +2601,7 @@ def lm_train_phase(mamba_cfg=None, yi_cfg=None, yi_draw=None,
             f"remat's SSD forward {cfg.n_layers} x {f_ms:.3f} = "
             f"{cfg.n_layers * f_ms:.1f} ms; the forward's SSD "
             f"{cfg.n_layers * f_ms:.1f} ms; AdamW {last['adamw_ms']:.1f} ms")
-        del xbc, x, bm, cm, dts, dy
+        del x, bm, cm, dts, dy
         torch.cuda.empty_cache()
 
     # yi-9b, 16 of 48 layers
@@ -3080,7 +3182,6 @@ def main(argv=None) -> int:
                 log(f"ptxas {name}: {line.strip()}")
     flash_build_checks()
     mma_build_checks()
-    fma_build_checks()
 
     # each kernel's row is the type its path runs it in: the served CRF
     # is bf16 with float32 rings, and the legacy cache state float32

@@ -23,54 +23,91 @@
 //   dx [b, s, h, 64], dB, dC [b, s, N] in x's type; ddt [b, s, h] and
 //   dA [h] float32; all contiguous.
 //
-// What bounds it on an H100: operations.  At mamba2-370m's layer, two
-// lanes of 4096 tokens (Q 256, N 128, P 64, 32 heads), the gradients
-// need 47 GFLOP of products on the kept triangles (dy·xᵀ, Mᵀ dy, Z B,
-// Zᵀ C per head, C Bᵀ again and five [Q, N, P] state products;
-// chip_smoke.ssd_bwd_flops), 0.048 ms at the bf16 tensor-core peak or
-// 0.71 ms at the float32 FMA peak where this design runs them, against
-// ~111 MB of inputs and outputs in bf16 (0.033 ms).  What the design
-// does about it: every product is a register-blocked FMA tile fed from
-// shared memory (the simple route; tensor cores are the follow-up), and
-// no [Q, Q] matrix per head goes through device memory.
+// What bounds it on an H100: bytes and operations almost alike.  At
+// mamba2-370m's layer, two lanes of 4096 tokens (Q 256, N 128, P 64, 32
+// heads), the gradients need 30.9 GFLOP of products on the kept
+// triangles (dy·xᵀ and Mᵀ dy per head; C Bᵀ, and Z B and Zᵀ C once per
+// chunk on Z summed over the heads; five [Q, N, P] state products per
+// head; chip_smoke.ssd_bwd_flops), 0.031 ms at the bf16 tensor-core
+// peak, against ~111 MB of inputs and outputs in bf16 (0.033 ms).
 //
-// Design, the simple one: the forward's decomposition run backwards,
-// every product a float32 FMA tile (64 x 64 or 64 x 128 per block of
-// 256 threads, 4 x 4 or 4 x 8 outputs a thread, both operands k-major
-// in shared memory); no tensor cores yet.  The wrapper first reruns the
-// forward's passes 1-3 (ssd_scan.cu: C Bᵀ and the state entering each
-// chunk), then seven launches here:
+// Design: every product on the tensor cores as bf16 mma.sync m16n8k16
+// with float32 accumulation, from bf16 shared tiles whose rows are
+// padded by 16 bytes (ldmatrix, .trans where an operand is read
+// transposed: no transposed copy is staged).  A float32 operand (dt ∘
+// M, Σ_h Z, the states S and D, the E(cum)-weighted rows of C; x, dy, B
+// and C of a float32 call) is split into bf16 hi + lo once as its tile
+// is staged, by the forward's rule (ssd_common.cuh): hi·hi, plus hi·lo
+// where the right operand is split, plus lo·hi where the left one is.
+// So at bf16 dy·xᵀ takes one product and every other product two; at
+// float32 all take three.  Tiles are staged with 16-byte loads, by
+// cp.async where they need no scaling or split (x, dy, B, C of a bf16
+// call).  Every pass runs 256-thread blocks in at most 93 KB of shared
+// memory (the float32 pair pass; 57 KB in bf16), at least two blocks an
+// SM.
+//
+// The wrapper first reruns the forward's passes 1-3 (ssd_scan.cu: C Bᵀ
+// and the state entering each chunk), then seven launches here:
 //  1. state grad: per (batch, chunk, head) the chunk's own share of the
-//     state's gradient, Σ_i E(cum_i) C_iᵀ dy_i [N, P];
+//     state's gradient, Σ_i E(cum_i) C_iᵀ dy_i [N, P]; it also writes
+//     cum and dt per (batch, chunk, head), which every later pass reads;
 //  2. state pass: per (batch, head) and element of [N, P], in reverse
-//     over the chunks, D_{c−1} = E(cum_Q,c)·D_c + own_c; the gradient of
-//     the state leaving each chunk overwrites its own share;
-//  3. rows: per (batch, chunk, head, 64-row tile): dC's partial (Z B and
-//     the state term) and the rows' share of the gradient of cum;
-//  4. cols: per (batch, chunk, head, 64-column tile): dx, dB's partial
-//     (Zᵀ C and the state term), ddt's direct part and the columns'
-//     share of the gradient of cum;
-//  5. finish: per (batch, chunk, head): the reverse cumsum, ddt, and
-//     the chunk's partial dA;
-//  6. reduce: dB and dC summed over heads in order;
+//     over the chunks, D_{c−1} = E(cum_Q,c)·D_c + own_c;
+//  3. pair: per (batch, chunk, 64x64 tile pair (I, J <= I)), every head
+//     in turn (tiles double-buffered): dy_I·x_Jᵀ formed once, from it Z
+//     (summed over the heads in registers, then written once: Σ_h Z),
+//     and the pair's shares of ddt's direct part Σ_i M_ij (dy_i·x_j)
+//     and of the gradient of cum;
+//  4. dx: per (batch, chunk, head, 64-column tile J): w_j (B_j D), then
+//     Σ_i (dt_j M_ij) dy_i over the row tiles, and x_j·(B_j D);
+//  5. dB / dC: per (batch, chunk, 64-token tile, which): Σ_h Z against
+//     B (dC) or C (dB), then head by head the state terms E(cum_i) dy_i
+//     Sᵀ (with E(cum_i) dy_i·(C_i S), the rows' state share of the
+//     gradient of cum) or w_j x_j Dᵀ, summed in head order;
+//  6. finish: per (batch, chunk, head): the partials of the gradient of
+//     cum summed in tile order, its reverse cumsum, ddt, the chunk's dA;
 //  7. dA summed over batch and chunks in order.
-// dB and dC sum over heads and dA over tokens: each partial goes to a
-// float32 workspace and a later launch adds them in a fixed order, so no
-// atomics and two calls are bitwise equal.  Passes 3 and 4 each form
-// dy·xᵀ of their tile pair (so it is computed twice) rather than write
-// it to device memory.
-#include "common.cuh"
+// No atomics: every sum over heads, tiles and chunks is taken in a fixed
+// order, so two calls are bitwise equal.
+//
+// dy·xᵀ is formed once per tile pair and head (pass 3), where the
+// earlier design formed it in both its rows and cols passes: the dx
+// pass needs only M, which C Bᵀ and cum give without dy·xᵀ.  dB and dC
+// sum over heads, and Σ_h (Z^h B) = (Σ_h Z^h) B: pass 3 sums Z over
+// every head of the chunk before writing it, so the [Q, N] products run
+// once per chunk rather than once per head, and the per-head float32
+// dB / dC workspaces ([b, s, h, N] each) are gone; what replaces them,
+// Σ_h Z, is [b, S/Q, Q, Q].  Device-memory traffic of the backward's
+// launches at the layer above in bf16, each launch's inputs read once
+// and outputs written once (the forward's passes 1-3, rerun by both
+// designs, left out): the earlier design 1.02 GB, of it 0.54 GB the
+// per-head dB / dC workspaces written and read again; this one 0.62 GB
+// (Σ_h Z, 8.4 MB, written once and read by the dB and the dC blocks;
+// the per-token partials 13.6 MB).
+#include "ssd_common.cuh"
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+using rt::lda_km;
+using rt::lda_mk;
+using rt::ldb_kn;
+using rt::ldb_nk;
+using ssd::aligned16;
+using ssd::allow_smem;
+using ssd::chunk_cumsum;
+using ssd::load8;
+using ssd::mma_split;
+using ssd::put8;
+
 constexpr int kP = 64;           // the head width instantiated (mamba2's)
-constexpr int kNP = 128;         // the state width, padded with zeros
+constexpr int kNP = 128;         // largest state width (rows past N zero)
 constexpr int kT = 64;           // tile of tokens
 constexpr int kQMax = 256;       // largest chunk (one token per thread)
-constexpr int kThreads = 256;
-constexpr int kL64 = kT + 4;     // padded row of a 64-wide float tile
-constexpr int kL128 = kNP + 4;   // padded row of a 128-wide float tile
-constexpr int kLG = kT + 1;      // padded row of the staged C Bᵀ tile
+constexpr int kThreads = 256;    // 8 warps
+constexpr int kLP = kP + 8;      // padded bf16 row of a 64-wide tile
+constexpr int kLN = kNP + 8;     // padded bf16 row of an N-wide tile
+constexpr int kLG = kT + 4;      // padded float row of a staged C Bᵀ tile
 constexpr float kClip = -60.f;   // exp underflow guard of the TPU kernel
 
 __device__ __forceinline__ float clip_exp(float u) {
@@ -88,24 +125,29 @@ struct Args {
   long b_sb, b_ss;
   const T* C;
   long c_sb, c_ss;
-  const T* dy;            // [Bn, S, H, P]
+  const T* dy;            // [Bn, S, H, P], 16-byte aligned
   const float* G;         // [Bn, nc, Q, Q]: C Bᵀ (lower tiles)
   const float* st;        // [Bn, nc, H, N, P]: the state entering a chunk
   const float* decay;     // [Bn, nc, H]: E(cum_Q)
   float* dst;             // [Bn, nc, H, N, P]: own share, then D
-  float* dbw;             // [Bn, S, H, N]: dB per head
-  float* dcw;             // [Bn, S, H, N]: dC per head
-  float* rows;            // [Bn, S, H]: the rows' share of d cum
-  float* cols;            // [Bn, S, H]: the columns' share of d cum
-  float* direct;          // [Bn, S, H]: ddt's direct part
-  float* tl;              // [Bn, S, H]: T_j, added back at cum_Q
+  float* zw;              // [Bn, nc, Q, Q]: Σ_h Z (lower tiles)
+  // per (batch, chunk, head) and token of the chunk, [Bn, nc, H, Q] each
+  float* cum;             // cum
+  float* dts;             // dt
+  float* rst;             // E(cum_i) dy_i·(C_i S): the rows' state share
+  float* zdir;            // E(cum_Q − cum_j) x_j·(B_j D)
+  float* tl;              // T_j, added back at cum_Q
+  float* dpart;           // [tq] the gradient of cum by the pair's other tile
+  float* kpart;           // [tq] Σ_i M_ij (dy_i·x_j) by the row tile
   float* daw;             // [Bn, nc, H]: dA per chunk
   T* dx;
   float* ddt;
   float* dA;
   T* dB;
   T* dC;
-  int Bn, S, H, N, Q;
+  long part;              // elements of one [Bn, nc, H, Q] array
+  int Bn, S, H, N, Q, nc, tq;
+  bool vec;               // x, B and C rows are 16-byte aligned
 
   __device__ const T* x_at(int b, int t, int h) const {
     return x + b * x_sb + static_cast<long>(t) * x_ss + h * kP;
@@ -122,35 +164,69 @@ struct Args {
   __device__ long tok(int b, int t, int h) const {   // [Bn, S, H] index
     return (static_cast<long>(b) * S + t) * H + h;
   }
-  __device__ long state(int b, int c, int h, int nc) const {
+  __device__ long state(int b, int c, int h) const {
     return ((static_cast<long>(b) * nc + c) * H + h) * N * kP;
+  }
+  __device__ long hq(int b, int c, int h) const {    // [Bn, nc, H, Q]
+    return ((static_cast<long>(b) * nc + c) * H + h) * Q;
+  }
+  __device__ long gram(int b, int c) const {         // [Bn, nc, Q, Q]
+    return (static_cast<long>(b) * nc + c) * Q * Q;
   }
 };
 
-// dts[i] = dt of token i of the chunk, cum = its inclusive prefix sum of
-// dt·a (the forward's code, so the same values); 256 threads, Q <= 256
-__device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dtp,
-                                             long dt_ss, float a, int Q,
-                                             float* dts, float* cum,
-                                             float* wsum) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  float v = 0.f;
-  if (tid < Q) {
-    const float d = dtp[tid * dt_ss];
-    dts[tid] = d;
-    v = d * a;
-  }
+// kRows x kCols (a multiple of 8) elements from src (row stride rs) as
+// bf16 hi at dst and, with kLo, lo at dst + plane (row stride ld); 0
+// where r >= rows_valid or c >= cols_valid; row r times scale[r] where
+// scale is given.  A bf16 tile that is neither split nor scaled goes by
+// cp.async; the caller commits and waits (staged()).
+template <bool kLo, int kRows, int kCols, typename T>
+__device__ __forceinline__ void stage(bf16* dst, int ld, int plane,
+                                      const T* src, long rs, int rows_valid,
+                                      int cols_valid, bool vec,
+                                      const float* scale = nullptr) {
+  constexpr int kG = kCols / 8;
+  for (int e = threadIdx.x; e < kRows * kG; e += kThreads) {
+    const int r = e / kG, c = (e % kG) * 8;
+    const bool ok = r < rows_valid && c < cols_valid;
+    const T* p = src + r * rs + c;
+    if constexpr (sizeof(T) == 2 && !kLo) {
+      if (vec && scale == nullptr) {
+        rt::cp_async16(dst + r * ld + c, ok ? p : src, ok);
+        continue;
+      }
+    }
+    float v[8];
+    load8(p, vec, ok, v);
+    if (scale != nullptr) {
+      const float s = scale[r];
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float u = __shfl_up_sync(0xffffffffu, v, off);
-    if (lane >= off) v += u;
+      for (int i = 0; i < 8; ++i) v[i] *= s;
+    }
+    put8<kLo>(dst + r * ld + c, dst + plane + r * ld + c, v);
   }
-  if (lane == 31) wsum[warp] = v;
+}
+
+// the staged tiles have landed for every thread
+__device__ __forceinline__ void staged() {
+  rt::cp_async_commit();
+  rt::cp_async_wait<0>();
   __syncthreads();
-  float pre = 0.f;
-  for (int w = 0; w < warp; ++w) pre += wsum[w];
-  if (tid < Q) cum[tid] = v + pre;
-  __syncthreads();
+}
+
+// the sum of v over the 4 lanes that share an accumulator row (t)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  v += __shfl_xor_sync(0xffffffffu, v, 2);
+  return v;
+}
+
+// the sum of v over the 8 lanes that share an accumulator column (g)
+__device__ __forceinline__ float col_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  v += __shfl_xor_sync(0xffffffffu, v, 16);
+  return v;
 }
 
 // the sum of v over the block's 256 threads, in a fixed order, to all
@@ -184,113 +260,68 @@ __device__ __forceinline__ float block_scan(float v, float* red) {
   return v + pre;
 }
 
-// the sum of v over the 16 threads of one tile row (tx = 0..15)
-__device__ __forceinline__ float row_sum16(float v) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// dst[r][c] (kTrans: dst[c][r]) = src[r·rs + c] as float32 for r < rows,
-// c < cols; 0 where r >= rows_valid or c >= cols_valid; row r times
-// scale[r] where scale is given.  Neighbouring threads read neighbouring
-// elements of a row.
-template <bool kTrans, typename T>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
-                                      long rs, int rows, int rows_valid,
-                                      int cols, int cols_valid,
-                                      const float* scale = nullptr) {
-  for (int e = threadIdx.x; e < rows * cols; e += kThreads) {
-    const int r = e / cols, c = e % cols;
-    float v = 0.f;
-    if (r < rows_valid && c < cols_valid) {
-      v = rt::to_f32(src[static_cast<long>(r) * rs + c]);
-      if (scale != nullptr) v *= scale[r];
-    }
-    if constexpr (kTrans)
-      dst[c * ld + r] = v;
-    else
-      dst[r * ld + c] = v;
-  }
-}
-
-// acc += As·Bs over k < K, both k-major: acc[g·4 + i][h·4 + j] is row
-// g·64 + ty·4 + i, column h·64 + tx·4 + j of the tile (ty = tid / 16,
-// tx = tid % 16), As[k][row] and Bs[k][col] read as float4s.
-template <int RG, int CG>
-__device__ __forceinline__ void fma_tile(float (&acc)[RG * 4][CG * 4],
-                                         const float* As, int lda,
-                                         const float* Bs, int ldb, int K) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[RG * 4], b[CG * 4];
-#pragma unroll
-    for (int g = 0; g < RG; ++g) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(As + k * lda + g * 64 + ty * 4);
-      a[g * 4] = v.x;
-      a[g * 4 + 1] = v.y;
-      a[g * 4 + 2] = v.z;
-      a[g * 4 + 3] = v.w;
-    }
-#pragma unroll
-    for (int g = 0; g < CG; ++g) {
-      const float4 v =
-          *reinterpret_cast<const float4*>(Bs + k * ldb + g * 64 + tx * 4);
-      b[g * 4] = v.x;
-      b[g * 4 + 1] = v.y;
-      b[g * 4 + 2] = v.z;
-      b[g * 4 + 3] = v.w;
-    }
-#pragma unroll
-    for (int i = 0; i < RG * 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CG * 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void store4(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
 // --- 1. the chunk's own share of the state's gradient ----------------------
 
 constexpr size_t kGradSmem =
-    (kT * kL128 + kT * kL64 + 3 * kQMax + 8) * sizeof(float);
+    (2 * kT * kLN + 2 * kT * kLP) * sizeof(bf16) + (3 * kQMax + 8) *
+    sizeof(float);
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_bwd_state_grad_kernel(const Args<T> a) {
-  extern __shared__ __align__(16) float sm[];
-  float* Cs = sm;                      // [64 i][kL128]: E(cum_i) C_i
-  float* Dys = Cs + kT * kL128;        // [64 i][kL64]: dy_i
-  float* dts = Dys + kT * kL64;
+  constexpr bool kLo = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* Ws = reinterpret_cast<bf16*>(smem);   // [2][64 i][kLN]: E(cum_i) C_i
+  bf16* Ds = Ws + 2 * kT * kLN;               // [2][64 i][kLP]: dy_i
+  float* dts = reinterpret_cast<float*>(Ds + 2 * kT * kLP);
   float* cum = dts + kQMax;
   float* ein = cum + kQMax;
   float* wsum = ein + kQMax;
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int Q = a.Q, N = a.N, c0 = c * Q, tid = threadIdx.x;
+  const int np = (N + 15) & ~15;   // N padded to the mma depth
   chunk_cumsum(a.dt + b * a.dt_sb + c0 * a.dt_ss + h, a.dt_ss, a.A[h], Q, dts,
                cum, wsum);
-  if (tid < Q) ein[tid] = clip_exp(cum[tid]);
-  float acc[8][4] = {};   // [n][p]
-  for (int t0 = 0; t0 < Q; t0 += kT) {
-    __syncthreads();   // ein is written; the previous tiles are consumed
-    stage<false>(Cs, kL128, a.c_at(b, c0 + t0), a.c_ss, kT, kT, kNP, N,
-                 ein + t0);
-    stage<false>(Dys, kL64, a.dy_at(b, c0 + t0, h), a.H * kP, kT, kT, kP,
-                 kP);
-    __syncthreads();
-    fma_tile<2, 1>(acc, Cs, kL128, Dys, kL64, kT);
+  const long o = a.hq(b, c, h);
+  if (tid < Q) {
+    ein[tid] = clip_exp(cum[tid]);
+    a.cum[o + tid] = cum[tid];
+    a.dts[o + tid] = dts[tid];
   }
-  float* out = a.dst + a.state(b, c, h, nc);
-  const int ty = tid / 16, tx = tid % 16;
+  const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+  float acc[8][4] = {};   // rows n = 16 warp + g (+8), columns p = 8 nt + 2t
+  for (int i0 = 0; i0 < Q; i0 += kT) {
+    __syncthreads();   // ein is written; the previous tiles are consumed
+    stage<true, kT, kNP>(Ws, kLN, kT * kLN, a.c_at(b, c0 + i0), a.c_ss, kT,
+                         N, a.vec, ein + i0);
+    stage<kLo, kT, kP>(Ds, kLP, kT * kLP, a.dy_at(b, c0 + i0, h),
+                       static_cast<long>(a.H) * kP, kT, kP, true);
+    staged();
+    if (warp * 16 < np) {
+      // own[n, p] += Σ_i W[i, n] dy[i, p]: A = Wᵀ (stored [i][n])
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int n = (i / 4) * 64 + ty * 4 + i % 4;
-    if (n < N) store4(out + n * kP + tx * 4, acc[i]);
+      for (int k = 0; k < kT; k += 16) {
+        uint32_t af[2][4];
+        lda_km(af[0], Ws, kLN, warp * 16, k);
+        lda_km(af[1], Ws + kT * kLN, kLN, warp * 16, k);
+#pragma unroll
+        for (int q = 0; q < kP / 16; ++q) {
+          uint32_t bb[2][4];
+          ldb_kn(bb[0], Ds, kLP, k, q * 16);
+          if constexpr (kLo) ldb_kn(bb[1], Ds + kT * kLP, kLP, k, q * 16);
+          mma_split<true, kLo>(acc[2 * q], af, bb, 0);
+          mma_split<true, kLo>(acc[2 * q + 1], af, bb, 1);
+        }
+      }
+    }
+  }
+  float* sp = a.dst + a.state(b, c, h);
+  const int n = warp * 16 + g;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int p = nt * 8 + 2 * t;
+    if (n < N) rt::store2(sp + n * kP + p, acc[nt][0], acc[nt][1]);
+    if (n + 8 < N) rt::store2(sp + (n + 8) * kP + p, acc[nt][2], acc[nt][3]);
   }
 }
 
@@ -307,251 +338,515 @@ ssd_bwd_state_pass_kernel(float* __restrict__ dst,
   const long r = idx % per;
   const int b = bh / H, h = bh % H;
   float4 run = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int c = nc - 1; c >= 0; --c) {
-    const long o = (static_cast<long>(b) * nc + c) * H + h;
-    float4* p = reinterpret_cast<float4*>(dst + o * N * kP) + r;
-    const float4 v = *p;
-    const float d = decay[o];
-    *p = run;
-    run = make_float4(d * run.x + v.x, d * run.y + v.y, d * run.z + v.z,
-                      d * run.w + v.w);
+  constexpr int kU = 4;   // chunks whose loads are in flight together
+  for (int c0 = nc - 1; c0 >= 0; c0 -= kU) {
+    float4 v[kU];
+    float d[kU];
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (c0 - u < 0) break;
+      const long o = (static_cast<long>(b) * nc + c0 - u) * H + h;
+      v[u] = reinterpret_cast<const float4*>(dst + o * N * kP)[r];
+      d[u] = decay[o];
+    }
+#pragma unroll
+    for (int u = 0; u < kU; ++u) {
+      if (c0 - u < 0) break;
+      const long o = (static_cast<long>(b) * nc + c0 - u) * H + h;
+      reinterpret_cast<float4*>(dst + o * N * kP)[r] = run;
+      run = make_float4(d[u] * run.x + v[u].x, d[u] * run.y + v[u].y,
+                        d[u] * run.z + v[u].z, d[u] * run.w + v[u].w);
+    }
   }
 }
 
-// --- 3. rows: dC and the rows' share of the gradient of cum --------------
-
-constexpr size_t kRowsSmem =
-    (kP * kL64 + kP * kL64 + kT * kL128 + kT * kL64 + 2 * kQMax + 8) *
-    sizeof(float);
+// --- 3. pair: dy·xᵀ once per tile pair, Σ_h Z, and the shares of ddt ------
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_rows_kernel(const Args<T> a) {
-  extern __shared__ __align__(16) float sm[];
-  float* DyT = sm;                     // [64 p][kL64]: dy of the row tile
-  float* reg = DyT + kP * kL64;
-  float* SinT = reg;                   // [64 p][kL128]: S transposed
-  float* XT = reg;                     // [64 p][kL64]: x of the column tile
-  float* Bs = XT + kP * kL64;          // [64 j][kL128]
-  float* ZT = Bs + kT * kL128;         // [64 j][kL64]: Z of the tile pair
-  float* dts = ZT + kT * kL64;
-  float* cum = dts + kQMax;
-  float* wsum = cum + kQMax;
-  const int tq = a.Q / kT, nc = gridDim.y;
-  const int h = blockIdx.x / tq, I = blockIdx.x % tq, c = blockIdx.y,
-            b = blockIdx.z;
-  const int Q = a.Q, N = a.N, c0 = c * Q, i0 = I * kT;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  chunk_cumsum(a.dt + b * a.dt_sb + c0 * a.dt_ss + h, a.dt_ss, a.A[h], Q, dts,
-               cum, wsum);
-  stage<true>(DyT, kL64, a.dy_at(b, c0 + i0, h), a.H * kP, kT, kT, kP, kP);
-  float acc[4][8] = {};   // dC [i][n]
-  float rowp[4] = {};
-  if (c > 0) {
-    // E(cum_i) S dy_i, and E(cum_i) dy_i·(C_i S) = Σ_n C_in of it
-    stage<true>(SinT, kL128, a.st + a.state(b, c, h, nc), kP, kNP, N, kP,
-                kP);
-    __syncthreads();
-    fma_tile<1, 2>(acc, DyT, kL64, SinT, kL128, kP);
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty * 4 + r;
-      const float ci = cum[i], e = clip_exp(ci);
-      const T* cp = a.c_at(b, c0 + i);
-      float s = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int n = (j / 4) * 64 + tx * 4 + j % 4;
-        acc[r][j] *= e;
-        if (n < N) s = fmaf(rt::to_f32(cp[n]), acc[r][j], s);
-      }
-      if (ci >= kClip) rowp[r] = s;
-    }
-    __syncthreads();   // SinT is consumed
+__host__ __device__ constexpr size_t pair_smem() {
+  constexpr size_t planes = sizeof(T) == 4 ? 2 : 1;
+  return kT * kLG * sizeof(float)                        // C Bᵀ, transposed
+         + 2 * 2 * planes * kT * kLP * sizeof(bf16)      // 2 x (dy_I, x_J)
+         + (2 * 3 * kT + 10 * kT) * sizeof(float);       // cum, dt; sums
+}
+
+// two blocks an SM (registers capped at 128); per head: wait for its
+// tiles, prefetch the next head's, then the products and the sums
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_bwd_pair_kernel(const Args<T> a) {
+  constexpr bool kLo = sizeof(T) == 4;
+  constexpr int kTile = (kLo ? 2 : 1) * kT * kLP;   // bf16s of one tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* Gt = reinterpret_cast<float*>(smem);            // [64 j][kLG]
+  bf16* tiles = reinterpret_cast<bf16*>(Gt + kT * kLG);  // [2][dy_I, x_J]
+  float* sc = reinterpret_cast<float*>(tiles + 4 * kTile);   // [2][3][64]
+  float* kcol = sc + 6 * kT;     // [4 row warps][64]: Σ M (dy·x) by column
+  float* pcol = kcol + 4 * kT;   // [4 row warps][64]: Σ P by column
+  float* prow = pcol + 4 * kT;   // [2 column warps][64]: Σ P by row
+  const int c = blockIdx.y, b = blockIdx.z;
+  int I = 0;   // the tile pair (I, J <= I) of the lower triangle
+  while ((I + 1) * (I + 2) / 2 <= static_cast<int>(blockIdx.x)) ++I;
+  const int J = blockIdx.x - I * (I + 1) / 2;
+  const bool diag = I == J;
+  const int Q = a.Q, H = a.H, c0 = c * Q, i0 = I * kT, j0 = J * kT;
+  const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+  const int wr = warp % 4, wc = warp / 4;
+  const int r0 = wr * 16 + g;   // the thread's rows r0, r0 + 8 of the pair
+  const int cb = wc * 32 + 2 * t;   // its columns cb + 8 nt + {0, 1}
+  // C Bᵀ of the pair, shared by every head, stored [j][i]: the reads
+  // below (row r0, column cb) then hit 32 distinct banks
+  const float* gp = a.G + a.gram(b, c) + static_cast<long>(i0) * Q + j0;
+  for (int e = tid; e < kT * kT / 4; e += kThreads) {
+    const int r = e / (kT / 4), q = (e % (kT / 4)) * 4;
+    const float4 v =
+        *reinterpret_cast<const float4*>(gp + static_cast<long>(r) * Q + q);
+    Gt[q * kLG + r] = v.x;
+    Gt[(q + 1) * kLG + r] = v.y;
+    Gt[(q + 2) * kLG + r] = v.z;
+    Gt[(q + 3) * kLG + r] = v.w;
   }
-  const float* gp = a.G + (static_cast<long>(b * nc + c) * Q + i0 + ty * 4) *
-                              Q + tx * 4;
-  for (int J = 0; J <= I; ++J) {
-    const int j0 = J * kT;
-    stage<true>(XT, kL64, a.x_at(b, c0 + j0, h), a.x_ss, kT, kT, kP, kP);
-    stage<false>(Bs, kL128, a.b_at(b, c0 + j0), a.b_ss, kT, kT, kNP, N);
+  auto load = [&](int s, int h) {
+    bf16* dyt = tiles + 2 * s * kTile;
+    stage<kLo, kT, kP>(dyt, kLP, kT * kLP, a.dy_at(b, c0 + i0, h),
+                       static_cast<long>(H) * kP, kT, kP, true);
+    stage<kLo, kT, kP>(dyt + kTile, kLP, kT * kLP, a.x_at(b, c0 + j0, h),
+                       a.x_ss, kT, kP, a.vec);
+    const long o = a.hq(b, c, h);
+    float* s3 = sc + s * 3 * kT;
+    if (tid < kT)
+      s3[tid] = a.cum[o + i0 + tid];
+    else if (tid < 2 * kT)
+      s3[tid] = a.cum[o + j0 + tid - kT];
+    else if (tid < 3 * kT)
+      s3[tid] = a.dts[o + j0 + tid - 2 * kT];
+    rt::cp_async_commit();
+  };
+  load(0, 0);
+  float zs[4][4] = {};   // Σ_h Z at rows r0, r0 + 8 and columns cb + 8 nt
+  for (int h = 0; h < H; ++h) {
+    const int s = h & 1;
+    if (h + 1 < H)
+      load(s ^ 1, h + 1);
+    else
+      rt::cp_async_commit();
+    rt::cp_async_wait<1>();
+    // head h's tiles have landed, and every warp is done with the sums
+    // of head h − 1
     __syncthreads();
-    float dg[4][4] = {};   // dy_i·x_j
-    fma_tile<1, 1>(dg, DyT, kL64, XT, kL64, kP);
+    const bf16* dyt = tiles + 2 * s * kTile;
+    const bf16* xt = dyt + kTile;
+    const float* ci = sc + s * 3 * kT;
+    const float* cj = ci + kT;
+    const float* dj = cj + kT;
+    float d[4][4] = {};   // dy_i·x_j
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = i0 + ty * 4 + r;
-      const float ci = cum[i];
-      const float4 g4 =
-          *reinterpret_cast<const float4*>(gp + static_cast<long>(r) * Q + j0);
-      const float g[4] = {g4.x, g4.y, g4.z, g4.w};
+    for (int k = 0; k < kP; k += 16) {
+      uint32_t af[2][4];
+      lda_mk(af[0], dyt, kLP, wr * 16, k);
+      if constexpr (kLo) lda_mk(af[1], dyt + kT * kLP, kLP, wr * 16, k);
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        const int j = j0 + tx * 4 + jj;
-        float z = 0.f;
-        if (j <= i) {
-          const float diff = ci - cum[j];
-          z = dg[r][jj] * clip_exp(diff) * dts[j];
-          if (j < i && diff >= kClip) rowp[r] = fmaf(z, g[jj], rowp[r]);
+      for (int q = 0; q < 2; ++q) {
+        uint32_t bb[2][4];
+        ldb_nk(bb[0], xt, kLP, k, wc * 32 + q * 16);
+        if constexpr (kLo) ldb_nk(bb[1], xt + kT * kLP, kLP, k, wc * 32 + q * 16);
+        mma_split<kLo, kLo>(d[2 * q], af, bb, 0);
+        mma_split<kLo, kLo>(d[2 * q + 1], af, bb, 1);
+      }
+    }
+    // Z, M (dy·x) and P = M (dy·x) dt_j (j < i, unclipped) per entry
+    float kc[4][2] = {}, pc[4][2] = {}, pr[2] = {};
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = r0 + rr * 8, i = i0 + r;
+      const float cir = ci[r];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = cb + nt * 8 + e, j = j0 + col;
+          const bool keep = !diag || j <= i;
+          const float diff = cir - cj[col];
+          const float l = clip_exp(keep ? diff : 0.f);
+          const float dg = d[nt][2 * rr + e];
+          zs[nt][2 * rr + e] += keep ? dg * l * dj[col] : 0.f;
+          const float k = Gt[col * kLG + r] * l * dg;
+          kc[nt][e] += keep ? k : 0.f;
+          const float p = j < i && diff >= kClip ? k * dj[col] : 0.f;
+          pc[nt][e] += p;
+          pr[rr] += p;
         }
-        ZT[(tx * 4 + jj) * kL64 + ty * 4 + r] = z;
+    }
+    // by column: the thread's two rows, the 8 lanes g, then the 4 row
+    // warps in order; by row: its 8 columns, the 4 lanes t, the 2
+    // column warps
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float kv = col_sum(kc[nt][e]), pv = col_sum(pc[nt][e]);
+        if (g == 0) {
+          kcol[wr * kT + cb + nt * 8 + e] = kv;
+          pcol[wr * kT + cb + nt * 8 + e] = pv;
+        }
       }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const float v = quad_sum(pr[rr]);
+      if (t == 0) prow[wc * kT + r0 + rr * 8] = v;
     }
     __syncthreads();
-    fma_tile<1, 2>(acc, ZT, kL64, Bs, kL128, kT);
-    __syncthreads();   // XT, Bs and ZT are consumed
+    const long o = a.hq(b, c, h);
+    if (tid < kT) {   // column j0 + tid, and on the diagonal row i0 + tid
+      const float kv = ((kcol[tid] + kcol[kT + tid]) + kcol[2 * kT + tid]) +
+                       kcol[3 * kT + tid];
+      const float pv = ((pcol[tid] + pcol[kT + tid]) + pcol[2 * kT + tid]) +
+                       pcol[3 * kT + tid];
+      a.kpart[I * a.part + o + j0 + tid] = kv;
+      a.dpart[I * a.part + o + j0 + tid] =
+          diag ? (prow[tid] + prow[kT + tid]) - pv : -pv;
+    } else if (tid < 2 * kT && !diag) {   // row i0 + tid − 64
+      const int r = tid - kT;
+      a.dpart[J * a.part + o + i0 + r] = prow[r] + prow[kT + r];
+    }
   }
+  float* zp = a.zw + a.gram(b, c) + static_cast<long>(i0 + r0) * Q + j0 + cb;
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int t = c0 + i0 + ty * 4 + r;
-    float* dp = a.dcw + a.tok(b, t, h) * N;
-#pragma unroll
-    for (int g = 0; g < 2; ++g)
-      if (g * 64 + tx * 4 < N) store4(dp + g * 64 + tx * 4, acc[r] + g * 4);
-    const float s = row_sum16(rowp[r]);
-    if (tx == 0) a.rows[a.tok(b, t, h)] = s;
+  for (int nt = 0; nt < 4; ++nt) {
+    rt::store2(zp + nt * 8, zs[nt][0], zs[nt][1]);
+    rt::store2(zp + 8 * Q + nt * 8, zs[nt][2], zs[nt][3]);
   }
 }
 
-// --- 4. cols: dx, dB and the columns' share of the gradient of cum -------
+// --- 4. dx and x·(B D) ------------------------------------------------------
 
-constexpr size_t kColsLoop =
-    4 * kT * kL64 + kT * kL128 + kT * kLG;          // DyT Dys Ms Zs, Cs, Gs
-constexpr size_t kColsState = 2 * kNP * kL64 + kP * kL128;   // BT Dn, DT
-constexpr size_t kColsSmem =
-    (kP * kL64 + (kColsLoop > kColsState ? kColsLoop : kColsState) +
-     2 * kQMax + 8) * sizeof(float);
-
-// one block an SM (shared memory 136 KB); dx's accumulator holds the
-// state term from the start, so no second [j][p] tile stays live
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_bwd_cols_kernel(const Args<T> a) {
-  extern __shared__ __align__(16) float sm[];
-  float* XT = sm;                      // [64 p][kL64]: x of the column tile
-  float* reg = XT + kP * kL64;
-  float* BT = reg;                     // [128 n][kL64]: B transposed
-  float* Dn = BT + kNP * kL64;         // [128 n][kL64]: D
-  float* DT = Dn + kNP * kL64;         // [64 p][kL128]: D transposed
-  float* DyT = reg;                    // [64 p][kL64]: dy of the row tile
-  float* Dys = DyT + kP * kL64;        // [64 i][kL64]
-  float* Ms = Dys + kT * kL64;         // [64 i][kL64]
-  float* Zs = Ms + kT * kL64;          // [64 i][kL64]
-  float* Cs = Zs + kT * kL64;          // [64 i][kL128]
-  float* Gs = Cs + kT * kL128;         // [64 i][kLG]: C Bᵀ of the tile pair
-  float* dts = reg + (kColsLoop > kColsState ? kColsLoop : kColsState);
-  float* cum = dts + kQMax;
-  float* wsum = cum + kQMax;
-  const int tq = a.Q / kT, nc = gridDim.y;
-  const int h = blockIdx.x / tq, J = blockIdx.x % tq, c = blockIdx.y,
-            b = blockIdx.z;
+__host__ __device__ constexpr size_t dx_tiles_bytes() {
+  constexpr size_t planes = sizeof(T) == 4 ? 2 : 1;
+  constexpr size_t state = planes * kT * kLN + 2 * kNP * kLP;   // B_J, D
+  constexpr size_t loop = 2 * kT * kLP + planes * kT * kLP;     // M, dy_I
+  return (state > loop ? state : loop) * sizeof(bf16);
+}
+template <typename T>
+__host__ __device__ constexpr size_t dx_smem() {
+  return dx_tiles_bytes<T>() + (2 * kQMax + 2 * kT) * sizeof(float);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_bwd_dx_kernel(const Args<T> a) {
+  constexpr bool kLo = sizeof(T) == 4;
+  constexpr int kPl = kLo ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem);
+  float* cum = reinterpret_cast<float*>(smem + dx_tiles_bytes<T>());
+  float* dts = cum + kQMax;
+  float* zred = dts + kQMax;   // [2 column warps][64]: x_j·(B_j D)
+  const int tq = a.tq, h = blockIdx.x / tq, J = blockIdx.x % tq;
+  const int c = blockIdx.y, b = blockIdx.z;
   const int Q = a.Q, N = a.N, c0 = c * Q, j0 = J * kT;
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  chunk_cumsum(a.dt + b * a.dt_sb + c0 * a.dt_ss + h, a.dt_ss, a.A[h], Q, dts,
-               cum, wsum);
+  const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+  const int wr = warp % 4, wc = warp / 4;
+  const int r0 = wr * 16 + g;       // rows j0 + r0, + 8
+  const int cb = wc * 32 + 2 * t;   // columns p = cb + 8 nt, + 1
+  const int np = (N + 15) & ~15;
+  const long o = a.hq(b, c, h);
+  for (int e = tid; e < Q; e += kThreads) {
+    cum[e] = a.cum[o + e];
+    dts[e] = a.dts[o + e];
+  }
+  __syncthreads();
   const float cq = cum[Q - 1];
-  stage<true>(XT, kL64, a.x_at(b, c0 + j0, h), a.x_ss, kT, kT, kP, kP);
-  float dx[4][4] = {};     // B_j D, then dx [j][p]
-  float db[4][8] = {};     // dB [j][n]
-  float z[4] = {};         // x_j·(B_j D)
-  if (c < nc - 1) {        // the last chunk's D is 0
-    const float* dp = a.dst + a.state(b, c, h, nc);
-    stage<true>(BT, kL64, a.b_at(b, c0 + j0), a.b_ss, kT, kT, kNP, N);
-    stage<false>(Dn, kL64, dp, kP, kNP, N, kP, kP);
-    stage<true>(DT, kL128, dp, kP, kNP, N, kP, kP);
-    __syncthreads();
-    fma_tile<1, 1>(dx, BT, kL64, Dn, kL64, kNP);
-    fma_tile<1, 2>(db, XT, kL64, DT, kL128, kP);
+  const bool has_d = c < a.nc - 1;   // the last chunk's D is 0
+  float acc[4][4] = {};   // w_j (B_j D), then dx [j][p]
+  if (has_d) {
+    bf16* Bs = tiles;                     // [kPl][64 j][kLN]
+    bf16* Dn = Bs + kPl * kT * kLN;       // [2][128 n][kLP]
+    stage<kLo, kT, kNP>(Bs, kLN, kT * kLN, a.b_at(b, c0 + j0), a.b_ss, kT, N,
+                        a.vec);
+    stage<true, kNP, kP>(Dn, kLP, kNP * kLP, a.dst + a.state(b, c, h), kP,
+                         N, kP, true);
+    staged();
+    for (int k = 0; k < np; k += 16) {
+      uint32_t af[2][4];
+      lda_mk(af[0], Bs, kLN, wr * 16, k);
+      if constexpr (kLo) lda_mk(af[1], Bs + kT * kLN, kLN, wr * 16, k);
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int j = j0 + ty * 4 + r;
+      for (int q = 0; q < 2; ++q) {
+        uint32_t bb[2][4];
+        ldb_kn(bb[0], Dn, kLP, k, wc * 32 + q * 16);
+        ldb_kn(bb[1], Dn + kNP * kLP, kLP, k, wc * 32 + q * 16);
+        mma_split<kLo, true>(acc[2 * q], af, bb, 0);
+        mma_split<kLo, true>(acc[2 * q + 1], af, bb, 1);
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int r = r0 + rr * 8, j = j0 + r;
+      const T* xp = a.x_at(b, c0 + j, h) + cb;
+      float z = 0.f;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const float2 xv = rt::load2(xp + nt * 8);
+        z = fmaf(xv.x, acc[nt][2 * rr], z);
+        z = fmaf(xv.y, acc[nt][2 * rr + 1], z);
+      }
+      z = quad_sum(z);
+      if (t == 0) zred[wc * kT + r] = z;
       const float w = dts[j] * clip_exp(cq - cum[j]);
 #pragma unroll
-      for (int n = 0; n < 8; ++n) db[r][n] *= w;
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        z[r] = fmaf(XT[(tx * 4 + p) * kL64 + ty * 4 + r], dx[r][p], z[r]);
-        dx[r][p] *= w;
+      for (int nt = 0; nt < 4; ++nt) {
+        acc[nt][2 * rr] *= w;
+        acc[nt][2 * rr + 1] *= w;
       }
     }
-    __syncthreads();   // the state tiles are consumed
   }
-#pragma unroll
-  for (int r = 0; r < 4; ++r) z[r] = row_sum16(z[r]);
-  float colk[4] = {}, colp[4] = {};
+  __syncthreads();   // zred is written; the state tiles are consumed
+  if (tid < kT) {
+    const int j = j0 + tid;
+    const float z = has_d ? zred[tid] + zred[kT + tid] : 0.f;
+    const float eq = clip_exp(cq - cum[j]);
+    a.zdir[o + j] = eq * z;
+    a.tl[o + j] = j < Q - 1 && cq - cum[j] >= kClip ? eq * dts[j] * z : 0.f;
+  }
+  bf16* Ms = tiles;                // [2][64 i][kLP]: dt_j M_ij
+  bf16* Dy = Ms + 2 * kT * kLP;    // [kPl][64 i][kLP]: dy_i
+  const float* gp = a.G + a.gram(b, c);
   for (int I = J; I < tq; ++I) {
     const int i0 = I * kT;
-    stage<true>(DyT, kL64, a.dy_at(b, c0 + i0, h), a.H * kP, kT, kT, kP, kP);
-    stage<false>(Dys, kL64, a.dy_at(b, c0 + i0, h), a.H * kP, kT, kT, kP,
-                 kP);
-    stage<false>(Cs, kL128, a.c_at(b, c0 + i0), a.c_ss, kT, kT, kNP, N);
-    stage<false>(Gs, kLG,
-                 a.G + (static_cast<long>(b * nc + c) * Q + i0) * Q + j0, Q,
-                 kT, kT, kT, kT);
-    __syncthreads();
-    float dg[4][4] = {};   // x_j·dy_i [j][i]
-    fma_tile<1, 1>(dg, XT, kL64, DyT, kL64, kP);
+    if (I > J) __syncthreads();   // the previous row tile is consumed
+    stage<kLo, kT, kP>(Dy, kLP, kT * kLP, a.dy_at(b, c0 + i0, h),
+                       static_cast<long>(a.H) * kP, kT, kP, true);
+    for (int e = tid; e < kT * kT / 8; e += kThreads) {
+      const int r = e / (kT / 8), jq = (e % (kT / 8)) * 8, i = i0 + r;
+      float v[8];
+      load8(gp + static_cast<long>(i) * Q + j0 + jq, true, j0 + jq <= i, v);
+      const float ci = cum[i];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int jl = ty * 4 + r, j = j0 + jl;
-      const float cj = cum[j], dj = dts[j];
+      for (int u = 0; u < 8; ++u) {
+        const int j = j0 + jq + u;
+        v[u] = j <= i ? v[u] * clip_exp(ci - cum[j]) * dts[j] : 0.f;
+      }
+      put8<true>(Ms + r * kLP + jq, Ms + (kT + r) * kLP + jq, v);
+    }
+    staged();
+    // dx_j += Σ_i (dt_j M_ij) dy_i: A = Mᵀ (stored [i][j]), B = dy
 #pragma unroll
-      for (int ii = 0; ii < 4; ++ii) {
-        const int il = tx * 4 + ii, i = i0 + il;
-        float m = 0.f, zz = 0.f;
-        if (i >= j) {
-          const float diff = cum[i] - cj, e = clip_exp(diff);
-          m = Gs[il * kLG + jl] * e;
-          zz = dg[r][ii] * e * dj;
-          const float k = m * dg[r][ii];
-          colk[r] += k;
-          if (i > j && diff >= kClip) colp[r] = fmaf(k, dj, colp[r]);
-        }
-        Ms[il * kL64 + jl] = m * dj;   // dt_j M_ij: dx's own term
-        Zs[il * kL64 + jl] = zz;
+    for (int k = 0; k < kT; k += 16) {
+      if (I == J && k + 15 < wr * 16) continue;   // every i < j: zeros
+      uint32_t af[2][4];
+      lda_km(af[0], Ms, kLP, wr * 16, k);
+      lda_km(af[1], Ms + kT * kLP, kLP, wr * 16, k);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        uint32_t bb[2][4];
+        ldb_kn(bb[0], Dy, kLP, k, wc * 32 + q * 16);
+        if constexpr (kLo) ldb_kn(bb[1], Dy + kT * kLP, kLP, k, wc * 32 + q * 16);
+        mma_split<true, kLo>(acc[2 * q], af, bb, 0);
+        mma_split<true, kLo>(acc[2 * q + 1], af, bb, 1);
       }
     }
-    __syncthreads();
-    fma_tile<1, 1>(dx, Ms, kL64, Dys, kL64, kT);
-    fma_tile<1, 2>(db, Zs, kL64, Cs, kL128, kT);
-    __syncthreads();   // the row tile is consumed
   }
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int j = j0 + ty * 4 + r, t = c0 + j;
-    const float eq = clip_exp(cq - cum[j]), dj = dts[j];
-    T* xp = a.dx + a.tok(b, t, h) * kP + tx * 4;
-    rt::store2(xp, dx[r][0], dx[r][1]);
-    rt::store2(xp + 2, dx[r][2], dx[r][3]);
-    float* bp = a.dbw + a.tok(b, t, h) * N;
+  for (int rr = 0; rr < 2; ++rr) {
+    T* xp = a.dx + a.tok(b, c0 + j0 + r0 + rr * 8, h) * kP + cb;
 #pragma unroll
-    for (int g = 0; g < 2; ++g)
-      if (g * 64 + tx * 4 < N) store4(bp + g * 64 + tx * 4, db[r] + g * 4);
-    const float k = row_sum16(colk[r]), p = row_sum16(colp[r]);
-    if (tx == 0) {
-      const long o = a.tok(b, t, h);
-      const float tj =
-          j < Q - 1 && cq - cum[j] >= kClip ? eq * dj * z[r] : 0.f;
-      a.direct[o] = k + eq * z[r];
-      a.cols[o] = -p - tj;
-      a.tl[o] = tj;
-    }
+    for (int nt = 0; nt < 4; ++nt)
+      rt::store2(xp + nt * 8, acc[nt][2 * rr], acc[nt][2 * rr + 1]);
   }
 }
 
-// --- 5. finish: the reverse cumsum, ddt and the chunk's dA ---------------
+// --- 5. dB and dC -----------------------------------------------------------
+
+template <typename T>
+__host__ __device__ constexpr size_t bc_tiles_bytes() {
+  constexpr size_t planes = sizeof(T) == 4 ? 2 : 1;
+  constexpr size_t tri = 2 * kT * kLP + planes * kT * kLN;     // Σ Z, B / C
+  constexpr size_t head = planes * kT * kLP + 2 * kNP * kLP;   // dy / x, S / D
+  return (tri > head ? tri : head) * sizeof(bf16);
+}
+template <typename T>
+__host__ __device__ constexpr size_t bc_smem() {
+  return bc_tiles_bytes<T>() + (3 * kT + 4 + 2 * kT) * sizeof(float);
+}
+
+// blockIdx.x = 2·tile + which: which 0 is dC over the tile's rows i, 1
+// is dB over its columns j
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_bwd_bc_kernel(const Args<T> a) {
+  constexpr bool kLo = sizeof(T) == 4;
+  constexpr int kPl = kLo ? 2 : 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem);
+  float* sc = reinterpret_cast<float*>(smem + bc_tiles_bytes<T>());
+  float* red = sc + 3 * kT + 4;   // [2 column warps][64]
+  const bool is_c = blockIdx.x % 2 == 0;
+  const int T0 = blockIdx.x / 2, c = blockIdx.y, b = blockIdx.z;
+  const int Q = a.Q, N = a.N, H = a.H, tq = a.tq, c0 = c * Q, t0 = T0 * kT;
+  const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
+  const int wr = warp % 4, wc = warp / 4;
+  const int r0 = wr * 16 + g;       // rows t0 + r0, + 8
+  const int cb = wc * 64 + 2 * t;   // columns n = cb + 8 nt, + 1
+  const int np = (N + 15) & ~15;
+  const bool live = wc * 64 < np;   // the warp holds a column below N
+  float acc[8][4] = {};
+
+  // Σ_h Z against B_J over J <= T (dC) or C_I over I >= T (dB)
+  {
+    bf16* Zs = tiles;                  // [2][64][kLP]: the pair's Σ_h Z
+    bf16* Ns = Zs + 2 * kT * kLP;      // [kPl][64][kLN]: B_J or C_I
+    const int u0 = is_c ? 0 : T0, u1 = is_c ? T0 : tq - 1;
+    for (int U = u0; U <= u1; ++U) {
+      const int pi = is_c ? T0 : U, pj = is_c ? U : T0;
+      if (U > u0) __syncthreads();   // the previous tiles are consumed
+      const float* zp = a.zw + a.gram(b, c) + static_cast<long>(pi) * kT * Q +
+                        pj * kT;
+      for (int e = tid; e < kT * kT / 8; e += kThreads) {
+        const int r = e / (kT / 8), q = (e % (kT / 8)) * 8;
+        float v[8];
+        load8(zp + static_cast<long>(r) * Q + q, true, true, v);
+        put8<true>(Zs + r * kLP + q, Zs + (kT + r) * kLP + q, v);
+      }
+      if (is_c)
+        stage<kLo, kT, kNP>(Ns, kLN, kT * kLN, a.b_at(b, c0 + U * kT),
+                            a.b_ss, kT, N, a.vec);
+      else
+        stage<kLo, kT, kNP>(Ns, kLN, kT * kLN, a.c_at(b, c0 + U * kT),
+                            a.c_ss, kT, N, a.vec);
+      staged();
+      if (!live) continue;
+#pragma unroll
+      for (int k = 0; k < kT; k += 16) {
+        // dC: A = Σ Z [i][j]; dB: A = (Σ Z)ᵀ, read transposed
+        uint32_t af[2][4];
+        if (is_c) {
+          lda_mk(af[0], Zs, kLP, wr * 16, k);
+          lda_mk(af[1], Zs + kT * kLP, kLP, wr * 16, k);
+        } else {
+          lda_km(af[0], Zs, kLP, wr * 16, k);
+          lda_km(af[1], Zs + kT * kLP, kLP, wr * 16, k);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (wc * 64 + q * 16 >= np) break;
+          uint32_t bb[2][4];
+          ldb_kn(bb[0], Ns, kLN, k, wc * 64 + q * 16);
+          if constexpr (kLo)
+            ldb_kn(bb[1], Ns + kT * kLN, kLN, k, wc * 64 + q * 16);
+          mma_split<true, kLo>(acc[2 * q], af, bb, 0);
+          mma_split<true, kLo>(acc[2 * q + 1], af, bb, 1);
+        }
+      }
+    }
+  }
+
+  // head by head, in order: E(cum_i) dy_i Sᵀ (dC) or w_j x_j Dᵀ (dB)
+  const bool has = is_c ? c > 0 : c < a.nc - 1;   // S = 0 at chunk 0, D at the last
+  bf16* Vs = tiles;                    // [kPl][64][kLP]: dy or x
+  bf16* Ss = Vs + kPl * kT * kLP;      // [2][128 n][kLP]: S or D
+  for (int h = 0; h < H && has; ++h) {
+    __syncthreads();   // the previous tiles are consumed and red is read
+    const long o = a.hq(b, c, h);
+    if (tid < kT) {
+      sc[tid] = a.cum[o + t0 + tid];
+      sc[kT + tid] = a.dts[o + t0 + tid];
+    }
+    if (tid == 0) sc[2 * kT] = a.cum[o + Q - 1];
+    if (is_c)
+      stage<kLo, kT, kP>(Vs, kLP, kT * kLP, a.dy_at(b, c0 + t0, h),
+                         static_cast<long>(H) * kP, kT, kP, true);
+    else
+      stage<kLo, kT, kP>(Vs, kLP, kT * kLP, a.x_at(b, c0 + t0, h), a.x_ss,
+                         kT, kP, a.vec);
+    stage<true, kNP, kP>(Ss, kLP, kNP * kLP,
+                         (is_c ? a.st : a.dst) + a.state(b, c, h), kP, N, kP,
+                         true);
+    staged();
+    if (live) {
+      float y[8][4] = {};   // dy Sᵀ or x Dᵀ: rows r0 (+8), columns cb + 8 nt
+#pragma unroll
+      for (int k = 0; k < kP; k += 16) {
+        uint32_t af[2][4];
+        lda_mk(af[0], Vs, kLP, wr * 16, k);
+        if constexpr (kLo) lda_mk(af[1], Vs + kT * kLP, kLP, wr * 16, k);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (wc * 64 + q * 16 >= np) break;
+          uint32_t bb[2][4];
+          ldb_nk(bb[0], Ss, kLP, k, wc * 64 + q * 16);
+          ldb_nk(bb[1], Ss + kNP * kLP, kLP, k, wc * 64 + q * 16);
+          mma_split<kLo, true>(y[2 * q], af, bb, 0);
+          mma_split<kLo, true>(y[2 * q + 1], af, bb, 1);
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = r0 + rr * 8;
+        const float ct = sc[r];
+        if (is_c) {
+          const float e = clip_exp(ct);
+          const T* cp = a.c_at(b, c0 + t0 + r);
+          float s = 0.f;
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            const int n = cb + nt * 8;
+            if (n < N) {
+              const float2 cv = rt::load2(cp + n);
+              s = fmaf(cv.x, y[nt][2 * rr], s);
+              s = fmaf(cv.y, y[nt][2 * rr + 1], s);
+            }
+            acc[nt][2 * rr] = fmaf(e, y[nt][2 * rr], acc[nt][2 * rr]);
+            acc[nt][2 * rr + 1] = fmaf(e, y[nt][2 * rr + 1],
+                                       acc[nt][2 * rr + 1]);
+          }
+          s = quad_sum(s);
+          if (t == 0) red[wc * kT + r] = ct >= kClip ? e * s : 0.f;
+        } else {
+          const float w = sc[kT + r] * clip_exp(sc[2 * kT] - ct);
+#pragma unroll
+          for (int nt = 0; nt < 8; ++nt) {
+            acc[nt][2 * rr] = fmaf(w, y[nt][2 * rr], acc[nt][2 * rr]);
+            acc[nt][2 * rr + 1] = fmaf(w, y[nt][2 * rr + 1],
+                                       acc[nt][2 * rr + 1]);
+          }
+        }
+      }
+    }
+    if (is_c) {
+      __syncthreads();
+      if (tid < kT)
+        a.rst[o + t0 + tid] = red[tid] + (np > 64 ? red[kT + tid] : 0.f);
+    }
+  }
+  if (is_c && !has)   // chunk 0: no state entered it
+    for (int e = tid; e < H * kT; e += kThreads)
+      a.rst[a.hq(b, c, e / kT) + t0 + e % kT] = 0.f;
+
+  if (!live) return;
+  T* out = is_c ? a.dC : a.dB;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    T* p = out + (static_cast<long>(b) * a.S + c0 + t0 + r0 + rr * 8) * N;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      if (cb + nt * 8 < N)
+        rt::store2(p + cb + nt * 8, acc[nt][2 * rr], acc[nt][2 * rr + 1]);
+  }
+}
+
+// --- 6. finish: the reverse cumsum, ddt and the chunk's dA ---------------
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_finish_kernel(const Args<T> a) {
-  __shared__ float dts[kQMax], cum[kQMax], wsum[8], red[8];
-  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z, nc = gridDim.y;
+  __shared__ float red[8];
+  const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int Q = a.Q, c0 = c * Q, tid = threadIdx.x;
   const float A = a.A[h];
-  chunk_cumsum(a.dt + b * a.dt_sb + c0 * a.dt_ss + h, a.dt_ss, A, Q, dts, cum,
-               wsum);
+  const long o = a.hq(b, c, h);
   // ⟨D, S⟩: the state's decay E(cum_Q) reaches cum_Q
-  const long so = a.state(b, c, h, nc);
+  const long so = a.state(b, c, h);
   float f = 0.f;
   for (int e = tid; e < a.N * kP; e += kThreads)
     f = fmaf(a.dst[so + e], a.st[so + e], f);
@@ -559,44 +854,31 @@ ssd_bwd_finish_kernel(const Args<T> a) {
   // thread tid takes token Q − 1 − tid, so a prefix sum over the threads
   // is the reverse cumsum over the tokens
   const int k = Q - 1 - tid;
-  const long o = tid < Q ? a.tok(b, c0 + k, h) : 0;
-  const float tk = tid < Q ? a.tl[o] : 0.f;
+  const bool on = tid < Q;
+  const float tk = on ? a.tl[o + k] : 0.f;
   const float tsum = block_sum(tk, red);
-  float d = tid < Q ? a.rows[o] + a.cols[o] : 0.f;
+  float d = 0.f, direct = 0.f;
+  if (on) {
+    for (int s = 0; s < a.tq; ++s) d += a.dpart[s * a.part + o + k];
+    d += a.rst[o + k] - tk;
+    for (int s = k / kT; s < a.tq; ++s) direct += a.kpart[s * a.part + o + k];
+    direct += a.zdir[o + k];
+  }
   if (tid == 0) {
-    const float cq = cum[Q - 1];
+    const float cq = a.cum[o + Q - 1];
     d += (cq >= kClip ? expf(cq) * f : 0.f) + tsum;
   }
   const float R = block_scan(d, red);
   float da = 0.f;
-  if (tid < Q) {
-    a.ddt[o] = a.direct[o] + A * R;
-    da = dts[k] * R;
+  if (on) {
+    a.ddt[a.tok(b, c0 + k, h)] = direct + A * R;
+    da = a.dts[o + k] * R;
   }
   da = block_sum(da, red);
-  if (tid == 0) a.daw[(static_cast<long>(b) * nc + c) * a.H + h] = da;
+  if (tid == 0) a.daw[(static_cast<long>(b) * a.nc + c) * a.H + h] = da;
 }
 
-// --- 6, 7. the sums over heads and over batch and chunks -----------------
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-ssd_bwd_reduce_kernel(const float* __restrict__ dbw,
-                      const float* __restrict__ dcw, T* __restrict__ dB,
-                      T* __restrict__ dC, long tokens, int H, int N) {
-  const long idx = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (idx >= tokens * N) return;
-  const long t = idx / N;
-  const int n = static_cast<int>(idx % N);
-  float sb = 0.f, sc = 0.f;
-  for (int h = 0; h < H; ++h) {
-    const long o = (t * H + h) * N + n;
-    sb += dbw[o];
-    sc += dcw[o];
-  }
-  dB[idx] = rt::from_f32<T>(sb);
-  dC[idx] = rt::from_f32<T>(sc);
-}
+// --- 7. dA summed over batch and chunks -------------------------------------
 
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_da_kernel(const float* __restrict__ daw, float* __restrict__ dA,
@@ -610,22 +892,16 @@ ssd_bwd_da_kernel(const float* __restrict__ daw, float* __restrict__ dA,
 
 // --- launch -----------------------------------------------------------------
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(bytes));
-}
-
 template <typename T>
 int launch(const Args<T>& a, cudaStream_t s) {
-  const int nc = a.S / a.Q, tq = a.Q / kT;
+  const int nc = a.nc, tq = a.tq;
   cudaError_t err;
   if ((err = allow_smem(ssd_bwd_state_grad_kernel<T>, kGradSmem)) ||
-      (err = allow_smem(ssd_bwd_rows_kernel<T>, kRowsSmem)) ||
-      (err = allow_smem(ssd_bwd_cols_kernel<T>, kColsSmem)))
+      (err = allow_smem(ssd_bwd_pair_kernel<T>, pair_smem<T>())) ||
+      (err = allow_smem(ssd_bwd_dx_kernel<T>, dx_smem<T>())) ||
+      (err = allow_smem(ssd_bwd_bc_kernel<T>, bc_smem<T>())))
     return err;
-  const dim3 per_head(a.H, nc, a.Bn), per_tile(a.H * tq, nc, a.Bn);
+  const dim3 per_head(a.H, nc, a.Bn);
   ssd_bwd_state_grad_kernel<T><<<per_head, kThreads, kGradSmem, s>>>(a);
   if ((err = cudaGetLastError())) return err;
   const long groups = static_cast<long>(a.Bn) * a.H * a.N * kP / 4;
@@ -634,17 +910,16 @@ int launch(const Args<T>& a, cudaStream_t s) {
                               kThreads, 0, s>>>(a.dst, a.decay, a.Bn, nc, a.H,
                                                 a.N);
   if ((err = cudaGetLastError())) return err;
-  ssd_bwd_rows_kernel<T><<<per_tile, kThreads, kRowsSmem, s>>>(a);
+  ssd_bwd_pair_kernel<T><<<dim3(tq * (tq + 1) / 2, nc, a.Bn), kThreads,
+                           pair_smem<T>(), s>>>(a);
   if ((err = cudaGetLastError())) return err;
-  ssd_bwd_cols_kernel<T><<<per_tile, kThreads, kColsSmem, s>>>(a);
+  ssd_bwd_dx_kernel<T><<<dim3(a.H * tq, nc, a.Bn), kThreads, dx_smem<T>(),
+                         s>>>(a);
+  if ((err = cudaGetLastError())) return err;
+  ssd_bwd_bc_kernel<T><<<dim3(2 * tq, nc, a.Bn), kThreads, bc_smem<T>(),
+                         s>>>(a);
   if ((err = cudaGetLastError())) return err;
   ssd_bwd_finish_kernel<T><<<per_head, kThreads, 0, s>>>(a);
-  if ((err = cudaGetLastError())) return err;
-  const long tokens = static_cast<long>(a.Bn) * a.S;
-  ssd_bwd_reduce_kernel<T><<<static_cast<unsigned>(
-                                 (tokens * a.N + kThreads - 1) / kThreads),
-                             kThreads, 0, s>>>(a.dbw, a.dcw, a.dB, a.dC,
-                                               tokens, a.H, a.N);
   if ((err = cudaGetLastError())) return err;
   ssd_bwd_da_kernel<<<1, kThreads, 0, s>>>(a.daw, a.dA, a.Bn * nc, a.H);
   return cudaGetLastError();
@@ -655,8 +930,8 @@ int run(const void* x, long x_sb, long x_ss, const void* dt, long dt_sb,
         long dt_ss, const void* A, const void* Bm, long b_sb, long b_ss,
         const void* Cm, long c_sb, long c_ss, const void* dy, const void* G,
         const void* st, const void* decay, void* dx, void* ddt, void* dA,
-        void* dB, void* dC, void* dst, void* dbw, void* dcw, void* tok,
-        void* daw, int Bn, int S, int H, int N, int Q, cudaStream_t s) {
+        void* dB, void* dC, void* dst, void* zw, void* tok, void* daw,
+        int Bn, int S, int H, int N, int Q, cudaStream_t s) {
   Args<T> a;
   a.x = static_cast<const T*>(x);
   a.x_sb = x_sb;
@@ -676,24 +951,33 @@ int run(const void* x, long x_sb, long x_ss, const void* dt, long dt_sb,
   a.st = static_cast<const float*>(st);
   a.decay = static_cast<const float*>(decay);
   a.dst = static_cast<float*>(dst);
-  a.dbw = static_cast<float*>(dbw);
-  a.dcw = static_cast<float*>(dcw);
-  const long m = static_cast<long>(Bn) * S * H;
-  a.rows = static_cast<float*>(tok);
-  a.cols = a.rows + m;
-  a.direct = a.cols + m;
-  a.tl = a.direct + m;
+  a.zw = static_cast<float*>(zw);
+  a.Bn = Bn;
+  a.S = S;
+  a.H = H;
+  a.N = N;
+  a.Q = Q;
+  a.nc = S / Q;
+  a.tq = Q / kT;
+  a.part = static_cast<long>(Bn) * S * H;
+  float* w = static_cast<float*>(tok);
+  a.cum = w;
+  a.dts = w + a.part;
+  a.rst = w + 2 * a.part;
+  a.zdir = w + 3 * a.part;
+  a.tl = w + 4 * a.part;
+  a.dpart = w + 5 * a.part;
+  a.kpart = w + (5 + a.tq) * a.part;
   a.daw = static_cast<float*>(daw);
   a.dx = static_cast<T*>(dx);
   a.ddt = static_cast<float*>(ddt);
   a.dA = static_cast<float*>(dA);
   a.dB = static_cast<T*>(dB);
   a.dC = static_cast<T*>(dC);
-  a.Bn = Bn;
-  a.S = S;
-  a.H = H;
-  a.N = N;
-  a.Q = Q;
+  const long es = sizeof(T);
+  a.vec = aligned16(x, x_sb * es, x_ss * es) &&
+          aligned16(Bm, b_sb * es, b_ss * es) &&
+          aligned16(Cm, c_sb * es, c_ss * es);
   return launch<T>(a, s);
 }
 
@@ -702,31 +986,32 @@ int run(const void* x, long x_sb, long x_ss, const void* dt, long dt_sb,
 // x [Bn, S, H, 64] (head stride 64, element stride 1; batch and token
 // strides in elements); dt [Bn, S, H] float32 (head stride 1); A [H]
 // float32; B, C [Bn, S, N] in x's type (element stride 1); dy [Bn, S, H,
-// 64] contiguous in x's type.  G, st and decay are the forward's
-// workspaces after its passes 1-3 (ssd_chunk_scan_fwd with y null).
-// Outputs, contiguous: dx [Bn, S, H, 64], dB, dC [Bn, S, N] in x's type;
-// ddt [Bn, S, H], dA [H] float32.  Float32 workspaces, contiguous: dst
-// [Bn, S/Q, H, N, 64], dbw and dcw [Bn, S, H, N], tok [4, Bn, S, H], daw
-// [Bn, S/Q, H].  N a multiple of 8 up to 128; Q a multiple of 64 up to
-// 256 that divides S.
+// 64] contiguous and 16-byte aligned in x's type.  G, st and decay are
+// the forward's workspaces after its passes 1-3 (ssd_chunk_scan_fwd with
+// y null).  Outputs, contiguous: dx [Bn, S, H, 64], dB, dC [Bn, S, N] in
+// x's type; ddt [Bn, S, H], dA [H] float32.  Float32 workspaces,
+// contiguous: dst [Bn, S/Q, H, N, 64], zw [Bn, S/Q, Q, Q], tok [5 + 2·Q/64,
+// Bn, S/Q, H, Q], daw [Bn, S/Q, H].  N a multiple of 8 up to 128; Q a
+// multiple of 64 up to 256 that divides S.
 extern "C" int ssd_chunk_scan_bwd(
     const void* x, long x_sb, long x_ss, const void* dt, long dt_sb,
     long dt_ss, const void* A, const void* Bm, long b_sb, long b_ss,
     const void* Cm, long c_sb, long c_ss, const void* dy, const void* G,
     const void* st, const void* decay, void* dx, void* ddt, void* dA,
-    void* dB, void* dC, void* dst, void* dbw, void* dcw, void* tok,
-    void* daw, int Bn, int S, int H, int N, int Q, int dtype, void* stream) {
+    void* dB, void* dC, void* dst, void* zw, void* tok, void* daw, int Bn,
+    int S, int H, int N, int Q, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N <= 0 || N > kNP || N % 8 || Q <= 0 || Q > kQMax || Q % kT || S % Q)
+  if (N <= 0 || N > kNP || N % 8 || Q <= 0 || Q > kQMax || Q % kT || S % Q ||
+      reinterpret_cast<uintptr_t>(dy) % 16)
     return cudaErrorInvalidValue;
   if (dtype == rt::kF32)
     return run<float>(x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Bm, b_sb, b_ss, Cm,
                       c_sb, c_ss, dy, G, st, decay, dx, ddt, dA, dB, dC, dst,
-                      dbw, dcw, tok, daw, Bn, S, H, N, Q, s);
+                      zw, tok, daw, Bn, S, H, N, Q, s);
   if (dtype == rt::kBF16)
     return run<__nv_bfloat16>(x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Bm, b_sb,
                               b_ss, Cm, c_sb, c_ss, dy, G, st, decay, dx, ddt,
-                              dA, dB, dC, dst, dbw, dcw, tok, daw, Bn, S, H,
-                              N, Q, s);
+                              dA, dB, dC, dst, zw, tok, daw, Bn, S, H, N, Q,
+                              s);
   return cudaErrorInvalidValue;
 }

@@ -454,6 +454,128 @@ def ssd_chunk_scan_bwd_ref(x: torch.Tensor, dt: torch.Tensor,
             db.reshape(b, s, n).to(B.dtype), dc.reshape(b, s, n).to(C.dtype))
 
 
+def _bf16_planes(t: torch.Tensor):
+    """``(hi, lo)`` of an operand as the SSD kernels stage it: a bf16
+    tensor is exact in one plane (lo None); any other is split, hi =
+    rn(v) and lo = rn(v − hi) in bf16 (both held as ``ref._F32``)."""
+    if t.dtype == torch.bfloat16:
+        return t.to(_F32), None
+    v = t.to(_F32)
+    hi = v.to(torch.bfloat16).to(_F32)
+    return hi, (v - hi).to(torch.bfloat16).to(_F32)
+
+
+def bf16_split_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` (batched, broadcasting) as the SSD kernels' bf16
+    ``mma.sync`` products compute it (``csrc/ssd_common.cuh``; for the
+    tests): a bf16 operand enters exactly, any other is split into bf16
+    hi + lo (``_bf16_planes``); hi·hi, plus hi·lo where ``b`` is split,
+    plus lo·hi where ``a`` is; lo·lo is dropped.  A product of two bf16
+    values is exact in float32; the sums are float32 (``ref._F32``)."""
+    a_hi, a_lo = _bf16_planes(a)
+    b_hi, b_lo = _bf16_planes(b)
+    out = a_hi @ b_hi
+    if a_lo is not None:
+        out = out + a_lo @ b_hi
+    if b_lo is not None:
+        out = out + a_hi @ b_lo
+    return out
+
+
+def ssd_chunk_scan_bwd_split_ref(x: torch.Tensor, dt: torch.Tensor,
+                                 A: torch.Tensor, B: torch.Tensor,
+                                 C: torch.Tensor, dy: torch.Tensor,
+                                 chunk: int = 256):
+    """``ssd_chunk_scan_bwd_ref``'s gradients as the SSD-scan backward
+    kernel decomposes them (for the tests), every product by
+    ``bf16_split_matmul`` on the operands the kernel stages: the
+    forward's C Bᵀ and states (its passes 1-3: ``gram`` on x's type,
+    the states from ``(w ∘ B)ᵀ x``), the state's gradient from ``(E(cum)
+    ∘ C)ᵀ dy``; per head ``dy·xᵀ``, ``(dt ∘ M)ᵀ dy`` and ``B D``; Z
+    summed over the heads first, then ``(Σ_h Z) B`` and ``(Σ_h Z)ᵀ C``
+    once per chunk; the state terms ``dy Sᵀ`` (with ``E(cum_i) Σ_n C_in
+    (dy Sᵀ)_in``, the rows' state share of the gradient of cum) and ``x
+    Dᵀ`` per head, weighted by E(cum) and w and summed over heads.  The
+    elementwise arithmetic and the fold of the gradient of cum are
+    ``ssd_chunk_scan_bwd_ref``'s."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    q = min(chunk, s)
+    if s % q:
+        raise ValueError(f"ssd_chunk_scan: S={s} is not a multiple of the "
+                         f"chunk {q}")
+    nc = s // q
+    # operands in their own types: a bf16 one is exact, a float32 one split
+    xh = x.reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)    # [b, c, h, q, p]
+    dyh = dy.reshape(b, nc, q, h, p).permute(0, 1, 3, 2, 4)
+    bc = B.reshape(b, nc, q, n)
+    cc = C.reshape(b, nc, q, n)
+    xf = xh.to(_F32)
+    dtc = dt.to(_F32).reshape(b, nc, q, h).permute(0, 1, 3, 2)  # [b, c, h, q]
+    a = A.to(_F32)
+    cum = torch.cumsum(dtc * a[:, None], dim=-1)             # [b, c, h, q]
+    cum_q = cum[..., -1]                                     # [b, c, h]
+    u_out = cum[..., -1:] - cum
+    e_out = torch.exp(u_out.clamp(min=NEG_CLIP))
+    w = dtc * e_out
+    e_in = torch.exp(cum.clamp(min=NEG_CLIP))
+    decay = torch.exp(cum_q.clamp(min=NEG_CLIP))
+    gram = bf16_split_matmul(cc, bc.transpose(-1, -2))       # [b, c, i, j]
+    wb = w[..., None] * bc.to(_F32)[:, :, None]              # [b, c, h, q, n]
+    contrib = bf16_split_matmul(wb.transpose(-1, -2), xh)    # [b, c, h, n, p]
+    ec = e_in[..., None] * cc.to(_F32)[:, :, None]
+    own = bf16_split_matmul(ec.transpose(-1, -2), dyh)
+    state = torch.zeros((b, h, n, p), dtype=_F32, device=x.device)
+    s_in = []
+    for c in range(nc):
+        s_in.append(state)
+        state = decay[:, c, :, None, None] * state + contrib[:, c]
+    s_in = torch.stack(s_in, dim=1)                          # [b, c, h, n, p]
+    run = torch.zeros_like(state)
+    d_out = [None] * nc
+    for c in reversed(range(nc)):
+        d_out[c] = run
+        run = decay[:, c, :, None, None] * run + own[:, c]
+    d_out = torch.stack(d_out, dim=1)
+
+    tri = torch.ones((q, q), dtype=torch.bool, device=x.device).tril()
+    strict = tri.tril(-1)
+    diff = cum[..., :, None] - cum[..., None, :]             # [b, c, h, i, j]
+    lmat = _tril_exp(diff, tri)
+    dg = bf16_split_matmul(dyh, xh.transpose(-1, -2))        # dy_i·x_j
+    m = gram[:, :, None] * lmat
+    dtj = dtc[..., None, :]                                  # dt_j
+    z = torch.where(tri, dg * lmat * dtj, 0.0)
+    k = torch.where(tri, m * dg, 0.0)
+    pmat = torch.where(strict & (diff >= NEG_CLIP), k * dtj, 0.0)
+    zsum = z.sum(2)                                          # Σ_h Z [b, c, i, j]
+    v = bf16_split_matmul(bc[:, :, None], d_out)             # B_j D [b, c, h, q, p]
+    mt = (m * dtj).transpose(-1, -2)                         # dt_j M_ij, [j][i]
+    dx = bf16_split_matmul(mt, dyh) + w[..., None] * v
+    y_s = bf16_split_matmul(dyh, s_in.transpose(-1, -2))     # dy Sᵀ [b, c, h, q, n]
+    dc = (bf16_split_matmul(zsum, bc)
+          + (e_in[..., None] * y_s).sum(2))
+    db = (bf16_split_matmul(zsum.transpose(-1, -2), cc)
+          + (w[..., None] * bf16_split_matmul(
+              xh, d_out.transpose(-1, -2))).sum(2))
+    zj = (xf * v).sum(-1)                                    # [b, c, h, q]
+    ddt = k.sum(-2) + e_out * zj
+    not_last = torch.arange(q, device=x.device) < q - 1
+    t = torch.where(not_last & (u_out >= NEG_CLIP), e_out * dtc * zj, 0.0)
+    rst = torch.where(cum >= NEG_CLIP,
+                      e_in * (cc.to(_F32)[:, :, None] * y_s).sum(-1), 0.0)
+    dcum = pmat.sum(-1) - pmat.sum(-2) - t + rst
+    frob = (d_out * s_in).sum((-1, -2))                      # ⟨D, S⟩
+    dcum[..., -1] += (torch.where(cum_q >= NEG_CLIP, decay * frob, 0.0)
+                      + t.sum(-1))
+    rev = torch.flip(torch.cumsum(torch.flip(dcum, (-1,)), -1), (-1,))
+    ddt = ddt + a[:, None] * rev
+    da = (dtc * rev).sum((0, 1, 3))
+    return (dx.permute(0, 1, 3, 2, 4).reshape(b, s, h, p).to(x.dtype),
+            ddt.permute(0, 1, 3, 2).reshape(b, s, h), da,
+            db.reshape(b, s, n).to(B.dtype), dc.reshape(b, s, n).to(C.dtype))
+
+
 def ssd_naive_ref(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                   B: torch.Tensor, C: torch.Tensor):
     """The per-token SSD recurrence, the ground-truth semantics

@@ -18,8 +18,10 @@ one launch.
 
 ``ssd_chunk_scan_bwd`` is the wrapper of ``csrc/ssd_scan_bwd.cu``, the
 gradients of the scan with respect to all five inputs
-(``ref.ssd_chunk_scan_bwd_ref`` is its plain version); the op layer's
-``SSDChunkScanFn`` calls it.  The reference has no such kernel: XLA
+(``ref.ssd_chunk_scan_bwd_ref`` is its plain version, and
+``ref.ssd_chunk_scan_bwd_split_ref`` writes out the kernel's
+decomposition on the tensor cores); the op layer's ``SSDChunkScanFn``
+calls it.  The reference has no such kernel: XLA
 differentiates ``repro.models.ssm.ssd_chunked``.
 """
 from __future__ import annotations
@@ -133,8 +135,9 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     column slices allowed); dx, dB, dC in x's type, ddt ``[b, s, h]``
     and dA ``[h]`` float32.  It reruns the forward's passes 1-3 (C Bᵀ
     and the state entering each chunk, so nothing but the inputs is
-    saved), then the backward's launches; dB, dC and dA are summed from
-    float32 partials in a fixed order (no atomics), so two calls are
+    saved), then the backward's launches; dB and dC sum over heads
+    through Z summed per chunk, and every sum over heads, tiles and
+    chunks is taken in a fixed order (no atomics), so two calls are
     bitwise equal.  One call counts as one launch."""
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"ssd_chunk_scan_bwd: dy {tuple(dy.shape)} "
@@ -142,6 +145,8 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"{tuple(x.shape)} {x.dtype} on {x.device}")
     b, s, h, p, n, q = _check("ssd_chunk_scan_bwd", x, dt, A, B, C, chunk)
     dy = dy.contiguous()
+    if dy.data_ptr() % 16:    # the kernel reads dy's rows 16 bytes at a time
+        dy = dy.clone()
     gram, states, decay = _forward(x, dt, A, B, C, q, None)
     dev, nc = x.device, s // q
     f32 = dict(dtype=torch.float32, device=dev)
@@ -150,17 +155,17 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dA = torch.empty((h,), **f32)
     dB = torch.empty((b, s, n), dtype=x.dtype, device=dev)
     dC = torch.empty_like(dB)
-    # the state's gradient per chunk; dB and dC per head; four per-token
-    # partials of ddt; dA per chunk
+    # the state's gradient per chunk; Z summed over the heads per chunk;
+    # per (lane, chunk, head) and token cum, dt and the partials of ddt
+    # (five, then two per 64-token tile); dA per chunk
     dstate = torch.empty((b, nc, h, n, p), **f32)
-    dbw = torch.empty((b, s, h, n), **f32)
-    dcw = torch.empty_like(dbw)
-    tok = torch.empty((4, b, s, h), **f32)
+    zsum = torch.empty((b, nc, q, q), **f32)
+    tok = torch.empty((5 + 2 * (q // TILE), b, nc, h, q), **f32)
     daw = torch.empty((b, nc, h), **f32)
     lib = build.load("ssd_scan_bwd")
     fn = lib.ssd_chunk_scan_bwd
     fn.argtypes = ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L]
-                   + [_P] * 14 + [_I] * 6 + [_P])
+                   + [_P] * 13 + [_I] * 6 + [_P])
     fn.restype = _I
     status = fn(x.data_ptr(), x.stride(0), x.stride(1),
                 dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
@@ -168,8 +173,8 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 C.data_ptr(), C.stride(0), C.stride(1), dy.data_ptr(),
                 gram.data_ptr(), states.data_ptr(), decay.data_ptr(),
                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-                dC.data_ptr(), dstate.data_ptr(), dbw.data_ptr(),
-                dcw.data_ptr(), tok.data_ptr(), daw.data_ptr(),
+                dC.data_ptr(), dstate.data_ptr(), zsum.data_ptr(),
+                tok.data_ptr(), daw.data_ptr(),
                 b, s, h, n, q, build.dtype_code(x),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "ssd_chunk_scan_bwd", status)

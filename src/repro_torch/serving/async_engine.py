@@ -147,9 +147,12 @@ class AsyncDiffusionEngine:
         return fut
 
     def pending(self) -> int:
-        """Requests submitted but not yet resolved (queued + in flight)."""
+        """Requests submitted but not yet resolved (queued + in flight).
+        A batch's futures resolve before the worker clears its in-flight
+        map, so an in-flight future that is done is not counted."""
         with self.scheduler.cv:
-            return len(self._futures) + len(self._inflight)
+            return len(self._futures) + sum(
+                not f.done() for f in self._inflight.values())
 
     # --- drain / shutdown ------------------------------------------------
     def drain(self, timeout: Optional[float] = None) -> bool:

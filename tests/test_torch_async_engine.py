@@ -166,6 +166,21 @@ def test_async_stress_many_client_threads(fns):
     assert eng.metrics.summary()["requests"] == total
 
 
+def test_async_pending_excludes_resolved_inflight(fns):
+    """``pending`` read as a future resolves, before the worker clears
+    its in-flight map (as a client reading it right after ``drain`` may
+    be): the resolved request is not counted."""
+    eng = make_engine(fns, max_batch=2, max_wait_s=0.0)
+    eng.warmup()
+    seen = []
+    with AsyncDiffusionEngine(eng) as aeng:
+        fut = aeng.submit(DiffusionRequest(request_id=3, seed=3))
+        fut.add_done_callback(lambda f: seen.append(aeng.pending()))
+        assert aeng.drain(timeout=60)
+        assert aeng.pending() == 0
+    assert seen == [0]
+
+
 def test_async_deadline_lapsed_served_first(fns):
     """Five requests queue before any cut, more than max_batch: the
     first cut promotes the deadline-lapsed last one ahead of three

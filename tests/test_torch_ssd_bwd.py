@@ -193,11 +193,14 @@ _CARD_SHAPES = [
     (1, 1024, 2, 128, 128, 20.0),   # decays clipped at −60
     (2, 4096, 32, 128, 256, 1.0),   # one mamba2-370m layer, two lanes
 ]
+# one mamba2-370m layer at the lm_train phase's batch of 8
+_LM_TRAIN_SHAPE = (8, 4096, 32, 128, 256, 1.0)
 
 
 @pytest.mark.hopper
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,h,n,chunk,dt_scale", _CARD_SHAPES)
+@pytest.mark.parametrize("b,s,h,n,chunk,dt_scale",
+                         _CARD_SHAPES + [_LM_TRAIN_SHAPE])
 def test_backward_kernel(card, dtype, b, s, h, n, chunk, dt_scale):
     """Kernel 8 against its plain version; two launches bitwise equal."""
     ins = _card_inputs(card, dtype, b, s, h, n, dt_scale)

@@ -68,13 +68,27 @@ Phases, each of which raises (and so exits non-zero) on failure:
                logits equal to the forward's last row; the flash launch
                at that shape held against its plain version on the first
                and the last 1024 queries;
-10. train    — ``launch.train.train_dit`` at full flux1-dev width (16
+10. decode   — the LM decode path (``steps.make_decode_step``, no
+               kernel) at full width, one warm and 8 timed greedy steps
+               from a seeded cache each: yi-9b (the lm phase's
+               parameters) at decode_32k on batch 16 (32768 slots) and,
+               through ``for_shape``, at long_500k on an 8192-slot ring
+               at position 524279; mamba2-370m (48 layers) at decode_32k
+               on batch 128 and at long_500k; each step's wall, tokens/s,
+               peak memory, bound and attention / SSM share; one step
+               card against CPU at 2 layers (bf16, float32); ``LMEngine``
+               prefill against ``transformer.forward`` (yi-9b cut to 4
+               layers on 2048 tokens, flash; mamba2-370m on 512, the SSD
+               scan; bf16, each also against the float32 forward, and
+               float32, mamba2 cut to 8 layers) and 16 greedy tokens
+               against the teacher-forced forward;
+11. train    — ``launch.train.train_dit`` at full flux1-dev width (16
                single blocks, 2.7 B parameters) for 4 steps on two 1024²
                latents (S 4096): 16 flash forward and 16 backward
                launches a step, finite losses, every used leaf's
                gradient non-zero; its checkpoint, reloaded through
                ``bridge``, serves one FreqCa request (6 full steps);
-11. lm_train — ``launch.train.train_lm`` for 4 steps at S 4096, bf16,
+12. lm_train — ``launch.train.train_lm`` for 4 steps at S 4096, bf16,
                the stack rematerialised: mamba2-370m at full depth (48
                layers) on batch 8, 96 SSD forward and 48 SSD backward
                launches a step; yi-9b at full width cut to 16 layers
@@ -82,13 +96,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
                backward launches a step; finite losses, every leaf's
                gradient non-zero; yi's checkpoint reloaded through
                ``bridge`` runs one ``make_prefill_step``;
-12. launcher — ``launch.serve.main`` in this process at dit-small, three
+13. launcher — ``launch.serve.main`` in this process at dit-small, three
                times: closed-loop bursts, the threaded open loop and two
                replica processes; every request its 4 full steps, a
                finite PSNR against the uncached run, 0 steady-state
                first runs; kernels 1 and 2 held against their plain
                versions at its shapes;
-13. fleet    — two replica processes on the card behind a
+14. fleet    — two replica processes on the card behind a
                ``FleetRouter``, each with its own copy of the train
                phase's flux1-dev cut (shipped as a numpy tree): six
                1024² requests, one replica SIGKILLed mid-stream, every
@@ -1236,7 +1250,8 @@ def lm_reference(devices=("cpu", "cuda")) -> None:
     float32 summation-order differences of the card and the CPU into
     ~1e-4 of each layer's output.  A control, the card's forward with
     TF32 matmuls, must fail the limit (on an H100 80GB HBM3: 3.6e-2,
-    against the float32 route's 3.7e-4)."""
+    against the float32 route's 1.35e-4; 3.7e-4 while the card computed
+    its own RoPE frequencies)."""
     import dataclasses
 
     import torch
@@ -2159,15 +2174,17 @@ def backbone_phase(n_steps: int, cfg=None, side: int = 128,
     return counts
 
 
-def lm_phase(cfg=None, s: int = 32768, device: str = "cuda") -> dict:
+def lm_phase(cfg=None, s: int = 32768, device: str = "cuda",
+             params=None) -> dict:
     """yi-9b at full width and depth (48 layers, d 4096, 32 query heads
     on 4 kv heads of 128, d_ff 11008, vocabulary 64000), bf16 from a
     seed, through ``transformer.forward`` on one sequence of 32768 tokens
     (the assigned prefill length): every layer's attention runs the
     causal GQA flash kernel, which is then held against its plain
-    version at that shape.  (``cfg``, ``s`` and ``device`` let the
-    phase be rehearsed small on the CPU, with the CUDA memory and sync
-    calls stubbed.)"""
+    version at that shape.  ``params`` (default: drawn here from seed
+    30) lets the decode phase reuse them.  (``cfg``, ``s`` and
+    ``device`` let the phase be rehearsed small on the CPU, with the
+    CUDA memory and sync calls stubbed.)"""
     import torch
 
     from repro_torch import configs
@@ -2175,7 +2192,8 @@ def lm_phase(cfg=None, s: int = 32768, device: str = "cuda") -> dict:
     from repro_torch.models import transformer
     cfg, dev = cfg or configs.get_config("yi-9b"), device
     t0 = time.perf_counter()
-    params = lm_params(cfg, cfg.n_layers, seed=30, device=dev)
+    if params is None:
+        params = lm_params(cfg, cfg.n_layers, seed=30, device=dev)
     log(f"lm: {cfg.arch_id} params "
         f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -2283,6 +2301,449 @@ def lm_phase(cfg=None, s: int = 32768, device: str = "cuda") -> dict:
             f"{b_ms:.4f} ms ({b_by}); library (SDPA) {t_l:.3f} ms; "
             f"{rate(flops, t_k, b_ms)}")
     return {"lm": counts, "lm_prefill": pre_counts}
+
+
+# the decode phase: (label, arch, input shape, batch).  decode_32k's
+# global batch of 128 is cut to 16 for yi-9b (17.66 GB of weights and a
+# 51.5 GB cache of 32768 slots fill the card); mamba2-370m keeps it
+DECODE_RUNS = (("yi_decode_32k", "yi-9b", "decode_32k", 16),
+               ("yi_long_500k", "yi-9b", "long_500k", 1),
+               ("mamba_decode_32k", "mamba2-370m", "decode_32k", 128),
+               ("mamba_long_500k", "mamba2-370m", "long_500k", 1))
+DECODE_TIMED = 8          # timed steps after one warm step
+# the decode-against-forward checks: yi-9b cut to 4 layers on a prompt
+# long enough for the forward's flash route, mamba2-370m at full depth
+# (cut to 8 layers for the float32 check: its prefill is host-bound,
+# ~1 ms of eager ops a layer and token)
+DECODE_YI_LAYERS, DECODE_YI_PROMPT = 4, 2048
+DECODE_MAMBA_PROMPT = 512
+DECODE_MAMBA_F32_LAYERS = 8
+DECODE_NEW = 16
+# card against CPU, relative L2 of the logits and of the updated cache:
+# float32 sums in other orders (TF32 off); bf16 one rounding of each
+# output in places.  The RoPE frequencies are the host's bits on both
+# (``common.rope_frequencies``), so positions near 524288 take the same
+# tolerance
+DECODE_CARD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# decode against forward: the prefill's last logits against the
+# forward's last row, relative L2; bf16 takes the same 2e-2 over yi's 4
+# layers and 5e-2 over mamba2's 48, whose chunk scan (bf16 inputs) and
+# float32 recurrence round the residual stream in other places in
+# every layer; float32 1e-3 (a sharper check of the same wiring)
+DECODE_FWD_TOL = {("yi-9b", "bfloat16"): 2e-2,
+                  ("mamba2-370m", "bfloat16"): 5e-2,
+                  ("yi-9b", "float32"): 1e-3,
+                  ("mamba2-370m", "float32"): 1e-3}
+
+
+def fill_cache(cache, pos: int, seed: int):
+    """Draw every buffer of a decode cache in place from a seed (K, V,
+    the conv history and the SSM state ~ N(0, 1)) and set every KV
+    cache's next position to ``pos``."""
+    import torch
+    gen = None
+    for group in cache:
+        for c in group.values():
+            for t in vars(c).values():
+                if isinstance(t, torch.Tensor):
+                    if gen is None:
+                        gen = torch.Generator(device=t.device).manual_seed(
+                            seed)
+                    t.normal_(generator=gen)
+            if hasattr(c, "index"):
+                c.index = pos
+    return cache
+
+
+def set_position(cache, pos: int) -> None:
+    for group in cache:
+        for c in group.values():
+            if hasattr(c, "index"):
+                c.index = pos
+
+
+def decode_bytes(cfg, params, cache, batch: int) -> int:
+    """Bytes one decode step must move: every weight once (of an untied
+    embedding table only the batch's rows), every cache buffer read, the
+    new K / V slot or the SSM state and conv history written, the logits
+    written."""
+    from repro_torch.optim import adamw
+    n = sum(p.numel() * p.element_size() for p in adamw.leaves(params))
+    emb = params["embed"]["embedding"]
+    if not cfg.tie_embeddings:
+        n -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
+    for group in cache:
+        for c in group.values():
+            if hasattr(c, "index"):
+                n += c.k.nbytes + c.v.nbytes
+                n += 2 * c.k[:, 0].nbytes
+            else:
+                n += 2 * (c.state.nbytes + c.conv.nbytes)
+    return n + batch * cfg.vocab_size * emb.element_size()
+
+
+def decode_flops(cfg, params, cache, batch: int) -> float:
+    """Operations of one decode step: 2 per weight of a matmul per token
+    (the embedding is a lookup), attention 4·hd per query head and valid
+    slot (the whole ring or the filled prefix), the SSM recurrence ~6
+    per state element."""
+    from repro_torch.optim import adamw
+    n_mat = sum(p.numel() for p in adamw.leaves(params) if p.dim() == 2)
+    if not cfg.tie_embeddings:
+        n_mat -= params["embed"]["embedding"].numel()
+    flops = 2.0 * n_mat * batch
+    for group in cache:
+        for c in group.values():
+            if hasattr(c, "index"):
+                valid = min(c.index + 1, c.k.shape[1])
+                flops += 4.0 * cfg.head_dim * cfg.n_heads * valid * batch
+            else:
+                flops += 6.0 * c.state.numel()
+    return flops
+
+
+def decode_run(label: str, cfg, params, batch: int, cache_len: int,
+               pos: int, window: int, device: str) -> None:
+    """One decode run: a seeded cache at position ``pos``, one warm step
+    and DECODE_TIMED timed greedy steps through ``make_decode_step``
+    (CUDA events around each), then one step with events around every
+    attention / SSM mixer for the split; bound, peak memory, no kernel
+    launched."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, blocks, ssm
+    on_card = torch.device(device).type == "cuda"
+    dtype = getattr(torch, cfg.dtype)
+    before = torch.cuda.memory_allocated() if on_card else 0
+    cache = fill_cache(blocks.stack_cache_zeros(cfg, batch, cache_len, dtype,
+                                                device), pos, seed=40)
+    step = steps.make_decode_step(cfg, window=window)
+    gen = torch.Generator(device=device).manual_seed(41)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 1), device=device,
+                           generator=gen)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+
+    def event():
+        if not on_card:
+            return time.perf_counter()
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def elapsed(a, b) -> float:
+        return a.elapsed_time(b) if on_card else (b - a) * 1e3
+    logits, _ = step(params, tokens, cache)                  # warm
+    marks = []
+    t0 = time.perf_counter()
+    for _ in range(DECODE_TIMED):
+        tokens = torch.argmax(logits[:, -1:], dim=-1)
+        start = event()
+        logits, _ = step(params, tokens, cache)
+        marks.append((start, event()))
+    if on_card:
+        torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / DECODE_TIMED
+    walls = [elapsed(a, b) for a, b in marks]
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    finite = bool(torch.isfinite(logits).all())
+    kv = [c for g in cache for c in g.values() if hasattr(c, "index")]
+    if tuple(logits.shape) != (batch, 1, cfg.vocab_size) or not finite or \
+            any(c.index != pos + 1 + DECODE_TIMED for c in kv) or \
+            any(counts.values()):
+        raise AssertionError(f"decode {label}: logits {tuple(logits.shape)}"
+                             f" finite {finite}, positions "
+                             f"{sorted({c.index for c in kv})}, launches "
+                             f"{counts}")
+    # the split: the last position again, events around every mixer
+    set_position(cache, pos + DECODE_TIMED)
+    mixers, real = [], (attention.decode_self_attention,
+                        ssm.ssm_decode_step)
+
+    def timed(fn):
+        def wrapper(*args, **kw):
+            a = event()
+            out = fn(*args, **kw)
+            mixers.append((a, event()))
+            return out
+        return wrapper
+    attention.decode_self_attention = timed(real[0])
+    ssm.ssm_decode_step = timed(real[1])
+    try:
+        start = event()
+        step(params, tokens, cache)
+        end = event()
+    finally:
+        attention.decode_self_attention, ssm.ssm_decode_step = real
+    if on_card:
+        torch.cuda.synchronize()
+    split_ms = elapsed(start, end)
+    mixer_ms = sum(elapsed(a, b) for a, b in mixers)
+    nbytes = decode_bytes(cfg, params, cache, batch)
+    flops = decode_flops(cfg, params, cache, batch)
+    b_ms, b_by = bound_ms(nbytes, flops, cfg.dtype)
+    mean = sum(walls) / len(walls)
+    kind = "attention" if kv else "SSM"
+    cache_gb = sum(t.nbytes for g in cache for c in g.values()
+                   for t in vars(c).values()
+                   if isinstance(t, torch.Tensor)) / 1e9
+    where = (f"KV cache {cache_len} slots, window {window}, position {pos}"
+             if kv else "SSM state and conv history")
+    log(f"decode {label}: {cfg.arch_id} {cfg.n_layers} layers {cfg.dtype}, "
+        f"batch {batch}, {where} ({cache_gb:.2f} GB): step walls (ms, CUDA "
+        f"events) {[round(w, 3) for w in walls]}, mean {mean:.3f} (host "
+        f"clock {host_ms:.3f}), {batch / mean * 1e3:.1f} tokens/s; peak "
+        f"memory {peak / 2**30:.2f} GiB, of it {before / 2**30:.2f} held "
+        f"before the cache; bound {b_ms:.3f} ms ({b_by}: "
+        f"{nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} GFLOP), mean/bound "
+        f"{mean / b_ms:.2f}; split (one more step, {split_ms:.3f} ms): "
+        f"{kind} {len(mixers)} x {mixer_ms / max(len(mixers), 1):.3f} = "
+        f"{mixer_ms:.3f} ms ({mixer_ms / split_ms:.1%}), the rest "
+        f"{split_ms - mixer_ms:.3f} ms; 0 kernel launches")
+
+
+def decode_params(cfg, n_layers: int, seed: int, device: str):
+    """``lm_params`` with an attention model's projections redrawn at std
+    1/sqrt(fan-in) (as ``lm_train_reference`` draws yi: the reference's
+    rule for the stacked leaves gives std 1/sqrt(48), which puts random
+    yi-9b logits near 426 and makes a bf16 comparison meaningless)."""
+    import torch
+    params = lm_params(cfg, n_layers, seed, device)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    for group in params["stack"]:
+        for w in group["l0"].get("attn", {}).values():
+            w.copy_(torch.randn(w.shape, generator=gen, device=device)
+                    / w.shape[0] ** 0.5)
+    return params
+
+
+def decode_reference(devices=("cpu", "cuda"), cfgs=None,
+                     yi_len: int = 32768) -> None:
+    """One decode step card against CPU, at full width cut to 2 layers,
+    in float32 and bf16, from one seeded non-empty cache: yi-9b without
+    a window (batch 1, 32768 slots, the last one free), yi-9b on
+    long_500k's 8192-slot ring at position 524279, mamba2-370m at batch
+    2.  The logits and every buffer the step writes (the new K / V slot;
+    the SSM state and conv history) are held to DECODE_CARD_TOL."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models import blocks, common
+    get = cfgs or configs.get_config
+    yi, mamba = get("yi-9b"), get("mamba2-370m")
+    ring = configs.for_shape(yi, "long_500k")
+    w = ring.sliding_window
+    cases = (("yi-9b", yi, 1, yi_len, yi_len - 1, 0),
+             ("yi-9b ring", ring, 1, w, 524288 - 9, w),
+             ("mamba2-370m", mamba, 2, 1, 0, 0))
+    # why ``rope_frequencies`` computes on the host: the card's own pow
+    own = {dev: (1.0 / yi.rope_theta ** (torch.arange(
+        0, yi.head_dim, 2, dtype=torch.float32, device=dev) / yi.head_dim))
+        .cpu() for dev in devices}
+    used = common.rope_frequencies(yi.head_dim, yi.rope_theta, devices[1])
+    n_own = int((own[devices[0]] != own[devices[1]]).sum())
+    n_used = int((used.cpu() != own[devices[0]]).sum())
+    log(f"decode reference: yi-9b RoPE frequencies computed on the card "
+        f"differ from the CPU's in {n_own} of {own[devices[0]].numel()}; "
+        f"those the port uses there in {n_used}")
+    for seed, (name, full, batch, cache_len, pos, window) in enumerate(
+            cases, start=80):
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(full, n_layers=2, dtype=dtype)
+            params_cpu = decode_params(cfg, 2, seed, "cpu")
+            cache_cpu = fill_cache(blocks.stack_cache_zeros(
+                cfg, batch, cache_len, getattr(torch, dtype), "cpu"), pos,
+                seed=seed)
+            tokens = torch.randint(0, cfg.vocab_size, (batch, 1),
+                                   generator=torch.Generator().manual_seed(
+                                       seed))
+            outs = {}
+            for dev in devices:
+                cache = [{k: type(c)(**{f: (t.to(dev, copy=True)
+                                            if isinstance(t, torch.Tensor)
+                                            else t)
+                                        for f, t in vars(c).items()})
+                          for k, c in g.items()} for g in cache_cpu]
+                logits, cache = steps.make_decode_step(cfg, window)(
+                    _to(params_cpu, dev), tokens.to(dev), cache)
+                written = []
+                for g in cache:
+                    for c in g.values():
+                        if hasattr(c, "index"):
+                            slot = pos % cache_len
+                            written += [c.k[:, slot], c.v[:, slot]]
+                        else:
+                            written += [c.state, c.conv]
+                outs[dev] = [logits] + written
+            tol = DECODE_CARD_TOL[dtype]
+            rels = [rel_l2(g, w_) for g, w_ in zip(outs[devices[1]],
+                                                   outs[devices[0]],
+                                                   strict=True)]
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in outs[devices[1]])
+            log(f"decode reference {name} x2 {dtype} batch {batch}, cache "
+                f"{cache_len}, position {pos}: card vs CPU rel L2 logits "
+                f"{rels[0]:.3e}, written cache max {max(rels[1:]):.3e} "
+                f"(tol {tol:.0e})")
+            if not finite or max(rels) > tol:
+                raise AssertionError(f"decode reference {name} {dtype}: "
+                                     f"rel L2 {rels}")
+            del outs, cache_cpu, params_cpu
+
+
+def decode_forward_check(label: str, cfg, params, prompt_len: int,
+                         device: str) -> None:
+    """``LMEngine`` at full width against ``transformer.forward``: the
+    prefill's last logits against the forward's last row (relative L2,
+    DECODE_FWD_TOL), then DECODE_NEW greedy tokens, each equal to the
+    forward's argmax over the generated sequence (teacher-forced, so
+    each row sees the prefix the decode saw; padded to a multiple of 256
+    for the SSD kernel, which changes no compared row of a causal model)
+    wherever that row's top-2 margin exceeds the tolerance times its
+    largest |logit| (bf16 logits tie often).  A bf16 check also holds
+    the prefill's distance from the float32 forward of the same weights
+    to twice the bf16 forward's."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import LMEngine
+    gen = torch.Generator(device=device).manual_seed(90)
+    prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), device=device,
+                           generator=gen)
+    tol = DECODE_FWD_TOL[(cfg.arch_id, cfg.dtype)]
+    engine = LMEngine(params, cfg, prompt_len + DECODE_NEW, device=device)
+    t0 = time.perf_counter()
+    last, _ = engine.prefill(prompt)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    with torch.no_grad():
+        want = transformer.forward(params, prompt, cfg).logits[:, -1:]
+    rel = rel_l2(last, want)
+    control = ""
+    if cfg.dtype == "bfloat16":
+        # a control: both bf16 paths' distance from the float32 forward
+        # of the same weights; the decode may lie at most twice as far
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        with torch.no_grad():
+            exact = transformer.forward(
+                _to(params, torch.float32), prompt, cfg32).logits[:, -1:]
+        d_fwd, d_dec = rel_l2(want, exact), rel_l2(last, exact)
+        control = (f"; from the float32 forward: the bf16 forward "
+                   f"{d_fwd:.3e}, the bf16 prefill {d_dec:.3e} (at most "
+                   f"2x the forward's)")
+        if not d_dec <= 2 * d_fwd:
+            raise AssertionError(f"decode {label}: the prefill lies "
+                                 f"{d_dec:.3e} from the float32 forward, "
+                                 f"the forward {d_fwd:.3e}")
+    t0 = time.perf_counter()
+    out = engine.generate(prompt, DECODE_NEW)
+    gen_s = time.perf_counter() - t0
+    seq = out[:, :-1]
+    pad = -seq.shape[1] % 256
+    with torch.no_grad():
+        tf = transformer.forward(
+            params, torch.cat([seq, torch.zeros((1, pad), dtype=seq.dtype,
+                                                device=device)], 1),
+            cfg).logits[0, prompt_len - 1:prompt_len - 1 + DECODE_NEW]
+    top2 = torch.topk(tf.float(), 2, dim=-1)
+    margin = (top2.values[:, 0] - top2.values[:, 1]) / tf.float().abs().amax(
+        dim=-1)
+    clear = margin > tol
+    wrong = clear & (out[0, prompt_len:] != top2.indices[:, 0])
+    log(f"decode {label}: LMEngine prefill of {prompt_len} tokens "
+        f"{pre_s:.2f} s, last logits vs forward rel L2 {rel:.3e} (tol "
+        f"{tol:.0e}){control}; generate {DECODE_NEW} tokens {gen_s:.2f} s; "
+        f"{int(clear.sum())} of {DECODE_NEW} rows with a margin past the "
+        f"tolerance, {int(wrong.sum())} of them not the teacher-forced "
+        f"forward's argmax (smallest margin {margin.min().item():.3e})")
+    if wrong.any():
+        raise AssertionError(f"decode {label}: tokens {wrong.tolist()} "
+                             "differ from the forward's argmax")
+    if not bool(torch.isfinite(last).all()) or rel > tol or \
+            tuple(out.shape) != (1, prompt_len + DECODE_NEW):
+        raise AssertionError(f"decode {label}: rel {rel:.3e}, out "
+                             f"{tuple(out.shape)}")
+
+
+def decode_phase(yi_params=None, yi_cfg=None, mamba_cfg=None,
+                 seq: int = 0, prompts=(DECODE_YI_PROMPT,
+                                        DECODE_MAMBA_PROMPT),
+                 device: str = "cuda") -> dict:
+    """The LM decode path at full width: the four DECODE_RUNS (yi-9b on
+    ``yi_params``, the lm phase's, at decode_32k and, through
+    ``for_shape``, long_500k's 8192-slot ring at position 524279;
+    mamba2-370m at full depth), each from a seeded cache positioned so
+    that its nine steps end at the shape's length; then the card against
+    the CPU (``decode_reference``) and ``LMEngine`` against the forward
+    (``decode_forward_check``).  Returns the launch counts of the
+    checks' forwards (flash and the SSD scan) under ``decode``.
+    (``yi_cfg``, ``mamba_cfg``, ``seq`` and ``prompts`` let the phase be
+    rehearsed small on the CPU.)"""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    cfgs = {"yi-9b": yi_cfg or configs.get_config("yi-9b"),
+            "mamba2-370m": mamba_cfg or configs.get_config("mamba2-370m")}
+    on_card = torch.device(device).type == "cuda"
+    if yi_params is None:
+        yi_params = lm_params(cfgs["yi-9b"], cfgs["yi-9b"].n_layers, seed=30,
+                              device=device)
+    m_cfg = cfgs["mamba2-370m"]
+    params = {"yi-9b": yi_params,
+              "mamba2-370m": lm_params(m_cfg, m_cfg.n_layers, seed=42,
+                                       device=device)}
+    for label, arch, shape, batch in DECODE_RUNS:
+        cfg = configs.for_shape(cfgs[arch], shape)
+        length = seq or configs.INPUT_SHAPES[shape]["seq_len"]
+        window = cfg.sliding_window
+        decode_run(label, cfg, params[arch], batch,
+                   window or length, length - 1 - DECODE_TIMED, window,
+                   device)
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    del params, yi_params
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    decode_reference(devices=("cpu", device),
+                     cfgs=None if yi_cfg is None else cfgs.get,
+                     yi_len=seq or 32768)
+    ops.reset_launch_counts()
+    yi = dataclasses.replace(cfgs["yi-9b"], n_layers=DECODE_YI_LAYERS)
+    m32 = min(DECODE_MAMBA_F32_LAYERS, m_cfg.n_layers)
+    checks = ((yi, "bfloat16", prompts[0]), (yi, "float32", prompts[0]),
+              (m_cfg, "bfloat16", prompts[1]),
+              (dataclasses.replace(m_cfg, n_layers=m32), "float32",
+               prompts[1]))
+    for seed, (full, dtype, prompt) in enumerate(checks, start=91):
+        cfg = dataclasses.replace(full, dtype=dtype)
+        decode_forward_check(f"{cfg.arch_id} x{cfg.n_layers} {dtype}", cfg,
+                             decode_params(cfg, cfg.n_layers, seed, device),
+                             prompt, device)
+    counts = ops.launch_counts()
+    # two forwards a check, three in bf16 (the float32 control)
+    want = {"flash_attention": 5 * yi.n_layers,
+            "ssd_chunk_scan": 3 * m_cfg.n_layers + 2 * m32}
+    if on_card and any(counts[k] != n for k, n in want.items()):
+        raise AssertionError(f"decode: launches {counts}, expected {want}")
+    log(f"decode: the checks' forwards launched "
+        f"{ {k: counts[k] for k in want} } (expected {want} on the card)")
+    return {"decode": counts}
 
 
 TRAIN_LAYERS = 16     # single blocks of the train phase's flux1-dev cut
@@ -3153,7 +3614,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--skip-serve", action="store_true",
                     help="stop after the kernel and reference phases "
-                         "(skips the seven full-width phases, the launcher "
+                         "(skips the eight full-width phases, the launcher "
                          "and the fleet)")
     args = ap.parse_args(argv)
 
@@ -3211,7 +3672,14 @@ def main(argv=None) -> int:
         by_phase["backbone"] = backbone_phase(N_STEPS)
         gc.collect()
         torch.cuda.empty_cache()
-        by_phase.update(lm_phase())
+        from repro_torch import configs
+        yi = configs.get_config("yi-9b")
+        yi_params = lm_params(yi, yi.n_layers, seed=30, device="cuda")
+        by_phase.update(lm_phase(params=yi_params))
+        gc.collect()     # the lm phase's 32768-token activations
+        torch.cuda.empty_cache()
+        by_phase.update(decode_phase(yi_params))
+        del yi_params
         gc.collect()
         torch.cuda.empty_cache()
         by_phase.update(train_phase())

@@ -9,7 +9,8 @@ arrives as numpy (``jax.tree.map(np.asarray, params)``) or as a
 checkpoint file of the reference's format (``params_from_checkpoint``),
 so this module needs no JAX.  ``params_to_jax_numpy`` and
 ``lm_params_to_jax_numpy`` go the other way, so that a checkpoint the
-port saves restores in ``repro``.
+port saves restores in ``repro``.  ``lm_cache_from_jax_numpy`` and
+``lm_cache_to_jax_numpy`` carry an LM decode cache across both ways.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 from repro_torch import device as device_lib
 from repro_torch.checkpointing import checkpoint
 from repro_torch.configs.base import DiTConfig, ModelConfig
-from repro_torch.models import blocks
+from repro_torch.models import attention, blocks, ssm
 
 _ATTN_MATS = ("wq", "wk", "wv", "wo")
 
@@ -225,4 +226,57 @@ def lm_params_to_jax_numpy(params, cfg: ModelConfig):
     out["stack"] = {f"l{i}": _stack([_lm_unblock(group[f"l{i}"], cfg)
                                      for group in params["stack"]])
                     for i in range(len(plan))}
+    return out
+
+
+def _fields(node):
+    """A cache node's fields: the reference's NamedTuple (``k, v,
+    index`` or ``conv, state``) or a dict of the same keys."""
+    return node._asdict() if hasattr(node, "_asdict") else dict(node)
+
+
+def lm_cache_from_jax_numpy(tree, cfg: ModelConfig, device=None):
+    """``repro``'s stacked decode cache (``{"l{i}": KVCache(k, v [n_groups,
+    B, L, Hkv, hd], index [n_groups])}`` or ``SSMCache(conv, state)``,
+    leaves numpy) -> the port's: a list of ``n_groups`` dicts ``{"l{i}":
+    cache}`` on ``device`` (default ``cuda``), each KV cache's position
+    an ``int``; every layer's index must be the same."""
+    dev = device_lib.resolve(device)
+    _, n_groups, plan = blocks._layer_plan(cfg)
+    out = [{} for _ in range(n_groups)]
+    for i, (kind, _) in enumerate(plan):
+        f = _to_torch(_fields(tree[f"l{i}"]), dev, None)
+        if kind == "attn":
+            index = set(f["index"].reshape(-1).tolist())
+            if len(index) != 1:
+                raise ValueError(f"l{i}: layers at positions {index}")
+            pos = int(index.pop())
+        for g in range(n_groups):
+            out[g][f"l{i}"] = (
+                attention.KVCache(f["k"][g].clone(), f["v"][g].clone(), pos)
+                if kind == "attn" else
+                ssm.SSMCache(f["conv"][g].clone(), f["state"][g].clone()))
+    return out
+
+
+def lm_cache_to_jax_numpy(cache, cfg: ModelConfig):
+    """The port's decode cache -> ``repro``'s stacked layout as dicts
+    (``{"l{i}": {"k", "v", "index"}}`` or ``{"conv", "state"}``, leaves
+    ``[n_groups, ...]``; ``index`` int32); the inverse of
+    ``lm_cache_from_jax_numpy``.  Leaves are CPU tensors in their own
+    types (``.numpy()`` gives the reference's arrays, except bf16)."""
+    _, _, plan = blocks._layer_plan(cfg)
+    out = {}
+    for i, (kind, _) in enumerate(plan):
+        layers = [group[f"l{i}"] for group in cache]
+        if kind == "attn":
+            out[f"l{i}"] = {
+                "k": _stack([c.k.detach().cpu() for c in layers]),
+                "v": _stack([c.v.detach().cpu() for c in layers]),
+                "index": torch.tensor([c.index for c in layers],
+                                      dtype=torch.int32)}
+        else:
+            out[f"l{i}"] = {
+                "conv": _stack([c.conv.detach().cpu() for c in layers]),
+                "state": _stack([c.state.detach().cpu() for c in layers])}
     return out

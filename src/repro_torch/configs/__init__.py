@@ -1,5 +1,6 @@
 """Architecture registry of the port: the DiT configs and the assigned
-backbones it runs (``yi-9b``, ``mamba2-370m``)."""
+backbones it runs (``yi-9b``, ``mamba2-370m``), and the assigned input
+shapes with the config variant each runs."""
 from __future__ import annotations
 
 import dataclasses
@@ -14,8 +15,44 @@ REGISTRY: Dict[str, Union[ModelConfig, DiTConfig]] = {
 }
 
 
+INPUT_SHAPES = {
+    "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},
+    "prefill_32k": {"seq_len": 32768, "global_batch": 32,
+                    "kind": "prefill"},
+    "decode_32k": {"seq_len": 32768, "global_batch": 128,
+                   "kind": "decode"},
+    "long_500k": {"seq_len": 524288, "global_batch": 1, "kind": "decode"},
+}
+
+# window of the sliding-window variant that pure full-attention
+# architectures run at long_500k
+LONG_CONTEXT_WINDOW = 8192
+
+
 def get_config(arch_id: str):
     return REGISTRY[arch_id]
+
+
+def needs_sliding_window(cfg: ModelConfig, shape_name: str) -> bool:
+    """True when this (arch, shape) runs the sliding-window variant."""
+    if shape_name != "long_500k":
+        return False
+    # SSM state is O(1); hybrid keeps its sparse 1:7 attention full.
+    return cfg.family not in ("ssm", "hybrid")
+
+
+def for_shape(cfg: ModelConfig, shape_name: str) -> ModelConfig:
+    """The config variant that runs a given input shape: at long_500k a
+    full-attention LM takes an 8192-token sliding window (its decode
+    cache a ring of that size); outside training, no remat."""
+    if isinstance(cfg, DiTConfig):
+        return cfg
+    updates = {}
+    if needs_sliding_window(cfg, shape_name):
+        updates["sliding_window"] = LONG_CONTEXT_WINDOW
+    if INPUT_SHAPES[shape_name]["kind"] != "train":
+        updates["remat"] = False
+    return dataclasses.replace(cfg, **updates) if updates else cfg
 
 
 def reduced(cfg):

@@ -1,15 +1,16 @@
 """Step builders (counterpart of ``repro.launch.steps``): the LM train
-step with AdamW and gradient accumulation, and the prefill step.
+step with AdamW and gradient accumulation, the prefill step and the
+decode step.
 
-``make_train_step`` and ``make_prefill_step`` keep the reference's
-arithmetic and return values; they run eagerly on the tensors' device
-(on the card the scan and attention kernels and their backwards).  The
-AdamW update is in place (``optim.adamw.update``), so the parameters a
-train step returns are the ones it was given.  The mesh, the
-``constrain`` sharding hooks, ``build`` / ``input_specs`` /
-``build_dit`` and the decode step wait for the sharding and dry-run part
-of ``ROADMAP.md`` §1 item 6 (the decode path for item 4); enc-dec,
-modality-prefix and MoE configs raise (item 5).
+``make_train_step``, ``make_prefill_step`` and ``make_decode_step`` keep
+the reference's arithmetic and return values; they run eagerly on the
+tensors' device (on the card the scan and attention kernels and their
+backwards; decode launches none).  The AdamW update is in place
+(``optim.adamw.update``), so the parameters a train step returns are
+the ones it was given; so is the decode cache.  The mesh, the
+``constrain`` sharding hooks and ``build`` / ``input_specs`` /
+``build_dit`` wait for the sharding and dry-run part of ``ROADMAP.md``
+§1 item 6; enc-dec, modality-prefix and MoE configs raise (item 5).
 """
 from __future__ import annotations
 
@@ -104,3 +105,22 @@ def make_prefill_step(cfg: ModelConfig):
         return (hn @ w.to(hn.dtype))[:, 0]
 
     return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, window: int = 0):
+    """``decode_step(params, tokens [B, 1], cache) -> (logits [B, 1, V],
+    cache)`` under ``torch.no_grad``: ``transformer.decode_step``, the
+    cache updated in place.  The enc-dec form (the decoder against an
+    encoder memory) raises ``NotImplementedError`` (``ROADMAP.md`` §1
+    item 5)."""
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"make_decode_step ({cfg.arch_id}): enc-dec configs are not "
+            "ported yet (ROADMAP.md §1 item 5)")
+
+    @torch.no_grad()
+    def decode_step(params, tokens, cache):
+        return transformer.decode_step(params, tokens, cache, cfg,
+                                       window=window)
+
+    return decode_step

@@ -1,5 +1,5 @@
-"""GQA self-attention with RoPE and an optional sliding window
-(counterpart of ``repro.models.attention``, full-sequence path).
+"""GQA self-attention with RoPE, an optional sliding window and a KV
+cache (counterpart of ``repro.models.attention``).
 
 Shapes use ``[batch, seq, heads, head_dim]``.  The projections are
 stored as matrices, ``wq [d, H·hd]``, ``wk, wv [d, Hkv·hd]`` and ``wo
@@ -8,11 +8,20 @@ reshaped).  From ``_BLOCKWISE_MIN_SEQ`` tokens on, a CUDA tensor goes to
 the flash kernel (causal, windowed and GQA forms) through the op layer
 and a CPU tensor to ``blockwise_sdpa``, the plain online-softmax version
 that is also the kernel's oracle; below it both take the full-logits
-path (the reference's ``_sdpa``, ``ref.sdpa_ref``).  The KV cache and
-decode wait for the decode slice.
+path (the reference's ``_sdpa``, ``ref.sdpa_ref``).
+
+Decode inserts one token into a ``KVCache`` and attends over it with
+``ref.sdpa_ref``.  With a window the cache is a ring of ``max_len``
+slots; the logical position keeps increasing, so RoPE stays absolute.
+Unlike the reference's, the cache is updated in place (a functional
+copy of a 32768-slot cache each step would not fit the card), its
+position is a host ``int`` (no step reads the device), and a full cache
+without a window raises where the reference's clamped write would
+overwrite the last slot.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -42,6 +51,24 @@ def attn_specs(cfg: ModelConfig, stack: int = 1):
         "wv": ParamSpec((d, nkv * hd), ref_shape=(stack, d, nkv, hd)),
         "wo": ParamSpec((nq * hd, d), ref_shape=(stack, nq, hd, d)),
     }
+
+
+@dataclasses.dataclass
+class KVCache:
+    """One attention layer's decode cache: ``k``, ``v [B, max_len, n_kv,
+    hd]`` in the model dtype, and ``index``, the next logical position
+    (host ``int``; monotonic, also past ``max_len`` on a ring).  Decode
+    writes into the buffers and advances ``index`` in place."""
+    k: torch.Tensor
+    v: torch.Tensor
+    index: int = 0
+
+    @classmethod
+    def zeros(cls, batch: int, max_len: int, n_kv: int, head_dim: int,
+              dtype, device=None) -> "KVCache":
+        shape = (batch, max_len, n_kv, head_dim)
+        return cls(k=torch.zeros(shape, dtype=dtype, device=device),
+                   v=torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _qkv(params, x: torch.Tensor, cfg: ModelConfig, positions):
@@ -137,3 +164,45 @@ def self_attention(params, x: torch.Tensor, cfg: ModelConfig,
             mask = torch.ones((1, s, s), dtype=torch.bool, device=x.device)
         out = ref.sdpa_ref(q, k, v, mask, cfg.q_per_kv)
     return out.reshape(b, s, -1) @ params["wo"].to(x.dtype)
+
+
+def decode_mask(pos: int, max_len: int, window: int, batch: int,
+                device=None) -> torch.Tensor:
+    """``[B, 1, max_len]`` bool: the slots a query at logical position
+    ``pos`` attends to.  Without a window, slot i holds position i; on a
+    ring (``window > 0``), slot i holds the largest logical position p
+    <= pos with p % max_len == i (floor division: slots ahead of pos
+    give negative quotients), valid when 0 <= p and p > pos - window."""
+    kpos = torch.arange(max_len, device=device)
+    if window > 0:
+        logical = kpos + torch.div(pos - kpos, max_len,
+                                   rounding_mode="floor") * max_len
+        valid = (logical >= 0) & (logical <= pos) & (logical > pos - window)
+    else:
+        valid = kpos <= pos
+    return valid[None, None, :].expand(batch, 1, max_len)
+
+
+def decode_self_attention(params, x: torch.Tensor, cfg: ModelConfig,
+                          cache: KVCache, window: int = 0):
+    """One-token decode, x [B, 1, d] -> (y [B, 1, d], cache): the new K
+    and V are written into ``cache`` in place, at slot ``pos % max_len``
+    on a ring (``window > 0``), else at ``pos``, and ``cache.index``
+    advances.  Without a window a full cache raises ``ValueError``."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"decode consumes one token per step, got {s}")
+    max_len = cache.k.shape[1]
+    pos = cache.index
+    if window <= 0 and pos >= max_len:
+        raise ValueError(f"KV cache full: position {pos} of {max_len} "
+                         "slots and no window")
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    q, k_new, v_new = _qkv(params, x, cfg, positions)
+    slot = pos % max_len if window > 0 else pos
+    cache.k[:, slot] = k_new[:, 0].to(cache.k.dtype)
+    cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
+    mask = decode_mask(pos, max_len, window, b, x.device)
+    out = ref.sdpa_ref(q, cache.k, cache.v, mask, cfg.q_per_kv)
+    cache.index = pos + 1
+    return out.reshape(b, 1, -1) @ params["wo"].to(x.dtype), cache

@@ -1,13 +1,14 @@
-"""Decoder blocks and layer stacks, full-sequence path (counterpart of
+"""Decoder blocks and layer stacks (counterpart of
 ``repro.models.blocks``).
 
 A block = pre-norm mixer (attention or Mamba2 SSD) + pre-norm dense
 SwiGLU FFN.  The reference scans one stacked group of layers; the port
 keeps ``params["stack"]`` as a list of ``n_groups`` groups, each a dict
 ``{"l{i}": block}`` over the group's positions, and loops over it, each
-group rematerialised in the backward where the config asks for it.  A
-config with experts raises ``NotImplementedError`` (MoE waits), as do
-caches and decode.
+group rematerialised in the backward where the config asks for it.
+The decode cache mirrors it: a list of ``n_groups`` dicts ``{"l{i}":
+KVCache or SSMCache}``, updated in place one token at a time.  A config
+with experts raises ``NotImplementedError`` (MoE waits).
 """
 from __future__ import annotations
 
@@ -79,6 +80,24 @@ def block_full(params, x, cfg: ModelConfig, kind: str, is_moe: bool,
     return h + f, aux
 
 
+def block_decode(params, x, cfg: ModelConfig, kind: str, is_moe: bool,
+                 cache, window: int = 0):
+    """One-token decode block: ``(hidden, cache, aux)``; the layer's
+    cache is updated in place."""
+    hin = common.rmsnorm(params["norm1"], x, cfg.norm_eps)
+    if kind == "attn":
+        y, cache = attention.decode_self_attention(params["attn"], hin, cfg,
+                                                   cache, window=window)
+    else:
+        y, cache = ssm.ssm_decode_step(params["ssm"], hin, cfg, cache)
+    h = x + y
+    if "ffn" not in params:
+        return h, cache, BlockAux.zero(x.device)
+    f, aux = _ffn(params, common.rmsnorm(params["norm2"], h, cfg.norm_eps),
+                  cfg, is_moe)
+    return h + f, cache, aux
+
+
 def _layer_plan(cfg: ModelConfig):
     """(group_size, n_groups, [(kind, is_moe)] per position in a group):
     homogeneous stacks are groups of one layer, hybrid stacks groups of
@@ -142,3 +161,34 @@ def stack_full(params, x, cfg: ModelConfig, window: int = 0,
             h, a = _group_full(group, h, cfg, plan, window, causal)
         aux = aux + a
     return h, BlockAux(*(a / (ng * len(plan)) for a in aux))
+
+
+def stack_cache_zeros(cfg: ModelConfig, batch: int, max_len: int, dtype,
+                      device=None):
+    """An empty decode cache for the whole stack: one dict ``{"l{i}":
+    cache}`` per group, a ``KVCache`` of ``max_len`` slots for an
+    attention layer, an ``SSMCache`` for a mamba2 one."""
+    _, ng, plan = _layer_plan(cfg)
+
+    def one(kind):
+        if kind == "attn":
+            return attention.KVCache.zeros(batch, max_len, cfg.n_kv_heads,
+                                           cfg.head_dim, dtype, device)
+        return ssm.SSMCache.zeros(batch, cfg, dtype, device)
+    return [{f"l{i}": one(kind) for i, (kind, _) in enumerate(plan)}
+            for _ in range(ng)]
+
+
+def stack_decode(params, x, cfg: ModelConfig, cache, window: int = 0):
+    """One-token decode through the stack, x [B, 1, d].  Returns
+    ``(hidden, cache, aux)``; every layer's cache is updated in place and
+    ``aux`` is the mean over layers, as the reference's."""
+    _, ng, plan = _layer_plan(cfg)
+    h = x
+    aux = BlockAux.zero(x.device)
+    for group, group_cache in zip(params, cache, strict=True):
+        for i, (kind, is_moe) in enumerate(plan):
+            h, _, a = block_decode(group[f"l{i}"], h, cfg, kind, is_moe,
+                                   group_cache[f"l{i}"], window=window)
+            aux = aux + a
+    return h, cache, BlockAux(*(a / (ng * len(plan)) for a in aux))

@@ -8,6 +8,7 @@ initialiser follows the reference's ``_initializer`` rules, drawn from a
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -121,10 +122,23 @@ def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * params["scale"].to(torch.float32)).to(dtype)
 
 
+@functools.lru_cache(maxsize=16)
+def _host_frequencies(head_dim: int, theta: float,
+                      device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):     # a plain tensor, whoever asks
+        exps = torch.arange(0, head_dim, 2, dtype=torch.float32) / head_dim
+        return (1.0 / (theta ** exps)).to(device)
+
+
 def rope_frequencies(head_dim: int, theta: float, device=None) -> torch.Tensor:
-    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
-                        device=device) / head_dim
-    return 1.0 / (theta ** exps)
+    """``1 / theta^(2i / head_dim)`` in float32, computed on the host
+    (the reference's bits: XLA's CPU float32 pow) and copied to
+    ``device`` once: a GPU's powf rounds a few of them one ulp away (4 of
+    yi-9b's 64 on an H100), and at position ~5e5 one ulp moves a RoPE
+    angle by ~0.03 rad.  The returned tensor is shared: do not write to
+    it."""
+    return _host_frequencies(head_dim, float(theta),
+                             torch.device(device or "cpu"))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -1,5 +1,5 @@
 """Causal language model: embed -> block stack -> norm -> head
-(counterpart of ``repro.models.transformer``, full-sequence forward).
+(counterpart of ``repro.models.transformer``).
 
 ``forward`` returns the Cumulative Residual Feature (CRF) next to the
 logits: the final pre-norm hidden state.  On a CUDA tensor every
@@ -7,8 +7,10 @@ attention layer at 2048 tokens or more runs the causal GQA flash kernel
 and every mamba2 layer the SSD chunk-scan kernel, each with its
 backward kernel under autograd.  ``loss_fn`` is the next-token
 cross-entropy of training, through ``chunked_cross_entropy`` so that
-the ``[B, S, vocab]`` logits never exist at once.  Decode waits for the
-decode slice; the modality prefix and MoE raise.
+the ``[B, S, vocab]`` logits never exist at once.  ``decode_step``
+runs one token through the stack against a decode cache
+(``blocks.stack_cache_zeros``), updated in place; it launches no kernel.
+The modality prefix and MoE raise.
 """
 from __future__ import annotations
 
@@ -104,7 +106,7 @@ def chunked_cross_entropy(params, h: torch.Tensor, labels: torch.Tensor,
 
 def check_ported(cfg: ModelConfig, what: str) -> None:
     """Raise ``NotImplementedError`` for the LM configs the port does not
-    train or prefill yet: enc-dec, modality-prefix and MoE."""
+    train, prefill or decode yet: enc-dec, modality-prefix and MoE."""
     if cfg.is_encdec or cfg.n_prefix_tokens > 0 or cfg.moe is not None:
         raise NotImplementedError(
             f"{what} ({cfg.arch_id}): enc-dec, modality-prefix and MoE "
@@ -129,3 +131,17 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     metrics = {"loss": loss, "lb_loss": aux.load_balance_loss,
                "drop_fraction": aux.drop_fraction}
     return loss, metrics
+
+
+def decode_step(params, tokens: torch.Tensor, cache, cfg: ModelConfig,
+                window: int = 0):
+    """tokens [B, 1] -> ``(logits [B, 1, V], cache)``; the cache is
+    updated in place.  ``window > 0`` treats every KV cache as a ring of
+    its length."""
+    check_ported(cfg, "decode_step")
+    x = common.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    h, cache, _ = blocks.stack_decode(params["stack"], x, cfg, cache,
+                                      window=window)
+    logits = _head(params, common.rmsnorm(params["final_norm"], h,
+                                          cfg.norm_eps), cfg)
+    return logits, cache

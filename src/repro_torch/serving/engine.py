@@ -1,5 +1,5 @@
-"""Continuous-batching serving of the FreqCa sampler (counterpart of
-``repro.serving.engine.DiffusionEngine``).
+"""Continuous-batching serving of the FreqCa sampler, and greedy LM
+generation (counterpart of ``repro.serving.engine``).
 
 Requests land in a ``Scheduler`` queue; batches are cut on
 age/deadline pressure, policy-homogeneous by default
@@ -18,6 +18,10 @@ CUDA-graph capture per signature comes later.
 ``execute_plan`` is shared with
 ``repro_torch.serving.async_engine.AsyncDiffusionEngine``, whose single
 worker thread is then its only caller.
+
+``LMEngine`` prefills a prompt through the decode step, one position at
+a time, then generates greedily; its decode cache is updated in place
+and made anew for each ``generate``.
 """
 from __future__ import annotations
 
@@ -27,14 +31,18 @@ from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 import torch
 
 from repro_torch import device as device_lib
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.policies import registry as policy_registry
 from repro_torch.diffusion import sampler as sampler_lib
 from repro_torch.diffusion import schedule
+from repro_torch.models import blocks, transformer
+from repro_torch.optim import adamw
 from repro_torch.serving.metrics import ServeMetrics
 from repro_torch.serving.scheduler import (BatchPlan, DiffusionRequest,
                                            Scheduler, bucket_sizes)
 
-__all__ = ["DiffusionEngine", "DiffusionRequest", "DiffusionResult"]
+__all__ = ["DiffusionEngine", "DiffusionRequest", "DiffusionResult",
+           "LMEngine"]
 
 
 class DiffusionResult(NamedTuple):
@@ -297,3 +305,66 @@ class DiffusionEngine:
             if not served:   # scheduler holding back: wait, don't spin
                 time.sleep(poll_s)
         return out
+
+
+class LMEngine:
+    """Prefill + greedy decode for the assigned LM architectures.
+
+    ``device`` resolves as everywhere in the port (default ``cuda``,
+    raising without one); every parameter must already lie on it.  The
+    window is ``window or cfg.sliding_window``; with one the KV caches
+    are rings of that many slots, else of ``max_len``.
+    """
+
+    def __init__(self, params, cfg: ModelConfig, max_len: int,
+                 window: int = 0, device=None):
+        self.device = device_lib.resolve(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        off = [tuple(p.shape) for p in adamw.leaves(params)
+               if p.device != self.device]
+        if off:
+            raise ValueError(f"LMEngine on {self.device}: {len(off)} "
+                             f"parameters lie elsewhere, e.g. {off[0]}")
+        transformer.check_ported(cfg, "LMEngine")
+        self.params = params
+        self.cfg = cfg
+        self.max_len = max_len
+        self.window = window or cfg.sliding_window
+        self._cache_len = self.window if self.window > 0 else max_len
+        self._dtype = getattr(torch, cfg.dtype)
+
+    def new_cache(self, batch: int):
+        return blocks.stack_cache_zeros(self.cfg, batch, self._cache_len,
+                                        self._dtype, self.device)
+
+    @torch.inference_mode()
+    def prefill(self, prompt_tokens: torch.Tensor):
+        """Run the decode step over every prompt position, filling a new
+        cache.  Returns ``(logits [B, 1, V] of the last position in
+        cfg.dtype, cache)``."""
+        tokens = prompt_tokens.to(self.device, torch.int64)
+        cache = self.new_cache(tokens.shape[0])
+        logits = torch.zeros((tokens.shape[0], 1, self.cfg.vocab_size),
+                             dtype=self._dtype, device=self.device)
+        for i in range(tokens.shape[1]):
+            out, cache = transformer.decode_step(
+                self.params, tokens[:, i:i + 1], cache, self.cfg,
+                window=self.window)
+            logits = out.to(self._dtype)
+        return logits, cache
+
+    @torch.inference_mode()
+    def generate(self, prompt_tokens: torch.Tensor, n_new: int):
+        """prompt_tokens [B, P] -> [B, P + n_new] int64, the greedy
+        continuation (argmax, its first maximum), picked on the device:
+        no step reads a token back to the host."""
+        logits, cache = self.prefill(prompt_tokens)
+        toks = [prompt_tokens.to(self.device, torch.int64)]
+        cur = torch.argmax(logits[:, -1:], dim=-1)
+        for _ in range(n_new):
+            toks.append(cur)
+            logits, cache = transformer.decode_step(
+                self.params, cur, cache, self.cfg, window=self.window)
+            cur = torch.argmax(logits[:, -1:], dim=-1)
+        return torch.cat(toks, dim=1)

@@ -475,3 +475,59 @@ def test_guarded_wrappers_raise_under_grad_on_the_card(card, name):
     with pytest.raises(RuntimeError, match="no backward"):
         call()
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("arch,window,pos", [
+    ("yi-9b", 0, 23), ("yi-9b", 16, 524279), ("mamba2-370m", 0, 0)])
+def test_decode_step_card_against_cpu(card, arch, window, pos):
+    """The kernel-free decode step (``transformer.decode_step``, reduced
+    config, float32) from one seeded non-empty cache, three tokens on
+    the card against the CPU: logits and every cache leaf within 1e-4 of
+    their largest magnitude (float32 sums in other orders; TF32 off), no
+    kernel launched, the cache updated in place on its own device."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import blocks, common, transformer
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)),
+                              n_layers=4)
+    params = common.init_params(transformer.lm_specs(cfg), seed=1,
+                                device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    caches = {"cpu": blocks.stack_cache_zeros(cfg, 2, 32, torch.float32,
+                                              "cpu")}
+    for group in caches["cpu"]:
+        for c in group.values():
+            for t in vars(c).values():
+                if isinstance(t, torch.Tensor):
+                    t.normal_(generator=gen)
+            if hasattr(c, "index"):
+                c.index = pos
+    caches[card] = [{k: type(c)(**{f: (t.to(card, copy=True) if isinstance(
+        t, torch.Tensor) else t) for f, t in vars(c).items()})
+        for k, c in group.items()} for group in caches["cpu"]]
+    toks = torch.randint(0, cfg.vocab_size, (2, 3), generator=gen)
+    out = {}
+    ops.reset_launch_counts()
+    for dev, cache in caches.items():
+        p = adamw.tree_map(lambda t, d=dev: t.to(d), params)
+        with torch.no_grad():
+            for i in range(toks.shape[1]):
+                logits, back = transformer.decode_step(
+                    p, toks[:, i:i + 1].to(dev), cache, cfg, window=window)
+                assert back is cache
+        out[dev] = logits
+    assert not any(ops.launch_counts().values())
+    pairs = [(out[card], out["cpu"])]
+    for g_card, g_cpu in zip(caches[card], caches["cpu"], strict=True):
+        for key in g_cpu:
+            for f, t in vars(g_cpu[key]).items():
+                if isinstance(t, torch.Tensor):
+                    assert vars(g_card[key])[f].device.type == "cuda"
+                    pairs.append((vars(g_card[key])[f], t))
+                else:
+                    assert vars(g_card[key])[f] == t == pos + 3
+    for got, want in pairs:
+        err = (got.cpu() - want).abs().max() / want.abs().max()
+        assert float(err) <= 1e-4, float(err)

@@ -56,10 +56,11 @@ def test_every_port_module_imports_without_a_card():
     "repro_torch.serving.fleet.supervisor",
     "repro_torch.serving.fleet.faults",
     "repro_torch.serving.fleet.fleet_metrics", "repro_torch.launch.steps",
-    "repro_torch.kernels.ops", "repro_torch.checkpointing.bridge"])
+    "repro_torch.kernels.ops", "repro_torch.checkpointing.bridge",
+    "repro_torch.serving.engine"])
 def test_assigned_backbone_modules_are_walked(name):
-    """The third, seventh, eighth, tenth and eleventh slices' modules are
-    among the files walked above."""
+    """The third, seventh, eighth, tenth, eleventh and thirteenth slices'
+    modules are among the files walked above."""
     walked = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
               for p in FILES if p.is_relative_to(REPO / "src")}
     assert name in walked
@@ -76,6 +77,34 @@ def test_fleet_worker_imports_no_torch():
             "repro_torch.serving.fleet; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('torch', 'numpy', 'jax')))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(REPO / "src")})
+    assert out.stdout.strip() == "[]"
+
+
+def test_decode_path_imports_without_jax_or_repro():
+    """The decode path's names (caches, steps, ``LMEngine``, the cache
+    bridge, the input shapes) import in a fresh interpreter that then
+    holds no ``jax`` or ``repro`` module."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "from repro_torch.configs import INPUT_SHAPES, for_shape\n"
+        "from repro_torch.models.attention import KVCache, "
+        "decode_self_attention\n"
+        "from repro_torch.models.ssm import SSMCache, ssd_recurrent_step, "
+        "ssm_decode_step\n"
+        "from repro_torch.models.blocks import stack_cache_zeros, "
+        "stack_decode\n"
+        "from repro_torch.models.transformer import decode_step\n"
+        "from repro_torch.launch.steps import make_decode_step\n"
+        "from repro_torch.serving.engine import LMEngine\n"
+        "from repro_torch.checkpointing.bridge import "
+        "lm_cache_from_jax_numpy, lm_cache_to_jax_numpy\n"
+        "print(sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
     out = subprocess.run([sys.executable, "-c", code], check=True,
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(REPO / "src")})

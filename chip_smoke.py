@@ -96,13 +96,32 @@ Phases, each of which raises (and so exits non-zero) on failure:
                backward launches a step; finite losses, every leaf's
                gradient non-zero; yi's checkpoint reloaded through
                ``bridge`` runs one ``make_prefill_step``;
-13. launcher — ``launch.serve.main`` in this process at dit-small, three
+13. moe      — the mixture of experts at full width, bf16:
+               granite-moe-3b-a800m at full depth (32 layers, 40
+               experts top-8): ``make_prefill_step`` on 32768 tokens
+               (einsum dispatch twice, gather once), one MoE layer's
+               two dispatches held against each other and timed, its
+               causal GQA flash (group 3, hd 64) against the plain
+               version, decode at decode_32k (batch 16) and long_500k,
+               ``train_lm`` 4 steps at S 4096 on batch 8; card against
+               CPU at 2 layers in float32 (forward, loss, every
+               gradient leaf, one decode step; each routing clear of 4δ
+               and equal); ``LMEngine`` against the forward at 4
+               layers; phi3.5-moe-42b-a6.6b cut to 16 layers
+               (prefill, flash group 4, decode_32k on batch 8) and to 2
+               (``train_lm`` 2 steps);
+14. lm_configs — deepseek-coder-33b (62 layers), llama3-405b (8 of 126)
+               and command-r-plus-104b (16 of 64): one
+               ``make_prefill_step`` each on 32768 tokens, the flash
+               launch at each shape (groups 7, 16, 12) against its plain
+               version; each at 2 layers card against CPU in float32;
+15. launcher — ``launch.serve.main`` in this process at dit-small, three
                times: closed-loop bursts, the threaded open loop and two
                replica processes; every request its 4 full steps, a
                finite PSNR against the uncached run, 0 steady-state
                first runs; kernels 1 and 2 held against their plain
                versions at its shapes;
-14. fleet    — two replica processes on the card behind a
+16. fleet    — two replica processes on the card behind a
                ``FleetRouter``, each with its own copy of the train
                phase's flux1-dev cut (shipped as a numpy tree): six
                1024² requests, one replica SIGKILLed mid-stream, every
@@ -112,8 +131,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                latents bitwise at the same bucket, kernels 1-3 launched.
 
 The flux1-dev parameters (~26 GB in bf16) are built once for phases 5
-to 7 and freed before phase 8; each later phase frees its model (each
-fleet replica holds its own 5.5 GB copy).  The
+to 7 and freed before phase 8; each later phase frees its model before
+it draws the next (each fleet replica holds its own 5.5 GB copy).  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``kernels`` JSON
 line.  Run from the repository root: ``python3 chip_smoke.py``.
@@ -2174,6 +2193,55 @@ def backbone_phase(n_steps: int, cfg=None, side: int = 128,
     return counts
 
 
+def flash_check(label: str, cfg, s: int, dev, seed: int) -> None:
+    """The forward's attention launch at ``cfg``'s own shape (bf16 [1, S,
+    H/Hkv, hd], causal GQA, drawn from ``seed``), held against the plain
+    version on the first and the last ``n_q`` queries with every key
+    they see (1024 at 32 heads, fewer at more heads, so that the plain
+    version's [H, n_q, S] float32 logits stay ~4 GB); then, on the card,
+    that launch alone beside its bound and SDPA."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention
+    hd, hkv, g = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
+    shape = f"[1, {s}, {cfg.n_heads}/{hkv}, {hd}]"
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((1, s, cfg.n_heads, hd), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((1, s, hkv, hd), generator=gen,
+                        device=dev).to(torch.bfloat16) for _ in "kv")
+    got = ops.flash(q, k, v, g, causal=True)
+    n_q = min(max(128, 1024 * 32 // cfg.n_heads), s)
+    for q0 in (0, s - n_q):
+        want = ref.sdpa_ref(q[:, q0:q0 + n_q], k[:, :q0 + n_q],
+                            v[:, :q0 + n_q],
+                            attention.causal_mask(n_q, offset=q0, device=dev),
+                            g)
+        err, rel = compare(f"flash_attention[{label}]", "bfloat16",
+                           got[:, q0:q0 + n_q].contiguous(), want)
+        log(f"{label}: causal GQA flash {shape} bf16, queries "
+            f"{q0}:{q0 + n_q} vs plain: max_abs_err={err:.3e} "
+            f"max_rel_err={rel:.3e} (tol {TOLERANCE['bfloat16']:.0e})")
+        del want
+    del got
+    if torch.device(dev).type == "cuda":
+        flops = 4 * cfg.n_heads * hd * attention_pairs(s, True, 0)
+        b_ms, b_by = bound_ms((2 * cfg.n_heads + 2 * hkv) * s * hd * 2,
+                              flops, "bfloat16")
+        import torch.nn.functional as F
+        t_k = time_ms(lambda: ops.flash(q, k, v, g, causal=True), reps=2)
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        t_l = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), reps=2)
+        log(f"{label}: breakdown: causal GQA flash {shape} {t_k:.3f} ms per "
+            f"layer x {cfg.n_layers} = {t_k * cfg.n_layers / 1e3:.3f} s of "
+            f"the forward; bound {b_ms:.4f} ms ({b_by}); library (SDPA) "
+            f"{t_l:.3f} ms; {rate(flops, t_k, b_ms)}")
+        del qt, kt, vt
+    del q, k, v
+
+
 def lm_phase(cfg=None, s: int = 32768, device: str = "cuda",
              params=None) -> dict:
     """yi-9b at full width and depth (48 layers, d 4096, 32 query heads
@@ -2258,48 +2326,7 @@ def lm_phase(cfg=None, s: int = 32768, device: str = "cuda",
         raise AssertionError(f"lm: prefill {tuple(pre.shape)}, rel err "
                              f"{pre_rel:.3e}, launches {pre_counts}")
     del pre, last
-    # the forward's attention launch at its own shape (bf16 [1, S, 32/4,
-    # 128], causal GQA), held against the plain version on the first and
-    # the last 1024 queries with every key they see (the plain version's
-    # [32, S, S] float32 logits for all queries would not fit); then,
-    # where the forward's time goes: that launch alone beside its bound
-    # and SDPA
-    from repro_torch.kernels import ref
-    from repro_torch.models import attention
-    hd, hkv, g = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
-    gen = torch.Generator(device=dev).manual_seed(32)
-    q = torch.randn((1, s, cfg.n_heads, hd), generator=gen,
-                    device=dev).to(torch.bfloat16)
-    k, v = (torch.randn((1, s, hkv, hd), generator=gen,
-                        device=dev).to(torch.bfloat16) for _ in "kv")
-    got = ops.flash(q, k, v, g, causal=True)
-    n_q = min(1024, s)
-    for q0 in (0, s - n_q):
-        want = ref.sdpa_ref(q[:, q0:q0 + n_q], k[:, :q0 + n_q],
-                            v[:, :q0 + n_q],
-                            attention.causal_mask(n_q, offset=q0, device=dev),
-                            g)
-        err, rel = compare("flash_attention[lm]", "bfloat16",
-                           got[:, q0:q0 + n_q].contiguous(), want)
-        log(f"lm: causal GQA flash [1, {s}, {cfg.n_heads}/{hkv}, {hd}] bf16, "
-            f"queries {q0}:{q0 + n_q} vs plain: max_abs_err={err:.3e} "
-            f"max_rel_err={rel:.3e} (tol {TOLERANCE['bfloat16']:.0e})")
-        del want
-    del got
-    if on_card:
-        import torch.nn.functional as F
-        t_k = time_ms(lambda: ops.flash(q, k, v, g, causal=True), reps=2)
-        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-        t_l = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), reps=2)
-        flops = 4 * cfg.n_heads * hd * attention_pairs(s, True, 0)
-        b_ms, b_by = bound_ms((2 * cfg.n_heads + 2 * hkv) * s * hd * 2,
-                              flops, "bfloat16")
-        log(f"lm: breakdown: causal GQA flash [1, {s}, {cfg.n_heads}/{hkv}, "
-            f"{hd}] {t_k:.3f} ms per layer x {cfg.n_layers} = "
-            f"{t_k * cfg.n_layers / 1e3:.3f} s of the forward; bound "
-            f"{b_ms:.4f} ms ({b_by}); library (SDPA) {t_l:.3f} ms; "
-            f"{rate(flops, t_k, b_ms)}")
+    flash_check("lm", cfg, s, dev, seed=32)
     return {"lm": counts, "lm_prefill": pre_counts}
 
 
@@ -2333,7 +2360,8 @@ DECODE_CARD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 DECODE_FWD_TOL = {("yi-9b", "bfloat16"): 2e-2,
                   ("mamba2-370m", "bfloat16"): 5e-2,
                   ("yi-9b", "float32"): 1e-3,
-                  ("mamba2-370m", "float32"): 1e-3}
+                  ("mamba2-370m", "float32"): 1e-3,
+                  ("granite-moe-3b-a800m", "float32"): 1e-3}
 
 
 def fill_cache(cache, pos: int, seed: int):
@@ -2384,13 +2412,18 @@ def decode_bytes(cfg, params, cache, batch: int) -> int:
 
 def decode_flops(cfg, params, cache, batch: int) -> float:
     """Operations of one decode step: 2 per weight of a matmul per token
-    (the embedding is a lookup), attention 4·hd per query head and valid
-    slot (the whole ring or the filled prefix), the SSM recurrence ~6
-    per state element."""
+    (the embedding is a lookup; of an expert ``[e, ...]`` leaf only the
+    top-k experts' weights a token), attention 4·hd per query head and
+    valid slot (the whole ring or the filled prefix), the SSM recurrence
+    ~6 per state element."""
     from repro_torch.optim import adamw
-    n_mat = sum(p.numel() for p in adamw.leaves(params) if p.dim() == 2)
+    leaves = adamw.leaves(params)
+    n_mat = sum(p.numel() for p in leaves if p.dim() == 2)
     if not cfg.tie_embeddings:
         n_mat -= params["embed"]["embedding"].numel()
+    if cfg.moe is not None:
+        n_mat += sum(p.numel() for p in leaves if p.dim() == 3
+                     ) * cfg.moe.top_k / cfg.moe.e_total
     flops = 2.0 * n_mat * batch
     for group in cache:
         for c in group.values():
@@ -2407,13 +2440,13 @@ def decode_run(label: str, cfg, params, batch: int, cache_len: int,
     """One decode run: a seeded cache at position ``pos``, one warm step
     and DECODE_TIMED timed greedy steps through ``make_decode_step``
     (CUDA events around each), then one step with events around every
-    attention / SSM mixer for the split; bound, peak memory, no kernel
-    launched."""
+    attention / SSM mixer and MoE FFN for the split; bound, peak memory,
+    no kernel launched."""
     import torch
 
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
-    from repro_torch.models import attention, blocks, ssm
+    from repro_torch.models import attention, blocks, moe, ssm
     on_card = torch.device(device).type == "cuda"
     dtype = getattr(torch, cfg.dtype)
     before = torch.cuda.memory_allocated() if on_card else 0
@@ -2460,30 +2493,35 @@ def decode_run(label: str, cfg, params, batch: int, cache_len: int,
                              f" finite {finite}, positions "
                              f"{sorted({c.index for c in kv})}, launches "
                              f"{counts}")
-    # the split: the last position again, events around every mixer
+    # the split: the last position again, events around every mixer and
+    # every MoE FFN
     set_position(cache, pos + DECODE_TIMED)
-    mixers, real = [], (attention.decode_self_attention,
-                        ssm.ssm_decode_step)
+    mixers, ffns = [], []
+    real = (attention.decode_self_attention, ssm.ssm_decode_step,
+            moe.moe_ffn, moe.moe_ffn_gather)
 
-    def timed(fn):
+    def timed(fn, into):
         def wrapper(*args, **kw):
             a = event()
             out = fn(*args, **kw)
-            mixers.append((a, event()))
+            into.append((a, event()))
             return out
         return wrapper
-    attention.decode_self_attention = timed(real[0])
-    ssm.ssm_decode_step = timed(real[1])
+    attention.decode_self_attention = timed(real[0], mixers)
+    ssm.ssm_decode_step = timed(real[1], mixers)
+    moe.moe_ffn, moe.moe_ffn_gather = (timed(f, ffns) for f in real[2:])
     try:
         start = event()
         step(params, tokens, cache)
         end = event()
     finally:
-        attention.decode_self_attention, ssm.ssm_decode_step = real
+        (attention.decode_self_attention, ssm.ssm_decode_step, moe.moe_ffn,
+         moe.moe_ffn_gather) = real
     if on_card:
         torch.cuda.synchronize()
     split_ms = elapsed(start, end)
     mixer_ms = sum(elapsed(a, b) for a, b in mixers)
+    ffn_ms = sum(elapsed(a, b) for a, b in ffns)
     nbytes = decode_bytes(cfg, params, cache, batch)
     flops = decode_flops(cfg, params, cache, batch)
     b_ms, b_by = bound_ms(nbytes, flops, cfg.dtype)
@@ -2503,15 +2541,21 @@ def decode_run(label: str, cfg, params, batch: int, cache_len: int,
         f"{nbytes / 1e9:.2f} GB, {flops / 1e9:.1f} GFLOP), mean/bound "
         f"{mean / b_ms:.2f}; split (one more step, {split_ms:.3f} ms): "
         f"{kind} {len(mixers)} x {mixer_ms / max(len(mixers), 1):.3f} = "
-        f"{mixer_ms:.3f} ms ({mixer_ms / split_ms:.1%}), the rest "
-        f"{split_ms - mixer_ms:.3f} ms; 0 kernel launches")
+        f"{mixer_ms:.3f} ms ({mixer_ms / split_ms:.1%})" + (
+            f", MoE FFN {len(ffns)} x {ffn_ms / max(len(ffns), 1):.3f} = "
+            f"{ffn_ms:.3f} ms ({ffn_ms / split_ms:.1%})" if ffns else "")
+        + f", the rest {split_ms - mixer_ms - ffn_ms:.3f} ms; 0 kernel "
+        "launches")
 
 
 def decode_params(cfg, n_layers: int, seed: int, device: str):
-    """``lm_params`` with an attention model's projections redrawn at std
-    1/sqrt(fan-in) (as ``lm_train_reference`` draws yi: the reference's
-    rule for the stacked leaves gives std 1/sqrt(48), which puts random
-    yi-9b logits near 426 and makes a bf16 comparison meaningless)."""
+    """``lm_params`` with an attention model's projections, and the
+    experts of an MoE layer, redrawn at std 1/sqrt(fan-in) (as
+    ``lm_train_reference`` draws yi: the reference's rule for the
+    stacked 4-D leaves gives std 1/sqrt(n_layers), which puts random
+    yi-9b logits near 426 and makes a bf16 comparison meaningless; an
+    expert ``[e, d_in, d_out]`` draws with 1/sqrt(d_in) in place of
+    granite's 1/sqrt(32))."""
     import torch
     params = lm_params(cfg, n_layers, seed, device)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
@@ -2519,6 +2563,10 @@ def decode_params(cfg, n_layers: int, seed: int, device: str):
         for w in group["l0"].get("attn", {}).values():
             w.copy_(torch.randn(w.shape, generator=gen, device=device)
                     / w.shape[0] ** 0.5)
+        for w in group["l0"].get("ffn", {}).values():
+            if w.dim() == 3:
+                w.copy_(torch.randn(w.shape, generator=gen, device=device)
+                        / w.shape[1] ** 0.5)
     return params
 
 
@@ -2610,7 +2658,17 @@ def decode_forward_check(label: str, cfg, params, prompt_len: int,
     wherever that row's top-2 margin exceeds the tolerance times its
     largest |logit| (bf16 logits tie often).  A bf16 check also holds
     the prefill's distance from the float32 forward of the same weights
-    to twice the bf16 forward's."""
+    to twice the bf16 forward's.
+
+    With experts, decode routes each token alone and the forward groups
+    of up to 2048: the two agree only where neither drops.  The check
+    reads both drop fractions and states them; where the forward's is
+    non-zero at the config's capacity factor it runs at ``n_experts /
+    top_k`` (the forward's capacity its whole group: nothing drops).
+    Every prompt token's routing in every layer is then held between
+    the two (``route_check``, not strict: the forward's float32 sums
+    and one token's differ by more than the card's and the CPU's, so
+    near-ties may route apart, and only they may)."""
     import dataclasses
 
     import torch
@@ -2621,14 +2679,43 @@ def decode_forward_check(label: str, cfg, params, prompt_len: int,
     prompt = torch.randint(0, cfg.vocab_size, (1, prompt_len), device=device,
                            generator=gen)
     tol = DECODE_FWD_TOL[(cfg.arch_id, cfg.dtype)]
+    moe_note, fwd_spy = "", MoESpy()
+    if cfg.moe is not None:
+        with torch.no_grad(), MoESpy() as spy:
+            transformer.forward(params, prompt, cfg)
+        drop = max(float(a.drop_fraction) for a in spy.aux)
+        moe_note = (f"; the forward's drop fraction at capacity factor "
+                    f"{cfg.moe.capacity_factor}: {drop:.4e}")
+        del spy
+        if drop > 0:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+            moe_note += (f", so compared at {cfg.moe.capacity_factor}, "
+                         "where nothing drops")
     engine = LMEngine(params, cfg, prompt_len + DECODE_NEW, device=device)
     t0 = time.perf_counter()
-    last, _ = engine.prefill(prompt)
+    with MoESpy() as dec_spy:
+        last, _ = engine.prefill(prompt)
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
     pre_s = time.perf_counter() - t0
-    with torch.no_grad():
+    with torch.no_grad(), fwd_spy:
         want = transformer.forward(params, prompt, cfg).logits[:, -1:]
+    if cfg.moe is not None:
+        n_moe = len(fwd_spy.routes)
+        dec_routes = [tuple(torch.cat([dec_spy.routes[t * n_moe + i][j]
+                                       for t in range(prompt_len)], 1)
+                            for j in range(2)) + dec_spy.routes[i][2:]
+                      for i in range(n_moe)]
+        route_check(f"decode {label} prefill vs forward", dec_routes,
+                    fwd_spy.routes, strict=False)
+        drops = [float(a.drop_fraction) for a in fwd_spy.aux + dec_spy.aux]
+        moe_note += (f"; drop fractions: the forward "
+                     f"{max(drops[:n_moe]):.4e}, the decode "
+                     f"{max(drops[n_moe:]):.4e}")
+        if any(drops):
+            raise AssertionError(f"decode {label}: drops {drops}")
+    del dec_spy, fwd_spy
     rel = rel_l2(last, want)
     control = ""
     if cfg.dtype == "bfloat16":
@@ -2663,7 +2750,8 @@ def decode_forward_check(label: str, cfg, params, prompt_len: int,
     wrong = clear & (out[0, prompt_len:] != top2.indices[:, 0])
     log(f"decode {label}: LMEngine prefill of {prompt_len} tokens "
         f"{pre_s:.2f} s, last logits vs forward rel L2 {rel:.3e} (tol "
-        f"{tol:.0e}){control}; generate {DECODE_NEW} tokens {gen_s:.2f} s; "
+        f"{tol:.0e}){control}{moe_note}; generate {DECODE_NEW} tokens "
+        f"{gen_s:.2f} s; "
         f"{int(clear.sum())} of {DECODE_NEW} rows with a margin past the "
         f"tolerance, {int(wrong.sum())} of them not the teacher-forced "
         f"forward's argmax (smallest margin {margin.min().item():.3e})")
@@ -2963,6 +3051,8 @@ def lm_train_run(label: str, cfg, params, batch: int, seq: int, steps: int,
     for i, m in enumerate(records):
         log(f"{label}: step {i} loss {m['loss']:.6f} grad_norm "
             f"{m['grad_norm']:.4e} lr {m['lr']:.3e}" + (
+                f" lb_loss {m['lb_loss']:.6f} drop_fraction "
+                f"{m['drop_fraction']:.4e}" if "lb_loss" in m else "") + (
                 f"; forward {m['forward_ms']:.1f} ms, backward "
                 f"{m['backward_ms']:.1f} ms, AdamW {m['adamw_ms']:.1f} ms, "
                 f"step wall {m['step_ms']:.1f} ms, "
@@ -3139,6 +3229,670 @@ def lm_train_phase(mamba_cfg=None, yi_cfg=None, yi_draw=None,
         raise AssertionError(f"lm_train_yi: prefill launches {counts}")
     out["lm_train_prefill"] = counts
     del trained, reloaded
+    return out
+
+
+# the moe and lm_configs phases: granite-moe-3b-a800m at full depth
+# (32 layers, 3.3 B parameters, 6.6 GB in bf16); phi3.5-moe-42b-a6.6b
+# cut to 16 of its 32 layers for prefill and decode (41.6 GB of 83.8)
+# and to 2 for training (2.9 B parameters: bf16 weights and gradients
+# and float32 moments, ~35 GB); the dense configs cut as LM_CONFIG_LAYERS
+MOE_SEQ = 32768               # prefill_32k's length, its batch of 32 cut to 1
+MOE_TRAIN_STEPS = 4
+MOE_TRAIN_BATCH = 8           # train_4k's global batch of 256, cut
+GRANITE_DECODE_BATCH = 16     # decode_32k's 128, cut: a 34.4 GB KV cache
+PHI_LAYERS = 16
+PHI_TRAIN_LAYERS = 2
+PHI_TRAIN_STEPS = 2
+PHI_DECODE_BATCH = 8          # decode_32k at 16 layers: a 17.2 GB KV cache
+# granite cut to 4 layers for LMEngine against the forward, float32, on
+# a 256-token prompt (below the flash threshold: the check is routing's)
+MOE_DECODE_LAYERS, MOE_DECODE_PROMPT = 4, 256
+# one prefill at 32768 tokens each: deepseek-coder-33b at full depth
+# (66.7 GB of weights), llama3-405b cut to 8 of 126 layers (6.4 GB a
+# layer + 8.4 GB of embedding and head: 59.7 GB), command-r-plus-104b to
+# 16 of 64 (3.15 GB a layer + 12.6 GB: 63.0 GB)
+LM_CONFIG_LAYERS = (("deepseek-coder-33b", 62), ("llama3-405b", 8),
+                    ("command-r-plus-104b", 16))
+# the card-vs-CPU checks of this slice: float32, relative L2 (TF32 off)
+MOE_CARD_TOL = {"logits": 1e-4, "loss": 1e-5, "grad": 1e-3}
+MOE_REF_SEQ = 512
+DENSE_CARD_TOL = 1e-4
+
+
+class MoESpy:
+    """While active, records every ``moe._route`` call's (probs, mask,
+    top_k, n_real) and every MoE FFN's aux (``moe_ffn`` /
+    ``moe_ffn_gather``, as ``blocks._ffn`` looks them up)."""
+
+    def __init__(self):
+        self.routes, self.aux = [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._real = real = (moe._route, moe.moe_ffn, moe.moe_ffn_gather)
+
+        def route(logits, top_k, n_real=0):
+            out = real[0](logits, top_k, n_real)
+            self.routes.append((out[2].detach(), out[1].detach(), top_k,
+                                n_real or logits.shape[-1]))
+            return out
+
+        def ffn(fn):
+            def wrapper(*args, **kw):
+                y, aux = fn(*args, **kw)
+                self.aux.append(aux)
+                return y, aux
+            return wrapper
+        moe._route, moe.moe_ffn, moe.moe_ffn_gather = (route, ffn(real[1]),
+                                                       ffn(real[2]))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._route, moe.moe_ffn, moe.moe_ffn_gather = self._real
+
+
+def route_gaps(probs, top_k: int, n_real: int):
+    """Each token's k-th minus (k+1)-th router probability over the real
+    experts."""
+    import torch
+    top = torch.topk(probs[..., :n_real].float(), top_k + 1, dim=-1).values
+    return top[..., top_k - 1] - top[..., top_k]
+
+
+def route_check(label: str, got, want, strict: bool = True) -> None:
+    """Two runs routed the same tokens alike.  ``got`` and ``want`` are
+    aligned lists of (probs, mask, top_k, n_real) of the same shapes.  δ
+    is the largest difference of any router probability between them.
+    ``strict`` (the card-vs-CPU rule): every token's k-th minus (k+1)-th
+    probability (``want``'s) must exceed 4δ, so that no selection can
+    flip, and then the masks must be equal; a draw that fails the margin
+    fails the check.  Otherwise (decode against the forward, whose
+    float32 sums differ by more than the card's and the CPU's): every
+    token routed apart must lie within 4δ of a tie."""
+    delta = max((pg.float().cpu() - pw.float().cpu()).abs().max().item()
+                for (pg, *_), (pw, *_) in zip(got, want, strict=True))
+    gap, n, differ, clear_apart = float("inf"), 0, 0, 0
+    for (pg, mg, k, n_real), (pw, mw, _, _) in zip(got, want, strict=True):
+        if pg.shape != pw.shape:
+            raise AssertionError(f"{label}: routes {pg.shape} vs "
+                                 f"{pw.shape}")
+        gaps = route_gaps(pw.cpu(), k, n_real)
+        apart = (mg.cpu() != mw.cpu()).any(-1)
+        gap = min(gap, gaps.min().item())
+        n += gaps.numel()
+        differ += int(apart.sum())
+        clear_apart += int((apart & (gaps > 4 * delta)).sum())
+    near = sum(int((route_gaps(pw.cpu(), k, nr) <= 4 * delta).sum())
+               for pw, _, k, nr in want)
+    log(f"{label}: {n} routings in {len(want)} MoE calls; largest router "
+        f"probability difference δ {delta:.3e}; smallest k-th minus "
+        f"(k+1)-th gap {gap:.3e} ({near} within 4δ {4 * delta:.3e}"
+        f"{', which the strict rule refuses' if strict else ''}); tokens "
+        f"whose experts differ: {differ}, {clear_apart} of them clear of "
+        "4δ")
+    if strict and not gap > 4 * delta:
+        raise AssertionError(f"{label}: a routing within 4δ of a tie")
+    if clear_apart or (strict and differ):
+        raise AssertionError(f"{label}: {differ} tokens routed apart")
+
+
+def drop_text(aux) -> str:
+    """Each MoE layer's drop fraction, as a short text."""
+    drops = [float(a.drop_fraction) for a in aux]
+    if not drops:
+        return ""
+    return (f"drop fractions over {len(drops)} MoE layers: mean "
+            f"{sum(drops) / len(drops):.4e}, max {max(drops):.4e}, "
+            f"{sum(d > 0 for d in drops)} layers dropping")
+
+
+def prefill_run(label: str, cfg, params, s: int, dev, reps: int,
+                seed: int) -> dict:
+    """``make_prefill_step`` on one sequence of ``s`` random tokens,
+    ``reps`` times: walls (synchronised host clock), tokens/s, peak
+    memory, the flash launches (one a layer on the card, nothing else)
+    and, with experts, each layer's drop fraction.  Returns {"counts",
+    "logits" (float32, of the last call), "walls", "aux"}."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    on_card = torch.device(dev).type == "cuda"
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(seed))
+    step = steps.make_prefill_step(cfg)
+    walls = []
+    for _ in range(reps):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        with MoESpy() as spy:
+            t0 = time.perf_counter()
+            logits = step(params, {"tokens": tokens})
+            if on_card:
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() if on_card else 0
+    finite = bool(torch.isfinite(logits).all())
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"{label}: {cfg.arch_id} {cfg.n_layers} layers ({n_params / 1e9:.3f}"
+        f" B parameters, {cfg.dtype}"
+        f"{', impl ' + cfg.moe.impl if cfg.moe else ''}"
+        f") make_prefill_step [1, {s}] -> {tuple(logits.shape)} finite "
+        f"{finite}: walls (s) {[round(w, 3) for w in walls]}, "
+        f"{s / min(walls):.0f} tokens/s, peak memory {peak / 2**30:.2f} GiB,"
+        f" launches {counts['flash_attention']} flash; {drop_text(spy.aux)}")
+    if tuple(logits.shape) != (1, cfg.vocab_size) or not finite:
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)}, "
+                             f"finite {finite}")
+    if on_card and (counts["flash_attention"] != cfg.n_layers
+                    or sum(counts.values()) != cfg.n_layers):
+        raise AssertionError(f"{label}: launches {counts}")
+    return {"counts": counts, "logits": logits.float(), "walls": walls,
+            "aux": spy.aux}
+
+
+def moe_layer_rows(label: str, cfg, layer, s: int, dev) -> None:
+    """One MoE layer at the prefill's shape (bf16 x [1, s, d], layer 0's
+    weights): the einsum dispatch against the gather dispatch (the same
+    routing, so their outputs differ by bf16 sums only: 2e-2 of the
+    largest; the load-balance and z-losses bitwise; the drop fractions
+    to the einsum form's bf16 rounding, since it sums the bf16 dispatch
+    tensor, as the reference does), each one's time, and the expert
+    products alone (the dispatch share is the rest of the einsum
+    form's time)."""
+    import torch
+
+    from repro_torch.models import moe
+    gen = torch.Generator(device=dev).manual_seed(120)
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=dev).to(
+        getattr(torch, cfg.dtype))
+    ye, ae = moe.moe_ffn(layer, x, cfg)
+    yg, ag = moe.moe_ffn_gather(layer, x, cfg)
+    err, rel = compare(f"{label} moe_ffn gather vs einsum", "bfloat16", yg,
+                       ye)
+    same = all(torch.equal(a, b) for a, b in zip(ae[:2], ag[:2],
+                                                 strict=True))
+    de, dg = float(ae.drop_fraction), float(ag.drop_fraction)
+    log(f"{label}: one MoE layer [1, {s}, {cfg.d_model}] bf16, gather vs "
+        f"einsum: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol "
+        f"{TOLERANCE['bfloat16']:.0e}); load-balance and z-loss bitwise: "
+        f"{same}; drop fraction einsum {de:.4e} (its bf16 sum), gather "
+        f"{dg:.4e}")
+    if not same or abs(de - dg) > 2.0 ** -8 * max(1.0 - dg, 2.0 ** -8):
+        raise AssertionError(f"{label}: gather and einsum aux differ")
+    del ye, yg
+    if torch.device(dev).type != "cuda":
+        return
+    g, n, cap = moe._capacity(cfg, s, 2048)
+    e = cfg.moe.e_total
+    xin = torch.randn((n, e, cap, cfg.d_model), generator=gen,
+                      device=dev).to(x.dtype)
+    t_e = time_ms(lambda: moe.moe_ffn(layer, x, cfg), 3)
+    t_g = time_ms(lambda: moe.moe_ffn_gather(layer, x, cfg), 3)
+    t_x = time_ms(lambda: moe._experts(layer, xin), 3)
+    ex_flops = 3 * 2 * n * e * cap * cfg.d_model * cfg.d_ff
+    disp_flops = 2 * 2 * n * g * e * cap * cfg.d_model
+    log(f"{label}: one MoE layer at {s} tokens ({n} groups of {g}, "
+        f"capacity {cap}): einsum form {t_e:.3f} ms, gather form {t_g:.3f} "
+        f"ms; the expert products alone {t_x:.3f} ms "
+        f"({ex_flops / t_x / 1e9:.1f} TFLOP/s), so routing, dispatch and "
+        f"combine take {t_e - t_x:.3f} ms of the einsum form "
+        f"({(t_e - t_x) / t_e:.1%}; its dispatch and combine products "
+        f"{disp_flops / 1e12:.2f} TFLOP against the experts' "
+        f"{ex_flops / 1e12:.2f}) and {t_g - t_x:.3f} ms of the gather form")
+    del x, xin
+
+
+def flash_bwd_check(label: str, cfg, batch: int, seq: int, dev) -> None:
+    """The causal GQA flash backward at a training step's shape: held
+    against its plain version at batch 1 ([1, seq, H/Hkv, hd], dQ, dK,
+    dV each to the bf16 tolerance) and timed there beside its bound,
+    the plain version and SDPA's backward (``torch.autograd.grad``
+    through SDPA less its forward); then the forward (with its
+    log-sum-exp) and the backward timed at the step's batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(121)
+    g, hd = cfg.q_per_kv, cfg.head_dim
+
+    def draw(b):
+        q = torch.randn((b, seq, cfg.n_heads, hd), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        k, v = (torch.randn((b, seq, cfg.n_kv_heads, hd), generator=gen,
+                            device=dev).to(torch.bfloat16) for _ in "kv")
+        return q, k, v, torch.randn_like(q)
+    q, k, v, do = draw(1)
+    o, lse = fa.flash_attention(q, k, v, g, True, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, True)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, g, True)
+    rels = [compare(f"flash_attention_bwd[{label}] d{x}", "bfloat16", a,
+                    w)[1] for x, a, w in zip("qkv", got, want, strict=True)]
+    shape = f"[{batch}, {seq}, {cfg.n_heads}/{cfg.n_kv_heads}, {hd}]"
+    del got, want
+    leaves = [a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v)]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(*leaves, is_causal=True,
+                                              enable_gqa=g > 1)
+    t_k = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, g,
+                                                 True), 3)
+    t_p = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, g,
+                                                True), 3)
+    t_l = time_ms(lambda: torch.autograd.grad(sdpa(), leaves,
+                                              do.transpose(1, 2)), 3) - \
+        time_ms(sdpa, 3)
+    pairs = attention_pairs(seq, True, 0)
+    b1_ms, b1_by = bound_ms((4 * q.numel() + 4 * k.numel()) * 2
+                            + cfg.n_heads * seq * 4,
+                            10 * cfg.n_heads * hd * pairs, "bfloat16")
+    log(f"{label}: causal GQA flash backward [1, {seq}, {cfg.n_heads}/"
+        f"{cfg.n_kv_heads}, {hd}] vs plain: max_rel_err dq={rels[0]:.3e} "
+        f"dk={rels[1]:.3e} dv={rels[2]:.3e} (tol "
+        f"{TOLERANCE['bfloat16']:.0e}); kernel {t_k:.4f} ms, bound "
+        f"{b1_ms:.4f} ms ({b1_by}), plain {t_p:.4f} ms, library (SDPA "
+        f"backward) {t_l:.4f} ms")
+    del leaves, o, lse
+    q, k, v, do = draw(batch)
+    o, lse = fa.flash_attention(q, k, v, g, True, return_lse=True)
+    f_ms = time_ms(lambda: fa.flash_attention(q, k, v, g, True,
+                                              return_lse=True), 3)
+    b_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, g,
+                                                  True), 3)
+    pairs = batch * attention_pairs(seq, True, 0)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + batch * cfg.n_heads * \
+        seq * 4
+    bb_ms, bb_by = bound_ms(nbytes, 10 * cfg.n_heads * hd * pairs,
+                            "bfloat16")
+    log(f"{label}: flash at the step's shape {shape}: forward with lse "
+        f"{f_ms:.3f} ms, backward {b_ms:.3f} ms (bound {bb_ms:.4f} ms, "
+        f"{bb_by}; {rate(10 * cfg.n_heads * hd * pairs, b_ms, bb_ms)}); "
+        f"a step's {cfg.n_layers} layers: forward twice (remat) "
+        f"{2 * cfg.n_layers * f_ms:.1f} ms, backward "
+        f"{cfg.n_layers * b_ms:.1f} ms")
+    del q, k, v, do, o, lse
+
+
+def moe_reference(devices=("cpu", "cuda"), cfg=None,
+                  seq: int = MOE_REF_SEQ, cache_len: int = 2048) -> None:
+    """granite-moe-3b-a800m at full width cut to 2 layers (d 1536, 24
+    query heads on 8 kv heads of 64, 40 experts top-8 of width 512;
+    vocabulary cut to 8192), float32, on the card against the CPU, with
+    the attention projections and the experts drawn at std
+    1/sqrt(fan-in) (``decode_params``):
+
+    - ``transformer.forward`` and ``loss_fn`` with every gradient leaf
+      (the stack rematerialised, as granite trains) on one Markov
+      sequence of ``seq`` tokens (below the flash threshold: the flash
+      backward takes bf16 only, and this check is the router's);
+    - one ``make_decode_step`` at batch 4 from a seeded cache of
+      ``cache_len`` slots at position ``cache_len − 8``.
+
+    Each run's routing is held to the CPU's (``route_check``: every
+    routing clear of 4δ, then equal masks), the drop fractions equal.
+    Tolerances (MOE_CARD_TOL, relative L2): logits and CRF 1e-4, the
+    loss 1e-5 (relative), each gradient leaf 1e-3, the decode step's
+    logits and written K / V slot DECODE_CARD_TOL's 1e-4."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import blocks, transformer
+    from repro_torch.optim import adamw
+    full = cfg or configs.get_config("granite-moe-3b-a800m")
+    cfg = dataclasses.replace(full, n_layers=2, vocab_size=8192,
+                              dtype="float32")
+    params_cpu = decode_params(cfg, 2, seed=110, device="cpu")
+    gen = torch.Generator().manual_seed(111)
+    data = synthetic.lm_batch(gen, 1, seq, cfg.vocab_size)
+    flat = checkpoint._flatten_with_paths
+    out = {}
+    for dev in devices:
+        params = adamw.tree_map(
+            lambda p: p.to(dev, copy=True).requires_grad_(True), params_cpu)
+        ops.reset_launch_counts()
+        with MoESpy() as spy:
+            loss, metrics = transformer.loss_fn(
+                params, {k: v.to(dev) for k, v in data.items()}, cfg)
+        loss.backward()
+        with torch.no_grad():
+            fwd = transformer.forward(params, data["tokens"].to(dev), cfg)
+        out[dev] = {"loss": loss.item(), "spy": spy,
+                    "grads": {k: p.grad.cpu()
+                              for k, p in flat(params).items()},
+                    "logits": fwd.logits.cpu(), "crf": fwd.crf.cpu(),
+                    "drop": float(metrics["drop_fraction"]),
+                    "launches": sum(ops.launch_counts().values())}
+        del params, loss, fwd
+    want, got = (out[d] for d in devices)
+    route_check(f"reference granite x2 forward ({seq} tokens)",
+                got["spy"].routes, want["spy"].routes)
+    rels = {k: rel_l2(got[k], want[k]) for k in ("logits", "crf")}
+    loss_rel = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    g_rels = {k: rel_l2(got["grads"][k], want["grads"][k])
+              for k in want["grads"]}
+    worst = max(g_rels, key=g_rels.get)
+    log(f"reference granite x2 (d {cfg.d_model}, {cfg.moe.n_experts} experts"
+        f" top-{cfg.moe.top_k}, float32, S {seq}) card vs CPU: logits rel L2 "
+        f"{rels['logits']:.3e}, CRF {rels['crf']:.3e} (tol "
+        f"{MOE_CARD_TOL['logits']:.0e}); loss {got['loss']:.6f} / "
+        f"{want['loss']:.6f} (rel {loss_rel:.2e}, tol "
+        f"{MOE_CARD_TOL['loss']:.0e}); worst gradient leaf rel L2 "
+        f"{g_rels[worst]:.2e} ({worst}; tol {MOE_CARD_TOL['grad']:.0e}) over "
+        f"{len(g_rels)} leaves; drop fractions {got['drop']:.4e} / "
+        f"{want['drop']:.4e}; kernel launches on the card {got['launches']}")
+    if (max(rels.values()) > MOE_CARD_TOL["logits"]
+            or loss_rel > MOE_CARD_TOL["loss"]
+            or g_rels[worst] > MOE_CARD_TOL["grad"]
+            or got["drop"] != want["drop"]
+            or not all(bool(torch.isfinite(g).all())
+                       for g in got["grads"].values())):
+        raise AssertionError("reference granite x2: card and CPU disagree")
+    del out
+    # one decode step from a seeded cache
+    pos, batch = cache_len - 8, 4
+    cache_cpu = fill_cache(blocks.stack_cache_zeros(
+        cfg, batch, cache_len, torch.float32, "cpu"), pos, seed=112)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 1),
+                           generator=torch.Generator().manual_seed(113))
+    outs = {}
+    for dev in devices:
+        cache = [{k: type(c)(**{f: (t.to(dev, copy=True)
+                                    if isinstance(t, torch.Tensor) else t)
+                                for f, t in vars(c).items()})
+                  for k, c in g.items()} for g in cache_cpu]
+        with MoESpy() as spy:
+            logits, cache = steps.make_decode_step(cfg)(
+                _to(params_cpu, dev), tokens.to(dev), cache)
+        written = [t for g in cache for c in g.values()
+                   for t in (c.k[:, pos], c.v[:, pos])]
+        outs[dev] = ([logits] + written, spy)
+    route_check("reference granite x2 decode step", outs[devices[1]][1].routes,
+                outs[devices[0]][1].routes)
+    rels = [rel_l2(g, w) for g, w in zip(outs[devices[1]][0],
+                                         outs[devices[0]][0], strict=True)]
+    tol = DECODE_CARD_TOL["float32"]
+    log(f"reference granite x2 decode step, batch {batch}, cache {cache_len}"
+        f", position {pos}: card vs CPU rel L2 logits {rels[0]:.3e}, "
+        f"written cache max {max(rels[1:]):.3e} (tol {tol:.0e})")
+    if max(rels) > tol or not bool(torch.isfinite(
+            outs[devices[1]][0][0]).all()):
+        raise AssertionError(f"reference granite decode: rel L2 {rels}")
+
+
+def moe_phase(granite_cfg=None, phi_cfg=None, s: int = MOE_SEQ,
+              train_seq: int = LM_TRAIN_SEQ, decode_len: int = 0,
+              device: str = "cuda") -> dict:
+    """The two MoE configs at full width, bf16 from seeds:
+
+    - granite-moe-3b-a800m at full depth (32 layers, 40 experts top-8,
+      d 1536, 24/8 heads of 64): ``make_prefill_step`` on 32768 tokens
+      with its own dispatch (``einsum``) twice, then once with
+      ``gather`` (and both once more on the model drawn at std
+      1/sqrt(fan-in), a control for how far the reference's draw
+      carries a bf16 difference); one MoE layer's two dispatches held
+      against each other and timed (``moe_layer_rows``); the causal GQA
+      flash launch (group 3 at hd 64) against its plain version
+      (``flash_check``); decode at
+      decode_32k (batch 16, 32768 slots) and, through ``for_shape``, at
+      long_500k (an 8192-slot ring at position 524279); ``train_lm`` for
+      4 steps at S 4096 on batch 8 (remat: 64 flash forward and 32
+      backward launches a step), the flash backward at that shape;
+      ``moe_reference`` (card against CPU); ``LMEngine`` against the
+      forward at 4 layers in float32 (``decode_forward_check``);
+    - phi3.5-moe-42b-a6.6b (16 experts top-2, d 4096, d_ff 6400, 32/8
+      heads of 128) cut to 16 layers: ``make_prefill_step`` on 32768
+      tokens, its flash launch against its plain version, decode at
+      decode_32k on batch 8; cut to 2 layers, ``train_lm`` for 2 steps
+      at S 4096 on batch 8, the flash backward at that shape.
+
+    Returns the launch counts of each run.  (The configs, lengths and
+    ``device`` let the phase be rehearsed small on the CPU.)"""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    out = {}
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    # granite, full depth
+    cfg = granite_cfg or configs.get_config("granite-moe-3b-a800m")
+    t0 = time.perf_counter()
+    params = lm_params(cfg, cfg.n_layers, seed=100, device=dev)
+    log(f"moe: {cfg.arch_id} params "
+        f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    run = prefill_run("moe granite prefill", cfg, params, s, dev, reps=2,
+                      seed=101)
+    out["moe_prefill"], einsum_logits = run["counts"], run["logits"]
+    gather = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                              impl="gather"))
+    run = prefill_run("moe granite prefill (gather)", gather, params, s, dev,
+                      reps=1, seed=101)
+    out["moe_prefill_gather"] = run["counts"]
+    rel = rel_l2(run["logits"], einsum_logits)
+    del run, einsum_logits
+    free()
+    # the same comparison on the same architecture drawn at std
+    # 1/sqrt(fan-in) (``decode_params``), a control for how far the
+    # reference's draw (experts and attention at 1/sqrt(32): sharp
+    # softmaxes, each layer's FFN output ~190) carries a bf16 difference
+    control = decode_params(cfg, cfg.n_layers, seed=108, device=dev)
+    ctrl = rel_l2(*(prefill_run(f"moe granite prefill control ({c.moe.impl}"
+                                ", fan-in draw)", c, control, s, dev,
+                                reps=1, seed=101)["logits"]
+                    for c in (gather, cfg)))
+    del control
+    free()
+    log(f"moe granite prefill: the gather dispatch's last-token logits "
+        f"against the einsum dispatch's: rel L2 {rel:.3e}; drawn at std "
+        f"1/sqrt(fan-in): {ctrl:.3e} (bf16 sums differ after the first "
+        "layer, a later layer may route a near-tie apart, and the "
+        "reference's draw amplifies any difference; the layer-level check "
+        "below is exact in routing)")
+    moe_layer_rows("moe granite", cfg, params["stack"][0]["l0"]["ffn"], s,
+                   dev)
+    free()
+    flash_check("moe granite", cfg, s, dev, seed=102)
+    free()
+    for label, shape, batch in (("granite_decode_32k", "decode_32k",
+                                 GRANITE_DECODE_BATCH),
+                                ("granite_long_500k", "long_500k", 1)):
+        c = configs.for_shape(cfg, shape)
+        length = decode_len or configs.INPUT_SHAPES[shape]["seq_len"]
+        window = c.sliding_window
+        decode_run(label, c, params, batch, window or length,
+                   length - 1 - DECODE_TIMED, window, device)
+        free()
+    run = lm_train_run("moe_train_granite", cfg, params, MOE_TRAIN_BATCH,
+                       train_seq, MOE_TRAIN_STEPS,
+                       ("flash_attention", "flash_attention_bwd"), dev)
+    out["moe_train_granite"] = run["counts"]
+    del run, params
+    free()
+    if on_card:
+        flash_bwd_check("moe_train_granite", cfg, MOE_TRAIN_BATCH,
+                        train_seq, dev)
+        free()
+    moe_reference(devices=("cpu", device), cfg=cfg)
+    free()
+    small = dataclasses.replace(cfg, n_layers=MOE_DECODE_LAYERS,
+                                dtype="float32")
+    decode_forward_check(f"{cfg.arch_id} x{small.n_layers} float32", small,
+                         decode_params(small, small.n_layers, 103, device),
+                         MOE_DECODE_PROMPT, device)
+    free()
+    out.update(moe_phi(phi_cfg, s, train_seq, decode_len, device))
+    return out
+
+
+def moe_phi(phi_cfg=None, s: int = MOE_SEQ, train_seq: int = LM_TRAIN_SEQ,
+            decode_len: int = 0, device: str = "cuda") -> dict:
+    """phi3.5-moe-42b-a6.6b cut to PHI_LAYERS for prefill and decode, to
+    PHI_TRAIN_LAYERS for training (``moe_phase``'s second half)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    out = {}
+
+    def free():
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    full = phi_cfg or configs.get_config("phi3.5-moe-42b-a6.6b")
+    cfg = dataclasses.replace(full, n_layers=min(PHI_LAYERS, full.n_layers))
+    params = lm_params(full, cfg.n_layers, seed=104, device=dev)
+    run = prefill_run("moe phi prefill", cfg, params, s, dev, reps=1,
+                      seed=105)
+    out["moe_prefill_phi"] = run["counts"]
+    del run
+    free()
+    flash_check("moe phi", cfg, s, dev, seed=106)
+    free()
+    c = configs.for_shape(cfg, "decode_32k")
+    length = decode_len or configs.INPUT_SHAPES["decode_32k"]["seq_len"]
+    decode_run("phi_decode_32k", c, params, PHI_DECODE_BATCH, length,
+               length - 1 - DECODE_TIMED, 0, device)
+    del params
+    free()
+    cfg = dataclasses.replace(full, n_layers=min(PHI_TRAIN_LAYERS,
+                                                 full.n_layers))
+    run = lm_train_run("moe_train_phi", cfg,
+                       lm_params(full, cfg.n_layers, seed=107, device=dev),
+                       MOE_TRAIN_BATCH, train_seq, PHI_TRAIN_STEPS,
+                       ("flash_attention", "flash_attention_bwd"), dev)
+    out["moe_train_phi"] = run["counts"]
+    del run
+    free()
+    if on_card:
+        flash_bwd_check("moe_train_phi", cfg, MOE_TRAIN_BATCH, train_seq,
+                        dev)
+        free()
+    return out
+
+
+def dense_reference(devices=("cpu", "cuda"), cfgs=None) -> None:
+    """Each dense config of this slice at full width (d_model, heads and
+    kv heads; d_ff cut to 2048 and the vocabulary to 8192, so that the
+    CPU side stays short) cut to 2 layers, float32, attention projections
+    at std 1/sqrt(fan-in) (``decode_params``), through
+    ``transformer.forward`` at 2048 tokens: the causal GQA flash kernel
+    on the card (groups of 7, 16 and 12), the blockwise plain version on
+    the CPU; logits and CRF rel L2 DENSE_CARD_TOL (1e-4).  A control,
+    the card's forward with TF32 matmuls, must fail that limit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    for seed, (arch, _) in enumerate(LM_CONFIG_LAYERS, start=130):
+        full = (cfgs or configs.get_config)(arch)
+        cfg = dataclasses.replace(full, n_layers=2, d_ff=min(full.d_ff, 2048),
+                                  vocab_size=min(full.vocab_size, 8192),
+                                  dtype="float32")
+        params_cpu = decode_params(cfg, 2, seed, "cpu")
+        tokens = torch.randint(0, cfg.vocab_size, (1, 2048),
+                               generator=torch.Generator().manual_seed(seed))
+        outs, control = {}, None
+        for dev in devices:
+            ops.reset_launch_counts()
+            params = _to(params_cpu, dev)
+            with torch.no_grad():
+                outs[dev] = transformer.forward(params, tokens.to(dev), cfg)
+                n = ops.launch_counts()["flash_attention"]
+                if torch.device(dev).type == "cuda":
+                    if n != cfg.n_layers:
+                        raise AssertionError(f"dense reference {arch}: {n} "
+                                             "flash launches")
+                    torch.backends.cuda.matmul.allow_tf32 = True
+                    try:
+                        control = transformer.forward(params, tokens.to(dev),
+                                                      cfg)
+                    finally:
+                        torch.backends.cuda.matmul.allow_tf32 = False
+            del params
+        want, got = (outs[d] for d in devices)
+        for name in ("logits", "crf"):
+            rel = rel_l2(getattr(got, name), getattr(want, name))
+            ctrl = (None if control is None else
+                    rel_l2(getattr(control, name), getattr(want, name)))
+            log(f"reference {arch} x2 (d {cfg.d_model}, {cfg.n_heads}/"
+                f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}) forward at S 2048 "
+                f"[{name}] card vs CPU: rel L2 {rel:.3e} (tol "
+                f"{DENSE_CARD_TOL:.0e})" + ("" if ctrl is None else
+                                            f", the TF32 control {ctrl:.3e}"))
+            if not bool(torch.isfinite(getattr(got, name)).all()) or \
+                    rel > DENSE_CARD_TOL:
+                raise AssertionError(f"dense reference {arch} [{name}]: "
+                                     f"{rel:.3e}")
+            if ctrl is not None and not ctrl > DENSE_CARD_TOL:
+                raise AssertionError(f"dense reference {arch} [{name}]: the "
+                                     f"TF32 control {ctrl:.3e} passes")
+        del outs, control, params_cpu
+        gc.collect()
+
+
+def lm_configs_phase(cfgs=None, s: int = MOE_SEQ,
+                     device: str = "cuda") -> dict:
+    """The three dense configs of this slice at full width, bf16 from
+    seeds, cut as LM_CONFIG_LAYERS: one ``make_prefill_step`` each on
+    32768 tokens (one causal GQA flash launch a layer: groups of 7, 16
+    and 12 at hd 128), each model freed before the next is drawn, then
+    the flash launch at that config's shape held against its plain
+    version and timed (``flash_check``); last, ``dense_reference``.
+    Returns each prefill's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    dev = torch.device(device)
+    out = {}
+    for seed, (arch, n_layers) in enumerate(LM_CONFIG_LAYERS, start=140):
+        full = (cfgs or configs.get_config)(arch)
+        cfg = dataclasses.replace(full, n_layers=min(n_layers,
+                                                     full.n_layers))
+        t0 = time.perf_counter()
+        params = lm_params(full, cfg.n_layers, seed=seed, device=dev)
+        log(f"lm_configs: {arch} cut to {cfg.n_layers} of {full.n_layers} "
+            f"layers, params drawn in {time.perf_counter() - t0:.1f} s")
+        run = prefill_run(f"lm_configs {arch}", cfg, params, s, dev, reps=1,
+                          seed=seed)
+        out[f"lm_configs_{arch}"] = run["counts"]
+        del run, params
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        flash_check(f"lm_configs {arch}", cfg, s, dev, seed=seed)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    dense_reference(devices=("cpu", device), cfgs=cfgs)
     return out
 
 
@@ -3688,6 +4442,12 @@ def main(argv=None) -> int:
         by_phase.update(lm_train_phase())
         gc.collect()
         torch.cuda.empty_cache()
+        by_phase.update(moe_phase())
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_phase.update(lm_configs_phase())
+        gc.collect()
+        torch.cuda.empty_cache()
         by_phase["launcher"] = launcher_phase()
         by_phase.update(fleet_phase())
     paths = {name: [ph for ph in by_phase if by_phase[ph][name] > 0]
@@ -3732,15 +4492,19 @@ def main(argv=None) -> int:
                           "joint attention, bf16 [2, 4608, 24, 128]); "
                           "causal GQA, sliding-window and non-causal GQA "
                           "(rows flash_attention[... gqa 32/4] of the "
-                          "kernel phase; the lm phase's launches are causal "
-                          "GQA)")
+                          "kernel phase; the lm, moe and lm_configs "
+                          "phases' launches are causal GQA, groups 3 at "
+                          "hd 64 and 4, 7, 8, 12, 16 at hd 128, each "
+                          "timed at 32768 tokens in its phase's log)")
         if name == "flash_attention_bwd":
             k["forms"] = ("all four, bf16 (this row's times: the DiT joint "
                           "attention [2, 4608, 24, 128]; rows "
                           "flash_attention_bwd[train 2x4096] and [causal "
                           "gqa 32/4] of the kernel phase); the train "
                           "phase's launches are non-causal MHA, the "
-                          "lm_train_yi phase's causal GQA")
+                          "lm_train_yi and moe_train phases' causal GQA "
+                          "(groups 8; 3 at hd 64 and 4, timed at batch 8 "
+                          "in the moe phase's log)")
         if name == "ssd_chunk_scan_bwd":
             k["forms"] = ("bf16 and float32 x, B, C (this row: bf16, one "
                           "mamba2-370m layer [2, 4096, 32, 64], N 128, "

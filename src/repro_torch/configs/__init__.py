@@ -1,17 +1,25 @@
 """Architecture registry of the port: the DiT configs and the assigned
-backbones it runs (``yi-9b``, ``mamba2-370m``), and the assigned input
-shapes with the config variant each runs."""
+LM configs it runs (the dense ``yi-9b``, ``deepseek-coder-33b``,
+``llama3-405b`` and ``command-r-plus-104b``, the MoE
+``granite-moe-3b-a800m`` and ``phi3.5-moe-42b-a6.6b``, the SSM
+``mamba2-370m``), and the assigned input shapes with the config variant
+each runs."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Union
 
-from repro_torch.configs import dit_small, flux1_dev, mamba2_370m, yi_9b
+from repro_torch.configs import (command_r_plus_104b, deepseek_coder_33b,
+                                 dit_small, flux1_dev, granite_moe_3b,
+                                 llama3_405b, mamba2_370m, phi35_moe_42b,
+                                 yi_9b)
 from repro_torch.configs.base import DiTConfig, ModelConfig
 
 REGISTRY: Dict[str, Union[ModelConfig, DiTConfig]] = {
     m.CONFIG.arch_id: m.CONFIG
-    for m in (dit_small, flux1_dev, yi_9b, mamba2_370m)
+    for m in (dit_small, flux1_dev, yi_9b, mamba2_370m, granite_moe_3b,
+              phi35_moe_42b, deepseek_coder_33b, llama3_405b,
+              command_r_plus_104b)
 }
 
 

@@ -1,9 +1,9 @@
 """Config dataclasses (counterpart of ``repro.configs.base``).
 
 ``DiTConfig`` covers the paper's diffusion-transformer denoisers;
-``ModelConfig`` the assigned LM families.  The port runs the dense and
-SSM families (``blocks`` raises for a config with experts);
-``MoEConfig`` exists as a type so configs keep the reference's fields.
+``ModelConfig`` the assigned LM families.  The port runs the dense, MoE
+and SSM families; the enc-dec and modality-prefix ones raise
+(``ROADMAP.md`` §1 item 5).
 """
 from __future__ import annotations
 
@@ -19,8 +19,16 @@ class MoEConfig:
     every: int = 1
     aux_loss_weight: float = 0.01
     router_z_weight: float = 1e-3
+    # dispatch: "einsum" (GShard one-hot products) or "gather" (slot
+    # indices)
     impl: str = "einsum"
+    # never-routed experts appended so the expert count divides a mesh
+    # axis
     padded_experts: int = 0
+
+    @property
+    def e_total(self) -> int:
+        return max(self.n_experts, self.padded_experts)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,10 @@
+"""Command-R+ 104B — dense GQA, no-bias, 256k vocab
+[hf:CohereForAI/c4ai-command-r-plus family]."""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="command-r-plus-104b", family="dense",
+    n_layers=64, d_model=12288, n_heads=96, n_kv_heads=8, d_ff=33792,
+    vocab_size=256000, head_dim=128, use_bias=False,
+    source="GQA, no-bias [hf:CohereForAI/c4ai-command-r-v01]",
+)

@@ -1,0 +1,11 @@
+"""Phi-3.5-MoE 42B (6.6B active) — 16 experts top-2
+[hf:microsoft/Phi-3.5-MoE-instruct]."""
+from repro_torch.configs.base import ModelConfig, MoEConfig
+
+CONFIG = ModelConfig(
+    arch_id="phi3.5-moe-42b-a6.6b", family="moe",
+    n_layers=32, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=6400,
+    vocab_size=32064, head_dim=128,
+    moe=MoEConfig(n_experts=16, top_k=2, every=1),
+    source="16 experts top-2 [hf:microsoft/Phi-3.5-MoE-instruct]",
+)

@@ -10,7 +10,8 @@ backwards; decode launches none).  The AdamW update is in place
 the ones it was given; so is the decode cache.  The mesh, the
 ``constrain`` sharding hooks and ``build`` / ``input_specs`` /
 ``build_dit`` wait for the sharding and dry-run part of ``ROADMAP.md``
-§1 item 6; enc-dec, modality-prefix and MoE configs raise (item 5).
+§1 item 6, and so do the reference's MoE overrides ``moe_impl`` /
+``moe_pad``; enc-dec and modality-prefix configs raise (item 5).
 """
 from __future__ import annotations
 

@@ -5,8 +5,9 @@ Two modes:
   procedural shapes dataset with the rectified-flow loss, AdamW and a
   warmup-cosine schedule (any DiT config of the registry trains the
   same way);
-* ``--arch yi-9b`` or ``--arch mamba2-370m`` (``--reduced`` for the
-  CPU-sized variant) trains the LM on the synthetic Markov token stream
+* ``--arch`` an LM of the registry (``yi-9b``, ``mamba2-370m``,
+  ``granite-moe-3b-a800m``, ...; ``--reduced`` for the CPU-sized
+  variant) trains the LM on the synthetic Markov token stream
   with the next-token loss (``train_lm``).
 Both save the parameters in the reference's checkpoint format.
 
@@ -46,10 +47,12 @@ def _mark(events: list, on_card: bool) -> None:
 def _train(params, draw, loss_of, opt_cfg: adamw.AdamWConfig, steps: int,
            dev, on_step: Optional[Callable], log_every: int, log_line):
     """The loop both trainers share: per step i, ``batch = draw(i)``,
-    ``loss_of(params, batch)`` (a 0-d loss tensor), its backward and one
-    AdamW update in place; the metrics ``loss``, ``grad_norm``, ``lr``
-    and, on the card, ``forward_ms``, ``backward_ms``, ``adamw_ms`` (CUDA
-    events) and ``step_ms`` (host clock, data included) go to
+    ``loss_of(params, batch)`` (a 0-d loss tensor and a dict of 0-d
+    metrics to log beside it), its backward and one AdamW update in
+    place; the metrics ``loss``, ``grad_norm``, ``lr``, those of
+    ``loss_of`` and, on the card, ``forward_ms``, ``backward_ms``,
+    ``adamw_ms`` (CUDA events) and ``step_ms`` (host clock, data
+    included) go to
     ``on_step(i, metrics, grads)`` with the gradient tree (``None`` for
     an unused leaf), and every ``log_every`` steps ``log_line(i,
     metrics, seconds so far)`` is printed.  Each step reads its loss on
@@ -67,7 +70,7 @@ def _train(params, draw, loss_of, opt_cfg: adamw.AdamWConfig, steps: int,
         batch = draw(i)
         events = []
         _mark(events, on_card)
-        loss = loss_of(params, batch)
+        loss, extra = loss_of(params, batch)
         _mark(events, on_card)
         loss.backward()
         _mark(events, on_card)
@@ -76,7 +79,8 @@ def _train(params, draw, loss_of, opt_cfg: adamw.AdamWConfig, steps: int,
                                              params)
         _mark(events, on_card)
         metrics = {"loss": float(loss.detach()),
-                   "grad_norm": float(om["grad_norm"]), "lr": float(om["lr"])}
+                   "grad_norm": float(om["grad_norm"]), "lr": float(om["lr"]),
+                   **{k: float(v) for k, v in extra.items()}}
         if on_card:
             torch.cuda.synchronize(dev)
             for j, name in enumerate(("forward_ms", "backward_ms",
@@ -126,7 +130,7 @@ def train_dit(cfg: DiTConfig, steps: int, batch: int, ckpt_dir: str,
         gen, latents = drawn
         return training.rf_loss(
             lambda q, x_t, t: dit.dit_forward(q, x_t, t, cfg).velocity, p,
-            {"latents": latents}, gen)[0]
+            {"latents": latents}, gen)[0], {}
 
     params, _ = _train(
         params, draw, loss_of, opt_cfg, steps, dev, on_step, log_every,
@@ -153,8 +157,10 @@ def train_lm(cfg: ModelConfig, steps: int, batch: int, seq: int,
     Saves the parameters to ``ckpt_dir`` (if set) as
     ``{cfg.arch_id}_{steps:08d}`` in the reference's layout; returns
     ``(params, losses)``, the parameters no longer requiring grad.
-    Enc-dec, modality-prefix and MoE configs raise
-    ``NotImplementedError`` (``ROADMAP.md`` §1 item 5)."""
+    With experts the loss holds the aux terms, and each step's metrics
+    (and log line) add the stack's ``lb_loss`` and ``drop_fraction``.
+    Enc-dec and modality-prefix configs raise ``NotImplementedError``
+    (``ROADMAP.md`` §1 item 5)."""
     transformer.check_ported(cfg, "train_lm")
     dev = device_lib.resolve(device)
     if params is None:
@@ -167,10 +173,18 @@ def train_lm(cfg: ModelConfig, steps: int, batch: int, seq: int,
         gen = torch.Generator(device=dev).manual_seed(seed * 104729 + i)
         return synthetic.lm_batch(gen, batch, seq, cfg.vocab_size, device=dev)
 
-    params, history = _train(
-        params, draw, lambda p, b: transformer.loss_fn(p, b, cfg)[0],
-        opt_cfg, steps, dev, on_step, log_every,
-        lambda i, m, sec: f"step {i:4d} loss {m['loss']:.4f}")
+    def loss_of(p, b):
+        loss, metrics = transformer.loss_fn(p, b, cfg)
+        return loss, ({k: metrics[k].detach()
+                       for k in ("lb_loss", "drop_fraction")}
+                      if cfg.moe is not None else {})
+
+    def log_line(i, m, sec):
+        return f"step {i:4d} loss {m['loss']:.4f}" + (
+            f" lb_loss {m['lb_loss']:.4f} drop_fraction "
+            f"{m['drop_fraction']:.4f}" if cfg.moe is not None else "")
+    params, history = _train(params, draw, loss_of, opt_cfg, steps, dev,
+                             on_step, log_every, log_line)
     if ckpt_dir:
         checkpoint.save(ckpt_dir, steps,
                         bridge.lm_params_to_jax_numpy(params, cfg),

@@ -1,14 +1,15 @@
 """Decoder blocks and layer stacks (counterpart of
 ``repro.models.blocks``).
 
-A block = pre-norm mixer (attention or Mamba2 SSD) + pre-norm dense
-SwiGLU FFN.  The reference scans one stacked group of layers; the port
-keeps ``params["stack"]`` as a list of ``n_groups`` groups, each a dict
+A block = pre-norm mixer (attention or Mamba2 SSD) + pre-norm FFN
+(dense SwiGLU, or on the layers ``cfg.is_moe_layer`` picks the mixture
+of experts of ``models.moe``, dispatched as ``cfg.moe.impl`` says).  The
+reference scans one stacked group of layers; the port keeps
+``params["stack"]`` as a list of ``n_groups`` groups, each a dict
 ``{"l{i}": block}`` over the group's positions, and loops over it, each
 group rematerialised in the backward where the config asks for it.
 The decode cache mirrors it: a list of ``n_groups`` dicts ``{"l{i}":
-KVCache or SSMCache}``, updated in place one token at a time.  A config
-with experts raises ``NotImplementedError`` (MoE waits).
+KVCache or SSMCache}``, updated in place one token at a time.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import attention, common, mlp, ssm
+from repro_torch.models import attention, common, mlp, moe, ssm
 
 
 class BlockAux(NamedTuple):
@@ -35,21 +36,16 @@ class BlockAux(NamedTuple):
         return BlockAux(*[a + b for a, b in zip(self, other, strict=True)])
 
 
-def _no_moe(is_moe: bool) -> None:
-    if is_moe:
-        raise NotImplementedError("MoE layers are not ported yet")
-
-
 def block_specs(cfg: ModelConfig, kind: str, is_moe: bool, stack: int = 1):
-    _no_moe(is_moe)
     s: Dict[str, Any] = {"norm1": common.rmsnorm_specs(cfg.d_model)}
     if kind == "attn":
         s["attn"] = attention.attn_specs(cfg, stack)
     else:
         s["ssm"] = ssm.ssm_specs(cfg, stack)
-    if cfg.d_ff > 0:
+    if is_moe or cfg.d_ff > 0:
         s["norm2"] = common.rmsnorm_specs(cfg.d_model)
-        s["ffn"] = mlp.mlp_specs(cfg, stack)
+        s["ffn"] = (moe.moe_specs(cfg, stack) if is_moe
+                    else mlp.mlp_specs(cfg, stack))
     return s
 
 
@@ -63,7 +59,10 @@ def _mixer_full(params, x, cfg: ModelConfig, kind: str, window: int,
 
 def _ffn(params, x, cfg: ModelConfig,
          is_moe: bool) -> Tuple[torch.Tensor, BlockAux]:
-    _no_moe(is_moe)
+    if is_moe:
+        fn = moe.moe_ffn_gather if cfg.moe.impl == "gather" else moe.moe_ffn
+        y, aux = fn(params["ffn"], x, cfg)
+        return y, BlockAux(*aux)
     return mlp.mlp(params["ffn"], x), BlockAux.zero(x.device)
 
 

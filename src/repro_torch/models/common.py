@@ -66,7 +66,7 @@ def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
             return torch.ones(spec.shape, dtype=dtype, device=dev)
         x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                         device=dev)
-        return (x * spec.std()).to(dtype)
+        return x.mul_(spec.std()).to(dtype)     # one float32 buffer a leaf
 
     return map_specs(draw, specs)
 

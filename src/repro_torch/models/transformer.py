@@ -10,7 +10,8 @@ cross-entropy of training, through ``chunked_cross_entropy`` so that
 the ``[B, S, vocab]`` logits never exist at once.  ``decode_step``
 runs one token through the stack against a decode cache
 (``blocks.stack_cache_zeros``), updated in place; it launches no kernel.
-The modality prefix and MoE raise.
+Configs with experts run the MoE FFN (``models.moe``); enc-dec and the
+modality prefix raise.
 """
 from __future__ import annotations
 
@@ -106,28 +107,33 @@ def chunked_cross_entropy(params, h: torch.Tensor, labels: torch.Tensor,
 
 def check_ported(cfg: ModelConfig, what: str) -> None:
     """Raise ``NotImplementedError`` for the LM configs the port does not
-    train, prefill or decode yet: enc-dec, modality-prefix and MoE."""
-    if cfg.is_encdec or cfg.n_prefix_tokens > 0 or cfg.moe is not None:
+    train, prefill or decode yet: enc-dec and modality-prefix."""
+    if cfg.is_encdec or cfg.n_prefix_tokens > 0:
         raise NotImplementedError(
-            f"{what} ({cfg.arch_id}): enc-dec, modality-prefix and MoE "
-            "configs are not ported yet (ROADMAP.md §1 item 5)")
+            f"{what} ({cfg.arch_id}): enc-dec and modality-prefix configs "
+            "are not ported yet (ROADMAP.md §1 item 5)")
 
 
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """Next-token cross-entropy of ``batch["tokens"] [B, S]`` against
     ``batch["labels"]`` (−1 masked), the reference's ``loss_fn``: the
     stack (rematerialised under grad where ``cfg.remat``), the final
-    norm, then ``chunked_cross_entropy``.  Returns ``(loss, metrics)``
-    with metrics ``loss``, ``lb_loss`` and ``drop_fraction`` (the last
-    two the stack's aux, zero without experts).  Configs with a
-    modality prefix, experts or an encoder raise ``NotImplementedError``
-    (``ROADMAP.md`` §1 item 5)."""
+    norm, then ``chunked_cross_entropy``; with experts, plus
+    ``aux_loss_weight`` times the load-balance loss and
+    ``router_z_weight`` times the router z-loss.  Returns ``(loss,
+    metrics)`` with metrics ``loss`` (the total), ``lb_loss`` and
+    ``drop_fraction`` (the last two the stack's aux, zero without
+    experts).  Configs with a modality prefix or an encoder raise
+    ``NotImplementedError`` (``ROADMAP.md`` §1 item 5)."""
     check_ported(cfg, "loss_fn")
     x = common.embed(params["embed"], batch["tokens"]).to(
         getattr(torch, cfg.dtype))
     h, aux = blocks.stack_full(params["stack"], x, cfg)
     hn = common.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     loss = chunked_cross_entropy(params, hn, batch["labels"], cfg)
+    if cfg.moe is not None:
+        loss = (loss + cfg.moe.aux_loss_weight * aux.load_balance_loss
+                + cfg.moe.router_z_weight * aux.router_z_loss)
     metrics = {"loss": loss, "lb_loss": aux.load_balance_loss,
                "drop_fraction": aux.drop_fraction}
     return loss, metrics

@@ -531,3 +531,112 @@ def test_decode_step_card_against_cpu(card, arch, window, pos):
     for got, want in pairs:
         err = (got.cpu() - want).abs().max() / want.abs().max()
         assert float(err) <= 1e-4, float(err)
+
+
+# the GQA groups of the fourteenth slice's configs, causal with S off the
+# tiles: 3 at hd 64 (granite-moe-3b-a800m's 24/8), 4 at hd 128
+# (phi3.5-moe), 7 (deepseek-coder-33b's 56/8), 12 (command-r-plus-104b's
+# 96/8) and 16 (llama3-405b's 128/8).  The backward's pass (b) splits a
+# group over blocks by halving it: 3 and 7 take one split, 12 four and 16
+# sixteen at these sizes
+_NEW_GROUPS = [
+    (333, 6, 2, 64), (1100, 24, 8, 64), (300, 8, 2, 128),
+    (333, 14, 2, 128), (300, 24, 2, 128), (333, 32, 2, 128),
+    (700, 16, 1, 128),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,hq,hkv,hd", _NEW_GROUPS)
+def test_flash_kernel_new_gqa_groups(card, dtype, s, hq, hkv, hd):
+    q = torch.randn(2, s, hq, hd, device=card).to(dtype)
+    k, v = (torch.randn(2, s, hkv, hd, device=card).to(dtype) for _ in "kv")
+    ops.reset_launch_counts()
+    got = ops.flash(q, k, v, hq // hkv, causal=True)
+    assert ops.launch_counts()["flash_attention"] == 1
+    _close((got,), (ref.attention_ref(q, k, v, hq // hkv, True),), dtype)
+
+
+@pytest.mark.parametrize("s,hq,hkv,hd", _NEW_GROUPS)
+def test_flash_bwd_kernel_new_gqa_groups(card, s, hq, hkv, hd):
+    _check_flash_bwd(_bwd_inputs(card, s, hq, hkv, hd), hq // hkv, True, 0)
+
+
+def _moe_case(dtype, cf, seed=0):
+    """A reduced-width MoE layer (d 256, 8 experts top-2 of width 128)
+    and two groups of 256 tokens, drawn on the CPU."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import common, moe
+    base = configs.reduced(configs.get_config("granite-moe-3b-a800m"))
+    cfg = dataclasses.replace(base, d_model=256, d_ff=128,
+                              moe=dataclasses.replace(
+                                  base.moe, n_experts=8, top_k=2,
+                                  capacity_factor=cf))
+    gen = torch.Generator().manual_seed(seed)
+    params = common.init_params(moe.moe_specs(cfg), seed=seed, device="cpu")
+    params["router"] = torch.randn(256, 8, generator=gen) / 16.0
+    x = torch.randn(2, 256, 256, generator=gen).to(dtype)
+    return cfg, params, x
+
+
+def _route_of(params, x, cfg):
+    from repro_torch.models import moe
+    xt = x.reshape(-1, 256, x.shape[-1])
+    _, _, mask, probs, _ = moe._routing(params, xt, cfg)
+    return mask.cpu(), probs.cpu()
+
+
+@pytest.mark.parametrize("impl", ["einsum", "gather"])
+@pytest.mark.parametrize("cf", [16.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_ffn_card_against_cpu(card, impl, cf, dtype):
+    """The MoE FFN (plain tensor code, no kernel) on the card against the
+    CPU.  The routing first: δ, the largest difference of a router
+    probability, and every token's k-th minus (k+1)-th probability must
+    clear 4δ, then the masks are equal.  The output to TOL (float32 sums
+    in other orders; bf16 expert products), the load-balance and z-loss
+    1e-5 relative, the drop fraction equal; no kernel launched."""
+    from repro_torch.models import moe
+    cfg, params, x = _moe_case(dtype, cf)
+    on_card = {k: v.to(card) for k, v in params.items()}
+    m_cpu, p_cpu = _route_of(params, x, cfg)
+    m_card, p_card = _route_of(on_card, x.to(card), cfg)
+    delta = float((p_card - p_cpu).abs().max())
+    top = torch.topk(p_cpu, cfg.moe.top_k + 1, dim=-1).values
+    assert float((top[..., 1] - top[..., 2]).min()) > 4 * delta
+    assert torch.equal(m_card, m_cpu)
+    fn = {"einsum": moe.moe_ffn, "gather": moe.moe_ffn_gather}[impl]
+    want, a_want = fn(params, x, cfg, group_size=256)
+    ops.reset_launch_counts()
+    got, a_got = fn(on_card, x.to(card), cfg, group_size=256)
+    torch.cuda.synchronize()
+    assert not any(ops.launch_counts().values())
+    _close((got.cpu(),), (want,), dtype)
+    for a, b in zip(a_got[:2], a_want[:2], strict=True):
+        assert abs(float(a) - float(b)) <= 1e-5 * abs(float(b))
+    assert float(a_got.drop_fraction) == float(a_want.drop_fraction)
+    assert (float(a_want.drop_fraction) > 0) == (cf == 0.5)
+
+
+@pytest.mark.parametrize("cf", [16.0, 0.5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_einsum_and_gather_agree_on_the_card(card, cf, dtype):
+    """The two dispatches on the card: one routing, so the load-balance
+    and z-losses are bitwise equal and the outputs differ by the sums'
+    order only (float32 1e-5; bf16 TOL); the drop fractions equal in
+    float32 and to the einsum form's bf16 sum in bf16."""
+    from repro_torch.models import moe
+    cfg, params, x = _moe_case(dtype, cf, seed=1)
+    params = {k: v.to(card) for k, v in params.items()}
+    x = x.to(card)
+    ye, ae = moe.moe_ffn(params, x, cfg, group_size=256)
+    yg, ag = moe.moe_ffn_gather(params, x, cfg, group_size=256)
+    torch.cuda.synchronize()
+    _close((yg,), (ye,), dtype)
+    assert all(torch.equal(a, b) for a, b in zip(ae[:2], ag[:2],
+                                                 strict=True))
+    de, dg = float(ae.drop_fraction), float(ag.drop_fraction)
+    assert (de == dg) if dtype == torch.float32 else \
+        abs(de - dg) <= 2.0 ** -8

@@ -57,10 +57,14 @@ def test_every_port_module_imports_without_a_card():
     "repro_torch.serving.fleet.faults",
     "repro_torch.serving.fleet.fleet_metrics", "repro_torch.launch.steps",
     "repro_torch.kernels.ops", "repro_torch.checkpointing.bridge",
-    "repro_torch.serving.engine"])
+    "repro_torch.serving.engine", "repro_torch.models.moe",
+    "repro_torch.configs.granite_moe_3b", "repro_torch.configs.phi35_moe_42b",
+    "repro_torch.configs.deepseek_coder_33b",
+    "repro_torch.configs.llama3_405b",
+    "repro_torch.configs.command_r_plus_104b"])
 def test_assigned_backbone_modules_are_walked(name):
-    """The third, seventh, eighth, tenth, eleventh and thirteenth slices'
-    modules are among the files walked above."""
+    """The third, seventh, eighth, tenth, eleventh, thirteenth and
+    fourteenth slices' modules are among the files walked above."""
     walked = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
               for p in FILES if p.is_relative_to(REPO / "src")}
     assert name in walked

@@ -115,17 +115,6 @@ def test_configs_match_reference(arch):
         assert not any(ct.is_moe_layer(i) for i in range(ct.n_layers))
 
 
-def test_moe_config_raises():
-    cj = jconfigs.get_config("granite-moe-3b-a800m")
-    ct = tconfigs.base.ModelConfig(
-        **{k: v for k, v in dataclasses.asdict(cj).items()
-           if k not in ("moe", "ssm")},
-        moe=tconfigs.base.MoEConfig(**dataclasses.asdict(cj.moe)))
-    assert ct.is_moe_layer(0)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tblocks.stack_specs(ct)
-
-
 @pytest.mark.parametrize("field, value, match", [
     ("n_prefix_tokens", 16, "prefix"), ("use_bias", True, "biases")])
 def test_unported_config_options_raise(field, value, match):

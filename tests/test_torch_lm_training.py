@@ -312,14 +312,12 @@ def test_param_bytes_matches_reference(arch, reduced):
         assert tsteps.param_bytes(ct, per) == jpart.param_bytes(cj, per)
 
 
-@pytest.mark.parametrize("what", ["moe", "prefix"])
+@pytest.mark.parametrize("what", ["prefix", "encdec"])
 def test_unported_configs_raise(what):
     _, ct = _configs("yi-9b")
-    if what == "moe":
-        ct = dataclasses.replace(ct, moe=tconfigs.base.MoEConfig(
-            n_experts=4, top_k=2))
-    else:
-        ct = dataclasses.replace(ct, n_prefix_tokens=4)
+    ct = dataclasses.replace(ct, **({"n_prefix_tokens": 4} if what == "prefix"
+                                    else {"is_encdec": True,
+                                          "n_enc_layers": 2}))
     for call in (lambda: tsteps.make_train_step(ct),
                  lambda: tsteps.make_prefill_step(ct),
                  lambda: ttrain.train_lm(ct, 1, 1, 8, "", device="cpu")):

@@ -28,7 +28,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                log-sum-exp; the SSD-scan backward at one mamba2-370m
                layer in bf16 and float32, each output to its stated
                tolerance, two launches bitwise equal, each launch timed
-               apart;
+               apart; kernels 6 and 8 at one jamba-1.5-large layer
+               (heads of 128, run as two heads of 64), bf16 and float32;
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
                versions), and so does a mixed batch of a FreqCa and a
@@ -115,13 +116,33 @@ Phases, each of which raises (and so exits non-zero) on failure:
                ``make_prefill_step`` each on 32768 tokens, the flash
                launch at each shape (groups 7, 16, 12) against its plain
                version; each at 2 layers card against CPU in float32;
-15. launcher — ``launch.serve.main`` in this process at dit-small, three
+15. jamba    — jamba-1.5-large-398b: one full-width group (7 mamba2
+               layers and 1 attention layer, the MoE FFN on every other
+               one, 44 B parameters) layer at a time over 32768 tokens,
+               each layer's parameters drawn and freed in turn: 7 SSD
+               launches at heads of 128 and 1 flash launch; l0's backward
+               at S 4096 (one SSD-backward launch); l0 card against CPU in
+               float32 at full SSM width (output and every gradient, a
+               TF32 control);
+16. encdec   — seamless-m4t-medium at full width and depth (12 + 12
+               layers): ``make_prefill_step`` on 32768 frames and tokens
+               (36 flash launches: 12 non-causal, 12 causal, 12
+               cross-attention), the new flash forms against their plain
+               versions and SDPA, decode at decode_32k (batch 16) against
+               a 32768-frame memory, ``train_lm`` for 3 steps at S 4096
+               on batch 8 (the flash backward at its forms), 2 + 2
+               layers card against CPU in float32;
+17. vlm      — llava-next-34b: ``make_prefill_step`` at full depth (60
+               layers) on 2880 prefix embeddings and 29888 text tokens,
+               ``train_lm`` cut to 4 layers (2 steps, batch 8, S 4096),
+               2 layers card against CPU in float32;
+18. launcher — ``launch.serve.main`` in this process at dit-small, three
                times: closed-loop bursts, the threaded open loop and two
                replica processes; every request its 4 full steps, a
                finite PSNR against the uncached run, 0 steady-state
                first runs; kernels 1 and 2 held against their plain
                versions at its shapes;
-16. fleet    — two replica processes on the card behind a
+19. fleet    — two replica processes on the card behind a
                ``FleetRouter``, each with its own copy of the train
                phase's flux1-dev cut (shipped as a numpy tree): six
                1024² requests, one replica SIGKILLed mid-stream, every
@@ -135,7 +156,9 @@ to 7 and freed before phase 8; each later phase frees its model before
 it draws the next (each fleet replica holds its own 5.5 GB copy).  The
 last line is ``{"ok": true, "device": {...}}``; the line before it is
 the card's name and power limit, and before that a ``kernels`` JSON
-line.  Run from the repository root: ``python3 chip_smoke.py``.
+line.  Run from the repository root: ``python3 chip_smoke.py``;
+``--phases jamba,encdec`` runs the build and kernel phases and then only
+the phases named (``PHASES``), in their usual order.
 """
 from __future__ import annotations
 
@@ -175,6 +198,10 @@ SLO_TIER_MARGIN = 0.05
 # path)
 SERVE_KERNELS = ("band_split_spectral", "freqca_predict_fused_spectral",
                  "flash_attention")
+# the rows of this run at the forms the jamba, encdec and vlm phases add
+# ({"<kernel>[<form>]": {dtype: numbers}}), for the kernels line
+FORM_ROWS = {}
+FORM_TAGS = ("jamba", "seamless", "llava")
 
 
 def log(msg: str) -> None:
@@ -357,10 +384,12 @@ def kernel_phase(main_dtype: dict) -> dict:
                 ("flash", "band_split_spectral",
                  "freqca_predict_fused_spectral"))
                else ""))
+        numbers = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l}
         if dtype == main_dtype.get(name):
-            rows[name] = {"max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                          "bound_ms": b_ms, "bound_by": b_by,
-                          "library_ms": t_l}
+            rows[name] = numbers
+        if any(tag in name for tag in FORM_TAGS):
+            FORM_ROWS.setdefault(name, {})[dtype] = numbers
 
     for dtype_name in ("bfloat16", "float32"):
         dt = getattr(torch, dtype_name)
@@ -518,6 +547,7 @@ def kernel_phase(main_dtype: dict) -> dict:
         lm_attention_rows(row, dt, dtype_name, gen)
         ssd_rows(row, dt, dtype_name, gen)
         ssd_bwd_rows(row, dt, dtype_name)
+        ssd_jamba_rows(row, dt, dtype_name)
         if dtype_name == "bfloat16":
             flash_bwd_rows(row, gen)
     return rows
@@ -883,17 +913,17 @@ def ssd_bwd_split(label: str, fn, reps: int) -> None:
            else ""))
 
 
-def ssd_bwd_inputs(b: int, dt, s: int = 4096, h: int = 32, n: int = 128):
-    """Kernel 8's inputs on ``b`` lanes of ``s`` tokens, ``h`` heads of 64
-    and state ``n`` (by default one mamba2-370m layer's widths): x, B and
-    C as column slices of one conv output at 0.5, dt = softplus(N(0, 1) −
-    2) float32, A = −exp(N(0, 0.3)), and a random output gradient dy, on
-    the card from a generator of its own (seed 3); returns (x, dt, A, B,
-    C, dy)."""
+def ssd_bwd_inputs(b: int, dt, s: int = 4096, h: int = 32, n: int = 128,
+                   p: int = 64):
+    """Kernel 8's inputs on ``b`` lanes of ``s`` tokens, ``h`` heads of
+    ``p`` and state ``n`` (by default one mamba2-370m layer's widths): x,
+    B and C as column slices of one conv output at 0.5, dt =
+    softplus(N(0, 1) − 2) float32, A = −exp(N(0, 0.3)), and a random
+    output gradient dy, on the card from a generator of its own (seed 3);
+    returns (x, dt, A, B, C, dy)."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(3)
-    p = 64
     xbc = (torch.randn((b, s, h * p + 2 * n), generator=gen, device=dev)
            * 0.5).to(dt)
     x = xbc[..., :h * p].reshape(b, s, h, p)
@@ -1015,6 +1045,51 @@ def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
         raise AssertionError(f"{name}: ops.ssd under autograd launched "
                              f"{counts}")
     del x, bm, cm, dy, leaves, y
+    torch.cuda.empty_cache()
+
+
+# one jamba-1.5-large layer's SSD scan: 128 heads of 128 (d_inner 16384),
+# state 128, chunk 256, one lane of 4096 tokens
+JAMBA_SSD_SHAPE = (1, 4096, 128, 128, 128, 256)
+
+
+def ssd_jamba_rows(row, dt, dtype_name: str) -> None:
+    """Kernels 6 and 8 at one jamba layer's shape (``JAMBA_SSD_SHAPE``:
+    heads of 128, which the wrappers run as two heads of 64 each), x, B
+    and C column slices of one conv output, from ``ssd_bwd_inputs``:
+    each against its plain version (kernel 8 per output, ``SSD_BWD_TOL``,
+    two launches bitwise), timed, with the bounds of ``ssd_flops`` and
+    ``ssd_bwd_flops`` at the bf16 tensor-core peak, as the mamba2 rows
+    count them; kernel 8's launches timed apart."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+    es = torch.finfo(dt).bits // 8
+    b, s, h, p, n, q = JAMBA_SSD_SHAPE
+    x, dts, a, bm, cm, dy = ssd_bwd_inputs(b, dt, s, h, n, p)
+    nbytes = 2 * b * s * h * p * es + 2 * b * s * n * es + b * s * h * 4 \
+        + h * 4
+    need = ssd_flops(b, s, h, p, n, q, dtype_name)
+    row("ssd_chunk_scan[jamba]", dtype_name,
+        lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm, q),
+        lambda: ref.ssd_chunk_scan_ref(x, dts, a, bm, cm, q),
+        nbytes, {"bfloat16": sum(need.values())}, reps=5)
+    name = "ssd_chunk_scan_bwd[jamba]"
+
+    def kern():
+        return ssd_scan.ssd_chunk_scan_bwd(x, dts, a, bm, cm, dy, q)
+
+    def plain():
+        return ref.ssd_chunk_scan_bwd_ref(x, dts, a, bm, cm, dy, q)
+    checked = ssd_bwd_check(name, dtype_name, kern(), kern(), plain())
+    torch.cuda.empty_cache()
+    nbytes = (3 * b * s * h * p + 4 * b * s * n) * es + 2 * b * s * h * 4 \
+        + 2 * h * 4
+    row(name, dtype_name, kern, plain, nbytes,
+        {"bfloat16": ssd_bwd_flops(b, s, h, p, n, q)}, reps=5,
+        checked=checked)
+    ssd_bwd_split(f"kernel {name} [{dtype_name}]", kern, 5)
+    del x, dts, a, bm, cm, dy
     torch.cuda.empty_cache()
 
 
@@ -1608,12 +1683,12 @@ def legacy_reference(devices=("cpu", "cuda")) -> None:
                                  f"{n_want}")
 
 
-def _to(tree, dev):
+def _to(tree, dev, copy: bool = False):
     if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
+        return {k: _to(v, dev, copy) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
-    return tree.to(dev)
+        return [_to(v, dev, copy) for v in tree]
+    return tree.to(dev, copy=copy)
 
 
 def flux_model(cfg=None, side: int = 128, device: str = "cuda") -> dict:
@@ -2203,8 +2278,10 @@ def flash_check(label: str, cfg, s: int, dev, seed: int) -> None:
     import torch
 
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import attention
+    from repro_torch.models import attention, blocks
     hd, hkv, g = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
+    _, ng, plan = blocks._layer_plan(cfg)
+    n_attn = ng * sum(kind == "attn" for kind, _ in plan)
     shape = f"[1, {s}, {cfg.n_heads}/{hkv}, {hd}]"
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((1, s, cfg.n_heads, hd), generator=gen,
@@ -2235,7 +2312,7 @@ def flash_check(label: str, cfg, s: int, dev, seed: int) -> None:
         t_l = time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), reps=2)
         log(f"{label}: breakdown: causal GQA flash {shape} {t_k:.3f} ms per "
-            f"layer x {cfg.n_layers} = {t_k * cfg.n_layers / 1e3:.3f} s of "
+            f"layer x {n_attn} = {t_k * n_attn / 1e3:.3f} s of "
             f"the forward; bound {b_ms:.4f} ms ({b_by}); library (SDPA) "
             f"{t_l:.3f} ms; {rate(flops, t_k, b_ms)}")
         del qt, kt, vt
@@ -2556,18 +2633,39 @@ def decode_params(cfg, n_layers: int, seed: int, device: str):
     yi-9b logits near 426 and makes a bf16 comparison meaningless; an
     expert ``[e, d_in, d_out]`` draws with 1/sqrt(d_in) in place of
     granite's 1/sqrt(32))."""
-    import torch
     params = lm_params(cfg, n_layers, seed, device)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    for group in params["stack"]:
-        for w in group["l0"].get("attn", {}).values():
-            w.copy_(torch.randn(w.shape, generator=gen, device=device)
-                    / w.shape[0] ** 0.5)
-        for w in group["l0"].get("ffn", {}).values():
-            if w.dim() == 3:
-                w.copy_(torch.randn(w.shape, generator=gen, device=device)
-                        / w.shape[1] ** 0.5)
+    fan_in_redraw(params, seed + 1, experts=True)
     return params
+
+
+def fan_in_redraw(params, seed: int, experts: bool = False) -> None:
+    """Redraw in place, in the tree's order, every attention projection
+    (under ``attn``, ``self_attn`` or ``cross_attn``) at std 1/sqrt(its
+    fan-in, dim 0) and, with ``experts``, every expert leaf ``[e, d_in,
+    d_out]`` of an ``ffn`` at 1/sqrt(d_in)."""
+    import torch
+    gen = None
+
+    def draw(w, fan_in):
+        nonlocal gen
+        if gen is None:
+            gen = torch.Generator(device=w.device).manual_seed(seed)
+        w.copy_(torch.randn(w.shape, generator=gen, device=w.device)
+                / fan_in ** 0.5)
+
+    def walk(node):
+        for key, sub in (node.items() if isinstance(node, dict)
+                         else enumerate(node)):
+            if key in ("attn", "self_attn", "cross_attn"):
+                for w in sub.values():
+                    draw(w, w.shape[0])
+            elif key == "ffn" and experts:
+                for w in sub.values():
+                    if w.dim() == 3:
+                        draw(w, w.shape[1])
+            elif isinstance(sub, (dict, list)):
+                walk(sub)
+    walk(params)
 
 
 def decode_reference(devices=("cpu", "cuda"), cfgs=None,
@@ -3009,15 +3107,17 @@ LM_TRAIN_YI_BATCH = 2
 
 
 def lm_train_run(label: str, cfg, params, batch: int, seq: int, steps: int,
-                 kernels, dev, ckpt_dir: str = "") -> dict:
+                 kernels, dev, ckpt_dir: str = "", n_launching: int = 0
+                 ) -> dict:
     """``launch.train.train_lm`` from ``params`` for ``steps`` steps; logs
     each step's loss, grad norm, lr, forward / backward / AdamW ms, step
-    wall and tokens/s, and the peak memory; checks finite losses, that
-    on step 0 every leaf has a finite non-zero gradient, and that the
-    launches are the plan's: under remat two forward launches of the
-    layer's kernel (``kernels[0]``) and one backward (``kernels[1]``) per
-    layer and step, and nothing else.  Returns the launch counts and the
-    last step's metrics."""
+    wall and tokens/s (of ``seq`` tokens a sequence), and the peak
+    memory; checks finite losses, that on step 0 every leaf has a finite
+    non-zero gradient, and that the launches are the plan's: under remat
+    two forward launches of the layer's kernel (``kernels[0]``) and one
+    backward (``kernels[1]``) per launching layer (``n_launching``,
+    default ``cfg.n_layers``) and step, and nothing else.  Returns the
+    launch counts, the last step's metrics and the first loss."""
     import torch
 
     from repro_torch.checkpointing import checkpoint
@@ -3066,12 +3166,13 @@ def lm_train_run(label: str, cfg, params, batch: int, seq: int, steps: int,
             for m in records):
         raise AssertionError(f"{label}: losses {losses}, gradient leaves "
                              f"off {bad}")
-    want = {kernels[0]: steps * 2 * cfg.n_layers,
-            kernels[1]: steps * cfg.n_layers}
+    n = n_launching or cfg.n_layers
+    want = {kernels[0]: steps * 2 * n, kernels[1]: steps * n}
     if on_card and (any(counts[k] != n for k, n in want.items())
                     or sum(counts.values()) != sum(want.values())):
         raise AssertionError(f"{label}: launches {counts}, expected {want}")
-    return {"counts": counts, "last": records[-1], "params": trained}
+    return {"counts": counts, "last": records[-1], "params": trained,
+            "first_loss": losses[0]}
 
 
 def lm_train_phase(mamba_cfg=None, yi_cfg=None, yi_draw=None,
@@ -3449,76 +3550,91 @@ def moe_layer_rows(label: str, cfg, layer, s: int, dev) -> None:
     del x, xin
 
 
-def flash_bwd_check(label: str, cfg, batch: int, seq: int, dev) -> None:
-    """The causal GQA flash backward at a training step's shape: held
-    against its plain version at batch 1 ([1, seq, H/Hkv, hd], dQ, dK,
-    dV each to the bf16 tolerance) and timed there beside its bound,
-    the plain version and SDPA's backward (``torch.autograd.grad``
-    through SDPA less its forward); then the forward (with its
-    log-sum-exp) and the backward timed at the step's batch."""
+def flash_bwd_check(label: str, cfg, batch: int, seq: int, dev,
+                    causal: bool = True, form: bool = False) -> None:
+    """The flash backward at a training step's shape (``cfg``'s heads,
+    causal or not): held against its plain version at batch 1 ([1, seq,
+    H/Hkv, hd], dQ, dK, dV each to the bf16 tolerance, two launches
+    bitwise) and timed there beside its bound and the plain version;
+    then, at the step's batch, the forward (with its log-sum-exp) and
+    the backward timed beside the backward's bound and SDPA's backward
+    (``torch.autograd.grad`` through SDPA less its forward).  With
+    ``form``, the step's numbers (the plain version's at batch 1) are
+    recorded as ``flash_attention_bwd[label]`` for the kernels line."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     gen = torch.Generator(device=dev).manual_seed(121)
-    g, hd = cfg.q_per_kv, cfg.head_dim
+    g, hd, h = cfg.q_per_kv, cfg.head_dim, cfg.n_heads
 
     def draw(b):
-        q = torch.randn((b, seq, cfg.n_heads, hd), generator=gen,
+        q = torch.randn((b, seq, h, hd), generator=gen,
                         device=dev).to(torch.bfloat16)
         k, v = (torch.randn((b, seq, cfg.n_kv_heads, hd), generator=gen,
                             device=dev).to(torch.bfloat16) for _ in "kv")
         return q, k, v, torch.randn_like(q)
+
+    def bound(q, k):
+        pairs = q.shape[0] * (attention_pairs(seq, True, 0) if causal
+                              else seq * seq)
+        flops = 10 * h * hd * pairs
+        return (flops, *bound_ms((4 * q.numel() + 4 * k.numel()) * 2
+                                 + q.shape[0] * h * seq * 4, flops,
+                                 "bfloat16"))
     q, k, v, do = draw(1)
-    o, lse = fa.flash_attention(q, k, v, g, True, return_lse=True)
-    got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, True)
-    want = ref.attention_bwd_ref(q, k, v, o, lse, do, g, True)
-    rels = [compare(f"flash_attention_bwd[{label}] d{x}", "bfloat16", a,
-                    w)[1] for x, a, w in zip("qkv", got, want, strict=True)]
-    shape = f"[{batch}, {seq}, {cfg.n_heads}/{cfg.n_kv_heads}, {hd}]"
-    del got, want
+    o, lse = fa.flash_attention(q, k, v, g, causal, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal)
+    want = ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal)
+    err, rels = 0.0, []
+    for x, a, a2, w in zip("qkv", got, again, want, strict=True):
+        e, r = compare(f"flash_attention_bwd[{label}] d{x}", "bfloat16", a, w)
+        if not torch.equal(a, a2):
+            raise AssertionError(f"flash_attention_bwd[{label}] d{x}: two "
+                                 "launches differ")
+        err, rels = max(err, e), rels + [r]
+    shape = f"[{batch}, {seq}, {h}/{cfg.n_kv_heads}, {hd}], causal {causal}"
+    del got, again, want
+    t_k = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, g,
+                                                 causal), 3)
+    t_p = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, g,
+                                                causal), 3)
+    _, b1_ms, b1_by = bound(q, k)
+    log(f"{label}: flash backward [1, {seq}, {h}/{cfg.n_kv_heads}, {hd}], "
+        f"causal {causal} vs plain: max_rel_err dq={rels[0]:.3e} "
+        f"dk={rels[1]:.3e} dv={rels[2]:.3e} (tol "
+        f"{TOLERANCE['bfloat16']:.0e}), two launches bitwise; kernel "
+        f"{t_k:.4f} ms, bound {b1_ms:.4f} ms ({b1_by}), plain {t_p:.4f} ms")
+    del q, k, v, do, o, lse
+    q, k, v, do = draw(batch)
+    o, lse = fa.flash_attention(q, k, v, g, causal, return_lse=True)
+    f_ms = time_ms(lambda: fa.flash_attention(q, k, v, g, causal,
+                                              return_lse=True), 3)
+    b_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, g,
+                                                  causal), 3)
     leaves = [a.transpose(1, 2).detach().requires_grad_() for a in (q, k, v)]
 
     def sdpa():
-        return F.scaled_dot_product_attention(*leaves, is_causal=True,
+        return F.scaled_dot_product_attention(*leaves, is_causal=causal,
                                               enable_gqa=g > 1)
-    t_k = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, g,
-                                                 True), 3)
-    t_p = time_ms(lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, g,
-                                                True), 3)
     t_l = time_ms(lambda: torch.autograd.grad(sdpa(), leaves,
                                               do.transpose(1, 2)), 3) - \
         time_ms(sdpa, 3)
-    pairs = attention_pairs(seq, True, 0)
-    b1_ms, b1_by = bound_ms((4 * q.numel() + 4 * k.numel()) * 2
-                            + cfg.n_heads * seq * 4,
-                            10 * cfg.n_heads * hd * pairs, "bfloat16")
-    log(f"{label}: causal GQA flash backward [1, {seq}, {cfg.n_heads}/"
-        f"{cfg.n_kv_heads}, {hd}] vs plain: max_rel_err dq={rels[0]:.3e} "
-        f"dk={rels[1]:.3e} dv={rels[2]:.3e} (tol "
-        f"{TOLERANCE['bfloat16']:.0e}); kernel {t_k:.4f} ms, bound "
-        f"{b1_ms:.4f} ms ({b1_by}), plain {t_p:.4f} ms, library (SDPA "
-        f"backward) {t_l:.4f} ms")
-    del leaves, o, lse
-    q, k, v, do = draw(batch)
-    o, lse = fa.flash_attention(q, k, v, g, True, return_lse=True)
-    f_ms = time_ms(lambda: fa.flash_attention(q, k, v, g, True,
-                                              return_lse=True), 3)
-    b_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, g,
-                                                  True), 3)
-    pairs = batch * attention_pairs(seq, True, 0)
-    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + batch * cfg.n_heads * \
-        seq * 4
-    bb_ms, bb_by = bound_ms(nbytes, 10 * cfg.n_heads * hd * pairs,
-                            "bfloat16")
+    flops, bb_ms, bb_by = bound(q, k)
     log(f"{label}: flash at the step's shape {shape}: forward with lse "
         f"{f_ms:.3f} ms, backward {b_ms:.3f} ms (bound {bb_ms:.4f} ms, "
-        f"{bb_by}; {rate(10 * cfg.n_heads * hd * pairs, b_ms, bb_ms)}); "
-        f"a step's {cfg.n_layers} layers: forward twice (remat) "
-        f"{2 * cfg.n_layers * f_ms:.1f} ms, backward "
+        f"{bb_by}; {rate(flops, b_ms, bb_ms)}), library (SDPA backward) "
+        f"{t_l:.4f} ms; a step's {cfg.n_layers} layers: forward twice "
+        f"(remat) {2 * cfg.n_layers * f_ms:.1f} ms, backward "
         f"{cfg.n_layers * b_ms:.1f} ms")
-    del q, k, v, do, o, lse
+    if form:
+        FORM_ROWS.setdefault(f"flash_attention_bwd[{label}]", {})[
+            "bfloat16"] = {"max_abs_err": err, "ms": b_ms, "plain_ms": t_p,
+                           "bound_ms": bb_ms, "bound_by": bb_by,
+                           "library_ms": t_l, "plain_at_batch": 1}
+    del q, k, v, do, o, lse, leaves
 
 
 def moe_reference(devices=("cpu", "cuda"), cfg=None,
@@ -3896,6 +4012,921 @@ def lm_configs_phase(cfgs=None, s: int = MOE_SEQ,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the last three configs: jamba (hybrid, SSD heads of 128), seamless
+# (enc-dec), llava (modality prefix)
+# ---------------------------------------------------------------------------
+
+JAMBA_SEQ = 32768            # prefill_32k's length, its batch of 32 cut to 1
+JAMBA_BWD_SEQ = 4096
+# card against CPU: l0 (mamba2 + dense SwiGLU) at full SSM width, d_ff
+# cut to 2048 so that the CPU side stays short, float32, relative L2 of
+# the output and of the worst gradient (the SSD backward's float32 sums
+# over 256-token chunks and its dA, a sum whose terms cancel, read
+# 2.7e-5); the forward and the backward with TF32 matmuls must fail each
+JAMBA_REF_SEQ, JAMBA_REF_DFF = 1024, 2048
+JAMBA_CARD_TOL = {"out": 1e-4, "grad": 2e-4}
+SEAMLESS_SEQ = 32768          # frames and tokens of one prefill
+SEAMLESS_CROSS_Q = 4096       # the cross form's queries on a long memory
+SEAMLESS_TRAIN_BATCH, SEAMLESS_TRAIN_SEQ = 8, 4096
+SEAMLESS_TRAIN_STEPS = 3
+SEAMLESS_DECODE_BATCH = 16    # decode_32k's 128, cut: 12 x 2.1 GB of cache
+# card against CPU: 2 + 2 layers at full width, vocabulary cut to 8192,
+# S = T = 2048 (every attention on the flash kernel), float32, rel L2
+SEAMLESS_REF = dict(n_layers=2, n_enc_layers=2, vocab_size=8192)
+SEAMLESS_REF_SEQ = 2048
+ENCDEC_CARD_TOL = 1e-4
+LLAVA_TRAIN_LAYERS = 4        # of 60: ~6.7 GB a layer trained
+LLAVA_TRAIN_BATCH, LLAVA_TRAIN_STEPS = 8, 2
+LLAVA_TRAIN_SEQ = 4096        # 2880 prefix + 1216 text
+LLAVA_REF = dict(n_layers=2, d_ff=2048, vocab_size=8192, n_prefix_tokens=1024)
+LLAVA_REF_TEXT = 1024
+
+
+def _on_card(dev) -> bool:
+    import torch
+    return torch.device(dev).type == "cuda"
+
+
+def _sync(dev) -> None:
+    import torch
+    if _on_card(dev):
+        torch.cuda.synchronize()
+
+
+def _free(dev) -> None:
+    import torch
+    gc.collect()
+    if _on_card(dev):
+        torch.cuda.empty_cache()
+
+
+def _peak_gib(dev) -> float:
+    import torch
+    return torch.cuda.max_memory_allocated() / 2**30 if _on_card(dev) else 0.0
+
+
+def _reset_peak(dev) -> None:
+    import torch
+    if _on_card(dev):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _event(dev):
+    """A CUDA event recorded now on the card, the host clock elsewhere."""
+    import torch
+    if not _on_card(dev):
+        return time.perf_counter()
+    e = torch.cuda.Event(enable_timing=True)
+    e.record()
+    return e
+
+
+def _ms(a, b) -> float:
+    return a.elapsed_time(b) if not isinstance(a, float) else (b - a) * 1e3
+
+
+def _timed(fn, into: list, dev):
+    """``fn`` wrapped to append each call's (start, end) ``_event`` pair
+    to ``into``."""
+    def wrapper(*args, **kw):
+        a = _event(dev)
+        y = fn(*args, **kw)
+        into.append((a, _event(dev)))
+        return y
+    return wrapper
+
+
+def _recorded(fn, into: list):
+    """``fn`` wrapped to append each call's (args, result) to ``into``."""
+    def wrapper(*args):
+        y = fn(*args)
+        into.append((args, y))
+        return y
+    return wrapper
+
+
+def flash_form_row(label: str, s: int, t: int, hq: int, hkv: int, hd: int,
+                   causal: bool, dev, seed: int) -> None:
+    """One flash launch at a new form, bf16 [1, S, hq/hkv, hd] queries on T
+    keys: held against the plain version on the first and the last
+    ``n_q`` queries with every key they see, then timed beside its bound
+    and SDPA; recorded as ``flash_attention[label]`` (the plain version
+    at this size is not timed: its [H, S, T] float32 logits)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import attention
+    g = hq // hkv
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((1, s, hq, hd), generator=gen, device=dev).to(
+        torch.bfloat16)
+    k, v = (torch.randn((1, t, hkv, hd), generator=gen, device=dev).to(
+        torch.bfloat16) for _ in "kv")
+    got = ops.flash(q, k, v, g, causal=causal)
+    n_q = min(max(128, 1024 * 32 // hq), s)
+    err = rel = 0.0
+    for q0 in (0, s - n_q):
+        end = q0 + n_q if causal else t
+        mask = (attention.causal_mask(n_q, offset=q0, device=dev) if causal
+                else None)
+        want = ref.sdpa_ref(q[:, q0:q0 + n_q], k[:, :end], v[:, :end], mask,
+                            g)
+        e, r = compare(f"flash_attention[{label}]", "bfloat16",
+                       got[:, q0:q0 + n_q].contiguous(), want)
+        err, rel = max(err, e), max(rel, r)
+        del want
+    del got
+    shape = f"[1, {s}, {hq}/{hkv}, {hd}] on T {t}, causal {causal}"
+    if not _on_card(dev):
+        log(f"{label}: flash {shape} vs plain: max_rel_err {rel:.3e}")
+        return
+    pairs = (attention_pairs(s, True, 0) if causal else s * t)
+    flops = 4 * hq * hd * pairs
+    b_ms, b_by = bound_ms((2 * hq * s + 2 * hkv * t) * hd * 2, flops,
+                          "bfloat16")
+    t_k = time_ms(lambda: ops.flash(q, k, v, g, causal=causal), reps=3)
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    t_l = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=g > 1), reps=3)
+    log(f"kernel flash_attention[{label}] [bfloat16] {shape}: queries "
+        f"0:{n_q} and {s - n_q}:{s} vs plain max_abs_err={err:.3e} "
+        f"max_rel_err={rel:.3e} (tol {TOLERANCE['bfloat16']:.0e}) "
+        f"kernel_ms={t_k:.4f} bound_ms={b_ms:.4f} ({b_by}) library_ms="
+        f"{t_l:.4f} (SDPA) {rate(flops, t_k, b_ms)}")
+    FORM_ROWS.setdefault(f"flash_attention[{label}]", {})["bfloat16"] = {
+        "max_abs_err": err, "ms": t_k, "plain_ms": None, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": t_l}
+    del q, k, v, qt, kt, vt
+
+
+def ssd_launch_check(label: str, args, got) -> None:
+    """One ``ops.ssd`` call of a main-path run (its inputs and output as
+    ``_recorded`` kept them) held against the plain version on the same
+    inputs, at ``TOLERANCE`` for x's type."""
+    import torch
+
+    from repro_torch.kernels import ref
+    x, dt, a, bm, cm, chunk = args
+    dtype = str(x.dtype).removeprefix("torch.")
+    with torch.no_grad():
+        want = ref.ssd_chunk_scan_ref(x, dt.float(), a.float(), bm, cm,
+                                      chunk)
+    err, rel = compare(f"ssd_chunk_scan[{label}]", dtype, got, want)
+    log(f"{label}: its SSD launch {list(x.shape)} (N {bm.shape[-1]}, Q "
+        f"{chunk}, {x.shape[1] // chunk} chunks) vs plain on the same "
+        f"inputs: max_abs_err={err:.3e} max_rel_err={rel:.3e} (tol "
+        f"{TOLERANCE[dtype]:.0e})")
+
+
+def jamba_group(cfg, s: int, dev) -> dict:
+    """One full-width jamba group (l0–l7: seven mamba2 layers and one
+    attention layer, the MoE FFN on l1, l3, l5, l7), bf16, layer at a
+    time at batch 1 over ``s`` tokens: the embedding, then each layer's
+    parameters drawn from its own seed with the model's specs (the
+    reference's rule) and ``blocks.block_full`` run, the same code
+    ``stack_full`` runs, each layer freed before the next is drawn (the
+    88 GB group cannot be held at once); last the final norm and the
+    last token's logits.  Logs each layer's ms (CUDA events), each MoE
+    layer's drop fraction, the peak; 7 SSD and 1 flash launches.  l0's
+    SSD launch is held against the plain version on its own inputs
+    (``ssd_launch_check``).  Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks, common, transformer
+    specs = transformer.lm_specs(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    _, _, plan = blocks._layer_plan(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(160))
+    _reset_peak(dev)
+    ops.reset_launch_counts()
+    rows, t_all = [], time.perf_counter()
+    with torch.no_grad():
+        emb = common.init_params(specs["embed"], seed=161, device=dev,
+                                 dtype=dtype)
+        h = common.embed(emb, tokens).to(dtype)
+        del emb
+        for i, (kind, is_moe) in enumerate(plan):
+            t0 = time.perf_counter()
+            layer = common.init_params(specs["stack"][0][f"l{i}"],
+                                       seed=162 + i, device=dev, dtype=dtype)
+            _sync(dev)
+            draw_s = time.perf_counter() - t0
+            n = sum(p.numel() for p in _leaves(layer))
+            ssd_calls, real_ssd = [], ops.ssd
+            if i == 0:
+                ops.ssd = _recorded(real_ssd, ssd_calls)
+            try:
+                with MoESpy() as spy:
+                    a = _event(dev)
+                    h, _ = blocks.block_full(layer, h, cfg, kind, is_moe)
+                    b = _event(dev)
+            finally:
+                ops.ssd = real_ssd
+            _sync(dev)
+            rows.append((i, kind, is_moe, n, _ms(a, b), draw_s,
+                         drop_text(spy.aux)))
+            del layer
+            if ssd_calls:
+                ssd_launch_check(f"jamba group l{i}", *ssd_calls[0])
+            del ssd_calls
+            _free(dev)
+        tail = common.init_params({"final_norm": specs["final_norm"],
+                                   "head": specs["head"]}, seed=170,
+                                  device=dev, dtype=dtype)
+        hn = common.rmsnorm(tail["final_norm"], h[:, -1:], cfg.norm_eps)
+        logits = (hn @ tail["head"]["kernel"].to(hn.dtype))[:, 0]
+        _sync(dev)
+    wall = time.perf_counter() - t_all
+    counts = ops.launch_counts()
+    for i, kind, is_moe, n, ms, draw_s, drops in rows:
+        log(f"jamba group l{i}: {kind}{' + MoE FFN' if is_moe else ''} "
+            f"({n / 1e9:.3f} B parameters, drawn in {draw_s:.2f} s): "
+            f"{ms:.3f} ms over [1, {s}]" + (f"; {drops}" if drops else ""))
+    finite = bool(torch.isfinite(logits).all())
+    total = sum(r[4] for r in rows)
+    log(f"jamba group: {cfg.arch_id} one group of {len(plan)} layers at "
+        f"full width, layer at a time: layers {total:.1f} ms "
+        f"({s / total * 1e3:.0f} tokens/s), wall with the draws "
+        f"{wall:.1f} s; logits {tuple(logits.shape)} finite {finite}; peak "
+        f"memory {_peak_gib(dev):.2f} GiB; launches {counts}")
+    want = {"ssd_chunk_scan": sum(k == "ssm" for k, _ in plan),
+            "flash_attention": sum(k == "attn" for k, _ in plan)}
+    if _on_card(dev) and (any(counts[k] != n for k, n in want.items())
+                          or sum(counts.values()) != sum(want.values())):
+        raise AssertionError(f"jamba group: launches {counts}, expected "
+                             f"{want}")
+    if not finite or tuple(logits.shape) != (1, cfg.vocab_size):
+        raise AssertionError(f"jamba group: logits {tuple(logits.shape)}, "
+                             f"finite {finite}")
+    return counts
+
+
+def jamba_l0_backward(cfg, s: int, dev) -> dict:
+    """The backward of l0 (mamba2 + dense SwiGLU) at full width, bf16,
+    batch 1 over ``s`` tokens: ``blocks.block_full`` under autograd, a
+    random output gradient; one SSD forward and one SSD backward launch
+    (kernel 8 on heads of 128), every parameter's and the input's
+    gradient finite and non-zero.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import blocks, common, transformer
+    dtype = getattr(torch, cfg.dtype)
+    layer = common.init_params(transformer.lm_specs(cfg)["stack"][0]["l0"],
+                               seed=171, device=dev, dtype=dtype)
+    leaves = [p.requires_grad_() for p in _leaves(layer)]
+    gen = torch.Generator(device=dev).manual_seed(172)
+    x = torch.randn((1, s, cfg.d_model), generator=gen, device=dev).to(
+        dtype).requires_grad_()
+    dy = torch.randn((1, s, cfg.d_model), generator=gen, device=dev).to(
+        dtype)
+    _reset_peak(dev)
+    ops.reset_launch_counts()
+    a = _event(dev)
+    out, _ = blocks.block_full(layer, x, cfg, "ssm", False)
+    b = _event(dev)
+    out.backward(dy)
+    c = _event(dev)
+    _sync(dev)
+    counts = ops.launch_counts()
+    bad = [tuple(p.shape) for p in leaves + [x] if p.grad is None or not (
+        bool(torch.isfinite(p.grad).all()) and bool(p.grad.any()))]
+    log(f"jamba l0 backward [1, {s}, {cfg.d_model}] bf16: forward "
+        f"{_ms(a, b):.3f} ms, backward {_ms(b, c):.3f} ms; peak "
+        f"{_peak_gib(dev):.2f} GiB; launches {counts}; gradients off: "
+        f"{bad}")
+    if bad or (_on_card(dev) and (
+            counts["ssd_chunk_scan"] != 1 or counts["ssd_chunk_scan_bwd"] != 1
+            or sum(counts.values()) != 2)):
+        raise AssertionError(f"jamba l0 backward: launches {counts}, "
+                             f"gradients off {bad}")
+    return counts
+
+
+def jamba_reference(devices=("cpu", "cuda"), cfg=None,
+                    seq: int = JAMBA_REF_SEQ) -> None:
+    """jamba's l0 (mamba2 at full SSM width: d 8192, 128 heads of 128,
+    state 128, chunk 256; the dense SwiGLU cut to d_ff 2048) in float32
+    over ``seq`` tokens, on the card (kernels 6 and 8) against the CPU
+    (the plain versions): the output and the gradient of every parameter
+    and of the input for a random output gradient, relative L2
+    (``JAMBA_CARD_TOL``); a control, the card's forward and backward with
+    TF32 matmuls, must fail both limits."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import blocks, common
+    full = cfg or configs.get_config("jamba-1.5-large-398b")
+    c = dataclasses.replace(full, d_ff=min(full.d_ff, JAMBA_REF_DFF),
+                            dtype="float32")
+    _, ng, _ = blocks._layer_plan(c)
+    params_cpu = common.init_params(blocks.block_specs(c, "ssm", False, ng),
+                                    seed=175, device="cpu")
+    gen = torch.Generator().manual_seed(176)
+    x = torch.randn((1, seq, c.d_model), generator=gen)
+    dy = torch.randn((1, seq, c.d_model), generator=gen)
+    def run(dev):
+        params = _to(params_cpu, dev, copy=True)
+        leaves = [p.requires_grad_() for p in _leaves(params)]
+        xl = x.to(dev, copy=True).requires_grad_()
+        out, _ = blocks.block_full(params, xl, c, "ssm", False)
+        out.backward(dy.to(dev))
+        return (out.detach().cpu(),
+                [p.grad.cpu() for p in leaves] + [xl.grad.cpu()])
+
+    def errors(got):
+        return (rel_l2(got[0], want[0]),
+                max(rel_l2(a, b) for a, b in zip(got[1], want[1],
+                                                 strict=True)))
+    want, got = run(devices[0]), run(devices[1])
+    _free(devices[1])
+    rel, worst = errors(got)
+    ctrl = None
+    if _on_card(devices[1]):
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            ctrl = errors(run(devices[1]))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        _free(devices[1])
+    log(f"jamba reference l0 (d {c.d_model}, {c.n_ssm_heads} SSD heads of "
+        f"{c.ssm.head_dim}, d_ff {c.d_ff}) float32 over {seq} tokens, card "
+        f"vs CPU: output rel L2 {rel:.3e} (tol {JAMBA_CARD_TOL['out']:.0e}), "
+        f"worst of {len(got[1])} gradients {worst:.3e} (tol "
+        f"{JAMBA_CARD_TOL['grad']:.0e})" + (
+            "" if ctrl is None else f"; the TF32 control: output "
+            f"{ctrl[0]:.3e}, worst gradient {ctrl[1]:.3e}"))
+    if not bool(torch.isfinite(got[0]).all()) or \
+            rel > JAMBA_CARD_TOL["out"] or worst > JAMBA_CARD_TOL["grad"]:
+        raise AssertionError(f"jamba reference: output {rel:.3e}, "
+                             f"gradients {worst:.3e}")
+    if ctrl is not None and not (ctrl[0] > JAMBA_CARD_TOL["out"]
+                                 and ctrl[1] > JAMBA_CARD_TOL["grad"]):
+        raise AssertionError(f"jamba reference: the TF32 control {ctrl} "
+                             "passes")
+
+
+def jamba_phase(cfg=None, s: int = JAMBA_SEQ, bwd_seq: int = JAMBA_BWD_SEQ,
+                ref_seq: int = JAMBA_REF_SEQ, device: str = "cuda") -> dict:
+    """jamba-1.5-large-398b: one full-width group layer at a time at
+    ``s`` tokens (``jamba_group``), its attention launch at that shape
+    (causal GQA 64/8, hd 128) against the plain version and SDPA
+    (``flash_check``), l0's backward at ``bwd_seq``
+    (``jamba_l0_backward``), l0 card against CPU (``jamba_reference``).
+    (Kernels 6 and 8 at a jamba layer's shape are rows of the kernel
+    phase.)  Returns each run's launch counts."""
+    from repro_torch import configs
+    cfg = cfg or configs.get_config("jamba-1.5-large-398b")
+    out = {"jamba_group": jamba_group(cfg, s, device)}
+    _free(device)
+    flash_check("jamba", cfg, s, device, seed=163)
+    _free(device)
+    out["jamba_l0_backward"] = jamba_l0_backward(cfg, bwd_seq, device)
+    _free(device)
+    jamba_reference(("cpu", device), cfg, ref_seq)
+    _free(device)
+    return out
+
+
+def encdec_params(cfg, seed: int, device, fan_in: bool = False):
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import common
+    params = common.init_params(steps.model_specs(cfg), seed=seed,
+                                device=device,
+                                dtype=getattr(torch, cfg.dtype))
+    if fan_in:
+        fan_in_redraw(params, seed + 1)
+    return params
+
+
+def grad_norm_at_draw(label: str, cfg, params, batch: int, seq: int,
+                      dev) -> None:
+    """One ``train_lm`` step from ``params``: logs its grad_norm (the
+    float32 sum of squares, the reference's ``global_norm``) beside the
+    same gradients' norm summed in float64 and their largest entry;
+    every gradient leaf must be finite."""
+    import torch
+
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    seen = {}
+
+    def on_step(i, metrics, grads):
+        g = [x for x in adamw.leaves(grads) if x is not None]
+        seen.update(metrics, finite=all(bool(torch.isfinite(x).all())
+                                        for x in g),
+                    norm64=math.sqrt(sum(float(torch.linalg.vector_norm(
+                        x, dtype=torch.float64)) ** 2 for x in g)),
+                    amax=max(float(x.abs().max()) for x in g))
+    train.train_lm(cfg, 1, batch, seq, "", seed=80, log_every=1, device=dev,
+                   params=params, on_step=on_step)
+    log(f"{label}: batch {batch} x {seq}: loss {seen['loss']:.4f}, "
+        f"grad_norm {seen['grad_norm']:.4e} (float32); the same gradients' "
+        f"norm in float64 {seen['norm64']:.4e} (float32's largest "
+        f"{torch.finfo(torch.float32).max:.4e}), largest entry "
+        f"{seen['amax']:.4e}, every leaf finite {seen['finite']}")
+    if not seen["finite"]:
+        raise AssertionError(f"{label}: a gradient leaf is not finite")
+
+
+def encdec_prefill(label: str, cfg, params, s: int, dev, reps: int) -> dict:
+    """``make_prefill_step`` on frames [1, s, d] (N(0, 0.1²)) and ``s``
+    tokens, ``reps`` times: walls, tokens/s, peak, the flash launches by
+    form (non-causal S = T: the encoder's and the cross-attention's;
+    causal: the decoder's self-attention; nothing else); then one more
+    run with events around the encoder and every self- and
+    cross-attention for the split.  Returns the launch counts."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, encdec
+    gen = torch.Generator(device=dev).manual_seed(151)
+    batch = {"frames": torch.randn((1, s, cfg.d_model), generator=gen,
+                                   device=dev) * 0.1,
+             "tokens": torch.randint(0, cfg.vocab_size, (1, s), device=dev,
+                                     generator=gen)}
+    step = steps.make_prefill_step(cfg)
+    forms, walls, real = [], [], ops.flash
+
+    def flash_spy(q, k, v, q_per_kv=1, causal=False, window=0):
+        forms.append((q_per_kv, causal, window, q.shape[1], k.shape[1]))
+        return real(q, k, v, q_per_kv, causal, window)
+    ops.flash = flash_spy
+    try:
+        for _ in range(reps):
+            _reset_peak(dev)
+            ops.reset_launch_counts()
+            forms.clear()
+            t0 = time.perf_counter()
+            logits = step(params, batch)
+            _sync(dev)
+            walls.append(time.perf_counter() - t0)
+            counts = ops.launch_counts()
+    finally:
+        ops.flash = real
+    peak = _peak_gib(dev)
+    finite = bool(torch.isfinite(logits).all())
+    by_form = {}
+    for f in forms:
+        by_form[f] = by_form.get(f, 0) + 1
+    # the split: the encoder, and every attention of the decoder
+    marks = {"self": [], "cross": []}
+    saved = (encdec.encode, attention.self_attention,
+             attention.cross_attention)
+
+    enc = []
+    encdec.encode = _timed(saved[0], enc, dev)
+    attention.self_attention = _timed(saved[1], marks["self"], dev)
+    attention.cross_attention = _timed(saved[2], marks["cross"], dev)
+    try:
+        a = _event(dev)
+        step(params, batch)
+        b = _event(dev)
+        _sync(dev)
+    finally:
+        encdec.encode, attention.self_attention, attention.cross_attention = \
+            saved
+    total, enc_ms = _ms(a, b), _ms(*enc[0])
+    self_ms = [_ms(x, y) for x, y in marks["self"]]
+    cross_ms = sum(_ms(x, y) for x, y in marks["cross"])
+    dec_self = sum(self_ms[cfg.n_enc_layers:])
+    log(f"{label}: {cfg.arch_id} ({cfg.n_enc_layers} + {cfg.n_layers} "
+        f"layers, {sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B "
+        f"parameters, {cfg.dtype}) make_prefill_step on frames [1, {s}, "
+        f"{cfg.d_model}] and {s} tokens -> {tuple(logits.shape)} finite "
+        f"{finite}: walls (s) {[round(w, 3) for w in walls]}, "
+        f"{s / min(walls):.0f} tokens/s, peak {peak:.2f} GiB; flash "
+        f"launches {counts['flash_attention']} by (q_per_kv, causal, window,"
+        f" S, T): {by_form}")
+    log(f"{label}: split of one more prefill ({total:.1f} ms):"
+        f" the encoder {enc_ms:.1f} ms ({enc_ms / total:.1%}; its "
+        f"self-attention {sum(self_ms[:cfg.n_enc_layers]):.1f} ms), the "
+        f"decoder {total - enc_ms:.1f} ms: self-attention {dec_self:.1f} "
+        f"ms, cross-attention {cross_ms:.1f} ms ({cross_ms / total:.1%}), "
+        f"the rest (FFNs, norms, head) "
+        f"{total - enc_ms - dec_self - cross_ms:.1f} ms")
+    n_nc, n_c = cfg.n_enc_layers + cfg.n_layers, cfg.n_layers
+    want = {(1, False, 0, s, s): n_nc, (1, True, 0, s, s): n_c}
+    if tuple(logits.shape) != (1, cfg.vocab_size) or not finite:
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)}, "
+                             f"finite {finite}")
+    if _on_card(dev) and (by_form != want or counts["flash_attention"]
+                          != n_nc + n_c or sum(counts.values()) != n_nc + n_c):
+        raise AssertionError(f"{label}: launches {counts}, forms {by_form}")
+    return counts
+
+
+def encdec_decode(label: str, cfg, params, batch: int, cache_len: int,
+                  dev) -> None:
+    """``make_decode_step`` against a memory of ``cache_len`` frames (the
+    reference's decode input: memory [B, seq, d]) from seeded KV caches
+    of ``cache_len`` slots at position ``cache_len`` − 1 − DECODE_TIMED:
+    one warm and DECODE_TIMED timed greedy steps (CUDA events), then one
+    with events around every self- and cross-attention for the split;
+    bound, peak, no kernel launched (decode attends through
+    ``ref.sdpa_ref`` and the cross-attention recomputes the memory's K
+    and V every step, as the reference does)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import attention, encdec
+    dtype = getattr(torch, cfg.dtype)
+    pos = cache_len - 1 - DECODE_TIMED
+    gen = torch.Generator(device=dev).manual_seed(152)
+    cache = encdec.decode_cache_zeros(cfg, batch, cache_len, dtype, dev)
+    for c in cache:
+        c.k.normal_(generator=gen)
+        c.v.normal_(generator=gen)
+        c.index = pos
+    memory = torch.randn((batch, cache_len, cfg.d_model), generator=gen,
+                         device=dev).to(dtype)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, 1), device=dev,
+                           generator=gen)
+    step = steps.make_decode_step(cfg)
+    _reset_peak(dev)
+    ops.reset_launch_counts()
+    logits, _ = step(params, tokens, cache, memory)          # warm
+    walls = []
+    for _ in range(DECODE_TIMED):
+        tokens = torch.argmax(logits[:, -1:], dim=-1)
+        a = _event(dev)
+        logits, _ = step(params, tokens, cache, memory)
+        walls.append((a, _event(dev)))
+    _sync(dev)
+    walls = [_ms(a, b) for a, b in walls]
+    counts = ops.launch_counts()
+    peak = _peak_gib(dev)
+    finite = bool(torch.isfinite(logits).all())
+    if tuple(logits.shape) != (batch, 1, cfg.vocab_size) or not finite or \
+            any(c.index != pos + 1 + DECODE_TIMED for c in cache) or \
+            any(counts.values()):
+        raise AssertionError(f"{label}: logits {tuple(logits.shape)} finite "
+                             f"{finite}, positions "
+                             f"{sorted({c.index for c in cache})}, launches "
+                             f"{counts}")
+    for c in cache:
+        c.index = pos + DECODE_TIMED
+    marks = {"self": [], "cross": []}
+    saved = (attention.decode_self_attention, attention.cross_attention)
+
+    attention.decode_self_attention = _timed(saved[0], marks["self"], dev)
+    attention.cross_attention = _timed(saved[1], marks["cross"], dev)
+    try:
+        a = _event(dev)
+        step(params, tokens, cache, memory)
+        b = _event(dev)
+        _sync(dev)
+    finally:
+        attention.decode_self_attention, attention.cross_attention = saved
+    split = _ms(a, b)
+    self_ms = sum(_ms(x, y) for x, y in marks["self"])
+    cross_ms = sum(_ms(x, y) for x, y in marks["cross"])
+    d, n_l = cfg.d_model, cfg.n_layers
+    # the decoder's weights (the encoder's and the embedding table's
+    # stay unread; of the table only the batch's rows)
+    weights = [p for k, v in params.items() if k not in (
+        "encoder", "enc_proj", "enc_norm", "embed") for p in _leaves(v)]
+    # every weight once, each cache read and one slot written, the memory
+    # read once a layer (its K and V projections), the logits written
+    nbytes = (sum(p.nbytes for p in weights)
+              + sum(c.k.nbytes + c.v.nbytes for c in cache)
+              + n_l * memory.nbytes + batch * cfg.vocab_size * 2)
+    # 2 a weight and token, the memory's K and V projections, attention
+    # 4·hd a head and key over the cache and the memory
+    flops = (2.0 * batch * sum(p.numel() for p in weights)
+             + n_l * 2 * 2.0 * batch * cache_len * d * d
+             + n_l * 4.0 * cfg.head_dim * cfg.n_heads * batch * 2 * cache_len)
+    b_ms, b_by = bound_ms(nbytes, flops, cfg.dtype)
+    mean = sum(walls) / len(walls)
+    log(f"decode {label}: {cfg.arch_id} {n_l} decoder layers, batch {batch},"
+        f" KV caches of {cache_len} slots at {pos}, memory [{batch}, "
+        f"{cache_len}, {d}]: step walls (ms, CUDA events) "
+        f"{[round(w, 3) for w in walls]}, mean {mean:.3f}, "
+        f"{batch / mean * 1e3:.1f} tokens/s; peak {peak:.2f} GiB; bound "
+        f"{b_ms:.3f} ms ({b_by}: {nbytes / 1e9:.2f} GB, {flops / 1e12:.2f} "
+        f"TFLOP), mean/bound {mean / b_ms:.2f}; split (one more step, "
+        f"{split:.3f} ms): self-attention {n_l} x {self_ms / n_l:.3f} = "
+        f"{self_ms:.3f} ms ({self_ms / split:.1%}), cross-attention {n_l} x "
+        f"{cross_ms / n_l:.3f} = {cross_ms:.3f} ms ({cross_ms / split:.1%}),"
+        f" the rest {split - self_ms - cross_ms:.3f} ms; 0 kernel launches")
+    del cache, memory
+
+
+def encdec_reference(devices=("cpu", "cuda"), cfg=None,
+                     seq: int = SEAMLESS_REF_SEQ) -> None:
+    """seamless at full width cut to 2 + 2 layers (vocabulary 8192),
+    float32, attention projections at std 1/sqrt(fan-in), through
+    ``encdec.forward`` on ``seq`` frames and tokens: on the card every
+    attention on the flash kernel (2 non-causal, 2 causal, 2 cross at S
+    = T), on the CPU the blockwise plain version; the memory, CRF and
+    logits relative L2 ENCDEC_CARD_TOL; a control, the card's forward
+    with TF32 matmuls, must fail the logits' limit."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec
+    full = cfg or configs.get_config("seamless-m4t-medium")
+    c = dataclasses.replace(full, dtype="float32", **{
+        k: min(v, getattr(full, k)) for k, v in SEAMLESS_REF.items()})
+    params_cpu = encdec_params(c, 155, "cpu", fan_in=True)
+    gen = torch.Generator().manual_seed(156)
+    frames = torch.randn((1, seq, c.d_model), generator=gen) * 0.1
+    tokens = torch.randint(0, c.vocab_size, (1, seq), generator=gen)
+    outs, control = {}, None
+    for dev in devices:
+        params = _to(params_cpu, dev)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            outs[dev] = encdec.forward(params, frames.to(dev),
+                                       tokens.to(dev), c)
+            n = ops.launch_counts()["flash_attention"]
+            if _on_card(dev):
+                want_n = c.n_enc_layers + 2 * c.n_layers
+                if seq >= 2048 and n != want_n:
+                    raise AssertionError(f"encdec reference: {n} flash "
+                                         f"launches, expected {want_n}")
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    control = encdec.forward(params, frames.to(dev),
+                                             tokens.to(dev), c)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+        del params
+    want, got = (outs[d] for d in devices)
+    for name in ("memory", "crf", "logits"):
+        rel = rel_l2(getattr(got, name), getattr(want, name))
+        ctrl = (None if control is None else
+                rel_l2(getattr(control, name), getattr(want, name)))
+        log(f"encdec reference {c.n_enc_layers} + {c.n_layers} layers (d "
+            f"{c.d_model}, {c.n_heads} heads of {c.head_dim}, vocabulary "
+            f"{c.vocab_size}) at S = T = {seq} [{name}] card vs CPU: rel L2 "
+            f"{rel:.3e} (tol {ENCDEC_CARD_TOL:.0e})" + (
+                "" if ctrl is None else f", the TF32 control {ctrl:.3e}"))
+        if not bool(torch.isfinite(getattr(got, name)).all()) or \
+                rel > ENCDEC_CARD_TOL:
+            raise AssertionError(f"encdec reference [{name}]: {rel:.3e}")
+        if name == "logits" and ctrl is not None and \
+                not ctrl > ENCDEC_CARD_TOL:
+            raise AssertionError(f"encdec reference: the TF32 control "
+                                 f"{ctrl:.3e} passes")
+    del outs, control, params_cpu
+    gc.collect()
+
+
+def encdec_phase(cfg=None, s: int = SEAMLESS_SEQ,
+                 cross_q: int = SEAMLESS_CROSS_Q,
+                 train_batch: int = SEAMLESS_TRAIN_BATCH,
+                 train_seq: int = SEAMLESS_TRAIN_SEQ,
+                 train_steps: int = SEAMLESS_TRAIN_STEPS,
+                 decode_batch: int = SEAMLESS_DECODE_BATCH,
+                 decode_len: int = 0, ref_seq: int = SEAMLESS_REF_SEQ,
+                 device: str = "cuda") -> dict:
+    """seamless-m4t-medium at full width and depth (12 + 12 layers, d
+    1024, 16 heads of 64, vocabulary 256206), bf16 from seeds:
+    ``make_prefill_step`` on ``s`` frames and tokens (36 flash launches:
+    12 non-causal, 12 causal, 12 cross), twice, at the reference's
+    draw; kernel 3 at the
+    encoder's non-causal form and the cross form (``cross_q`` queries on
+    ``s`` frames) and the decoder's causal MHA form against its plain
+    version and SDPA (``flash_form_row``); ``make_decode_step`` at
+    decode_32k's length (``decode_len``, default 32768) on
+    ``decode_batch``; ``train_lm`` for ``train_steps`` steps on
+    ``train_batch`` x ``train_seq`` from a fresh draw with attention at
+    std 1/sqrt(fan-in) (remat: 72 flash forward and 36 backward launches
+    a step; the first loss near ln 256206); kernel 7
+    at the train shape's forms (``flash_bwd_check``); last
+    ``encdec_reference``.  Returns each run's launch counts."""
+    import torch
+
+    from repro_torch import configs
+    dev = device
+    cfg = cfg or configs.get_config("seamless-m4t-medium")
+    out = {}
+    params = encdec_params(cfg, 150, dev)
+    out["encdec_prefill"] = encdec_prefill("encdec prefill", cfg, params, s,
+                                           dev, reps=2)
+    _free(dev)
+    hd, h = cfg.head_dim, cfg.n_heads
+    for label, sq, t, causal in (("seamless encoder", s, s, False),
+                                 ("seamless cross", cross_q, s, False),
+                                 ("seamless decoder", s, s, True)):
+        flash_form_row(label, sq, t, h, cfg.n_kv_heads, hd, causal, dev,
+                       seed=157)
+        _free(dev)
+    length = decode_len or configs.INPUT_SHAPES["decode_32k"]["seq_len"]
+    encdec_decode("seamless_decode_32k", cfg, params, decode_batch, length,
+                  dev)
+    _free(dev)
+    del params
+    _free(dev)
+    # trained from attention drawn at std 1/sqrt(fan-in): under the
+    # reference's rule (1/sqrt(12) on [1024, 1024] projections) the
+    # softmaxes are near one-hot through 24 layers and the gradient's
+    # float32 sum of squares passes float32's range (grad_norm inf), so
+    # that clipping scales every update to 0; one step from that draw
+    # shows it
+    params = encdec_params(cfg, 153, dev)
+    grad_norm_at_draw("encdec_train at the reference's draw", cfg, params,
+                      train_batch, train_seq, dev)
+    del params
+    _free(dev)
+    params = encdec_params(cfg, 153, dev, fan_in=True)
+    run = lm_train_run("encdec_train", cfg, params, train_batch, train_seq,
+                       train_steps, ("flash_attention", "flash_attention_bwd"),
+                       torch.device(dev),
+                       n_launching=cfg.n_enc_layers + 2 * cfg.n_layers)
+    out["encdec_train"] = run["counts"]
+    ln_v = math.log(cfg.vocab_size)
+    log(f"encdec_train: first loss {run['first_loss']:.4f} against ln "
+        f"{cfg.vocab_size} = {ln_v:.4f}")
+    if abs(run["first_loss"] - ln_v) > 1.0:
+        raise AssertionError(f"encdec_train: first loss {run['first_loss']}")
+    del run, params
+    _free(dev)
+    if _on_card(dev):
+        # at training S = T, so the cross-attention's form is the
+        # encoder's (non-causal MHA)
+        for label, causal in (("seamless train encoder", False),
+                              ("seamless train decoder", True)):
+            flash_bwd_check(label, cfg, train_batch, train_seq, dev, causal,
+                            form=True)
+            _free(dev)
+    encdec_reference(("cpu", dev), cfg, ref_seq)
+    _free(dev)
+    return out
+
+
+def vlm_reference(devices=("cpu", "cuda"), cfg=None,
+                  text: int = LLAVA_REF_TEXT) -> None:
+    """llava at full width cut to 2 layers (d_ff 2048, vocabulary 8192,
+    the prefix to 1024 embeddings before ``text`` tokens), float32,
+    attention projections at std 1/sqrt(fan-in) (``decode_params``),
+    through ``transformer.forward`` with the prefix: the causal GQA flash
+    kernel on the card (group 7), the blockwise plain version on the
+    CPU; logits and CRF rel L2 DENSE_CARD_TOL; the TF32 control must
+    fail it."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    full = cfg or configs.get_config("llava-next-34b")
+    c = dataclasses.replace(full, dtype="float32", **{
+        k: min(v, getattr(full, k)) for k, v in LLAVA_REF.items()})
+    params_cpu = decode_params(c, c.n_layers, 195, "cpu")
+    gen = torch.Generator().manual_seed(196)
+    prefix = torch.randn((1, c.n_prefix_tokens, c.d_model), generator=gen) \
+        * 0.1
+    tokens = torch.randint(0, c.vocab_size, (1, text), generator=gen)
+    outs, control = {}, None
+    for dev in devices:
+        params = _to(params_cpu, dev)
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            outs[dev] = transformer.forward(params, tokens.to(dev), c,
+                                            prefix_embeds=prefix.to(dev))
+            n = ops.launch_counts()["flash_attention"]
+            if _on_card(dev):
+                if c.n_prefix_tokens + text >= 2048 and n != c.n_layers:
+                    raise AssertionError(f"vlm reference: {n} flash "
+                                         "launches")
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    control = transformer.forward(
+                        params, tokens.to(dev), c,
+                        prefix_embeds=prefix.to(dev))
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+        del params
+    want, got = (outs[d] for d in devices)
+    for name in ("logits", "crf"):
+        rel = rel_l2(getattr(got, name), getattr(want, name))
+        ctrl = (None if control is None else
+                rel_l2(getattr(control, name), getattr(want, name)))
+        log(f"vlm reference x{c.n_layers} (d {c.d_model}, {c.n_heads}/"
+            f"{c.n_kv_heads} heads, d_ff {c.d_ff}) forward on "
+            f"{c.n_prefix_tokens} prefix + {text} text positions [{name}] "
+            f"card vs CPU: rel L2 {rel:.3e} (tol {DENSE_CARD_TOL:.0e})" + (
+                "" if ctrl is None else f", the TF32 control {ctrl:.3e}"))
+        if not bool(torch.isfinite(getattr(got, name)).all()) or \
+                rel > DENSE_CARD_TOL:
+            raise AssertionError(f"vlm reference [{name}]: {rel:.3e}")
+        if ctrl is not None and not ctrl > DENSE_CARD_TOL:
+            raise AssertionError(f"vlm reference [{name}]: the TF32 control "
+                                 f"{ctrl:.3e} passes")
+    del outs, control, params_cpu
+    gc.collect()
+
+
+def vlm_phase(cfg=None, s: int = MOE_SEQ, train_layers: int =
+              LLAVA_TRAIN_LAYERS, train_batch: int = LLAVA_TRAIN_BATCH,
+              train_seq: int = LLAVA_TRAIN_SEQ,
+              train_steps: int = LLAVA_TRAIN_STEPS,
+              ref_text: int = LLAVA_REF_TEXT, device: str = "cuda") -> dict:
+    """llava-next-34b, bf16 from seeds: ``make_prefill_step`` at full
+    depth (60 layers, 34.4 B parameters) on ``s`` positions, its 2880
+    prefix embeddings (N(0, 0.1²)) before ``s`` − 2880 text tokens (one
+    causal GQA flash launch a layer, group 7 at hd 128), with events
+    around the prefix projection; ``train_lm`` at ``train_layers``
+    layers for ``train_steps`` steps on ``train_batch`` sequences of
+    ``train_seq`` positions (the prefix and ``train_seq`` − 2880 text
+    tokens), the flash backward at that shape; ``vlm_reference``.
+    Returns each run's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.models import common
+    dev = torch.device(device)
+    full = cfg or configs.get_config("llava-next-34b")
+    n_pre = full.n_prefix_tokens
+    out = {}
+    t0 = time.perf_counter()
+    params = lm_params(full, full.n_layers, seed=190, device=dev)
+    log(f"vlm: {full.arch_id} params "
+        f"{sum(p.numel() for p in _leaves(params)) / 1e9:.3f} B drawn in "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(191)
+    batch = {"prefix_embeds": torch.randn((1, n_pre, full.d_model),
+                                          generator=gen, device=dev) * 0.1,
+             "tokens": torch.randint(0, full.vocab_size, (1, s - n_pre),
+                                     device=dev, generator=gen)}
+    step = steps.make_prefill_step(full)
+    walls = []
+    proj = []
+    real = common.dense
+
+    def dense_spy(p, x):
+        a = _event(dev)
+        y = real(p, x)
+        proj.append((a, _event(dev)))
+        return y
+    for rep in range(2):
+        _reset_peak(dev)
+        ops.reset_launch_counts()
+        if rep:
+            common.dense = dense_spy
+        try:
+            t1 = time.perf_counter()
+            logits = step(params, batch)
+            _sync(dev)
+            walls.append(time.perf_counter() - t1)
+        finally:
+            common.dense = real
+        counts = ops.launch_counts()
+    peak = _peak_gib(dev)
+    finite = bool(torch.isfinite(logits).all())
+    log(f"vlm prefill: {full.arch_id} {full.n_layers} layers "
+        f"make_prefill_step on {n_pre} prefix embeddings + {s - n_pre} text "
+        f"tokens -> {tuple(logits.shape)} finite {finite}: walls (s) "
+        f"{[round(w, 3) for w in walls]}, {s / min(walls):.0f} positions/s, "
+        f"peak {peak:.2f} GiB, flash launches {counts['flash_attention']}; "
+        f"the prefix projection {_ms(*proj[0]):.3f} ms")
+    if tuple(logits.shape) != (1, full.vocab_size) or not finite or (
+            _on_card(dev) and (counts["flash_attention"] != full.n_layers
+                               or sum(counts.values()) != full.n_layers)):
+        raise AssertionError(f"vlm prefill: logits {tuple(logits.shape)} "
+                             f"finite {finite}, launches {counts}")
+    out["vlm_prefill"] = counts
+    del params, logits, batch
+    _free(dev)
+    cut = dataclasses.replace(full, n_layers=min(train_layers,
+                                                 full.n_layers))
+    run = lm_train_run("vlm_train", cut,
+                       lm_params(full, cut.n_layers, seed=192, device=dev),
+                       train_batch, train_seq - n_pre, train_steps,
+                       ("flash_attention", "flash_attention_bwd"), dev)
+    out["vlm_train"] = run["counts"]
+    del run
+    _free(dev)
+    if _on_card(dev):
+        flash_bwd_check("vlm_train", cut, train_batch, train_seq, dev)
+        _free(dev)
+    vlm_reference(("cpu", device), full, ref_text)
+    _free(dev)
+    return out
+
+
 LAUNCHER_ARGS = ["--requests", "10", "--steps", "10", "--train-steps", "10",
                  "--batch", "4"]
 # dB: every launcher request against its uncached twin.  Measured 39.75
@@ -4233,9 +5264,13 @@ def fleet_phase(cfg=None, size: int = 128, n_steps: int = N_STEPS,
             res = f.result(timeout=600)
             outs[res.request_id] = res
         wave1_s = time.perf_counter() - t_kill
+        # the supervisor adopts the newcomer, then counts the restart:
+        # wait for both, or the accounting below can read the slot back
+        # before its count
         restart_s = _wait(lambda: router.replicas[victim.idx] is not victim
-                          and router.replicas[victim.idx].healthy, 600,
-                          "the restart")
+                          and router.replicas[victim.idx].healthy
+                          and router.status()["supervisor"]["restarts"]
+                          >= 1, 600, "the restart")
         restart_s += wave1_s
         st = router.status()
         c, sup = st["counters"], st["supervisor"]
@@ -4364,13 +5399,83 @@ def _leaves(tree):
     return [tree]
 
 
+# the phases after the build and kernel phases, in the order they run
+PHASES = ("reference", "analysis", "serve", "slo", "backbone", "lm",
+          "decode", "train", "lm_train", "moe", "lm_configs", "jamba",
+          "encdec", "vlm", "launcher", "fleet")
+
+
+def run_phases(phases) -> dict:
+    """Run the selected phases in ``PHASES`` order, each model freed
+    before the next is drawn; returns the launch counts of every run,
+    by run."""
+    from repro_torch import configs
+
+    def free():
+        _free("cuda")
+    by_phase = {}
+    t_last = [time.perf_counter()]
+
+    def done(name):
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t_last[0]:.1f} s")
+        t_last[0] = now
+    if "reference" in phases:
+        reference_phase()
+        done("reference")
+    if {"analysis", "serve", "slo"} & set(phases):
+        model = flux_model()
+        for name, fn in (("analysis", analysis_phase), ("serve", serve_phase),
+                         ("slo", slo_phase)):
+            if name in phases:
+                by_phase[name] = fn(model, N_STEPS)
+                done(name)
+        del model       # free flux1-dev (~26 GB) before the next models
+        free()
+    if "backbone" in phases:
+        by_phase["backbone"] = backbone_phase(N_STEPS)
+        free()
+        done("backbone")
+    if {"lm", "decode"} & set(phases):
+        yi = configs.get_config("yi-9b")
+        yi_params = lm_params(yi, yi.n_layers, seed=30, device="cuda")
+        if "lm" in phases:
+            by_phase.update(lm_phase(params=yi_params))
+            free()     # the lm phase's 32768-token activations
+            done("lm")
+        if "decode" in phases:
+            by_phase.update(decode_phase(yi_params))
+            done("decode")
+        del yi_params
+        free()
+    for name, fn in (("train", train_phase), ("lm_train", lm_train_phase),
+                     ("moe", moe_phase), ("lm_configs", lm_configs_phase),
+                     ("jamba", jamba_phase), ("encdec", encdec_phase),
+                     ("vlm", vlm_phase)):
+        if name in phases:
+            by_phase.update(fn())
+            free()
+            done(name)
+    if "launcher" in phases:
+        by_phase["launcher"] = launcher_phase()
+        done("launcher")
+    if "fleet" in phases:
+        by_phase.update(fleet_phase())
+        done("fleet")
+    return by_phase
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--skip-serve", action="store_true",
-                    help="stop after the kernel and reference phases "
-                         "(skips the eight full-width phases, the launcher "
-                         "and the fleet)")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated phases to run after the build and "
+                         "kernel phases, which always run (default: all: "
+                         + ", ".join(PHASES) + ")")
     args = ap.parse_args(argv)
+    phases = tuple(p for p in args.phases.split(",") if p)
+    unknown = sorted(set(phases) - set(PHASES))
+    if unknown:
+        ap.error(f"unknown phases {unknown}; choose from {PHASES}")
 
     import torch
     if not torch.cuda.is_available():
@@ -4380,10 +5485,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
     smi = nvidia_smi()
     cap = torch.cuda.get_device_capability(0)
     log(f"device: {smi}; capability {cap}; torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda}; phases {list(phases)}")
     if cap != (9, 0):
         raise SystemExit(f"chip_smoke: need compute capability (9, 0), "
                          f"got {cap}")
@@ -4409,47 +5515,12 @@ def main(argv=None) -> int:
                   "flash_attention_bwd": "bfloat16",
                   "ssd_chunk_scan_bwd": "bfloat16"}
     rows = kernel_phase(main_dtype)
-    reference_phase()
+    log(f"build and kernel phases: {time.perf_counter() - t_start:.1f} s")
     # launches are read from the counters of the phases that run each
     # kernel's paths (reset just before each, read just after) and
     # summed; without those phases nothing was counted and the line
     # says null
-    by_phase = {}
-    if not args.skip_serve:
-        model = flux_model()
-        by_phase["analysis"] = analysis_phase(model, N_STEPS)
-        by_phase["serve"] = serve_phase(model, N_STEPS)
-        by_phase["slo"] = slo_phase(model, N_STEPS)
-        del model       # free flux1-dev (~26 GB) before the next models
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_phase["backbone"] = backbone_phase(N_STEPS)
-        gc.collect()
-        torch.cuda.empty_cache()
-        from repro_torch import configs
-        yi = configs.get_config("yi-9b")
-        yi_params = lm_params(yi, yi.n_layers, seed=30, device="cuda")
-        by_phase.update(lm_phase(params=yi_params))
-        gc.collect()     # the lm phase's 32768-token activations
-        torch.cuda.empty_cache()
-        by_phase.update(decode_phase(yi_params))
-        del yi_params
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_phase.update(train_phase())
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_phase.update(lm_train_phase())
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_phase.update(moe_phase())
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_phase.update(lm_configs_phase())
-        gc.collect()
-        torch.cuda.empty_cache()
-        by_phase["launcher"] = launcher_phase()
-        by_phase.update(fleet_phase())
+    by_phase = run_phases(phases)
     paths = {name: [ph for ph in by_phase if by_phase[ph][name] > 0]
              for name in main_dtype}
 
@@ -4492,25 +5563,48 @@ def main(argv=None) -> int:
                           "joint attention, bf16 [2, 4608, 24, 128]); "
                           "causal GQA, sliding-window and non-causal GQA "
                           "(rows flash_attention[... gqa 32/4] of the "
-                          "kernel phase; the lm, moe and lm_configs "
-                          "phases' launches are causal GQA, groups 3 at "
-                          "hd 64 and 4, 7, 8, 12, 16 at hd 128, each "
-                          "timed at 32768 tokens in its phase's log)")
+                          "kernel phase; the lm, moe, lm_configs, jamba "
+                          "and vlm phases' launches are causal GQA, groups "
+                          "3 at hd 64 and 4, 7, 8, 12, 16 at hd 128, each "
+                          "timed at 32768 tokens in its phase's log); the "
+                          "encdec phase's are MHA at hd 64: non-causal "
+                          "(encoder, and cross-attention with T != S) and "
+                          "causal (decoder), rows flash_attention[seamless "
+                          "...] in form_rows")
         if name == "flash_attention_bwd":
             k["forms"] = ("all four, bf16 (this row's times: the DiT joint "
                           "attention [2, 4608, 24, 128]; rows "
                           "flash_attention_bwd[train 2x4096] and [causal "
                           "gqa 32/4] of the kernel phase); the train "
                           "phase's launches are non-causal MHA, the "
-                          "lm_train_yi and moe_train phases' causal GQA "
-                          "(groups 8; 3 at hd 64 and 4, timed at batch 8 "
-                          "in the moe phase's log)")
+                          "lm_train_yi, moe_train and vlm_train phases' "
+                          "causal GQA (groups 8; 3 at hd 64 and 4; 7, "
+                          "timed at batch 8 in their phases' logs), the "
+                          "encdec_train phase's MHA at hd 64, non-causal "
+                          "and causal (rows flash_attention_bwd[seamless "
+                          "train ...] in form_rows)")
+        if name == "ssd_chunk_scan":
+            k["forms"] = ("heads of 64 (this row: one mamba2-370m layer, "
+                          "bf16 [2, 4096, 32, 64], N 128, chunk 256) and of "
+                          "128, run as two of 64 (row "
+                          "ssd_chunk_scan[jamba] in form_rows: one jamba "
+                          "layer [1, 4096, 128, 128]; the jamba phase's "
+                          "launches at [1, 32768, 128, 128])")
         if name == "ssd_chunk_scan_bwd":
             k["forms"] = ("bf16 and float32 x, B, C (this row: bf16, one "
                           "mamba2-370m layer [2, 4096, 32, 64], N 128, "
                           "chunk 256); the lm_train_mamba2 phase's "
-                          "launches are bf16 at batch 8")
+                          "launches are bf16 at batch 8; heads of 128 "
+                          "(row ssd_chunk_scan_bwd[jamba] in form_rows; "
+                          "the jamba phase's launch at [1, 4096, 128, "
+                          "128])")
+        form_rows = {label: v for label, v in FORM_ROWS.items()
+                     if label.startswith(name + "[")}
+        if form_rows:
+            k["form_rows"] = form_rows
         kernels.append(k)
+    log(f"chip_smoke: phases {list(phases)} done in "
+        f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

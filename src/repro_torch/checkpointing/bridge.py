@@ -2,8 +2,9 @@
 
 ``repro`` keeps a pytree with layer-stacked blocks (the DiT's ``single``
 / ``double`` leaves ``[n_layers, ...]``; an LM's or backbone's
-``stack`` leaves ``[n_groups, ...]`` under ``l{i}``) and attention
-projections shaped ``wq/wk/wv [d, H, hd]``, ``wo [H, hd, d]``.  The
+``stack`` leaves ``[n_groups, ...]`` under ``l{i}``; an enc-dec
+model's ``encoder`` / ``decoder`` leaves ``[n_layers, ...]``) and
+attention projections shaped ``wq/wk/wv [d, H, hd]``, ``wo [H, hd, d]``.  The
 port keeps per-layer (per-group) lists and matrix projections.  The tree
 arrives as numpy (``jax.tree.map(np.asarray, params)``) or as a
 checkpoint file of the reference's format (``params_from_checkpoint``),
@@ -165,19 +166,26 @@ def params_from_checkpoint(directory: str, step: int, cfg: DiTConfig,
     return params_from_jax_numpy(tree, cfg, device=device, dtype=dtype)
 
 
+# the attention subtrees of an LM block (``attn``) and of an enc-dec
+# decoder block (``self_attn``, ``cross_attn``)
+_ATTN_KEYS = ("attn", "self_attn", "cross_attn")
+
+
 def _lm_block(tree):
-    """One group position of an LM stack: the attention leaves
-    ``[d, H, hd]`` / ``[H, hd, d]`` become ``[d, H·hd]`` / ``[H·hd, d]``;
+    """One LM group position or enc-dec layer: the attention leaves ``[d,
+    H, hd]`` / ``[H, hd, d]`` become ``[d, H·hd]`` / ``[H·hd, d]``;
     everything else (norms, FFN, the SSM leaves) is kept as it is."""
     out = dict(tree)
-    if "attn" in tree:
-        attn = dict(tree["attn"])
+    for key in _ATTN_KEYS:
+        if key not in tree:
+            continue
+        attn = dict(tree[key])
         for name in ("wq", "wk", "wv"):
             w = attn[name]      # numpy, or a CPU tensor (bf16 from a file)
             attn[name] = w.reshape(w.shape[0], -1)
         wo = attn["wo"]
         attn["wo"] = wo.reshape(-1, wo.shape[-1])
-        out["attn"] = attn
+        out[key] = attn
     return out
 
 
@@ -185,11 +193,20 @@ def lm_params_from_jax_numpy(tree, cfg: ModelConfig, device=None,
                              dtype=None):
     """``repro`` LM or backbone-denoiser params (numpy pytree: ``stack``
     leaves ``[n_groups, ...]`` under ``l{i}``, beside the embedding,
-    head, norms or patch / time projections) -> the port's parameters,
-    ``params["stack"]`` a list of ``n_groups`` dicts ``{"l{i}": block}``,
-    on ``device`` (default ``cuda``), in ``dtype`` (default: as
-    given)."""
+    head, norms, prefix or patch / time projections) -> the port's
+    parameters, ``params["stack"]`` a list of ``n_groups`` dicts
+    ``{"l{i}": block}``, on ``device`` (default ``cuda``), in ``dtype``
+    (default: as given).  An enc-dec tree's ``encoder`` and ``decoder``
+    stacks (leaves ``[n_enc_layers, ...]`` / ``[n_layers, ...]``) become
+    per-layer lists."""
     dev = device_lib.resolve(device)
+    if cfg.is_encdec:
+        out = {k: v for k, v in tree.items()
+               if k not in ("encoder", "decoder")}
+        for key, n in (("encoder", cfg.n_enc_layers),
+                       ("decoder", cfg.n_layers)):
+            out[key] = [_lm_block(_take(tree[key], i)) for i in range(n)]
+        return _to_torch(out, dev, dtype)
     _, n_groups, plan = blocks._layer_plan(cfg)
     out = {k: v for k, v in tree.items() if k != "stack"}
     out["stack"] = [{f"l{i}": _lm_block(_take(tree["stack"][f"l{i}"], g))
@@ -198,29 +215,40 @@ def lm_params_from_jax_numpy(tree, cfg: ModelConfig, device=None,
 
 
 def _lm_unblock(tree, cfg: ModelConfig):
-    """One port group position back to the reference's leaf shapes:
-    ``wq [d, H·hd] -> [d, H, hd]``, ``wk, wv [d, Hkv·hd] -> [d, Hkv,
-    hd]``, ``wo [H·hd, d] -> [H, hd, d]``; the rest as it is."""
+    """One port group position or enc-dec layer back to the reference's
+    leaf shapes: ``wq [d, H·hd] -> [d, H, hd]``, ``wk, wv [d, Hkv·hd] ->
+    [d, Hkv, hd]``, ``wo [H·hd, d] -> [H, hd, d]``; the rest as it is."""
     out = dict(tree)
-    if "attn" in tree:
-        attn, hd = dict(tree["attn"]), cfg.head_dim
+    hd = cfg.head_dim
+    for key in _ATTN_KEYS:
+        if key not in tree:
+            continue
+        attn = dict(tree[key])
         for name, heads in (("wq", cfg.n_heads), ("wk", cfg.n_kv_heads),
                             ("wv", cfg.n_kv_heads)):
             attn[name] = attn[name].reshape(attn[name].shape[0], heads, hd)
         attn["wo"] = attn["wo"].reshape(cfg.n_heads, hd, -1)
-        out["attn"] = attn
+        out[key] = attn
     return out
 
 
 def lm_params_to_jax_numpy(params, cfg: ModelConfig):
     """The port's LM parameters (or a tree of their gradients) ->
     ``repro``'s tree: the per-group list re-stacked into ``stack`` leaves
-    ``[n_groups, ...]`` under ``l{i}``, the attention projections in the
-    reference's shapes; the exact inverse of ``lm_params_from_jax_numpy``.
-    Leaves are CPU tensors in their own types, so ``checkpoint.save(dir,
-    step, tree, name=cfg.arch_id)`` writes what
-    ``repro.checkpointing.checkpoint.restore`` loads."""
+    ``[n_groups, ...]`` under ``l{i}`` (an enc-dec config's ``encoder``
+    and ``decoder`` lists into their stacks), the attention projections
+    in the reference's shapes; the exact inverse of
+    ``lm_params_from_jax_numpy``.  Leaves are CPU tensors in their own
+    types, so ``checkpoint.save(dir, step, tree, name=cfg.arch_id)``
+    writes what ``repro.checkpointing.checkpoint.restore`` loads."""
     params = _to_cpu(params)     # stacked on the host, not on the card
+    if cfg.is_encdec:
+        out = {k: v for k, v in params.items()
+               if k not in ("encoder", "decoder")}
+        for key in ("encoder", "decoder"):
+            out[key] = _stack([_lm_unblock(layer, cfg)
+                               for layer in params[key]])
+        return out
     _, _, plan = blocks._layer_plan(cfg)
     out = {k: v for k, v in params.items() if k != "stack"}
     out["stack"] = {f"l{i}": _stack([_lm_unblock(group[f"l{i}"], cfg)

@@ -1,9 +1,10 @@
-"""Architecture registry of the port: the DiT configs and the assigned
-LM configs it runs (the dense ``yi-9b``, ``deepseek-coder-33b``,
+"""Architecture registry of the port: the DiT configs and the twelve
+assigned LM configs (the dense ``yi-9b``, ``deepseek-coder-33b``,
 ``llama3-405b`` and ``command-r-plus-104b``, the MoE
 ``granite-moe-3b-a800m`` and ``phi3.5-moe-42b-a6.6b``, the SSM
-``mamba2-370m``), and the assigned input shapes with the config variant
-each runs."""
+``mamba2-370m``, the hybrid ``jamba-1.5-large-398b``, the enc-dec
+``seamless-m4t-medium`` and the modality-prefix ``llava-next-34b``), and
+the assigned input shapes with the config variant each runs."""
 from __future__ import annotations
 
 import dataclasses
@@ -11,15 +12,17 @@ from typing import Dict, Union
 
 from repro_torch.configs import (command_r_plus_104b, deepseek_coder_33b,
                                  dit_small, flux1_dev, granite_moe_3b,
-                                 llama3_405b, mamba2_370m, phi35_moe_42b,
-                                 yi_9b)
+                                 jamba_15_large, llama3_405b, llava_next_34b,
+                                 mamba2_370m, phi35_moe_42b,
+                                 seamless_m4t_medium, yi_9b)
 from repro_torch.configs.base import DiTConfig, ModelConfig
 
 REGISTRY: Dict[str, Union[ModelConfig, DiTConfig]] = {
     m.CONFIG.arch_id: m.CONFIG
     for m in (dit_small, flux1_dev, yi_9b, mamba2_370m, granite_moe_3b,
               phi35_moe_42b, deepseek_coder_33b, llama3_405b,
-              command_r_plus_104b)
+              command_r_plus_104b, jamba_15_large, seamless_m4t_medium,
+              llava_next_34b)
 }
 
 

@@ -1,9 +1,8 @@
 """Config dataclasses (counterpart of ``repro.configs.base``).
 
 ``DiTConfig`` covers the paper's diffusion-transformer denoisers;
-``ModelConfig`` the assigned LM families.  The port runs the dense, MoE
-and SSM families; the enc-dec and modality-prefix ones raise
-(``ROADMAP.md`` §1 item 5).
+``ModelConfig`` the assigned LM families: dense, MoE, SSM, hybrid,
+enc-dec (audio) and modality-prefix (vlm).
 """
 from __future__ import annotations
 

@@ -7,6 +7,15 @@ layer sends CPU tensors to ``ref.ssd_chunk_scan_ref``.  ``x``, ``B`` and
 block's are): the kernel reads them through their batch and token
 strides, so nothing is copied.
 
+The kernels are instantiated for heads of 64 (``HEAD_DIM``).  A head
+of 64·r (jamba's 128) runs as r heads of 64 (``split_heads``): the scan
+is linear in x and the state ``[n, p]`` keeps its p columns apart, so
+``y[..., j]`` depends on ``x[..., j]`` alone, through the head's dt and
+A and the shared B and C.  The split is a view of x (batch and token
+strides kept), dt and A are repeated r times per head, and the
+backward sums each head's r copies of ddt and dA back
+(``merge_head_grads``); dx is a view again, dB and dC are unchanged.
+
 The kernel is chunk-parallel (``ref.ssd_chunk_scan_parallel_ref`` is
 its algorithm in plain PyTorch): ``C Bᵀ`` once per (lane, chunk), each
 chunk's own state contribution per (lane, chunk, head), the state
@@ -35,7 +44,7 @@ from repro_torch.kernels import build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
-HEAD_DIM = 64          # the head width the kernel is instantiated for
+HEAD_DIM = 64          # the head width the kernels are instantiated for
 MAX_STATE = 128        # largest d_state (a multiple of 8)
 TILE = 64              # the chunk is a multiple of this, at most 256
 
@@ -56,8 +65,8 @@ def _check(name: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"{name}: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)}, C {tuple(C.shape)}")
-    if p != HEAD_DIM or n > MAX_STATE or n % 8:
-        raise ValueError(f"{name}: head_dim {p} (needs "
+    if p % HEAD_DIM or n > MAX_STATE or n % 8:
+        raise ValueError(f"{name}: head_dim {p} (needs a multiple of "
                          f"{HEAD_DIM}), d_state {n} (needs a multiple of 8 "
                          f"up to {MAX_STATE})")
     if q % TILE or q > 4 * TILE or s % q:
@@ -78,6 +87,34 @@ def _check(name: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"{name}: x needs contiguous heads, dt, B "
                          "and C a contiguous last axis")
     return b, s, h, p, n, q
+
+
+def split_heads(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor):
+    """``x [b, s, h, 64·r]``, ``dt [b, s, h]``, ``A [h]`` -> the same scan
+    on ``h·r`` heads of 64: x as a view ``[b, s, h·r, 64]`` (its batch and
+    token strides kept), dt and A repeated r times per head.  Any
+    device; at r = 1 the inputs themselves."""
+    b, s, h, p = x.shape
+    r = p // HEAD_DIM
+    if r == 1:
+        return x, dt, A
+    return (x.view(b, s, h * r, HEAD_DIM), dt.repeat_interleave(r, dim=-1),
+            A.repeat_interleave(r))
+
+
+def merge_head_grads(grads, p: int):
+    """``(dx, ddt, dA, dB, dC)`` of the scan on ``split_heads``' inputs ->
+    those of the scan on heads of ``p``: dx viewed back to ``[b, s, h,
+    p]``, each head's r = p / 64 copies of ddt and dA summed (in float32,
+    in a fixed order), dB and dC as they are."""
+    dx, ddt, dA, dB, dC = grads
+    r = p // HEAD_DIM
+    if r == 1:
+        return grads
+    b, s, hr, _ = dx.shape
+    h = hr // r
+    return (dx.view(b, s, h, p), ddt.view(b, s, h, r).sum(-1),
+            dA.view(h, r).sum(-1), dB, dC)
 
 
 def _forward(x, dt, A, B, C, q: int, y):
@@ -113,14 +150,16 @@ def _forward(x, dt, A, B, C, q: int, y):
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor,
                    chunk: int = 256) -> torch.Tensor:
-    """x [b, s, h, 64]; dt [b, s, h] float32; A [h] float32; B, C [b, s,
-    n] in x's type -> y [b, s, h, 64] in x's type."""
+    """x [b, s, h, 64·r]; dt [b, s, h] float32; A [h] float32; B, C [b,
+    s, n] in x's type -> y [b, s, h, 64·r] in x's type (r > 1 through
+    ``split_heads``)."""
     build.require_no_grad("ssd_chunk_scan", x, dt, A, B, C)
     b, s, h, p, n, q = _check("ssd_chunk_scan", x, dt, A, B, C, chunk)
-    y = torch.empty((b, s, h, p), dtype=x.dtype, device=x.device)
-    _forward(x, dt, A, B, C, q, y)
+    xs, dts, As = split_heads(x, dt, A)
+    y = torch.empty(xs.shape, dtype=x.dtype, device=x.device)
+    _forward(xs, dts, As, B, C, q, y)
     ssd_chunk_scan.launches += 1
-    return y
+    return y.view(b, s, h, p)
 
 
 ssd_chunk_scan.launches = 0
@@ -130,7 +169,8 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
                        chunk: int = 256):
     """``(dx, ddt, dA, dB, dC)`` of ``ssd_chunk_scan`` for the output
-    gradient ``dy [b, s, h, 64]`` (x's type), the wrapper of
+    gradient ``dy [b, s, h, 64·r]`` (x's type; r > 1 through
+    ``split_heads`` and ``merge_head_grads``), the wrapper of
     ``csrc/ssd_scan_bwd.cu``: x, B, C as the forward takes them (strided
     column slices allowed); dx, dB, dC in x's type, ddt ``[b, s, h]``
     and dA ``[h]`` float32.  It reruns the forward's passes 1-3 (C Bᵀ
@@ -143,14 +183,16 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_chunk_scan_bwd: dy {tuple(dy.shape)} "
                          f"{dy.dtype} on {dy.device} must match x "
                          f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    b, s, h, p, n, q = _check("ssd_chunk_scan_bwd", x, dt, A, B, C, chunk)
-    dy = dy.contiguous()
+    b, s, _, p, n, q = _check("ssd_chunk_scan_bwd", x, dt, A, B, C, chunk)
+    x, dt, A = split_heads(x, dt, A)
+    h = x.shape[2]
+    dy = dy.contiguous().view(x.shape)
     if dy.data_ptr() % 16:    # the kernel reads dy's rows 16 bytes at a time
         dy = dy.clone()
     gram, states, decay = _forward(x, dt, A, B, C, q, None)
     dev, nc = x.device, s // q
     f32 = dict(dtype=torch.float32, device=dev)
-    dx = torch.empty((b, s, h, p), dtype=x.dtype, device=dev)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
     ddt = torch.empty((b, s, h), **f32)
     dA = torch.empty((h,), **f32)
     dB = torch.empty((b, s, n), dtype=x.dtype, device=dev)
@@ -158,7 +200,7 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     # the state's gradient per chunk; Z summed over the heads per chunk;
     # per (lane, chunk, head) and token cum, dt and the partials of ddt
     # (five, then two per 64-token tile); dA per chunk
-    dstate = torch.empty((b, nc, h, n, p), **f32)
+    dstate = torch.empty((b, nc, h, n, HEAD_DIM), **f32)
     zsum = torch.empty((b, nc, q, q), **f32)
     tok = torch.empty((5 + 2 * (q // TILE), b, nc, h, q), **f32)
     daw = torch.empty((b, nc, h), **f32)
@@ -179,7 +221,7 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "ssd_chunk_scan_bwd", status)
     ssd_chunk_scan_bwd.launches += 1
-    return dx, ddt, dA, dB, dC
+    return merge_head_grads((dx, ddt, dA, dB, dC), p)
 
 
 ssd_chunk_scan_bwd.launches = 0

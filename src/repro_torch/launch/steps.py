@@ -11,7 +11,10 @@ the ones it was given; so is the decode cache.  The mesh, the
 ``constrain`` sharding hooks and ``build`` / ``input_specs`` /
 ``build_dit`` wait for the sharding and dry-run part of ``ROADMAP.md``
 §1 item 6, and so do the reference's MoE overrides ``moe_impl`` /
-``moe_pad``; enc-dec and modality-prefix configs raise (item 5).
+``moe_pad``.  An enc-dec config takes ``models.encdec``'s specs, loss,
+prefill (``batch["frames"]``) and decode step (against an encoder
+memory); a modality-prefix config's batches carry
+``batch["prefix_embeds"]``.
 """
 from __future__ import annotations
 
@@ -21,8 +24,21 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks, common, transformer
+from repro_torch.models import blocks, common, encdec, transformer
 from repro_torch.optim import adamw
+
+
+def model_specs(cfg: ModelConfig):
+    """The parameter specs of an LM config: ``encdec.encdec_specs`` for
+    an enc-dec one, else ``transformer.lm_specs``."""
+    if cfg.is_encdec:
+        return encdec.encdec_specs(cfg)
+    return transformer.lm_specs(cfg)
+
+
+def loss_fn(cfg: ModelConfig):
+    """The config's ``loss_fn(params, batch, cfg)``."""
+    return encdec.loss_fn if cfg.is_encdec else transformer.loss_fn
 
 
 def param_bytes(cfg: ModelConfig, bytes_per: int = 2) -> int:
@@ -31,7 +47,7 @@ def param_bytes(cfg: ModelConfig, bytes_per: int = 2) -> int:
     .param_bytes``; the port's per-group leaves hold the same elements
     as the reference's stacked ones)."""
     leaves = []
-    common.map_specs(leaves.append, transformer.lm_specs(cfg))
+    common.map_specs(leaves.append, model_specs(cfg))
     return sum(math.prod(s.shape) * bytes_per for s in leaves)
 
 
@@ -39,8 +55,8 @@ def make_train_step(cfg: ModelConfig,
                     opt_cfg: Optional[adamw.AdamWConfig] = None,
                     microbatch: int = 1):
     """``(train_step, opt_cfg)``: ``train_step(params, opt_state, batch)
-    -> (params, opt_state, metrics)`` takes the gradient of
-    ``transformer.loss_fn`` with respect to every leaf (each is made to
+    -> (params, opt_state, metrics)`` takes the gradient of the config's
+    ``loss_fn`` with respect to every leaf (each is made to
     require grad) and applies one AdamW update in place.  The default
     optimizer keeps bf16 moments above 2e11 parameter bytes, else
     float32, as the reference's.  ``microbatch > 1`` is gradient
@@ -50,12 +66,12 @@ def make_train_step(cfg: ModelConfig,
     unused leaf's gradient is zero (``None`` without accumulation, which
     AdamW counts as zero).  The metrics are the loss's and AdamW's
     (``grad_norm``, ``lr``), as 0-d tensors."""
-    transformer.check_ported(cfg, "make_train_step")
     opt_cfg = opt_cfg or adamw.AdamWConfig(
         moment_dtype="bfloat16" if param_bytes(cfg) > 2e11 else "float32")
+    loss_of = loss_fn(cfg)
 
     def grads_of(params, flat, batch):
-        loss, metrics = transformer.loss_fn(params, batch, cfg)
+        loss, metrics = loss_of(params, batch, cfg)
         return metrics, torch.autograd.grad(loss, flat, allow_unused=True)
 
     def train_step(params, opt_state, batch):
@@ -93,13 +109,19 @@ def make_prefill_step(cfg: ModelConfig):
     """``prefill_step(params, batch) -> [B, vocab]``: the full-sequence
     forward of ``batch["tokens"]`` without remat and under
     ``torch.no_grad``, then the last token's logits only (the ``[B, S,
-    vocab]`` tensor never exists)."""
-    transformer.check_ported(cfg, "make_prefill_step")
+    vocab]`` tensor never exists).  An enc-dec config encodes
+    ``batch["frames"]`` first and runs the decoder against it; a prefix
+    config prepends the projected ``batch["prefix_embeds"]``."""
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        x = common.embed(params["embed"], batch["tokens"]).to(
-            getattr(torch, cfg.dtype))
+        if cfg.is_encdec:
+            memory = encdec.encode(params, batch["frames"], cfg)
+            h = encdec.decoder(params, batch["tokens"], memory, cfg)
+            return encdec.head_logits(params, h[:, -1:], cfg)[:, 0]
+        x = transformer.embed_inputs(
+            params, batch["tokens"], cfg,
+            batch["prefix_embeds"] if cfg.n_prefix_tokens > 0 else None)
         h, _ = blocks.stack_full(params["stack"], x, cfg, remat=False)
         hn = common.rmsnorm(params["final_norm"], h[:, -1:], cfg.norm_eps)
         w = transformer._embedding_matrix(params, cfg)
@@ -111,13 +133,16 @@ def make_prefill_step(cfg: ModelConfig):
 def make_decode_step(cfg: ModelConfig, window: int = 0):
     """``decode_step(params, tokens [B, 1], cache) -> (logits [B, 1, V],
     cache)`` under ``torch.no_grad``: ``transformer.decode_step``, the
-    cache updated in place.  The enc-dec form (the decoder against an
-    encoder memory) raises ``NotImplementedError`` (``ROADMAP.md`` §1
-    item 5)."""
+    cache updated in place.  An enc-dec config's step is
+    ``decode_step(params, tokens, cache, memory)``, the decoder against
+    the encoder memory (``encdec.decode_step``; its cache from
+    ``encdec.decode_cache_zeros``)."""
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"make_decode_step ({cfg.arch_id}): enc-dec configs are not "
-            "ported yet (ROADMAP.md §1 item 5)")
+        @torch.no_grad()
+        def encdec_step(params, tokens, cache, memory):
+            return encdec.decode_step(params, tokens, memory, cache, cfg,
+                                      window=window)
+        return encdec_step
 
     @torch.no_grad()
     def decode_step(params, tokens, cache):

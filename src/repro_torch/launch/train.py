@@ -6,9 +6,10 @@ Two modes:
   warmup-cosine schedule (any DiT config of the registry trains the
   same way);
 * ``--arch`` an LM of the registry (``yi-9b``, ``mamba2-370m``,
-  ``granite-moe-3b-a800m``, ...; ``--reduced`` for the CPU-sized
-  variant) trains the LM on the synthetic Markov token stream
-  with the next-token loss (``train_lm``).
+  ``granite-moe-3b-a800m``, ``seamless-m4t-medium``, ``llava-next-34b``,
+  ...; ``--reduced`` for the CPU-sized variant) trains the LM on the
+  synthetic Markov token stream with the next-token loss (``train_lm``;
+  enc-dec and prefix configs with random frames or prefix embeddings).
 Both save the parameters in the reference's checkpoint format.
 
 Examples:
@@ -33,7 +34,8 @@ from repro_torch.checkpointing import bridge, checkpoint
 from repro_torch.configs.base import DiTConfig, ModelConfig
 from repro_torch.data import synthetic
 from repro_torch.diffusion import training
-from repro_torch.models import common, dit, transformer
+from repro_torch.launch import steps as steps_lib
+from repro_torch.models import common, dit
 from repro_torch.optim import adamw
 
 
@@ -149,32 +151,40 @@ def train_lm(cfg: ModelConfig, steps: int, batch: int, seq: int,
              ckpt_dir: str, seed: int = 0, log_every: int = 5, device=None,
              params=None, on_step: Optional[Callable] = None):
     """The reference's loop: AdamW(lr 1e-3, 10 warmup steps, cosine over
-    ``steps``) on ``transformer.loss_fn`` (the stack rematerialised where
-    ``cfg.remat``); step i draws ``lm_batch(batch, seq)`` from a
-    generator seeded ``seed·104729 + i``.  Starts from ``params`` if
-    given (trained in place), else from the config's specs drawn with
-    ``seed``.  ``on_step`` and the metrics as ``_train`` gives them.
-    Saves the parameters to ``ckpt_dir`` (if set) as
+    ``steps``) on the config's ``loss_fn`` (``steps.loss_fn``: the stack
+    rematerialised where ``cfg.remat``); step i draws ``lm_batch(batch,
+    seq)`` from a generator seeded ``seed·104729 + i``, then, from the
+    same generator, an enc-dec config's ``frames [batch, seq, d]`` and a
+    prefix config's ``prefix_embeds [batch, n_prefix_tokens, d]``, each
+    N(0, 0.1²) in float32 as the reference draws them.  Starts from
+    ``params`` if given (trained in place), else from the config's specs
+    drawn with ``seed``.  ``on_step`` and the metrics as ``_train`` gives
+    them.  Saves the parameters to ``ckpt_dir`` (if set) as
     ``{cfg.arch_id}_{steps:08d}`` in the reference's layout; returns
     ``(params, losses)``, the parameters no longer requiring grad.
     With experts the loss holds the aux terms, and each step's metrics
-    (and log line) add the stack's ``lb_loss`` and ``drop_fraction``.
-    Enc-dec and modality-prefix configs raise ``NotImplementedError``
-    (``ROADMAP.md`` §1 item 5)."""
-    transformer.check_ported(cfg, "train_lm")
+    (and log line) add the stack's ``lb_loss`` and ``drop_fraction``."""
     dev = device_lib.resolve(device)
     if params is None:
-        params = common.init_params(transformer.lm_specs(cfg), seed=seed,
+        params = common.init_params(steps_lib.model_specs(cfg), seed=seed,
                                     device=dev,
                                     dtype=getattr(torch, cfg.dtype))
     opt_cfg = adamw.AdamWConfig(lr=1e-3, warmup_steps=10, total_steps=steps)
+    loss_fn = steps_lib.loss_fn(cfg)
 
     def draw(i):
         gen = torch.Generator(device=dev).manual_seed(seed * 104729 + i)
-        return synthetic.lm_batch(gen, batch, seq, cfg.vocab_size, device=dev)
+        b = synthetic.lm_batch(gen, batch, seq, cfg.vocab_size, device=dev)
+        extra = {"frames": (batch, seq)} if cfg.is_encdec else {}
+        if cfg.n_prefix_tokens > 0:
+            extra["prefix_embeds"] = (batch, cfg.n_prefix_tokens)
+        for key, lead in extra.items():
+            b[key] = torch.randn(lead + (cfg.d_model,), generator=gen,
+                                 device=dev) * 0.1
+        return b
 
     def loss_of(p, b):
-        loss, metrics = transformer.loss_fn(p, b, cfg)
+        loss, metrics = loss_fn(p, b, cfg)
         return loss, ({k: metrics[k].detach()
                        for k in ("lb_loss", "drop_fraction")}
                       if cfg.moe is not None else {})

@@ -10,6 +10,12 @@ and a CPU tensor to ``blockwise_sdpa``, the plain online-softmax version
 that is also the kernel's oracle; below it both take the full-logits
 path (the reference's ``_sdpa``, ``ref.sdpa_ref``).
 
+Cross-attention (the enc-dec decoder's) projects the queries from the
+decoder states and the keys and values from the encoder memory, with no
+RoPE and no mask; from s·t >= ``_BLOCKWISE_MIN_SEQ``² it takes the
+same two routes (the non-causal flash kernel with T != S on the card),
+below it ``ref.sdpa_ref``.
+
 Decode inserts one token into a ``KVCache`` and attends over it with
 ``ref.sdpa_ref``.  With a window the cache is a ring of ``max_len``
 slots; the logical position keeps increasing, so RoPE stays absolute.
@@ -206,3 +212,28 @@ def decode_self_attention(params, x: torch.Tensor, cfg: ModelConfig,
     out = ref.sdpa_ref(q, cache.k, cache.v, mask, cfg.q_per_kv)
     cache.index = pos + 1
     return out.reshape(b, 1, -1) @ params["wo"].to(x.dtype), cache
+
+
+def cross_attn_specs(cfg: ModelConfig, stack: int = 1):
+    return attn_specs(cfg, stack)
+
+
+def cross_attention(params, x: torch.Tensor, memory: torch.Tensor,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """x [B, S, d] decoder states; memory [B, T, d] encoder output ->
+    [B, S, d].  The memory's K and V are projected on every call (decode
+    too), as in the reference."""
+    b, s, _ = x.shape
+    t = memory.shape[1]
+    hd = cfg.head_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
+    k, v = ((memory @ params[w].to(x.dtype)).reshape(b, t, cfg.n_kv_heads,
+                                                     hd) for w in ("wk", "wv"))
+    if s * t >= _BLOCKWISE_MIN_SEQ ** 2:
+        if ops._on_cuda(q):
+            out = ops.flash(q, k, v, cfg.q_per_kv, causal=False)
+        else:
+            out = blockwise_sdpa(q, k, v, cfg.q_per_kv, causal=False)
+    else:
+        out = ref.sdpa_ref(q, k, v, None, cfg.q_per_kv)
+    return out.reshape(b, s, -1) @ params["wo"].to(x.dtype)

@@ -1,5 +1,8 @@
 """Causal language model: embed -> block stack -> norm -> head
-(counterpart of ``repro.models.transformer``).
+(counterpart of ``repro.models.transformer``), and its VLM variant:
+precomputed vision-frontend patch embeddings (the stub of the modality
+frontend) are projected by ``prefix_proj`` and prepended to the token
+embeddings; the loss counts the text positions only.
 
 ``forward`` returns the Cumulative Residual Feature (CRF) next to the
 logits: the final pre-norm hidden state.  On a CUDA tensor every
@@ -10,12 +13,13 @@ cross-entropy of training, through ``chunked_cross_entropy`` so that
 the ``[B, S, vocab]`` logits never exist at once.  ``decode_step``
 runs one token through the stack against a decode cache
 (``blocks.stack_cache_zeros``), updated in place; it launches no kernel.
-Configs with experts run the MoE FFN (``models.moe``); enc-dec and the
-modality prefix raise.
+Configs with experts run the MoE FFN (``models.moe``); the enc-dec
+backbone is ``models.encdec``.  Decode takes text tokens only, as the
+reference's: a prefix config's cache holds no prefix.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -32,9 +36,6 @@ class LMOutput(NamedTuple):
 
 
 def lm_specs(cfg: ModelConfig):
-    if cfg.n_prefix_tokens > 0:
-        raise NotImplementedError("modality-prefix tokens are not ported "
-                                  "yet")
     s: Dict[str, Any] = {
         "embed": common.embed_specs(cfg.vocab_size, cfg.d_model),
         "stack": blocks.stack_specs(cfg),
@@ -43,6 +44,9 @@ def lm_specs(cfg: ModelConfig):
     if not cfg.tie_embeddings:
         s["head"] = {"kernel": ParamSpec((cfg.d_model, cfg.vocab_size),
                                          scale=0.02)}
+    if cfg.n_prefix_tokens > 0:
+        # projection of the (stubbed) modality frontend's embeddings
+        s["prefix_proj"] = common.dense_specs(cfg.d_model, cfg.d_model)
     return s
 
 
@@ -52,10 +56,24 @@ def _head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return h @ params["head"]["kernel"].to(h.dtype)
 
 
+def embed_inputs(params, tokens: torch.Tensor, cfg: ModelConfig,
+                 prefix_embeds: Optional[torch.Tensor] = None):
+    """The stack's input: the token embeddings in the model dtype, after
+    the projected ``prefix_embeds [B, P, d]`` where given."""
+    dtype = getattr(torch, cfg.dtype)
+    x = common.embed(params["embed"], tokens).to(dtype)
+    if prefix_embeds is None:
+        return x
+    pe = common.dense(params["prefix_proj"], prefix_embeds.to(dtype))
+    return torch.cat([pe, x], dim=1)
+
+
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+            prefix_embeds: Optional[torch.Tensor] = None,
             window: int = 0) -> LMOutput:
-    """tokens: [B, S]."""
-    x = common.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
+    """tokens [B, S_text]; prefix_embeds [B, P, d] or None.  The logits
+    and CRF cover the prefix positions too."""
+    x = embed_inputs(params, tokens, cfg, prefix_embeds)
     h, aux = blocks.stack_full(params["stack"], x, cfg, window=window)
     logits = _head(params, common.rmsnorm(params["final_norm"], h,
                                           cfg.norm_eps), cfg)
@@ -105,15 +123,6 @@ def chunked_cross_entropy(params, h: torch.Tensor, labels: torch.Tensor,
     return tot / torch.clamp(cnt, min=1)
 
 
-def check_ported(cfg: ModelConfig, what: str) -> None:
-    """Raise ``NotImplementedError`` for the LM configs the port does not
-    train, prefill or decode yet: enc-dec and modality-prefix."""
-    if cfg.is_encdec or cfg.n_prefix_tokens > 0:
-        raise NotImplementedError(
-            f"{what} ({cfg.arch_id}): enc-dec and modality-prefix configs "
-            "are not ported yet (ROADMAP.md §1 item 5)")
-
-
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """Next-token cross-entropy of ``batch["tokens"] [B, S]`` against
     ``batch["labels"]`` (−1 masked), the reference's ``loss_fn``: the
@@ -123,12 +132,15 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     ``router_z_weight`` times the router z-loss.  Returns ``(loss,
     metrics)`` with metrics ``loss`` (the total), ``lb_loss`` and
     ``drop_fraction`` (the last two the stack's aux, zero without
-    experts).  Configs with a modality prefix or an encoder raise
-    ``NotImplementedError`` (``ROADMAP.md`` §1 item 5)."""
-    check_ported(cfg, "loss_fn")
-    x = common.embed(params["embed"], batch["tokens"]).to(
-        getattr(torch, cfg.dtype))
+    experts).  With a modality prefix, ``batch["prefix_embeds"] [B, P,
+    d]`` is projected and prepended, and its positions are dropped before
+    the loss (the labels cover the text)."""
+    x = embed_inputs(params, batch["tokens"], cfg,
+                     batch["prefix_embeds"] if cfg.n_prefix_tokens > 0
+                     else None)
     h, aux = blocks.stack_full(params["stack"], x, cfg)
+    if cfg.n_prefix_tokens > 0:
+        h = h[:, cfg.n_prefix_tokens:]
     hn = common.rmsnorm(params["final_norm"], h, cfg.norm_eps)
     loss = chunked_cross_entropy(params, hn, batch["labels"], cfg)
     if cfg.moe is not None:
@@ -144,7 +156,6 @@ def decode_step(params, tokens: torch.Tensor, cache, cfg: ModelConfig,
     """tokens [B, 1] -> ``(logits [B, 1, V], cache)``; the cache is
     updated in place.  ``window > 0`` treats every KV cache as a ring of
     its length."""
-    check_ported(cfg, "decode_step")
     x = common.embed(params["embed"], tokens).to(getattr(torch, cfg.dtype))
     h, cache, _ = blocks.stack_decode(params["stack"], x, cfg, cache,
                                       window=window)

@@ -313,7 +313,10 @@ class LMEngine:
     ``device`` resolves as everywhere in the port (default ``cuda``,
     raising without one); every parameter must already lie on it.  The
     window is ``window or cfg.sliding_window``; with one the KV caches
-    are rings of that many slots, else of ``max_len``.
+    are rings of that many slots, else of ``max_len``.  A prefix config
+    serves text tokens (no prefix), as the reference's does; an enc-dec
+    config raises ``NotImplementedError``: the reference's ``LMEngine``
+    has no enc-dec form either (it decodes ``params["stack"]``).
     """
 
     def __init__(self, params, cfg: ModelConfig, max_len: int,
@@ -326,7 +329,11 @@ class LMEngine:
         if off:
             raise ValueError(f"LMEngine on {self.device}: {len(off)} "
                              f"parameters lie elsewhere, e.g. {off[0]}")
-        transformer.check_ported(cfg, "LMEngine")
+        if cfg.is_encdec:
+            raise NotImplementedError(
+                f"LMEngine ({cfg.arch_id}): no enc-dec form, as in the "
+                "reference; decode it with steps.make_decode_step and an "
+                "encoder memory")
         self.params = params
         self.cfg = cfg
         self.max_len = max_len

@@ -640,3 +640,140 @@ def test_moe_einsum_and_gather_agree_on_the_card(card, cf, dtype):
     de, dg = float(ae.drop_fraction), float(ag.drop_fraction)
     assert (de == dg) if dtype == torch.float32 else \
         abs(de - dg) <= 2.0 ** -8
+
+
+# heads of 128 (jamba's): the SSD wrappers run each as two heads of 64;
+# (S, N, chunk) with x, B and C column slices of one conv output
+_WIDE_HEADS = [(256, 64, 64), (1024, 128, 256), (4096, 128, 256),
+               (2048, 64, 128)]
+_SSD_CARD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _wide_head_inputs(card, dtype, s, n, b=2, h=3, p=128, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    xbc = (torch.randn((b, s, h * p + 2 * n), generator=g, device=card)
+           * 0.5).to(dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=g, device=card) - 2.0)
+    a = -torch.exp(torch.randn((h,), generator=g, device=card) * 0.3)
+    dy = torch.randn((b, s, h, p), generator=g, device=card).to(dtype)
+    return x, dt, a, bm, cm, dy
+
+
+def _ssd_close(got, want, dtype):
+    """Per output, as max |kernel − plain| / max |plain|: y, dx, dB, dC
+    as any output of the type; ddt 1e-4 and dA 1e-3 in both types
+    (``tests/test_torch_ssd_bwd.py``'s card tolerances)."""
+    names = ("y",) if len(got) == 1 else ("dx", "ddt", "dA", "dB", "dC")
+    for name, g, w in zip(names, got, want, strict=True):
+        tol = {"ddt": 1e-4, "dA": 1e-3}.get(name, _SSD_CARD_TOL[dtype])
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert bool(torch.isfinite(g).all()), name
+        err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+        assert float(err) <= tol, (name, float(err))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,n,chunk", _WIDE_HEADS)
+def test_ssd_kernels_at_head_dim_128(card, dtype, s, n, chunk):
+    """Kernels 6 and 8 on heads of 128 against their plain versions at
+    that width; one launch a call; kernel 8's two launches bitwise
+    equal."""
+    from repro_torch.kernels import ssd_scan
+    x, dt, a, bm, cm, dy = _wide_head_inputs(card, dtype, s, n)
+    ops.reset_launch_counts()
+    y = ssd_scan.ssd_chunk_scan(x, dt, a, bm, cm, chunk)
+    got = ssd_scan.ssd_chunk_scan_bwd(x, dt, a, bm, cm, dy, chunk)
+    again = ssd_scan.ssd_chunk_scan_bwd(x, dt, a, bm, cm, dy, chunk)
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk_scan"] == 1
+    assert counts["ssd_chunk_scan_bwd"] == 2
+    assert all(torch.equal(u, v) for u, v in zip(got, again, strict=True))
+    _ssd_close((y,), (ref.ssd_chunk_scan_ref(x, dt, a, bm, cm, chunk),),
+               dtype)
+    _ssd_close(got, ref.ssd_chunk_scan_bwd_ref(x, dt, a, bm, cm, dy, chunk),
+               dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_function_at_head_dim_128(card, dtype):
+    """Autograd through ``ops.ssd`` on heads of 128, x, B and C column
+    slices of one leaf as in the mamba2 block: one forward and one
+    backward launch; the leaf's gradient holds the plain dx, dB, dC."""
+    b, s, h, p, n = 2, 512, 3, 128, 128
+    x, dt, a, bm, cm, dy = _wide_head_inputs(card, dtype, s, n, seed=1)
+    xbc = torch.cat([x.reshape(b, s, h * p), bm, cm], dim=-1)
+    leaves = [t.detach().clone().requires_grad_() for t in (xbc, dt, a)]
+    xs, bs, cs = torch.split(leaves[0], [h * p, n, n], dim=-1)
+    ops.reset_launch_counts()
+    y = ops.ssd(xs.reshape(b, s, h, p), leaves[1], leaves[2], bs, cs, 256)
+    y.backward(dy)
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk_scan"] == counts["ssd_chunk_scan_bwd"] == 1
+    gx, gb, gc = torch.split(leaves[0].grad, [h * p, n, n], dim=-1)
+    _ssd_close((gx.reshape(b, s, h, p), leaves[1].grad, leaves[2].grad, gb,
+                gc), ref.ssd_chunk_scan_bwd_ref(x, dt, a, bm, cm, dy, 256),
+               dtype)
+
+
+# the cross-attention form (seamless-m4t-medium's decoder into its
+# memory): non-causal MHA at hd 64 with T != S, short and long memories
+_CROSS_FORMS = [(200, 777), (1024, 4096), (333, 64), (4096, 2048)]
+
+
+@pytest.mark.parametrize("s,t", _CROSS_FORMS)
+def test_flash_kernels_at_the_cross_attention_form(card, s, t):
+    """Kernel 3 in both types and kernel 7 (bf16) against their plain
+    versions at S queries on T keys, non-causal, 16 heads of 64."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(1, s, 16, 64, device=card).to(dtype)
+        k, v = (torch.randn(1, t, 16, 64, device=card).to(dtype)
+                for _ in "kv")
+        ops.reset_launch_counts()
+        got = ops.flash(q, k, v)
+        assert ops.launch_counts()["flash_attention"] == 1
+        _close((got,), (ref.attention_ref(q, k, v),), dtype)
+    _check_flash_bwd(_bwd_inputs(card, s, 16, 16, 64, b=1, t=t), 1, False,
+                     0)
+
+
+def test_cross_attention_routes_to_flash_on_the_card(card):
+    """``attention.cross_attention`` at s·t >= 2048² launches kernel 3
+    once on the card and agrees with the CPU's blockwise route (float32,
+    1e-4: the projections' sums and the kernel's differ in order); in
+    bf16 under autograd it launches kernel 7 once too; below the
+    threshold it launches no kernel."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import attention, common
+    cfg = dataclasses.replace(configs.reduced(configs.get_config(
+        "seamless-m4t-medium")), d_model=256, n_heads=4, n_kv_heads=4,
+        head_dim=64)
+    params = common.init_params(attention.cross_attn_specs(cfg), seed=0,
+                                device="cpu")
+    x, mem = torch.randn(1, 1024, 256), torch.randn(1, 4096, 256)
+    want = attention.cross_attention(params, x, mem, cfg)
+    on_card = {k: v.to(card) for k, v in params.items()}
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = attention.cross_attention(on_card, x.to(card), mem.to(card),
+                                        cfg)
+    assert ops.launch_counts()["flash_attention"] == 1
+    err = (got.cpu() - want).abs().max() / want.abs().max()
+    assert float(err) <= 1e-4, float(err)
+    bf = {k: v.to(torch.bfloat16) for k, v in on_card.items()}
+    xl = x.to(card, torch.bfloat16).requires_grad_()
+    ops.reset_launch_counts()
+    attention.cross_attention(bf, xl, mem.to(card, torch.bfloat16),
+                              cfg).float().sum().backward()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 1
+    assert bool(torch.isfinite(xl.grad).all())
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        attention.cross_attention(on_card, x[:, :8].to(card), mem.to(card),
+                                  cfg)
+    assert not any(ops.launch_counts().values())

@@ -47,6 +47,7 @@ from repro_torch.models import blocks as tblocks
 from repro_torch.models import common as tcommon
 from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttransformer
+from repro_torch.serving import engine as tengine
 from test_torch_lm import _configs, _reference_init
 
 STEP_TOL = 1e-5        # one layer's decode
@@ -334,10 +335,17 @@ def test_make_decode_step_matches_reference():
 
 
 def test_make_decode_step_encdec_raises():
+    """An enc-dec config's decode step (``test_torch_encdec.py`` holds it
+    to the reference) takes the encoder memory, as the reference's:
+    called without one it raises; and ``LMEngine``, which has no enc-dec
+    form in the reference either, raises ``NotImplementedError``."""
     ct = dataclasses.replace(_tiny(TModelConfig), is_encdec=True,
                              n_enc_layers=2)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tsteps.make_decode_step(ct)
+    step = tsteps.make_decode_step(ct)
+    with pytest.raises(TypeError, match="memory"):
+        step({}, torch.zeros((1, 1), dtype=torch.int64), [])
+    with pytest.raises(NotImplementedError, match="enc-dec"):
+        tengine.LMEngine({}, ct, 8, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["dense", "hybrid"])

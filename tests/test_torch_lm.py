@@ -118,9 +118,15 @@ def test_configs_match_reference(arch):
 @pytest.mark.parametrize("field, value, match", [
     ("n_prefix_tokens", 16, "prefix"), ("use_bias", True, "biases")])
 def test_unported_config_options_raise(field, value, match):
-    """Modality-prefix tokens and attention biases (set by configs this
-    slice does not port) raise rather than build a model without them."""
+    """Attention biases (set by no assigned config) raise rather than
+    build a model without them.  Modality-prefix tokens raised here until
+    the prefix was ported (``test_torch_vlm.py``); they now build their
+    projection, ``prefix_proj``."""
     ct = dataclasses.replace(tconfigs.get_config("yi-9b"), **{field: value})
+    if field == "n_prefix_tokens":
+        assert ttransformer.lm_specs(ct)[f"{match}_proj"]["kernel"].shape \
+            == (ct.d_model, ct.d_model)
+        return
     with pytest.raises(NotImplementedError, match=match):
         ttransformer.lm_specs(ct)
 

@@ -149,7 +149,19 @@ Phases, each of which raises (and so exits non-zero) on failure:
                future resolved once, the slot restarted and serving two
                more, six more timed; then the same engine in this
                process serves the same requests: 6 full steps each,
-               latents bitwise at the same bucket, kernels 1-3 launched.
+               latents bitwise at the same bucket, kernels 1-3 launched;
+20. dryrun   — first, ``launch.dryrun --all`` on the 16 x 16 mesh in
+               this process (10 LM configs x 4 shapes and the two DiTs'
+               full and cached steps on meta tensors, the CPU's work):
+               one ``dryrun_row`` line each, failing on any failed
+               combo; then the prediction of the one-card mesh against
+               the card for five steps (``DRYRUN_ROWS``: flux1-dev's full
+               and cached steps at batch 2 on the serve phase's weights,
+               yi-9b prefill_32k on the lm phase's, mamba2-370m train_4k
+               at batch 8 and granite prefill_32k at batch 1 on weights
+               drawn here): argument bytes equal, the peak and its ratio,
+               the FLOPs by kind, the bound, the wall and the share of
+               the bf16 peak, one ``dryrun_card`` line each.
 
 The flux1-dev parameters (~26 GB in bf16) are built once for phases 5
 to 7 and freed before phase 8; each later phase frees its model before
@@ -417,14 +429,14 @@ def kernel_phase(main_dtype: dict) -> dict:
                 tag = ", ".join(t for t in ("" if method == "dct" else method,
                                             wide) if t)
                 name = "band_split_spectral" + (f"[{tag}]" if tag else "")
-                nb = 2 * b * S * d * es + b * m * d * es + m * S * 4
-                prod = 2 * b * m * S * d
+                work, nb = dct.spectral_work(b, S, d, m, es)
+                prod = work["tf32"] // 2
                 row(name, dtype_name,
                     lambda x=x, method=method: dct.band_split_spectral(
                         x, 0.0625, method),
                     lambda x=x, method=method: ref.band_split_spectral_ref(
                         x, 0.0625, method),
-                    nb, 2 * prod, op_dtype="tf32")
+                    nb, work["tf32"], op_dtype="tf32")
                 log_bound(f"{name} [{dtype_name}] at the float32 FMA peak",
                           nb, 2 * prod, "float32")
                 log_bound(f"{name} [{dtype_name}] the design's ({n_op} + 3 "
@@ -438,8 +450,7 @@ def kernel_phase(main_dtype: dict) -> dict:
             ts = torch.tensor([[0.9, 0.85, 0.75], [0.75, 0.9, 0.85]],
                               device=dev)[:b]
             w = ops.hermite_weights(ts, torch.tensor(0.7, device=dev), 2)
-            nb = ((b * m * d + b * K * S * d + b * S * d) * es
-                  + (S * m + w.numel()) * 4)
+            work, nb = freqca_fused.spectral_work(b, K, S, d, m, es)
             prod, fma = 2 * b * S * m * d, 2 * b * K * S * d
             name = "freqca_predict_fused_spectral" + (f"[{wide}]" if wide
                                                       else "")
@@ -449,7 +460,7 @@ def kernel_phase(main_dtype: dict) -> dict:
                                                                hist, w),
                 lambda low=low, hist=hist, w=w, synth=synth:
                     ref.freqca_predict_spectral_ref(low, synth, hist, w),
-                nb, prod + fma, op_dtype="tf32")
+                nb, work["tf32"], op_dtype="tf32")
             log_bound(f"{name} [{dtype_name}] at the float32 FMA peak", nb,
                       prod + fma, "float32")
             log_bound(f"{name} [{dtype_name}] the design's ({n_op} TF32 "
@@ -472,28 +483,29 @@ def kernel_phase(main_dtype: dict) -> dict:
         x = torch.randn((B, S, D), generator=gen, device=dev).to(dt)
         nb_x = B * S * D * es
         c = frequency.dct_basis(S, device=dev)
-        dense = 2 * B * S * S * D
+        work, nb = dct.basis_work(B, S, D, es)
+        dense = work["tf32"]
         n_tf32 = 2 if dtype_name == "bfloat16" else 3
         row("token_basis_matmul", dtype_name,
             lambda x=x, c=c: dct.token_basis_matmul(c, x),
             lambda x=x, c=c: ref.token_basis_matmul_ref(c, x),
-            S * S * 4 + 2 * nb_x, dense,
+            nb, dense,
             library=lambda x=x, c=c: torch.matmul(c, x.float()), reps=5,
             op_dtype="tf32")
         log_bound(f"token_basis_matmul [{dtype_name}] at the float32 FMA "
-                  "peak", S * S * 4 + 2 * nb_x, dense, "float32")
+                  "peak", nb, dense, "float32")
         log_bound(f"token_basis_matmul [{dtype_name}] the design's "
-                  f"({n_tf32} TF32 products)", S * S * 4 + 2 * nb_x,
-                  n_tf32 * dense, "tf32")
+                  f"({n_tf32} TF32 products)", nb, n_tf32 * dense, "tf32")
+        nb = dct.basis_work(B, S, D, es, with_high=True)[1]
         for method in ("dct", "fft"):
             name = f"token_basis_matmul[band_split {method}]"
             row(name, dtype_name,
                 lambda x=x, method=method: dct.band_split(x, 0.0625, method),
                 lambda x=x, method=method: ref.band_split_ref(x, 0.0625,
                                                               method),
-                S * S * 4 + 3 * nb_x, dense, reps=5, op_dtype="tf32")
+                nb, dense, reps=5, op_dtype="tf32")
             log_bound(f"{name} [{dtype_name}] at the float32 FMA peak",
-                      S * S * 4 + 3 * nb_x, dense, "float32")
+                      nb, dense, "float32")
             m = frequency.spectral_kept_bins(S, 0.0625, method)
             log_bound(f"{name} [{dtype_name}] the rank-{m} split's own",
                       m * S * 4 + 3 * nb_x, 2 * (2 * B * m * S * D),
@@ -506,13 +518,14 @@ def kernel_phase(main_dtype: dict) -> dict:
         ts = torch.tensor([0.75, 0.5, 0.25], device=dev)
         t_q = torch.tensor(0.2, device=dev)
         w = freqca_fused.hermite_eval_weights(ts, t_q, 2)
+        work, nb = freqca_fused.legacy_work(K, B * S * D, es, dtype_name)
         row("freqca_predict_fused", dtype_name,
             lambda x=x, hist=hist, w=w:
                 freqca_fused.launch_fused(x, hist, w),
             lambda x=x, hist=hist, w=w: (
                 x.float() + torch.einsum("k,kbsd->bsd", w, hist.float())
             ).to(x.dtype),
-            (K + 2) * nb_x + K * 4, 2 * K * B * S * D)
+            nb, work[dtype_name])
         wrap = (lambda x=x, hist=hist, ts=ts, t_q=t_q:
                 freqca_fused.freqca_predict_fused(x, hist, ts, t_q, 2))
         plain = (lambda x=x, hist=hist, ts=ts, t_q=t_q:
@@ -532,8 +545,10 @@ def kernel_phase(main_dtype: dict) -> dict:
             q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
                        for _ in range(3))
             qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-            nb = 4 * q.numel() * es
-            fl = 4 * shape[0] * shape[2] * shape[1] ** 2 * shape[3]
+            work, nb = flash_attention.fwd_work(
+                lanes, shape[1], shape[1], shape[2], shape[2], shape[3],
+                dtype_name)
+            fl = work[dtype_name]
             row("flash_attention" + ("" if lanes == 2 else "[B=1]"),
                 dtype_name,
                 lambda q=q, k=k, v=v: flash_attention.flash_attention(q, k,
@@ -551,14 +566,6 @@ def kernel_phase(main_dtype: dict) -> dict:
         if dtype_name == "bfloat16":
             flash_bwd_rows(row, gen)
     return rows
-
-
-def attention_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs a self-attention over s tokens keeps: query i
-    sees keys [max(0, i − window + 1), i + 1 if causal else s)."""
-    return sum((i + 1 if causal else s) - (max(0, i - window + 1)
-                                           if window else 0)
-               for i in range(s))
 
 
 def lm_attention_rows(row, dt, dtype_name: str, gen) -> None:
@@ -593,15 +600,15 @@ def lm_attention_rows(row, dt, dtype_name: str, gen) -> None:
             return F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
                 enable_gqa=True)
+        work, nb = flash_attention.fwd_work(1, s, s, hq, hkv, hd, dtype_name,
+                                            causal, window)
         row(f"flash_attention[{label} gqa 32/4]", dtype_name,
             lambda causal=causal, window=window:
                 flash_attention.flash_attention(q, k, v, hq // hkv, causal,
                                                 window),
             lambda causal=causal, window=window:
                 ref.attention_ref(q, k, v, hq // hkv, causal, window),
-            (2 * hq + 2 * hkv) * s * hd * es,
-            4 * hq * hd * attention_pairs(s, causal, window),
-            library=lib, reps=5)
+            nb, work[dtype_name], library=lib, reps=5)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
@@ -706,13 +713,14 @@ def flash_bwd_row(row, gen, label: str, shape, causal: bool) -> None:
         torch.bfloat16) for _ in "kv")
     do = torch.randn((b, s, hq, hd), generator=gen, device=dev).to(
         torch.bfloat16)
-    pairs = b * attention_pairs(s, causal, 0)
+    pairs = b * fa.attention_pairs(s, causal, 0)
     if not label:
         # the forward with its log-sum-exp written, as training runs it
+        work, nb = fa.fwd_work(b, s, s, hq, hkv, hd, "bfloat16", lse=True)
         row("flash_attention[lse]", "bfloat16",
             lambda: fa.flash_attention(q, k, v, return_lse=True),
-            lambda: ref.attention_lse_ref(q, k, v),
-            4 * q.numel() * 2 + b * hq * s * 4, 4 * hq * hd * pairs, reps=5)
+            lambda: ref.attention_lse_ref(q, k, v), nb, work["bfloat16"],
+            reps=5)
     o, lse = fa.flash_attention(q, k, v, g, causal, return_lse=True)
     name = "flash_attention_bwd" + label
 
@@ -740,9 +748,8 @@ def flash_bwd_row(row, gen, label: str, shape, causal: bool) -> None:
                                               enable_gqa=g > 1)
     t_fwd = time_ms(sdpa, 5)
     t_both = time_ms(lambda: torch.autograd.grad(sdpa(), leaves, d_out), 5)
-    # q, o, dO read and dq written; k, v read and dk, dv written; lse
-    nbytes = (4 * q.numel() + 4 * k.numel()) * 2 + b * hq * s * 4
-    row(name, "bfloat16", kern, plain, nbytes, 10 * hq * hd * pairs, reps=5,
+    work, nbytes = fa.bwd_work(b, s, s, hq, hkv, hd, causal)
+    row(name, "bfloat16", kern, plain, nbytes, work["bfloat16"], reps=5,
         library_ms=t_both - t_fwd)
     log(f"kernel {name}: SDPA forward {t_fwd:.4f} ms, forward + backward "
         f"{t_both:.4f} ms")
@@ -766,28 +773,13 @@ def flash_bwd_row(row, gen, label: str, shape, causal: bool) -> None:
     torch.cuda.empty_cache()
 
 
-def ssd_flops(b: int, s: int, h: int, p: int, n: int, q: int,
-              dtype_name: str) -> dict:
-    """The operations the scan needs, by the type of their operands.
-    With T = Q(Q+1)/2, the (i, j <= i) pairs of a chunk: C Bᵀ on the
-    kept triangle, 2·T·N once per (batch, chunk) — B and C are one group
-    shared by every head — with x's type as operands (bf16 products
-    accumulate exactly in float32 on the tensor cores); per (batch,
-    chunk, head) the masked scores · x, 2·T·P, and C · state plus the
-    state update, 4·Q·N·P, both on float32 operands."""
-    tri, chunks = q * (q + 1) // 2, b * (s // q)
-    ops = {"float32": chunks * h * (2 * tri * p + 4 * q * n * p)}
-    ops[dtype_name] = ops.get(dtype_name, 0) + chunks * 2 * tri * n
-    return ops
-
-
 def ssd_rows(row, dt, dtype_name: str, gen) -> None:
     """One mamba2-370m layer's SSD scan at two lanes of 4096 tokens: x
     [2, 4096, 32, 64], B and C [2, 4096, 128] as column slices of the
     conv output (strided, as the block passes them), dt float32, chunk
-    256.  The bound counts the operations of ``ssd_flops`` at the bf16
-    tensor-core peak, where the kernel runs every product (the least the
-    card could take); the same operations at their operands' peaks
+    256.  The bound counts the operations of ``ssd_scan.scan_flops`` at
+    the bf16 tensor-core peak, where the kernel runs every product (the
+    least the card could take); the same operations at their operands' peaks
     (float32 FMAs for the per-head products) are logged beside it.  No
     single PyTorch call computes the scan."""
     import torch
@@ -803,9 +795,8 @@ def ssd_rows(row, dt, dtype_name: str, gen) -> None:
     dts = torch.nn.functional.softplus(
         torch.randn((b, s, h), generator=gen, device=dev) - 2.0)
     a = -torch.exp(torch.randn((h,), generator=gen, device=dev) * 0.3)
-    nbytes = 2 * b * s * h * p * es + 2 * b * s * n * es + b * s * h * 4 \
-        + h * 4
-    need = ssd_flops(b, s, h, p, n, q, dtype_name)
+    nbytes = ssd_scan.fwd_work(b, s, h, p, n, q, es)[1]
+    need = ssd_scan.scan_flops(b, s, h, p, n, q, dtype_name)
     row("ssd_chunk_scan", dtype_name,
         lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm, q),
         lambda: ref.ssd_chunk_scan_ref(x, dts, a, bm, cm, q),
@@ -815,26 +806,13 @@ def ssd_rows(row, dt, dtype_name: str, gen) -> None:
     # the design's own count: every product on the tensor cores in bf16;
     # at bf16 C Bᵀ takes 1 product and each per-head product 2 (one
     # float32 operand split into hi + lo), at float32 all take 3
-    need = ssd_flops(b, s, h, p, n, q, "bfloat16")
+    need = ssd_scan.scan_flops(b, s, h, p, n, q, "bfloat16")
     k = (1, 2) if dtype_name == "bfloat16" else (3, 3)
     log_bound(f"ssd_chunk_scan [{dtype_name}] the design's (bf16 products: "
               f"C Bᵀ x{k[0]}, per head x{k[1]})", nbytes,
               k[0] * need["bfloat16"] + k[1] * need["float32"], "bfloat16")
     del xbc, x, bm, cm
     torch.cuda.empty_cache()
-
-
-def ssd_bwd_flops(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
-    """The operations the scan's gradients need, counted on the kept
-    triangles (T = Q(Q+1)/2 pairs a chunk): per (batch, chunk) C Bᵀ
-    again, 2·T·N, and Z·B and Zᵀ·C, 2·T·N each, on Z summed over the
-    heads (dB and dC sum over heads, and Σ_h (Z^h B) = (Σ_h Z^h) B; the
-    sum's T·H additions are not counted); per (batch, chunk, head) dy·xᵀ
-    and Mᵀ·dy, 2·T·P each, and five [Q, N, P] products of 2·Q·N·P (the
-    forward's state again, its gradient's own share, B·D, S·dy and
-    D·x)."""
-    tri, chunks = q * (q + 1) // 2, b * (s // q)
-    return chunks * 6 * tri * n + chunks * h * (4 * tri * p + 10 * q * n * p)
 
 
 def ssd_bwd_design_flops(b: int, s: int, h: int, p: int, n: int, q: int,
@@ -992,8 +970,9 @@ def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
     column slices of one conv output, dt float32, chunk 256) with a
     random output gradient, from its own generator: each output against
     the plain version (``SSD_BWD_TOL``), two launches bitwise equal.
-    The bound counts ``ssd_bwd_flops`` at the bf16 tensor-core peak (the
-    least the card could take, where this design runs every product);
+    The bound counts ``ssd_scan.scan_bwd_flops`` at the bf16 tensor-core
+    peak (the least the card could take, where this design runs every
+    product);
     the design's own count (``ssd_bwd_design_flops``: split products
     repeated, whole tiles) is logged beside it, and each launch's device
     time (``ssd_bwd_split``).  No single PyTorch call computes the
@@ -1015,10 +994,8 @@ def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
         return ref.ssd_chunk_scan_bwd_ref(x, dts, a, bm, cm, dy, q)
     checked = ssd_bwd_check(name, dtype_name, kern(), kern(), plain())
     torch.cuda.empty_cache()
-    # x, dy, dx; B, C, dB, dC; dt, ddt; A, dA
-    nbytes = (3 * b * s * h * p + 4 * b * s * n) * es + 2 * b * s * h * 4 \
-        + 2 * h * 4
-    need = ssd_bwd_flops(b, s, h, p, n, q)
+    work, nbytes = ssd_scan.bwd_work(b, s, h, p, n, q, es)
+    need = work["bfloat16"]
     row(name, dtype_name, kern, plain, nbytes, {"bfloat16": need}, reps=5,
         checked=checked)
     ssd_bwd_split(f"kernel {name} [{dtype_name}]", kern, 5)
@@ -1058,8 +1035,8 @@ def ssd_jamba_rows(row, dt, dtype_name: str) -> None:
     heads of 128, which the wrappers run as two heads of 64 each), x, B
     and C column slices of one conv output, from ``ssd_bwd_inputs``:
     each against its plain version (kernel 8 per output, ``SSD_BWD_TOL``,
-    two launches bitwise), timed, with the bounds of ``ssd_flops`` and
-    ``ssd_bwd_flops`` at the bf16 tensor-core peak, as the mamba2 rows
+    two launches bitwise), timed, with the bounds of ``ssd_scan.fwd_work`` and
+    ``bwd_work`` at the bf16 tensor-core peak, as the mamba2 rows
     count them; kernel 8's launches timed apart."""
     import torch
 
@@ -1067,13 +1044,11 @@ def ssd_jamba_rows(row, dt, dtype_name: str) -> None:
     es = torch.finfo(dt).bits // 8
     b, s, h, p, n, q = JAMBA_SSD_SHAPE
     x, dts, a, bm, cm, dy = ssd_bwd_inputs(b, dt, s, h, n, p)
-    nbytes = 2 * b * s * h * p * es + 2 * b * s * n * es + b * s * h * 4 \
-        + h * 4
-    need = ssd_flops(b, s, h, p, n, q, dtype_name)
+    work, nbytes = ssd_scan.fwd_work(b, s, h, p, n, q, es)
     row("ssd_chunk_scan[jamba]", dtype_name,
         lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm, q),
         lambda: ref.ssd_chunk_scan_ref(x, dts, a, bm, cm, q),
-        nbytes, {"bfloat16": sum(need.values())}, reps=5)
+        nbytes, work, reps=5)
     name = "ssd_chunk_scan_bwd[jamba]"
 
     def kern():
@@ -1083,10 +1058,8 @@ def ssd_jamba_rows(row, dt, dtype_name: str) -> None:
         return ref.ssd_chunk_scan_bwd_ref(x, dts, a, bm, cm, dy, q)
     checked = ssd_bwd_check(name, dtype_name, kern(), kern(), plain())
     torch.cuda.empty_cache()
-    nbytes = (3 * b * s * h * p + 4 * b * s * n) * es + 2 * b * s * h * 4 \
-        + 2 * h * 4
-    row(name, dtype_name, kern, plain, nbytes,
-        {"bfloat16": ssd_bwd_flops(b, s, h, p, n, q)}, reps=5,
+    work, nbytes = ssd_scan.bwd_work(b, s, h, p, n, q, es)
+    row(name, dtype_name, kern, plain, nbytes, work, reps=5,
         checked=checked)
     ssd_bwd_split(f"kernel {name} [{dtype_name}]", kern, 5)
     del x, dts, a, bm, cm, dy
@@ -2277,6 +2250,7 @@ def flash_check(label: str, cfg, s: int, dev, seed: int) -> None:
     that launch alone beside its bound and SDPA."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     from repro_torch.models import attention, blocks
     hd, hkv, g = cfg.head_dim, cfg.n_kv_heads, cfg.q_per_kv
@@ -2303,9 +2277,10 @@ def flash_check(label: str, cfg, s: int, dev, seed: int) -> None:
         del want
     del got
     if torch.device(dev).type == "cuda":
-        flops = 4 * cfg.n_heads * hd * attention_pairs(s, True, 0)
-        b_ms, b_by = bound_ms((2 * cfg.n_heads + 2 * hkv) * s * hd * 2,
-                              flops, "bfloat16")
+        work, nb = fa.fwd_work(1, s, s, cfg.n_heads, hkv, hd, "bfloat16",
+                               True)
+        flops = work["bfloat16"]
+        b_ms, b_by = bound_ms(nb, flops, "bfloat16")
         import torch.nn.functional as F
         t_k = time_ms(lambda: ops.flash(q, k, v, g, causal=True), reps=2)
         qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
@@ -2467,51 +2442,6 @@ def set_position(cache, pos: int) -> None:
                 c.index = pos
 
 
-def decode_bytes(cfg, params, cache, batch: int) -> int:
-    """Bytes one decode step must move: every weight once (of an untied
-    embedding table only the batch's rows), every cache buffer read, the
-    new K / V slot or the SSM state and conv history written, the logits
-    written."""
-    from repro_torch.optim import adamw
-    n = sum(p.numel() * p.element_size() for p in adamw.leaves(params))
-    emb = params["embed"]["embedding"]
-    if not cfg.tie_embeddings:
-        n -= (emb.shape[0] - batch) * emb.shape[1] * emb.element_size()
-    for group in cache:
-        for c in group.values():
-            if hasattr(c, "index"):
-                n += c.k.nbytes + c.v.nbytes
-                n += 2 * c.k[:, 0].nbytes
-            else:
-                n += 2 * (c.state.nbytes + c.conv.nbytes)
-    return n + batch * cfg.vocab_size * emb.element_size()
-
-
-def decode_flops(cfg, params, cache, batch: int) -> float:
-    """Operations of one decode step: 2 per weight of a matmul per token
-    (the embedding is a lookup; of an expert ``[e, ...]`` leaf only the
-    top-k experts' weights a token), attention 4·hd per query head and
-    valid slot (the whole ring or the filled prefix), the SSM recurrence
-    ~6 per state element."""
-    from repro_torch.optim import adamw
-    leaves = adamw.leaves(params)
-    n_mat = sum(p.numel() for p in leaves if p.dim() == 2)
-    if not cfg.tie_embeddings:
-        n_mat -= params["embed"]["embedding"].numel()
-    if cfg.moe is not None:
-        n_mat += sum(p.numel() for p in leaves if p.dim() == 3
-                     ) * cfg.moe.top_k / cfg.moe.e_total
-    flops = 2.0 * n_mat * batch
-    for group in cache:
-        for c in group.values():
-            if hasattr(c, "index"):
-                valid = min(c.index + 1, c.k.shape[1])
-                flops += 4.0 * cfg.head_dim * cfg.n_heads * valid * batch
-            else:
-                flops += 6.0 * c.state.numel()
-    return flops
-
-
 def decode_run(label: str, cfg, params, batch: int, cache_len: int,
                pos: int, window: int, device: str) -> None:
     """One decode run: a seeded cache at position ``pos``, one warm step
@@ -2524,6 +2454,7 @@ def decode_run(label: str, cfg, params, batch: int, cache_len: int,
     from repro_torch.kernels import ops
     from repro_torch.launch import steps
     from repro_torch.models import attention, blocks, moe, ssm
+    from repro_torch.roofline import op_analysis
     on_card = torch.device(device).type == "cuda"
     dtype = getattr(torch, cfg.dtype)
     before = torch.cuda.memory_allocated() if on_card else 0
@@ -2599,8 +2530,8 @@ def decode_run(label: str, cfg, params, batch: int, cache_len: int,
     split_ms = elapsed(start, end)
     mixer_ms = sum(elapsed(a, b) for a, b in mixers)
     ffn_ms = sum(elapsed(a, b) for a, b in ffns)
-    nbytes = decode_bytes(cfg, params, cache, batch)
-    flops = decode_flops(cfg, params, cache, batch)
+    nbytes = op_analysis.decode_step_bytes(cfg, params, cache, batch)
+    flops = op_analysis.decode_step_flops(cfg, params, cache, batch)
     b_ms, b_by = bound_ms(nbytes, flops, cfg.dtype)
     mean = sum(walls) / len(walls)
     kind = "attention" if kv else "SSM"
@@ -3577,12 +3508,10 @@ def flash_bwd_check(label: str, cfg, batch: int, seq: int, dev,
         return q, k, v, torch.randn_like(q)
 
     def bound(q, k):
-        pairs = q.shape[0] * (attention_pairs(seq, True, 0) if causal
-                              else seq * seq)
-        flops = 10 * h * hd * pairs
-        return (flops, *bound_ms((4 * q.numel() + 4 * k.numel()) * 2
-                                 + q.shape[0] * h * seq * 4, flops,
-                                 "bfloat16"))
+        work, nb = fa.bwd_work(q.shape[0], seq, seq, h, k.shape[2], hd,
+                               causal)
+        flops = work["bfloat16"]
+        return (flops, *bound_ms(nb, flops, "bfloat16"))
     q, k, v, do = draw(1)
     o, lse = fa.flash_attention(q, k, v, g, causal, return_lse=True)
     got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal)
@@ -4117,6 +4046,7 @@ def flash_form_row(label: str, s: int, t: int, hq: int, hkv: int, hd: int,
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     from repro_torch.models import attention
     g = hq // hkv
@@ -4143,10 +4073,9 @@ def flash_form_row(label: str, s: int, t: int, hq: int, hkv: int, hd: int,
     if not _on_card(dev):
         log(f"{label}: flash {shape} vs plain: max_rel_err {rel:.3e}")
         return
-    pairs = (attention_pairs(s, True, 0) if causal else s * t)
-    flops = 4 * hq * hd * pairs
-    b_ms, b_by = bound_ms((2 * hq * s + 2 * hkv * t) * hd * 2, flops,
-                          "bfloat16")
+    work, nb = fa.fwd_work(1, s, t, hq, hkv, hd, "bfloat16", causal)
+    flops = work["bfloat16"]
+    b_ms, b_by = bound_ms(nb, flops, "bfloat16")
     t_k = time_ms(lambda: ops.flash(q, k, v, g, causal=causal), reps=3)
     qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
     t_l = time_ms(lambda: F.scaled_dot_product_attention(
@@ -5391,6 +5320,201 @@ def fleet_phase(cfg=None, size: int = 128, n_steps: int = N_STEPS,
     return {"fleet": fleet_counts, "fleet_oracle": counts}
 
 
+# the dry run's card rows: (label, arch, shape, per-card batch); the DiT
+# steps at the serve phase's two 1024² lanes, the LMs at the batches the
+# lm, lm_train and moe phases run
+DRYRUN_ROWS = (("flux_denoise_step", "flux1-dev", "denoise_step", 2),
+               ("flux_cached_step", "flux1-dev", "cached_step", 2),
+               ("yi_prefill_32k", "yi-9b", "prefill_32k", 1),
+               ("mamba2_train_4k", "mamba2-370m", "train_4k",
+                LM_TRAIN_MAMBA_BATCH),
+               ("granite_prefill_32k", "granite-moe-3b-a800m", "prefill_32k",
+                1))
+DRYRUN_TIMED = 3              # timed calls of a card row, after two warm
+
+
+def dryrun_sweep() -> None:
+    """``launch.dryrun``'s ``--all`` sweep on the 16 x 16 mesh, in this
+    process (the CPU's work: meta tensors, nothing on the card): one
+    ``dryrun_row {...}`` line per combo; fails on any failed combo."""
+    from repro_torch.launch import dryrun, mesh
+    m = mesh.make_production_mesh()
+    t0 = time.perf_counter()
+    combos = dryrun.all_combos()
+    for arch, shape in combos:
+        rec = dryrun.run_one(arch, shape, m, out_dir=None, verbose=False)
+        row = {k: rec[k] for k in ("arch", "shape", "mesh", "n_devices",
+                                   "memory", "flops", "bytes_accessed")}
+        row["by_kind_flops"] = {k: v["flops"] for k, v in
+                                rec["by_kind"].items() if v["flops"]}
+        row["compute_s"] = rec["roofline"]["compute_s"]
+        row["memory_s"] = rec["roofline"]["memory_s"]
+        row["bottleneck"] = rec["roofline"]["bottleneck"]
+        row["collectives"] = rec["collectives"]["note"]
+        print("dryrun_row " + json.dumps(row), flush=True)
+    log(f"dryrun: {len(combos)} combos on {m.name}, 0 failed, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _storage_bytes(tree) -> int:
+    """Bytes of the distinct storages of a tree's tensors."""
+    from repro_torch.roofline import op_analysis
+    seen = {}
+    for t in op_analysis._tensors(tree):
+        st = t.untyped_storage()
+        seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def dryrun_card_row(label: str, spec, args, smi: str) -> dict:
+    """One step of the dry run's on the card: the counter's prediction
+    (``op_analysis.analyze`` on the spec's meta arguments) beside the
+    card's figures for the same step on ``args`` (materialised from
+    them): argument bytes (must be equal), the peak (the step's
+    ``max_memory_allocated`` above what was held before it, plus the
+    arguments), the wall (CUDA events, DRYRUN_TIMED calls after two
+    warm), the step's share of the bf16 peak and the bound (bytes over
+    the memory rate, or each type's FLOPs over its peak, the larger).
+    Returns the launch counts of the warm and timed calls."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.roofline import analysis, op_analysis
+    counted = op_analysis.analyze(spec.fn, *spec.args)
+    measured_args = _storage_bytes(args)
+    if measured_args != counted["argument_bytes"]:
+        raise AssertionError(f"dryrun {label}: argument bytes predicted "
+                             f"{counted['argument_bytes']}, on the card "
+                             f"{measured_args}")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = spec.fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held + measured_args
+    outs = [t for t in op_analysis._tensors(out) if t.is_floating_point()]
+    if not outs or not all(bool(torch.isfinite(t).all()) for t in outs):
+        raise AssertionError(f"dryrun {label}: non-finite or no output")
+    del out, outs
+    wall_ms = time_ms(lambda: spec.fn(*args), DRYRUN_TIMED)
+    counts = ops.launch_counts()
+    flops = counted["flops"]
+    t_ops = analysis.compute_seconds(counted["flops_by_type"])
+    t_bytes = counted["bytes_accessed"] / analysis.HBM_BW
+    row = {
+        "label": label, "step": spec.name,
+        "argument_bytes": {"predicted": counted["argument_bytes"],
+                           "measured": measured_args},
+        "peak_bytes": {"predicted": counted["peak_bytes"],
+                       "measured": peak,
+                       "measured_over_predicted": peak
+                       / counted["peak_bytes"]},
+        "flops": flops,
+        "flops_by_kind": {k: v["flops"] for k, v in
+                          counted["by_kind"].items() if v["flops"]},
+        "bytes_accessed": counted["bytes_accessed"],
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "wall_ms": wall_ms,
+        "bf16_peak_share": flops / (wall_ms * 1e-3 * PEAK_FLOPS["bfloat16"]),
+        "launches": {k: v for k, v in counts.items() if v},
+        "card": smi}
+    print("dryrun_card " + json.dumps(row), flush=True)
+    return counts
+
+
+def _fill(gen, vocab: int = 0):
+    """A meta tensor -> the card's: integers uniform below ``vocab``,
+    floats ~ N(0, 1) in their type."""
+    import torch
+
+    def fill(t):
+        if not t.is_floating_point():
+            return torch.randint(0, vocab, t.shape, dtype=t.dtype,
+                                 device="cuda", generator=gen)
+        return torch.randn(t.shape, generator=gen, device="cuda").to(t.dtype)
+    return fill
+
+
+def dryrun_flux(model: dict, smi: str) -> dict:
+    """The dry run's flux1-dev rows on the serve phase's parameters: the
+    full step (kernel 3) at two 1024² lanes, then the FreqCa cached step
+    (kernel 2) from float32 rings that three cache updates filled
+    (kernel 1, as the served full steps fill them)."""
+    import torch
+
+    from repro_torch.core.policies import base as policy_base
+    from repro_torch.core.policies.freqca import FreqCaPolicy
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, mesh, steps
+    by_phase = {}
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    one = mesh.one_card_mesh()
+    for label, arch, shape, batch in DRYRUN_ROWS[:2]:
+        spec = steps.build_dit(arch, one, batch=batch,
+                               latent=dryrun.DIT_LATENT[arch],
+                               cached_step=shape == "cached_step")
+        ops.reset_launch_counts()
+        params = model["params"]
+        if shape == "denoise_step":
+            lat, _, text = spec.args[1:]
+            args = (params, _fill(gen)(lat),
+                    torch.full((batch,), 0.7, device="cuda"),
+                    _fill(gen)(text))
+        else:
+            pol = FreqCaPolicy(interval=5, method="dct", rho=0.0625,
+                               high_order=2)
+            feat = model["crf_shape"]
+            state = pol.init(batch, feat, torch.float32, device="cuda")
+            for t in (0.9, 0.85, 0.75):
+                ctx = policy_base.StepContext(
+                    step_idx=0, t_now=torch.tensor(t, device="cuda"), x=None,
+                    batch=batch, feat_shape=feat, crf_dtype=torch.float32)
+                crf = torch.randn((batch,) + feat, generator=gen,
+                                  device="cuda")
+                state = pol.update(state, crf, ctx)
+            args = (params, state, torch.full((batch,), 0.7, device="cuda"))
+        fill_counts = ops.launch_counts()
+        counts = dryrun_card_row(label, spec, args, smi)
+        by_phase[f"dryrun_{label}"] = {k: counts[k] + fill_counts[k]
+                                       for k in counts}
+        del args
+        _free("cuda")
+    return by_phase
+
+
+def dryrun_lm(label: str, params=None, smi: str = "") -> dict:
+    """One dry-run LM row of ``DRYRUN_ROWS`` on the card: its parameters
+    ``params`` (the lm phase's yi-9b) or drawn here from a seed, its
+    inputs drawn from a seed (a train step's moments zero, as
+    ``adamw.init`` makes them)."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import mesh, steps
+    from repro_torch.models import common
+    from repro_torch.optim import adamw
+    _, arch, shape, batch = next(r for r in DRYRUN_ROWS if r[0] == label)
+    spec = steps.build(arch, shape, mesh.one_card_mesh(), {"batch": batch})
+    cfg = configs.get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(71)
+    if params is None:
+        params = common.init_params(steps.model_specs(cfg), seed=72,
+                                    dtype=getattr(torch, cfg.dtype),
+                                    device="cuda")
+    fill = _fill(gen, cfg.vocab_size)
+    batch_args = {k: fill(v) for k, v in spec.args[-1].items()}
+    if spec.name.endswith(":train"):
+        opt_cfg = steps.make_train_step(cfg)[1]
+        args = (params, adamw.init(opt_cfg, params), batch_args)
+    else:
+        args = (params, batch_args)
+    counts = dryrun_card_row(label, spec, args, smi)
+    del args, batch_args
+    return {f"dryrun_{label}": counts}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         return [x for v in tree.values() for x in _leaves(v)]
@@ -5400,8 +5524,8 @@ def _leaves(tree):
 
 
 # the phases after the build and kernel phases, in the order they run
-PHASES = ("reference", "analysis", "serve", "slo", "backbone", "lm",
-          "decode", "train", "lm_train", "moe", "lm_configs", "jamba",
+PHASES = ("dryrun", "reference", "analysis", "serve", "slo", "backbone",
+          "lm", "decode", "train", "lm_train", "moe", "lm_configs", "jamba",
           "encdec", "vlm", "launcher", "fleet")
 
 
@@ -5420,29 +5544,41 @@ def run_phases(phases) -> dict:
         now = time.perf_counter()
         log(f"phase {name}: {now - t_last[0]:.1f} s")
         t_last[0] = now
+    dry = "dryrun" in phases
+    smi = nvidia_smi()
+    if dry:
+        dryrun_sweep()
+        done("dryrun (the 16 x 16 sweep)")
     if "reference" in phases:
         reference_phase()
         done("reference")
-    if {"analysis", "serve", "slo"} & set(phases):
+    if {"analysis", "serve", "slo", "dryrun"} & set(phases):
         model = flux_model()
         for name, fn in (("analysis", analysis_phase), ("serve", serve_phase),
                          ("slo", slo_phase)):
             if name in phases:
                 by_phase[name] = fn(model, N_STEPS)
                 done(name)
+        if dry:
+            by_phase.update(dryrun_flux(model, smi))
+            done("dryrun (flux1-dev rows)")
         del model       # free flux1-dev (~26 GB) before the next models
         free()
     if "backbone" in phases:
         by_phase["backbone"] = backbone_phase(N_STEPS)
         free()
         done("backbone")
-    if {"lm", "decode"} & set(phases):
+    if {"lm", "decode", "dryrun"} & set(phases):
         yi = configs.get_config("yi-9b")
         yi_params = lm_params(yi, yi.n_layers, seed=30, device="cuda")
         if "lm" in phases:
             by_phase.update(lm_phase(params=yi_params))
             free()     # the lm phase's 32768-token activations
             done("lm")
+        if dry:
+            by_phase.update(dryrun_lm("yi_prefill_32k", yi_params, smi))
+            free()
+            done("dryrun (yi-9b row)")
         if "decode" in phases:
             by_phase.update(decode_phase(yi_params))
             done("decode")
@@ -5456,6 +5592,11 @@ def run_phases(phases) -> dict:
             by_phase.update(fn())
             free()
             done(name)
+    if dry:
+        for label in ("mamba2_train_4k", "granite_prefill_32k"):
+            by_phase.update(dryrun_lm(label, smi=smi))
+            free()
+        done("dryrun (mamba2-370m and granite rows)")
     if "launcher" in phases:
         by_phase["launcher"] = launcher_phase()
         done("launcher")

@@ -25,6 +25,13 @@ REGISTRY: Dict[str, Union[ModelConfig, DiTConfig]] = {
               llava_next_34b)
 }
 
+# the ten assigned LM architectures, the reference's dry-run targets
+ASSIGNED = [
+    "mamba2-370m", "deepseek-coder-33b", "seamless-m4t-medium",
+    "phi3.5-moe-42b-a6.6b", "granite-moe-3b-a800m", "llama3-405b",
+    "yi-9b", "jamba-1.5-large-398b", "command-r-plus-104b",
+    "llava-next-34b",
+]
 
 INPUT_SHAPES = {
     "train_4k": {"seq_len": 4096, "global_batch": 256, "kind": "train"},

@@ -15,7 +15,9 @@
   epilogue; ``frequency.decompose`` and ``ops.dct_tokens`` reach it.
 
 The wrappers take CUDA tensors only; the op layer (``kernels.ops``)
-sends CPU tensors to the plain versions in ``kernels.ref``.
+sends CPU tensors to the plain versions in ``kernels.ref``.  On ``meta``
+tensors they record their work (``spectral_work``, ``basis_work``,
+``kernels.meta``) and return empty outputs.
 """
 from __future__ import annotations
 
@@ -27,10 +29,28 @@ import numpy as np
 import torch
 
 from repro_torch.core import frequency
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def spectral_work(b: int, s: int, d: int, m: int, elem: int):
+    """``band_split_spectral``'s work, ``({type: FLOP}, bytes)``: its two
+    products, ``low = B·x`` and ``Bᵀ·low``, 2·B·m·S·D each, at the TF32
+    peak (its arithmetic is float32 on the TF32 tensor cores); x read,
+    low and high written (``elem`` bytes an element), the float32 basis
+    [m, S] read."""
+    return ({"tf32": 2 * (2 * b * m * s * d)},
+            2 * b * s * d * elem + b * m * d * elem + m * s * 4)
+
+
+def basis_work(b: int, s: int, d: int, elem: int, with_high: bool = False):
+    """``token_basis_matmul``'s work: the dense product 2·B·S·S·D at the
+    TF32 peak; the float32 basis [S, S] and x read, y written (and high,
+    ``with_high``, as ``band_split`` launches it)."""
+    return ({"tf32": 2 * b * s * s * d},
+            s * s * 4 + (3 if with_high else 2) * b * s * d * elem)
 
 
 def band_split_spectral(x: torch.Tensor, rho: float, method: str = "dct"):
@@ -38,11 +58,18 @@ def band_split_spectral(x: torch.Tensor, rho: float, method: str = "dct"):
     ``m = frequency.spectral_kept_bins(S, rho, method)``; outputs in
     x's type, float32 accumulation."""
     build.require_no_grad("band_split_spectral", x)
-    build.require_cuda("band_split_spectral", x)
     if x.ndim != 3:
         raise ValueError(f"band_split_spectral takes [B, S, D], got "
                          f"{tuple(x.shape)}")
     b, s, d = x.shape
+    if x.is_meta:
+        m = frequency.spectral_kept_bins(s, rho, method)
+        return meta.stand_in(
+            "band_split_spectral",
+            spectral_work(b, s, d, m, x.element_size()),
+            torch.empty((b, m, d), dtype=x.dtype, device=x.device),
+            torch.empty_like(x))
+    build.require_cuda("band_split_spectral", x)
     basis = frequency.low_band_basis(s, rho, method, device=x.device)
     m = basis.shape[0]
     lib = build.load("band_split_spectral")
@@ -111,7 +138,6 @@ def _basis_matmul(basis: torch.Tensor, x: torch.Tensor, with_high: bool):
     ``with_high``, ``high = x − low`` rounded as the reference rounds
     it (after the cast of low to x's type)."""
     build.require_no_grad("token_basis_matmul", basis, x)
-    build.require_cuda("token_basis_matmul", basis, x)
     if x.ndim != 3 or basis.shape != (x.shape[1], x.shape[1]):
         raise ValueError(f"token_basis_matmul: basis {tuple(basis.shape)} "
                          f"and x {tuple(x.shape)}; expected [S, S] and "
@@ -121,6 +147,11 @@ def _basis_matmul(basis: torch.Tensor, x: torch.Tensor, with_high: bool):
     b, s, d = x.shape
     low = torch.empty_like(x)
     high = torch.empty_like(x) if with_high else None
+    if x.is_meta:
+        return meta.stand_in("token_basis_matmul",
+                             basis_work(b, s, d, x.element_size(), with_high),
+                             low, high)
+    build.require_cuda("token_basis_matmul", basis, x)
     lib = build.load("token_basis_matmul")
     fn = lib.token_basis_matmul
     fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
@@ -149,6 +180,7 @@ def band_split(x: torch.Tensor, rho: float, method: str = "dct"):
     ``x [B, S, D]`` with ``low = L x`` and ``high = x − low``, both in
     x's type (one ``token_basis_matmul`` launch)."""
     build.require_no_grad("band_split", x)
-    build.require_cuda("band_split", x)
+    if not x.is_meta:
+        build.require_cuda("band_split", x)
     basis = band_split_basis(x.shape[-2], rho, method, device=x.device)
     return _basis_matmul(basis, x, True)

@@ -7,7 +7,10 @@ it also returns each row's log-sum-exp, which ``flash_attention_bwd``
 (``csrc/flash_attention_bwd.cu``, bf16) recomputes the probabilities
 from.  CUDA tensors only; the op layer sends CPU tensors to
 ``ref.attention_ref``, which autograd differentiates.  Any S and T are
-taken: the kernels mask ragged tile edges.
+taken: the kernels mask ragged tile edges.  On ``meta`` tensors the
+wrappers record their work (``fwd_work`` / ``bwd_work``, ``kernels.meta``)
+and return empty outputs; ``attention_pairs`` counts the (query, key)
+pairs a mask keeps, which both formulas read.
 """
 from __future__ import annotations
 
@@ -15,11 +18,15 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 HEAD_DIMS = (64, 128)   # the head widths the kernels are instantiated for
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
 
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,6 +48,42 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return hkv
 
 
+def attention_pairs(s: int, causal: bool = False, window: int = 0,
+                    t: int = 0) -> int:
+    """(query, key) pairs an attention of ``s`` queries on ``t`` keys
+    (``t = s`` when 0) keeps: query i sees keys [max(0, i − window + 1),
+    i + 1 if causal else t)."""
+    t = t or s
+    hi = s * (s + 1) // 2 if causal else s * t
+    lo = (s - window) * (s - window + 1) // 2 if 0 < window < s else 0
+    return hi - lo
+
+
+_ELEM = {"bfloat16": 2, "float32": 4}
+
+
+def fwd_work(b: int, s: int, t: int, hq: int, hkv: int, hd: int,
+             dtype_name: str, causal: bool = False, window: int = 0,
+             lse: bool = False):
+    """The forward's work, ``({type: FLOP}, bytes)``: 4·hd FLOP a head
+    and kept pair (Q·Kᵀ and P·V) in the inputs' type (bf16 on the tensor
+    cores, float32 on the FMA units); q, k, v read and the output written
+    once, and with ``lse`` its float32 [B, H, S] too."""
+    flops = 4 * hq * hd * b * attention_pairs(s, causal, window, t)
+    nbytes = (2 * hq * s + 2 * hkv * t) * hd * _ELEM[dtype_name] * b
+    return {dtype_name: flops}, nbytes + (b * hq * s * 4 if lse else 0)
+
+
+def bwd_work(b: int, s: int, t: int, hq: int, hkv: int, hd: int,
+             causal: bool = False, window: int = 0):
+    """The (bf16) backward's work: 10·hd FLOP a head and kept pair (S
+    again, dV, dP, dQ, dK) at the bf16 peak; q, o, dO read and dQ
+    written, k, v read and dK, dV written, and the log-sum-exp read."""
+    flops = 10 * hq * hd * b * attention_pairs(s, causal, window, t)
+    nbytes = (4 * b * s * hq + 4 * b * t * hkv) * hd * 2 + b * hq * s * 4
+    return {"bfloat16": flops}, nbytes
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     q_per_kv: int = 1, causal: bool = False,
                     window: int = 0, return_lse: bool = False):
@@ -50,10 +93,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H, S] float32, the row log-sum-exp of the scaled, masked logits."""
     b, s, h, hd = q.shape
     hkv = _check("flash_attention", q, k, v, q_per_kv, window)
-    build.require_cuda("flash_attention", q, k, v)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
+    if q.is_meta:
+        work = fwd_work(b, s, k.shape[1], h, hkv, hd, _dtype_name(q),
+                        causal, window, return_lse)
+        return meta.stand_in("flash_attention", work,
+                             *((out, lse) if return_lse else (out,)))
+    build.require_cuda("flash_attention", q, k, v)
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
     fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -99,8 +147,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if lse.shape != (b, h, s) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} "
                          f"{lse.dtype}, expected {(b, h, s)} float32")
-    build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if q.is_meta:
+        return meta.stand_in("flash_attention_bwd", bwd_work(
+            b, s, k.shape[1], h, hkv, hd, causal, window), dq, dk, dv)
+    build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     lib = build.load("flash_attention_bwd")
     scratch = lib.flash_attention_bwd_scratch
     scratch.argtypes, scratch.restype = [_I] * 6, ctypes.c_long

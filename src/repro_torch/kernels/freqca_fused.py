@@ -11,6 +11,9 @@
   shared ``ts [K]``.
 
 CUDA tensors only; the op layer sends CPU tensors to ``kernels.ref``.
+On ``meta`` tensors the wrappers record their work
+(``spectral_work`` / ``legacy_work``, ``kernels.meta``) and return an
+empty output.
 """
 from __future__ import annotations
 
@@ -19,10 +22,28 @@ import ctypes
 import torch
 
 from repro_torch.core import hermite
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def spectral_work(b: int, k: int, s: int, d: int, m: int, elem: int):
+    """``freqca_predict_fused_spectral``'s work, ``({type: FLOP},
+    bytes)``: the synthesis 2·B·S·m·D and the K-entry Hermite FMA
+    2·B·K·S·D, at the TF32 peak; low_spec, the ring and the output
+    (``elem`` bytes an element), the float32 basis [S, m] and weights
+    [B, K]."""
+    return ({"tf32": 2 * b * s * m * d + 2 * b * k * s * d},
+            (b * m * d + b * k * s * d + b * s * d) * elem
+            + (s * m + b * k) * 4)
+
+
+def legacy_work(k: int, n: int, elem: int, op_dtype: str):
+    """``freqca_predict_fused``'s work on ``n`` elements of the feature:
+    2·K FLOP an element in ``op_dtype``; low, the K-entry history and
+    the output once, and the K float32 weights."""
+    return {op_dtype: 2 * k * n}, (k + 2) * n * elem + k * 4
 
 
 def freqca_predict_fused_spectral(low_spec: torch.Tensor,
@@ -51,10 +72,13 @@ def freqca_predict_fused_spectral(low_spec: torch.Tensor,
         raise TypeError("low_spec and high_hist must share one type")
     basis = synth.to(torch.float32).T.contiguous()     # [m, S]
     w = w.to(torch.float32).contiguous()
-    build.require_cuda("freqca_predict_fused_spectral", low_spec, basis,
-                       high_hist, w)
     out = torch.empty((b, s, d), dtype=high_hist.dtype,
                       device=high_hist.device)
+    if out.is_meta:
+        return meta.stand_in("freqca_predict_fused_spectral", spectral_work(
+            b, k, s, d, m, high_hist.element_size()), out)
+    build.require_cuda("freqca_predict_fused_spectral", low_spec, basis,
+                       high_hist, w)
     lib = build.load("freqca_fused_spectral")
     fn = lib.freqca_fused_spectral
     fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
@@ -93,7 +117,8 @@ def freqca_predict_fused(low: torch.Tensor, high_hist: torch.Tensor,
     if tuple(ts.shape) != (high_hist.shape[0],):
         raise ValueError(f"freqca_predict_fused: ts {tuple(ts.shape)} for "
                          f"a history of {high_hist.shape[0]}")
-    build.require_cuda("freqca_predict_fused", low, high_hist)
+    if not low.is_meta:
+        build.require_cuda("freqca_predict_fused", low, high_hist)
     w = hermite_eval_weights(ts.to(low.device), t_query, order)
     return launch_fused(low, high_hist, w)
 
@@ -111,8 +136,12 @@ def launch_fused(low: torch.Tensor, high_hist: torch.Tensor,
     if low.dtype != high_hist.dtype:
         raise TypeError("low and high_hist must share one type")
     w = w.to(torch.float32).contiguous()
-    build.require_cuda("freqca_predict_fused", low, high_hist, w)
     out = torch.empty_like(low)
+    if out.is_meta:
+        dt = "float32" if low.dtype == torch.float32 else "bfloat16"
+        return meta.stand_in("freqca_predict_fused", legacy_work(
+            k, low.numel(), low.element_size(), dt), out)
+    build.require_cuda("freqca_predict_fused", low, high_hist, w)
     lib = build.load("freqca_fused")
     fn = lib.freqca_fused
     fn.argtypes = [_P, _P, _P, _P, ctypes.c_long, _I, _I, _P]

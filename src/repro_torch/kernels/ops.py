@@ -7,6 +7,9 @@ plain version: a switch like that would hide the kernel on the very
 path it exists for.  (The reference reads ``REPRO_KERNELS`` because
 XLA on a CPU and Pallas on a TPU are both legitimate backends there.)
 
+A ``meta`` tensor takes the CUDA route: the wrapper records the kernel's
+work and launches nothing (``kernels.meta``; the dry run).
+
 Each kernel wrapper counts its own launches (``<wrapper>.launches``);
 ``launch_counts`` / ``reset_launch_counts`` read and clear them.
 
@@ -50,7 +53,10 @@ def reset_launch_counts() -> None:
 
 
 def _on_cuda(t: torch.Tensor) -> bool:
-    return t.device.type == "cuda"
+    """The kernel route: a CUDA tensor, or a ``meta`` one, which stands
+    for the card's in the dry run (the kernel records its work,
+    ``kernels.meta``)."""
+    return t.device.type in ("cuda", "meta")
 
 
 def dct_tokens(x: torch.Tensor) -> torch.Tensor:

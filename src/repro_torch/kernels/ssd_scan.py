@@ -32,6 +32,9 @@ gradients of the scan with respect to all five inputs
 decomposition on the tensor cores); the op layer's ``SSDChunkScanFn``
 calls it.  The reference has no such kernel: XLA
 differentiates ``repro.models.ssm.ssd_chunked``.
+
+On ``meta`` tensors both wrappers record their work (``fwd_work`` /
+``bwd_work``, ``kernels.meta``) and return empty outputs.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, meta
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,7 +81,7 @@ def _check(name: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                         "are float32")
     dev = x.device
     for t in (x, dt, A, B, C):
-        if t.device.type != "cuda" or t.device != dev:
+        if t.device.type not in ("cuda", "meta") or t.device != dev:
             raise ValueError(f"{name}: expected CUDA tensors on one "
                              f"device, got {t.device}")
     if not (_strided_ok(x, (p, 1)) and _strided_ok(dt, (1,))
@@ -87,6 +90,54 @@ def _check(name: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"{name}: x needs contiguous heads, dt, B "
                          "and C a contiguous last axis")
     return b, s, h, p, n, q
+
+
+def scan_flops(b: int, s: int, h: int, p: int, n: int, q: int,
+               dtype_name: str) -> dict:
+    """The operations the scan needs, by the type of their operands.
+    With T = Q(Q+1)/2, the (i, j <= i) pairs of a chunk: C Bᵀ on the
+    kept triangle, 2·T·N once per (batch, chunk) — B and C are one group
+    shared by every head — with x's type as operands (bf16 products
+    accumulate exactly in float32 on the tensor cores); per (batch,
+    chunk, head) the masked scores · x, 2·T·P, and C · state plus the
+    state update, 4·Q·N·P, both on float32 operands."""
+    tri, chunks = q * (q + 1) // 2, b * (s // q)
+    ops = {"float32": chunks * h * (2 * tri * p + 4 * q * n * p)}
+    ops[dtype_name] = ops.get(dtype_name, 0) + chunks * 2 * tri * n
+    return ops
+
+
+def scan_bwd_flops(b: int, s: int, h: int, p: int, n: int, q: int) -> int:
+    """The operations the scan's gradients need, counted on the kept
+    triangles (T = Q(Q+1)/2 pairs a chunk): per (batch, chunk) C Bᵀ
+    again, 2·T·N, and Z·B and Zᵀ·C, 2·T·N each, on Z summed over the
+    heads (dB and dC sum over heads, and Σ_h (Z^h B) = (Σ_h Z^h) B; the
+    sum's T·H additions are not counted); per (batch, chunk, head) dy·xᵀ
+    and Mᵀ·dy, 2·T·P each, and five [Q, N, P] products of 2·Q·N·P (the
+    forward's state again, its gradient's own share, B·D, S·dy and
+    D·x)."""
+    tri, chunks = q * (q + 1) // 2, b * (s // q)
+    return chunks * 6 * tri * n + chunks * h * (4 * tri * p + 10 * q * n * p)
+
+
+def fwd_work(b: int, s: int, h: int, p: int, n: int, q: int, elem: int):
+    """The forward's work, ``({type: FLOP}, bytes)``: ``scan_flops``, all
+    at the bf16 tensor-core peak, where the kernel runs every product;
+    x read and y written, B and C read (``elem`` bytes an element), dt
+    and A read in float32."""
+    flops = sum(scan_flops(b, s, h, p, n, q, "bfloat16").values())
+    nbytes = 2 * b * s * h * p * elem + 2 * b * s * n * elem \
+        + b * s * h * 4 + h * 4
+    return {"bfloat16": flops}, nbytes
+
+
+def bwd_work(b: int, s: int, h: int, p: int, n: int, q: int, elem: int):
+    """The backward's work: ``scan_bwd_flops`` at the bf16 peak; x, dy
+    read and dx written, B, C read and dB, dC written, dt read and ddt
+    written, A read and dA written."""
+    nbytes = (3 * b * s * h * p + 4 * b * s * n) * elem + 2 * b * s * h * 4 \
+        + 2 * h * 4
+    return {"bfloat16": scan_bwd_flops(b, s, h, p, n, q)}, nbytes
 
 
 def split_heads(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor):
@@ -155,6 +206,9 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     ``split_heads``)."""
     build.require_no_grad("ssd_chunk_scan", x, dt, A, B, C)
     b, s, h, p, n, q = _check("ssd_chunk_scan", x, dt, A, B, C, chunk)
+    if x.is_meta:
+        return meta.stand_in("ssd_chunk_scan", fwd_work(
+            b, s, h, p, n, q, x.element_size()), torch.empty_like(x))
     xs, dts, As = split_heads(x, dt, A)
     y = torch.empty(xs.shape, dtype=x.dtype, device=x.device)
     _forward(xs, dts, As, B, C, q, y)
@@ -183,7 +237,13 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"ssd_chunk_scan_bwd: dy {tuple(dy.shape)} "
                          f"{dy.dtype} on {dy.device} must match x "
                          f"{tuple(x.shape)} {x.dtype} on {x.device}")
-    b, s, _, p, n, q = _check("ssd_chunk_scan_bwd", x, dt, A, B, C, chunk)
+    b, s, h, p, n, q = _check("ssd_chunk_scan_bwd", x, dt, A, B, C, chunk)
+    if x.is_meta:
+        return meta.stand_in(
+            "ssd_chunk_scan_bwd", bwd_work(b, s, h, p, n, q,
+                                           x.element_size()),
+            torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
+            torch.empty_like(B), torch.empty_like(C))
     x, dt, A = split_heads(x, dt, A)
     h = x.shape[2]
     dy = dy.contiguous().view(x.shape)

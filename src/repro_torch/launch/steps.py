@@ -1,31 +1,49 @@
-"""Step builders (counterpart of ``repro.launch.steps``): the LM train
-step with AdamW and gradient accumulation, the prefill step and the
-decode step.
+"""Step builders and abstract inputs for every (arch x input shape)
+(counterpart of ``repro.launch.steps``): the LM train step with AdamW
+and gradient accumulation, the prefill step and the decode step, and
+``build`` / ``build_dit``, which bundle a step with its abstract
+arguments and their per-device placements for the dry run
+(``launch.dryrun``) and the card rows of ``chip_smoke.py``.
 
 ``make_train_step``, ``make_prefill_step`` and ``make_decode_step`` keep
 the reference's arithmetic and return values; they run eagerly on the
 tensors' device (on the card the scan and attention kernels and their
 backwards; decode launches none).  The AdamW update is in place
 (``optim.adamw.update``), so the parameters a train step returns are
-the ones it was given; so is the decode cache.  The mesh, the
-``constrain`` sharding hooks and ``build`` / ``input_specs`` /
-``build_dit`` wait for the sharding and dry-run part of ``ROADMAP.md``
-§1 item 6, and so do the reference's MoE overrides ``moe_impl`` /
-``moe_pad``.  An enc-dec config takes ``models.encdec``'s specs, loss,
-prefill (``batch["frames"]``) and decode step (against an encoder
-memory); a modality-prefix config's batches carry
-``batch["prefix_embeds"]``.
+the ones it was given; so is the decode cache.  An enc-dec config takes
+``models.encdec``'s specs, loss, prefill (``batch["frames"]``) and
+decode step (against an encoder memory); a modality-prefix config's
+batches carry ``batch["prefix_embeds"]``.
+
+Abstract arguments are tensors on the ``meta`` device, the counterpart
+of ``jax.ShapeDtypeStruct``: shapes and types, nothing allocated.  A
+``StepSpec``'s step runs on them as it runs on the card (each kernel
+route records its work instead of launching, ``kernels.meta``), which is
+how ``roofline.op_analysis`` counts a step.  Meshes are abstract
+(``launch.mesh``); a step built for a mesh of more than one device runs
+on meta tensors only and raises ``NotImplementedError`` on real ones.
+The reference's ``constrain`` hooks have no counterpart inside the
+models; ``activation_constrain`` is the identity on one card.  Tokens
+and labels are int32, as the reference's; the optimizer's step count
+and a KV cache's position are host ``int`` s, so neither is an argument
+byte (the reference's are int32 arrays).
 """
 from __future__ import annotations
 
-import math
-from typing import Optional
+import dataclasses
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
-from repro_torch.models import blocks, common, encdec, transformer
+from repro_torch import configs as config_lib
+from repro_torch.configs.base import DiTConfig, ModelConfig
+from repro_torch.launch.mesh import Mesh
+from repro_torch.models import attention, blocks, common, dit, encdec, \
+    transformer
 from repro_torch.optim import adamw
+from repro_torch.sharding import partitioning as pt
+from repro_torch.sharding.partitioning import param_bytes
 
 
 def model_specs(cfg: ModelConfig):
@@ -39,16 +57,6 @@ def model_specs(cfg: ModelConfig):
 def loss_fn(cfg: ModelConfig):
     """The config's ``loss_fn(params, batch, cfg)``."""
     return encdec.loss_fn if cfg.is_encdec else transformer.loss_fn
-
-
-def param_bytes(cfg: ModelConfig, bytes_per: int = 2) -> int:
-    """Total parameter bytes of an LM config from its specs, no
-    allocation (the reference's ``repro.sharding.partitioning
-    .param_bytes``; the port's per-group leaves hold the same elements
-    as the reference's stacked ones)."""
-    leaves = []
-    common.map_specs(leaves.append, model_specs(cfg))
-    return sum(math.prod(s.shape) * bytes_per for s in leaves)
 
 
 def make_train_step(cfg: ModelConfig,
@@ -150,3 +158,245 @@ def make_decode_step(cfg: ModelConfig, window: int = 0):
                                        window=window)
 
     return decode_step
+
+
+# ---------------------------------------------------------------------------
+# abstract steps for the dry run
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class StepSpec:
+    """A step, its abstract (meta) arguments and their per-device
+    placements (``sharding.partitioning``) on ``mesh``."""
+    name: str
+    fn: Callable
+    args: Tuple[Any, ...]
+    in_shardings: Tuple[Any, ...]
+    mesh: Mesh
+
+
+def activation_constrain(mesh: Optional[Mesh]):
+    """The counterpart of the reference's hook that pins activations to
+    a mesh: ``None`` without a mesh, else a function of a tensor that is
+    the identity on one card (and on meta tensors on any mesh, whose
+    work the dry run splits evenly) and raises for a real tensor on a
+    larger mesh (``partitioning.constraint``).  The port's models take no
+    such hook; ``build``'s steps apply it to their arguments."""
+    if mesh is None:
+        return None
+    return functools.partial(pt.constraint, mesh=mesh)
+
+
+def _guarded(mesh: Mesh, fn: Callable) -> Callable:
+    """``fn`` itself on one card; on a larger mesh, ``fn`` for meta
+    arguments only."""
+    if mesh.size == 1:
+        return fn
+    constrain = activation_constrain(mesh)
+
+    def on_mesh(*args):
+        for t in adamw.leaves(list(args)):
+            if isinstance(t, torch.Tensor):
+                constrain(t)
+        return fn(*args)
+    return on_mesh
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape_name: str,
+                batch: Optional[int] = None) -> Dict[str, Any]:
+    """Abstract (meta) model inputs for a named input shape; ``batch``
+    replaces the shape's global batch (the dry run's per-card batch on
+    one card)."""
+    info = config_lib.INPUT_SHAPES[shape_name]
+    seq, kind = info["seq_len"], info["kind"]
+    gb = batch or info["global_batch"]
+    dtype = getattr(torch, cfg.dtype)
+    i32 = torch.int32
+    if kind in ("train", "prefill"):
+        if cfg.is_encdec:
+            ins = {"frames": _meta((gb, seq, cfg.d_model), dtype),
+                   "tokens": _meta((gb, seq), i32)}
+        elif cfg.n_prefix_tokens > 0:
+            ins = {"prefix_embeds": _meta(
+                (gb, cfg.n_prefix_tokens, cfg.d_model), dtype),
+                "tokens": _meta((gb, seq - cfg.n_prefix_tokens), i32)}
+        else:
+            ins = {"tokens": _meta((gb, seq), i32)}
+        if kind == "train":
+            ins["labels"] = _meta(ins["tokens"].shape, i32)
+        return ins
+    if kind != "decode":
+        raise ValueError(f"unknown shape kind {kind!r}")
+    out = {"tokens": _meta((gb, 1), i32)}
+    if cfg.is_encdec:
+        out["cache"] = encdec.decode_cache_abstract(cfg, gb, seq, dtype)
+        out["memory"] = _meta((gb, seq, cfg.d_model), dtype)
+    else:
+        out["cache"] = blocks.stack_cache_abstract(cfg, gb, seq, dtype)
+    return out
+
+
+def _cache_rules(rules, mesh: Mesh, global_batch: int):
+    """The cache's rules: batch on the data-parallel axes where they
+    divide it, else (a single long request) the KV length on data."""
+    dp = pt.dp_axes(mesh)
+    dpsz = pt._axis_size(mesh, dp)
+    cache_rules = dict(rules)
+    cache_rules["layer"] = None
+    if global_batch % dpsz == 0 and global_batch >= dpsz:
+        cache_rules.update(batch=dp, len=None)
+    else:
+        cache_rules.update(batch=None, len="data")
+    return cache_rules
+
+
+def _cache_shardings(axes_tree, cache_rules):
+    """Placements of a cache from its axes (``KVCache`` / ``SSMCache``
+    leaves in lists and dicts)."""
+    if isinstance(axes_tree, list):
+        return [_cache_shardings(a, cache_rules) for a in axes_tree]
+    if isinstance(axes_tree, dict):
+        return {k: _cache_shardings(a, cache_rules)
+                for k, a in axes_tree.items()}
+    return dataclasses.replace(axes_tree, **{
+        f.name: pt.spec_for_axes(getattr(axes_tree, f.name), cache_rules)
+        for f in dataclasses.fields(axes_tree) if f.name != "index"})
+
+
+def _batch_shardings(batch, mesh: Mesh, gb: int):
+    return {k: pt.batch_spec(mesh, gb, x.dim()) for k, x in batch.items()}
+
+
+def build(arch_id: str, shape_name: str, mesh: Mesh,
+          overrides: Optional[Dict[str, Any]] = None) -> StepSpec:
+    """Assemble (step, abstract args, placements) for one dry-run combo.
+    ``overrides``: ``moe_impl`` (``"einsum"`` | ``"gather"``) and
+    ``moe_pad`` (experts padded to this count), as the reference's; and
+    ``batch``, which replaces the shape's global batch (a per-card batch
+    on one card)."""
+    ov = overrides or {}
+    base_cfg = config_lib.get_config(arch_id)
+    if not isinstance(base_cfg, ModelConfig):
+        raise ValueError(f"{arch_id} is a DiT config; use build_dit()")
+    cfg = config_lib.for_shape(base_cfg, shape_name)
+    if cfg.moe is not None and (ov.get("moe_impl") or ov.get("moe_pad")):
+        moe_kw = {}
+        if ov.get("moe_impl"):
+            moe_kw["impl"] = ov["moe_impl"]
+        if ov.get("moe_pad"):
+            moe_kw["padded_experts"] = int(ov["moe_pad"])
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, **moe_kw))
+    info = config_lib.INPUT_SHAPES[shape_name]
+    gb, kind = int(ov.get("batch") or info["global_batch"]), info["kind"]
+    mode = "train" if kind == "train" else "serve"
+    rules = pt.model_rules(cfg, mesh, mode, shape_kind=kind)
+    specs = model_specs(cfg)
+    params_abs = common.abstract_params(specs, getattr(torch, cfg.dtype))
+    params_sh = pt.shardings_for_specs(specs, rules, mesh)
+    ins = input_specs(cfg, shape_name, gb)
+
+    if kind == "train":
+        fn, opt_cfg = make_train_step(cfg)
+        mdt = getattr(torch, opt_cfg.moment_dtype)
+        opt_abs = adamw.OptState(
+            mu=adamw.tree_map(lambda p: _meta(p.shape, mdt), params_abs),
+            nu=adamw.tree_map(lambda p: _meta(p.shape, mdt), params_abs),
+            step=0)
+        opt_sh = adamw.OptState(mu=params_sh, nu=params_sh, step=())
+        return StepSpec(
+            name=f"{arch_id}:{shape_name}:train", fn=_guarded(mesh, fn),
+            args=(params_abs, opt_abs, ins),
+            in_shardings=(params_sh, opt_sh,
+                          _batch_shardings(ins, mesh, gb)),
+            mesh=mesh)
+    if kind == "prefill":
+        return StepSpec(
+            name=f"{arch_id}:{shape_name}:prefill",
+            fn=_guarded(mesh, make_prefill_step(cfg)),
+            args=(params_abs, ins),
+            in_shardings=(params_sh, _batch_shardings(ins, mesh, gb)),
+            mesh=mesh)
+
+    window = cfg.sliding_window
+    seq = info["seq_len"]
+    cache_len = min(seq, window) if window > 0 else seq
+    dtype = getattr(torch, cfg.dtype)
+    cache_rules = _cache_rules(rules, mesh, gb)
+    if cfg.is_encdec:
+        cache_abs = encdec.decode_cache_abstract(cfg, gb, cache_len, dtype)
+        kv = ("batch", "len", "kv_heads", "kv_head_dim")
+        axes = [attention.KVCache(k=kv, v=kv) for _ in range(cfg.n_layers)]
+    else:
+        cache_abs = blocks.stack_cache_abstract(cfg, gb, cache_len, dtype)
+        axes = blocks.stack_cache_axes(cfg)
+    cache_sh = _cache_shardings(axes, cache_rules)
+    args = [params_abs, ins["tokens"], cache_abs]
+    in_sh = [params_sh, pt.batch_spec(mesh, gb, 2), cache_sh]
+    if cfg.is_encdec:
+        args.append(ins["memory"])
+        in_sh.append(pt.batch_spec(mesh, gb, 3))
+    return StepSpec(
+        name=f"{arch_id}:{shape_name}:decode",
+        fn=_guarded(mesh, make_decode_step(cfg, window=window)),
+        args=tuple(args), in_shardings=tuple(in_sh), mesh=mesh)
+
+
+def build_dit(arch_id: str, mesh: Mesh, batch: int = 64, latent: int = 128,
+              cached_step: bool = False) -> StepSpec:
+    """Dry-run spec for the paper's MMDiT.  ``cached_step=False``: one
+    full denoiser forward, ``(velocity, CRF)``, as the reference's.
+    ``cached_step=True``: the FreqCa skip path as the port serves it:
+    ``FreqCaPolicy.predict`` (interval 5, dct, rho 0.0625, Hermite order
+    2) from float32 rings, the fused synthesis + Hermite kernel, then
+    the final layer alone (``dit.dit_from_crf``); the reference's
+    legacy-state skip path forecasts with plain ops instead."""
+    cfg = config_lib.get_config(arch_id)
+    if not isinstance(cfg, DiTConfig):
+        raise ValueError(f"{arch_id} is not a DiT config")
+    rules = pt.dit_rules(cfg, mesh)
+    specs = dit.dit_specs(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    params_abs = common.abstract_params(specs, dtype)
+    params_sh = pt.shardings_for_specs(specs, rules, mesh)
+    n_tok = (latent // cfg.patch_size) ** 2
+    t = _meta((batch,), torch.float32)
+    t_sh = pt.batch_spec(mesh, batch, 1)
+    if cached_step:
+        from repro_torch.core.policies import base as policy_base
+        from repro_torch.core.policies.freqca import FreqCaPolicy
+        pol = FreqCaPolicy(interval=5, method="dct", rho=0.0625,
+                           high_order=2)
+        feat = (n_tok, cfg.d_model)
+        state = pol.init(batch, feat, torch.float32, device="meta")
+        state_sh = policy_base.tree_map(
+            lambda a: pt.batch_spec(mesh, batch, a.dim()), state)
+
+        def cached(params, state, tt):
+            ctx = policy_base.StepContext(
+                step_idx=1, t_now=tt[0], x=None, batch=batch,
+                feat_shape=feat, crf_dtype=torch.float32)
+            crf_hat = pol.predict(state, ctx)
+            return dit.dit_from_crf(params, crf_hat, tt, cfg, latent, latent)
+        return StepSpec(name=f"{arch_id}:cached_step",
+                        fn=_guarded(mesh, cached),
+                        args=(params_abs, state, t),
+                        in_shardings=(params_sh, state_sh, t_sh),
+                        mesh=mesh)
+    lat = _meta((batch, latent, latent, cfg.in_channels), dtype)
+    args = [params_abs, lat, t]
+    in_sh = [params_sh, pt.batch_spec(mesh, batch, 4), t_sh]
+    if cfg.text_dim > 0:
+        args.append(_meta((batch, cfg.n_text_tokens, cfg.text_dim), dtype))
+        in_sh.append(pt.batch_spec(mesh, batch, 3))
+
+    def full(params, latents, tt, text=None):
+        out = dit.dit_forward(params, latents, tt, cfg, text)
+        return out.velocity, out.crf
+    return StepSpec(name=f"{arch_id}:denoise", fn=_guarded(mesh, full),
+                    args=tuple(args), in_shardings=tuple(in_sh),
+                    mesh=mesh)

@@ -52,10 +52,14 @@ def attn_specs(cfg: ModelConfig, stack: int = 1):
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = cfg.n_heads, cfg.n_kv_heads
     return {
-        "wq": ParamSpec((d, nq * hd), ref_shape=(stack, d, nq, hd)),
-        "wk": ParamSpec((d, nkv * hd), ref_shape=(stack, d, nkv, hd)),
-        "wv": ParamSpec((d, nkv * hd), ref_shape=(stack, d, nkv, hd)),
-        "wo": ParamSpec((nq * hd, d), ref_shape=(stack, nq, hd, d)),
+        "wq": ParamSpec((d, nq * hd), ref_shape=(stack, d, nq, hd),
+                        axes=("embed", ("heads", "head_dim"))),
+        "wk": ParamSpec((d, nkv * hd), ref_shape=(stack, d, nkv, hd),
+                        axes=("embed", ("kv_heads", "kv_head_dim"))),
+        "wv": ParamSpec((d, nkv * hd), ref_shape=(stack, d, nkv, hd),
+                        axes=("embed", ("kv_heads", "kv_head_dim"))),
+        "wo": ParamSpec((nq * hd, d), ref_shape=(stack, nq, hd, d),
+                        axes=(("heads", "head_dim"), "embed")),
     }
 
 

@@ -178,6 +178,29 @@ def stack_cache_zeros(cfg: ModelConfig, batch: int, max_len: int, dtype,
             for _ in range(ng)]
 
 
+def stack_cache_abstract(cfg: ModelConfig, batch: int, max_len: int, dtype):
+    """``stack_cache_zeros`` on the ``meta`` device: the decode cache's
+    shapes and types with nothing allocated (the dry run's counterpart
+    of the reference's ``ShapeDtypeStruct`` cache)."""
+    return stack_cache_zeros(cfg, batch, max_len, dtype, device="meta")
+
+
+def stack_cache_axes(cfg: ModelConfig):
+    """The reference's logical axes of each cache buffer, in the port's
+    per-group layout (no ``"layer"`` axis; a KV cache's position is a
+    host ``int`` and has none)."""
+    _, ng, plan = _layer_plan(cfg)
+
+    def one(kind):
+        if kind == "attn":
+            kv = ("batch", "len", "kv_heads", "kv_head_dim")
+            return attention.KVCache(k=kv, v=kv)
+        return ssm.SSMCache(conv=("batch", None, "inner"),
+                            state=("batch", "ssm_heads", None, None))
+    return [{f"l{i}": one(kind) for i, (kind, _) in enumerate(plan)}
+            for _ in range(ng)]
+
+
 def stack_decode(params, x, cfg: ModelConfig, cache, window: int = 0):
     """One-token decode through the stack, x [B, 1, d].  Returns
     ``(hidden, cache, aux)``; every layer's cache is updated in place and

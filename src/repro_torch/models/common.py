@@ -10,22 +10,56 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch import device as device_lib
 
 
+# one dimension's logical axis: a name, None, or, for a dimension that
+# merges several of the reference's (``[d, H·hd]`` for ``[d, H, hd]``),
+# the tuple of their names in order
+Axis = Union[None, str, Tuple[Optional[str], ...]]
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """One leaf: its shape in the port, how it is drawn, and the shape
-    of the same leaf in the reference's (layer-stacked) tree, which the
-    fan-in rule reads."""
+    """One leaf: its shape in the port, how it is drawn, the shape of the
+    same leaf in the reference's (layer-stacked) tree, which the fan-in
+    rule reads, and the reference's logical axis of each dimension of
+    the port's leaf (``axes``; the reference's ``"layer"`` axis has no
+    dimension here, as the port keeps per-group leaves).  The sharding
+    rules read the axes (``sharding.partitioning``)."""
     shape: Tuple[int, ...]
     init: str = "normal"                     # normal | zeros | ones | embed
     ref_shape: Optional[Tuple[int, ...]] = None
     scale: Optional[float] = None            # stddev override
+    axes: Tuple[Axis, ...] = ()
+
+    def __post_init__(self):
+        if len(self.axes) != len(self.shape):
+            raise ValueError(f"ParamSpec {self.shape}: axes {self.axes}")
+
+    def components(self) -> Tuple[Tuple[Tuple[Optional[str], int], ...],
+                                  ...]:
+        """Per dimension, its ``(logical axis, size)`` components: one for
+        a plain dimension; for a merged one, the reference's dimensions
+        it holds, their sizes the trailing entries of ``ref_shape``."""
+        flat = [a for ax in self.axes
+                for a in (ax if isinstance(ax, tuple) else (ax,))]
+        sizes = (self.ref_shape[len(self.ref_shape) - len(flat):]
+                 if len(flat) > len(self.shape) else self.shape)
+        out, i = [], 0
+        for dim, ax in zip(self.shape, self.axes, strict=True):
+            names = ax if isinstance(ax, tuple) else (ax,)
+            comp = tuple(zip(names, sizes[i:i + len(names)], strict=True))
+            if math.prod(n for _, n in comp) != dim:
+                raise ValueError(f"ParamSpec {self.shape}: axes "
+                                 f"{self.axes} against {self.ref_shape}")
+            out.append(comp)
+            i += len(names)
+        return tuple(out)
 
     def std(self) -> float:
         """The reference's rules: an explicit ``scale`` wins; ``embed``
@@ -45,10 +79,11 @@ class ParamSpec:
         return 1.0 / math.sqrt(fan_in)
 
 
-def dense_specs(d_in: int, d_out: int, use_bias: bool = False):
-    s = {"kernel": ParamSpec((d_in, d_out))}
+def dense_specs(d_in: int, d_out: int, in_ax: Optional[str] = None,
+                out_ax: Optional[str] = None, use_bias: bool = False):
+    s = {"kernel": ParamSpec((d_in, d_out), axes=(in_ax, out_ax))}
     if use_bias:
-        s["bias"] = ParamSpec((d_out,), init="zeros")
+        s["bias"] = ParamSpec((d_out,), init="zeros", axes=(out_ax,))
     return s
 
 
@@ -69,6 +104,14 @@ def init_params(specs, seed: int = 0, dtype=torch.float32, device=None):
         return x.mul_(spec.std()).to(dtype)     # one float32 buffer a leaf
 
     return map_specs(draw, specs)
+
+
+def abstract_params(specs, dtype=torch.bfloat16):
+    """Spec tree -> tensors on the ``meta`` device: every leaf's shape
+    in ``dtype``, nothing allocated (the dry run's counterpart of the
+    reference's ``ShapeDtypeStruct`` parameters)."""
+    return map_specs(lambda s: torch.empty(s.shape, dtype=dtype,
+                                           device="meta"), specs)
 
 
 def map_specs(fn, tree):
@@ -110,7 +153,7 @@ def dense(params, x: torch.Tensor) -> torch.Tensor:
 
 
 def rmsnorm_specs(d: int):
-    return {"scale": ParamSpec((d,), init="ones")}
+    return {"scale": ParamSpec((d,), init="ones", axes=(None,))}
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -155,7 +198,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def embed_specs(vocab: int, d: int):
-    return {"embedding": ParamSpec((vocab, d), init="embed")}
+    return {"embedding": ParamSpec((vocab, d), init="embed",
+                                   axes=("vocab", "embed"))}
 
 
 def embed(params, tokens: torch.Tensor) -> torch.Tensor:

@@ -79,19 +79,24 @@ def unpatchify(tokens: torch.Tensor, h: int, w: int, p: int,
 def _attn_specs(d: int, n_heads: int, stack: int):
     hd = d // n_heads
     return {
-        "wq": ParamSpec((d, d), ref_shape=(stack, d, n_heads, hd)),
-        "wk": ParamSpec((d, d), ref_shape=(stack, d, n_heads, hd)),
-        "wv": ParamSpec((d, d), ref_shape=(stack, d, n_heads, hd)),
-        "wo": ParamSpec((d, d), ref_shape=(stack, n_heads, hd, d)),
-        "q_norm": ParamSpec((hd,), init="ones"),
-        "k_norm": ParamSpec((hd,), init="ones"),
+        "wq": ParamSpec((d, d), ref_shape=(stack, d, n_heads, hd),
+                        axes=("embed", ("heads", "head_dim"))),
+        "wk": ParamSpec((d, d), ref_shape=(stack, d, n_heads, hd),
+                        axes=("embed", ("heads", "head_dim"))),
+        "wv": ParamSpec((d, d), ref_shape=(stack, d, n_heads, hd),
+                        axes=("embed", ("heads", "head_dim"))),
+        "wo": ParamSpec((d, d), ref_shape=(stack, n_heads, hd, d),
+                        axes=(("heads", "head_dim"), "embed")),
+        "q_norm": ParamSpec((hd,), init="ones", axes=(None,)),
+        "k_norm": ParamSpec((hd,), init="ones", axes=(None,)),
     }
 
 
 def _mod_specs(d: int, n: int):
     """AdaLN-zero modulation: zero-initialised, as in the reference."""
-    return {"kernel": ParamSpec((d, n * d), init="zeros"),
-            "bias": ParamSpec((n * d,), init="zeros")}
+    return {"kernel": ParamSpec((d, n * d), init="zeros",
+                                axes=("embed", None)),
+            "bias": ParamSpec((n * d,), init="zeros", axes=(None,))}
 
 
 def single_block_specs(cfg: DiTConfig, stack: int):
@@ -99,30 +104,35 @@ def single_block_specs(cfg: DiTConfig, stack: int):
     return {"mod": _mod_specs(d, 6),
             "attn": _attn_specs(d, cfg.n_heads, stack),
             "mlp": {"wi": ParamSpec((d, cfg.d_ff),
-                                    ref_shape=(stack, d, cfg.d_ff)),
+                                    ref_shape=(stack, d, cfg.d_ff),
+                                    axes=("embed", "ffn")),
                     "wo": ParamSpec((cfg.d_ff, d),
-                                    ref_shape=(stack, cfg.d_ff, d))}}
+                                    ref_shape=(stack, cfg.d_ff, d),
+                                    axes=("ffn", "embed"))}}
 
 
 def dit_specs(cfg: DiTConfig):
     pdim = cfg.patch_size * cfg.patch_size * cfg.in_channels
     d = cfg.d_model
     s = {
-        "patch_proj": common.dense_specs(pdim, d, use_bias=True),
-        "time_mlp1": common.dense_specs(cfg.time_embed_dim, d,
-                                        use_bias=True),
-        "time_mlp2": common.dense_specs(d, d, use_bias=True),
+        "patch_proj": common.dense_specs(pdim, d, None, "embed",
+                                         use_bias=True),
+        "time_mlp1": common.dense_specs(cfg.time_embed_dim, d, None,
+                                        "embed", use_bias=True),
+        "time_mlp2": common.dense_specs(d, d, "embed", None, use_bias=True),
         "single": [single_block_specs(cfg, cfg.n_layers)
                    for _ in range(cfg.n_layers)],
         "final_mod": _mod_specs(d, 2),
-        "final_proj": ParamSpec((d, pdim), init="zeros"),
+        "final_proj": ParamSpec((d, pdim), init="zeros",
+                                axes=("embed", None)),
     }
     if cfg.n_double > 0:
         s["double"] = [{"img": single_block_specs(cfg, cfg.n_double),
                         "txt": single_block_specs(cfg, cfg.n_double)}
                        for _ in range(cfg.n_double)]
     if cfg.text_dim > 0:
-        s["text_proj"] = common.dense_specs(cfg.text_dim, d, use_bias=True)
+        s["text_proj"] = common.dense_specs(cfg.text_dim, d, None, "embed",
+                                            use_bias=True)
     return s
 
 
@@ -277,14 +287,16 @@ def backbone_denoiser_specs(cfg: ModelConfig, patch_size: int = 2,
                             in_channels: int = 4, time_dim: int = 256):
     pdim = patch_size * patch_size * in_channels
     return {
-        "patch_proj": common.dense_specs(pdim, cfg.d_model, use_bias=True),
-        "time_mlp1": common.dense_specs(time_dim, cfg.d_model,
-                                        use_bias=True),
-        "time_mlp2": common.dense_specs(cfg.d_model, cfg.d_model,
-                                        use_bias=True),
+        "patch_proj": common.dense_specs(pdim, cfg.d_model, None, "embed",
+                                         use_bias=True),
+        "time_mlp1": common.dense_specs(time_dim, cfg.d_model, None,
+                                        "embed", use_bias=True),
+        "time_mlp2": common.dense_specs(cfg.d_model, cfg.d_model, "embed",
+                                        None, use_bias=True),
         "stack": blocks.stack_specs(cfg),
         "final_norm": common.rmsnorm_specs(cfg.d_model),
-        "final_proj": ParamSpec((cfg.d_model, pdim), init="zeros"),
+        "final_proj": ParamSpec((cfg.d_model, pdim), init="zeros",
+                                axes=("embed", None)),
     }
 
 

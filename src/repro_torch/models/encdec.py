@@ -49,7 +49,7 @@ def encdec_specs(cfg: ModelConfig):
     leaves draw at 1/sqrt(stack depth))."""
     d = cfg.d_model
     return {
-        "enc_proj": common.dense_specs(d, d),
+        "enc_proj": common.dense_specs(d, d, "embed", None),
         "encoder": [blocks.block_specs(cfg, "attn", False, cfg.n_enc_layers)
                     for _ in range(cfg.n_enc_layers)],
         "enc_norm": common.rmsnorm_specs(d),
@@ -57,7 +57,8 @@ def encdec_specs(cfg: ModelConfig):
         "decoder": [_dec_block_specs(cfg, cfg.n_layers)
                     for _ in range(cfg.n_layers)],
         "final_norm": common.rmsnorm_specs(d),
-        "head": {"kernel": ParamSpec((d, cfg.vocab_size), scale=0.02)},
+        "head": {"kernel": ParamSpec((d, cfg.vocab_size), scale=0.02,
+                                     axes=("embed", "vocab"))},
     }
 
 
@@ -152,6 +153,13 @@ def decode_cache_zeros(cfg: ModelConfig, batch: int, max_len: int, dtype,
     return [attention.KVCache.zeros(batch, max_len, cfg.n_kv_heads,
                                     cfg.head_dim, dtype, device)
             for _ in range(cfg.n_layers)]
+
+
+def decode_cache_abstract(cfg: ModelConfig, batch: int, max_len: int,
+                          dtype):
+    """``decode_cache_zeros`` on the ``meta`` device (the dry run's
+    cache: shapes and types, nothing allocated)."""
+    return decode_cache_zeros(cfg, batch, max_len, dtype, device="meta")
 
 
 def decode_step(params, tokens: torch.Tensor, memory: torch.Tensor, cache,

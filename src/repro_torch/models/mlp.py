@@ -11,9 +11,12 @@ from repro_torch.models.common import ParamSpec
 def mlp_specs(cfg: ModelConfig, stack: int = 1):
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "wi_gate": ParamSpec((d, f), ref_shape=(stack, d, f)),
-        "wi_up": ParamSpec((d, f), ref_shape=(stack, d, f)),
-        "wo": ParamSpec((f, d), ref_shape=(stack, f, d)),
+        "wi_gate": ParamSpec((d, f), ref_shape=(stack, d, f),
+                             axes=("embed", "ffn")),
+        "wi_up": ParamSpec((d, f), ref_shape=(stack, d, f),
+                           axes=("embed", "ffn")),
+        "wo": ParamSpec((f, d), ref_shape=(stack, f, d),
+                        axes=("ffn", "embed")),
     }
 
 

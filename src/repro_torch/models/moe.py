@@ -46,10 +46,14 @@ def moe_specs(cfg: ModelConfig, stack: int = 1):
     so they draw with std 1/sqrt(stack)."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.e_total
     return {
-        "router": ParamSpec((d, e), ref_shape=(stack, d, e), scale=0.02),
-        "wi_gate": ParamSpec((e, d, f), ref_shape=(stack, e, d, f)),
-        "wi_up": ParamSpec((e, d, f), ref_shape=(stack, e, d, f)),
-        "wo": ParamSpec((e, f, d), ref_shape=(stack, e, f, d)),
+        "router": ParamSpec((d, e), ref_shape=(stack, d, e), scale=0.02,
+                            axes=("embed", "expert")),
+        "wi_gate": ParamSpec((e, d, f), ref_shape=(stack, e, d, f),
+                             axes=("expert", "embed", "ffn")),
+        "wi_up": ParamSpec((e, d, f), ref_shape=(stack, e, d, f),
+                           axes=("expert", "embed", "ffn")),
+        "wo": ParamSpec((e, f, d), ref_shape=(stack, e, f, d),
+                        axes=("expert", "ffn", "embed")),
     }
 
 

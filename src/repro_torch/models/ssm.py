@@ -43,14 +43,17 @@ def ssm_specs(cfg: ModelConfig, stack: int = 1):
     width = 2 * d_inner + 2 * ssm.d_state + n_heads
     return {
         # projects to [z (gate), x, B, C, dt]
-        "in_proj": ParamSpec((d, width), ref_shape=(stack, d, width)),
-        "conv_kernel": ParamSpec((ssm.conv_width, conv_dim), scale=0.1),
-        "conv_bias": ParamSpec((conv_dim,), init="zeros"),
-        "A_log": ParamSpec((n_heads,), init="zeros"),
-        "dt_bias": ParamSpec((n_heads,), init="zeros"),
-        "D": ParamSpec((n_heads,), init="ones"),
-        "norm_scale": ParamSpec((d_inner,), init="ones"),
-        "out_proj": ParamSpec((d_inner, d), ref_shape=(stack, d_inner, d)),
+        "in_proj": ParamSpec((d, width), ref_shape=(stack, d, width),
+                             axes=("embed", "inner")),
+        "conv_kernel": ParamSpec((ssm.conv_width, conv_dim), scale=0.1,
+                                 axes=(None, "inner")),
+        "conv_bias": ParamSpec((conv_dim,), init="zeros", axes=("inner",)),
+        "A_log": ParamSpec((n_heads,), init="zeros", axes=("ssm_heads",)),
+        "dt_bias": ParamSpec((n_heads,), init="zeros", axes=("ssm_heads",)),
+        "D": ParamSpec((n_heads,), init="ones", axes=("ssm_heads",)),
+        "norm_scale": ParamSpec((d_inner,), init="ones", axes=("inner",)),
+        "out_proj": ParamSpec((d_inner, d), ref_shape=(stack, d_inner, d),
+                              axes=("inner", "embed")),
     }
 
 

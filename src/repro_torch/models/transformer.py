@@ -43,10 +43,11 @@ def lm_specs(cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         s["head"] = {"kernel": ParamSpec((cfg.d_model, cfg.vocab_size),
-                                         scale=0.02)}
+                                         scale=0.02, axes=("embed", "vocab"))}
     if cfg.n_prefix_tokens > 0:
         # projection of the (stubbed) modality frontend's embeddings
-        s["prefix_proj"] = common.dense_specs(cfg.d_model, cfg.d_model)
+        s["prefix_proj"] = common.dense_specs(cfg.d_model, cfg.d_model,
+                                              "embed", None)
     return s
 
 

@@ -61,10 +61,16 @@ def test_every_port_module_imports_without_a_card():
     "repro_torch.configs.granite_moe_3b", "repro_torch.configs.phi35_moe_42b",
     "repro_torch.configs.deepseek_coder_33b",
     "repro_torch.configs.llama3_405b",
-    "repro_torch.configs.command_r_plus_104b"])
+    "repro_torch.configs.command_r_plus_104b",
+    "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+    "repro_torch.sharding.partitioning", "repro_torch.roofline.analysis",
+    "repro_torch.roofline.op_analysis", "repro_torch.kernels.meta",
+    "repro_torch.analysis.core", "repro_torch.analysis.locks",
+    "repro_torch.analysis.recompile", "repro_torch.analysis.__main__"])
 def test_assigned_backbone_modules_are_walked(name):
-    """The third, seventh, eighth, tenth, eleventh, thirteenth and
-    fourteenth slices' modules are among the files walked above."""
+    """The third, seventh, eighth, tenth, eleventh, thirteenth,
+    fourteenth and sixteenth slices' modules are among the files walked
+    above."""
     walked = {".".join(p.relative_to(REPO / "src").with_suffix("").parts)
               for p in FILES if p.is_relative_to(REPO / "src")}
     assert name in walked
@@ -113,3 +119,25 @@ def test_decode_path_imports_without_jax_or_repro():
                          capture_output=True, text=True, timeout=120,
                          env={"PYTHONPATH": str(REPO / "src")})
     assert out.stdout.strip() == "[]"
+
+
+def test_dry_run_and_linter_import_without_jax_or_repro():
+    """The dry run, the counter, the rules and the linter import in a
+    fresh interpreter that then holds no ``jax`` or ``repro`` module;
+    the linter alone pulls in no torch either."""
+    import subprocess
+    import sys
+    code = (
+        "import sys\n"
+        "import repro_torch.analysis.__main__, repro_torch.analysis.locks\n"
+        "heavy = sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('torch', 'jax', 'repro'))\n"
+        "from repro_torch.launch import dryrun, mesh\n"
+        "from repro_torch.roofline import analysis, op_analysis\n"
+        "from repro_torch.sharding import partitioning\n"
+        "print(heavy, sorted(m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True, timeout=120,
+                         env={"PYTHONPATH": str(REPO / "src")})
+    assert out.stdout.strip() == "[] []"

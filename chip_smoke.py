@@ -4,7 +4,7 @@
 Phases, each of which raises (and so exits non-zero) on failure:
 
 1. device    — card name, power limit and compute capability (9, 0);
-2. build     — nvcc builds the eight kernel libraries from ``csrc/`` in
+2. build     — nvcc builds the nine kernel libraries from ``csrc/`` in
                parallel;
                the SASS of the two flash libraries (forward and
                backward) must hold wgmma (HGMMA) and TMA loads
@@ -14,6 +14,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
                the SASS of token_basis_matmul, ssd_scan, ssd_scan_bwd,
                band_split_spectral and freqca_fused_spectral must hold
                mma.sync (HMMA), with no spills in any of their kernels;
+               the SASS of flash_attention_f32 (float32 at head width
+               16) must hold FFMA and no HMMA or HGMMA, with no spills;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer; the FreqCa cache
@@ -30,6 +32,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
                tolerance, two launches bitwise equal, each launch timed
                apart; kernels 6 and 8 at one jamba-1.5-large layer
                (heads of 128, run as two heads of 64), bf16 and float32;
+               kernels 3 and 7 in float32 at head width 16 (dit-small's
+               8 heads at S 4096, 1024 on batch 16, and the ragged 1600):
+               the forward with and without its log-sum-exp, the
+               backward against a float64 oracle, two backward launches
+               bitwise equal, a TF32 control of the plain version that
+               must miss each tolerance;
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
                versions), and so does a mixed batch of a FreqCa and a
@@ -79,9 +87,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                peak memory, bound and attention / SSM share; one step
                card against CPU at 2 layers (bf16, float32); ``LMEngine``
                prefill against ``transformer.forward`` (yi-9b cut to 4
-               layers on 2048 tokens, flash; mamba2-370m on 512, the SSD
-               scan; bf16, each also against the float32 forward, and
-               float32, mamba2 cut to 8 layers) and 16 greedy tokens
+               layers on 2048 tokens, flash; mamba2-370m cut to 16 on
+               512, the SSD scan; bf16, each also against the float32
+               forward, and float32, mamba2 cut to 8) and 16 greedy tokens
                against the teacher-forced forward;
 11. train    — ``launch.train.train_dit`` at full flux1-dev width (16
                single blocks, 2.7 B parameters) for 4 steps on two 1024²
@@ -150,7 +158,18 @@ Phases, each of which raises (and so exits non-zero) on failure:
                more, six more timed; then the same engine in this
                process serves the same requests: 6 full steps each,
                latents bitwise at the same bucket, kernels 1-3 launched;
-20. dryrun   — first, ``launch.dryrun --all`` on the 16 x 16 mesh in
+20. dit_small — dit-small at full width (8 layers, 8 heads of 16,
+               float32) where its attention reaches the float32 hd-16
+               kernels: ``launch.serve.main`` on the card with the shape
+               ladder 32, 64, 128 (six requests; full steps and latents
+               against the same FreqCa stream on the CPU; kernels 1-3
+               called at 64 and 128, flash never at 32), ``train_dit``
+               for 3 steps on batch 16 at latent 64 and 128, a training
+               step card against CPU at 64 and kernels against the plain
+               route at 128 (with a TF32 control), and the dry run's
+               dit-small step at latent 128 against the card (``PHASES``
+               runs it after vlm, before launcher);
+21. dryrun   — first, ``launch.dryrun --all`` on the 16 x 16 mesh in
                this process (10 LM configs x 4 shapes and the two DiTs'
                full and cached steps on meta tensors, the CPU's work):
                one ``dryrun_row`` line each, failing on any failed
@@ -175,6 +194,7 @@ the phases named (``PHASES``), in their usual order.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import math
@@ -210,10 +230,11 @@ SLO_TIER_MARGIN = 0.05
 # path)
 SERVE_KERNELS = ("band_split_spectral", "freqca_predict_fused_spectral",
                  "flash_attention")
-# the rows of this run at the forms the jamba, encdec and vlm phases add
-# ({"<kernel>[<form>]": {dtype: numbers}}), for the kernels line
+# the rows of this run at the forms the jamba, encdec and vlm phases add,
+# and the float32 hd-16 rows ({"<kernel>[<form>]": {dtype: numbers}}),
+# for the kernels line
 FORM_ROWS = {}
-FORM_TAGS = ("jamba", "seamless", "llava")
+FORM_TAGS = ("jamba", "seamless", "llava", "f32_hd16")
 
 
 def log(msg: str) -> None:
@@ -565,6 +586,8 @@ def kernel_phase(main_dtype: dict) -> dict:
         ssd_jamba_rows(row, dt, dtype_name)
         if dtype_name == "bfloat16":
             flash_bwd_rows(row, gen)
+        else:
+            f32_hd16_rows(row)
     return rows
 
 
@@ -4870,7 +4893,8 @@ LAUNCHER_MODES = {"burst": [],
                   "replicas": ["--replicas", "2"]}
 
 
-def cache_kernel_checks(b: int, s: int, d: int, device: str) -> None:
+def cache_kernel_checks(b: int, s: int, d: int, device: str,
+                        label: str = "launcher") -> None:
     """Kernels 1 and 2 against their plain versions at the float32 CRF
     of a dit-small batch (``[b, s, d]``, rings of 3), the shapes the
     launcher's engines give them; not timed, not counted."""
@@ -4893,7 +4917,7 @@ def cache_kernel_checks(b: int, s: int, d: int, device: str) -> None:
         "freqca_predict_fused_spectral[dit-small]", "float32",
         freqca_fused.freqca_predict_fused_spectral(low, synth, hist, w),
         ref.freqca_predict_spectral_ref(low, synth, hist, w)))
-    log(f"launcher: kernels 1 and 2 at [{b}, {s}, {d}] float32 against "
+    log(f"{label}: kernels 1 and 2 at [{b}, {s}, {d}] float32 against "
         f"their plain versions: max rel err {errs[0][1]:.3e} / "
         f"{errs[1][1]:.3e} (tol {TOLERANCE['float32']:.0e})")
 
@@ -5523,10 +5547,560 @@ def _leaves(tree):
     return [tree]
 
 
+# the float32 hd-16 flash rows (kernels 3 and 7 at dit-small's joint
+# attention, 8 heads of 16): (label, B, S) at latent 128 (S 4096, the
+# kernels line's rows), latent 64 at batch 16 and latent 80 (S 1600,
+# off every tile of 128 rows)
+F32_HD16_ROWS = (("", 2, 4096), (" 16x1024", 16, 1024),
+                 (" 2x1600", 2, 1600))
+# the kernels line's entries of the float32 hd-16 library: (counter,
+# source, the TPU kernel or autodiff replaced)
+F32_HD16_KERNELS = {
+    "flash_attention[f32_hd16]": (
+        "flash_attention_f32",
+        "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
+        "src/repro/kernels/flash_attention.py:79"),
+    "flash_attention_bwd[f32_hd16]": (
+        "flash_attention_f32_bwd",
+        "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
+        "none: XLA autodiff of repro/models/dit.py:_joint_attention"),
+}
+
+
+def f32_build_checks() -> None:
+    """flash_attention_f32 computes in float32 on the FMA units: its SASS
+    holds FFMA and no HMMA or HGMMA (float32 must not reach the tensor
+    cores), and ptxas reports no spills in any of its kernels."""
+    code = sass("flash_attention_f32")
+    counts = {op: code.count(op) for op in ("FFMA", "HMMA", "HGMMA")}
+    spills = ptxas_spills("flash_attention_f32")
+    log(f"flash_attention_f32 SASS: {counts}; kernels {len(spills)}, spill "
+        f"bytes {sorted(set(spills.values()))}")
+    if counts["FFMA"] == 0 or counts["HMMA"] or counts["HGMMA"] \
+            or not spills or any(spills.values()):
+        raise AssertionError(f"flash_attention_f32 build: SASS {counts}, "
+                             f"spills {spills}")
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """Float32 matrix products on the TF32 tensor cores inside the block
+    (a control: the stated float32 tolerances must catch it)."""
+    import torch
+    was = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = was
+
+
+def max_rel(got, want) -> float:
+    """max |got − want| / max |want|, in float64."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max()).item()
+
+
+def f32_hd16_rows(row) -> None:
+    """Kernels 3 and 7 in float32 at head width 16 (``flash_attention_f32``;
+    non-causal MHA, 8 heads, at ``F32_HD16_ROWS``): the forward without
+    and with its log-sum-exp against ``ref.attention_ref`` /
+    ``attention_lse_ref`` (float32, TF32 off) at ``TOLERANCE``; the
+    backward against ``ref.attention_bwd_ref`` run in float64 from the
+    kernel's o and lse (the oracle), each gradient at ``TOLERANCE``, and
+    two backward launches bitwise equal.  The control: the plain version
+    with TF32 on must miss each of those tolerances (the forward's output,
+    each gradient against the oracle).  Bounds from ``fwd_work`` /
+    ``bwd_work`` at the float32 FMA peak; library: SDPA's float32
+    forward, and its backward (grad through SDPA less its forward), timed
+    only; each backward launch timed apart (``torch.profiler``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    tol = TOLERANCE["float32"]
+    h, hd = 8, 16
+    for label, b, s in F32_HD16_ROWS:
+        q, k, v, do = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+                       for _ in range(4))
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(*leaves)
+        t_sf = time_ms(sdpa, 5)
+        t_sb = time_ms(lambda: torch.autograd.grad(
+            sdpa(), leaves, do.transpose(1, 2)), 5) - t_sf
+        for lse in (False, True):
+            work, nb = fa.fwd_work(b, s, s, h, h, hd, "float32", lse=lse)
+            plain = ((lambda: ref.attention_lse_ref(q, k, v)) if lse
+                     else (lambda: ref.attention_ref(q, k, v)))
+            row(f"flash_attention[f32_hd16{' lse' if lse else ''}{label}]",
+                "float32",
+                lambda lse=lse: fa.flash_attention(q, k, v, return_lse=lse),
+                plain, nb, work["float32"], library_ms=t_sf)
+        want = ref.attention_ref(q, k, v)
+        with tf32_on():
+            control = [max_rel(ref.attention_ref(q, k, v), want)]
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+
+        def kern():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do)
+        got, again = kern(), kern()
+        same = all(torch.equal(a, c) for a, c in zip(got, again,
+                                                     strict=True))
+        # float64 inputs: the plain version computes in float64
+        oracle = ref.attention_bwd_ref(
+            *(x.double() for x in (q, k, v, o, lse, do)))
+        rels = [max_rel(a, w) for a, w in zip(got, oracle, strict=True)]
+        err = max((a.double() - w).abs().max().item()
+                  for a, w in zip(got, oracle, strict=True))
+        with tf32_on():
+            control += [max_rel(a, w) for a, w in zip(
+                ref.attention_bwd_ref(q, k, v, o, lse, do), oracle,
+                strict=True)]
+        log(f"kernel flash_attention_bwd[f32_hd16{label}] [float32] "
+            f"against the float64 oracle: max_rel_err dq={rels[0]:.3e} "
+            f"dk={rels[1]:.3e} dv={rels[2]:.3e} (tol {tol:.0e}); two "
+            f"launches bitwise equal: {same}; the TF32 control's max rel "
+            f"err (out; dq, dk, dv) "
+            + ", ".join(f"{c:.3e}" for c in control)
+            + f" (each must exceed {tol:.0e}); SDPA forward {t_sf:.4f} ms, "
+              f"backward {t_sb:.4f} ms")
+        if not same or max(rels) > tol or min(control) <= tol \
+                or not all(bool(torch.isfinite(a).all()) for a in got):
+            raise AssertionError(f"flash_attention_bwd[f32_hd16{label}]: "
+                                 f"rel errs {rels}, bitwise {same}, TF32 "
+                                 f"control {control}")
+        del got, again, oracle, want
+        work, nb = fa.bwd_work(b, s, s, h, h, hd, dtype_name="float32")
+        row(f"flash_attention_bwd[f32_hd16{label}]", "float32", kern,
+            lambda: ref.attention_bwd_ref(q, k, v, o, lse, do), nb,
+            work["float32"], library_ms=t_sb, checked=(err, max(rels)))
+        parts = sorted(device_ms(kern, 5).items())
+        log(f"kernel flash_attention_bwd[f32_hd16{label}] per launch "
+            "(torch.profiler, 5 calls): "
+            + "; ".join(f"{n} {ms:.4f} ms" for n, (ms, _) in parts))
+        del q, k, v, do, o, lse, leaves
+        torch.cuda.empty_cache()
+
+
+# the dit_small phase: dit-small at its full width (8 layers, d 128, 8
+# heads of 16, float32) at the sizes whose joint attention reaches
+# flash (latent 64: S 1024; 128: S 4096), beside the served 32 (S 256)
+DIT_SMALL_SERVE_ARGS = ["--requests", "6", "--steps", "6", "--train-steps",
+                        "4", "--batch", "2", "--sizes", "32,64,128"]
+DIT_SMALL_TRAIN_STEPS = 3
+DIT_SMALL_TRAIN_BATCH = 16
+# the served stream's first five requests (every size and kind in it:
+# generations at 32, 64 and 128, an edit at 64) are served again on the
+# CPU and by the two controls on the card; its sixth, a second
+# generation at 128, would add ~16 s of CPU
+DIT_SMALL_ORACLE_REQUESTS = 5
+# card against CPU, and the kernel route against the plain route on the
+# card: float32 on both sides with TF32 off, so they differ by the order
+# of float32 sums (and the kernels' ex2.approx, 2^-22 relative) through
+# 8 layers, forward and back: ~1e-6 relative per attention call; the
+# served latents over 6 steps on redrawn weights read 7.9e-7 to 1.9e-6
+# relative L2 (the edit the most), and the limit is 2.7x the worst
+DIT_SMALL_TOL = {"loss": 1e-5, "grad": 1e-4, "latents": 5e-6}
+# the serve check's attention control: q scaled by 1 + this before the
+# kernel, a softmax temperature off by 1e-3 (a wrong kernel), which the
+# latents' limit must catch at every size that reaches flash (1e-4 read
+# 5.3e-6 to 7.1e-6: too near the card-vs-CPU reading to tell apart)
+DIT_SMALL_PERTURB = 1e-3
+
+
+def _by_size(tokens: list, patch: int = 2) -> dict:
+    """{latent size: calls} from the token counts of op-layer calls."""
+    out = {}
+    for s in tokens:
+        size = int(math.isqrt(s)) * patch
+        out[size] = out.get(size, 0) + 1
+    return out
+
+
+def dit_small_serve(params, argv, device: str, n_requests: int) -> list:
+    """The FreqCa engine of ``launch.serve.main(argv)`` on ``device`` with
+    ``params``, serving the first ``n_requests`` of its stream (a request
+    is drawn from its id alone): the same policy, ladder and engine
+    settings, no warmup and no uncached run; returns the outputs by
+    request id."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.serving.engine import DiffusionEngine
+    args = serve.build_parser().parse_args(argv)
+    cfg = configs.get_config("dit-small")
+    size = 32
+    shapes = serve.shape_ladder(cfg, serve._parse_sizes(args, size))
+    full_fn, from_crf_fn = serve.dit_fns(params, cfg)
+    pol = serve._default_policy(args)
+    eng = DiffusionEngine(full_fn, from_crf_fn, (size, size, cfg.in_channels),
+                          ((size // cfg.patch_size) ** 2, cfg.d_model), pol,
+                          n_steps=args.steps, max_batch=args.batch,
+                          max_wait_s=args.max_wait, shapes=shapes,
+                          device=device)
+    bursts = serve.mixed_stream(n_requests, size, cfg.in_channels,
+                                edit_every=args.edit_every, shapes=shapes)
+    outs, _ = serve.serve_stream(eng, bursts)
+    return sorted(outs, key=lambda o: o.request_id)
+
+
+def dit_small_step(params, cfg, latents, t, noise):
+    """One ``rf_loss`` gradient of dit-small: ``(loss, {path: grad})``."""
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.diffusion import training
+    from repro_torch.models import dit
+    from repro_torch.optim import adamw
+    loss, _ = training.rf_loss(
+        lambda p, x, tt: dit.dit_forward(p, x, tt, cfg).velocity, params,
+        {"latents": latents}, t=t, noise=noise)
+    loss.backward()
+    grads = adamw.tree_map(lambda p: p.grad, params)
+    return loss.item(), {k: g.detach().cpu() for k, g in
+                         checkpoint._flatten_with_paths(grads).items()}
+
+
+def dit_small_reference(devices=("cpu", "cuda"), size: int = 64,
+                        oracle_size: int = 128, batch: int = 2) -> dict:
+    """One dit-small training step (``rf_loss`` gradient) at latent
+    ``size`` on ``devices[1]`` (the flash kernels in every layer) against
+    the same step on ``devices[0]`` (the plain attention), then at latent
+    ``oracle_size`` on ``devices[1]`` against the same step there through
+    the plain route (``dit._attention`` patched to ``ref.attention_ref``,
+    a test-side oracle: the CPU's [B, 8, S, S] logits would take minutes
+    at S 4096): the loss and every gradient leaf at ``DIT_SMALL_TOL``.
+    The zero-initialised leaves are redrawn (``redraw_zero_leaves``), so
+    every leaf has a gradient.  The first comparison runs again with TF32
+    on as a control: its worst gradient leaf must miss the tolerance (its
+    loss is logged: TF32 moved it 7e-6 in my run, inside 1e-5).  Returns
+    the launch counts of the kernel runs by size."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import dit
+    from repro_torch.optim import adamw
+    cfg = configs.get_config("dit-small")
+    params0 = dit.init_params(cfg, seed=80, device="cpu")
+    redraw_zero_leaves(params0, seed=81)
+    gen = torch.Generator().manual_seed(82)
+
+    def inputs(side):
+        lat = synthetic.shapes_batch(gen, batch, size=side,
+                                     channels=cfg.in_channels)
+        return (lat, torch.sigmoid(torch.randn((batch,), generator=gen)),
+                torch.randn(lat.shape, generator=gen))
+
+    def run(dev, drawn, plain=False):
+        params = adamw.tree_map(
+            lambda p: p.to(dev, copy=True).requires_grad_(True), params0)
+        ops.reset_launch_counts()
+        with (mock.patch.object(dit, "_attention", ref.attention_ref)
+              if plain else contextlib.nullcontext()):
+            out = dit_small_step(params, cfg, *(x.to(dev) for x in drawn))
+        return out, ops.launch_counts()
+
+    def held(label, got, want):
+        (l_got, g_got), (l_want, g_want) = got, want
+        loss_rel = abs(l_got - l_want) / abs(l_want)
+        rels = {k: rel_l2(g_got[k], g_want[k]) for k in g_want}
+        worst = max(rels, key=rels.get)
+        zero = [k for k, g in g_got.items() if not bool(g.any())]
+        log(f"dit_small reference {label}: loss {l_got:.7f} / {l_want:.7f} "
+            f"(rel {loss_rel:.2e}, tol {DIT_SMALL_TOL['loss']:.0e}); worst "
+            f"gradient leaf rel L2 {rels[worst]:.2e} ({worst}; tol "
+            f"{DIT_SMALL_TOL['grad']:.0e}) over {len(rels)} leaves; zero "
+            f"leaves {zero}")
+        return (loss_rel <= DIT_SMALL_TOL["loss"]
+                and rels[worst] <= DIT_SMALL_TOL["grad"] and not zero
+                and sorted(g_got) == sorted(g_want)
+                and all(bool(torch.isfinite(g).all())
+                        for g in g_got.values()))
+    n_s = (size // cfg.patch_size) ** 2
+    drawn = inputs(size)
+    want, _ = run(devices[0], drawn)
+    got, counts = run(devices[1], drawn)
+    ok = held(f"S {n_s} {devices[1]} vs {devices[0]}", got, want)
+    by_size = {f"dit_small_reference_{size}": counts}
+    on_card = torch.device(devices[1]).type == "cuda"
+    control_rel = None
+    if on_card:
+        with tf32_on():
+            control, _ = run(devices[1], drawn)
+        held("TF32 control", control, want)
+        control_rel = max(rel_l2(control[1][k], want[1][k]) for k in want[1])
+    n_o = (oracle_size // cfg.patch_size) ** 2
+    drawn = inputs(oracle_size)
+    want, plain_counts = run(devices[1], drawn, plain=True)
+    got, counts = run(devices[1], drawn)
+    ok_o = held(f"S {n_o} {devices[1]} kernels vs plain route", got, want)
+    by_size[f"dit_small_reference_{oracle_size}"] = counts
+    want_counts = {"flash_attention_f32": cfg.n_layers,
+                   "flash_attention_f32_bwd": cfg.n_layers}
+    if (on_card and any(c != {k: want_counts.get(k, 0) for k in c}
+                        for c in by_size.values())) \
+            or any(plain_counts.values()):
+        raise AssertionError(f"dit_small reference: launches {by_size}, "
+                             f"the plain route's {plain_counts}")
+    if not (ok and ok_o) or (control_rel is not None
+                             and control_rel <= DIT_SMALL_TOL["grad"]):
+        raise AssertionError(f"dit_small reference: the steps disagree, or "
+                             f"the TF32 control ({control_rel}) does not")
+    return by_size
+
+
+def dit_small_phase(device: str = "cuda", serve_args=None,
+                    train_sizes=(64, 128), steps: int = DIT_SMALL_TRAIN_STEPS,
+                    batch: int = DIT_SMALL_TRAIN_BATCH) -> dict:
+    """dit-small at full width where its joint attention reaches the
+    float32 hd-16 flash kernels (``flash_attention_f32``):
+    - kernels 1 and 2 against their plain versions at the float32 CRF of
+      a batch at each ladder size (``cache_kernel_checks``);
+    - serve: ``launch.serve.main(DIT_SMALL_SERVE_ARGS)`` on the card (a
+      shape ladder of latent 32, 64 and 128, six requests in turn, every
+      fifth an edit, FreqCa interval 5 and the uncached engine), its
+      trained weights' AdaLN-zero leaves redrawn (``redraw_zero_leaves``:
+      four AdamW steps leave them ~1e-4, and the velocity would barely
+      read the attention): every request answered once with finite
+      latents of its size; the first ``DIT_SMALL_ORACLE_REQUESTS``
+      served again through the same FreqCa engine on the CPU on the same
+      weights (``dit_small_serve``, in a thread beside the card's work
+      below): full steps equal and latents within ``DIT_SMALL_TOL``
+      relative L2; two controls on the card, the same requests with TF32
+      on and with the kernel's q scaled by ``1 + DIT_SMALL_PERTURB``,
+      must each miss that tolerance on every request they change; the
+      op layer's calls of the new forward and of kernels 1 and 2 (spied
+      by token count) are > 0 at latent 64 and 128 and add up to each
+      kernel's launches, and flash is not called at 32;
+    - train: ``launch.train.train_dit`` for ``steps`` steps on batch
+      ``batch`` at latent 64 and at 128: finite losses, every leaf's
+      gradient finite and non-zero on step 0 (zero leaves redrawn), one
+      forward and one backward launch of the new kernels a layer a step;
+    - ``dit_small_reference``: a step at latent 64 card against CPU, and
+      at 128 kernels against the plain route on the card;
+    - the dry run's dit-small full step at latent 128
+      (``dryrun.DIT_LATENT``) on the one-card mesh, batch 2, against the
+      card (``dryrun_card_row``).
+    Returns the launch counts by run.  (``device``, ``serve_args`` and
+    ``train_sizes`` let it be rehearsed small on the CPU: the launch and
+    dry-run checks then are skipped.)"""
+    import threading
+    from unittest import mock
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun, mesh, serve, train
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import dit
+    from repro_torch.optim import adamw
+    on_card = torch.device(device).type == "cuda"
+    cfg = configs.get_config("dit-small")
+    serve_args = list(serve_args or DIT_SMALL_SERVE_ARGS)
+    args = serve.build_parser().parse_args(serve_args)
+    sizes = serve._parse_sizes(args, 32)
+    by_phase = {}
+
+    if on_card:
+        for s_img in sorted({(sz // cfg.patch_size) ** 2 for sz in sizes}):
+            cache_kernel_checks(args.batch, s_img, cfg.d_model, device,
+                                "dit_small")
+    # serve on the card, the op layer's calls of the three kernels spied
+    # by token count: {op: (the kernel's counter, the token axis's arg)}
+    spied = {"flash": ("flash_attention_f32", lambda a: a[0].shape[1]),
+             "band_split_spectral": ("band_split_spectral",
+                                     lambda a: a[0].shape[1]),
+             "freqca_predict_spectral": ("freqca_predict_fused_spectral",
+                                         lambda a: a[2].shape[-2])}
+    seen = {op: [] for op in spied}
+
+    def spy(op, real):
+        def call(*a, **kw):
+            seen[op].append(spied[op][1](a))
+            return real(*a, **kw)
+        return call
+    real_train = serve.train_dit
+
+    def train_redrawn(*a, **kw):
+        params = real_train(*a, **kw)
+        with torch.no_grad():
+            redraw_zero_leaves(params, seed=89)
+        return params
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        for op in spied:
+            stack.enter_context(mock.patch.object(
+                ops, op, spy(op, getattr(ops, op))))
+        stack.enter_context(mock.patch.object(serve, "train_dit",
+                                              train_redrawn))
+        res = serve.main(serve_args + ["--device", device])
+    wall = time.perf_counter() - t0
+    counts = by_phase["dit_small_serve"] = ops.launch_counts()
+    at = {op: _by_size(v, cfg.patch_size) for op, v in seen.items()}
+    outs = res["freqca"]["outs"]
+    log(f"dit_small: serve {serve_args} in {wall:.1f} s (training "
+        f"included): {len(outs)} FreqCa requests, full steps "
+        f"{[o.n_full_steps for o in outs]}, uncached "
+        f"{[o.n_full_steps for o in res['full']['outs']]}; op-layer calls "
+        f"by latent size {at}; launch counts {counts}")
+
+    # the stream's first requests through its FreqCa engine on the CPU,
+    # beside the controls and the training
+    n_oracle = min(DIT_SMALL_ORACLE_REQUESTS, args.requests)
+    params_cpu = adamw.tree_map(lambda p: p.detach().to("cpu"),
+                                res["params"])
+    cpu = {}
+
+    def cpu_serve():
+        try:
+            cpu["outs"] = dit_small_serve(params_cpu, serve_args, "cpu",
+                                          n_oracle)
+        except Exception as e:    # re-raised after the join
+            cpu["error"] = e
+    t_cpu = time.perf_counter()
+    worker = threading.Thread(target=cpu_serve, name="dit_small_cpu_serve")
+    worker.start()
+    controls = {}
+    if on_card:
+        real_flash = ops.flash
+
+        def flash_off(q, k, v, *a, **kw):
+            # the card's calls only: the CPU's run goes on beside this
+            if q.is_cuda:
+                q = q * (1 + DIT_SMALL_PERTURB)
+            return real_flash(q, k, v, *a, **kw)
+        with tf32_on():
+            controls["TF32"] = dit_small_serve(res["params"], serve_args,
+                                               device, n_oracle)
+        with mock.patch.object(ops, "flash", flash_off):
+            controls[f"q x (1 + {DIT_SMALL_PERTURB:.0e})"] = \
+                dit_small_serve(res["params"], serve_args, device, n_oracle)
+
+    # train at the sizes that reach the kernels
+    for size in train_sizes:
+        params = dit.init_params(cfg, seed=83, device=device)
+        redraw_zero_leaves(params, seed=84)
+        records, bad = [], []
+
+        def on_step(i, metrics, grads):
+            records.append(metrics)
+            if i == 0:
+                bad.extend(k for k, g in checkpoint._flatten_with_paths(
+                    grads).items() if g is None or not (
+                    bool(torch.isfinite(g).all()) and bool(g.any())))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        train.train_dit(cfg, steps, batch, "", seed=85, log_every=steps,
+                        size=size, device=device, params=params,
+                        on_step=on_step)
+        wall = time.perf_counter() - t0
+        counts = by_phase[f"dit_small_train_{size}"] = ops.launch_counts()
+        s_img = (size // cfg.patch_size) ** 2
+        log(f"dit_small: train_dit at latent {size} (S {s_img}), batch "
+            f"{batch}, {steps} steps in {wall:.2f} s: losses "
+            f"{[round(m['loss'], 6) for m in records]}"
+            + ("; step walls (ms) "
+               + str([round(m['step_ms'], 1) for m in records])
+               + ", forward / backward / AdamW of the last "
+               f"{records[-1]['forward_ms']:.1f} / "
+               f"{records[-1]['backward_ms']:.1f} / "
+               f"{records[-1]['adamw_ms']:.1f} ms"
+               if on_card else "")
+            + f"; step-0 gradient leaves off {bad}; launch counts {counts}")
+        want = {"flash_attention_f32": steps * cfg.n_layers,
+                "flash_attention_f32_bwd": steps * cfg.n_layers}
+        if len(records) != steps or bad or not all(
+                math.isfinite(m["loss"]) for m in records) or (
+                on_card and counts != {k: want.get(k, 0) for k in counts}):
+            raise AssertionError(f"dit_small: train at {size}: losses "
+                                 f"{records}, leaves off {bad}, launches "
+                                 f"{counts}, expected {want}")
+        del params
+        _free(device)
+
+    worker.join(timeout=600)
+    if worker.is_alive():
+        raise AssertionError("dit_small: the CPU's run of the stream took "
+                             "over 600 s")
+    if "error" in cpu:
+        raise cpu["error"]
+    cpu_outs = cpu["outs"]
+    tol = DIT_SMALL_TOL["latents"]
+    n_req = args.requests
+    ids = [o.request_id for o in outs]
+    card_full = [o.n_full_steps for o in outs[:n_oracle]]
+    cpu_full = [o.n_full_steps for o in cpu_outs]
+    lat_rel = [rel_l2(a.latents, b.latents)
+               for a, b in zip(outs[:n_oracle], cpu_outs, strict=True)]
+    size_of = [sizes[i % len(sizes)] for i in ids]
+    shapes_ok = all(
+        tuple(o.latents.shape) == (sz, sz, cfg.in_channels)
+        and bool(torch.isfinite(torch.as_tensor(o.latents)).all())
+        for o, sz in zip(outs, size_of, strict=True))
+    # each control against the CPU, on the requests it changes: TF32 all
+    # of them, the attention's every one that reaches flash (latent > 32)
+    missed = {}
+    for name, c_outs in controls.items():
+        changed = [i for i in range(n_oracle)
+                   if name == "TF32" or size_of[i] > 32]
+        missed[name] = [rel_l2(c_outs[i].latents, cpu_outs[i].latents)
+                        for i in changed]
+    log(f"dit_small: the CPU's FreqCa run of the stream's first {n_oracle} "
+        f"requests in {time.perf_counter() - t_cpu:.1f} s: full steps "
+        f"{cpu_full} (card {card_full}); latents card vs CPU rel L2 by "
+        "request " + ", ".join(f"{r:.3e}" for r in lat_rel)
+        + f" (tol {tol:.0e}); the controls' rel L2 (each must exceed it) "
+        + "; ".join(f"{n} " + ", ".join(f"{r:.3e}" for r in v)
+                    for n, v in missed.items()))
+    served = by_phase["dit_small_serve"]
+    reached = on_card and all(
+        all(at[op].get(sz, 0) > 0 for sz in sizes if sz > 32)
+        and sum(at[op].values()) == served[counter]
+        for op, (counter, _) in spied.items()) and at["flash"].get(32) is None
+    if (ids != list(range(n_req)) or card_full != cpu_full or not shapes_ok
+            or max(lat_rel) > tol
+            or any(min(v) <= tol for v in missed.values())
+            or (on_card and not reached)):
+        raise AssertionError(f"dit_small: serve: ids {ids}, full steps "
+                             f"{card_full} vs CPU {cpu_full}, latents rel "
+                             f"{lat_rel}, controls {missed}, op-layer calls "
+                             f"{at}, launches {served}")
+    del res, params_cpu, cpu, controls
+    _free(device)
+
+    if on_card:
+        by_phase.update(dit_small_reference())
+        one = mesh.one_card_mesh()
+        latent = dryrun.DIT_LATENT["dit-small"]
+        spec = steps_lib.build_dit("dit-small", one, batch=2, latent=latent)
+        gen = torch.Generator(device="cuda").manual_seed(86)
+        params = dit.init_params(cfg, seed=87, device="cuda")
+        redraw_zero_leaves(params, seed=88)
+        args_card = (params, _fill(gen)(spec.args[1]),
+                     torch.full((2,), 0.7, device="cuda"))
+        log(f"dit_small: the dry run's full step at latent {latent} (S "
+            f"{(latent // cfg.patch_size) ** 2}), batch 2, one card:")
+        by_phase["dryrun_dit_small_denoise_step"] = dryrun_card_row(
+            "dit_small_denoise_step", spec, args_card, nvidia_smi())
+        del args_card, params
+        _free("cuda")
+    return by_phase
+
+
 # the phases after the build and kernel phases, in the order they run
 PHASES = ("dryrun", "reference", "analysis", "serve", "slo", "backbone",
           "lm", "decode", "train", "lm_train", "moe", "lm_configs", "jamba",
-          "encdec", "vlm", "launcher", "fleet")
+          "encdec", "vlm", "dit_small", "launcher", "fleet")
 
 
 def run_phases(phases) -> dict:
@@ -5587,7 +6161,7 @@ def run_phases(phases) -> dict:
     for name, fn in (("train", train_phase), ("lm_train", lm_train_phase),
                      ("moe", moe_phase), ("lm_configs", lm_configs_phase),
                      ("jamba", jamba_phase), ("encdec", encdec_phase),
-                     ("vlm", vlm_phase)):
+                     ("vlm", vlm_phase), ("dit_small", dit_small_phase)):
         if name in phases:
             by_phase.update(fn())
             free()
@@ -5644,6 +6218,7 @@ def main(argv=None) -> int:
                 log(f"ptxas {name}: {line.strip()}")
     flash_build_checks()
     mma_build_checks()
+    f32_build_checks()
 
     # each kernel's row is the type its path runs it in: the served CRF
     # is bf16 with float32 rings, and the legacy cache state float32
@@ -5740,9 +6315,30 @@ def main(argv=None) -> int:
                           "the jamba phase's launch at [1, 4096, 128, "
                           "128])")
         form_rows = {label: v for label, v in FORM_ROWS.items()
-                     if label.startswith(name + "[")}
+                     if label.startswith(name + "[")
+                     and "f32_hd16" not in label}
         if form_rows:
             k["form_rows"] = form_rows
+        kernels.append(k)
+    # the float32 hd-16 library (dit-small from latent 64): its rows
+    # carry the [2, 4096, 8, 16] numbers, the other shapes in form_rows
+    for name, (counter, src, rep) in F32_HD16_KERNELS.items():
+        k = dict(name=name, route="cuda", source=src, replaces=rep,
+                 launches=(sum(c[counter] for c in by_phase.values())
+                           if by_phase else None),
+                 **FORM_ROWS[name]["float32"])
+        if by_phase:
+            k["launches_by_phase"] = {ph: c[counter]
+                                      for ph, c in by_phase.items()
+                                      if c[counter]}
+        k["forms"] = ("float32, head width 16, non-causal MHA (dit-small's "
+                      "joint attention, 8 heads): this row [2, 4096, 8, "
+                      "16]; [16, 1024] and the ragged [2, 1600] in "
+                      "form_rows" + (", and the forward writing its "
+                                     "log-sum-exp" if "bwd" not in name
+                                     else ""))
+        k["form_rows"] = {label: v for label, v in FORM_ROWS.items()
+                          if label.startswith(name[:-1]) and label != name}
         kernels.append(k)
     log(f"chip_smoke: phases {list(phases)} done in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -27,7 +27,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("band_split_spectral", "freqca_fused_spectral", "flash_attention",
            "token_basis_matmul", "freqca_fused", "ssd_scan",
-           "flash_attention_bwd", "ssd_scan_bwd")
+           "flash_attention_bwd", "ssd_scan_bwd", "flash_attention_f32")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

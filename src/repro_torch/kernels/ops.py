@@ -40,6 +40,8 @@ _WRAPPERS = {
     "freqca_predict_fused": freqca_fused.freqca_predict_fused,
     "ssd_chunk_scan": ssd_scan.ssd_chunk_scan,
     "ssd_chunk_scan_bwd": ssd_scan.ssd_chunk_scan_bwd,
+    "flash_attention_f32": flash_attention.flash_attention_f32,
+    "flash_attention_f32_bwd": flash_attention.flash_attention_f32_bwd,
 }
 
 

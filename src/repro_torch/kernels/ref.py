@@ -143,16 +143,23 @@ NEG_INF = -1e30      # masked logits, as the reference's attention
 NEG_CLIP = -60.0     # the SSD kernel's exp underflow guard
 
 
+def _acc(x: torch.Tensor) -> torch.dtype:
+    """The attention refs' working type: float32, or float64 for float64
+    inputs (the oracle of a float32 kernel)."""
+    return torch.float64 if x.dtype == torch.float64 else _F32
+
+
 def _logits(q: torch.Tensor, k: torch.Tensor, mask,
             q_per_kv: int) -> torch.Tensor:
-    """Float32 logits ``[B, Hkv, q_per_kv, S, T]`` of ``q [B, S, Hq,
-    hd]`` against ``k [B, T, Hkv, hd]``, scaled by 1/sqrt(hd), masked
-    logits −1e30."""
+    """Logits ``[B, Hkv, q_per_kv, S, T]`` of ``q [B, S, Hq, hd]``
+    against ``k [B, T, Hkv, hd]`` in ``_acc(q)``, scaled by 1/sqrt(hd),
+    masked logits −1e30."""
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     qg = q.reshape(b, s, hkv, q_per_kv, hd)
-    logits = torch.einsum("bsgqk,btgk->bgqst", qg.to(_F32),
-                          k.to(_F32)) / math.sqrt(hd)
+    acc = _acc(q)
+    logits = torch.einsum("bsgqk,btgk->bgqst", qg.to(acc),
+                          k.to(acc)) / math.sqrt(hd)
     if mask is not None:
         logits = torch.where(mask[:, None, None], logits, NEG_INF)
     return logits
@@ -219,7 +226,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       window: int = 0):
     """``(dq, dk, dv)`` of ``attention_ref`` by the standard recompute
     from the forward's output ``o`` and row log-sum-exp ``lse [B, Hq,
-    S]``, each in its input's type, step by step in float32:
+    S]``, each in its input's type, step by step in float32 (float64
+    for float64 inputs, ``_acc``):
     ``P = exp(q·kᵀ/√hd − lse)`` (a masked logit −1e30, so its P is 0),
     ``dV = Pᵀ·dO``, ``D = rowsum(dO ∘ O)``, ``dS = P ∘ (dO·Vᵀ − D)``,
     ``dQ = dS·K/√hd``, ``dK = dSᵀ·Q/√hd``; under GQA a kv head's dK and
@@ -234,18 +242,19 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, hq, hd = q.shape
     hkv = k.shape[2]
     mask = attention_mask(s, k.shape[1], causal, window, q.device)
+    acc = _acc(q)
     p = torch.exp(_logits(q, k, mask, q_per_kv)
-                  - lse.to(_F32).reshape(b, hkv, q_per_kv, s, 1))
-    dog = do.reshape(b, s, hkv, q_per_kv, hd).to(_F32)
-    og = o.reshape(b, s, hkv, q_per_kv, hd).to(_F32)
-    dv = torch.einsum("bgqst,bsgqk->btgk", p.to(v.dtype).to(_F32), dog)
+                  - lse.to(acc).reshape(b, hkv, q_per_kv, s, 1))
+    dog = do.reshape(b, s, hkv, q_per_kv, hd).to(acc)
+    og = o.reshape(b, s, hkv, q_per_kv, hd).to(acc)
+    dv = torch.einsum("bgqst,bsgqk->btgk", p.to(v.dtype).to(acc), dog)
     d_row = (dog * og).sum(-1).permute(0, 2, 3, 1)[..., None]   # [b,g,q,s,1]
-    dp = torch.einsum("bsgqk,btgk->bgqst", dog, v.to(_F32))
-    ds = (p * (dp - d_row)).to(v.dtype).to(_F32)
+    dp = torch.einsum("bsgqk,btgk->bgqst", dog, v.to(acc))
+    ds = (p * (dp - d_row)).to(v.dtype).to(acc)
     scale = 1.0 / math.sqrt(hd)
-    dq = torch.einsum("bgqst,btgk->bsgqk", ds, k.to(_F32)) * scale
+    dq = torch.einsum("bgqst,btgk->bsgqk", ds, k.to(acc)) * scale
     dk = torch.einsum("bgqst,bsgqk->btgk", ds,
-                      q.reshape(b, s, hkv, q_per_kv, hd).to(_F32)) * scale
+                      q.reshape(b, s, hkv, q_per_kv, hd).to(acc)) * scale
     return (dq.reshape(b, s, hq, hd).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
 

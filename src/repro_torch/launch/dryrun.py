@@ -30,9 +30,9 @@ Records go to ``results/dryrun_torch/<arch>__<shape>__<mesh>.json`` with
 the reference's keys (``arch``, ``shape``, ``mesh``, ``n_devices``,
 ``memory``, ``flops``, ``bytes_accessed``, ``collectives``) and the
 roofline terms.  The DiT steps are ``denoise_step`` and ``cached_step``
-for ``flux1-dev`` (1024², latent 128) and ``dit-small`` at its served
-size (latent 32, 256 tokens: the port's flash kernel has no head of 16,
-which the reference's 128 latent would send to it).  Exit status 1 on
+for ``flux1-dev`` (1024², latent 128) and ``dit-small`` at latent 128
+(4096 tokens, as the reference's ``build_dit``: its joint attention
+reaches the float32 flash kernels of head width 16).  Exit status 1 on
 any failed combo.
 """
 from __future__ import annotations
@@ -57,7 +57,7 @@ from repro_torch.sharding import partitioning as pt
 
 DIT_ARCHS = ("flux1-dev", "dit-small")
 DIT_SHAPES = ("denoise_step", "cached_step")
-DIT_LATENT = {"flux1-dev": 128, "dit-small": 32}
+DIT_LATENT = {"flux1-dev": 128, "dit-small": 128}
 DIT_BATCH = 64          # the reference's build_dit batch
 
 

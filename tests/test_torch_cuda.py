@@ -777,3 +777,65 @@ def test_cross_attention_routes_to_flash_on_the_card(card):
         attention.cross_attention(on_card, x[:, :8].to(card), mem.to(card),
                                   cfg)
     assert not any(ops.launch_counts().values())
+
+
+# float32 at head width 16 (dit-small's 8 heads), the ``flash_attention_f32``
+# library: (B, S, T), a small S off the 128-row tiles, T != S, and S 1600
+# (latent 80: ragged at 128 and at the 64-row tiles)
+_F32_HD16 = [(2, 77, 77), (1, 300, 520), (2, 1600, 1600)]
+
+
+@pytest.mark.parametrize("b,s,t", _F32_HD16)
+def test_flash_f32_hd16_forward(card, b, s, t):
+    """The float32 hd-16 forward with and without its log-sum-exp against
+    ``attention_lse_ref`` (float32, TF32 off: 1e-5), the two outputs bit
+    for bit, one launch each on the new library's counter."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _bwd_inputs(card, s, 8, 8, 16, torch.float32, b=b, t=t)
+    ops.reset_launch_counts()
+    out = fa.flash_attention(q, k, v)
+    out2, lse = fa.flash_attention(q, k, v, return_lse=True)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_f32"] == 2
+    assert sum(counts.values()) == 2
+    assert torch.equal(out, out2) and lse.shape == (b, 8, s)
+    want_out, want_lse = ref.attention_lse_ref(q, k, v)
+    _close((out, lse), (want_out, want_lse), torch.float32)
+
+
+@pytest.mark.parametrize("b,s,t", _F32_HD16)
+def test_flash_f32_hd16_backward(card, b, s, t):
+    """dQ, dK, dV of the float32 hd-16 backward against the recompute twin
+    on the same o and lse (float32: 1e-5), two launches bitwise equal,
+    and ``ops.flash`` under autograd reaching both new kernels."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(card, s, 8, 8, 16, torch.float32, b=b, t=t)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    ops.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    assert ops.launch_counts()["flash_attention_f32_bwd"] == 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+    _close(got, ref.attention_bwd_ref(q, k, v, o, lse, do), torch.float32)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.reset_launch_counts()
+    (ops.flash(*leaves) * do).sum().backward()
+    counts = ops.launch_counts()
+    assert counts["flash_attention_f32"] == counts[
+        "flash_attention_f32_bwd"] == 1
+    _close(tuple(x.grad for x in leaves), got, torch.float32)
+
+
+def test_flash_hd16_cuda_refuses_other_forms(card):
+    """At head width 16 a CUDA call the new kernels do not take raises
+    (bf16, causal, GQA); nothing reaches the plain version."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _bwd_inputs(card, 128, 8, 8, 16, torch.float32)
+    ops.reset_launch_counts()
+    for call in (lambda: fa.flash_attention(*(x.to(torch.bfloat16)
+                                              for x in (q, k, v))),
+                 lambda: fa.flash_attention(q, k, v, causal=True),
+                 lambda: fa.flash_attention(q, k[:, :, :4], v[:, :, :4], 2)):
+        with pytest.raises(ValueError, match="head_dim 16"):
+            call()
+    assert not any(ops.launch_counts().values())

@@ -223,7 +223,7 @@ def _head_recompute(cfg, shape) -> int:
 
 
 # reduced prefill and train steps whose kernel routes stay below their
-# thresholds (S 256 < 2048: no flash), and the dit-small full step
+# thresholds (S 256 < 2048: no flash); the dit-small full step below
 FLOP_CASES = [(a, s) for a in ("yi-9b", "granite-moe-3b-a800m",
                                "seamless-m4t-medium", "llava-next-34b")
               for s in ("prefill_32k", "train_4k")]
@@ -239,22 +239,41 @@ def test_flops_match_the_reference(arch, shape):
 
 
 def test_dit_full_step_flops_match_the_reference():
-    """dit-small's full denoiser forward at its served size (latent 32,
-    S 256, under the flash threshold), batch 2."""
+    """dit-small's full denoiser forward at the dry run's latent 128 (S
+    4096, batch 2), where the port's joint attention is the float32
+    hd-16 flash kernel: its work is ``fwd_work``'s 4·hd FLOP a pair and
+    head, the same count as the reference's two attention einsums (its
+    CPU route), so the totals agree at ``FLOP_RTOL``, and the dense part
+    is the reference's less those einsums."""
     from repro.launch import steps as rs
     from repro.roofline import hlo_analysis as ha
+    from repro_torch.kernels import flash_attention as fa
+    latent = dryrun.DIT_LATENT["dit-small"]
+    assert latent == 128
     mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]).reshape(1, 1),
                              ("data", "model"))
     with mesh:
-        ref = rs.build_dit("dit-small", mesh, batch=2, latent=32)
+        ref = rs.build_dit("dit-small", mesh, batch=2, latent=latent)
         compiled = jax.jit(ref.fn, in_shardings=ref.in_shardings,
                            keep_unused=True).lower(*ref.args).compile()
     spec = steps.build_dit("dit-small", mesh_lib.one_card_mesh(), batch=2,
-                           latent=32)
+                           latent=latent)
     counted = op_analysis.analyze(spec.fn, *spec.args)
-    assert set(counted["by_kind"]) <= {"dense", "other"}
-    assert counted["flops"] == pytest.approx(
-        ha.analyze(compiled.as_text())["flops"], rel=FLOP_RTOL)
+    cfg = configs.get_config("dit-small")
+    s = (latent // cfg.patch_size) ** 2
+    flash = counted["by_kind"]["flash_attention_f32"]
+    work, nbytes = fa.fwd_work(2, s, s, cfg.n_heads, cfg.n_heads,
+                               cfg.head_dim, "float32")
+    assert set(counted["by_kind"]) == {"dense", "other",
+                                       "flash_attention_f32"}
+    assert flash["calls"] == cfg.n_layers
+    assert flash["flops_by_type"] == {"float32": cfg.n_layers
+                                      * work["float32"]}
+    assert flash["bytes"] == cfg.n_layers * nbytes
+    ref_flops = ha.analyze(compiled.as_text())["flops"]
+    assert counted["flops"] == pytest.approx(ref_flops, rel=FLOP_RTOL)
+    assert counted["by_kind"]["dense"]["flops"] == pytest.approx(
+        ref_flops - flash["flops"], rel=FLOP_RTOL)
     assert counted["argument_bytes"] == \
         compiled.memory_analysis().argument_size_in_bytes
 

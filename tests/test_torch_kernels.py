@@ -425,7 +425,9 @@ def test_cpu_dispatch_leaves_launch_counts_untouched():
                                    "token_basis_matmul": 0,
                                    "freqca_predict_fused": 0,
                                    "ssd_chunk_scan": 0,
-                                   "ssd_chunk_scan_bwd": 0}
+                                   "ssd_chunk_scan_bwd": 0,
+                                   "flash_attention_f32": 0,
+                                   "flash_attention_f32_bwd": 0}
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "state", "chunk", "types"])

@@ -11,11 +11,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
                (UTMALDG), and ptxas must report no spills, no ignored
                setmaxnreg (C7508) and no serialised wgmma (C7512) for
                the forward's bf16 kernels and every backward kernel;
+               the forward's float32 kernels (the 3xTF32 template) must
+               each hold TF32 mma.sync (HMMA) and spill nothing;
                the SASS of token_basis_matmul, ssd_scan, ssd_scan_bwd,
                band_split_spectral and freqca_fused_spectral must hold
                mma.sync (HMMA), with no spills in any of their kernels;
-               the SASS of flash_attention_f32 (float32 at head width
-               16) must hold FFMA and no HMMA or HGMMA, with no spills;
+               in flash_attention_f32 (float32 at head width 16), kernel
+               by kernel, the two forward kernels must hold TF32 HMMA
+               and the three backward kernels FFMA and no HMMA or
+               HGMMA, with no spills in any;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer; the FreqCa cache
@@ -304,6 +308,15 @@ def log_bound(label: str, nbytes: float, flops, op_dtype: str) -> None:
     log(f"kernel {label} bound_ms={b_ms:.4f} ({b_by})")
 
 
+def log_f32_fwd_bounds(label: str, nbytes: float, flops) -> None:
+    """Beside a float32 flash forward row (its bound: ``fwd_work``'s
+    count once at the TF32 peak), the same work at the float32 FMA peak
+    and the design's (3 TF32 products, the hi + lo split)."""
+    log_bound(f"{label} at the float32 FMA peak", nbytes, flops, "float32")
+    log_bound(f"{label} the design's (3 TF32 products)", nbytes, 3 * flops,
+              "tf32")
+
+
 def rate(flops: float, ms: float, b_ms: float) -> str:
     """A kernel's rate and its share of the bound, for the log."""
     return (f"rate={flops / ms / 1e9:.1f} TFLOP/s "
@@ -334,13 +347,39 @@ def ptxas_spills(name: str, entry: str = "") -> dict:
     return spills
 
 
+def sass_functions(name: str) -> dict:
+    """{mangled kernel name: its SASS} of ``name``'s library, the
+    cuobjdump listing split at each ``Function :`` header."""
+    parts = re.split(r"^\s*Function : (\S+)\s*$", sass(name), flags=re.M)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def tf32_hmma(code: str) -> int:
+    """The TF32 tensor-core instructions (mma.sync m16n8k8) in SASS."""
+    return sum(1 for line in code.splitlines()
+               if "HMMA" in line and "TF32" in line)
+
+
 def flash_build_checks() -> None:
     """The two bf16 flash libraries are the Hopper design: each one's SASS
     holds wgmma (HGMMA) and TMA loads (UTMALDG), and ptxas reports no
     spills, no ignored setmaxnreg (warning C7508) and no wgmma serialised
     for want of registers (warning C7512): for the forward's bf16
-    kernels, and for every kernel of the backward."""
+    kernels, and for every kernel of the backward.  The forward's eight
+    float32 kernels (the 3xTF32 template, ``tf32_fwd_kernel``: hd 64 and
+    128, masked or not, with or without the LSE) each hold TF32 HMMA and
+    spill nothing."""
     from repro_torch.kernels import build
+    funcs = sass_functions("flash_attention")
+    tf32 = {n: tf32_hmma(c) for n, c in funcs.items()
+            if "tf32_fwd_kernel" in n}
+    spills = ptxas_spills("flash_attention", "tf32_fwd_kernel")
+    log(f"flash_attention float32 kernels: TF32 HMMA "
+        f"{sorted(tf32.values())}; spill bytes {sorted(spills.values())}")
+    if len(tf32) != 8 or min(tf32.values()) == 0 or len(spills) != 8 \
+            or any(spills.values()):
+        raise AssertionError(f"flash_attention float32 build: TF32 HMMA "
+                             f"{tf32}, spills {spills}")
     for name, entry in (("flash_attention", "flash_fwd_hopper_kernel"),
                         ("flash_attention_bwd", "")):
         code = sass(name)
@@ -569,15 +608,17 @@ def kernel_phase(main_dtype: dict) -> dict:
             work, nb = flash_attention.fwd_work(
                 lanes, shape[1], shape[1], shape[2], shape[2], shape[3],
                 dtype_name)
-            fl = work[dtype_name]
-            row("flash_attention" + ("" if lanes == 2 else "[B=1]"),
-                dtype_name,
+            (op, fl), = work.items()   # float32 runs on the TF32 cores
+            name = "flash_attention" + ("" if lanes == 2 else "[B=1]")
+            row(name, dtype_name,
                 lambda q=q, k=k, v=v: flash_attention.flash_attention(q, k,
                                                                       v),
                 lambda q=q, k=k, v=v: ref.attention_ref(q, k, v), nb, fl,
                 library=lambda qt=qt, kt=kt, vt=vt:
                     F.scaled_dot_product_attention(qt, kt, vt),
-                reps=5)
+                reps=5, op_dtype=op)
+            if op == "tf32":
+                log_f32_fwd_bounds(f"{name} [float32]", nb, fl)
             del q, k, v, qt, kt, vt
             torch.cuda.empty_cache()
         lm_attention_rows(row, dt, dtype_name, gen)
@@ -625,13 +666,17 @@ def lm_attention_rows(row, dt, dtype_name: str, gen) -> None:
                 enable_gqa=True)
         work, nb = flash_attention.fwd_work(1, s, s, hq, hkv, hd, dtype_name,
                                             causal, window)
-        row(f"flash_attention[{label} gqa 32/4]", dtype_name,
+        (op, fl), = work.items()   # float32 runs on the TF32 cores
+        name = f"flash_attention[{label} gqa 32/4]"
+        row(name, dtype_name,
             lambda causal=causal, window=window:
                 flash_attention.flash_attention(q, k, v, hq // hkv, causal,
                                                 window),
             lambda causal=causal, window=window:
                 ref.attention_ref(q, k, v, hq // hkv, causal, window),
-            nb, work[dtype_name], library=lib, reps=5)
+            nb, fl, library=lib, reps=5, op_dtype=op)
+        if op == "tf32":
+            log_f32_fwd_bounds(f"{name} [float32]", nb, fl)
     del q, k, v, qt, kt, vt
     torch.cuda.empty_cache()
 
@@ -936,55 +981,199 @@ def ssd_bwd_inputs(b: int, dt, s: int = 4096, h: int = 32, n: int = 128,
     return x, dts, a, bm, cm, dy
 
 
+# the float32 flash forward rows of ``ab_trace``: (label, B, S, Hq, Hkv,
+# hd, causal) — the DiT joint attention, one yi-9b layer's causal GQA
+# and dit-small's hd-16 shapes (``F32_HD16_ROWS``)
+AB_F32_ROWS = (("DiT", 2, 4608, 24, 24, 128, False),
+               ("causal gqa 32/4", 1, 4096, 32, 4, 128, True),
+               ("hd16", 2, 4096, 8, 8, 16, False),
+               ("hd16 16x1024", 16, 1024, 8, 8, 16, False),
+               ("hd16 2x1600", 2, 1600, 8, 8, 16, False))
+
+
 def ab_trace() -> None:
-    """The pieces this tree's SSD work touches, for an A/B of two trees
-    in one call; it checks nothing.  Kernel 6's time and kernel 8's
-    per-launch split at the kernel phase's shape (bf16; kernel 8 also
-    float32) and kernel 8's at the lm_train phase's batch of 8 (bf16),
-    inputs from ``ssd_bwd_inputs``, call times from CUDA events; then the
-    backbone phase (its batch walls; kernel 6 in every full forward) and
-    yi-9b's lm_train run (16 layers, batch 2, no checkpoint: its step
-    walls; no SSD kernel), each in this fresh process.  It runs the
-    kernel sources and the package of the tree it is imported from, so
-    from the root of an earlier checkout it measures that tree:
+    """The pieces the float32 flash forward touches, for an A/B of two
+    trees in one call; it checks nothing.  Kernel 3 in float32 at
+    ``AB_F32_ROWS`` beside SDPA's float32 forward on the same inputs
+    (CUDA events, 5 calls each); then dit-small's ``train_dit`` at latent
+    128 (batch ``DIT_SMALL_TRAIN_BATCH``, ``DIT_SMALL_TRAIN_STEPS``
+    steps: step walls and the last step's split) and
+    ``launch.serve.main(DIT_SMALL_SERVE_ARGS)`` (each engine's wall and
+    latency; the trained AdaLN-zero leaves redrawn as in the dit_small
+    phase), in this fresh process.  It runs the kernel sources and the
+    package of the tree it is imported from, so from the root of an
+    earlier checkout (this file copied there) it measures that tree:
     ``python3 -c 'import chip_smoke; chip_smoke.ab_trace()'``."""
-    import dataclasses
+    from unittest import mock
 
     import torch
+    import torch.nn.functional as F
 
     from repro_torch import configs
-    from repro_torch.kernels import build, ssd_scan
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import serve, train
+    from repro_torch.models import dit
     log(f"ab_trace: {nvidia_smi()}; build {build.build()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    q = 256
-    for b, dt in ((2, torch.bfloat16), (2, torch.float32),
-                  (LM_TRAIN_MAMBA_BATCH, torch.bfloat16)):
-        x, dts, a, bm, cm, dy = ssd_bwd_inputs(b, dt)
-        label = f"ab_trace {list(x.shape)} {dt}"
-        if b == 2 and dt == torch.bfloat16:
-            fwd = time_ms(lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm,
-                                                          q), 10)
-            log(f"{label}: kernel 6 {fwd:.4f} ms a call (CUDA events)")
-
-        def kern():
-            return ssd_scan.ssd_chunk_scan_bwd(x, dts, a, bm, cm, dy, q)
-        log(f"{label}: kernel 8 {time_ms(kern, 5):.4f} ms a call (CUDA "
-            "events)")
-        ssd_bwd_split(f"{label}: kernel 8", kern, 5)
-        del x, dts, a, bm, cm, dy
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for label, b, s, hq, hkv, hd, causal in AB_F32_ROWS:
+        q = torch.randn((b, s, hq, hd), generator=gen, device=dev)
+        k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=dev)
+                for _ in "kv")
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        t_k = time_ms(lambda: fa.flash_attention(q, k, v, hq // hkv,
+                                                 causal), 5)
+        t_s = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=hkv != hq), 5)
+        log(f"ab_trace flash_attention float32 {label} [{b}, {s}, "
+            f"{hq}/{hkv}, {hd}] causal {causal}: kernel {t_k:.4f} ms, SDPA "
+            f"{t_s:.4f} ms a call (CUDA events)")
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
-    backbone_phase(N_STEPS)
-    gc.collect()
+    cfg = configs.get_config("dit-small")
+    params = dit.init_params(cfg, seed=83, device="cuda")
+    redraw_zero_leaves(params, seed=84)
+    records = []
+    train.train_dit(cfg, DIT_SMALL_TRAIN_STEPS, DIT_SMALL_TRAIN_BATCH, "",
+                    seed=85, log_every=DIT_SMALL_TRAIN_STEPS, size=128,
+                    device="cuda", params=params,
+                    on_step=lambda i, m, g: records.append(m))
+    log("ab_trace dit_small train_dit at latent 128, batch "
+        f"{DIT_SMALL_TRAIN_BATCH}: step walls (ms) "
+        f"{[round(m['step_ms'], 2) for m in records]}, forward / backward "
+        f"/ AdamW of the last {records[-1]['forward_ms']:.2f} / "
+        f"{records[-1]['backward_ms']:.2f} / {records[-1]['adamw_ms']:.2f}")
+    del params
     torch.cuda.empty_cache()
-    full = configs.get_config("yi-9b")
-    cfg = dataclasses.replace(full, n_layers=LM_TRAIN_YI_LAYERS)
-    lm_train_run("ab_trace lm_train_yi", cfg,
-                 lm_params(full, cfg.n_layers, seed=71,
-                           device=torch.device("cuda")),
-                 LM_TRAIN_YI_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS,
-                 ("flash_attention", "flash_attention_bwd"),
-                 torch.device("cuda"))
+    real_train = serve.train_dit
+
+    def train_redrawn(*a, **kw):
+        trained = real_train(*a, **kw)
+        with torch.no_grad():
+            redraw_zero_leaves(trained, seed=89)
+        return trained
+    with mock.patch.object(serve, "train_dit", train_redrawn):
+        res = serve.main(DIT_SMALL_SERVE_ARGS + ["--device", "cuda"])
+    for name in ("freqca", "full"):
+        run = res[name]
+        log(f"ab_trace dit_small serve {name}: {len(run['outs'])} requests "
+            f"in {run['wall']:.4f} s, latency p50/p95 "
+            f"{run['summary']['request_latency_p50_s']:.4f}/"
+            f"{run['summary']['request_latency_p95_s']:.4f} s")
+
+
+# ``fwd_variants``: edits of flash_fwd_tf32.cuh, each compiled into a
+# copy of the two float32 flash libraries.  "as built" is the source;
+# the hd-16 row layouts (m16 tiles, warps, blocks an SM) and the split
+# (common.cuh's cvt.rna form) it rejected; and two diagnostics that give
+# wrong numbers: one TF32 product instead of three (the tensor cores'
+# share) and no split (the splits' share)
+FWD_VARIANTS = {
+    "as built": (),
+    "hd16 one m16 tile, 8 warps": (
+        ("kMT = HD == 16 ? 2 : 1;", "kMT = 1;"),
+        ("kWarps = HD == 16 ? 4 : 8;", "kWarps = 8;")),
+    "hd16 two m16 tiles, 8 warps, 1 block": (
+        ("kWarps = HD == 16 ? 4 : 8;", "kWarps = 8;"),
+        ("kMinBlocks = HD == 16 ? 2 : 1;", "kMinBlocks = 1;")),
+    "one product (diagnostic)": (
+        ("  rt::mma_tf32(d, al, bh0, bh1);\n"
+         "  rt::mma_tf32(d, ah, bl0, bl1);\n", ""),),
+    "split by cvt.rna (rt::split)": (
+        ("  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
+         "  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;",
+         "  rt::split(v, hi, lo);"),),
+    "no split (diagnostic)": (
+        ("  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
+         "  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;",
+         "  hi = __float_as_uint(v);\n  lo = hi;"),),
+}
+
+
+def fwd_variants(reps: int = 20) -> None:
+    """Each of ``FWD_VARIANTS`` built beside the tree's own libraries
+    (under ``build/fwd_variants/``) and timed in turn, twice, at
+    ``AB_F32_ROWS`` with CUDA events; its max rel err against the plain
+    version is logged beside (the diagnostics' are wrong by design).  It
+    checks nothing: ``python3 -c 'import chip_smoke;
+    chip_smoke.fwd_variants()'``."""
+    import ctypes
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import build, ref
+    root = ROOT / "build" / "fwd_variants"
+    shutil.rmtree(root, ignore_errors=True)
+    csrc = build.CSRC
+    base = (csrc / "flash_fwd_tf32.cuh").read_text()
+    procs = {}
+    for i, (name, edits) in enumerate(FWD_VARIANTS.items()):
+        text = base
+        for old, new in edits:
+            if old not in text:
+                raise AssertionError(f"fwd_variants {name}: {old!r} absent")
+            text = text.replace(old, new)
+        d = root / str(i)
+        shutil.copytree(csrc, d)
+        (d / "flash_fwd_tf32.cuh").write_text(text)
+        for lib in ("flash_attention", "flash_attention_f32"):
+            procs[name, lib] = d / f"{lib}.so", subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(d / f"{lib}.so"),
+                 str(d / f"{lib}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for (name, lib), (path, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"fwd_variants {name} {lib}:\n{out}")
+        regs = re.findall(r"tf32_fwd_kernelILi(\d+)ELb0ELb0E.*?Used (\d+) "
+                          r"registers", out, flags=re.S)
+        log(f"fwd_variants {name}: {lib} registers (hd, unmasked) {regs}")
+        libs[name, lib] = ctypes.CDLL(str(path))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, b, s, hq, hkv, hd, causal in AB_F32_ROWS:
+        q = torch.randn((b, s, hq, hd), generator=gen, device=dev)
+        k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=dev)
+                for _ in "kv")
+        out = torch.empty_like(q)
+        # the plain version of the causal row's 32 heads at 4096 is 2 GB
+        # of logits: held on its last 512 queries
+        tail = slice(-512, None) if causal else slice(None)
+        want = (ref.sdpa_ref(q[:, tail], k, v, ref.attention_mask(
+            s, s, True, 0, dev)[:, tail], hq // hkv) if causal
+            else ref.attention_ref(q, k, v))
+        for rnd in range(2):
+            for name in FWD_VARIANTS:
+                if hd == 16:
+                    fn = libs[name, "flash_attention_f32"]
+                    fn = fn.flash_attention_f32_fwd
+                    fn.argtypes, fn.restype = [P] * 5 + [I] * 4 + [P], I
+                    args = (b, s, s, hq, stream)
+                else:
+                    fn = libs[name, "flash_attention"].flash_attention_fwd
+                    fn.argtypes, fn.restype = [P] * 5 + [I] * 9 + [P], I
+                    args = (b, s, s, hq, hkv, hd, int(causal), 0, 0, stream)
+
+                def call(fn=fn, args=args):
+                    return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                              out.data_ptr(), None, *args)
+                if call() != 0:
+                    raise RuntimeError(f"fwd_variants {name}: launch")
+                torch.cuda.synchronize()
+                err = max_rel(out[:, tail], want)
+                log(f"fwd_variants {label} [{b}, {s}, {hq}/{hkv}, {hd}] "
+                    f"round {rnd} {name}: {time_ms(call, reps):.4f} ms, "
+                    f"max rel err {err:.1e}")
+        del q, k, v, out, want
+        torch.cuda.empty_cache()
 
 
 def ssd_bwd_rows(row, dt, dtype_name: str) -> None:
@@ -5554,11 +5743,12 @@ def _leaves(tree):
 F32_HD16_ROWS = (("", 2, 4096), (" 16x1024", 16, 1024),
                  (" 2x1600", 2, 1600))
 # the kernels line's entries of the float32 hd-16 library: (counter,
-# source, the TPU kernel or autodiff replaced)
+# source, the TPU kernel or autodiff replaced); the forward is the 3xTF32
+# template, built in flash_attention_f32.cu
 F32_HD16_KERNELS = {
     "flash_attention[f32_hd16]": (
         "flash_attention_f32",
-        "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
+        "src/repro_torch/kernels/csrc/flash_fwd_tf32.cuh",
         "src/repro/kernels/flash_attention.py:79"),
     "flash_attention_bwd[f32_hd16]": (
         "flash_attention_f32_bwd",
@@ -5568,16 +5758,26 @@ F32_HD16_KERNELS = {
 
 
 def f32_build_checks() -> None:
-    """flash_attention_f32 computes in float32 on the FMA units: its SASS
-    holds FFMA and no HMMA or HGMMA (float32 must not reach the tensor
-    cores), and ptxas reports no spills in any of its kernels."""
-    code = sass("flash_attention_f32")
-    counts = {op: code.count(op) for op in ("FFMA", "HMMA", "HGMMA")}
+    """flash_attention_f32, kernel by kernel: its two forward kernels (the
+    3xTF32 template at hd 16, with and without the LSE) hold TF32 HMMA;
+    its three backward kernels compute on the FMA units, FFMA and no HMMA
+    or HGMMA; ptxas reports no spills in any of them.  The forward's
+    float32 accuracy rests on its tolerances and on their TF32 controls
+    that must fail (``f32_hd16_rows``, the dit_small serve check)."""
+    funcs = sass_functions("flash_attention_f32")
+    counts = {n: {"TF32 HMMA": tf32_hmma(c),
+                  **{op: c.count(op) for op in ("FFMA", "HMMA", "HGMMA")}}
+              for n, c in funcs.items()}
+    fwd = {n: c for n, c in counts.items() if "tf32_fwd_kernel" in n}
+    bwd = {n: c for n, c in counts.items() if "bwd" in n}
     spills = ptxas_spills("flash_attention_f32")
-    log(f"flash_attention_f32 SASS: {counts}; kernels {len(spills)}, spill "
-        f"bytes {sorted(set(spills.values()))}")
-    if counts["FFMA"] == 0 or counts["HMMA"] or counts["HGMMA"] \
-            or not spills or any(spills.values()):
+    log(f"flash_attention_f32 SASS by kernel: {counts}; spill bytes "
+        f"{sorted(set(spills.values()))} over {len(spills)} kernels")
+    if len(fwd) != 2 or len(bwd) != 3 or len(counts) != 5 \
+            or any(c["TF32 HMMA"] == 0 for c in fwd.values()) \
+            or any(c["FFMA"] == 0 or c["HMMA"] or c["HGMMA"]
+                   for c in bwd.values()) \
+            or len(spills) != 5 or any(spills.values()):
         raise AssertionError(f"flash_attention_f32 build: SASS {counts}, "
                              f"spills {spills}")
 
@@ -5610,8 +5810,10 @@ def f32_hd16_rows(row) -> None:
     kernel's o and lse (the oracle), each gradient at ``TOLERANCE``, and
     two backward launches bitwise equal.  The control: the plain version
     with TF32 on must miss each of those tolerances (the forward's output,
-    each gradient against the oracle).  Bounds from ``fwd_work`` /
-    ``bwd_work`` at the float32 FMA peak; library: SDPA's float32
+    each gradient against the oracle).  Bounds from ``fwd_work`` at the
+    TF32 peak (the forward runs on the TF32 cores; the FMA peak's and the
+    design's 3 products logged beside) and ``bwd_work`` at the float32
+    FMA peak; library: SDPA's float32
     forward, and its backward (grad through SDPA less its forward), timed
     only; each backward launch timed apart (``torch.profiler``)."""
     import torch
@@ -5638,10 +5840,11 @@ def f32_hd16_rows(row) -> None:
             work, nb = fa.fwd_work(b, s, s, h, h, hd, "float32", lse=lse)
             plain = ((lambda: ref.attention_lse_ref(q, k, v)) if lse
                      else (lambda: ref.attention_ref(q, k, v)))
-            row(f"flash_attention[f32_hd16{' lse' if lse else ''}{label}]",
-                "float32",
+            name = f"flash_attention[f32_hd16{' lse' if lse else ''}{label}]"
+            row(name, "float32",
                 lambda lse=lse: fa.flash_attention(q, k, v, return_lse=lse),
-                plain, nb, work["float32"], library_ms=t_sf)
+                plain, nb, work["tf32"], library_ms=t_sf, op_dtype="tf32")
+            log_f32_fwd_bounds(f"{name} [float32]", nb, work["tf32"])
         want = ref.attention_ref(q, k, v)
         with tf32_on():
             control = [max_rel(ref.attention_ref(q, k, v), want)]

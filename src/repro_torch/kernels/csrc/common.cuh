@@ -15,8 +15,6 @@
 
 namespace rt {
 
-constexpr int kThreads = 256;   // threads of a float32 FMA block (flash)
-
 enum DType : int { kF32 = 0, kBF16 = 1 };
 
 __device__ __forceinline__ float to_f32(float v) { return v; }

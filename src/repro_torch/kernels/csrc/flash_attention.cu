@@ -31,7 +31,8 @@
 // head, then the next head of its group.  A tile whose every key
 // every query of a row block keeps skips the mask arithmetic (most tiles
 // of the causal form); the unmasked form is a separate instantiation
-// that tests only the ragged edge.
+// that tests only the ragged edge.  The masks (Mask) live in
+// flash_fwd_tf32.cuh, which both kernels read.
 //
 // What bounds it on an H100: operations.  4·B·H·S·T·hd FLOP unmasked
 // (half that causal) — at FLUX's joint sequence (S = T = 4608, 24 heads
@@ -78,60 +79,25 @@
 //   at hd 128 the key tile is 96 (136 live registers; 128 keys spilled,
 //   112 too).  hd 64 keeps 128 keys.  Shared memory at hd 128: q 32 KB
 //   + 2 stages x (k 24 KB + v 24 KB) = 128 KB; one block per SM.
-// - float32: plain float32 FMAs from shared memory (256 threads, 4x4
-//   logits and 4x(hd/16) outputs per thread), q and k tiles transposed
-//   with a padded stride so the inner loops read conflict-free float4s.
+// float32: the 3xTF32 tensor-core template of flash_fwd_tf32.cuh (each
+// operand split hi + lo in TF32, three mma.sync products), instantiated
+// at hd 64 and 128 in every form above.
 // For the backward (flash_attention_bwd.cu) both kernels can also write
-// each row's log-sum-exp, m·ln 2 + ln l in the base-2 kernel; that form
+// each row's log-sum-exp, m·ln 2 + ln l (both run in base 2); that form
 // is a separate instantiation (LSE), so the launches that do not ask for
 // it run the kernel as it is without it.
 // The host code fetches cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint (hopper.cuh), so the library links no libcuda.
 #include "common.cuh"
+#include "flash_fwd_tf32.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using namespace hp;   // mbarriers, TMA, wgmma (hopper.cuh)
 
-constexpr int kBQ = 64;        // float32: queries per block
-constexpr int kBK = 64;        // float32: keys per tile
-constexpr int kLD = kBQ + 4;   // padded stride of the transposed tiles
-constexpr float kNegInf = -1e30f;
-
-// The masks of one attention call.  q and k positions count from 0.
-struct Mask {
-  int Tk;       // keys
-  int causal;   // keep k <= q
-  int window;   // > 0: keep k > q - window
-
-  __device__ __forceinline__ bool ok(int kpos, int qpos) const {
-    return kpos < Tk && (!causal || kpos <= qpos) &&
-           (window <= 0 || kpos > qpos - window);
-  }
-  // every query in [q0, q0 + BQ) keeps every key in [k0, k0 + BK): the
-  // tile needs no mask (the non-causal tiles of a multiple-of-BK T, and
-  // the causal tiles wholly below the diagonal)
-  template <int BQ = kBQ, int BK = kBK>
-  __device__ __forceinline__ bool full(int k0, int q0) const {
-    return k0 + BK <= Tk && (!causal || k0 + BK - 1 <= q0) &&
-           (window <= 0 || k0 > q0 + BQ - 1 - window);
-  }
-  // [t0, t1): the key tiles some query in [q0, q0 + BQ) can see
-  template <int BQ = kBQ, int BK = kBK>
-  __device__ __forceinline__ void tiles(int q0, int& t0, int& t1) const {
-    const int k_end = causal ? min(Tk, q0 + BQ) : Tk;
-    const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-    t0 = k_begin / BK;
-    t1 = (k_end + BK - 1) / BK;
-  }
-};
-
-// the block's query tile: under the causal mask the last tiles (the most
-// keys) first, so the longest blocks are not the tail of the grid
-__device__ __forceinline__ int query_tile(const Mask& mk) {
-  return mk.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
-}
+using flash::kNegInf;
+using flash::Mask;
 
 // bf16: the block's query tile, batch and head in group-major order.  In
 // the order blocks are issued (x fastest, then y), the q_per_kv query
@@ -152,170 +118,6 @@ __device__ __forceinline__ BlockTile group_major_tile(const Mask& mk, int H,
   r /= n_qt;
   const int hkv = r % Hkv;
   return {mk.causal ? n_qt - 1 - qi : qi, r / Hkv, hkv * g + j, hkv};
-}
-
-__device__ __forceinline__ void load4(const float* p, bool ok,
-                                      float (&v)[4]) {
-  if (ok) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    v[0] = t.x; v[1] = t.y; v[2] = t.z; v[3] = t.w;
-  } else {
-    v[0] = v[1] = v[2] = v[3] = 0.f;
-  }
-}
-
-template <int HD>
-constexpr size_t smem_bytes() {
-  // Qs [HD][kLD], Ks [HD][kLD], Vs [kBK][HD], Ps [kBK][kLD]
-  return (2 * HD * kLD + kBK * HD + kBK * kLD) * sizeof(float);
-}
-
-template <typename T, int HD, bool MASKED, bool LSE>
-__global__ void __launch_bounds__(rt::kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int S, int H, int Hkv, Mask mk,
-                 float scale) {
-  constexpr int NG = HD / 64;   // float4 column groups per thread
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + HD * kLD;
-  float* Vs = Ks + HD * kLD;
-  float* Ps = Vs + kBK * HD;
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int Tk = mk.Tk;
-  const int q0 = query_tile(mk) * kBQ;
-  const int b = blockIdx.y / H, h = blockIdx.y % H;
-  const int hkv = h / (H / Hkv);   // GQA: query head h reads kv head h / g
-  const long rs = (long)H * HD;    // token stride of q and o
-  const long rk = (long)Hkv * HD;  // token stride of k and v
-  const T* qp = q + (long)b * S * rs + (long)h * HD;
-  const T* kp = k + (long)b * Tk * rk + (long)hkv * HD;
-  const T* vp = v + (long)b * Tk * rk + (long)hkv * HD;
-  T* op = o + (long)b * S * rs + (long)h * HD;
-
-  float vals[4];
-  for (int e = tid; e < kBQ * (HD / 4); e += rt::kThreads) {
-    const int i = e % kBQ, d = (e / kBQ) * 4, gi = q0 + i;
-    load4(qp + gi * rs + d, gi < S, vals);
-#pragma unroll
-    for (int c = 0; c < 4; ++c) Qs[(d + c) * kLD + i] = vals[c];
-  }
-
-  float m_r[4], l_r[4], acc[4][NG * 4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_r[i] = kNegInf;
-    l_r[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NG * 4; ++c) acc[i][c] = 0.f;
-  }
-
-  int t0, t1;
-  mk.tiles(q0, t0, t1);
-  for (int k0 = t0 * kBK; k0 < t1 * kBK; k0 += kBK) {
-    __syncthreads();   // the previous tile's Ks / Vs / Ps are consumed
-    for (int e = tid; e < kBK * (HD / 4); e += rt::kThreads) {
-      const int j = e % kBK, d = (e / kBK) * 4, gj = k0 + j;
-      load4(kp + gj * rk + d, gj < Tk, vals);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) Ks[(d + c) * kLD + j] = vals[c];
-    }
-    for (int e = tid; e < kBK * (HD / 4); e += rt::kThreads) {
-      const int j = e / (HD / 4), d = (e % (HD / 4)) * 4, gj = k0 + j;
-      load4(vp + gj * rk + d, gj < Tk, vals);
-      *reinterpret_cast<float4*>(&Vs[j * HD + d]) =
-          make_float4(vals[0], vals[1], vals[2], vals[3]);
-    }
-    __syncthreads();
-
-    float s[4][4] = {};
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&Qs[d * kLD + ty * 4]);
-      const float4 bb = *reinterpret_cast<const float4*>(&Ks[d * kLD + tx * 4]);
-      const float ar[4] = {a.x, a.y, a.z, a.w};
-      const float br[4] = {bb.x, bb.y, bb.z, bb.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(ar[i], br[j], s[i][j]);
-    }
-
-    // online softmax; a row's 64 logits live in the 16 threads of one
-    // half-warp (same ty), so xor-shuffles over 8..1 reduce a row
-    const bool full = MASKED && mk.full(k0, q0);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx * 4 + j;
-        const bool ok = MASKED ? full || mk.ok(kpos, q0 + ty * 4 + i)
-                               : kpos < Tk;
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_r[i], mx);
-      const float corr = expf(m_r[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        sum += s[i][j];
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      l_r[i] = l_r[i] * corr + sum;
-      m_r[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < NG * 4; ++c) acc[i][c] *= corr;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&Ps[(tx * 4 + j) * kLD + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();
-
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      const float4 p = *reinterpret_cast<const float4*>(&Ps[j * kLD + ty * 4]);
-      const float pr[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(&Vs[j * HD + g * 64 + tx * 4]);
-        const float vr[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            acc[i][g * 4 + c] = fmaf(pr[i], vr[c], acc[i][g * 4 + c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gi = q0 + ty * 4 + i;
-    if (gi >= S) continue;
-    const float l = fmaxf(l_r[i], 1e-30f);
-    // the row's log-sum-exp for the backward (the 16 threads of a row
-    // hold the same m and l); blockIdx.y is b·H + h
-    if (LSE && tx == 0)
-      lse[(long)blockIdx.y * S + gi] = m_r[i] + logf(l);
-#pragma unroll
-    for (int g = 0; g < NG; ++g)
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        op[gi * rs + g * 64 + tx * 4 + c] =
-            rt::from_f32<T>(acc[i][g * 4 + c] / l);
-  }
 }
 
 // --- bf16: Hopper version (TMA, mbarriers, wgmma, warp-specialised) ---
@@ -615,23 +417,6 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <typename T, int HD, bool MASKED, bool LSE>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int S, int H, int Hkv, Mask mk, cudaStream_t st) {
-  const size_t smem = smem_bytes<HD>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, HD, MASKED, LSE>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, HD, MASKED, LSE><<<grid, rt::kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, mk,
-      1.0f / sqrtf(static_cast<float>(HD)));
-  return cudaGetLastError();
-}
-
 using Launch = int (*)(const void*, const void*, const void*, void*, float*,
                       int, int, int, int, Mask, cudaStream_t);
 
@@ -646,7 +431,7 @@ Launch pick(bool masked, bool lse) {
 // q, o [B, S, H, hd]; k, v [B, Tk, Hkv, hd] with H a multiple of Hkv;
 // one type; contiguous and 16-byte aligned; hd in {64, 128}; causal 0/1,
 // window 0 (none) or > 0.  bf16 runs the Hopper kernel, float32 the
-// float32 FMA kernel.  lse, when not null, receives each row's natural
+// 3xTF32 tensor-core kernel (flash_fwd_tf32.cuh).  lse, when not null, receives each row's natural
 // log-sum-exp of the scaled, masked logits, float32 [B, H, S] (what the
 // backward recomputes P from); null writes nothing else.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -674,15 +459,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                 launch_hopper<128, false, false>>(m, lse != nullptr)(
         q, k, v, o, lse, B, S, H, Hkv, mk, st);
   if (dtype == rt::kF32 && hd == 64)
-    return pick<launch<float, 64, true, true>, launch<float, 64, true, false>,
-                launch<float, 64, false, true>,
-                launch<float, 64, false, false>>(m, lse != nullptr)(
+    return pick<flash::launch_tf32<64, true, true>,
+                flash::launch_tf32<64, true, false>,
+                flash::launch_tf32<64, false, true>,
+                flash::launch_tf32<64, false, false>>(m, lse != nullptr)(
         q, k, v, o, lse, B, S, H, Hkv, mk, st);
   if (dtype == rt::kF32 && hd == 128)
-    return pick<launch<float, 128, true, true>,
-                launch<float, 128, true, false>,
-                launch<float, 128, false, true>,
-                launch<float, 128, false, false>>(m, lse != nullptr)(
+    return pick<flash::launch_tf32<128, true, true>,
+                flash::launch_tf32<128, true, false>,
+                flash::launch_tf32<128, false, true>,
+                flash::launch_tf32<128, false, false>>(m, lse != nullptr)(
         q, k, v, o, lse, B, S, H, Hkv, mk, st);
   return cudaErrorInvalidValue;
 }

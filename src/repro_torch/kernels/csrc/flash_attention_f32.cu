@@ -1,7 +1,7 @@
-// Flash attention in float32 at head width 16 on the FMA units: the
-// forward and its backward, non-causal multi-head attention (one kv head
-// per query head), the form dit-small's joint attention takes (d_model
-// 128 in 8 heads) from 1024 tokens up.
+// Flash attention in float32 at head width 16: the forward on the TF32
+// tensor cores and its backward on the FMA units, non-causal multi-head
+// attention (one kv head per query head), the form dit-small's joint
+// attention takes (d_model 128 in 8 heads) from 1024 tokens up.
 //
 // The forward replaces the Pallas kernel repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel) at this width:
@@ -12,27 +12,20 @@
 //
 // What bounds it on an H100: operations.  The forward does 4·16 = 64
 // FLOP a (query, key) pair and head (Q·Kᵀ and P·V), the backward 10·16
-// (S again, dV, dP, dQ, dK), all float32, at the 67 TFLOP/s of the FMA
-// units: at [2, 4096, 8, 16] 17.2 GFLOP forward (0.26 ms) against 16.8
-// MB of q, k, v and o (5 us).  The tensor cores are not used: float32
-// must stay float32 (TF32 keeps ~3 decimal digits), and the 3xTF32
-// split that keeps float32 accuracy on them is later work.
+// (S again, dV, dP, dQ, dK): at [2, 4096, 8, 16] 17.2 GFLOP forward,
+// 0.035 ms at the 495 TFLOP/s TF32 peak, against 16.8 MB of q, k, v and
+// o (5 us); the backward's 43 GFLOP run at the 67 TFLOP/s of the FMA
+// units (0.64 ms).
 //
-// Design: a head of 16 floats fits in 16 registers, so a thread owns a
-// whole row and no reduction crosses threads.
-// - Forward: a block of 128 threads owns 128 queries of one (b, h), one
-//   query a thread, with q (pre-scaled by log2 e / 4) and the float32
-//   accumulator in 32 registers.  K and V tiles of 64 keys are staged in
-//   shared memory with 16-byte loads (rows past T zero-filled); every
-//   lane of a warp then reads the same key, a broadcast.  The online
-//   softmax runs in base 2 over chunks of 16 keys: 16 logits in
-//   registers, one running-max update and one rescale of the
-//   accumulator per chunk, then ex2 of each logit.  Keys past T are a
-//   select to −1e30 (exp 0) before the ex2; queries past S compute and
-//   are not written.  A second instantiation also writes the float32
-//   log-sum-exp [B, H, S] (natural log) for the backward.
-// - Backward, three launches, no atomics: each gradient row is written
-//   once by the one thread that owns it, so two calls are bitwise equal.
+// - Forward: the 3xTF32 template of flash_fwd_tf32.cuh at hd 16 (each
+//   operand split hi + lo in TF32, three mma.sync products a product,
+//   so float32 accuracy; a warp owns 32 queries, two m16 tiles, their Q
+//   fragments in 32 registers), with and without the float32
+//   log-sum-exp [B, H, S] (natural log) the backward reads.
+// - Backward on the FMA units (a head of 16 floats fits in 16 registers,
+//   so a thread owns a whole row and no reduction crosses threads), three
+//   launches, no atomics: each gradient row is written once by the one
+//   thread that owns it, so two calls are bitwise equal.
 //   (a) the row statistics: lse·log2 e and D = rowsum(dO ∘ O), one
 //       thread a row, into a float2 [B, H, S] scratch;
 //   (b) dK and dV: a thread owns one key row (k pre-scaled, v, and both
@@ -45,16 +38,14 @@
 //   runs 14·16 FLOP a pair (S and dP in both passes) against the
 //   bound's 10·16.
 #include "common.cuh"
+#include "flash_fwd_tf32.cuh"
 
 namespace {
 
 constexpr int kHD = 16;        // head width: a row is four float4
 constexpr int kRows = 128;     // threads of a block, one row each
 constexpr int kTile = 64;      // rows of the other operand staged a step
-constexpr int kChunk = 16;     // logits held between two rescales
-constexpr float kNegBig = -1e30f;   // a masked logit, as the TPU kernel's
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ float ex2(float x) {
   float y;
@@ -137,59 +128,6 @@ __device__ __forceinline__ Head head(int S, int T, int H) {
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   return {(long)b * S * H * kHD + h * kHD, (long)b * T * H * kHD + h * kHD,
           (long)blockIdx.y * S};
-}
-
-template <bool LSE>
-__global__ void __launch_bounds__(kRows)
-fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-           const float* __restrict__ v, float* __restrict__ o,
-           float* __restrict__ lse, int S, int T, int H, float qscale) {
-  __shared__ __align__(16) float Ks[kTile * kHD];
-  __shared__ __align__(16) float Vs[kTile * kHD];
-  const Head hd = head(S, T, H);
-  const long stride = (long)H * kHD;
-  const int i = blockIdx.x * kRows + threadIdx.x;
-  float qr[kHD], acc[kHD];
-  load_row(q + hd.q_off + i * stride, i < S, qr);
-#pragma unroll
-  for (int d = 0; d < kHD; ++d) {
-    qr[d] *= qscale;
-    acc[d] = 0.f;
-  }
-  float m = kNegBig, l = 0.f;
-  for (int k0 = 0; k0 < T; k0 += kTile) {
-    __syncthreads();   // the previous tile is consumed
-    stage(Ks, k + hd.kv_off, stride, k0, T);
-    stage(Vs, v + hd.kv_off, stride, k0, T);
-    __syncthreads();
-    const int n = min(kTile, T - k0);
-    for (int c0 = 0; c0 < n; c0 += kChunk) {
-      float s[kChunk];
-      float mx = m;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float x = dot(qr, Ks + (c0 + j) * kHD);
-        s[j] = c0 + j < n ? x : kNegBig;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float alpha = ex2(m - mx);
-      l *= alpha;
-#pragma unroll
-      for (int d = 0; d < kHD; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const float p = ex2(s[j] - mx);
-        l += p;
-        axpy(acc, p, Vs + (c0 + j) * kHD);
-      }
-      m = mx;
-    }
-  }
-  if (i < S) {
-    l = fmaxf(l, 1e-30f);
-    store_row(o + hd.q_off + i * stride, acc, 1.f / l);
-    if constexpr (LSE) lse[hd.row_off + i] = (m + log2f(l)) * kLn2;
-  }
 }
 
 // (a) stats[b, h, s] = (lse·log2 e, rowsum(dO ∘ O)); one thread a row of
@@ -312,14 +250,12 @@ extern "C" int flash_attention_f32_fwd(const float* q, const float* k,
                                        void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (bad(B, S, T, H)) return cudaErrorInvalidValue;
-  const float qscale = kLog2e / 4.f;   // log2 e / sqrt(16)
-  if (lse != nullptr)
-    fwd_kernel<true><<<grid(S, B, H), kRows, 0, st>>>(q, k, v, o, lse, S, T,
-                                                      H, qscale);
-  else
-    fwd_kernel<false><<<grid(S, B, H), kRows, 0, st>>>(q, k, v, o, lse, S,
-                                                       T, H, qscale);
-  return cudaGetLastError();
+  const flash::Mask mk{T, 0, 0};
+  return lse != nullptr
+             ? flash::launch_tf32<kHD, false, true>(q, k, v, o, lse, B, S, H,
+                                                    H, mk, st)
+             : flash::launch_tf32<kHD, false, false>(q, k, v, o, lse, B, S,
+                                                     H, H, mk, st);
 }
 
 // dq, dk, dv of flash_attention_f32_fwd from its o and lse and the

@@ -5,11 +5,14 @@ and grouped-query forms, forward and backward.
 counterpart of ``repro.kernels.flash_attention``); with ``return_lse``
 it also returns each row's log-sum-exp, which ``flash_attention_bwd``
 (``csrc/flash_attention_bwd.cu``, bf16) recomputes the probabilities
-from.  Both send float32 at head width 16, non-causal with one kv head
-per query head (dit-small's joint attention), to the float32 FMA
-library ``csrc/flash_attention_f32.cu`` (``flash_attention_f32`` and
-``flash_attention_f32_bwd``, each with its own launch count); every
-other form at width 16 raises.  CUDA tensors only; the op layer sends
+from.  float32 forwards run on the TF32 tensor cores with each operand
+split hi + lo (three products, float32 accuracy; the template
+``csrc/flash_fwd_tf32.cuh``).  Both send float32 at head width 16,
+non-causal with one kv head per query head (dit-small's joint
+attention), to the library ``csrc/flash_attention_f32.cu``
+(``flash_attention_f32``, that template at 16, and
+``flash_attention_f32_bwd``, on the FMA units, each with its own launch
+count); every other form at width 16 raises.  CUDA tensors only; the op layer sends
 CPU tensors to ``ref.attention_ref``, which autograd differentiates.
 Any S and T are taken: the kernels mask ragged tile edges.  On ``meta``
 tensors the wrappers record their work (``fwd_work`` / ``bwd_work``,
@@ -95,12 +98,14 @@ def fwd_work(b: int, s: int, t: int, hq: int, hkv: int, hd: int,
              dtype_name: str, causal: bool = False, window: int = 0,
              lse: bool = False):
     """The forward's work, ``({type: FLOP}, bytes)``: 4·hd FLOP a head
-    and kept pair (Q·Kᵀ and P·V) in the inputs' type (bf16 on the tensor
-    cores, float32 on the FMA units); q, k, v read and the output written
-    once, and with ``lse`` its float32 [B, H, S] too."""
+    and kept pair (Q·Kᵀ and P·V) on the tensor cores, under ``bfloat16``
+    for bf16 inputs and ``tf32`` for float32 ones (the function once; the
+    kernel's hi + lo split runs it three times); q, k, v read and the
+    output written once, and with ``lse`` its float32 [B, H, S] too."""
     flops = 4 * hq * hd * b * attention_pairs(s, causal, window, t)
     nbytes = (2 * hq * s + 2 * hkv * t) * hd * _ELEM[dtype_name] * b
-    return {dtype_name: flops}, nbytes + (b * hq * s * 4 if lse else 0)
+    op = "tf32" if dtype_name == "float32" else dtype_name
+    return {op: flops}, nbytes + (b * hq * s * 4 if lse else 0)
 
 
 def bwd_work(b: int, s: int, t: int, hq: int, hkv: int, hd: int,
@@ -209,11 +214,11 @@ flash_attention_bwd.launches = 0
 
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         return_lse: bool = False):
-    """The float32 FMA forward at head width 16 (``csrc/
-    flash_attention_f32.cu``): non-causal MHA, q [B, S, H, 16], k, v [B,
-    T, H, 16] float32 -> [B, S, H, 16] (and lse [B, H, S] with
-    ``return_lse``).  Reached through ``flash_attention``, which checks
-    the inputs."""
+    """The float32 forward at head width 16 (``csrc/
+    flash_attention_f32.cu``, the 3xTF32 tensor-core template):
+    non-causal MHA, q [B, S, H, 16], k, v [B, T, H, 16] float32 -> [B, S,
+    H, 16] (and lse [B, H, S] with ``return_lse``).  Reached through
+    ``flash_attention``, which checks the inputs."""
     b, s, h, hd = q.shape
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)

@@ -839,3 +839,79 @@ def test_flash_hd16_cuda_refuses_other_forms(card):
         with pytest.raises(ValueError, match="head_dim 16"):
             call()
     assert not any(ops.launch_counts().values())
+
+
+# the float32 forward on the TF32 tensor cores (flash_fwd_tf32.cuh, three
+# products of hi + lo splits): 128 queries a block, 16 a warp, key tiles
+# of 64 at hd 16 and 64, of 32 at hd 128.  (B, S, T, Hq, Hkv, hd, causal,
+# window): S and T off every tile edge, T shorter than one key tile, and
+# at 64 and 128 the causal, window and GQA forms (hd 16 takes non-causal
+# MHA only)
+_TF32_FWD_FORMS = [
+    (2, 200, 200, 8, 8, 16, False, 0),
+    (1, 130, 40, 8, 8, 16, False, 0),       # T shorter than a key tile
+    (2, 333, 77, 4, 4, 64, False, 0),
+    (1, 300, 20, 4, 4, 128, False, 0),      # T shorter than a tile of 32
+    (2, 333, 333, 8, 2, 64, True, 0),       # causal GQA
+    (2, 300, 300, 4, 1, 128, True, 0),
+    (1, 520, 520, 8, 2, 128, True, 100),    # causal window, GQA
+    (1, 400, 400, 4, 4, 64, False, 90),     # non-causal window
+    (2, 260, 390, 4, 2, 128, False, 0),     # T != S, GQA
+]
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,hd,causal,window", _TF32_FWD_FORMS)
+def test_flash_tf32_forward_forms(card, b, s, t, hq, hkv, hd, causal,
+                                  window):
+    """The float32 forward with and without its log-sum-exp against
+    ``attention_lse_ref`` (float32, TF32 off: 1e-5), the output equal
+    with and without the LSE, two launches bitwise equal, one launch a
+    call on its counter."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, _ = _bwd_inputs(card, s, hq, hkv, hd, torch.float32, b=b, t=t)
+    g = hq // hkv
+    counter = "flash_attention_f32" if hd == 16 else "flash_attention"
+    ops.reset_launch_counts()
+    out = fa.flash_attention(q, k, v, g, causal, window)
+    again = fa.flash_attention(q, k, v, g, causal, window)
+    out2, lse = fa.flash_attention(q, k, v, g, causal, window,
+                                   return_lse=True)
+    assert ops.launch_counts()[counter] == 3
+    assert torch.equal(out, again) and torch.equal(out, out2)
+    want_out, want_lse = ref.attention_lse_ref(q, k, v, g, causal, window)
+    _close((out, lse), (want_out, want_lse), torch.float32)
+
+
+def _rel64(got, want):
+    return float((got.double() - want.double()).abs().max()
+                 / want.double().abs().max())
+
+
+@pytest.mark.parametrize("hd,hq,hkv,causal", [(16, 8, 8, False),
+                                              (64, 8, 2, True),
+                                              (128, 32, 4, True)])
+def test_flash_tf32_sharp_softmax(card, hd, hq, hkv, causal):
+    """float32 with q scaled so that the logits' std is ~80 (as
+    ``test_flash_kernel_sharp_softmax`` in bf16).  There float32 itself
+    carries ~1e-5: a logit near 300 puts its own rounding into the
+    exponent.  So the kernel is held against the float64 oracle (the
+    plain version on float64 inputs) within 1e-5 or, where the float32
+    plain version is further off, within twice that version's own error;
+    the plain version with TF32 on must miss the same limit."""
+    q = torch.randn(2, 333, hq, hd, device=card) * 80.0
+    k, v = (torch.randn(2, 333, hkv, hd, device=card) for _ in "kv")
+    g = hq // hkv
+    ops.reset_launch_counts()
+    got = ops.flash(q, k, v, g, causal=causal)
+    assert sum(ops.launch_counts().values()) == 1
+    oracle = ref.attention_ref(*(x.double() for x in (q, k, v)), g, causal)
+    plain = _rel64(ref.attention_ref(q, k, v, g, causal), oracle)
+    tol = max(TOL[torch.float32], 2 * plain)
+    assert _rel64(got, oracle) <= tol, (_rel64(got, oracle), plain)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = _rel64(ref.attention_ref(q, k, v, g, causal), oracle)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert control > tol, (control, tol)

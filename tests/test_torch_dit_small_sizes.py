@@ -228,8 +228,9 @@ def _meta(*shape, dtype=torch.float32, grad=False):
 def test_meta_route_records_the_float32_hd16_kernels(b, s, t):
     """On meta tensors ``ops.flash`` at float32 hd 16 takes the new
     kernels: their forward (with its lse, a gradient being needed) and
-    backward record ``fwd_work`` / ``bwd_work`` under the float32 key,
-    the outputs have the inputs' shapes, and no launch count moves."""
+    backward record ``fwd_work`` / ``bwd_work``, the forward under the
+    tf32 key (its tensor-core route), the backward under float32, the
+    outputs have the inputs' shapes, and no launch count moves."""
     calls = []
     ops.reset_launch_counts()
     q = _meta(b, s, 8, 16, grad=True)
@@ -243,7 +244,7 @@ def test_meta_route_records_the_float32_hd16_kernels(b, s, t):
                                              lse=True)),
         ("flash_attention_f32_bwd", *fa.bwd_work(b, s, t, 8, 8, 16,
                                                  dtype_name="float32"))]
-    assert set(calls[0][1]) == set(calls[1][1]) == {"float32"}
+    assert set(calls[0][1]) == {"tf32"} and set(calls[1][1]) == {"float32"}
     assert not any(ops.launch_counts().values())
 
 
@@ -304,6 +305,6 @@ def test_dry_run_counts_dit_small_at_latent_128_on_the_new_forward():
     work, nbytes = fa.fwd_work(2, 4096, 4096, 8, 8, 16, "float32")
     k = counted["by_kind"]["flash_attention_f32"]
     assert k["calls"] == cfg.n_layers
-    assert k["flops_by_type"] == {"float32": cfg.n_layers * work["float32"]}
+    assert k["flops_by_type"] == {"tf32": cfg.n_layers * work["tf32"]}
     assert k["bytes"] == cfg.n_layers * nbytes
     assert not any(ops.launch_counts().values())

@@ -267,8 +267,8 @@ def test_dit_full_step_flops_match_the_reference():
     assert set(counted["by_kind"]) == {"dense", "other",
                                        "flash_attention_f32"}
     assert flash["calls"] == cfg.n_layers
-    assert flash["flops_by_type"] == {"float32": cfg.n_layers
-                                      * work["float32"]}
+    assert flash["flops_by_type"] == {"tf32": cfg.n_layers
+                                      * work["tf32"]}
     assert flash["bytes"] == cfg.n_layers * nbytes
     ref_flops = ha.analyze(compiled.as_text())["flops"]
     assert counted["flops"] == pytest.approx(ref_flops, rel=FLOP_RTOL)

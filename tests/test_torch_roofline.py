@@ -50,7 +50,7 @@ def test_kernel_work_against_hand_counts():
     assert fa.fwd_work(1, 4, 4, 2, 1, 64, "bfloat16", True) == (
         {"bfloat16": 5120}, 3072)
     assert fa.fwd_work(1, 4, 4, 2, 1, 64, "float32", True, lse=True) == (
-        {"float32": 5120}, 6144 + 32)
+        {"tf32": 5120}, 6144 + 32)
     # 10·hd·H a pair; q, o, dO, dQ and k, v, dK, dV, and the lse
     assert fa.bwd_work(1, 4, 4, 2, 1, 64, True) == ({"bfloat16": 12800},
                                                     6144 + 32)
@@ -225,7 +225,7 @@ def test_a_reduced_prefill_counts_its_flash_launches():
     assert flash["calls"] == cfg.n_layers
     work, nb = flash_attention.fwd_work(1, 2048, 2048, 2, 1, 64, "float32",
                                         True)
-    assert flash["flops"] == cfg.n_layers * work["float32"]
+    assert flash["flops"] == cfg.n_layers * work["tf32"]
     assert flash["bytes"] == cfg.n_layers * nb
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     per_layer = 2 * 2048 * (d * 2 * hd + 2 * d * hd + 2 * hd * d

@@ -15,10 +15,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
                each hold TF32 mma.sync (HMMA) and spill nothing;
                the SASS of token_basis_matmul, ssd_scan, ssd_scan_bwd,
                band_split_spectral and freqca_fused_spectral must hold
-               mma.sync (HMMA), with no spills in any of their kernels;
-               in flash_attention_f32 (float32 at head width 16), kernel
-               by kernel, the two forward and the two backward kernels
-               must hold TF32 HMMA, with no spills in any;
+               mma.sync (HMMA), with no spills in any of their kernels,
+               and in the SSD libraries every instantiation (heads of
+               16, 32 and 64, token tiles of 16, 32 and 64) of each
+               product kernel must hold HMMA; in flash_attention_f32
+               (float32 at head widths 16 and 32), kernel by kernel, the
+               eight forward and the eight backward kernels must hold
+               TF32 HMMA, with no spills in any;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer; the FreqCa cache
@@ -41,7 +44,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
                backward against a float64 oracle, two backward launches
                bitwise equal, each of its two launches timed apart, a
                TF32 control of the plain version that must miss each
-               tolerance;
+               tolerance; the same in every form at the reduced
+               launcher's shapes (hd 32, [16, 2048, 4/2], causal and
+               non-causal) and at the reference kernel tests' hd-16
+               causal GQA forms at S 2048 (the backward within twice the
+               float32 plain version's own error of the oracle); kernels
+               6 and 8 at the reduced SSM layer (x [16, 2048, 8, 32], N
+               16, chunk 16, float32);
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
                versions), and so does a mixed batch of a FreqCa and a
@@ -173,6 +182,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
                route at 128 (with a TF32 control), and the dry run's
                dit-small step at latent 128 against the card (``PHASES``
                runs it after vlm, before launcher);
+22. reduced  — every ``--reduced`` config through the launcher's entry
+               point ``launch.train.main`` on the card (no ``--device``):
+               the ten LMs at ``--seq 2048`` (float32 flash at head width
+               32; the SSD scan at heads of 32 in chunks of 16 for
+               mamba2 and jamba) and the two DiTs, 2 steps on batch 2,
+               each config's kernels launched; one training step each,
+               card against CPU from the same parameters and batch,
+               loss and worst gradient leaf within 1e-4 (``PHASES`` runs
+               it after dit_small);
 21. dryrun   — first, ``launch.dryrun --all`` on the 16 x 16 mesh in
                this process (10 LM configs x 4 shapes and the two DiTs'
                full and cached steps on meta tensors, the CPU's work):
@@ -238,7 +256,8 @@ SERVE_KERNELS = ("band_split_spectral", "freqca_predict_fused_spectral",
 # and the float32 hd-16 rows ({"<kernel>[<form>]": {dtype: numbers}}),
 # for the kernels line
 FORM_ROWS = {}
-FORM_TAGS = ("jamba", "seamless", "llava", "f32_hd16")
+FORM_TAGS = ("jamba", "seamless", "llava", "f32_hd16", "f32_hd32",
+             "p32 q16")
 
 
 def log(msg: str) -> None:
@@ -413,11 +432,24 @@ def flash_build_checks() -> None:
                                  f"{spills}, warnings {warnings}")
 
 
+# the SSD libraries' kernels that run products (each instantiation at
+# heads of 16, 32 and 64 and token tiles of 16, 32 and 64, both types):
+# (library, kernel-name fragment, instantiations)
+SSD_MMA_KERNELS = (("ssd_scan", "ssd_gram_kernel", 6),
+                   ("ssd_scan", "ssd_chunk_state_kernel", 18),
+                   ("ssd_scan", "ssd_chunk_out_kernel", 18),
+                   ("ssd_scan_bwd", "ssd_bwd_state_grad_kernel", 18),
+                   ("ssd_scan_bwd", "ssd_bwd_pair_kernel", 18),
+                   ("ssd_scan_bwd", "ssd_bwd_dx_kernel", 18),
+                   ("ssd_scan_bwd", "ssd_bwd_bc_kernel", 18))
+
+
 def mma_build_checks() -> None:
     """token_basis_matmul, the SSD scan and its backward and the two
     FreqCa cache kernels run their products on the tensor cores: each
     library's SASS holds mma.sync (HMMA), and ptxas reports no spills for
-    any of its kernels."""
+    any of its kernels.  In the SSD libraries every instantiation of
+    each product kernel (``SSD_MMA_KERNELS``) holds HMMA."""
     for name in ("token_basis_matmul", "ssd_scan", "ssd_scan_bwd",
                  "band_split_spectral", "freqca_fused_spectral"):
         hmma = sass(name).count("HMMA")
@@ -427,6 +459,15 @@ def mma_build_checks() -> None:
         if hmma == 0 or not spills or any(spills.values()):
             raise AssertionError(f"{name} build: HMMA {hmma}, spills "
                                  f"{spills}")
+    funcs = {lib: sass_functions(lib) for lib in ("ssd_scan", "ssd_scan_bwd")}
+    for lib, kernel, n in SSD_MMA_KERNELS:
+        hmma = [code.count("HMMA") for f, code in funcs[lib].items()
+                if kernel in f]
+        log(f"{lib} {kernel}: {len(hmma)} instantiations, HMMA "
+            f"{min(hmma, default=0)}..{max(hmma, default=0)}")
+        if len(hmma) != n or min(hmma) == 0:
+            raise AssertionError(f"{lib} build: {kernel} HMMA {hmma}, "
+                                 f"expected {n} instantiations")
 
 
 def kernel_phase(main_dtype: dict) -> dict:
@@ -645,6 +686,8 @@ def kernel_phase(main_dtype: dict) -> dict:
             flash_bwd_rows(row, gen)
         else:
             f32_hd16_rows(row)
+            small_flash_rows(row)
+            small_ssd_rows(row)
     return rows
 
 
@@ -1041,6 +1084,13 @@ AB_F32_ROWS = (("DiT", 2, 4608, 24, 24, 128, False),
                ("hd16 2x1600", 2, 1600, 8, 8, 16, False))
 
 
+# the SSD rows of ``ab_trace``: one mamba2-370m layer (the kernel phase's
+# shape) and one jamba layer (``JAMBA_SSD_SHAPE``: heads of 128 as two of
+# 64), (b, s, h, p, n, q)
+AB_SSD_ROWS = (("mamba2 layer", (2, 4096, 32, 64, 128, 256)),
+               ("jamba layer", (1, 4096, 128, 128, 128, 256)))
+
+
 def ab_trace() -> None:
     """The pieces the float32 flash kernels touch, for an A/B of two
     trees in one call; it checks nothing.  Kernel 3 in float32 at
@@ -1048,7 +1098,8 @@ def ab_trace() -> None:
     (CUDA events, 5 calls each); kernel 7 in float32 at
     ``F32_HD16_ROWS`` beside SDPA's float32 backward (grad through SDPA
     less its forward), with each launch's device time (``device_ms``);
-    then dit-small's ``train_dit`` at latent
+    kernels 6 and 8 at ``AB_SSD_ROWS`` in bf16 and float32 (CUDA
+    events, 5 calls each); then dit-small's ``train_dit`` at latent
     128 (batch ``DIT_SMALL_TRAIN_BATCH``, ``DIT_SMALL_TRAIN_STEPS``
     steps: step walls and the last step's split) and
     ``launch.serve.main(DIT_SMALL_SERVE_ARGS)`` (each engine's wall and
@@ -1063,7 +1114,7 @@ def ab_trace() -> None:
     import torch.nn.functional as F
 
     from repro_torch import configs
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, ssd_scan
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import serve, train
     from repro_torch.models import dit
@@ -1109,6 +1160,18 @@ def ab_trace() -> None:
             + "; ".join(f"{n} {ms:.4f} ms" for n, (ms, _) in parts))
         del q, k, v, do, o, lse, leaves
         torch.cuda.empty_cache()
+    for label, (b, s, h, p, n, q) in AB_SSD_ROWS:
+        for dt in (torch.bfloat16, torch.float32):
+            x, dts, a, bm, cm, dy = ssd_bwd_inputs(b, dt, s, h, n, p)
+            t_f = time_ms(lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm,
+                                                          q), 5)
+            t_b = time_ms(lambda: ssd_scan.ssd_chunk_scan_bwd(
+                x, dts, a, bm, cm, dy, q), 5)
+            log(f"ab_trace ssd {label} [{b}, {s}, {h}, {p}] N {n} Q {q} "
+                f"{str(dt).removeprefix('torch.')}: forward {t_f:.4f} ms, "
+                f"backward {t_b:.4f} ms a call (CUDA events)")
+            del x, dts, a, bm, cm, dy
+            torch.cuda.empty_cache()
     cfg = configs.get_config("dit-small")
     params = dit.init_params(cfg, seed=83, device="cuda")
     redraw_zero_leaves(params, seed=84)
@@ -1231,8 +1294,8 @@ def fwd_variants(reps: int = 20) -> None:
                 if hd == 16:
                     fn = libs[name, "flash_attention_f32"]
                     fn = fn.flash_attention_f32_fwd
-                    fn.argtypes, fn.restype = [P] * 5 + [I] * 4 + [P], I
-                    args = (b, s, s, hq, stream)
+                    fn.argtypes, fn.restype = [P] * 5 + [I] * 8 + [P], I
+                    args = (b, s, s, hq, hkv, hd, int(causal), 0, stream)
                 else:
                     fn = libs[name, "flash_attention"].flash_attention_fwd
                     fn.argtypes, fn.restype = [P] * 5 + [I] * 9 + [P], I
@@ -1358,14 +1421,14 @@ def bwd_variants(reps: int = 10) -> None:
                 scratch.argtypes, scratch.restype = [I] * 3, ctypes.c_long
                 st = torch.empty(scratch(b, s, 8), device=dev)
                 fn = lib.flash_attention_f32_bwd
-                fn.argtypes, fn.restype = [P] * 10 + [I] * 4 + [P], I
+                fn.argtypes, fn.restype = [P] * 10 + [I] * 8 + [P], I
                 grads = [torch.empty_like(x) for x in (q, k, v)]
 
                 def call(fn=fn, grads=grads, st=st):
                     if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), lse.data_ptr(), do.data_ptr(),
                           *(x.data_ptr() for x in grads), st.data_ptr(), b,
-                          s, t, 8, stream) != 0:
+                          s, t, 8, 8, 16, 0, 0, stream) != 0:
                         raise RuntimeError(f"bwd_variants {name}: launch")
                     return [x.clone() for x in grads]
                 first, again = call(), call()
@@ -2863,11 +2926,13 @@ DECODE_RUNS = (("yi_decode_32k", "yi-9b", "decode_32k", 16),
                ("mamba_long_500k", "mamba2-370m", "long_500k", 1))
 DECODE_TIMED = 8          # timed steps after one warm step
 # the decode-against-forward checks: yi-9b cut to 4 layers on a prompt
-# long enough for the forward's flash route, mamba2-370m at full depth
-# (cut to 8 layers for the float32 check: its prefill is host-bound,
-# ~1 ms of eager ops a layer and token)
+# long enough for the forward's flash route, mamba2-370m cut to 16
+# layers in bf16 (48 until the reduced phase needed its time) and to 8
+# for the float32 check: its prefill is host-bound, ~1 ms of eager ops a
+# layer and token
 DECODE_YI_LAYERS, DECODE_YI_PROMPT = 4, 2048
 DECODE_MAMBA_PROMPT = 512
+DECODE_MAMBA_LAYERS = 16
 DECODE_MAMBA_F32_LAYERS = 8
 DECODE_NEW = 16
 # card against CPU, relative L2 of the logits and of the updated cache:
@@ -2878,7 +2943,7 @@ DECODE_NEW = 16
 DECODE_CARD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # decode against forward: the prefill's last logits against the
 # forward's last row, relative L2; bf16 takes the same 2e-2 over yi's 4
-# layers and 5e-2 over mamba2's 48, whose chunk scan (bf16 inputs) and
+# layers and 5e-2 over mamba2's 16, whose chunk scan (bf16 inputs) and
 # float32 recurrence round the residual stream in other places in
 # every layer; float32 1e-3 (a sharper check of the same wiring)
 DECODE_FWD_TOL = {("yi-9b", "bfloat16"): 2e-2,
@@ -3314,9 +3379,11 @@ def decode_phase(yi_params=None, yi_cfg=None, mamba_cfg=None,
                      yi_len=seq or 32768)
     ops.reset_launch_counts()
     yi = dataclasses.replace(cfgs["yi-9b"], n_layers=DECODE_YI_LAYERS)
+    m16 = min(DECODE_MAMBA_LAYERS, m_cfg.n_layers)
     m32 = min(DECODE_MAMBA_F32_LAYERS, m_cfg.n_layers)
     checks = ((yi, "bfloat16", prompts[0]), (yi, "float32", prompts[0]),
-              (m_cfg, "bfloat16", prompts[1]),
+              (dataclasses.replace(m_cfg, n_layers=m16), "bfloat16",
+               prompts[1]),
               (dataclasses.replace(m_cfg, n_layers=m32), "float32",
                prompts[1]))
     for seed, (full, dtype, prompt) in enumerate(checks, start=91):
@@ -3327,7 +3394,7 @@ def decode_phase(yi_params=None, yi_cfg=None, mamba_cfg=None,
     counts = ops.launch_counts()
     # two forwards a check, three in bf16 (the float32 control)
     want = {"flash_attention": 5 * yi.n_layers,
-            "ssd_chunk_scan": 3 * m_cfg.n_layers + 2 * m32}
+            "ssd_chunk_scan": 3 * m16 + 2 * m32}
     if on_card and any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"decode: launches {counts}, expected {want}")
     log(f"decode: the checks' forwards launched "
@@ -6018,14 +6085,15 @@ F32_HD16_KERNELS = {
 
 
 def f32_build_checks() -> None:
-    """flash_attention_f32, kernel by kernel: its two forward kernels (the
-    3xTF32 template at hd 16, with and without the LSE) and its two
-    backward kernels (``flash_bwd_f32_q_kernel``: dQ and the row
-    statistics; ``flash_bwd_f32_kv_kernel``: dK and dV; the same split
-    products) each hold TF32 HMMA, and ptxas reports no spills in any of
-    the four.  Their float32 accuracy rests on the tolerances and on their
-    TF32 controls that must fail (``f32_hd16_rows``, the dit_small serve
-    and reference checks)."""
+    """flash_attention_f32, kernel by kernel: its eight forward kernels
+    (the 3xTF32 template at hd 16 and 32, masked or not, with and
+    without the LSE) and its eight backward kernels (at hd 16 and 32,
+    masked or not: ``flash_bwd_f32_q_kernel``, dQ and the row statistics;
+    ``flash_bwd_f32_kv_kernel``, dK and dV; the same split products) each
+    hold TF32 HMMA, and ptxas reports no spills in any of the sixteen.
+    Their float32 accuracy rests on the tolerances and on their TF32
+    controls that must fail (``f32_hd16_rows``, ``small_flash_rows``,
+    the dit_small serve and reference checks)."""
     counts = {n: tf32_hmma(c)
               for n, c in sass_functions("flash_attention_f32").items()}
     fwd = [n for n in counts if "tf32_fwd_kernel" in n]
@@ -6033,9 +6101,9 @@ def f32_build_checks() -> None:
     spills = ptxas_spills("flash_attention_f32")
     log(f"flash_attention_f32 TF32 HMMA by kernel: {counts}; spill bytes "
         f"{sorted(set(spills.values()))} over {len(spills)} kernels")
-    if len(fwd) != 2 or len(bwd) != 2 or len(counts) != 4 \
+    if len(fwd) != 8 or len(bwd) != 8 or len(counts) != 16 \
             or not all(counts.values()) \
-            or len(spills) != 4 or any(spills.values()):
+            or len(spills) != 16 or any(spills.values()):
         raise AssertionError(f"flash_attention_f32 build: SASS {counts}, "
                              f"spills {spills}")
 
@@ -6167,6 +6235,178 @@ def f32_hd16_rows(row) -> None:
         f32_bwd_split(name, kern, work["tf32"])
         del q, k, v, do, o, lse, leaves
         torch.cuda.empty_cache()
+
+
+# kernels 3 and 7 in float32 at the small widths' forms, the kernels
+# line's rows of this slice: (label, B, S, T, Hq, Hkv, hd, causal,
+# window) at the reduced launcher's shapes (batch 16 of 2048 tokens, 4
+# query heads on 2 kv heads of 32: causal, and non-causal, seamless's
+# encoder and its cross attention on 2048 frames) and at the reference's
+# kernel tests' hd-16 forms (GQA 6/2 causal, 4/2 causal with a window of
+# 24) at S 2048
+SMALL_FLASH_ROWS = (
+    ("f32_hd32 causal gqa 4/2", 16, 2048, 2048, 4, 2, 32, True, 0),
+    ("f32_hd32 gqa 4/2", 16, 2048, 2048, 4, 2, 32, False, 0),
+    ("f32_hd16 causal gqa 6/2", 2, 2048, 2048, 6, 2, 16, True, 0),
+    ("f32_hd16 causal gqa 4/2 window 24", 2, 2048, 2048, 4, 2, 16, True,
+     24))
+# kernels 6 and 8 at the reduced launcher's SSM layer: batch 16 of 2048
+# tokens, 8 heads of 32, state 16, chunks of 16, float32 (b, s, h, p, n,
+# q)
+SMALL_SSD_SHAPE = (16, 2048, 8, 32, 16, 16)
+# the kernels line's entries of this slice: (counter, source, the TPU
+# kernel or autodiff replaced, the row that carries their numbers);
+# their launches are the reduced phase's
+SMALL_KERNELS = {
+    "flash_attention[f32_hd32]": (
+        "flash_attention_f32",
+        "src/repro_torch/kernels/csrc/flash_fwd_tf32.cuh",
+        "src/repro/kernels/flash_attention.py:79",
+        "flash_attention[f32_hd32 causal gqa 4/2]"),
+    "flash_attention_bwd[f32_hd32]": (
+        "flash_attention_f32_bwd",
+        "src/repro_torch/kernels/csrc/flash_attention_f32.cu",
+        "none: XLA autodiff of src/repro/models/attention.py:89 "
+        "blockwise_sdpa",
+        "flash_attention_bwd[f32_hd32 causal gqa 4/2]"),
+    "ssd_chunk_scan[p32 q16]": (
+        "ssd_chunk_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "src/repro/kernels/ssd_scan.py:68", "ssd_chunk_scan[p32 q16]"),
+    "ssd_chunk_scan_bwd[p32 q16]": (
+        "ssd_chunk_scan_bwd", "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+        "none: XLA autodiff of src/repro/models/ssm.py:93 ssd_chunked",
+        "ssd_chunk_scan_bwd[p32 q16]"),
+}
+
+
+def small_flash_rows(row) -> None:
+    """Kernels 3 and 7 in float32 at head widths 32 and 16 in the forms
+    of ``SMALL_FLASH_ROWS``: the forward writing its log-sum-exp (as the
+    training path runs it) against ``ref.attention_lse_ref`` at
+    ``TOLERANCE``; the backward against ``ref.attention_bwd_ref`` run in
+    float64 from the kernel's o and lse (the oracle), each gradient
+    within twice the float32 plain version's own error (at least 1e-5),
+    and two backward launches bitwise equal.  The control: the plain
+    version with TF32 on must miss that limit on some gradient.  Bounds
+    from ``fwd_work`` and ``bwd_work`` at the TF32 peak; library: SDPA's
+    float32 forward and its backward (grad through SDPA less its
+    forward), timed only; the backward's two launches timed apart."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    for label, b, s, t, hq, hkv, hd, causal, window in SMALL_FLASH_ROWS:
+        g = hq // hkv
+        q, do = (torch.randn((b, s, hq, hd), generator=gen, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn((b, t, hkv, hd), generator=gen, device=dev)
+                for _ in range(2))
+        form = (g, causal, window)
+        mask = ref.attention_mask(s, t, causal, window, dev) if window \
+            else None
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=g > 1)
+        t_sf = time_ms(sdpa, 5)
+        t_sb = time_ms(lambda: torch.autograd.grad(
+            sdpa(), leaves, do.transpose(1, 2)), 5) - t_sf
+        work, nb = fa.fwd_work(b, s, t, hq, hkv, hd, "float32", causal,
+                               window, lse=True)
+        name = f"flash_attention[{label}]"
+        row(name, "float32",
+            lambda: fa.flash_attention(q, k, v, *form, return_lse=True),
+            lambda: ref.attention_lse_ref(q, k, v, *form), nb, work["tf32"],
+            library_ms=t_sf, op_dtype="tf32")
+        log_f32_fwd_bounds(f"{name} [float32]", nb, work["tf32"])
+        o, lse = fa.flash_attention(q, k, v, *form, return_lse=True)
+
+        def kern():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, *form)
+        got, again = kern(), kern()
+        same = all(torch.equal(a, c) for a, c in zip(got, again,
+                                                     strict=True))
+        del again
+        oracle = ref.attention_bwd_ref(
+            *(x.double() for x in (q, k, v, o, lse, do)), *form)
+        plain = ref.attention_bwd_ref(q, k, v, o, lse, do, *form)
+        lims = [max(1e-5, 2 * max_rel(a, w))
+                for a, w in zip(plain, oracle, strict=True)]
+        del plain
+        rels = [max_rel(a, w) for a, w in zip(got, oracle, strict=True)]
+        err = max((a.double() - w).abs().max().item()
+                  for a, w in zip(got, oracle, strict=True))
+        with tf32_on():
+            control = [max_rel(a, w) for a, w in zip(
+                ref.attention_bwd_ref(q, k, v, o, lse, do, *form), oracle,
+                strict=True)]
+        log(f"kernel flash_attention_bwd[{label}] [float32] against the "
+            f"float64 oracle: max_rel_err dq={rels[0]:.3e} dk={rels[1]:.3e} "
+            f"dv={rels[2]:.3e} (limits, twice the float32 plain version's "
+            f"own: {', '.join(f'{x:.3e}' for x in lims)}); two launches "
+            f"bitwise equal: {same}; the TF32 control's max rel err "
+            + ", ".join(f"{c:.3e}" for c in control)
+            + f" (one must exceed its limit); SDPA forward {t_sf:.4f} ms, "
+              f"backward {t_sb:.4f} ms")
+        if not same or any(r > lim for r, lim in zip(rels, lims)) \
+                or not any(c > lim for c, lim in zip(control, lims)) \
+                or not all(bool(torch.isfinite(a).all()) for a in got):
+            raise AssertionError(f"flash_attention_bwd[{label}]: rel errs "
+                                 f"{rels}, limits {lims}, bitwise {same}, "
+                                 f"TF32 control {control}")
+        del got, oracle
+        name = f"flash_attention_bwd[{label}]"
+        work, nb = fa.bwd_work(b, s, t, hq, hkv, hd, causal, window,
+                               dtype_name="float32")
+        row(name, "float32", kern,
+            lambda: ref.attention_bwd_ref(q, k, v, o, lse, do, *form), nb,
+            work["tf32"], library_ms=t_sb, checked=(err, max(rels)),
+            op_dtype="tf32")
+        log_f32_bwd_bounds(f"{name} [float32]", nb, work["tf32"])
+        f32_bwd_split(name, kern, work["tf32"])
+        del q, k, v, do, o, lse, leaves
+        torch.cuda.empty_cache()
+
+
+def small_ssd_rows(row) -> None:
+    """Kernels 6 and 8 at the reduced launcher's SSM layer
+    (``SMALL_SSD_SHAPE``: heads of 32, state 16, chunks of 16, float32;
+    x, B and C column slices of one conv output, from
+    ``ssd_bwd_inputs``): each against its plain version (kernel 8 per
+    output, ``SSD_BWD_TOL``, two launches bitwise), timed, with the
+    bounds of ``ssd_scan.fwd_work`` and ``bwd_work`` (the bf16
+    tensor-core peak, as the mamba2 rows count them); kernel 8's
+    launches timed apart.  No single PyTorch call computes the scan."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+    b, s, h, p, n, q = SMALL_SSD_SHAPE
+    x, dts, a, bm, cm, dy = ssd_bwd_inputs(b, torch.float32, s, h, n, p)
+    work, nbytes = ssd_scan.fwd_work(b, s, h, p, n, q, 4)
+    row("ssd_chunk_scan[p32 q16]", "float32",
+        lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm, q),
+        lambda: ref.ssd_chunk_scan_ref(x, dts, a, bm, cm, q),
+        nbytes, work, reps=5)
+    name = "ssd_chunk_scan_bwd[p32 q16]"
+
+    def kern():
+        return ssd_scan.ssd_chunk_scan_bwd(x, dts, a, bm, cm, dy, q)
+
+    def plain():
+        return ref.ssd_chunk_scan_bwd_ref(x, dts, a, bm, cm, dy, q)
+    checked = ssd_bwd_check(name, "float32", kern(), kern(), plain())
+    torch.cuda.empty_cache()
+    work, nbytes = ssd_scan.bwd_work(b, s, h, p, n, q, 4)
+    row(name, "float32", kern, plain, nbytes, work, reps=5, checked=checked)
+    ssd_bwd_split(f"kernel {name} [float32]", kern, 5)
+    del x, dts, a, bm, cm, dy
+    torch.cuda.empty_cache()
 
 
 # the dit_small phase: dit-small at its full width (8 layers, d 128, 8
@@ -6579,9 +6819,170 @@ def dit_small_phase(device: str = "cuda", serve_args=None,
 
 
 # the phases after the build and kernel phases, in the order they run
+# the reduced phase: every ``--reduced`` config of the launcher on the
+# card, the ten LMs at S 2048 (their attention's flash route) and the two
+# DiTs at the launcher's latent 32; each config's kernels, by launch
+# counter, that its run must reach
+REDUCED_LMS = ("yi-9b", "mamba2-370m", "granite-moe-3b-a800m",
+               "phi3.5-moe-42b-a6.6b", "deepseek-coder-33b", "llama3-405b",
+               "command-r-plus-104b", "jamba-1.5-large-398b",
+               "seamless-m4t-medium", "llava-next-34b")
+REDUCED_DITS = ("flux1-dev", "dit-small")
+REDUCED_ARGS = ["--reduced", "--steps", "2", "--batch", "2"]
+REDUCED_SEQ = 2048
+REDUCED_TOL = 1e-4
+_FLASH_F32 = ("flash_attention_f32", "flash_attention_f32_bwd")
+_SSD = ("ssd_chunk_scan", "ssd_chunk_scan_bwd")
+REDUCED_KERNELS = {"mamba2-370m": _SSD, "jamba-1.5-large-398b":
+                   _FLASH_F32 + _SSD, "flux1-dev": (), "dit-small": ()}
+
+
+def reduced_case(arch: str, seed: int, seq: int):
+    """``(cfg, params, batch)`` on the CPU for one training step of the
+    reduced config ``arch``: an LM's parameters as ``train_lm`` draws
+    them, with every attention projection and expert redrawn at std
+    1/sqrt(fan-in) (``fan_in_redraw``: the reference's rule for the
+    stacked leaves makes the reduced softmaxes near one-hot) and every
+    all-zero leaf at 0.02, and one ``lm_batch`` sequence of ``seq`` tokens
+    (llava's 16 prefix embeddings take 16 of them: the CPU's blockwise
+    attention tiles 2048 positions, not 2064), with frames or prefix
+    embeddings as ``train_lm`` draws them; a DiT's parameters with the
+    AdaLN-zero leaves redrawn (``redraw_zero_leaves``), and a shapes
+    batch of two latents of 32 with its times and noise."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.configs.base import DiTConfig
+    from repro_torch.data import synthetic
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import common, dit
+    from repro_torch.optim import adamw
+    cfg = configs.reduced(configs.get_config(arch))
+    gen = torch.Generator().manual_seed(seed)
+    if isinstance(cfg, DiTConfig):
+        params = dit.init_params(cfg, seed=seed, device="cpu")
+        redraw_zero_leaves(params, seed + 1)
+        latents = synthetic.shapes_batch(gen, 2, size=32,
+                                         channels=cfg.in_channels,
+                                         device="cpu")
+        return cfg, params, {
+            "latents": latents,
+            "t": torch.sigmoid(torch.randn((2,), generator=gen)),
+            "noise": torch.randn(latents.shape, generator=gen)}
+    params = common.init_params(steps_lib.model_specs(cfg), seed=seed,
+                                device="cpu", dtype=torch.float32)
+    fan_in_redraw(params, seed + 1, experts=True)
+    for leaf in adamw.leaves(params):
+        if not leaf.any():
+            leaf.normal_(0.0, 0.02, generator=gen)
+    batch = synthetic.lm_batch(gen, 1, seq - cfg.n_prefix_tokens,
+                               cfg.vocab_size)
+    if cfg.is_encdec:
+        batch["frames"] = torch.randn((1, seq, cfg.d_model),
+                                      generator=gen) * 0.1
+    if cfg.n_prefix_tokens:
+        batch["prefix_embeds"] = torch.randn(
+            (1, cfg.n_prefix_tokens, cfg.d_model), generator=gen) * 0.1
+    return cfg, params, batch
+
+
+def reduced_step(cfg, params_cpu, batch, dev):
+    """One training step's loss and gradients on ``dev`` from copies of
+    ``reduced_case``'s CPU tensors: ``(loss, {path: grad on the CPU})``,
+    unused leaves left out."""
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.configs.base import DiTConfig
+    from repro_torch.diffusion import training
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import dit
+    from repro_torch.optim import adamw
+    params = adamw.tree_map(
+        lambda x: x.to(dev, copy=True).requires_grad_(True), params_cpu)
+    data = {k: v.to(dev) for k, v in batch.items()}
+    if isinstance(cfg, DiTConfig):
+        loss, _ = training.rf_loss(
+            lambda q, x, tt: dit.dit_forward(q, x, tt, cfg).velocity, params,
+            {"latents": data["latents"]}, t=data["t"], noise=data["noise"])
+    else:
+        loss, _ = steps_lib.loss_fn(cfg)(params, data, cfg)
+    loss.backward()
+    return loss.item(), {
+        k: x.grad.detach().cpu()
+        for k, x in checkpoint._flatten_with_paths(params).items()
+        if x.grad is not None}
+
+
+def reduced_phase(archs=REDUCED_LMS + REDUCED_DITS, seq: int = REDUCED_SEQ,
+                  device: str = "cuda") -> dict:
+    """Every ``--reduced`` config trains through the launcher's entry
+    point, ``launch.train.main`` with no ``--device`` (the card by
+    default): ``REDUCED_ARGS`` (2 steps on batch 2), the LMs at ``--seq
+    2048``.  The launch counters are set to 0 just before each run and
+    read just after; each of the config's kernels (``REDUCED_KERNELS``;
+    an LM's attention the float32 flash forward and backward at head
+    width 32) must have launched.  Then one training step card against
+    CPU from the same parameters and batch, drawn on the CPU and copied
+    (``reduced_case``): the loss and the worst gradient leaf (relative
+    L2) within ``REDUCED_TOL``.  The CPU steps run in a thread beside the
+    card's work.  Returns the counts by run, ``reduced_<arch>``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    on_card = torch.device(device).type == "cuda"
+    cases = {arch: reduced_case(arch, seed, seq)
+             for seed, arch in enumerate(archs, start=70)}
+    by_run = {}
+    with ThreadPoolExecutor(1) as pool:
+        on_cpu = {arch: pool.submit(reduced_step, *cases[arch], "cpu")
+                  for arch in archs}
+        for arch in archs:
+            cfg = cases[arch][0]
+            lm = arch not in REDUCED_DITS
+            argv = ["--arch", arch, *REDUCED_ARGS] + (
+                ["--seq", str(seq)] if lm else [])
+            if not on_card:
+                argv += ["--device", device]
+            t0 = time.perf_counter()
+            ops.reset_launch_counts()
+            train.main(argv)
+            counts = ops.launch_counts()
+            wall = time.perf_counter() - t0
+            want = REDUCED_KERNELS.get(arch, _FLASH_F32)
+            if on_card and (not all(counts[k] > 0 for k in want)
+                            or any(counts[k] for k in counts
+                                   if k not in want)):
+                raise AssertionError(f"reduced {arch}: launches {counts}, "
+                                     f"expected {want} and nothing else")
+            by_run[f"reduced_{arch}"] = counts
+            l_got, g_got = reduced_step(*cases[arch], device)
+            l_want, g_want = on_cpu[arch].result()
+            loss_rel = abs(l_got - l_want) / abs(l_want)
+            grads = {k: rel_l2(g_got[k], g_want[k]) for k in g_want}
+            worst = max(grads, key=grads.get)
+            finite = all(bool(torch.isfinite(g).all())
+                         for g in g_got.values())
+            log(f"reduced {arch}: launch.train.main {' '.join(argv)} "
+                f"{wall:.1f} s, launches "
+                f"{ {k: v for k, v in counts.items() if v} }; one step card "
+                f"vs CPU ({cfg.n_layers} layers, d {cfg.d_model}, S "
+                f"{seq if lm else 256}): loss {l_got:.6f} / {l_want:.6f} "
+                f"(rel {loss_rel:.2e}), worst gradient leaf rel L2 "
+                f"{grads[worst]:.2e} ({worst}) over {len(grads)} leaves "
+                f"(tol {REDUCED_TOL:.0e})")
+            if not finite or set(g_got) != set(g_want) \
+                    or loss_rel > REDUCED_TOL \
+                    or grads[worst] > REDUCED_TOL:
+                raise AssertionError(f"reduced {arch}: card and CPU "
+                                     "disagree")
+    return by_run
+
+
 PHASES = ("dryrun", "reference", "analysis", "serve", "slo", "backbone",
           "lm", "decode", "train", "lm_train", "moe", "lm_configs", "jamba",
-          "encdec", "vlm", "dit_small", "launcher", "fleet")
+          "encdec", "vlm", "dit_small", "reduced", "launcher", "fleet")
 
 
 def run_phases(phases) -> dict:
@@ -6642,7 +7043,8 @@ def run_phases(phases) -> dict:
     for name, fn in (("train", train_phase), ("lm_train", lm_train_phase),
                      ("moe", moe_phase), ("lm_configs", lm_configs_phase),
                      ("jamba", jamba_phase), ("encdec", encdec_phase),
-                     ("vlm", vlm_phase), ("dit_small", dit_small_phase)):
+                     ("vlm", vlm_phase), ("dit_small", dit_small_phase),
+                     ("reduced", reduced_phase)):
         if name in phases:
             by_phase.update(fn())
             free()
@@ -6718,7 +7120,13 @@ def main(argv=None) -> int:
     # summed; without those phases nothing was counted and the line
     # says null
     by_phase = run_phases(phases)
-    paths = {name: [ph for ph in by_phase if by_phase[ph][name] > 0]
+    # the reduced phase's launches are the small widths' entries'
+    # (SMALL_KERNELS), the other phases' the entries of the wider forms
+    wide = {ph: c for ph, c in by_phase.items()
+            if not ph.startswith("reduced_")}
+    small = {ph: c for ph, c in by_phase.items()
+             if ph.startswith("reduced_")}
+    paths = {name: [ph for ph in wide if wide[ph][name] > 0]
              for name in main_dtype}
 
     replaces = {
@@ -6797,7 +7205,8 @@ def main(argv=None) -> int:
                           "128])")
         form_rows = {label: v for label, v in FORM_ROWS.items()
                      if label.startswith(name + "[")
-                     and "f32_hd16" not in label}
+                     and not any(tag in label for tag in (
+                         "f32_hd16", "f32_hd32", "p32 q16"))}
         if form_rows:
             k["form_rows"] = form_rows
         kernels.append(k)
@@ -6805,21 +7214,48 @@ def main(argv=None) -> int:
     # carry the [2, 4096, 8, 16] numbers, the other shapes in form_rows
     for name, (counter, src, rep) in F32_HD16_KERNELS.items():
         k = dict(name=name, route="cuda", source=src, replaces=rep,
-                 launches=(sum(c[counter] for c in by_phase.values())
+                 launches=(sum(c[counter] for c in wide.values())
                            if by_phase else None),
                  **FORM_ROWS[name]["float32"])
         if by_phase:
             k["launches_by_phase"] = {ph: c[counter]
-                                      for ph, c in by_phase.items()
+                                      for ph, c in wide.items()
                                       if c[counter]}
-        k["forms"] = ("float32, head width 16, non-causal MHA (dit-small's "
-                      "joint attention, 8 heads): this row [2, 4096, 8, "
-                      "16]; [16, 1024] and the ragged [2, 1600] in "
-                      "form_rows" + (", and the forward writing its "
-                                     "log-sum-exp" if "bwd" not in name
-                                     else ""))
+        k["forms"] = ("float32, head width 16, every form: this row "
+                      "non-causal MHA (dit-small's joint attention, 8 "
+                      "heads) [2, 4096, 8, 16], the dit_small phase's "
+                      "launches; [16, 1024], the ragged [2, 1600] and the "
+                      "reference kernel tests' causal GQA 6/2 and 4/2 with "
+                      "a window of 24 at [2, 2048] in form_rows"
+                      + (", and the forward writing its log-sum-exp"
+                         if "bwd" not in name else ""))
         k["form_rows"] = {label: v for label, v in FORM_ROWS.items()
                           if label.startswith(name[:-1]) and label != name}
+        kernels.append(k)
+    # the small widths of the reduced configs (float32 attention at head
+    # width 32, the SSD scan at heads of 32 in chunks of 16): their rows'
+    # numbers, the reduced phase's launches
+    for name, (counter, src, rep, label) in SMALL_KERNELS.items():
+        k = dict(name=name, route="cuda", source=src, replaces=rep,
+                 launches=(sum(c[counter] for c in small.values())
+                           if small else None),
+                 **FORM_ROWS[label]["float32"])
+        if small:
+            k["launches_by_phase"] = {ph: c[counter]
+                                      for ph, c in small.items()
+                                      if c[counter]}
+        k["forms"] = (f"this row: {label[label.index('[') + 1:-1]}, "
+                      "float32, the reduced launcher's shape "
+                      + ("[16, 2048, 4/2, 32]; the non-causal form "
+                         "(seamless's encoder and cross attention) in "
+                         "form_rows" if "flash" in name else
+                         "x [16, 2048, 8, 32], N 16, chunk 16"))
+        rows_of = {lab: v for lab, v in FORM_ROWS.items()
+                   if lab.startswith(name.split("[")[0] + "[")
+                   and ("f32_hd32" in lab or "p32 q16" in lab)
+                   and lab != label}
+        if rows_of:
+            k["form_rows"] = rows_of
         kernels.append(k)
     log(f"chip_smoke: phases {list(phases)} done in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -113,6 +113,21 @@ __device__ __forceinline__ void chunk_cumsum(const float* __restrict__ dtp,
   __syncthreads();
 }
 
+// the forms both libraries take: heads of 16, 32 or 64 (a wider head of
+// 64·r runs as r heads of 64, in the wrapper) and chunks of 16, 32 or a
+// multiple of 64 up to 256, each instantiated with a token tile of
+// min(64, Q); N a multiple of 8 up to 128
+constexpr int kTileMax = 64;     // the largest token tile
+constexpr int kChunkMax = 256;   // the largest chunk (one token a thread)
+constexpr int kStateMax = 128;   // the largest state width
+inline bool form_ok(int P, int N, int Q, int S) {
+  const bool chunk = Q == 16 || Q == 32 ||
+                     (Q > 0 && Q <= kChunkMax && Q % kTileMax == 0);
+  return (P == 16 || P == 32 || P == 64) && N > 0 && N <= kStateMax &&
+         N % 8 == 0 && chunk && S % Q == 0;
+}
+inline int token_tile(int Q) { return Q < kTileMax ? Q : kTileMax; }
+
 // the host side of both libraries: whether a strided operand can be read
 // 16 bytes at a time, and a kernel's dynamic shared memory allowance
 inline bool aligned16(const void* p, long stride_bytes_a,

@@ -49,7 +49,13 @@
 //     and 16-key steps wholly above the diagonal.
 // At two lanes passes 2 and 4 have 1024 blocks (the old kernel 64, one
 // per (batch, head), walking 16 chunks in order).  Passes 2-4 are
-// templated on the head width P; 64 (mamba2's) is instantiated.
+// templated on the head width P, passes 1, 2 and 4 on the token tile TT
+// = min(64, Q): P 64 (mamba2's) and 16 or 32 (the reduced configs, and
+// the reference's kernel tests) are instantiated, each with tiles of 16,
+// 32 and 64 tokens (chunks of 16, of 32, and multiples of 64).  A tile
+// narrower than 64 keeps the 64-token layout of the staged tiles and of
+// the warps: the warps past the tile's rows or columns sit out, the
+// products stop at its depth.
 //
 // Precision: every product runs on the tensor cores as bf16 mma.sync
 // m16n8k16 with float32 accumulation.  A bf16 operand (x, B, C of a
@@ -68,9 +74,8 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kP = 64;           // the head width instantiated (mamba2's)
 constexpr int kNMax = 128;       // largest state width
-constexpr int kT = 64;           // tile rows and columns
+constexpr int kT = 64;           // largest token tile: the staged layout
 constexpr int kQMax = 256;       // largest chunk (one token per thread)
 constexpr int kThreads = 256;    // passes 2 and 4: 8 warps
 constexpr int kGramThreads = 128;
@@ -95,7 +100,7 @@ using ssd::put8;
 
 // --- pass 1: G = C Bᵀ per (batch, chunk) ---------------------------------
 
-template <typename T>
+template <typename T, int TT>
 __global__ void __launch_bounds__(kGramThreads)
 ssd_gram_kernel(const T* __restrict__ Cm, long c_sb, long c_ss,
                 const T* __restrict__ Bm, long b_sb, long b_ss,
@@ -109,9 +114,9 @@ ssd_gram_kernel(const T* __restrict__ Cm, long c_sb, long c_ss,
   while ((I + 1) * (I + 2) / 2 <= static_cast<int>(blockIdx.x)) ++I;
   const int J = blockIdx.x - I * (I + 1) / 2;
   const int np = (N + 15) & ~15;   // N padded to the mma depth with zeros
-  const T* cp = Cm + b * c_sb + static_cast<long>(c * Q + I * kT) * c_ss;
-  const T* bp = Bm + b * b_sb + static_cast<long>(c * Q + J * kT) * b_ss;
-  for (int e = threadIdx.x; e < kT * np / 8; e += kGramThreads) {
+  const T* cp = Cm + b * c_sb + static_cast<long>(c * Q + I * TT) * c_ss;
+  const T* bp = Bm + b * b_sb + static_cast<long>(c * Q + J * TT) * b_ss;
+  for (int e = threadIdx.x; e < TT * np / 8; e += kGramThreads) {
     const int r = e / (np / 8), n = (e % (np / 8)) * 8;
     float v[8];
     load8(cp + r * c_ss + n, vec, n < N, v);
@@ -123,13 +128,14 @@ ssd_gram_kernel(const T* __restrict__ Cm, long c_sb, long c_ss,
 
   const int warp = threadIdx.x / 32, g = threadIdx.x % 32 / 4,
             t = threadIdx.x % 4;
-  float acc[8][4] = {};
+  if (TT < kT && warp * 16 >= TT) return;   // rows past the tile
+  float acc[TT / 8][4] = {};
   for (int k = 0; k < np; k += 16) {
     uint32_t a[2][4];
     lda_mk(a[0], Cs, kLDN, warp * 16, k);
     if constexpr (kLo) lda_mk(a[1], Cs + kT * kLDN, kLDN, warp * 16, k);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
+    for (int q = 0; q < TT / 16; ++q) {
       uint32_t bb[2][4];
       ldb_nk(bb[0], Bs, kLDN, k, q * 16);
       if constexpr (kLo) ldb_nk(bb[1], Bs + kT * kLDN, kLDN, k, q * 16);
@@ -137,10 +143,10 @@ ssd_gram_kernel(const T* __restrict__ Cm, long c_sb, long c_ss,
       mma_split<kLo, kLo>(acc[2 * q + 1], a, bb, 1);
     }
   }
-  float* gp = G + (static_cast<long>(b * nc + c) * Q + I * kT + warp * 16 + g)
-                      * Q + J * kT + 2 * t;
+  float* gp = G + (static_cast<long>(b * nc + c) * Q + I * TT + warp * 16 + g)
+                      * Q + J * TT + 2 * t;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < TT / 8; ++nt) {
     rt::store2(gp + nt * 8, acc[nt][0], acc[nt][1]);
     rt::store2(gp + 8 * Q + nt * 8, acc[nt][2], acc[nt][3]);
   }
@@ -148,7 +154,7 @@ ssd_gram_kernel(const T* __restrict__ Cm, long c_sb, long c_ss,
 
 // --- pass 2: each chunk's own state contribution -------------------------
 
-template <typename T, int P>
+template <typename T, int P, int TT>
 __global__ void __launch_bounds__(kThreads)
 ssd_chunk_state_kernel(const T* __restrict__ x, long x_sb, long x_ss,
                        const float* __restrict__ dt, long dt_sb, long dt_ss,
@@ -182,9 +188,9 @@ ssd_chunk_state_kernel(const T* __restrict__ x, long x_sb, long x_ss,
   const T* bp = Bm + b * b_sb;
   const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
   float acc[kNT][4] = {};
-  for (int j0 = 0; j0 < Q; j0 += kT) {
+  for (int j0 = 0; j0 < Q; j0 += TT) {
     __syncthreads();   // wj is written; the previous tiles are consumed
-    for (int e = tid; e < kT * np / 8; e += kThreads) {
+    for (int e = tid; e < TT * np / 8; e += kThreads) {
       const int j = e / (np / 8), n = (e % (np / 8)) * 8;
       float v[8];
       load8(bp + static_cast<long>(c0 + j0 + j) * b_ss + n, vec, n < N, v);
@@ -193,7 +199,7 @@ ssd_chunk_state_kernel(const T* __restrict__ x, long x_sb, long x_ss,
       for (int i = 0; i < 8; ++i) v[i] *= w;
       put8<true>(Ws + j * kLDN + n, Ws + (kT + j) * kLDN + n, v);
     }
-    for (int e = tid; e < kT * P / 8; e += kThreads) {
+    for (int e = tid; e < TT * P / 8; e += kThreads) {
       const int j = e / (P / 8), p = (e % (P / 8)) * 8;
       float v[8];
       load8(xp + static_cast<long>(c0 + j0 + j) * x_ss + p, vec, true, v);
@@ -203,7 +209,7 @@ ssd_chunk_state_kernel(const T* __restrict__ x, long x_sb, long x_ss,
     if (warp * 16 < np) {
       // contrib[n, p] += Σ_j W[j, n] x[j, p]: A = Wᵀ (stored [j][n])
 #pragma unroll
-      for (int k = 0; k < kT; k += 16) {
+      for (int k = 0; k < TT; k += 16) {
         uint32_t a[2][4];
         lda_km(a[0], Ws, kLDN, warp * 16, k);
         lda_km(a[1], Ws + kT * kLDN, kLDN, warp * 16, k);
@@ -274,9 +280,16 @@ __host__ __device__ constexpr size_t out_tiles_bytes() {
   return (carried > diag ? carried : diag) * sizeof(bf16);
 }
 
-// two blocks an SM (registers capped at 128; shared memory 83 / 92 KB)
-template <typename T, int P>
-__global__ void __launch_bounds__(kThreads, 2)
+// blocks an SM: two (registers capped at 128; shared memory 83 / 92 KB),
+// but one for bf16 at P 64 in tiles of 32 tokens, where ptxas spills 8
+// bytes under the cap of two
+template <typename T, int P, int TT>
+__host__ __device__ constexpr int out_min_blocks() {
+  return sizeof(T) == 2 && P == 64 && TT == 32 ? 1 : 2;
+}
+
+template <typename T, int P, int TT>
+__global__ void __launch_bounds__(kThreads, (out_min_blocks<T, P, TT>()))
 ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
                      const float* __restrict__ dt, long dt_sb, long dt_ss,
                      const float* __restrict__ A,
@@ -288,6 +301,8 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
   constexpr int kPl = kLo ? 2 : 1;   // planes of a tile of x's type
   constexpr int kLP = P + 8;         // padded bf16 row of a P-wide tile
   constexpr int kNT = P / 8;         // n8 tiles over P
+  // m16 row tiles a warp: two, but one in a chunk of 16
+  constexpr int kMT = TT < 32 ? 1 : 2;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* tiles = reinterpret_cast<bf16*>(smem);
   float* dts = reinterpret_cast<float*>(smem + out_tiles_bytes<T, P>());
@@ -301,7 +316,7 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
   const int np = (N + 15) & ~15;
   chunk_cumsum(dt + b * dt_sb + c0 * dt_ss + h, dt_ss, A[h], Q, dts, cum,
                wsum);
-  float acc[2][kNT][4] = {};
+  float acc[kMT][kNT][4] = {};
 
   // the carried state: exp(cum_i) · (C_i · state_in); zero in chunk 0
   if (c > 0) {
@@ -327,9 +342,9 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
       __syncthreads();
       if (active) {
         for (int k = 0; k < kt; k += 16) {
-          uint32_t a[2][2][4];
+          uint32_t a[kMT][2][4];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
+          for (int mt = 0; mt < kMT; ++mt) {
             lda_mk(a[mt][0], Cs, kLD, rw + mt * 16, k);
             if constexpr (kLo)
               lda_mk(a[mt][1], Cs + kQMax * kLD, kLD, rw + mt * 16, k);
@@ -340,7 +355,7 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
             ldb_kn(bb[0], Ss, kLP, k, q * 16);
             ldb_kn(bb[1], Ss + kT * kLP, kLP, k, q * 16);
 #pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
+            for (int mt = 0; mt < kMT; ++mt) {
               mma_split<kLo, true>(acc[mt][2 * q], a[mt], bb, 0);
               mma_split<kLo, true>(acc[mt][2 * q + 1], a[mt], bb, 1);
             }
@@ -350,7 +365,7 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
     }
     if (active) {
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < kMT; ++mt) {
         const float d0 = expf(fmaxf(cum[rw + mt * 16 + g], kClip));
         const float d1 = expf(fmaxf(cum[rw + mt * 16 + g + 8], kClip));
 #pragma unroll
@@ -369,17 +384,17 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
   bf16* Xs = Ms + 2 * kQMax * kLD;     // [kPl][64][kLP] (j, p)
   const float* gp = G + (static_cast<long>(b) * nc + c) * Q * Q;
   const T* xp = x + b * x_sb + static_cast<long>(h) * P;
-  for (int j0 = 0; j0 < Q; j0 += kT) {
+  for (int j0 = 0; j0 < Q; j0 += TT) {
     __syncthreads();   // the previous tiles are consumed
-    for (int e = tid; e < kT * P / 8; e += kThreads) {
+    for (int e = tid; e < TT * P / 8; e += kThreads) {
       const int j = e / (P / 8), p = (e % (P / 8)) * 8;
       float v[8];
       load8(xp + static_cast<long>(c0 + j0 + j) * x_ss + p, vec, true, v);
       put8<kLo>(Xs + j * kLP + p, Xs + (kT + j) * kLP + p, v);
     }
     // rows below j0 see none of these keys and are not staged
-    for (int e = tid; e < (Q - j0) * kT / 8; e += kThreads) {
-      const int i = j0 + e / (kT / 8), jq = (e % (kT / 8)) * 8;
+    for (int e = tid; e < (Q - j0) * TT / 8; e += kThreads) {
+      const int i = j0 + e / (TT / 8), jq = (e % (TT / 8)) * 8;
       float v[8];
       load8(gp + static_cast<long>(i) * Q + j0 + jq, true, j0 + jq <= i, v);
       const float ci = cum[i];
@@ -394,8 +409,8 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
     __syncthreads();
     if (!active) continue;
 #pragma unroll
-    for (int k = 0; k < kT; k += 16) {
-      if (j0 + k > rw + 31) break;   // these keys are after every row
+    for (int k = 0; k < TT; k += 16) {
+      if (j0 + k > rw + 16 * kMT - 1) break;   // keys after every row
       uint32_t bb[kNT / 2][2][4];
 #pragma unroll
       for (int q = 0; q < kNT / 2; ++q) {
@@ -403,7 +418,7 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
         if constexpr (kLo) ldb_kn(bb[q][1], Xs + kT * kLP, kLP, k, q * 16);
       }
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+      for (int mt = 0; mt < kMT; ++mt) {
         const int rm = rw + mt * 16;
         if (j0 + k > rm + 15) continue;
         uint32_t a[2][4];
@@ -421,7 +436,7 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
   if (!active) return;
   T* yp = y + (static_cast<long>(b) * S + c0) * H * P + h * P;
 #pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int i = rw + mt * 16 + g + half * 8;
@@ -434,7 +449,7 @@ ssd_chunk_out_kernel(const T* __restrict__ x, long x_sb, long x_ss,
 
 // --- launch ------------------------------------------------------------------
 
-template <typename T, int P>
+template <typename T, int P, int TT>
 int launch(const void* xv, long x_sb, long x_ss, const float* dt, long dt_sb,
            long dt_ss, const float* A, const void* Bv, long b_sb, long b_ss,
            const void* Cv, long c_sb, long c_ss, void* yv, float* G,
@@ -447,23 +462,24 @@ int launch(const void* xv, long x_sb, long x_ss, const float* dt, long dt_sb,
   const bool vec = aligned16(x, x_sb * es, x_ss * es) &&
                    aligned16(Bm, b_sb * es, b_ss * es) &&
                    aligned16(Cm, c_sb * es, c_ss * es);
-  const int nc = S / Q, tq = Q / kT;
+  const int nc = S / Q, tq = Q / TT;
   const size_t gram_smem = 4 * kT * kLDN * sizeof(bf16);
   const size_t state_smem =
       (2 * kT * kLDN + 2 * kT * (P + 8)) * sizeof(bf16) + (3 * kQMax + 8) * 4;
   const size_t out_smem = out_tiles_bytes<T, P>() + (2 * kQMax + 8) * 4;
   cudaError_t err;
-  if ((err = allow_smem(ssd_gram_kernel<T>, gram_smem)) ||
-      (err = allow_smem(ssd_chunk_state_kernel<T, P>, state_smem)) ||
-      (err = allow_smem(ssd_chunk_out_kernel<T, P>, out_smem)))
+  if ((err = allow_smem(ssd_gram_kernel<T, TT>, gram_smem)) ||
+      (err = allow_smem(ssd_chunk_state_kernel<T, P, TT>, state_smem)) ||
+      (err = allow_smem(ssd_chunk_out_kernel<T, P, TT>, out_smem)))
     return err;
-  ssd_gram_kernel<T><<<dim3(tq * (tq + 1) / 2, nc, Bn), kGramThreads,
+  ssd_gram_kernel<T, TT><<<dim3(tq * (tq + 1) / 2, nc, Bn), kGramThreads,
                        gram_smem, s>>>(Cm, c_sb, c_ss, Bm, b_sb, b_ss, G, N,
                                        Q, vec);
   if ((err = cudaGetLastError())) return err;
-  ssd_chunk_state_kernel<T, P><<<dim3(H, nc, Bn), kThreads, state_smem, s>>>(
-      x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Bm, b_sb, b_ss, st, decay, H, N,
-      Q, vec);
+  ssd_chunk_state_kernel<T, P, TT><<<dim3(H, nc, Bn), kThreads, state_smem,
+                                     s>>>(x, x_sb, x_ss, dt, dt_sb, dt_ss, A,
+                                          Bm, b_sb, b_ss, st, decay, H, N, Q,
+                                          vec);
   if ((err = cudaGetLastError())) return err;
   const long groups = static_cast<long>(Bn) * H * N * P / 4;
   const unsigned pass_blocks =
@@ -471,45 +487,62 @@ int launch(const void* xv, long x_sb, long x_ss, const float* dt, long dt_sb,
   ssd_state_pass_kernel<P><<<pass_blocks, kThreads, 0, s>>>(st, decay, Bn,
                                                             nc, H, N);
   if ((err = cudaGetLastError()) || yv == nullptr) return err;
-  ssd_chunk_out_kernel<T, P><<<dim3(H, nc, Bn), kThreads, out_smem, s>>>(
+  ssd_chunk_out_kernel<T, P, TT><<<dim3(H, nc, Bn), kThreads, out_smem, s>>>(
       x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Cm, c_sb, c_ss, G, st,
       static_cast<T*>(yv), S, N, Q, vec);
   return cudaGetLastError();
 }
 
+using Launch = int (*)(const void*, long, long, const float*, long, long,
+                      const float*, const void*, long, long, const void*,
+                      long, long, void*, float*, float*, float*, int, int,
+                      int, int, int, cudaStream_t);
+
+// the instantiation of head width P and token tile tt
+template <typename T, int P>
+Launch by_tile(int tt) {
+  return tt == 16 ? launch<T, P, 16> : tt == 32 ? launch<T, P, 32>
+                                                : launch<T, P, 64>;
+}
+template <typename T>
+Launch pick(int P, int tt) {
+  return P == 16 ? by_tile<T, 16>(tt) : P == 32 ? by_tile<T, 32>(tt)
+                                                : by_tile<T, 64>(tt);
+}
+
 }  // namespace
 
-// x [Bn, S, H, 64] (head stride 64, element stride 1; batch and token
-// strides in elements); dt [Bn, S, H] float32 (head stride 1); A [H]
-// float32; B, C [Bn, S, N] in x's type (element stride 1); y [Bn, S, H,
-// 64] contiguous.  N a multiple of 8 up to 128; Q a multiple of 64 up to
-// 256 that divides S.  Workspaces, float32 and contiguous: G [Bn, S/Q,
-// Q, Q], st [Bn, S/Q, H, N, 64], decay [Bn, S/Q, H].  With y null only
-// passes 1-3 run, which leave C Bᵀ in G and the state entering each
-// chunk in st: what the backward (ssd_scan_bwd.cu) recomputes.
+// x [Bn, S, H, P] (head stride P, element stride 1; batch and token
+// strides in elements) with P 16, 32 or 64; dt [Bn, S, H] float32 (head
+// stride 1); A [H] float32; B, C [Bn, S, N] in x's type (element stride
+// 1); y [Bn, S, H, P] contiguous.  N a multiple of 8 up to 128; Q 16, 32
+// or a multiple of 64 up to 256, dividing S.  Workspaces, float32 and
+// contiguous: G [Bn, S/Q, Q, Q], st [Bn, S/Q, H, N, P], decay [Bn, S/Q,
+// H].  With y null only passes 1-3 run, which leave C Bᵀ in G and the
+// state entering each chunk in st: what the backward (ssd_scan_bwd.cu)
+// recomputes.
 extern "C" int ssd_chunk_scan_fwd(const void* x, long x_sb, long x_ss,
                                   const void* dt, long dt_sb, long dt_ss,
                                   const void* A, const void* Bm, long b_sb,
                                   long b_ss, const void* Cm, long c_sb,
                                   long c_ss, void* y, void* G, void* st,
                                   void* decay, int Bn, int S, int H, int N,
-                                  int Q, int dtype, void* stream) {
+                                  int Q, int P, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N <= 0 || N > kNMax || N % 8 || Q <= 0 || Q > kQMax || Q % kT ||
-      S % Q)
-    return cudaErrorInvalidValue;
+  if (!ssd::form_ok(P, N, Q, S)) return cudaErrorInvalidValue;
+  const int tt = ssd::token_tile(Q);
   const float* dtf = static_cast<const float*>(dt);
   const float* af = static_cast<const float*>(A);
   float* g = static_cast<float*>(G);
   float* sf = static_cast<float*>(st);
   float* df = static_cast<float*>(decay);
   if (dtype == rt::kF32)
-    return launch<float, kP>(x, x_sb, x_ss, dtf, dt_sb, dt_ss, af, Bm,
-                             b_sb, b_ss, Cm, c_sb, c_ss, y, g, sf, df, Bn, S,
-                             H, N, Q, s);
+    return pick<float>(P, tt)(x, x_sb, x_ss, dtf, dt_sb, dt_ss, af, Bm, b_sb,
+                              b_ss, Cm, c_sb, c_ss, y, g, sf, df, Bn, S, H,
+                              N, Q, s);
   if (dtype == rt::kBF16)
-    return launch<bf16, kP>(x, x_sb, x_ss, dtf, dt_sb, dt_ss, af, Bm, b_sb,
-                            b_ss, Cm, c_sb, c_ss, y, g, sf, df, Bn, S, H, N,
-                            Q, s);
+    return pick<bf16>(P, tt)(x, x_sb, x_ss, dtf, dt_sb, dt_ss, af, Bm, b_sb,
+                             b_ss, Cm, c_sb, c_ss, y, g, sf, df, Bn, S, H, N,
+                             Q, s);
   return cudaErrorInvalidValue;
 }

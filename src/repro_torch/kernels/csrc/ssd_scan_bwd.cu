@@ -16,12 +16,12 @@
 //   reverse cumsum of the gradient of cum.  The upper triangle is
 //   selected away, never multiplied by a 0/1 mask, and so is every
 //   clipped entry's share of the gradient of cum.
-//   x  [b, s, h, 64]  float32 or bf16, any batch and token strides
+//   x  [b, s, h, P]   float32 or bf16, any batch and token strides
 //   dt [b, s, h]      float32, any batch and token strides; A [h] float32
 //   B, C [b, s, N]    x's type, any batch and token strides
-//   dy [b, s, h, 64]  x's type, contiguous
-//   dx [b, s, h, 64], dB, dC [b, s, N] in x's type; ddt [b, s, h] and
-//   dA [h] float32; all contiguous.
+//   dy [b, s, h, P]   x's type, contiguous
+//   dx [b, s, h, P], dB, dC [b, s, N] in x's type; ddt [b, s, h] and
+//   dA [h] float32; all contiguous.  P is 64 (mamba2's), 32 or 16.
 //
 // What bounds it on an H100: bytes and operations almost alike.  At
 // mamba2-370m's layer, two lanes of 4096 tokens (Q 256, N 128, P 64, 32
@@ -69,6 +69,12 @@
 //  7. dA summed over batch and chunks in order.
 // No atomics: every sum over heads, tiles and chunks is taken in a fixed
 // order, so two calls are bitwise equal.
+// Every pass but 2 and 7 is templated on the head width P and the token
+// tile TT = min(64, Q) (the tiles above are TT x TT; P 16, 32 and 64 each
+// with tiles of 16, 32 and 64 tokens are instantiated).  A tile narrower
+// than 64 keeps the 64-token layout of the staged tiles and of the warps:
+// the warps past the tile's rows, or past P's columns, sit out, and the
+// products stop at the tile's depth.
 //
 // dy·xᵀ is formed once per tile pair and head (pass 3), where the
 // earlier design formed it in both its rows and cols passes: the dx
@@ -100,12 +106,11 @@ using ssd::load8;
 using ssd::mma_split;
 using ssd::put8;
 
-constexpr int kP = 64;           // the head width instantiated (mamba2's)
 constexpr int kNP = 128;         // largest state width (rows past N zero)
-constexpr int kT = 64;           // tile of tokens
+constexpr int kT = 64;           // largest tile of tokens: the staged layout
 constexpr int kQMax = 256;       // largest chunk (one token per thread)
 constexpr int kThreads = 256;    // 8 warps
-constexpr int kLP = kP + 8;      // padded bf16 row of a 64-wide tile
+constexpr int kLT = kT + 8;      // padded bf16 row of a token-wide tile
 constexpr int kLN = kNP + 8;     // padded bf16 row of an N-wide tile
 constexpr int kLG = kT + 4;      // padded float row of a staged C Bᵀ tile
 constexpr float kClip = -60.f;   // exp underflow guard of the TPU kernel
@@ -114,7 +119,11 @@ __device__ __forceinline__ float clip_exp(float u) {
   return expf(fmaxf(u, kClip));
 }
 
-template <typename T>
+// padded bf16 row of a P-wide tile
+template <int P>
+__host__ __device__ constexpr int lp() { return P + 8; }
+
+template <typename T, int P>
 struct Args {
   const T* x;
   long x_sb, x_ss;
@@ -150,10 +159,10 @@ struct Args {
   bool vec;               // x, B and C rows are 16-byte aligned
 
   __device__ const T* x_at(int b, int t, int h) const {
-    return x + b * x_sb + static_cast<long>(t) * x_ss + h * kP;
+    return x + b * x_sb + static_cast<long>(t) * x_ss + h * P;
   }
   __device__ const T* dy_at(int b, int t, int h) const {
-    return dy + (static_cast<long>(b) * S + t) * H * kP + h * kP;
+    return dy + (static_cast<long>(b) * S + t) * H * P + h * P;
   }
   __device__ const T* b_at(int b, int t) const {
     return B + b * b_sb + static_cast<long>(t) * b_ss;
@@ -165,7 +174,7 @@ struct Args {
     return (static_cast<long>(b) * S + t) * H + h;
   }
   __device__ long state(int b, int c, int h) const {
-    return ((static_cast<long>(b) * nc + c) * H + h) * N * kP;
+    return ((static_cast<long>(b) * nc + c) * H + h) * N * P;
   }
   __device__ long hq(int b, int c, int h) const {    // [Bn, nc, H, Q]
     return ((static_cast<long>(b) * nc + c) * H + h) * Q;
@@ -262,14 +271,17 @@ __device__ __forceinline__ float block_scan(float v, float* red) {
 
 // --- 1. the chunk's own share of the state's gradient ----------------------
 
-constexpr size_t kGradSmem =
-    (2 * kT * kLN + 2 * kT * kLP) * sizeof(bf16) + (3 * kQMax + 8) *
-    sizeof(float);
+template <int P>
+constexpr size_t grad_smem() {
+  return (2 * kT * kLN + 2 * kT * lp<P>()) * sizeof(bf16) +
+         (3 * kQMax + 8) * sizeof(float);
+}
 
-template <typename T>
+template <typename T, int P, int TT>
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_bwd_state_grad_kernel(const Args<T> a) {
+ssd_bwd_state_grad_kernel(const Args<T, P> a) {
   constexpr bool kLo = sizeof(T) == 4;
+  constexpr int kLP = lp<P>();
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* Ws = reinterpret_cast<bf16*>(smem);   // [2][64 i][kLN]: E(cum_i) C_i
   bf16* Ds = Ws + 2 * kT * kLN;               // [2][64 i][kLP]: dy_i
@@ -289,23 +301,24 @@ ssd_bwd_state_grad_kernel(const Args<T> a) {
     a.dts[o + tid] = dts[tid];
   }
   const int warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
-  float acc[8][4] = {};   // rows n = 16 warp + g (+8), columns p = 8 nt + 2t
-  for (int i0 = 0; i0 < Q; i0 += kT) {
+  // rows n = 16 warp + g (+8), columns p = 8 nt + 2t
+  float acc[P / 8][4] = {};
+  for (int i0 = 0; i0 < Q; i0 += TT) {
     __syncthreads();   // ein is written; the previous tiles are consumed
-    stage<true, kT, kNP>(Ws, kLN, kT * kLN, a.c_at(b, c0 + i0), a.c_ss, kT,
+    stage<true, TT, kNP>(Ws, kLN, kT * kLN, a.c_at(b, c0 + i0), a.c_ss, TT,
                          N, a.vec, ein + i0);
-    stage<kLo, kT, kP>(Ds, kLP, kT * kLP, a.dy_at(b, c0 + i0, h),
-                       static_cast<long>(a.H) * kP, kT, kP, true);
+    stage<kLo, TT, P>(Ds, kLP, kT * kLP, a.dy_at(b, c0 + i0, h),
+                      static_cast<long>(a.H) * P, TT, P, true);
     staged();
     if (warp * 16 < np) {
       // own[n, p] += Σ_i W[i, n] dy[i, p]: A = Wᵀ (stored [i][n])
 #pragma unroll
-      for (int k = 0; k < kT; k += 16) {
+      for (int k = 0; k < TT; k += 16) {
         uint32_t af[2][4];
         lda_km(af[0], Ws, kLN, warp * 16, k);
         lda_km(af[1], Ws + kT * kLN, kLN, warp * 16, k);
 #pragma unroll
-        for (int q = 0; q < kP / 16; ++q) {
+        for (int q = 0; q < P / 16; ++q) {
           uint32_t bb[2][4];
           ldb_kn(bb[0], Ds, kLP, k, q * 16);
           if constexpr (kLo) ldb_kn(bb[1], Ds + kT * kLP, kLP, k, q * 16);
@@ -318,20 +331,21 @@ ssd_bwd_state_grad_kernel(const Args<T> a) {
   float* sp = a.dst + a.state(b, c, h);
   const int n = warp * 16 + g;
 #pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
+  for (int nt = 0; nt < P / 8; ++nt) {
     const int p = nt * 8 + 2 * t;
-    if (n < N) rt::store2(sp + n * kP + p, acc[nt][0], acc[nt][1]);
-    if (n + 8 < N) rt::store2(sp + (n + 8) * kP + p, acc[nt][2], acc[nt][3]);
+    if (n < N) rt::store2(sp + n * P + p, acc[nt][0], acc[nt][1]);
+    if (n + 8 < N) rt::store2(sp + (n + 8) * P + p, acc[nt][2], acc[nt][3]);
   }
 }
 
 // --- 2. the state's gradient passed back over the chunks -----------------
 
+template <int P>
 __global__ void __launch_bounds__(kThreads)
 ssd_bwd_state_pass_kernel(float* __restrict__ dst,
                           const float* __restrict__ decay, int Bn, int nc,
                           int H, int N) {
-  const long per = static_cast<long>(N) * kP / 4;   // float4s of a state
+  const long per = static_cast<long>(N) * P / 4;   // float4s of a state
   const long idx = static_cast<long>(blockIdx.x) * kThreads + threadIdx.x;
   if (idx >= Bn * H * per) return;
   const int bh = static_cast<int>(idx / per);
@@ -346,14 +360,14 @@ ssd_bwd_state_pass_kernel(float* __restrict__ dst,
     for (int u = 0; u < kU; ++u) {
       if (c0 - u < 0) break;
       const long o = (static_cast<long>(b) * nc + c0 - u) * H + h;
-      v[u] = reinterpret_cast<const float4*>(dst + o * N * kP)[r];
+      v[u] = reinterpret_cast<const float4*>(dst + o * N * P)[r];
       d[u] = decay[o];
     }
 #pragma unroll
     for (int u = 0; u < kU; ++u) {
       if (c0 - u < 0) break;
       const long o = (static_cast<long>(b) * nc + c0 - u) * H + h;
-      reinterpret_cast<float4*>(dst + o * N * kP)[r] = run;
+      reinterpret_cast<float4*>(dst + o * N * P)[r] = run;
       run = make_float4(d[u] * run.x + v[u].x, d[u] * run.y + v[u].y,
                         d[u] * run.z + v[u].z, d[u] * run.w + v[u].w);
     }
@@ -362,21 +376,24 @@ ssd_bwd_state_pass_kernel(float* __restrict__ dst,
 
 // --- 3. pair: dy·xᵀ once per tile pair, Σ_h Z, and the shares of ddt ------
 
-template <typename T>
+template <typename T, int P>
 __host__ __device__ constexpr size_t pair_smem() {
   constexpr size_t planes = sizeof(T) == 4 ? 2 : 1;
   return kT * kLG * sizeof(float)                        // C Bᵀ, transposed
-         + 2 * 2 * planes * kT * kLP * sizeof(bf16)      // 2 x (dy_I, x_J)
+         + 2 * 2 * planes * kT * lp<P>() * sizeof(bf16)  // 2 x (dy_I, x_J)
          + (2 * 3 * kT + 10 * kT) * sizeof(float);       // cum, dt; sums
 }
 
 // two blocks an SM (registers capped at 128); per head: wait for its
 // tiles, prefetch the next head's, then the products and the sums
-template <typename T>
+template <typename T, int P, int TT>
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_bwd_pair_kernel(const Args<T> a) {
+ssd_bwd_pair_kernel(const Args<T, P> a) {
   constexpr bool kLo = sizeof(T) == 4;
+  constexpr int kLP = lp<P>();
   constexpr int kTile = (kLo ? 2 : 1) * kT * kLP;   // bf16s of one tile
+  // a warp's 16 rows and its columns (32, or the tile's 16), n8 tiles
+  constexpr int kCW = TT < 32 ? TT : 32, kNW = kCW / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   float* Gt = reinterpret_cast<float*>(smem);            // [64 j][kLG]
   bf16* tiles = reinterpret_cast<bf16*>(Gt + kT * kLG);  // [2][dy_I, x_J]
@@ -389,16 +406,18 @@ ssd_bwd_pair_kernel(const Args<T> a) {
   while ((I + 1) * (I + 2) / 2 <= static_cast<int>(blockIdx.x)) ++I;
   const int J = blockIdx.x - I * (I + 1) / 2;
   const bool diag = I == J;
-  const int Q = a.Q, H = a.H, c0 = c * Q, i0 = I * kT, j0 = J * kT;
+  const int Q = a.Q, H = a.H, c0 = c * Q, i0 = I * TT, j0 = J * TT;
   const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
   const int wr = warp % 4, wc = warp / 4;
   const int r0 = wr * 16 + g;   // the thread's rows r0, r0 + 8 of the pair
   const int cb = wc * 32 + 2 * t;   // its columns cb + 8 nt + {0, 1}
+  // the warp holds rows and columns of the tile (all do at 64)
+  const bool act = TT == kT || (wr * 16 < TT && wc * 32 < TT);
   // C Bᵀ of the pair, shared by every head, stored [j][i]: the reads
   // below (row r0, column cb) then hit 32 distinct banks
   const float* gp = a.G + a.gram(b, c) + static_cast<long>(i0) * Q + j0;
-  for (int e = tid; e < kT * kT / 4; e += kThreads) {
-    const int r = e / (kT / 4), q = (e % (kT / 4)) * 4;
+  for (int e = tid; e < TT * TT / 4; e += kThreads) {
+    const int r = e / (TT / 4), q = (e % (TT / 4)) * 4;
     const float4 v =
         *reinterpret_cast<const float4*>(gp + static_cast<long>(r) * Q + q);
     Gt[q * kLG + r] = v.x;
@@ -408,22 +427,25 @@ ssd_bwd_pair_kernel(const Args<T> a) {
   }
   auto load = [&](int s, int h) {
     bf16* dyt = tiles + 2 * s * kTile;
-    stage<kLo, kT, kP>(dyt, kLP, kT * kLP, a.dy_at(b, c0 + i0, h),
-                       static_cast<long>(H) * kP, kT, kP, true);
-    stage<kLo, kT, kP>(dyt + kTile, kLP, kT * kLP, a.x_at(b, c0 + j0, h),
-                       a.x_ss, kT, kP, a.vec);
+    stage<kLo, TT, P>(dyt, kLP, kT * kLP, a.dy_at(b, c0 + i0, h),
+                      static_cast<long>(H) * P, TT, P, true);
+    stage<kLo, TT, P>(dyt + kTile, kLP, kT * kLP, a.x_at(b, c0 + j0, h),
+                      a.x_ss, TT, P, a.vec);
     const long o = a.hq(b, c, h);
     float* s3 = sc + s * 3 * kT;
-    if (tid < kT)
-      s3[tid] = a.cum[o + i0 + tid];
-    else if (tid < 2 * kT)
-      s3[tid] = a.cum[o + j0 + tid - kT];
-    else if (tid < 3 * kT)
-      s3[tid] = a.dts[o + j0 + tid - 2 * kT];
+    const int u = tid % kT;   // the token of the tile
+    if (u < TT) {
+      if (tid < kT)
+        s3[tid] = a.cum[o + i0 + u];
+      else if (tid < 2 * kT)
+        s3[tid] = a.cum[o + j0 + u];
+      else if (tid < 3 * kT)
+        s3[tid] = a.dts[o + j0 + u];
+    }
     rt::cp_async_commit();
   };
   load(0, 0);
-  float zs[4][4] = {};   // Σ_h Z at rows r0, r0 + 8 and columns cb + 8 nt
+  float zs[kNW][4] = {};   // Σ_h Z at rows r0, r0 + 8 and columns cb + 8 nt
   for (int h = 0; h < H; ++h) {
     const int s = h & 1;
     if (h + 1 < H)
@@ -439,80 +461,89 @@ ssd_bwd_pair_kernel(const Args<T> a) {
     const float* ci = sc + s * 3 * kT;
     const float* cj = ci + kT;
     const float* dj = cj + kT;
-    float d[4][4] = {};   // dy_i·x_j
+    if (act) {   // the warp holds rows and columns of the tile
+      float d[kNW][4] = {};   // dy_i·x_j
 #pragma unroll
-    for (int k = 0; k < kP; k += 16) {
-      uint32_t af[2][4];
-      lda_mk(af[0], dyt, kLP, wr * 16, k);
-      if constexpr (kLo) lda_mk(af[1], dyt + kT * kLP, kLP, wr * 16, k);
+      for (int k = 0; k < P; k += 16) {
+        uint32_t af[2][4];
+        lda_mk(af[0], dyt, kLP, wr * 16, k);
+        if constexpr (kLo) lda_mk(af[1], dyt + kT * kLP, kLP, wr * 16, k);
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        uint32_t bb[2][4];
-        ldb_nk(bb[0], xt, kLP, k, wc * 32 + q * 16);
-        if constexpr (kLo) ldb_nk(bb[1], xt + kT * kLP, kLP, k, wc * 32 + q * 16);
-        mma_split<kLo, kLo>(d[2 * q], af, bb, 0);
-        mma_split<kLo, kLo>(d[2 * q + 1], af, bb, 1);
+        for (int q = 0; q < kNW / 2; ++q) {
+          uint32_t bb[2][4];
+          ldb_nk(bb[0], xt, kLP, k, wc * 32 + q * 16);
+          if constexpr (kLo)
+            ldb_nk(bb[1], xt + kT * kLP, kLP, k, wc * 32 + q * 16);
+          mma_split<kLo, kLo>(d[2 * q], af, bb, 0);
+          mma_split<kLo, kLo>(d[2 * q + 1], af, bb, 1);
+        }
       }
-    }
-    // Z, M (dy·x) and P = M (dy·x) dt_j (j < i, unclipped) per entry
-    float kc[4][2] = {}, pc[4][2] = {}, pr[2] = {};
+      // Z, M (dy·x) and P = M (dy·x) dt_j (j < i, unclipped) per entry
+      float kc[kNW][2] = {}, pc[kNW][2] = {}, pr[2] = {};
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const int r = r0 + rr * 8, i = i0 + r;
-      const float cir = ci[r];
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = r0 + rr * 8, i = i0 + r;
+        const float cir = ci[r];
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
+        for (int nt = 0; nt < kNW; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int col = cb + nt * 8 + e, j = j0 + col;
+            const bool keep = !diag || j <= i;
+            const float diff = cir - cj[col];
+            const float l = clip_exp(keep ? diff : 0.f);
+            const float dg = d[nt][2 * rr + e];
+            zs[nt][2 * rr + e] += keep ? dg * l * dj[col] : 0.f;
+            const float k = Gt[col * kLG + r] * l * dg;
+            kc[nt][e] += keep ? k : 0.f;
+            const float p = j < i && diff >= kClip ? k * dj[col] : 0.f;
+            pc[nt][e] += p;
+            pr[rr] += p;
+          }
+      }
+      // by column: the thread's two rows, the 8 lanes g, then the 4 row
+      // warps in order; by row: its 8 columns, the 4 lanes t, the 2
+      // column warps
+#pragma unroll
+      for (int nt = 0; nt < kNW; ++nt)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int col = cb + nt * 8 + e, j = j0 + col;
-          const bool keep = !diag || j <= i;
-          const float diff = cir - cj[col];
-          const float l = clip_exp(keep ? diff : 0.f);
-          const float dg = d[nt][2 * rr + e];
-          zs[nt][2 * rr + e] += keep ? dg * l * dj[col] : 0.f;
-          const float k = Gt[col * kLG + r] * l * dg;
-          kc[nt][e] += keep ? k : 0.f;
-          const float p = j < i && diff >= kClip ? k * dj[col] : 0.f;
-          pc[nt][e] += p;
-          pr[rr] += p;
+          const float kv = col_sum(kc[nt][e]), pv = col_sum(pc[nt][e]);
+          if (g == 0) {
+            kcol[wr * kT + cb + nt * 8 + e] = kv;
+            pcol[wr * kT + cb + nt * 8 + e] = pv;
+          }
         }
-    }
-    // by column: the thread's two rows, the 8 lanes g, then the 4 row
-    // warps in order; by row: its 8 columns, the 4 lanes t, the 2
-    // column warps
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float kv = col_sum(kc[nt][e]), pv = col_sum(pc[nt][e]);
-        if (g == 0) {
-          kcol[wr * kT + cb + nt * 8 + e] = kv;
-          pcol[wr * kT + cb + nt * 8 + e] = pv;
-        }
+      for (int rr = 0; rr < 2; ++rr) {
+        const float v = quad_sum(pr[rr]);
+        if (t == 0) prow[wc * kT + r0 + rr * 8] = v;
       }
-#pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
-      const float v = quad_sum(pr[rr]);
-      if (t == 0) prow[wc * kT + r0 + rr * 8] = v;
     }
     __syncthreads();
     const long o = a.hq(b, c, h);
-    if (tid < kT) {   // column j0 + tid, and on the diagonal row i0 + tid
-      const float kv = ((kcol[tid] + kcol[kT + tid]) + kcol[2 * kT + tid]) +
-                       kcol[3 * kT + tid];
-      const float pv = ((pcol[tid] + pcol[kT + tid]) + pcol[2 * kT + tid]) +
-                       pcol[3 * kT + tid];
+    // the row warps' and the column warps' shares, in order
+    constexpr int kWR = TT / 16 < 4 ? TT / 16 : 4, kWC = TT == kT ? 2 : 1;
+    if (tid < TT) {   // column j0 + tid, and on the diagonal row i0 + tid
+      float kv = kcol[tid], pv = pcol[tid], pw = prow[tid];
+#pragma unroll
+      for (int w = 1; w < kWR; ++w) {
+        kv += kcol[w * kT + tid];
+        pv += pcol[w * kT + tid];
+      }
+      if (kWC > 1) pw += prow[kT + tid];
       a.kpart[I * a.part + o + j0 + tid] = kv;
-      a.dpart[I * a.part + o + j0 + tid] =
-          diag ? (prow[tid] + prow[kT + tid]) - pv : -pv;
-    } else if (tid < 2 * kT && !diag) {   // row i0 + tid − 64
+      a.dpart[I * a.part + o + j0 + tid] = diag ? pw - pv : -pv;
+    } else if (tid >= kT && tid < kT + TT && !diag) {   // row i0 + tid − 64
       const int r = tid - kT;
-      a.dpart[J * a.part + o + i0 + r] = prow[r] + prow[kT + r];
+      a.dpart[J * a.part + o + i0 + r] =
+          kWC > 1 ? prow[r] + prow[kT + r] : prow[r];
     }
   }
+  if (!act) return;
   float* zp = a.zw + a.gram(b, c) + static_cast<long>(i0 + r0) * Q + j0 + cb;
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
+  for (int nt = 0; nt < kNW; ++nt) {
     rt::store2(zp + nt * 8, zs[nt][0], zs[nt][1]);
     rt::store2(zp + 8 * Q + nt * 8, zs[nt][2], zs[nt][3]);
   }
@@ -520,36 +551,42 @@ ssd_bwd_pair_kernel(const Args<T> a) {
 
 // --- 4. dx and x·(B D) ------------------------------------------------------
 
-template <typename T>
+template <typename T, int P>
 __host__ __device__ constexpr size_t dx_tiles_bytes() {
   constexpr size_t planes = sizeof(T) == 4 ? 2 : 1;
-  constexpr size_t state = planes * kT * kLN + 2 * kNP * kLP;   // B_J, D
-  constexpr size_t loop = 2 * kT * kLP + planes * kT * kLP;     // M, dy_I
+  constexpr size_t state = planes * kT * kLN + 2 * kNP * lp<P>();   // B_J, D
+  constexpr size_t loop = 2 * kT * kLT + planes * kT * lp<P>();     // M, dy_I
   return (state > loop ? state : loop) * sizeof(bf16);
 }
-template <typename T>
+template <typename T, int P>
 __host__ __device__ constexpr size_t dx_smem() {
-  return dx_tiles_bytes<T>() + (2 * kQMax + 2 * kT) * sizeof(float);
+  return dx_tiles_bytes<T, P>() + (2 * kQMax + 2 * kT) * sizeof(float);
 }
 
-template <typename T>
+template <typename T, int P, int TT>
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_bwd_dx_kernel(const Args<T> a) {
+ssd_bwd_dx_kernel(const Args<T, P> a) {
   constexpr bool kLo = sizeof(T) == 4;
   constexpr int kPl = kLo ? 2 : 1;
+  constexpr int kLP = lp<P>();
+  // a warp's 16 rows (tokens j) and its columns p (32, or P's 16), n8
+  // tiles
+  constexpr int kCW = P < 32 ? P : 32, kNW = kCW / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* tiles = reinterpret_cast<bf16*>(smem);
-  float* cum = reinterpret_cast<float*>(smem + dx_tiles_bytes<T>());
+  float* cum = reinterpret_cast<float*>(smem + dx_tiles_bytes<T, P>());
   float* dts = cum + kQMax;
   float* zred = dts + kQMax;   // [2 column warps][64]: x_j·(B_j D)
   const int tq = a.tq, h = blockIdx.x / tq, J = blockIdx.x % tq;
   const int c = blockIdx.y, b = blockIdx.z;
-  const int Q = a.Q, N = a.N, c0 = c * Q, j0 = J * kT;
+  const int Q = a.Q, N = a.N, c0 = c * Q, j0 = J * TT;
   const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
   const int wr = warp % 4, wc = warp / 4;
   const int r0 = wr * 16 + g;       // rows j0 + r0, + 8
   const int cb = wc * 32 + 2 * t;   // columns p = cb + 8 nt, + 1
   const int np = (N + 15) & ~15;
+  // the warp holds rows of the tile and columns of P (all do at 64, 64)
+  const bool act = (TT == kT && P == 64) || (wr * 16 < TT && wc * 32 < P);
   const long o = a.hq(b, c, h);
   for (int e = tid; e < Q; e += kThreads) {
     cum[e] = a.cum[o + e];
@@ -558,21 +595,21 @@ ssd_bwd_dx_kernel(const Args<T> a) {
   __syncthreads();
   const float cq = cum[Q - 1];
   const bool has_d = c < a.nc - 1;   // the last chunk's D is 0
-  float acc[4][4] = {};   // w_j (B_j D), then dx [j][p]
+  float acc[kNW][4] = {};   // w_j (B_j D), then dx [j][p]
   if (has_d) {
     bf16* Bs = tiles;                     // [kPl][64 j][kLN]
     bf16* Dn = Bs + kPl * kT * kLN;       // [2][128 n][kLP]
-    stage<kLo, kT, kNP>(Bs, kLN, kT * kLN, a.b_at(b, c0 + j0), a.b_ss, kT, N,
+    stage<kLo, TT, kNP>(Bs, kLN, kT * kLN, a.b_at(b, c0 + j0), a.b_ss, TT, N,
                         a.vec);
-    stage<true, kNP, kP>(Dn, kLP, kNP * kLP, a.dst + a.state(b, c, h), kP,
-                         N, kP, true);
+    stage<true, kNP, P>(Dn, kLP, kNP * kLP, a.dst + a.state(b, c, h), P,
+                        N, P, true);
     staged();
-    for (int k = 0; k < np; k += 16) {
+    for (int k = 0; k < np && act; k += 16) {
       uint32_t af[2][4];
       lda_mk(af[0], Bs, kLN, wr * 16, k);
       if constexpr (kLo) lda_mk(af[1], Bs + kT * kLN, kLN, wr * 16, k);
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
+      for (int q = 0; q < kNW / 2; ++q) {
         uint32_t bb[2][4];
         ldb_kn(bb[0], Dn, kLP, k, wc * 32 + q * 16);
         ldb_kn(bb[1], Dn + kNP * kLP, kLP, k, wc * 32 + q * 16);
@@ -581,12 +618,12 @@ ssd_bwd_dx_kernel(const Args<T> a) {
       }
     }
 #pragma unroll
-    for (int rr = 0; rr < 2; ++rr) {
+    for (int rr = 0; rr < 2 && act; ++rr) {
       const int r = r0 + rr * 8, j = j0 + r;
       const T* xp = a.x_at(b, c0 + j, h) + cb;
       float z = 0.f;
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int nt = 0; nt < kNW; ++nt) {
         const float2 xv = rt::load2(xp + nt * 8);
         z = fmaf(xv.x, acc[nt][2 * rr], z);
         z = fmaf(xv.y, acc[nt][2 * rr + 1], z);
@@ -595,30 +632,32 @@ ssd_bwd_dx_kernel(const Args<T> a) {
       if (t == 0) zred[wc * kT + r] = z;
       const float w = dts[j] * clip_exp(cq - cum[j]);
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
+      for (int nt = 0; nt < kNW; ++nt) {
         acc[nt][2 * rr] *= w;
         acc[nt][2 * rr + 1] *= w;
       }
     }
   }
   __syncthreads();   // zred is written; the state tiles are consumed
-  if (tid < kT) {
+  if (tid < TT) {
     const int j = j0 + tid;
-    const float z = has_d ? zred[tid] + zred[kT + tid] : 0.f;
+    // the column warps' shares: two at P 64
+    const float z = !has_d ? 0.f
+                    : P == 64 ? zred[tid] + zred[kT + tid] : zred[tid];
     const float eq = clip_exp(cq - cum[j]);
     a.zdir[o + j] = eq * z;
     a.tl[o + j] = j < Q - 1 && cq - cum[j] >= kClip ? eq * dts[j] * z : 0.f;
   }
-  bf16* Ms = tiles;                // [2][64 i][kLP]: dt_j M_ij
-  bf16* Dy = Ms + 2 * kT * kLP;    // [kPl][64 i][kLP]: dy_i
+  bf16* Ms = tiles;                // [2][64 i][kLT]: dt_j M_ij
+  bf16* Dy = Ms + 2 * kT * kLT;    // [kPl][64 i][kLP]: dy_i
   const float* gp = a.G + a.gram(b, c);
   for (int I = J; I < tq; ++I) {
-    const int i0 = I * kT;
+    const int i0 = I * TT;
     if (I > J) __syncthreads();   // the previous row tile is consumed
-    stage<kLo, kT, kP>(Dy, kLP, kT * kLP, a.dy_at(b, c0 + i0, h),
-                       static_cast<long>(a.H) * kP, kT, kP, true);
-    for (int e = tid; e < kT * kT / 8; e += kThreads) {
-      const int r = e / (kT / 8), jq = (e % (kT / 8)) * 8, i = i0 + r;
+    stage<kLo, TT, P>(Dy, kLP, kT * kLP, a.dy_at(b, c0 + i0, h),
+                      static_cast<long>(a.H) * P, TT, P, true);
+    for (int e = tid; e < TT * TT / 8; e += kThreads) {
+      const int r = e / (TT / 8), jq = (e % (TT / 8)) * 8, i = i0 + r;
       float v[8];
       load8(gp + static_cast<long>(i) * Q + j0 + jq, true, j0 + jq <= i, v);
       const float ci = cum[i];
@@ -627,18 +666,19 @@ ssd_bwd_dx_kernel(const Args<T> a) {
         const int j = j0 + jq + u;
         v[u] = j <= i ? v[u] * clip_exp(ci - cum[j]) * dts[j] : 0.f;
       }
-      put8<true>(Ms + r * kLP + jq, Ms + (kT + r) * kLP + jq, v);
+      put8<true>(Ms + r * kLT + jq, Ms + (kT + r) * kLT + jq, v);
     }
     staged();
+    if (!act) continue;
     // dx_j += Σ_i (dt_j M_ij) dy_i: A = Mᵀ (stored [i][j]), B = dy
 #pragma unroll
-    for (int k = 0; k < kT; k += 16) {
+    for (int k = 0; k < TT; k += 16) {
       if (I == J && k + 15 < wr * 16) continue;   // every i < j: zeros
       uint32_t af[2][4];
-      lda_km(af[0], Ms, kLP, wr * 16, k);
-      lda_km(af[1], Ms + kT * kLP, kLP, wr * 16, k);
+      lda_km(af[0], Ms, kLT, wr * 16, k);
+      lda_km(af[1], Ms + kT * kLT, kLT, wr * 16, k);
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
+      for (int q = 0; q < kNW / 2; ++q) {
         uint32_t bb[2][4];
         ldb_kn(bb[0], Dy, kLP, k, wc * 32 + q * 16);
         if constexpr (kLo) ldb_kn(bb[1], Dy + kT * kLP, kLP, k, wc * 32 + q * 16);
@@ -647,85 +687,88 @@ ssd_bwd_dx_kernel(const Args<T> a) {
       }
     }
   }
+  if (!act) return;
 #pragma unroll
   for (int rr = 0; rr < 2; ++rr) {
-    T* xp = a.dx + a.tok(b, c0 + j0 + r0 + rr * 8, h) * kP + cb;
+    T* xp = a.dx + a.tok(b, c0 + j0 + r0 + rr * 8, h) * P + cb;
 #pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
+    for (int nt = 0; nt < kNW; ++nt)
       rt::store2(xp + nt * 8, acc[nt][2 * rr], acc[nt][2 * rr + 1]);
   }
 }
 
 // --- 5. dB and dC -----------------------------------------------------------
 
-template <typename T>
+template <typename T, int P>
 __host__ __device__ constexpr size_t bc_tiles_bytes() {
   constexpr size_t planes = sizeof(T) == 4 ? 2 : 1;
-  constexpr size_t tri = 2 * kT * kLP + planes * kT * kLN;     // Σ Z, B / C
-  constexpr size_t head = planes * kT * kLP + 2 * kNP * kLP;   // dy / x, S / D
+  constexpr size_t tri = 2 * kT * kLT + planes * kT * kLN;     // Σ Z, B / C
+  constexpr size_t head = (planes * kT + 2 * kNP) * lp<P>();   // dy / x, S / D
   return (tri > head ? tri : head) * sizeof(bf16);
 }
-template <typename T>
+template <typename T, int P>
 __host__ __device__ constexpr size_t bc_smem() {
-  return bc_tiles_bytes<T>() + (3 * kT + 4 + 2 * kT) * sizeof(float);
+  return bc_tiles_bytes<T, P>() + (3 * kT + 4 + 2 * kT) * sizeof(float);
 }
 
 // blockIdx.x = 2·tile + which: which 0 is dC over the tile's rows i, 1
 // is dB over its columns j
-template <typename T>
+template <typename T, int P, int TT>
 __global__ void __launch_bounds__(kThreads, 2)
-ssd_bwd_bc_kernel(const Args<T> a) {
+ssd_bwd_bc_kernel(const Args<T, P> a) {
   constexpr bool kLo = sizeof(T) == 4;
   constexpr int kPl = kLo ? 2 : 1;
+  constexpr int kLP = lp<P>();
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* tiles = reinterpret_cast<bf16*>(smem);
-  float* sc = reinterpret_cast<float*>(smem + bc_tiles_bytes<T>());
+  float* sc = reinterpret_cast<float*>(smem + bc_tiles_bytes<T, P>());
   float* red = sc + 3 * kT + 4;   // [2 column warps][64]
   const bool is_c = blockIdx.x % 2 == 0;
   const int T0 = blockIdx.x / 2, c = blockIdx.y, b = blockIdx.z;
-  const int Q = a.Q, N = a.N, H = a.H, tq = a.tq, c0 = c * Q, t0 = T0 * kT;
+  const int Q = a.Q, N = a.N, H = a.H, tq = a.tq, c0 = c * Q, t0 = T0 * TT;
   const int tid = threadIdx.x, warp = tid / 32, g = tid % 32 / 4, t = tid % 4;
   const int wr = warp % 4, wc = warp / 4;
   const int r0 = wr * 16 + g;       // rows t0 + r0, + 8
   const int cb = wc * 64 + 2 * t;   // columns n = cb + 8 nt, + 1
   const int np = (N + 15) & ~15;
-  const bool live = wc * 64 < np;   // the warp holds a column below N
+  // the warp holds a column below N and rows of the tile
+  const bool live = wc * 64 < np && (TT == kT || wr * 16 < TT);
   float acc[8][4] = {};
 
   // Σ_h Z against B_J over J <= T (dC) or C_I over I >= T (dB)
   {
-    bf16* Zs = tiles;                  // [2][64][kLP]: the pair's Σ_h Z
-    bf16* Ns = Zs + 2 * kT * kLP;      // [kPl][64][kLN]: B_J or C_I
+    bf16* Zs = tiles;                  // [2][64][kLT]: the pair's Σ_h Z
+    bf16* Ns = Zs + 2 * kT * kLT;      // [kPl][64][kLN]: B_J or C_I
     const int u0 = is_c ? 0 : T0, u1 = is_c ? T0 : tq - 1;
     for (int U = u0; U <= u1; ++U) {
       const int pi = is_c ? T0 : U, pj = is_c ? U : T0;
       if (U > u0) __syncthreads();   // the previous tiles are consumed
-      const float* zp = a.zw + a.gram(b, c) + static_cast<long>(pi) * kT * Q +
-                        pj * kT;
-      for (int e = tid; e < kT * kT / 8; e += kThreads) {
-        const int r = e / (kT / 8), q = (e % (kT / 8)) * 8;
+      const float* zp = a.zw + a.gram(b, c) + static_cast<long>(pi) * TT * Q +
+                        pj * TT;
+      for (int e = tid; e < TT * TT / 8; e += kThreads) {
+        const int r = e / (TT / 8), q = (e % (TT / 8)) * 8;
         float v[8];
         load8(zp + static_cast<long>(r) * Q + q, true, true, v);
-        put8<true>(Zs + r * kLP + q, Zs + (kT + r) * kLP + q, v);
+        put8<true>(Zs + r * kLT + q, Zs + (kT + r) * kLT + q, v);
       }
       if (is_c)
-        stage<kLo, kT, kNP>(Ns, kLN, kT * kLN, a.b_at(b, c0 + U * kT),
-                            a.b_ss, kT, N, a.vec);
+        stage<kLo, TT, kNP>(Ns, kLN, kT * kLN, a.b_at(b, c0 + U * TT),
+                            a.b_ss, TT, N, a.vec);
       else
-        stage<kLo, kT, kNP>(Ns, kLN, kT * kLN, a.c_at(b, c0 + U * kT),
-                            a.c_ss, kT, N, a.vec);
+        stage<kLo, TT, kNP>(Ns, kLN, kT * kLN, a.c_at(b, c0 + U * TT),
+                            a.c_ss, TT, N, a.vec);
       staged();
       if (!live) continue;
 #pragma unroll
-      for (int k = 0; k < kT; k += 16) {
+      for (int k = 0; k < TT; k += 16) {
         // dC: A = Σ Z [i][j]; dB: A = (Σ Z)ᵀ, read transposed
         uint32_t af[2][4];
         if (is_c) {
-          lda_mk(af[0], Zs, kLP, wr * 16, k);
-          lda_mk(af[1], Zs + kT * kLP, kLP, wr * 16, k);
+          lda_mk(af[0], Zs, kLT, wr * 16, k);
+          lda_mk(af[1], Zs + kT * kLT, kLT, wr * 16, k);
         } else {
-          lda_km(af[0], Zs, kLP, wr * 16, k);
-          lda_km(af[1], Zs + kT * kLP, kLP, wr * 16, k);
+          lda_km(af[0], Zs, kLT, wr * 16, k);
+          lda_km(af[1], Zs + kT * kLT, kLT, wr * 16, k);
         }
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
@@ -748,25 +791,25 @@ ssd_bwd_bc_kernel(const Args<T> a) {
   for (int h = 0; h < H && has; ++h) {
     __syncthreads();   // the previous tiles are consumed and red is read
     const long o = a.hq(b, c, h);
-    if (tid < kT) {
+    if (tid < TT) {
       sc[tid] = a.cum[o + t0 + tid];
       sc[kT + tid] = a.dts[o + t0 + tid];
     }
     if (tid == 0) sc[2 * kT] = a.cum[o + Q - 1];
     if (is_c)
-      stage<kLo, kT, kP>(Vs, kLP, kT * kLP, a.dy_at(b, c0 + t0, h),
-                         static_cast<long>(H) * kP, kT, kP, true);
+      stage<kLo, TT, P>(Vs, kLP, kT * kLP, a.dy_at(b, c0 + t0, h),
+                        static_cast<long>(H) * P, TT, P, true);
     else
-      stage<kLo, kT, kP>(Vs, kLP, kT * kLP, a.x_at(b, c0 + t0, h), a.x_ss,
-                         kT, kP, a.vec);
-    stage<true, kNP, kP>(Ss, kLP, kNP * kLP,
-                         (is_c ? a.st : a.dst) + a.state(b, c, h), kP, N, kP,
-                         true);
+      stage<kLo, TT, P>(Vs, kLP, kT * kLP, a.x_at(b, c0 + t0, h), a.x_ss,
+                        TT, P, a.vec);
+    stage<true, kNP, P>(Ss, kLP, kNP * kLP,
+                        (is_c ? a.st : a.dst) + a.state(b, c, h), P, N, P,
+                        true);
     staged();
     if (live) {
       float y[8][4] = {};   // dy Sᵀ or x Dᵀ: rows r0 (+8), columns cb + 8 nt
 #pragma unroll
-      for (int k = 0; k < kP; k += 16) {
+      for (int k = 0; k < P; k += 16) {
         uint32_t af[2][4];
         lda_mk(af[0], Vs, kLP, wr * 16, k);
         if constexpr (kLo) lda_mk(af[1], Vs + kT * kLP, kLP, wr * 16, k);
@@ -815,13 +858,13 @@ ssd_bwd_bc_kernel(const Args<T> a) {
     }
     if (is_c) {
       __syncthreads();
-      if (tid < kT)
+      if (tid < TT)
         a.rst[o + t0 + tid] = red[tid] + (np > 64 ? red[kT + tid] : 0.f);
     }
   }
   if (is_c && !has)   // chunk 0: no state entered it
-    for (int e = tid; e < H * kT; e += kThreads)
-      a.rst[a.hq(b, c, e / kT) + t0 + e % kT] = 0.f;
+    for (int e = tid; e < H * TT; e += kThreads)
+      a.rst[a.hq(b, c, e / TT) + t0 + e % TT] = 0.f;
 
   if (!live) return;
   T* out = is_c ? a.dC : a.dB;
@@ -837,9 +880,9 @@ ssd_bwd_bc_kernel(const Args<T> a) {
 
 // --- 6. finish: the reverse cumsum, ddt and the chunk's dA ---------------
 
-template <typename T>
+template <typename T, int P, int TT>
 __global__ void __launch_bounds__(kThreads)
-ssd_bwd_finish_kernel(const Args<T> a) {
+ssd_bwd_finish_kernel(const Args<T, P> a) {
   __shared__ float red[8];
   const int h = blockIdx.x, c = blockIdx.y, b = blockIdx.z;
   const int Q = a.Q, c0 = c * Q, tid = threadIdx.x;
@@ -848,7 +891,7 @@ ssd_bwd_finish_kernel(const Args<T> a) {
   // ⟨D, S⟩: the state's decay E(cum_Q) reaches cum_Q
   const long so = a.state(b, c, h);
   float f = 0.f;
-  for (int e = tid; e < a.N * kP; e += kThreads)
+  for (int e = tid; e < a.N * P; e += kThreads)
     f = fmaf(a.dst[so + e], a.st[so + e], f);
   f = block_sum(f, red);
   // thread tid takes token Q − 1 − tid, so a prefix sum over the threads
@@ -861,7 +904,7 @@ ssd_bwd_finish_kernel(const Args<T> a) {
   if (on) {
     for (int s = 0; s < a.tq; ++s) d += a.dpart[s * a.part + o + k];
     d += a.rst[o + k] - tk;
-    for (int s = k / kT; s < a.tq; ++s) direct += a.kpart[s * a.part + o + k];
+    for (int s = k / TT; s < a.tq; ++s) direct += a.kpart[s * a.part + o + k];
     direct += a.zdir[o + k];
   }
   if (tid == 0) {
@@ -892,47 +935,48 @@ ssd_bwd_da_kernel(const float* __restrict__ daw, float* __restrict__ dA,
 
 // --- launch -----------------------------------------------------------------
 
-template <typename T>
-int launch(const Args<T>& a, cudaStream_t s) {
+template <typename T, int P, int TT>
+int launch(const Args<T, P>& a, cudaStream_t s) {
   const int nc = a.nc, tq = a.tq;
   cudaError_t err;
-  if ((err = allow_smem(ssd_bwd_state_grad_kernel<T>, kGradSmem)) ||
-      (err = allow_smem(ssd_bwd_pair_kernel<T>, pair_smem<T>())) ||
-      (err = allow_smem(ssd_bwd_dx_kernel<T>, dx_smem<T>())) ||
-      (err = allow_smem(ssd_bwd_bc_kernel<T>, bc_smem<T>())))
+  if ((err = allow_smem(ssd_bwd_state_grad_kernel<T, P, TT>, grad_smem<P>())) ||
+      (err = allow_smem(ssd_bwd_pair_kernel<T, P, TT>, pair_smem<T, P>())) ||
+      (err = allow_smem(ssd_bwd_dx_kernel<T, P, TT>, dx_smem<T, P>())) ||
+      (err = allow_smem(ssd_bwd_bc_kernel<T, P, TT>, bc_smem<T, P>())))
     return err;
   const dim3 per_head(a.H, nc, a.Bn);
-  ssd_bwd_state_grad_kernel<T><<<per_head, kThreads, kGradSmem, s>>>(a);
+  ssd_bwd_state_grad_kernel<T, P, TT><<<per_head, kThreads, grad_smem<P>(),
+                                        s>>>(a);
   if ((err = cudaGetLastError())) return err;
-  const long groups = static_cast<long>(a.Bn) * a.H * a.N * kP / 4;
-  ssd_bwd_state_pass_kernel<<<static_cast<unsigned>(
-                                  (groups + kThreads - 1) / kThreads),
-                              kThreads, 0, s>>>(a.dst, a.decay, a.Bn, nc, a.H,
-                                                a.N);
+  const long groups = static_cast<long>(a.Bn) * a.H * a.N * P / 4;
+  ssd_bwd_state_pass_kernel<P><<<static_cast<unsigned>(
+                                     (groups + kThreads - 1) / kThreads),
+                                 kThreads, 0, s>>>(a.dst, a.decay, a.Bn, nc,
+                                                   a.H, a.N);
   if ((err = cudaGetLastError())) return err;
-  ssd_bwd_pair_kernel<T><<<dim3(tq * (tq + 1) / 2, nc, a.Bn), kThreads,
-                           pair_smem<T>(), s>>>(a);
+  ssd_bwd_pair_kernel<T, P, TT><<<dim3(tq * (tq + 1) / 2, nc, a.Bn),
+                                  kThreads, pair_smem<T, P>(), s>>>(a);
   if ((err = cudaGetLastError())) return err;
-  ssd_bwd_dx_kernel<T><<<dim3(a.H * tq, nc, a.Bn), kThreads, dx_smem<T>(),
-                         s>>>(a);
+  ssd_bwd_dx_kernel<T, P, TT><<<dim3(a.H * tq, nc, a.Bn), kThreads,
+                                dx_smem<T, P>(), s>>>(a);
   if ((err = cudaGetLastError())) return err;
-  ssd_bwd_bc_kernel<T><<<dim3(2 * tq, nc, a.Bn), kThreads, bc_smem<T>(),
-                         s>>>(a);
+  ssd_bwd_bc_kernel<T, P, TT><<<dim3(2 * tq, nc, a.Bn), kThreads,
+                                bc_smem<T, P>(), s>>>(a);
   if ((err = cudaGetLastError())) return err;
-  ssd_bwd_finish_kernel<T><<<per_head, kThreads, 0, s>>>(a);
+  ssd_bwd_finish_kernel<T, P, TT><<<per_head, kThreads, 0, s>>>(a);
   if ((err = cudaGetLastError())) return err;
   ssd_bwd_da_kernel<<<1, kThreads, 0, s>>>(a.daw, a.dA, a.Bn * nc, a.H);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int P, int TT>
 int run(const void* x, long x_sb, long x_ss, const void* dt, long dt_sb,
         long dt_ss, const void* A, const void* Bm, long b_sb, long b_ss,
         const void* Cm, long c_sb, long c_ss, const void* dy, const void* G,
         const void* st, const void* decay, void* dx, void* ddt, void* dA,
         void* dB, void* dC, void* dst, void* zw, void* tok, void* daw,
         int Bn, int S, int H, int N, int Q, cudaStream_t s) {
-  Args<T> a;
+  Args<T, P> a;
   a.x = static_cast<const T*>(x);
   a.x_sb = x_sb;
   a.x_ss = x_ss;
@@ -958,7 +1002,7 @@ int run(const void* x, long x_sb, long x_ss, const void* dt, long dt_sb,
   a.N = N;
   a.Q = Q;
   a.nc = S / Q;
-  a.tq = Q / kT;
+  a.tq = Q / TT;
   a.part = static_cast<long>(Bn) * S * H;
   float* w = static_cast<float*>(tok);
   a.cum = w;
@@ -978,40 +1022,59 @@ int run(const void* x, long x_sb, long x_ss, const void* dt, long dt_sb,
   a.vec = aligned16(x, x_sb * es, x_ss * es) &&
           aligned16(Bm, b_sb * es, b_ss * es) &&
           aligned16(Cm, c_sb * es, c_ss * es);
-  return launch<T>(a, s);
+  return launch<T, P, TT>(a, s);
+}
+
+using Run = int (*)(const void*, long, long, const void*, long, long,
+                    const void*, const void*, long, long, const void*, long,
+                    long, const void*, const void*, const void*, const void*,
+                    void*, void*, void*, void*, void*, void*, void*, void*,
+                    void*, int, int, int, int, int, cudaStream_t);
+
+// the instantiation of head width P and token tile tt
+template <typename T, int P>
+Run by_tile(int tt) {
+  return tt == 16 ? run<T, P, 16> : tt == 32 ? run<T, P, 32> : run<T, P, 64>;
+}
+template <typename T>
+Run pick(int P, int tt) {
+  return P == 16 ? by_tile<T, 16>(tt) : P == 32 ? by_tile<T, 32>(tt)
+                                                : by_tile<T, 64>(tt);
 }
 
 }  // namespace
 
-// x [Bn, S, H, 64] (head stride 64, element stride 1; batch and token
-// strides in elements); dt [Bn, S, H] float32 (head stride 1); A [H]
-// float32; B, C [Bn, S, N] in x's type (element stride 1); dy [Bn, S, H,
-// 64] contiguous and 16-byte aligned in x's type.  G, st and decay are
-// the forward's workspaces after its passes 1-3 (ssd_chunk_scan_fwd with
-// y null).  Outputs, contiguous: dx [Bn, S, H, 64], dB, dC [Bn, S, N] in
-// x's type; ddt [Bn, S, H], dA [H] float32.  Float32 workspaces,
-// contiguous: dst [Bn, S/Q, H, N, 64], zw [Bn, S/Q, Q, Q], tok [5 + 2·Q/64,
-// Bn, S/Q, H, Q], daw [Bn, S/Q, H].  N a multiple of 8 up to 128; Q a
-// multiple of 64 up to 256 that divides S.
+// x [Bn, S, H, P] (head stride P, element stride 1; batch and token
+// strides in elements) with P 16, 32 or 64; dt [Bn, S, H] float32 (head
+// stride 1); A [H] float32; B, C [Bn, S, N] in x's type (element stride
+// 1); dy [Bn, S, H, P] contiguous and 16-byte aligned in x's type.  G, st
+// and decay are the forward's workspaces after its passes 1-3
+// (ssd_chunk_scan_fwd with y null).  Outputs, contiguous: dx [Bn, S, H,
+// P], dB, dC [Bn, S, N] in x's type; ddt [Bn, S, H], dA [H] float32.
+// Float32 workspaces, contiguous: dst [Bn, S/Q, H, N, P], zw [Bn, S/Q, Q,
+// Q], tok [5 + 2·Q/TT, Bn, S/Q, H, Q] (TT = min(64, Q)), daw [Bn, S/Q,
+// H].  N a multiple of 8 up to 128; Q 16, 32 or a multiple of 64 up to
+// 256, dividing S.
 extern "C" int ssd_chunk_scan_bwd(
     const void* x, long x_sb, long x_ss, const void* dt, long dt_sb,
     long dt_ss, const void* A, const void* Bm, long b_sb, long b_ss,
     const void* Cm, long c_sb, long c_ss, const void* dy, const void* G,
     const void* st, const void* decay, void* dx, void* ddt, void* dA,
     void* dB, void* dC, void* dst, void* zw, void* tok, void* daw, int Bn,
-    int S, int H, int N, int Q, int dtype, void* stream) {
+    int S, int H, int N, int Q, int P, int dtype, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N <= 0 || N > kNP || N % 8 || Q <= 0 || Q > kQMax || Q % kT || S % Q ||
-      reinterpret_cast<uintptr_t>(dy) % 16)
+  if (!ssd::form_ok(P, N, Q, S) || reinterpret_cast<uintptr_t>(dy) % 16)
     return cudaErrorInvalidValue;
+  const int tt = ssd::token_tile(Q);
   if (dtype == rt::kF32)
-    return run<float>(x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Bm, b_sb, b_ss, Cm,
-                      c_sb, c_ss, dy, G, st, decay, dx, ddt, dA, dB, dC, dst,
-                      zw, tok, daw, Bn, S, H, N, Q, s);
+    return pick<float>(P, tt)(x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Bm, b_sb,
+                              b_ss, Cm, c_sb, c_ss, dy, G, st, decay, dx,
+                              ddt, dA, dB, dC, dst, zw, tok, daw, Bn, S, H,
+                              N, Q, s);
   if (dtype == rt::kBF16)
-    return run<__nv_bfloat16>(x, x_sb, x_ss, dt, dt_sb, dt_ss, A, Bm, b_sb,
-                              b_ss, Cm, c_sb, c_ss, dy, G, st, decay, dx, ddt,
-                              dA, dB, dC, dst, zw, tok, daw, Bn, S, H, N, Q,
-                              s);
+    return pick<__nv_bfloat16>(P, tt)(x, x_sb, x_ss, dt, dt_sb, dt_ss, A,
+                                      Bm, b_sb, b_ss, Cm, c_sb, c_ss, dy, G,
+                                      st, decay, dx, ddt, dA, dB, dC, dst,
+                                      zw, tok, daw, Bn, S, H, N, Q, s);
   return cudaErrorInvalidValue;
 }

@@ -7,13 +7,23 @@ it also returns each row's log-sum-exp, which ``flash_attention_bwd``
 (``csrc/flash_attention_bwd.cu``, bf16) recomputes the probabilities
 from.  float32 forwards run on the TF32 tensor cores with each operand
 split hi + lo (three products, float32 accuracy; the template
-``csrc/flash_fwd_tf32.cuh``).  Both send float32 at head width 16,
-non-causal with one kv head per query head (dit-small's joint
-attention), to the library ``csrc/flash_attention_f32.cu``
-(``flash_attention_f32``, that template at 16, and
-``flash_attention_f32_bwd``, its backward on the same split products,
-each with its own launch count); every other form at width 16 raises.  CUDA tensors only; the op layer sends
-CPU tensors to ``ref.attention_ref``, which autograd differentiates.
+``csrc/flash_fwd_tf32.cuh``).
+
+The forms each kernel takes (``_check``):
+
+- head width 64 or 128 (``HEAD_DIMS``): the forward in bf16 and float32,
+  the backward in bf16 (a float32 backward there is queued in
+  ``ROADMAP.md``);
+- head width 16 or 32 (``F32_HEAD_DIMS``), float32: the library
+  ``csrc/flash_attention_f32.cu`` (``flash_attention_f32``, the template
+  at 16 and 32, and ``flash_attention_f32_bwd``, its backward on the
+  same split products, each with its own launch count), every mask and
+  GQA; bf16 at these widths is queued in ``ROADMAP.md``;
+- every other width raises.
+
+Both entry points send the small widths there.  CUDA tensors only; the
+op layer sends CPU tensors to ``ref.attention_ref``, which autograd
+differentiates.
 Any S and T are taken: the kernels mask ragged tile edges.  On ``meta``
 tensors the wrappers record their work (``fwd_work`` / ``bwd_work``,
 ``kernels.meta``) and return empty outputs; ``attention_pairs`` counts
@@ -29,9 +39,8 @@ from repro_torch.kernels import build, meta
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-HEAD_DIMS = (64, 128)   # the head widths the kernels are instantiated for
-F32_HEAD_DIM = 16       # flash_attention_f32's one width: float32, non-causal
-                        # MHA only
+HEAD_DIMS = (64, 128)      # flash_attention(_bwd).cu's widths
+F32_HEAD_DIMS = (16, 32)   # flash_attention_f32.cu's: float32, every form
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -52,16 +61,16 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}, q_per_kv {q_per_kv}")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"{name}: q, k, v must share one type")
-    if hd == F32_HEAD_DIM:
-        if q.dtype != torch.float32 or causal or window or q_per_kv != 1:
+    if hd in F32_HEAD_DIMS:
+        if q.dtype != torch.float32:
             raise ValueError(
-                f"{name}: head_dim {hd} takes float32, non-causal, no "
-                f"window and q_per_kv 1 only (flash_attention_f32); got "
-                f"{q.dtype}, causal {causal}, window {window}, q_per_kv "
-                f"{q_per_kv}")
+                f"{name}: head_dim {hd} takes float32 only "
+                f"(flash_attention_f32); {q.dtype} there is queued in "
+                "ROADMAP.md")
     elif hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS} "
-                         f"(or {F32_HEAD_DIM} in float32)")
+        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS} (or "
+                         f"{F32_HEAD_DIMS} in float32); other widths are "
+                         "queued in ROADMAP.md")
     return hkv
 
 
@@ -133,8 +142,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     H, S] float32, the row log-sum-exp of the scaled, masked logits."""
     b, s, h, hd = q.shape
     hkv = _check("flash_attention", q, k, v, q_per_kv, window, causal)
-    if hd == F32_HEAD_DIM:
-        return flash_attention_f32(q, k, v, return_lse)
+    if hd in F32_HEAD_DIMS:
+        return flash_attention_f32(q, k, v, return_lse, q_per_kv, causal,
+                                   window)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -168,9 +178,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(dq, dk, dv)`` of ``flash_attention`` from its output ``o``, its
     ``lse`` and the output's gradient ``do``: q, o, do [B, S, H, hd]; k,
     v [B, T, H / q_per_kv, hd]; lse [B, H, S] float32; bf16 at head width
-    64 and 128 (a float32 backward at those widths is not written yet),
-    float32 at 16 (``flash_attention_f32_bwd``).  Each gradient in its
-    input's type, float32 accumulation on the tensor cores (wgmma).  Three
+    64 and 128 (a float32 backward at those widths is queued in
+    ``ROADMAP.md``), float32 at 16 and 32 (``flash_attention_f32_bwd``).
+    Each gradient in its input's type, float32 accumulation on the
+    tensor cores (wgmma).  Three
     launches: the row statistics, dK and dV (one block per key tile and
     kv head), dQ (one per query tile and head); a fourth sums, in a
     fixed order, the partial dK and dV of blocks that split a GQA group
@@ -178,9 +189,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     nothing is summed by atomics, so two calls are bitwise equal."""
     b, s, h, hd = q.shape
     hkv = _check("flash_attention_bwd", q, k, v, q_per_kv, window, causal)
-    if hd == F32_HEAD_DIM:
+    if hd in F32_HEAD_DIMS:
         _check_bwd("flash_attention_bwd", q, o, lse, do)
-        return flash_attention_f32_bwd(q, k, v, o, lse, do)
+        return flash_attention_f32_bwd(q, k, v, o, lse, do, q_per_kv,
+                                       causal, window)
     if q.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"flash_attention_bwd: {q.dtype} inputs at head_dim {hd}; the "
@@ -216,28 +228,31 @@ flash_attention_bwd.launches = 0
 
 
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        return_lse: bool = False):
-    """The float32 forward at head width 16 (``csrc/
-    flash_attention_f32.cu``, the 3xTF32 tensor-core template):
-    non-causal MHA, q [B, S, H, 16], k, v [B, T, H, 16] float32 -> [B, S,
-    H, 16] (and lse [B, H, S] with ``return_lse``).  Reached through
+                        return_lse: bool = False, q_per_kv: int = 1,
+                        causal: bool = False, window: int = 0):
+    """The float32 forward at head width 16 or 32 (``csrc/
+    flash_attention_f32.cu``, the 3xTF32 tensor-core template), every
+    form: q [B, S, H, hd], k, v [B, T, H / q_per_kv, hd] float32 -> [B,
+    S, H, hd] (and lse [B, H, S] with ``return_lse``).  Reached through
     ``flash_attention``, which checks the inputs."""
     b, s, h, hd = q.shape
+    hkv = h // q_per_kv
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if q.is_meta:
-        work = fwd_work(b, s, k.shape[1], h, h, hd, "float32",
-                        lse=return_lse)
+        work = fwd_work(b, s, k.shape[1], h, hkv, hd, "float32", causal,
+                        window, return_lse)
         return meta.stand_in("flash_attention_f32", work,
                              *((out, lse) if return_lse else (out,)))
     build.require_cuda("flash_attention_f32", q, k, v)
     lib = build.load("flash_attention_f32")
     fn = lib.flash_attention_f32_fwd
-    fn.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 8 + [_P]
     fn.restype = _I
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), b, s, k.shape[1], h,
+                hkv, hd, int(causal), window,
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention_f32", status)
     flash_attention_f32.launches += 1
@@ -249,19 +264,25 @@ flash_attention_f32.launches = 0
 
 def flash_attention_f32_bwd(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
-                            lse: torch.Tensor, do: torch.Tensor):
+                            lse: torch.Tensor, do: torch.Tensor,
+                            q_per_kv: int = 1, causal: bool = False,
+                            window: int = 0):
     """``(dq, dk, dv)`` of ``flash_attention_f32`` from its output, its
     lse and the output's gradient, float32 on the TF32 tensor cores
-    (three products of hi + lo splits).  Two launches: dQ with the row
-    statistics (into a float32 scratch of the library's own size), then
-    dK and dV; each gradient row is written once by one warp and nothing
-    is summed by atomics, so two calls are bitwise equal.  Reached
-    through ``flash_attention_bwd``, which checks the inputs."""
+    (three products of hi + lo splits), every form.  Two launches: dQ
+    with the row statistics (into a float32 scratch of the library's own
+    size), then dK and dV, a kv head's sum over its group of query heads
+    taken in one warp in head order; each gradient row is written once
+    by one warp and nothing is summed by atomics, so two calls are
+    bitwise equal.  Reached through ``flash_attention_bwd``, which
+    checks the inputs."""
     b, s, h, hd = q.shape
+    hkv = h // q_per_kv
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.is_meta:
         return meta.stand_in("flash_attention_f32_bwd", bwd_work(
-            b, s, k.shape[1], h, h, hd, dtype_name="float32"), dq, dk, dv)
+            b, s, k.shape[1], h, hkv, hd, causal, window,
+            dtype_name="float32"), dq, dk, dv)
     build.require_cuda("flash_attention_f32_bwd", q, k, v, o, lse, do)
     lib = build.load("flash_attention_f32")
     scratch = lib.flash_attention_f32_bwd_scratch
@@ -270,11 +291,12 @@ def flash_attention_f32_bwd(q: torch.Tensor, k: torch.Tensor,
     stats = torch.empty(scratch(b, s, h), dtype=torch.float32,
                         device=q.device)
     fn = lib.flash_attention_f32_bwd
-    fn.argtypes = [_P] * 10 + [_I] * 4 + [_P]
+    fn.argtypes = [_P] * 10 + [_I] * 8 + [_P]
     fn.restype = _I
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), stats.data_ptr(), b, s, k.shape[1], h,
+                dv.data_ptr(), stats.data_ptr(), b, s, k.shape[1], h, hkv, hd,
+                int(causal), window,
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention_f32_bwd", status)
     flash_attention_f32_bwd.launches += 1

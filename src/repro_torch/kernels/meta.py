@@ -8,12 +8,12 @@ then returns empty meta outputs of the kernel's shapes and records the
 kernel's work from its own formulas (kept beside its shape predicates:
 ``flash_attention.fwd_work``, ``ssd_scan.fwd_work`` and so on) instead
 of launching.  Each records under its library's name and its operands'
-type: dit-small's float32 attention at head width 16 records as
-``flash_attention_f32`` / ``flash_attention_f32_bwd`` with TF32
-FLOPs (both run on the TF32 tensor cores), which ``roofline.analysis``
-puts at the TF32 peak.  Nothing is built or loaded, and the wrapper's
-launch count does not move.  ``roofline.op_analysis`` listens while it
-counts a step.
+type: float32 attention at head width 16 or 32 (dit-small's, the
+reduced LM configs') records as ``flash_attention_f32`` /
+``flash_attention_f32_bwd`` with TF32 FLOPs (both run on the TF32
+tensor cores), which ``roofline.analysis`` puts at the TF32 peak.
+Nothing is built or loaded, and the wrapper's launch count does not
+move.  ``roofline.op_analysis`` listens while it counts a step.
 """
 from __future__ import annotations
 

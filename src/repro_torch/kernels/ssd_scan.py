@@ -7,8 +7,12 @@ layer sends CPU tensors to ``ref.ssd_chunk_scan_ref``.  ``x``, ``B`` and
 block's are): the kernel reads them through their batch and token
 strides, so nothing is copied.
 
-The kernels are instantiated for heads of 64 (``HEAD_DIM``).  A head
-of 64·r (jamba's 128) runs as r heads of 64 (``split_heads``): the scan
+The kernels are instantiated for heads of 16, 32 and 64
+(``HEAD_DIMS``; mamba2's 64, the reduced configs' 32) and for chunks of
+16, 32 and the multiples of 64 up to 256 (``CHUNKS``; a token tile of
+min(64, Q)).  Chunks that are no multiple of 16 and other head widths
+are queued in ``ROADMAP.md``.  A head of 64·r (jamba's 128) runs as r
+heads of 64 (``split_heads``): the scan
 is linear in x and the state ``[n, p]`` keeps its p columns apart, so
 ``y[..., j]`` depends on ``x[..., j]`` alone, through the head's dt and
 A and the shared B and C.  The split is a view of x (batch and token
@@ -47,9 +51,16 @@ from repro_torch.kernels import build, meta
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
-HEAD_DIM = 64          # the head width the kernels are instantiated for
-MAX_STATE = 128        # largest d_state (a multiple of 8)
-TILE = 64              # the chunk is a multiple of this, at most 256
+HEAD_DIMS = (16, 32, 64)   # the head widths of the kernels' instances
+HEAD_DIM = 64              # a wider head of 64·r runs as r heads of this
+MAX_STATE = 128            # largest d_state (a multiple of 8)
+TILE = 64                  # the largest token tile
+CHUNKS = (16, 32, 64, 128, 192, 256)   # the chunks the kernels take
+
+
+def token_tile(q: int) -> int:
+    """The kernels' token tile for chunk ``q``: min(64, q)."""
+    return min(TILE, q)
 
 
 def _strided_ok(t: torch.Tensor, inner: tuple) -> bool:
@@ -68,13 +79,15 @@ def _check(name: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"{name}: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)}, C {tuple(C.shape)}")
-    if p % HEAD_DIM or n > MAX_STATE or n % 8:
-        raise ValueError(f"{name}: head_dim {p} (needs a multiple of "
-                         f"{HEAD_DIM}), d_state {n} (needs a multiple of 8 "
-                         f"up to {MAX_STATE})")
-    if q % TILE or q > 4 * TILE or s % q:
-        raise ValueError(f"{name}: chunk {q} must be a multiple of "
-                         f"{TILE} up to {4 * TILE} dividing S={s}")
+    if (p not in HEAD_DIMS and p % HEAD_DIM) or n > MAX_STATE or n % 8:
+        raise ValueError(f"{name}: head_dim {p} (needs one of {HEAD_DIMS} "
+                         f"or a multiple of {HEAD_DIM}; other widths are "
+                         f"queued in ROADMAP.md), d_state {n} (needs a "
+                         f"multiple of 8 up to {MAX_STATE})")
+    if q not in CHUNKS or s % q:
+        raise ValueError(f"{name}: chunk {q} must be one of {CHUNKS} "
+                         f"dividing S={s} (other chunks are queued in "
+                         "ROADMAP.md)")
     if not x.dtype == B.dtype == C.dtype or dt.dtype != torch.float32 \
             or A.dtype != torch.float32:
         raise TypeError(f"{name}: x, B, C share one type; dt and A "
@@ -144,10 +157,11 @@ def split_heads(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor):
     """``x [b, s, h, 64·r]``, ``dt [b, s, h]``, ``A [h]`` -> the same scan
     on ``h·r`` heads of 64: x as a view ``[b, s, h·r, 64]`` (its batch and
     token strides kept), dt and A repeated r times per head.  Any
-    device; at r = 1 the inputs themselves."""
+    device; at r = 1, and for a head the kernels take as it is (16 or
+    32), the inputs themselves."""
     b, s, h, p = x.shape
     r = p // HEAD_DIM
-    if r == 1:
+    if r <= 1:
         return x, dt, A
     return (x.view(b, s, h * r, HEAD_DIM), dt.repeat_interleave(r, dim=-1),
             A.repeat_interleave(r))
@@ -160,7 +174,7 @@ def merge_head_grads(grads, p: int):
     in a fixed order), dB and dC as they are."""
     dx, ddt, dA, dB, dC = grads
     r = p // HEAD_DIM
-    if r == 1:
+    if r <= 1:
         return grads
     b, s, hr, _ = dx.shape
     h = hr // r
@@ -184,7 +198,7 @@ def _forward(x, dt, A, B, C, q: int, y):
     lib = build.load("ssd_scan")
     fn = lib.ssd_chunk_scan_fwd
     fn.argtypes = [_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L, _P,
-                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]
+                   _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
     fn.restype = _I
     status = fn(x.data_ptr(), x.stride(0), x.stride(1),
                 dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
@@ -192,7 +206,7 @@ def _forward(x, dt, A, B, C, q: int, y):
                 C.data_ptr(), C.stride(0), C.stride(1),
                 None if y is None else y.data_ptr(),
                 gram.data_ptr(), states.data_ptr(), decay.data_ptr(),
-                b, s, h, n, q, build.dtype_code(x),
+                b, s, h, n, q, p, build.dtype_code(x),
                 torch.cuda.current_stream(x.device).cuda_stream)
     build.check(lib, "ssd_chunk_scan", status)
     return gram, states, decay
@@ -201,9 +215,9 @@ def _forward(x, dt, A, B, C, q: int, y):
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor,
                    chunk: int = 256) -> torch.Tensor:
-    """x [b, s, h, 64·r]; dt [b, s, h] float32; A [h] float32; B, C [b,
-    s, n] in x's type -> y [b, s, h, 64·r] in x's type (r > 1 through
-    ``split_heads``)."""
+    """x [b, s, h, p] with p 16, 32 or 64·r; dt [b, s, h] float32; A [h]
+    float32; B, C [b, s, n] in x's type -> y [b, s, h, p] in x's type (r
+    > 1 through ``split_heads``)."""
     build.require_no_grad("ssd_chunk_scan", x, dt, A, B, C)
     b, s, h, p, n, q = _check("ssd_chunk_scan", x, dt, A, B, C, chunk)
     if x.is_meta:
@@ -223,7 +237,7 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        B: torch.Tensor, C: torch.Tensor, dy: torch.Tensor,
                        chunk: int = 256):
     """``(dx, ddt, dA, dB, dC)`` of ``ssd_chunk_scan`` for the output
-    gradient ``dy [b, s, h, 64·r]`` (x's type; r > 1 through
+    gradient ``dy [b, s, h, p]`` (x's type; p = 64·r with r > 1 through
     ``split_heads`` and ``merge_head_grads``), the wrapper of
     ``csrc/ssd_scan_bwd.cu``: x, B, C as the forward takes them (strided
     column slices allowed); dx, dB, dC in x's type, ddt ``[b, s, h]``
@@ -259,15 +273,15 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     dC = torch.empty_like(dB)
     # the state's gradient per chunk; Z summed over the heads per chunk;
     # per (lane, chunk, head) and token cum, dt and the partials of ddt
-    # (five, then two per 64-token tile); dA per chunk
-    dstate = torch.empty((b, nc, h, n, HEAD_DIM), **f32)
+    # (five, then two per token tile); dA per chunk
+    dstate = torch.empty((b, nc, h, n, x.shape[-1]), **f32)
     zsum = torch.empty((b, nc, q, q), **f32)
-    tok = torch.empty((5 + 2 * (q // TILE), b, nc, h, q), **f32)
+    tok = torch.empty((5 + 2 * (q // token_tile(q)), b, nc, h, q), **f32)
     daw = torch.empty((b, nc, h), **f32)
     lib = build.load("ssd_scan_bwd")
     fn = lib.ssd_chunk_scan_bwd
     fn.argtypes = ([_P, _L, _L, _P, _L, _L, _P, _P, _L, _L, _P, _L, _L]
-                   + [_P] * 13 + [_I] * 6 + [_P])
+                   + [_P] * 13 + [_I] * 7 + [_P])
     fn.restype = _I
     status = fn(x.data_ptr(), x.stride(0), x.stride(1),
                 dt.data_ptr(), dt.stride(0), dt.stride(1), A.data_ptr(),
@@ -277,7 +291,7 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
                 dC.data_ptr(), dstate.data_ptr(), zsum.data_ptr(),
                 tok.data_ptr(), daw.data_ptr(),
-                b, s, h, n, q, build.dtype_code(x),
+                b, s, h, n, q, x.shape[-1], build.dtype_code(x),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "ssd_chunk_scan_bwd", status)
     ssd_chunk_scan_bwd.launches += 1

@@ -7,16 +7,25 @@ Two modes:
   same way);
 * ``--arch`` an LM of the registry (``yi-9b``, ``mamba2-370m``,
   ``granite-moe-3b-a800m``, ``seamless-m4t-medium``, ``llava-next-34b``,
-  ...; ``--reduced`` for the CPU-sized variant) trains the LM on the
-  synthetic Markov token stream with the next-token loss (``train_lm``;
-  enc-dec and prefix configs with random frames or prefix embeddings).
-Both save the parameters in the reference's checkpoint format.
+  ...) trains the LM on the synthetic Markov token stream with the
+  next-token loss (``train_lm``; enc-dec and prefix configs with random
+  frames or prefix embeddings).
+``--reduced`` takes the registry's reduced variant of the config (the
+reference's ``reduced``: float32, d_model 128 in heads of 32, an SSM's
+heads of 32 in chunks of 16; a DiT's d_model 64 in heads of 16).  It
+runs where the full config runs, on the card by default or on the CPU
+with ``--device cpu``: on the card an LM's attention takes the float32
+flash kernels at head width 32 from 2048 tokens up, and an SSM layer the
+SSD scan kernels at heads of 32 and chunks of 16.  Both save the
+parameters in the reference's checkpoint format.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch dit-small \\
       --reduced --device cpu --steps 20
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b \\
       --reduced --device cpu --steps 20
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b \\
+      --reduced --seq 2048 --steps 2    # on the card
   PYTHONPATH=src python -m repro_torch.launch.train --arch dit-small \\
       --steps 300 --ckpt results/dit_small    # on the card
 """

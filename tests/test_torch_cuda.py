@@ -779,6 +779,37 @@ def test_cross_attention_routes_to_flash_on_the_card(card):
     assert not any(ops.launch_counts().values())
 
 
+def test_cross_attention_routes_to_flash_at_hd32_on_the_card(card):
+    """Reduced seamless-m4t-medium as the registry defines it (float32,
+    4 query heads on 2 kv heads of 32): ``attention.cross_attention`` at
+    s·t >= 2048² launches the float32 small-width forward once on the
+    card and agrees with the CPU's blockwise route (1e-4); under autograd
+    it launches the backward once, and the input's gradient agrees with
+    the CPU's (1e-4)."""
+    from repro_torch import configs
+    from repro_torch.models import attention, common
+    cfg = configs.reduced(configs.get_config("seamless-m4t-medium"))
+    assert (cfg.head_dim, cfg.n_heads, cfg.n_kv_heads) == (32, 4, 2)
+    params = common.init_params(attention.cross_attn_specs(cfg), seed=0,
+                                device="cpu")
+    x, mem = torch.randn(1, 1024, 128), torch.randn(1, 4096, 128)
+    xl = x.clone().requires_grad_()
+    want = attention.cross_attention(params, xl, mem, cfg)
+    want.sum().backward()
+    on_card = {k: v.to(card) for k, v in params.items()}
+    xc = x.to(card).requires_grad_()
+    ops.reset_launch_counts()
+    got = attention.cross_attention(on_card, xc, mem.to(card), cfg)
+    got.sum().backward()
+    counts = ops.launch_counts()
+    assert counts["flash_attention_f32"] == counts[
+        "flash_attention_f32_bwd"] == 1
+    assert sum(counts.values()) == 2
+    for g, w in ((got.detach(), want.detach()), (xc.grad, xl.grad)):
+        err = (g.cpu() - w).abs().max() / w.abs().max()
+        assert float(err) <= 1e-4, float(err)
+
+
 # float32 at head width 16 (dit-small's 8 heads), the ``flash_attention_f32``
 # library: (B, S, T), a small S off the 128-row tiles, T != S, and S 1600
 # (latent 80: ragged at 128 and at the 64-row tiles)
@@ -899,26 +930,208 @@ def test_flash_f32_hd16_backward_tf32_control(card, b, s, t):
 
 
 def test_flash_hd16_cuda_refuses_other_forms(card):
-    """At head width 16 a CUDA call the new kernels do not take raises
-    (bf16, causal, GQA); nothing reaches the plain version."""
+    """At head widths 16 and 32 a CUDA call in bf16 raises, naming
+    ``ROADMAP.md`` (queued there); the float32 causal and GQA forms are
+    taken (``test_flash_f32_small_forms``).  Nothing reaches the plain
+    version."""
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, _ = _bwd_inputs(card, 128, 8, 8, 16, torch.float32)
+    for hd in (16, 32):
+        q, k, v, _ = _bwd_inputs(card, 128, 8, 8, hd, torch.float32)
+        qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+        ops.reset_launch_counts()
+        for call in (lambda: fa.flash_attention(qb, kb, vb),
+                     lambda: fa.flash_attention(qb, kb, vb, causal=True),
+                     lambda: fa.flash_attention(qb, kb[:, :, :4],
+                                                vb[:, :, :4], 2)):
+            with pytest.raises(ValueError,
+                               match=f"head_dim {hd}.*ROADMAP"):
+                call()
+        assert not any(ops.launch_counts().values())
+        ops.flash(q, k, v, causal=True)
+        ops.flash(q, k[:, :, :4], v[:, :, :4], 2)
+        assert ops.launch_counts()["flash_attention_f32"] == 2
+
+
+# float32 at the small head widths in every form (``flash_attention_f32``:
+# the forward template at 16 and 32, the two-pass backward): (B, S, T,
+# Hq, Hkv, hd, causal, window) at the reference's kernel tests' forms
+# (hd 16 causal and window 24 at GQA 4/2 and 6/2; hd 32 causal GQA 4/2)
+# and the reduced configs' (hd 32 causal GQA 4/2, non-causal and cross
+# with T != S), ragged against the 64-row tiles, T shorter than a tile
+_F32_SMALL_FORMS = [
+    (2, 64, 64, 4, 2, 16, True, 0),
+    (2, 128, 128, 8, 8, 16, True, 24),
+    (2, 64, 64, 6, 2, 16, True, 24),
+    (1, 333, 333, 6, 2, 16, False, 40),     # non-causal window, GQA
+    (1, 64, 64, 4, 2, 32, True, 0),
+    (2, 300, 300, 4, 2, 32, True, 0),       # reduced yi-9b's form, ragged
+    (1, 520, 520, 4, 4, 32, True, 100),     # causal window, MHA
+    (2, 260, 390, 4, 2, 32, False, 0),      # seamless's cross, T != S
+    (1, 300, 40, 4, 2, 32, False, 0),       # T shorter than a key tile
+    (1, 1000, 1000, 8, 2, 32, False, 0),    # non-causal GQA, 16 tiles
+]
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,hd,causal,window", _F32_SMALL_FORMS)
+def test_flash_f32_small_forms(card, b, s, t, hq, hkv, hd, causal, window):
+    """Kernels 3 and 7 in float32 at head width 16 or 32 in every form:
+    the forward with and without its log-sum-exp against
+    ``attention_lse_ref`` (float32, TF32 off: 1e-5), equal with and
+    without the LSE; the backward against the recompute twin on the same
+    o and lse (1e-5) and against the float64 oracle within twice the
+    float32 twin's own error (at least 1e-5); two backward launches
+    bitwise equal; ``ops.flash`` under autograd reaching both."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(card, s, hq, hkv, hd, torch.float32, b=b,
+                              t=t)
+    g = hq // hkv
     ops.reset_launch_counts()
-    for call in (lambda: fa.flash_attention(*(x.to(torch.bfloat16)
-                                              for x in (q, k, v))),
-                 lambda: fa.flash_attention(q, k, v, causal=True),
-                 lambda: fa.flash_attention(q, k[:, :, :4], v[:, :, :4], 2)):
-        with pytest.raises(ValueError, match="head_dim 16"):
-            call()
+    out = fa.flash_attention(q, k, v, g, causal, window)
+    o, lse = fa.flash_attention(q, k, v, g, causal, window, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_f32"] == counts[
+        "flash_attention_f32_bwd"] == 2
+    assert sum(counts.values()) == 4
+    assert torch.equal(out, o)
+    assert all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+    _close((o, lse), ref.attention_lse_ref(q, k, v, g, causal, window),
+           torch.float32)
+    _close(got, ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal,
+                                      window), torch.float32)
+    oracle = ref.attention_bwd_ref(*(x.double() for x in (q, k, v, o, lse,
+                                                          do)), g, causal,
+                                   window)
+    plain = ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal, window)
+    for a, w, pl in zip(got, oracle, plain, strict=True):
+        lim = max(TOL[torch.float32], 2 * _rel64(pl, w))
+        assert _rel64(a, w) <= lim, (_rel64(a, w), lim)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.reset_launch_counts()
+    (ops.flash(*leaves, g, causal, window) * do).sum().backward()
+    counts = ops.launch_counts()
+    assert counts["flash_attention_f32"] == counts[
+        "flash_attention_f32_bwd"] == 1
+    _close(tuple(x.grad for x in leaves), got, torch.float32)
+
+
+@pytest.mark.parametrize("hd,hq,hkv,causal,window", [
+    (32, 4, 2, True, 0), (32, 4, 2, False, 0), (16, 6, 2, True, 24)])
+def test_flash_f32_small_forms_sharp_softmax(card, hd, hq, hkv, causal,
+                                             window):
+    """The backward at sharp logits (q scaled so that their std is ~80,
+    as ``test_flash_f32_hd16_backward_sharp_softmax``), ragged (1, 300
+    queries on 520 keys non-causal; 333 causal): dQ, dK and dV against
+    the float64 oracle within twice the float32 twin's own error (at
+    least 1e-5); the twin with TF32 on must miss that limit on some
+    gradient.  (The forward at sharp logits: ``test_flash_tf32_sharp_
+    softmax``.)"""
+    from repro_torch.kernels import flash_attention as fa
+    s, t = (300, 520) if not causal else (333, 333)
+    q, k, v, do = _bwd_inputs(card, s, hq, hkv, hd, torch.float32, b=1, t=t)
+    q = q * 80.0
+    g = hq // hkv
+    o, lse = fa.flash_attention(q, k, v, g, causal, window, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window)
+    assert all(bool(torch.isfinite(a).all()) for a in got)
+    oracle = ref.attention_bwd_ref(*(x.double() for x in (q, k, v, o, lse,
+                                                          do)), g, causal,
+                                   window)
+    plain = ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal, window)
+    lims = [max(TOL[torch.float32], 2 * _rel64(pl, w))
+            for pl, w in zip(plain, oracle, strict=True)]
+    errs = [_rel64(a, w) for a, w in zip(got, oracle, strict=True)]
+    assert all(e <= lim for e, lim in zip(errs, lims)), (errs, lims)
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal,
+                                        window)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    miss = [_rel64(c, w) for c, w in zip(control, oracle, strict=True)]
+    assert any(m > lim for m, lim in zip(miss, lims)), (miss, lims)
+
+
+# kernels 6 and 8 at the small widths: (S, P, N, chunk) at the reduced
+# configs' (heads of 32, state 16, chunks of 16), the reference's kernel
+# tests' (heads of 16, state 8, chunks of 16 and 32), and the new tiles
+# beside the old width (heads of 64 in chunks of 16 and 32; heads of 16
+# in chunks of 64 and 128)
+_SSD_SMALL = [(2048, 32, 16, 16), (512, 16, 8, 16), (256, 16, 8, 32),
+              (512, 64, 16, 16), (384, 64, 32, 32), (512, 16, 24, 64),
+              (1024, 32, 128, 128), (96, 32, 16, 32)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,p,n,chunk", _SSD_SMALL)
+def test_ssd_kernels_at_small_widths(card, dtype, s, p, n, chunk):
+    """Kernels 6 and 8 at heads of 16, 32 and 64 in chunks of 16, 32 and
+    multiples of 64, x, B and C column slices of one conv output, against
+    their plain versions (``_ssd_close``); one launch a call; kernel 8's
+    two launches bitwise equal; ``ops.ssd`` under autograd one forward
+    and one backward launch."""
+    from repro_torch.kernels import ssd_scan
+    x, dt, a, bm, cm, dy = _wide_head_inputs(card, dtype, s, n, h=4, p=p)
+    ops.reset_launch_counts()
+    y = ssd_scan.ssd_chunk_scan(x, dt, a, bm, cm, chunk)
+    got = ssd_scan.ssd_chunk_scan_bwd(x, dt, a, bm, cm, dy, chunk)
+    again = ssd_scan.ssd_chunk_scan_bwd(x, dt, a, bm, cm, dy, chunk)
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk_scan"] == 1
+    assert counts["ssd_chunk_scan_bwd"] == 2
+    assert all(torch.equal(u, v) for u, v in zip(got, again, strict=True))
+    _ssd_close((y,), (ref.ssd_chunk_scan_ref(x, dt, a, bm, cm, chunk),),
+               dtype)
+    _ssd_close(got, ref.ssd_chunk_scan_bwd_ref(x, dt, a, bm, cm, dy, chunk),
+               dtype)
+    leaves = [t.detach().clone().requires_grad_()
+              for t in (x, dt, a, bm, cm)]
+    ops.reset_launch_counts()
+    ops.ssd(*leaves, chunk).backward(dy)
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk_scan"] == counts["ssd_chunk_scan_bwd"] == 1
+    _ssd_close(tuple(t.grad for t in leaves), got, dtype)
+
+
+def test_ssd_cuda_refuses_the_forms_still_queued(card):
+    """A head of 48 and a chunk of 8 raise on the card, naming
+    ``ROADMAP.md``; nothing is launched."""
+    from repro_torch.kernels import ssd_scan
+    ops.reset_launch_counts()
+    for p, chunk in ((48, 16), (32, 8)):
+        x, dt, a, bm, cm, _ = _wide_head_inputs(card, torch.float32, 64, 16,
+                                                h=2, p=p)
+        with pytest.raises(ValueError, match="ROADMAP"):
+            ssd_scan.ssd_chunk_scan(x, dt, a, bm, cm, chunk)
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.parametrize("arch,seq", [("yi-9b", 2048),
+                                      ("mamba2-370m", 128)])
+def test_reduced_launcher_on_the_card(card, arch, seq):
+    """``launch.train.main`` with ``--reduced`` and no ``--device`` trains
+    on the card: reduced yi-9b at S 2048 through kernels 3 and 7 in
+    float32 at head width 32 (causal GQA 4/2), reduced mamba2-370m at the
+    launcher's default S 128 through kernels 6 and 8 at heads of 32 in
+    chunks of 16."""
+    from repro_torch.launch import train
+    ops.reset_launch_counts()
+    train.main(["--arch", arch, "--reduced", "--steps", "2", "--batch", "1",
+                "--seq", str(seq)])
+    counts = ops.launch_counts()
+    want = (("flash_attention_f32", "flash_attention_f32_bwd")
+            if arch == "yi-9b" else ("ssd_chunk_scan", "ssd_chunk_scan_bwd"))
+    assert all(counts[k] > 0 for k in want), counts
 
 
 # the float32 forward on the TF32 tensor cores (flash_fwd_tf32.cuh, three
 # products of hi + lo splits): 128 queries a block, 16 a warp, key tiles
 # of 64 at hd 16 and 64, of 32 at hd 128.  (B, S, T, Hq, Hkv, hd, causal,
 # window): S and T off every tile edge, T shorter than one key tile, and
-# at 64 and 128 the causal, window and GQA forms (hd 16 takes non-causal
-# MHA only)
+# at 64 and 128 the causal, window and GQA forms (those at 16 and 32:
+# ``_F32_SMALL_FORMS``)
 _TF32_FWD_FORMS = [
     (2, 200, 200, 8, 8, 16, False, 0),
     (1, 130, 40, 8, 8, 16, False, 0),       # T shorter than a key tile
@@ -961,7 +1174,9 @@ def _rel64(got, want):
 
 @pytest.mark.parametrize("hd,hq,hkv,causal", [(16, 8, 8, False),
                                               (64, 8, 2, True),
-                                              (128, 32, 4, True)])
+                                              (128, 32, 4, True),
+                                              (32, 4, 2, True),
+                                              (32, 4, 2, False)])
 def test_flash_tf32_sharp_softmax(card, hd, hq, hkv, causal):
     """float32 with q scaled so that the logits' std is ~80 (as
     ``test_flash_kernel_sharp_softmax`` in bf16).  There float32 itself

@@ -432,15 +432,17 @@ def test_cpu_dispatch_leaves_launch_counts_untouched():
 
 @pytest.mark.parametrize("bad", ["head_dim", "state", "chunk", "types"])
 def test_ssd_wrapper_rejects_shapes_the_kernel_lacks(bad):
-    """Checked before the device: the kernel takes head_dim 64, d_state a
-    multiple of 8 up to 128, a chunk a multiple of 64 up to 256."""
+    """Checked before the device: the kernel takes head_dim 16, 32 or a
+    multiple of 64, d_state a multiple of 8 up to 128, a chunk of 16, 32
+    or a multiple of 64 up to 256 (head 48 and chunk 8 are queued in
+    ROADMAP.md)."""
     b, s, h, p, n, chunk = 1, 128, 2, 64, 16, 64
     if bad == "head_dim":
-        p = 32
+        p = 48
     elif bad == "state":
         n = 12
     elif bad == "chunk":
-        chunk = 32
+        chunk = 8
     x, dt, a, bm, cm = (torch.from_numpy(t) for t in
                         _ssd_inputs(b, s, h, p, n, seed=17))
     if bad == "types":

@@ -19,9 +19,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
                and in the SSD libraries every instantiation (heads of
                16, 32 and 64, token tiles of 16, 32 and 64) of each
                product kernel must hold HMMA; in flash_attention_f32
-               (float32 at head widths 16 and 32), kernel by kernel, the
-               eight forward and the eight backward kernels must hold
-               TF32 HMMA, with no spills in any;
+               (head widths up to 32, float32 and bf16), kernel by
+               kernel, the sixteen forward and the sixteen backward
+               kernels must hold TF32 HMMA, with no spills in any;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer; the FreqCa cache
@@ -50,7 +50,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
                causal GQA forms at S 2048 (the backward within twice the
                float32 plain version's own error of the oracle); kernels
                6 and 8 at the reduced SSM layer (x [16, 2048, 8, 32], N
-               16, chunk 16, float32);
+               16, chunk 16, float32); and the forms the TPU kernels
+               take beyond the instances (``FORM_FLASH_ROWS``,
+               ``FORM_SSD_ROWS``): bf16 at head widths 16 and 32 in
+               three forms, hd 72 (bf16 and float32) and hd 96 on the
+               instance 128, SSD chunks of 8 and 48, a head of 48 and a
+               state of 12, each forward and backward against its plain
+               version, timed beside its bound and SDPA;
 4. reference — a small DiT served on the card (kernels forced) agrees
                with the same requests served on the CPU (plain
                versions), and so does a mixed batch of a FreqCa and a
@@ -190,6 +196,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
                each config's kernels launched; one training step each,
                card against CPU from the same parameters and batch,
                loss and worst gradient leaf within 1e-4 (``PHASES`` runs
+               it after forms);
+23. forms    — every form of the kernel rows above (and the reference
+               kernel tests' small ones) through ``ops.flash`` /
+               ``ops.ssd`` under autograd against the plain versions,
+               each form's launches counted apart; dit-small's
+               architecture at d_model 576 in 8 heads of 72 (float32)
+               serving two requests at latent 64 through the FreqCa
+               engine, card against CPU within dit-small's latents
+               limit, a TF32 control that must miss it (``PHASES`` runs
                it after dit_small);
 21. dryrun   — first, ``launch.dryrun --all`` on the 16 x 16 mesh in
                this process (10 LM configs x 4 shapes and the two DiTs'
@@ -257,7 +272,7 @@ SERVE_KERNELS = ("band_split_spectral", "freqca_predict_fused_spectral",
 # for the kernels line
 FORM_ROWS = {}
 FORM_TAGS = ("jamba", "seamless", "llava", "f32_hd16", "f32_hd32",
-             "p32 q16")
+             "p32 q16", "forms ")
 
 
 def log(msg: str) -> None:
@@ -688,6 +703,8 @@ def kernel_phase(main_dtype: dict) -> dict:
             f32_hd16_rows(row)
             small_flash_rows(row)
             small_ssd_rows(row)
+            form_flash_rows(row)
+            form_ssd_rows(row)
     return rows
 
 
@@ -1098,6 +1115,7 @@ def ab_trace() -> None:
     (CUDA events, 5 calls each); kernel 7 in float32 at
     ``F32_HD16_ROWS`` beside SDPA's float32 backward (grad through SDPA
     less its forward), with each launch's device time (``device_ms``);
+    kernels 3 and 7 at ``SMALL_FLASH_ROWS`` (CUDA events, 5 calls each);
     kernels 6 and 8 at ``AB_SSD_ROWS`` in bf16 and float32 (CUDA
     events, 5 calls each); then dit-small's ``train_dit`` at latent
     128 (batch ``DIT_SMALL_TRAIN_BATCH``, ``DIT_SMALL_TRAIN_STEPS``
@@ -1160,6 +1178,22 @@ def ab_trace() -> None:
             + "; ".join(f"{n} {ms:.4f} ms" for n, (ms, _) in parts))
         del q, k, v, do, o, lse, leaves
         torch.cuda.empty_cache()
+    for label, b, s, t, hq, hkv, hd, causal, window in SMALL_FLASH_ROWS:
+        q, do = (torch.randn((b, s, hq, hd), generator=gen, device=dev)
+                 for _ in range(2))
+        k, v = (torch.randn((b, t, hkv, hd), generator=gen, device=dev)
+                for _ in range(2))
+        form = (hq // hkv, causal, window)
+        o, lse = fa.flash_attention(q, k, v, *form, return_lse=True)
+        t_f = time_ms(lambda: fa.flash_attention(q, k, v, *form,
+                                                 return_lse=True), 5)
+        t_b = time_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do,
+                                                     *form), 5)
+        log(f"ab_trace flash_attention {label} [{b}, {s}, {hq}/{hkv}, "
+            f"{hd}]: forward (with its LSE) {t_f:.4f} ms, backward "
+            f"{t_b:.4f} ms a call (CUDA events)")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
     for label, (b, s, h, p, n, q) in AB_SSD_ROWS:
         for dt in (torch.bfloat16, torch.float32):
             x, dts, a, bm, cm, dy = ssd_bwd_inputs(b, dt, s, h, n, p)
@@ -1219,8 +1253,8 @@ FWD_VARIANTS = {
         ("kWarps = HD == 16 ? 4 : 8;", "kWarps = 8;"),
         ("kMinBlocks = HD == 16 ? 2 : 1;", "kMinBlocks = 1;")),
     "one product (diagnostic)": (
-        ("  rt::mma_tf32(d, al, bh0, bh1);\n"
-         "  rt::mma_tf32(d, ah, bl0, bl1);\n", ""),),
+        ("  if constexpr (ALO) rt::mma_tf32(d, al, bh0, bh1);\n"
+         "  if constexpr (BLO) rt::mma_tf32(d, ah, bl0, bl1);\n", ""),),
     "split by cvt.rna (rt::split)": (
         ("  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
          "  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;",
@@ -1269,7 +1303,7 @@ def fwd_variants(reps: int = 20) -> None:
         out, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"fwd_variants {name} {lib}:\n{out}")
-        regs = re.findall(r"tf32_fwd_kernelILi(\d+)ELb0ELb0E.*?Used (\d+) "
+        regs = re.findall(r"tf32_fwd_kernelIfLi(\d+)ELb0ELb0E.*?Used (\d+) "
                           r"registers", out, flags=re.S)
         log(f"fwd_variants {name}: {lib} registers (hd, unmasked) {regs}")
         libs[name, lib] = ctypes.CDLL(str(path))
@@ -1291,15 +1325,11 @@ def fwd_variants(reps: int = 20) -> None:
             else ref.attention_ref(q, k, v))
         for rnd in range(2):
             for name in FWD_VARIANTS:
-                if hd == 16:
-                    fn = libs[name, "flash_attention_f32"]
-                    fn = fn.flash_attention_f32_fwd
-                    fn.argtypes, fn.restype = [P] * 5 + [I] * 8 + [P], I
-                    args = (b, s, s, hq, hkv, hd, int(causal), 0, stream)
-                else:
-                    fn = libs[name, "flash_attention"].flash_attention_fwd
-                    fn.argtypes, fn.restype = [P] * 5 + [I] * 9 + [P], I
-                    args = (b, s, s, hq, hkv, hd, int(causal), 0, 0, stream)
+                lib = "flash_attention_f32" if hd == 16 else "flash_attention"
+                fn = getattr(libs[name, lib], lib + "_fwd")
+                fn.argtypes, fn.restype = [P] * 5 + [I] * 10 + [P], I
+                # rows of hd, the scale 1/√hd, float32 (dtype 0)
+                args = (b, s, s, hq, hkv, hd, hd, int(causal), 0, 0, stream)
 
                 def call(fn=fn, args=args):
                     return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -1340,8 +1370,8 @@ BWD_VARIANTS = {
     "two m16 tiles, 4 warps, 2 blocks": _bwd_layout(2, 4, 2),
     "one product (diagnostic)": (
         ("flash_fwd_tf32.cuh", re.escape(
-            "  rt::mma_tf32(d, al, bh0, bh1);\n"
-            "  rt::mma_tf32(d, ah, bl0, bl1);\n"), ""),),
+            "  if constexpr (ALO) rt::mma_tf32(d, al, bh0, bh1);\n"
+            "  if constexpr (BLO) rt::mma_tf32(d, ah, bl0, bl1);\n"), ""),),
     "no split (diagnostic)": (
         ("flash_fwd_tf32.cuh", re.escape(
             "  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
@@ -1391,6 +1421,8 @@ def bwd_variants(reps: int = 10) -> None:
             raise RuntimeError(f"bwd_variants {name}:\n{out}")
         regs = {}
         for part in out.split("Compiling entry function")[1:]:
+            if "IfLi16" not in part.splitlines()[0]:   # float32, hd 16
+                continue
             m = re.search(r"flash_bwd_f32_(\w+?)_kernel", part.splitlines()[0])
             r = re.search(r"Used (\d+) registers", part)
             sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
@@ -1421,14 +1453,14 @@ def bwd_variants(reps: int = 10) -> None:
                 scratch.argtypes, scratch.restype = [I] * 3, ctypes.c_long
                 st = torch.empty(scratch(b, s, 8), device=dev)
                 fn = lib.flash_attention_f32_bwd
-                fn.argtypes, fn.restype = [P] * 10 + [I] * 8 + [P], I
+                fn.argtypes, fn.restype = [P] * 10 + [I] * 10 + [P], I
                 grads = [torch.empty_like(x) for x in (q, k, v)]
 
                 def call(fn=fn, grads=grads, st=st):
                     if fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           o.data_ptr(), lse.data_ptr(), do.data_ptr(),
                           *(x.data_ptr() for x in grads), st.data_ptr(), b,
-                          s, t, 8, 8, 16, 0, 0, stream) != 0:
+                          s, t, 8, 8, 16, 16, 0, 0, 0, stream) != 0:
                         raise RuntimeError(f"bwd_variants {name}: launch")
                     return [x.clone() for x in grads]
                 first, again = call(), call()
@@ -6085,12 +6117,13 @@ F32_HD16_KERNELS = {
 
 
 def f32_build_checks() -> None:
-    """flash_attention_f32, kernel by kernel: its eight forward kernels
-    (the 3xTF32 template at hd 16 and 32, masked or not, with and
-    without the LSE) and its eight backward kernels (at hd 16 and 32,
-    masked or not: ``flash_bwd_f32_q_kernel``, dQ and the row statistics;
-    ``flash_bwd_f32_kv_kernel``, dK and dV; the same split products) each
-    hold TF32 HMMA, and ptxas reports no spills in any of the sixteen.
+    """flash_attention_f32, kernel by kernel: its sixteen forward kernels
+    (the TF32 template at hd 16 and 32, float32 and bf16, masked or not,
+    with and without the LSE) and its sixteen backward kernels (at hd 16
+    and 32, float32 and bf16, masked or not: ``flash_bwd_f32_q_kernel``,
+    dQ and the row statistics; ``flash_bwd_f32_kv_kernel``, dK and dV;
+    the same split products) each hold TF32 HMMA, and ptxas reports no
+    spills in any of the thirty-two.
     Their float32 accuracy rests on the tolerances and on their TF32
     controls that must fail (``f32_hd16_rows``, ``small_flash_rows``,
     the dit_small serve and reference checks)."""
@@ -6101,9 +6134,9 @@ def f32_build_checks() -> None:
     spills = ptxas_spills("flash_attention_f32")
     log(f"flash_attention_f32 TF32 HMMA by kernel: {counts}; spill bytes "
         f"{sorted(set(spills.values()))} over {len(spills)} kernels")
-    if len(fwd) != 8 or len(bwd) != 8 or len(counts) != 16 \
+    if len(fwd) != 16 or len(bwd) != 16 or len(counts) != 32 \
             or not all(counts.values()) \
-            or len(spills) != 16 or any(spills.values()):
+            or len(spills) != 32 or any(spills.values()):
         raise AssertionError(f"flash_attention_f32 build: SASS {counts}, "
                              f"spills {spills}")
 
@@ -6409,6 +6442,405 @@ def small_ssd_rows(row) -> None:
     torch.cuda.empty_cache()
 
 
+# the forms slice: kernels 3 and 7 in bf16 at head widths 16 and 32 and
+# at head widths between the instances, kernels 6 and 8 at chunks, heads
+# and states between theirs.  The kernels line's rows (label, dtype, B,
+# S, Hq, Hkv, hd, backward): bf16 at hd 16 and 32 non-causal MHA, causal
+# GQA 8/4 and causal GQA 8/4 with a window of 24 at [2, 2048] (the
+# reference kernel tests' forms at a length that reaches flash); hd 72
+# non-causal at [2, 1024, 16] (DiT-XL/2's and PixArt-α's head at 512²,
+# instance 128), bf16 with its backward and float32 forward alone (a
+# float32 backward above 32 is queued); hd 96 causal MHA at [1, 4096,
+# 32] in bf16 (Phi-3-mini's head, instance 128) with its backward
+FORM_FLASH_ROWS = tuple(
+    (f"forms bf16_hd{hd} {form}", "bfloat16", 2, 2048, 8, hkv, hd, causal,
+     window, True)
+    for hd in (16, 32)
+    for form, hkv, causal, window in (("mha", 8, False, 0),
+                                      ("causal gqa 8/4", 4, True, 0),
+                                      ("causal gqa 8/4 window 24", 4, True,
+                                       24))) + (
+    ("forms hd72 mha", "bfloat16", 2, 1024, 16, 16, 72, False, 0, True),
+    ("forms f32_hd72 mha", "float32", 2, 1024, 16, 16, 72, False, 0, False),
+    ("forms hd96 causal mha", "bfloat16", 1, 4096, 32, 32, 96, True, 0,
+     True))
+# kernels 6 and 8 at the new forms, bf16 (the main path's type), on one
+# mamba2-370m layer's widths (32 heads of 64, N 128, chunk 256) with one
+# width changed: (label, b, s, h, p, n, q) — a chunk of 8 (the reference
+# test's, run as 16 on zero-padded chunks), of 48 (as 64; S 3072 = 64 x
+# 48), a head of 48 (as 64), a state of 12 (as 16)
+FORM_SSD_ROWS = (("forms q8", 2, 4096, 32, 64, 128, 8),
+                 ("forms q48", 2, 3072, 32, 64, 128, 48),
+                 ("forms p48", 2, 4096, 32, 48, 128, 256),
+                 ("forms n12", 2, 4096, 32, 64, 12, 256))
+# the forms phase's small checks beside the rows' shapes: the reference's
+# attention test ([1, 64, 4/2, 32]) in bf16 at hd 16 and 32 in all four
+# forms (B, S, Hq, Hkv, causal, window) and its SSD test at chunk 8 (S
+# 32, b 2, h 2, p 16, N 8) with chunk 48, head 48 and N 12 at small S,
+# both types
+FORM_FLASH_SMALL = ((1, 64, 4, 4, False, 0), (1, 64, 4, 2, False, 0),
+                    (1, 64, 4, 2, True, 0), (1, 64, 4, 2, True, 24))
+FORM_SSD_SMALL = ((2, 32, 2, 16, 8, 8), (2, 96, 2, 16, 8, 48),
+                  (2, 64, 2, 48, 16, 16), (2, 64, 2, 16, 12, 16))
+# the forms phase's model: dit-small's architecture (8 layers, float32)
+# at d_model 576 in 8 heads of 72 (d_ff 4 x d_model, as dit-small's), two
+# requests at latent 64 (S 1024: its attention reaches flash at hd 72,
+# float32, instance 128) through the FreqCa engine, card against CPU
+# from the same random weights, at dit-small's latents limit
+# (``DIT_SMALL_TOL``)
+FORMS_DIT = dict(d_model=576, d_ff=2304)
+FORMS_DIT_ARGS = ["--requests", "2", "--steps", "6", "--batch", "2",
+                  "--sizes", "64"]
+
+
+def _flash_counter(hd: int, bwd: bool = False) -> str:
+    """The launch counter of the library a head width runs on."""
+    from repro_torch.kernels import flash_attention as fa
+    name = ("flash_attention_f32" if hd <= fa.SMALL_HEAD_DIM
+            else "flash_attention")
+    return name + ("_bwd" if bwd else "")
+
+
+def form_flash_rows(row) -> None:
+    """Kernels 3 and 7 at ``FORM_FLASH_ROWS``: the forward writing its
+    log-sum-exp (the training path's) against ``ref.attention_lse_ref``
+    at ``TOLERANCE``, and the backward against ``ref.attention_bwd_ref``
+    on the kernel's o and lse at ``TOLERANCE`` with two launches bitwise
+    equal; bounds from ``fwd_work`` / ``bwd_work`` at the true width (the
+    padded instance's waste shows as distance from them); library:
+    SDPA's forward and its backward (grad through SDPA less its forward),
+    a boolean mask for the window."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    for label, dtn, b, s, hq, hkv, hd, causal, window, bwd in \
+            FORM_FLASH_ROWS:
+        dt = getattr(torch, dtn)
+        g = hq // hkv
+        q, do = (torch.randn((b, s, hq, hd), generator=gen,
+                             device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((b, s, hkv, hd), generator=gen,
+                            device=dev).to(dt) for _ in range(2))
+        form = (g, causal, window)
+        mask = ref.attention_mask(s, s, causal, window, dev) if window \
+            else None
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=g > 1)
+        t_sf = time_ms(sdpa, 5)
+        work, nb = fa.fwd_work(b, s, s, hq, hkv, hd, dtn, causal, window,
+                               lse=True)
+        (op, fl), = work.items()
+        name = f"flash_attention[{label}]"
+        row(name, dtn,
+            lambda: fa.flash_attention(q, k, v, *form, return_lse=True),
+            lambda: ref.attention_lse_ref(q, k, v, *form), nb, fl,
+            library_ms=t_sf, op_dtype=op)
+        log(f"kernel {name} [{dtn}] runs on the instance of head width "
+            f"{fa.instance(hd)}")
+        if bwd:
+            t_sb = time_ms(lambda: torch.autograd.grad(
+                sdpa(), leaves, do.transpose(1, 2)), 5) - t_sf
+            o, lse = fa.flash_attention(q, k, v, *form, return_lse=True)
+
+            def kern():
+                return fa.flash_attention_bwd(q, k, v, o, lse, do, *form)
+
+            def plain():
+                return ref.attention_bwd_ref(q, k, v, o, lse, do, *form)
+            got, again = kern(), kern()
+            if not all(torch.equal(a, c) for a, c in zip(got, again,
+                                                         strict=True)):
+                raise AssertionError(f"flash_attention_bwd[{label}]: two "
+                                     "launches differ")
+            del got, again
+            work, nb = fa.bwd_work(b, s, s, hq, hkv, hd, causal, window,
+                                   dtype_name=dtn)
+            (op, fl), = work.items()
+            row(f"flash_attention_bwd[{label}]", dtn, kern, plain, nb, fl,
+                library_ms=t_sb, op_dtype=op)
+            del o, lse
+        del q, k, v, do, leaves
+        torch.cuda.empty_cache()
+
+
+def form_ssd_rows(row) -> None:
+    """Kernels 6 and 8 at ``FORM_SSD_ROWS`` in bf16 (x, B and C column
+    slices of one conv output, ``ssd_bwd_inputs``): each against its
+    plain version (kernel 8 per output, ``SSD_BWD_TOL``, two launches
+    bitwise), timed with the zero-padded copy of ``ssd_scan.kernel_form``
+    inside (it is part of the call), bounds of ``fwd_work`` /
+    ``bwd_work`` at the true form.  No single PyTorch call computes the
+    scan."""
+    import torch
+
+    from repro_torch.kernels import ref, ssd_scan
+    for label, b, s, h, p, n, q in FORM_SSD_ROWS:
+        x, dts, a, bm, cm, dy = ssd_bwd_inputs(b, torch.bfloat16, s, h, n, p)
+        work, nbytes = ssd_scan.fwd_work(b, s, h, p, n, q, 2)
+        row(f"ssd_chunk_scan[{label}]", "bfloat16",
+            lambda: ssd_scan.ssd_chunk_scan(x, dts, a, bm, cm, q),
+            lambda: ref.ssd_chunk_scan_ref(x, dts, a, bm, cm, q),
+            nbytes, work, reps=5)
+        name = f"ssd_chunk_scan_bwd[{label}]"
+
+        def kern():
+            return ssd_scan.ssd_chunk_scan_bwd(x, dts, a, bm, cm, dy, q)
+
+        def plain():
+            return ref.ssd_chunk_scan_bwd_ref(x, dts, a, bm, cm, dy, q)
+        checked = ssd_bwd_check(name, "bfloat16", kern(), kern(), plain())
+        torch.cuda.empty_cache()
+        work, nbytes = ssd_scan.bwd_work(b, s, h, p, n, q, 2)
+        row(name, "bfloat16", kern, plain, nbytes, work, reps=5,
+            checked=checked)
+        log(f"kernel ssd_chunk_scan[{label}] runs on chunk "
+            f"{ssd_scan.kernel_chunk(q)}, head {ssd_scan.kernel_head(p)}, "
+            f"state {ssd_scan.kernel_state(n)}")
+        del x, dts, a, bm, cm, dy
+        torch.cuda.empty_cache()
+
+
+def _forms_flash_check(label: str, dt, b: int, s: int, hq: int, hkv: int,
+                       hd: int, causal: bool, window: int, bwd: bool,
+                       device: str) -> dict:
+    """One attention form through ``ops.flash`` (under autograd where the
+    backward runs) against ``ref.attention_ref`` and, for the
+    gradients, ``ref.attention_bwd_ref`` from the plain o and lse, at
+    ``TOLERANCE``; returns the launch counts of the kernel run."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    dtn = str(dt).removeprefix("torch.")
+    gen = torch.Generator(device=device).manual_seed(14)
+    g = hq // hkv
+    q, do = (torch.randn((b, s, hq, hd), generator=gen, device=device).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=device).to(dt)
+            for _ in range(2))
+    form = (g, causal, window)
+    leaves = [x.clone().requires_grad_(bwd) for x in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash(*leaves, *form)
+    if bwd:
+        out.backward(do)
+    _sync(device)
+    counts = ops.launch_counts()
+    o, lse = ref.attention_lse_ref(q, k, v, *form)
+    outs, want = [out.detach()], [o]
+    if bwd:
+        outs += [x.grad for x in leaves]
+        want += list(ref.attention_bwd_ref(q, k, v, o, lse, do, *form))
+    err, rel = compare(label, dtn, tuple(outs), tuple(want))
+    need = {_flash_counter(hd): 1, **({_flash_counter(hd, True): 1}
+                                      if bwd else {})}
+    if _on_card(device) and counts != {n: need.get(n, 0) for n in counts}:
+        raise AssertionError(f"{label}: launches {counts}, expected "
+                             f"{need}")
+    log(f"{label} [{dtn}] [{b}, {s}, {hq}/{hkv}, {hd}] causal "
+        f"{causal} window {window}: max_rel_err {rel:.3e} (tol "
+        f"{TOLERANCE[dtn]:.0e}) over the output"
+        + (" and dq, dk, dv" if bwd else "") + f"; launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    return counts
+
+
+def _forms_ssd_check(label: str, dt, b: int, s: int, h: int, p: int, n: int,
+                     q: int, device: str) -> dict:
+    """One SSD form through ``ops.ssd`` under autograd against
+    ``ref.ssd_chunk_scan_ref`` and ``ssd_chunk_scan_bwd_ref``, each
+    output at its tolerance (``SSD_BWD_TOL`` for ddt and dA); returns the
+    launch counts of the kernel run."""
+    import torch
+
+    from repro_torch.kernels import ops, ref
+    dtn = str(dt).removeprefix("torch.")
+    gen = torch.Generator(device=device).manual_seed(15)
+    x = (torch.randn((b, s, h, p), generator=gen, device=device)
+         * 0.5).to(dt)
+    dts = torch.nn.functional.softplus(
+        torch.randn((b, s, h), generator=gen, device=device))
+    a = -torch.exp(torch.randn((h,), generator=gen, device=device) * 0.3)
+    bm, cm = ((torch.randn((b, s, n), generator=gen, device=device)
+               * 0.5).to(dt) for _ in "bc")
+    dy = torch.randn((b, s, h, p), generator=gen, device=device).to(dt)
+    leaves = [t.clone().requires_grad_() for t in (x, dts, a, bm, cm)]
+    ops.reset_launch_counts()
+    y = ops.ssd(*leaves, q)
+    y.backward(dy)
+    _sync(device)
+    counts = ops.launch_counts()
+    want_y = ref.ssd_chunk_scan_ref(x, dts, a, bm, cm, q)
+    want = ref.ssd_chunk_scan_bwd_ref(x, dts, a, bm, cm, dy, q)
+    compare(f"{label} y", dtn, y.detach(), want_y)
+    parts = []
+    for name, t, w in zip(("dx", "ddt", "dA", "dB", "dC"), leaves, want,
+                          strict=True):
+        tol = SSD_BWD_TOL.get(name, TOLERANCE[dtn])
+        rel = max_rel(t.grad, w)
+        parts.append(f"{name}={rel:.3e}")
+        if not rel <= tol or t.grad.dtype != w.dtype:
+            raise AssertionError(f"{label} [{dtn}] {name}: {rel:.3e} > "
+                                 f"{tol:.0e} or type {t.grad.dtype}")
+    need = {"ssd_chunk_scan": 1, "ssd_chunk_scan_bwd": 1}
+    if _on_card(device) and counts != {k: need.get(k, 0) for k in counts}:
+        raise AssertionError(f"{label}: launches {counts}")
+    log(f"{label} [{dtn}] x [{b}, {s}, {h}, {p}] N {n} chunk {q}: y "
+        f"and gradients within their tolerances ({', '.join(parts)})")
+    return counts
+
+
+def forms_dit(device: str = "cuda", cpu: str = "cpu",
+              argv=None) -> dict:
+    """dit-small's architecture at d_model 576 in 8 heads of 72
+    (``FORMS_DIT``), random weights from a seed with the AdaLN-zero
+    leaves redrawn (``redraw_zero_leaves``, so that the velocity reads
+    the attention), served through the FreqCa engine of ``launch.serve``
+    (``dit_small_serve``, ``FORMS_DIT_ARGS``: two requests at latent 64,
+    S 1024, where the joint attention reaches flash at hd 72) on
+    ``device`` and on ``cpu`` from the same weights: full steps equal,
+    latents within ``DIT_SMALL_TOL`` relative L2, flash launched on the
+    card (float32 hd 72: ``flash_attention``), and the same requests with
+    TF32 on as a control that must miss that limit.  Returns the launch
+    counts of the card's run."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.models import dit
+    from repro_torch.optim import adamw
+    argv = list(argv or FORMS_DIT_ARGS)
+    n_req = int(argv[argv.index("--requests") + 1])
+    cfg = dataclasses.replace(configs.get_config("dit-small"), **FORMS_DIT)
+    params_cpu = dit.init_params(cfg, seed=92, device=cpu)
+    with torch.no_grad():
+        redraw_zero_leaves(params_cpu, seed=93)
+    params = adamw.tree_map(lambda p: p.to(device, copy=True), params_cpu)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = dit_small_serve(params, argv, device, n_req, cfg, 64)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    t0 = time.perf_counter()
+    plain = dit_small_serve(params_cpu, argv, cpu, n_req, cfg, 64)
+    wall_cpu = time.perf_counter() - t0
+    rels = [rel_l2(a.latents, b.latents)
+            for a, b in zip(card, plain, strict=True)]
+    full = ([o.n_full_steps for o in card], [o.n_full_steps for o in plain])
+    control = []
+    if _on_card(device):
+        with tf32_on():
+            control = [rel_l2(a.latents, b.latents) for a, b in zip(
+                dit_small_serve(params, argv, device, n_req, cfg, 64),
+                plain, strict=True)]
+    tol = DIT_SMALL_TOL["latents"]
+    log(f"forms dit: dit-small at d_model {cfg.d_model}, {cfg.n_heads} "
+        f"heads of {cfg.head_dim}, {argv}: card {wall:.1f} s, CPU "
+        f"{wall_cpu:.1f} s; full steps {full[0]} (CPU {full[1]}); latents "
+        "card vs CPU rel L2 " + ", ".join(f"{r:.3e}" for r in rels)
+        + f" (tol {tol:.0e}); the TF32 control's "
+        + ", ".join(f"{r:.3e}" for r in control)
+        + f" (each must exceed it); launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    ok_shapes = all(tuple(o.latents.shape) == (64, 64, cfg.in_channels)
+                    and bool(torch.isfinite(torch.as_tensor(o.latents)).all())
+                    for o in card)
+    if (full[0] != full[1] or not ok_shapes or max(rels) > tol
+            or (_on_card(device) and (counts["flash_attention"] == 0
+                                      or min(control) <= tol))):
+        raise AssertionError(f"forms dit: latents {rels}, full steps "
+                             f"{full}, control {control}, launches {counts}")
+    return counts
+
+
+def forms_key(label: str) -> str:
+    """The launch-count key of a forms row's run: ``forms_<form>``."""
+    return "forms_" + label.removeprefix("forms ")
+
+
+def forms_phase(device: str = "cuda") -> dict:
+    """The forms the TPU kernels take beyond the kernels' instances,
+    driven through the op layer on ``device``: every ``FORM_FLASH_ROWS``
+    and ``FORM_SSD_ROWS`` form (in the rows' types and shapes) and the
+    reference tests' small forms (``FORM_FLASH_SMALL`` in bf16 at hd 16
+    and 32, ``FORM_SSD_SMALL`` in both types), forward and backward
+    through ``ops.flash`` / ``ops.ssd`` under autograd against the plain
+    versions, each form's launches counted apart (reset just before it,
+    read just after); then ``forms_dit``.  Returns the counts by form
+    (``forms_key``)."""
+    import torch
+    by_form = {}
+    for label, dtn, b, s, hq, hkv, hd, causal, window, bwd in \
+            FORM_FLASH_ROWS:
+        by_form[forms_key(label)] = _forms_flash_check(
+            label, getattr(torch, dtn), b, s, hq, hkv, hd, causal, window,
+            bwd, device)
+        _free(device)
+    for hd in (16, 32):
+        for b, s, hq, hkv, causal, window in FORM_FLASH_SMALL:
+            label = (f"forms small bf16_hd{hd} {hq}/{hkv} causal {causal} "
+                     f"window {window}")
+            _forms_flash_check(label, torch.bfloat16, b, s, hq, hkv, hd,
+                               causal, window, True, device)
+    for label, b, s, h, p, n, q in FORM_SSD_ROWS:
+        by_form[forms_key(label)] = _forms_ssd_check(
+            label, torch.bfloat16, b, s, h, p, n, q, device)
+        _free(device)
+    for dt in (torch.float32, torch.bfloat16):
+        for b, s, h, p, n, q in FORM_SSD_SMALL:
+            _forms_ssd_check(f"forms small p{p} n{n} q{q}", dt, b, s, h, p,
+                             n, q, device)
+    by_form["forms_dit"] = forms_dit(device)
+    return by_form
+
+
+# the kernels line's entries of the forms slice: each row of
+# ``FORM_FLASH_ROWS`` and ``FORM_SSD_ROWS`` (forward, and backward where
+# it runs), its launches the forms phase's run of that form;
+# (kernels-line name, dtype, counter, source, the TPU kernel or autodiff
+# replaced)
+def forms_kernels() -> list:
+    out = []
+    fwd_src = {True: "src/repro_torch/kernels/csrc/flash_fwd_tf32.cuh",
+               False: "src/repro_torch/kernels/csrc/flash_attention.cu"}
+    for label, dtn, b, s, hq, hkv, hd, causal, window, bwd in \
+            FORM_FLASH_ROWS:
+        small = hd <= 32
+        src = (fwd_src[True] if small or dtn == "float32"
+               else fwd_src[False])
+        out.append((f"flash_attention[{label}]", dtn, _flash_counter(hd),
+                    src, "src/repro/kernels/flash_attention.py:79", label))
+        if bwd:
+            out.append((
+                f"flash_attention_bwd[{label}]", dtn,
+                _flash_counter(hd, True),
+                "src/repro_torch/kernels/csrc/" + (
+                    "flash_attention_f32.cu" if small
+                    else "flash_attention_bwd.cu"),
+                "none: XLA autodiff of src/repro/models/attention.py:89 "
+                "blockwise_sdpa", label))
+    for label, *_ in FORM_SSD_ROWS:
+        out.append((f"ssd_chunk_scan[{label}]", "bfloat16", "ssd_chunk_scan",
+                    "src/repro_torch/kernels/csrc/ssd_scan.cu",
+                    "src/repro/kernels/ssd_scan.py:68", label))
+        out.append((f"ssd_chunk_scan_bwd[{label}]", "bfloat16",
+                    "ssd_chunk_scan_bwd",
+                    "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                    "none: XLA autodiff of src/repro/models/ssm.py:93 "
+                    "ssd_chunked", label))
+    return out
+
+
 # the dit_small phase: dit-small at its full width (8 layers, d 128, 8
 # heads of 16, float32) at the sizes whose joint attention reaches
 # flash (latent 64: S 1024; 128: S 4096), beside the served 32 (S 256)
@@ -6444,18 +6876,19 @@ def _by_size(tokens: list, patch: int = 2) -> dict:
     return out
 
 
-def dit_small_serve(params, argv, device: str, n_requests: int) -> list:
+def dit_small_serve(params, argv, device: str, n_requests: int, cfg=None,
+                    size: int = 32) -> list:
     """The FreqCa engine of ``launch.serve.main(argv)`` on ``device`` with
     ``params``, serving the first ``n_requests`` of its stream (a request
     is drawn from its id alone): the same policy, ladder and engine
     settings, no warmup and no uncached run; returns the outputs by
-    request id."""
+    request id.  ``cfg`` (default dit-small) and the ladder's first
+    latent ``size`` may be given."""
     from repro_torch import configs
     from repro_torch.launch import serve
     from repro_torch.serving.engine import DiffusionEngine
     args = serve.build_parser().parse_args(argv)
-    cfg = configs.get_config("dit-small")
-    size = 32
+    cfg = cfg or configs.get_config("dit-small")
     shapes = serve.shape_ladder(cfg, serve._parse_sizes(args, size))
     full_fn, from_crf_fn = serve.dit_fns(params, cfg)
     pol = serve._default_policy(args)
@@ -6982,7 +7415,8 @@ def reduced_phase(archs=REDUCED_LMS + REDUCED_DITS, seq: int = REDUCED_SEQ,
 
 PHASES = ("dryrun", "reference", "analysis", "serve", "slo", "backbone",
           "lm", "decode", "train", "lm_train", "moe", "lm_configs", "jamba",
-          "encdec", "vlm", "dit_small", "reduced", "launcher", "fleet")
+          "encdec", "vlm", "dit_small", "forms", "reduced", "launcher",
+          "fleet")
 
 
 def run_phases(phases) -> dict:
@@ -7044,7 +7478,7 @@ def run_phases(phases) -> dict:
                      ("moe", moe_phase), ("lm_configs", lm_configs_phase),
                      ("jamba", jamba_phase), ("encdec", encdec_phase),
                      ("vlm", vlm_phase), ("dit_small", dit_small_phase),
-                     ("reduced", reduced_phase)):
+                     ("forms", forms_phase), ("reduced", reduced_phase)):
         if name in phases:
             by_phase.update(fn())
             free()
@@ -7121,9 +7555,10 @@ def main(argv=None) -> int:
     # says null
     by_phase = run_phases(phases)
     # the reduced phase's launches are the small widths' entries'
-    # (SMALL_KERNELS), the other phases' the entries of the wider forms
+    # (SMALL_KERNELS), the forms phase's those of its forms, the other
+    # phases' the entries of the wider forms
     wide = {ph: c for ph, c in by_phase.items()
-            if not ph.startswith("reduced_")}
+            if not ph.startswith(("reduced_", "forms_"))}
     small = {ph: c for ph, c in by_phase.items()
              if ph.startswith("reduced_")}
     paths = {name: [ph for ph in wide if wide[ph][name] > 0]
@@ -7206,7 +7641,7 @@ def main(argv=None) -> int:
         form_rows = {label: v for label, v in FORM_ROWS.items()
                      if label.startswith(name + "[")
                      and not any(tag in label for tag in (
-                         "f32_hd16", "f32_hd32", "p32 q16"))}
+                         "f32_hd16", "f32_hd32", "p32 q16", "forms "))}
         if form_rows:
             k["form_rows"] = form_rows
         kernels.append(k)
@@ -7256,6 +7691,21 @@ def main(argv=None) -> int:
                    and lab != label}
         if rows_of:
             k["form_rows"] = rows_of
+        kernels.append(k)
+    # the forms slice's rows, each with its form's launches in the forms
+    # phase (reset just before it, read just after)
+    # (the float32 hd-72 forward's also the forms phase's model's)
+    for name, dtn, counter, src, rep, label in forms_kernels():
+        runs = {ph: by_phase[ph][counter]
+                for ph in (forms_key(label), "forms_dit")
+                if ph in by_phase and (ph != "forms_dit" or "f32_hd72" in
+                                       label)}
+        k = dict(name=name, route="cuda", source=src, replaces=rep,
+                 launches=sum(runs.values()) if runs else None,
+                 **FORM_ROWS[name][dtn])
+        if runs:
+            k["launches_by_phase"] = runs
+        k["forms"] = f"{label.removeprefix('forms ')}, {dtn}"
         kernels.append(k)
     log(f"chip_smoke: phases {list(phases)} done in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -7,9 +7,16 @@
 //   o[b, s, h] = softmax_t(q[b, s, h] · k[b, t, h / g] / sqrt(hd)) ·
 //                v[b, t, h / g]                      (g = q_per_kv)
 // q, o: [B, S, H, hd]; k, v: [B, T, H / g, hd]; contiguous, float32 or
-// bf16.  Query head h reads kv head h / g through the index map: k and v
-// are never copied per group.  Masks, with positions counted from 0 in
-// both q and k as in the TPU kernel: causal keeps k_pos <= q_pos, a
+// bf16.  Any hd up to 128 runs on the instance above it (64 or 128; the
+// small widths have their own library, flash_attention_f32.cu): the row
+// width hd is a run-time argument, a multiple of 16 bytes (8 bf16, 4
+// floats), the tensor maps' inner dimension is the true hd, so TMA
+// fills the columns at or past it with zeros (as the TF32 kernel's
+// copies do), the stores skip them, and the scale 1/sqrt(scale_hd) is
+// the true width's.  Query head h reads kv head h / g through the index
+// map: k and v are never copied per group.  Masks, with positions
+// counted from 0 in both q and k as in the TPU kernel: causal keeps
+// k_pos <= q_pos, a
 // window w > 0 keeps k_pos > q_pos - w.  Online softmax with float32
 // running max, normaliser and accumulator; a masked logit is the finite
 // -1e30 (never -inf, so exp(m_old - m_new) of a row that has seen only
@@ -205,7 +212,7 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tv,
                         __nv_bfloat16* __restrict__ o,
                         float* __restrict__ lse, int S, int H, int Hkv,
-                        Mask mk, float scale_log2) {
+                        int hd, Mask mk, float scale_log2) {
   using L = Tiles<HD>;
   constexpr int BK = L::kKeys;
   extern __shared__ uint8_t smem_raw[];
@@ -370,8 +377,8 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
       fence_regs(acc);
     }
 
-    const long rs = (long)H * HD;   // token stride of o
-    __nv_bfloat16* op = o + (long)b * S * rs + (long)h * HD;
+    const long rs = (long)H * hd;   // token stride of o
+    __nv_bfloat16* op = o + (long)b * S * rs + (long)h * hd;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
@@ -387,21 +394,23 @@ flash_fwd_hopper_kernel(const __grid_constant__ CUtensorMap tq,
             m_r[r] * 0.6931471805599453f + logf(l);
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j)
-        *reinterpret_cast<uint32_t*>(op + row * rs + 8 * j + 2 * t) =
-            pack_bf16(acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv);
+        if (8 * j < hd)   // hd is a multiple of 8
+          *reinterpret_cast<uint32_t*>(op + row * rs + 8 * j + 2 * t) =
+              pack_bf16(acc[4 * j + 2 * r] * inv,
+                        acc[4 * j + 2 * r + 1] * inv);
     }
   }
 }
 
 template <int HD, bool MASKED, bool LSE>
 int launch_hopper(const void* q, const void* k, const void* v, void* o,
-                  float* lse, int B, int S, int H, int Hkv, Mask mk,
-                  cudaStream_t st) {
+                  float* lse, int B, int S, int H, int Hkv, int hd,
+                  int scale_hd, Mask mk, cudaStream_t st) {
   CUtensorMap tq, tk, tv;
-  int err = tensor_map(&tq, q, B, S, H, HD, kHQ);
+  int err = tensor_map(&tq, q, B, S, H, hd, kHQ);
   const int keys = Tiles<HD>::kKeys;
-  if (err == cudaSuccess) err = tensor_map(&tk, k, B, mk.Tk, Hkv, HD, keys);
-  if (err == cudaSuccess) err = tensor_map(&tv, v, B, mk.Tk, Hkv, HD, keys);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, B, mk.Tk, Hkv, hd, keys);
+  if (err == cudaSuccess) err = tensor_map(&tv, v, B, mk.Tk, Hkv, hd, keys);
   if (err != cudaSuccess) return err;
   const size_t smem = Tiles<HD>::kSmem;
   err = cudaFuncSetAttribute(flash_fwd_hopper_kernel<HD, MASKED, LSE>,
@@ -410,15 +419,16 @@ int launch_hopper(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kHQ - 1) / kHQ, B * H);
   // softmax runs in base 2: fold log2(e) into the logit scale
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
+  const float scale_log2 =
+      1.4426950408889634f / sqrtf(static_cast<float>(scale_hd));
   flash_fwd_hopper_kernel<HD, MASKED, LSE><<<grid, kHThreads, smem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, Hkv, mk,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, S, H, Hkv, hd, mk,
       scale_log2);
   return cudaGetLastError();
 }
 
 using Launch = int (*)(const void*, const void*, const void*, void*, float*,
-                      int, int, int, int, Mask, cudaStream_t);
+                      int, int, int, int, int, int, Mask, cudaStream_t);
 
 // the instantiation of a (masked, lse) pair
 template <Launch MT, Launch MF, Launch UT, Launch UF>
@@ -429,46 +439,51 @@ Launch pick(bool masked, bool lse) {
 }  // namespace
 
 // q, o [B, S, H, hd]; k, v [B, Tk, Hkv, hd] with H a multiple of Hkv;
-// one type; contiguous and 16-byte aligned; hd in {64, 128}; causal 0/1,
-// window 0 (none) or > 0.  bf16 runs the Hopper kernel, float32 the
-// 3xTF32 tensor-core kernel (flash_fwd_tf32.cuh).  lse, when not null, receives each row's natural
+// one type; contiguous and 16-byte aligned; hd a multiple of 8 (bf16) or
+// 4 (float32) up to 128, run on the instance 64 or 128 above it, the
+// logits scaled by 1/sqrt(scale_hd); causal 0/1, window 0 (none) or > 0.
+// bf16 runs the Hopper kernel, float32 the 3xTF32 tensor-core kernel
+// (flash_fwd_tf32.cuh).  lse, when not null, receives each row's natural
 // log-sum-exp of the scaled, masked logits, float32 [B, H, S] (what the
 // backward recomputes P from); null writes nothing else.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int B, int S,
                                    int Tk, int H, int Hkv, int hd,
-                                   int causal, int window, int dtype,
-                                   void* stream) {
+                                   int scale_hd, int causal, int window,
+                                   int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (Hkv <= 0 || H % Hkv != 0) return cudaErrorInvalidValue;
+  const int vec = dtype == rt::kBF16 ? 8 : 4;
+  if (Hkv <= 0 || H % Hkv != 0 || hd < vec || hd > 128 || hd % vec != 0 ||
+      scale_hd < 1)
+    return cudaErrorInvalidValue;
   const Mask mk{Tk, causal, window};
   // the unmasked form (the DiT's) keeps only the ragged-edge test
   const bool m = causal || window > 0;
+  const bool wide = hd > 64;   // the instance: 64 or 128
   // the form without the log-sum-exp is a separate instantiation: the
   // serving and prefill launches run the kernel as it was without it
-  if (dtype == rt::kBF16 && hd == 64)
-    return pick<launch_hopper<64, true, true>, launch_hopper<64, true, false>,
-                launch_hopper<64, false, true>,
-                launch_hopper<64, false, false>>(m, lse != nullptr)(
-        q, k, v, o, lse, B, S, H, Hkv, mk, st);
-  if (dtype == rt::kBF16 && hd == 128)
-    return pick<launch_hopper<128, true, true>,
-                launch_hopper<128, true, false>,
-                launch_hopper<128, false, true>,
-                launch_hopper<128, false, false>>(m, lse != nullptr)(
-        q, k, v, o, lse, B, S, H, Hkv, mk, st);
-  if (dtype == rt::kF32 && hd == 64)
-    return pick<flash::launch_tf32<64, true, true>,
-                flash::launch_tf32<64, true, false>,
-                flash::launch_tf32<64, false, true>,
-                flash::launch_tf32<64, false, false>>(m, lse != nullptr)(
-        q, k, v, o, lse, B, S, H, Hkv, mk, st);
-  if (dtype == rt::kF32 && hd == 128)
-    return pick<flash::launch_tf32<128, true, true>,
-                flash::launch_tf32<128, true, false>,
-                flash::launch_tf32<128, false, true>,
-                flash::launch_tf32<128, false, false>>(m, lse != nullptr)(
-        q, k, v, o, lse, B, S, H, Hkv, mk, st);
-  return cudaErrorInvalidValue;
+  Launch fn = nullptr;
+  if (dtype == rt::kBF16)
+    fn = wide ? pick<launch_hopper<128, true, true>,
+                     launch_hopper<128, true, false>,
+                     launch_hopper<128, false, true>,
+                     launch_hopper<128, false, false>>(m, lse != nullptr)
+              : pick<launch_hopper<64, true, true>,
+                     launch_hopper<64, true, false>,
+                     launch_hopper<64, false, true>,
+                     launch_hopper<64, false, false>>(m, lse != nullptr);
+  else if (dtype == rt::kF32)
+    fn = wide ? pick<flash::launch_tf32<float, 128, true, true>,
+                     flash::launch_tf32<float, 128, true, false>,
+                     flash::launch_tf32<float, 128, false, true>,
+                     flash::launch_tf32<float, 128, false, false>>(
+                    m, lse != nullptr)
+              : pick<flash::launch_tf32<float, 64, true, true>,
+                     flash::launch_tf32<float, 64, true, false>,
+                     flash::launch_tf32<float, 64, false, true>,
+                     flash::launch_tf32<float, 64, false, false>>(
+                    m, lse != nullptr);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return fn(q, k, v, o, lse, B, S, H, Hkv, hd, scale_hd, mk, st);
 }

@@ -1,6 +1,10 @@
-// Flash attention backward, bf16, head width 64 or 128, in the four
-// forms of the forward: non-causal (the DiT's joint attention), causal,
-// sliding-window and grouped-query (GQA).
+// Flash attention backward, bf16, head width 64 or 128 (any multiple of
+// 8 up to 128 runs on the instance above it: the row width hd is a
+// run-time argument, the tensor maps' inner dimension is the true hd so
+// TMA zero-fills the columns past it, the stores skip them and the scale
+// is 1/√ of the true width), in the four forms of the forward:
+// non-causal (the DiT's joint attention), causal, sliding-window and
+// grouped-query (GQA).
 //
 // Replaces no TPU kernel: the reference differentiates the full-logits
 // attention of repro/models/dit.py:_joint_attention with XLA's autodiff
@@ -218,22 +222,23 @@ __device__ __forceinline__ void pump(const Ring<kStages>& ring, int& next,
 }
 
 // this thread's two rows of a 64 x HD accumulator tile (rows row0 + g
-// and row0 + g + 8 of the warp) times scale into out [B, L, Hh, HD];
-// rows past L skipped
+// and row0 + g + 8 of the warp) times scale into out [B, L, Hh, hd];
+// rows past L and columns past hd (a multiple of 8) skipped
 template <int HD, typename T>
 __device__ __forceinline__ void store_rows(T* out, const float (&acc)[HD / 2],
                                            float scale, int b, int L, int Hh,
-                                           int head, int row0) {
+                                           int head, int row0, int hd) {
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + g + 8 * r;
     if (row >= L) continue;
-    T* p = out + (((long)b * L + row) * Hh + head) * HD + 2 * t;
+    T* p = out + (((long)b * L + row) * Hh + head) * hd + 2 * t;
 #pragma unroll
     for (int j = 0; j < HD / 8; ++j)
-      rt::store2(p + 8 * j, acc[4 * j + 2 * r] * scale,
-                 acc[4 * j + 2 * r + 1] * scale);
+      if (8 * j < hd)
+        rt::store2(p + 8 * j, acc[4 * j + 2 * r] * scale,
+                   acc[4 * j + 2 * r + 1] * scale);
   }
 }
 
@@ -259,13 +264,14 @@ flash_bwd_kv_sum_kernel(const float* __restrict__ part, bf16* __restrict__ dk,
 }
 
 // (a) for row s of (b, h): lse2 = lse·log2 e and D = Σ_d dO·O over the
-// head width, one warp a row, at (b·H + h)·S_pad + s; the pad rows s >=
-// S get zeros
+// head width hd, one warp a row, at (b·H + h)·S_pad + s; the pad rows s
+// >= S get zeros
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
                      const float* __restrict__ lse, float* __restrict__ lse2,
-                     float* __restrict__ dsum, int S, int H, long rows) {
+                     float* __restrict__ dsum, int S, int H, int hd,
+                     long rows) {
   const long row = (long)blockIdx.x * kWarps + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32, S_pad = padded(S);
@@ -274,9 +280,10 @@ flash_bwd_dot_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dO,
   float acc = 0.f, l = 0.f;
   if (s < S) {
     constexpr int kPer = HD / 32;   // 2 or 4 elements a lane
-    const long at = (((bh / H) * S + s) * H + bh % H) * HD + lane * kPer;
+    const long at = (((bh / H) * S + s) * H + bh % H) * hd + lane * kPer;
 #pragma unroll
     for (int j = 0; j < kPer; j += 2) {
+      if (lane * kPer + j >= hd) break;
       const float2 a = rt::load2(o + at + j), d = rt::load2(dO + at + j);
       acc = fmaf(a.x, d.x, acc);
       acc = fmaf(a.y, d.y, acc);
@@ -302,8 +309,8 @@ flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap tq,
                     const float* __restrict__ lse2,
                     const float* __restrict__ dsum, bf16* __restrict__ dk,
                     bf16* __restrict__ dv, float* __restrict__ part,
-                    int splits, int H, int Hkv, Mask mk, float scale_log2,
-                    float scale) {
+                    int splits, int H, int Hkv, int hd, Mask mk,
+                    float scale_log2, float scale) {
   using L = KvTiles<HD>;
   constexpr int BM = L::kBM;
   extern __shared__ uint8_t smem_raw[];
@@ -496,14 +503,14 @@ flash_bwd_kv_kernel(const __grid_constant__ CUtensorMap tq,
   }
   if (c == 0) turn_wait(c);   // warpgroup 1's last turn
   if (part == nullptr) {
-    store_rows<HD>(dk, dk_acc, scale, b, Tk, Hkv, hkv, kw + 16 * warp);
-    store_rows<HD>(dv, dv_acc, 1.f, b, Tk, Hkv, hkv, kw + 16 * warp);
-  } else {   // the part's sums, float32 [splits][B, T, Hkv, HD] each
-    const long n = (long)gridDim.y / splits * Tk * HD;
+    store_rows<HD>(dk, dk_acc, scale, b, Tk, Hkv, hkv, kw + 16 * warp, hd);
+    store_rows<HD>(dv, dv_acc, 1.f, b, Tk, Hkv, hkv, kw + 16 * warp, hd);
+  } else {   // the part's sums, float32 [splits][B, T, Hkv, hd] each
+    const long n = (long)gridDim.y / splits * Tk * hd;
     store_rows<HD>(part + sp * n, dk_acc, 1.f, b, Tk, Hkv, hkv,
-                   kw + 16 * warp);
+                   kw + 16 * warp, hd);
     store_rows<HD>(part + (splits + sp) * n, dv_acc, 1.f, b, Tk, Hkv, hkv,
-                   kw + 16 * warp);
+                   kw + 16 * warp, hd);
   }
 }
 
@@ -516,7 +523,8 @@ flash_bwd_q_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tv,
                    const float* __restrict__ lse2,
                    const float* __restrict__ dsum, bf16* __restrict__ dq,
-                   int H, int Hkv, Mask mk, float scale_log2, float scale) {
+                   int H, int Hkv, int hd, Mask mk, float scale_log2,
+                   float scale) {
   using L = QTiles<HD>;
   constexpr int BN = L::kBN;
   extern __shared__ uint8_t smem_raw[];
@@ -662,7 +670,7 @@ flash_bwd_q_kernel(const __grid_constant__ CUtensorMap tq,
     fence_regs(dq_acc);
     ring.release(st);
   }
-  store_rows<HD>(dq, dq_acc, scale, b, S, H, h, qw + 16 * warp);
+  store_rows<HD>(dq, dq_acc, scale, b, S, H, h, qw + 16 * warp, hd);
 }
 
 // Pass (b) runs one block per (key tile, kv head, batch); under GQA, when
@@ -685,25 +693,26 @@ int kv_splits(int B, int Tk, int H, int Hkv) {
 template <int HD, bool MASKED>
 int launch(const void* q, const void* k, const void* v, const bf16* o,
            const float* lse, const bf16* dO, bf16* dq, bf16* dk, bf16* dv,
-           float* stats, int B, Mask mk, int H, int Hkv, cudaStream_t st) {
+           float* stats, int B, Mask mk, int H, int Hkv, int hd,
+           int scale_hd, cudaStream_t st) {
   const int S = mk.S, Tk = mk.Tk;
   const long rows = (long)B * H * padded(S);
   float* lse2 = stats;
   float* dsum = stats + rows;
   flash_bwd_dot_kernel<HD><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
-                             st>>>(o, dO, lse, lse2, dsum, S, H, rows);
+                             st>>>(o, dO, lse, lse2, dsum, S, H, hd, rows);
   int err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const float scale = 1.f / sqrtf(static_cast<float>(HD));
+  const float scale = 1.f / sqrtf(static_cast<float>(scale_hd));
   const float scale_log2 = scale * kLog2e;
 
   // pass (b): streamed q and dO tiles of kBM rows, k and v of 128
   CUtensorMap tq, tdo, tk, tv;
   const int bm = KvTiles<HD>::kBM;
-  err = tensor_map(&tq, q, B, S, H, HD, bm);
-  if (err == cudaSuccess) err = tensor_map(&tdo, dO, B, S, H, HD, bm);
-  if (err == cudaSuccess) err = tensor_map(&tk, k, B, Tk, Hkv, HD, kTile);
-  if (err == cudaSuccess) err = tensor_map(&tv, v, B, Tk, Hkv, HD, kTile);
+  err = tensor_map(&tq, q, B, S, H, hd, bm);
+  if (err == cudaSuccess) err = tensor_map(&tdo, dO, B, S, H, hd, bm);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, B, Tk, Hkv, hd, kTile);
+  if (err == cudaSuccess) err = tensor_map(&tv, v, B, Tk, Hkv, hd, kTile);
   if (err != cudaSuccess) return err;
   const size_t smem_kv = KvTiles<HD>::kSmem;
   err = cudaFuncSetAttribute(flash_bwd_kv_kernel<HD, MASKED>,
@@ -714,12 +723,12 @@ int launch(const void* q, const void* k, const void* v, const bf16* o,
   float* part = splits > 1 ? stats + 2 * rows : nullptr;
   const dim3 grid_kv((Tk + kTile - 1) / kTile, B * Hkv * splits);
   flash_bwd_kv_kernel<HD, MASKED><<<grid_kv, kThreads, smem_kv, st>>>(
-      tq, tdo, tk, tv, lse2, dsum, dk, dv, part, splits, H, Hkv, mk,
+      tq, tdo, tk, tv, lse2, dsum, dk, dv, part, splits, H, Hkv, hd, mk,
       scale_log2, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   if (part != nullptr) {
-    const long n = (long)B * Tk * Hkv * HD;
+    const long n = (long)B * Tk * Hkv * hd;
     flash_bwd_kv_sum_kernel<<<(n / 2 + kThreads - 1) / kThreads, kThreads,
                               0, st>>>(part, dk, dv, splits, n, scale);
     err = cudaGetLastError();
@@ -728,10 +737,10 @@ int launch(const void* q, const void* k, const void* v, const bf16* o,
 
   // pass (c): q and dO tiles of 128 rows, streamed k and v of kBN
   const int bn = QTiles<HD>::kBN;
-  err = tensor_map(&tq, q, B, S, H, HD, kTile);
-  if (err == cudaSuccess) err = tensor_map(&tdo, dO, B, S, H, HD, kTile);
-  if (err == cudaSuccess) err = tensor_map(&tk, k, B, Tk, Hkv, HD, bn);
-  if (err == cudaSuccess) err = tensor_map(&tv, v, B, Tk, Hkv, HD, bn);
+  err = tensor_map(&tq, q, B, S, H, hd, kTile);
+  if (err == cudaSuccess) err = tensor_map(&tdo, dO, B, S, H, hd, kTile);
+  if (err == cudaSuccess) err = tensor_map(&tk, k, B, Tk, Hkv, hd, bn);
+  if (err == cudaSuccess) err = tensor_map(&tv, v, B, Tk, Hkv, hd, bn);
   if (err != cudaSuccess) return err;
   const size_t smem_q = QTiles<HD>::kSmem;
   err = cudaFuncSetAttribute(flash_bwd_q_kernel<HD, MASKED>,
@@ -740,7 +749,7 @@ int launch(const void* q, const void* k, const void* v, const bf16* o,
   if (err != cudaSuccess) return err;
   const dim3 grid_q((S + kTile - 1) / kTile, B * H);
   flash_bwd_q_kernel<HD, MASKED><<<grid_q, kThreads, smem_q, st>>>(
-      tq, tdo, tk, tv, lse2, dsum, dq, H, Hkv, mk, scale_log2, scale);
+      tq, tdo, tk, tv, lse2, dsum, dq, H, Hkv, hd, mk, scale_log2, scale);
   return cudaGetLastError();
 }
 
@@ -761,18 +770,20 @@ extern "C" long flash_attention_bwd_scratch(int B, int S, int Tk, int H,
 // q, o, dO, dq [B, S, H, hd] and k, v, dk, dv [B, Tk, Hkv, hd], bf16,
 // with H a multiple of Hkv; lse float32 [B, H, S]; stats a float32
 // scratch of flash_attention_bwd_scratch(B, S, Tk, H, Hkv, hd) floats;
-// contiguous and
-// 16-byte aligned; hd 64 or 128; causal 0/1, window 0 (none) or > 0.
-// Any other type or width returns cudaErrorInvalidValue.
+// contiguous and 16-byte aligned; hd a multiple of 8 up to 128, run on
+// the instance 64 or 128 above it, the logits scaled by 1/sqrt(scale_hd);
+// causal 0/1, window 0 (none) or > 0.  Any other type or width returns
+// cudaErrorInvalidValue.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const float* lse, const void* dO,
                                    void* dq, void* dk, void* dv,
                                    float* stats, int B, int S, int Tk, int H,
-                                   int Hkv, int hd, int causal, int window,
-                                   int dtype, void* stream) {
+                                   int Hkv, int hd, int scale_hd, int causal,
+                                   int window, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != rt::kBF16 || Hkv <= 0 || H % Hkv != 0)
+  if (dtype != rt::kBF16 || Hkv <= 0 || H % Hkv != 0 || hd < 8 ||
+      hd > 128 || hd % 8 != 0 || scale_hd < 1)
     return cudaErrorInvalidValue;
   const Mask mk{S, Tk, causal, window};
   const bool m = causal || window > 0;
@@ -781,11 +792,11 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   auto* dqb = static_cast<bf16*>(dq);
   auto* dkb = static_cast<bf16*>(dk);
   auto* dvb = static_cast<bf16*>(dv);
-  if (hd == 64)
+  if (hd <= 64)
     return (m ? launch<64, true> : launch<64, false>)(
-        q, k, v, ob, lse, db, dqb, dkb, dvb, stats, B, mk, H, Hkv, st);
-  if (hd == 128)
-    return (m ? launch<128, true> : launch<128, false>)(
-        q, k, v, ob, lse, db, dqb, dkb, dvb, stats, B, mk, H, Hkv, st);
-  return cudaErrorInvalidValue;
+        q, k, v, ob, lse, db, dqb, dkb, dvb, stats, B, mk, H, Hkv, hd,
+        scale_hd, st);
+  return (m ? launch<128, true> : launch<128, false>)(
+      q, k, v, ob, lse, db, dqb, dkb, dvb, stats, B, mk, H, Hkv, hd, scale_hd,
+      st);
 }

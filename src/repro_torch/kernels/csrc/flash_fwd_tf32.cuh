@@ -1,13 +1,19 @@
-// The float32 flash forward on the TF32 tensor cores, to float32
-// accuracy: one template, instantiated at head width 16
-// (flash_attention_f32.cu: dit-small's non-causal MHA) and at 64 and 128
-// (flash_attention.cu: every form, non-causal, causal, window and GQA,
-// with or without the log-sum-exp).  Both replace, in float32, the
-// Pallas kernel repro/kernels/flash_attention.py::flash_attention
-// (_flash_kernel).
+// The flash forward on the TF32 tensor cores, to float32 accuracy: one
+// template, instantiated in float32 at head width 16 and 32
+// (flash_attention_f32.cu: dit-small's non-causal MHA, the reduced
+// configs' causal GQA) and at 64 and 128 (flash_attention.cu), and in
+// bf16 at 16 and 32 (flash_attention_f32.cu), every form: non-causal,
+// causal, window and GQA, with or without the log-sum-exp.  All replace
+// the Pallas kernel repro/kernels/flash_attention.py::flash_attention
+// (_flash_kernel), which computes in float32 whatever its inputs' type.
 //   o[b, s, h] = softmax_t(q[b, s, h] · k[b, t, h / g] / sqrt(hd)) ·
 //                v[b, t, h / g]                      (g = q_per_kv)
-// q, o: [B, S, H, hd]; k, v: [B, T, H / g, hd]; contiguous float32.
+// q, o: [B, S, H, hd]; k, v: [B, T, H / g, hd]; contiguous, float32 or
+// bf16.  Any hd up to the instance's width HD runs on it: the row width
+// hd is a run-time argument (a multiple of 16 bytes, so 4 floats or 8
+// bf16), columns at or past hd are zero-filled in the loads (they add
+// exact zeros to Q·Kᵀ and P·V) and never stored, and the scale
+// 1/sqrt(scale_hd) is the true width's.
 //
 // What bounds it on an H100: operations.  4·hd FLOP a head and kept
 // (query, key) pair, S = Q·Kᵀ and O = P·V.  At the TF32 peak (495
@@ -19,21 +25,28 @@
 // much as the products.
 //
 // Design: plain TF32 keeps ~11 bits and misses the float32 tolerances,
-// so every operand is split hi + lo in TF32 and each product is taken
-// three times on mma.sync m16n8k8, a_lo·b_hi + a_hi·b_lo, then
+// so every float32 operand is split hi + lo in TF32 and each product is
+// taken three times on mma.sync m16n8k8, a_lo·b_hi + a_hi·b_lo, then
 // a_hi·b_hi (lo·lo, ~2^-22 relative, is dropped): float32 accuracy at
-// 3x the TF32 work.
+// 3x the TF32 work.  A bf16 value is exact in TF32 (8 bits of mantissa
+// in TF32's 10), so in bf16 Q, K and V need no lo part: Q·Kᵀ is one
+// TF32 product and P·V two (P, float32, keeps its split), float32
+// arithmetic on bf16 inputs as in the TPU kernel, the output rounded to
+// bf16 once.
 // - A block owns 128 queries of one (b, h): 8 warps of 16 rows at hd 64
 //   and 128; at hd 16, 4 warps of 32 rows (two m16 tiles, which share
 //   every K and V fragment the warp reads and splits).  A warp's Q
 //   fragments are split once: kept in registers at hd 16, else stored
 //   pre-split in shared memory in fragment order (conflict-free 16-byte
-//   reads) and re-read every key tile.
+//   reads) and re-read every key tile; float32 at 16 and 32 keeps the
+//   thread's Q rows whole in registers instead, for S on the FMA units.
 // - K and V tiles of kBK keys run through a cp.async ring of 16-byte
-//   copies (rows past T zero-filled) into padded tiles: K rows padded to
-//   hd + 8 floats (8-byte fragment reads hit 32 distinct banks), V rows
-//   to hd + 4 (4-byte reads).  A warp splits the K and V values it reads
-//   in registers.
+//   copies (rows past T and columns past hd zero-filled) into padded
+//   tiles: float32 K rows padded to HD + 8 floats (8-byte fragment reads
+//   hit 32 distinct banks; HD + 4 where S runs on the FMA units, read as
+//   float4s), V rows to HD + 4 (4-byte reads); bf16 rows to HD + 8
+//   elements (16-byte rows for the copies).  A warp splits the K and V
+//   values it reads in registers.
 // - Relabelling instead of shuffles.  Within each 8-wide k-step the A
 //   fragment's columns t and t + 4 stand for head dims 2t and 2t + 1, so
 //   a thread reads K's two values as one float2.  For P·V the logits'
@@ -41,19 +54,30 @@
 //   the A fragment: its columns t and t + 4 stand for keys 2t and 2t + 1,
 //   and V's rows are read in that same order.  A sum over head dims or
 //   keys does not depend on their order.
-// - The softmax runs in base 2 in registers: log2 e and 1/sqrt(hd) are
-//   folded into one FFMA a logit (tiles that need a mask scale first);
-//   a row's max crosses the 4 threads of a quad, its sum only at the end.
-//   P is split hi + lo after the exp2.
+// - The softmax runs in registers, in natural units of the scaled
+//   logits: p = exp2((s·scale − m)·log2 e), with s·scale − m in one
+//   rounding (an FFMA; near 0 where p matters), so neither the scale nor
+//   log2 e rounds into a large exponent.  Sharp logits (|s·scale| in the
+//   hundreds) need that: folding log2(e)/√hd into one rounded constant,
+//   and scaling the masked tiles' logits before the subtraction, cost
+//   the hd-16 forward with a window of 24 its float32 accuracy on 3 of 60
+//   seeded draws (the plain version's 1/√16 is exact).  A row's max
+//   crosses the 4 threads of a quad, its sum only at the end.  P is split
+//   hi + lo after the exp2.
 // - Rounding: the tensor cores' float32 sums round toward zero, so no
 //   long sum runs inside them.  S sums 32 head dims at a time in a fresh
 //   fragment and joins by float32 adds; each key tile's P·V sums in a
 //   fresh fragment and joins the running output by the float32
-//   rescale-and-add o = o·corr + pv.
-// Masks as in the bf16 kernel (Mask below): a masked logit is the finite
-// -1e30, the normaliser is floored at 1e-30.  A block visits the key
-// tiles some of its rows see, and a warp computes on those some of its
-// own rows see (under the causal mask the tiles past its diagonal are
+//   rescale-and-add o = o·corr + pv.  In float32 at hd 16 and 32 S runs
+//   on the FMA units instead (kFmaS: 2·hd FLOP a pair, rounded as
+//   float32 rounds), the same chains as the backward's: the backward
+//   needs exact logits at sharp softmaxes, and a log-sum-exp from
+//   truncated ones put the reduced seamless cross attention's input
+//   gradient twice as far from the CPU's.
+// Masks as in the bf16 kernel (Mask below): a masked logit is finite
+// (kMaskedLogit, unscaled), the normaliser is floored at 1e-30.  A block
+// visits the key tiles some of its rows see, and a warp computes on
+// those some of its own rows see (under the causal mask the tiles past its diagonal are
 // skipped; a skipped tile is exact for every row that sees a key).
 // Under the causal mask the query tiles with the most keys run first.
 #pragma once
@@ -64,7 +88,12 @@
 namespace flash {
 
 constexpr float kNegInf = -1e30f;   // a masked logit, as the TPU kernel's
-constexpr float kLn2 = 0.6931471805599453f;
+// the TF32 template's masked logit, unscaled: a power of two (~-1.3e30),
+// so that its product with any scale is exact and s·scale − m is 0 in a
+// row that has seen no key yet (exp 0 = 1, wiped by the next real key's
+// rescale, as the scaled −1e30 was)
+constexpr float kMaskedLogit = -0x1p100f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 // The masks of one attention call.  q and k positions count from 0.
 struct Mask {
@@ -109,18 +138,67 @@ __device__ __forceinline__ void split3(float v, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;
 }
 
-// a += the three products of (a_hi + a_lo)·(b_hi + b_lo) but lo·lo
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], uint32_t bh0,
-                                     uint32_t bh1, uint32_t bl0,
-                                     uint32_t bl1) {
-  rt::mma_tf32(d, al, bh0, bh1);
-  rt::mma_tf32(d, ah, bl0, bl1);
+// a += (a_hi + a_lo)·(b_hi + b_lo) without lo·lo, and without the lo
+// products of an operand that is exact in TF32 (ALO / BLO false: bf16)
+template <bool ALO, bool BLO>
+__device__ __forceinline__ void mma_split(float (&d)[4],
+                                          const uint32_t (&ah)[4],
+                                          const uint32_t (&al)[4],
+                                          uint32_t bh0, uint32_t bh1,
+                                          uint32_t bl0, uint32_t bl1) {
+  if constexpr (ALO) rt::mma_tf32(d, al, bh0, bh1);
+  if constexpr (BLO) rt::mma_tf32(d, ah, bl0, bl1);
   rt::mma_tf32(d, ah, bh0, bh1);
 }
 
-template <int HD>
+// s += x·y over four dims, in order, one rounding each (an FMA): the
+// float32 small widths' S = Q·Kᵀ on the FMA units, one chain a pair in
+// dim order from zero, in the forward and in both backward passes alike
+// (flash_attention_f32.cu), so the logits the backward recomputes are the
+// forward's bit for bit
+__device__ __forceinline__ float dot4(float s, float4 x, float4 y) {
+  s = fmaf(x.x, y.x, s);
+  s = fmaf(x.y, y.y, s);
+  s = fmaf(x.z, y.z, s);
+  return fmaf(x.w, y.w, s);
+}
+
+// loads of float32 or bf16 values as float32: one value or two
+// neighbours from global memory through the read-only path, and from
+// shared memory (a bf16's float32 bits are its own, shifted up 16)
+__device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
+  const unsigned u = __ldg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(u << 16);
+}
+__device__ __forceinline__ float2 ldg2(const float* p) {
+  return __ldg(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldg2(const __nv_bfloat16* p) {
+  const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+__device__ __forceinline__ float lds1(const float* p) { return *p; }
+__device__ __forceinline__ float lds1(const __nv_bfloat16* p) {
+  return __uint_as_float(
+      static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
+      << 16);
+}
+__device__ __forceinline__ float2 lds2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+__device__ __forceinline__ float2 lds2(const __nv_bfloat16* p) {
+  const unsigned u = *reinterpret_cast<const unsigned*>(p);
+  return make_float2(__uint_as_float(u << 16),
+                     __uint_as_float(u & 0xffff0000u));
+}
+
+template <typename T, int HD>
 struct Tf32Fwd {
+  // float32 operands are split hi + lo; a bf16 one is exact in TF32
+  static constexpr bool kLo = sizeof(T) == 4;
+  static constexpr int kVec = 16 / sizeof(T);      // elements a copy
   // m16 row tiles a warp: two at hd 16, where the K and V fragments a
   // warp reads and splits then serve 32 rows; one at 64 and 128, where
   // the output's registers allow no more
@@ -133,31 +211,43 @@ struct Tf32Fwd {
   static constexpr int kStages = HD == 128 ? 2 : 3; // cp.async ring
   static constexpr int kMinBlocks = HD == 16 ? 2 : 1;
   static constexpr bool kQRegs = HD == 16;          // Q frags in registers
+  // float32 at 16 and 32: S on the FMA units (dot4), Q's rows in
+  // registers; the tensor cores' truncated sums biased the log-sum-exp
+  // against the backward's exact logits
+  static constexpr bool kFmaS = kLo && HD <= 32;
   static constexpr int kKS = HD / 8;                // k-steps of S
   static constexpr int kGroup = kKS < 4 ? kKS : 4;  // k-steps a fresh sum
   static constexpr int kNS = kBK / 8;               // 8-key slabs a tile
-  static constexpr int kLDK = HD + 8;               // floats a K row
-  static constexpr int kLDV = HD + 4;               // floats a V row
+  // elements a K row: HD + 8 for the 8-byte fragment reads of the
+  // tensor-core S (32 distinct banks); for S on the FMA units HD + 4, so
+  // the four t of a quarter-warp read rows 2t as float4s from distinct
+  // banks (at HD + 8 two of them collide)
+  static constexpr int kLDK = kFmaS ? HD + 4 : HD + 8;
+  static constexpr int kLDV = kLo ? HD + 4 : HD + 8;   // elements a V row
   // the pre-split Q fragments: per warp [m-tile][k-step][hi, lo][lane][4]
-  static constexpr size_t kQFloats = kQRegs ? 0 : size_t(kBQ) * HD * 2;
-  static constexpr size_t kStageFloats = size_t(kBK) * (kLDK + kLDV);
-  static constexpr size_t kSmem = (kQFloats + kStages * kStageFloats) * 4;
-  static_assert(kBK * HD / 4 % kThreads == 0,
+  static constexpr size_t kQFloats =
+      kQRegs || kFmaS ? 0 : size_t(kBQ) * HD * 2;
+  static constexpr size_t kStageElems = size_t(kBK) * (kLDK + kLDV);
+  static constexpr size_t kSmem =
+      kQFloats * 4 + kStages * kStageElems * sizeof(T);
+  static_assert(kBK * HD / kVec % kThreads == 0,
                 "a tile must split evenly into 16-byte copies");
   static_assert(kSmem <= 232448, "shared memory of one block");
 };
 
-template <int HD, bool MASKED, bool LSE>
-__global__ void __launch_bounds__(Tf32Fwd<HD>::kThreads,
-                                  Tf32Fwd<HD>::kMinBlocks)
-tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                const float* __restrict__ v, float* __restrict__ o,
-                float* __restrict__ lse, int S, int H, int Hkv, Mask mk,
-                float scale_log2) {
-  using C = Tf32Fwd<HD>;
+template <typename T, int HD, bool MASKED, bool LSE>
+__global__ void __launch_bounds__(Tf32Fwd<T, HD>::kThreads,
+                                  Tf32Fwd<T, HD>::kMinBlocks)
+tf32_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, T* __restrict__ o,
+                float* __restrict__ lse, int S, int H, int Hkv, int hd,
+                Mask mk, float scale) {
+  using C = Tf32Fwd<T, HD>;
   constexpr int BK = C::kBK, NS = C::kNS, KS = C::kKS, MT = C::kMT;
+  constexpr bool LO = C::kLo;
+  constexpr int VEC = C::kVec;
   extern __shared__ __align__(16) float smem[];
-  float* kv = smem + C::kQFloats;
+  T* kv = reinterpret_cast<T*>(smem + C::kQFloats);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;
@@ -166,11 +256,11 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int qw = q0 + C::kRows * warp;   // the warp's first row
   const int b = blockIdx.y / H, h = blockIdx.y % H;
   const int hkv = h / (H / Hkv);   // GQA: query head h reads kv head h / g
-  const long rs = (long)H * HD;    // token stride of q and o
-  const long rk = (long)Hkv * HD;  // token stride of k and v
-  const float* qp = q + (long)b * S * rs + (long)h * HD;
-  const float* kp = k + (long)b * Tk * rk + (long)hkv * HD;
-  const float* vp = v + (long)b * Tk * rk + (long)hkv * HD;
+  const long rs = (long)H * hd;    // token stride of q and o
+  const long rk = (long)Hkv * hd;  // token stride of k and v
+  const T* qp = q + (long)b * S * rs + (long)h * hd;
+  const T* kp = k + (long)b * Tk * rk + (long)hkv * hd;
+  const T* vp = v + (long)b * Tk * rk + (long)hkv * hd;
 
   int t0, t1, w0, w1;
   mk.tiles<C::kBQ, BK>(q0, t0, t1);
@@ -178,15 +268,15 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (qw >= S) w1 = w0;                 // a warp wholly past S: none
   const int n_tiles = t1 - t0;
 
-  // stage st <- the K and V rows [k0, k0 + BK)
+  // stage st <- the K and V rows [k0, k0 + BK), columns past hd zeros
   auto load = [&](int st, int k0) {
-    float* kd = kv + st * C::kStageFloats;
-    float* vd = kd + BK * C::kLDK;
+    T* kd = kv + st * C::kStageElems;
+    T* vd = kd + BK * C::kLDK;
 #pragma unroll
-    for (int r = 0; r < BK * HD / 4 / C::kThreads; ++r) {
+    for (int r = 0; r < BK * HD / VEC / C::kThreads; ++r) {
       const int e = tid + r * C::kThreads;
-      const int j = e / (HD / 4), c = (e % (HD / 4)) * 4;
-      const bool ok = k0 + j < Tk;
+      const int j = e / (HD / VEC), c = (e % (HD / VEC)) * VEC;
+      const bool ok = k0 + j < Tk && c < hd;
       const long off = ok ? (long)(k0 + j) * rk + c : 0;
       rt::cp_async16(kd + j * C::kLDK + c, kp + off, ok);
       rt::cp_async16(vd + j * C::kLDV + c, vp + off, ok);
@@ -200,20 +290,40 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // Q's A fragments, split: of m-tile mt, a0 (row 16mt + g, dim 2t), a1
   // (+ 8, 2t), a2 (16mt + g, 2t + 1), a3 (+ 8, 2t + 1) of each k-step;
-  // rows past S are zeros
+  // rows past S and dims past hd are zeros (hd is even: a pair is in or
+  // out together)
   uint32_t qreg[C::kQRegs ? MT : 1][C::kQRegs ? KS : 1][8];
   float* qf = smem + (C::kQRegs ? 0 : (size_t)warp * MT * KS * 256);
+  // float32 at the small widths: Q's rows 16mt + g (+ 8), all HD dims
+  float qrow[C::kFmaS ? MT : 1][2][C::kFmaS ? HD : 4];
+  if constexpr (C::kFmaS) {
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = qw + 16 * mt + g + 8 * r;
+#pragma unroll
+        for (int c = 0; c < HD; c += 4) {
+          const float4 x =
+              row < S && c < hd
+                  ? __ldg(reinterpret_cast<const float4*>(qp + row * rs + c))
+                  : make_float4(0.f, 0.f, 0.f, 0.f);
+          qrow[mt][r][c] = x.x;
+          qrow[mt][r][c + 1] = x.y;
+          qrow[mt][r][c + 2] = x.z;
+          qrow[mt][r][c + 3] = x.w;
+        }
+      }
+  }
+#pragma unroll
+  for (int mt = 0; mt < (C::kFmaS ? 0 : MT); ++mt)
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       const int r0 = qw + 16 * mt + g, d = kk * 8 + 2 * t;
-      const float2 x0 = r0 < S ? __ldg(reinterpret_cast<const float2*>(
-                                     qp + r0 * rs + d))
-                               : make_float2(0.f, 0.f);
-      const float2 x1 = r0 + 8 < S ? __ldg(reinterpret_cast<const float2*>(
-                                         qp + (r0 + 8) * rs + d))
-                                   : make_float2(0.f, 0.f);
+      const float2 x0 = r0 < S && d < hd ? ldg2(qp + r0 * rs + d)
+                                         : make_float2(0.f, 0.f);
+      const float2 x1 = r0 + 8 < S && d < hd ? ldg2(qp + (r0 + 8) * rs + d)
+                                             : make_float2(0.f, 0.f);
       const float a[4] = {x0.x, x1.x, x0.y, x1.y};
       uint32_t f[8];
 #pragma unroll
@@ -231,7 +341,7 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
 
   // this thread's rows 16mt + g (r = 0) and 16mt + g + 8 (r = 1) of each
-  // m-tile: running max (base-2 units of the scaled logits), its own
+  // m-tile: running max (of the scaled logits), its own
   // share of the normaliser, and the output, acc[mt][n][e] at (row 16mt
   // + g + 8(e / 2), dim 8n + 2t + e % 2)
   float m_r[MT][2], l_r[MT][2], acc[MT][HD / 8][4];
@@ -239,7 +349,7 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      m_r[mt][r] = kNegInf;
+      m_r[mt][r] = kMaskedLogit;
       l_r[mt][r] = 0.f;
     }
 #pragma unroll
@@ -259,14 +369,43 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     rt::cp_async_commit();
     const int ti = t0 + it, k0 = ti * BK;
     if (ti < w0 || ti >= w1) continue;   // warp-uniform
-    const float* ks = kv + (it % C::kStages) * C::kStageFloats;
-    const float* vs = ks + BK * C::kLDK;
+    const T* ks = kv + (it % C::kStages) * C::kStageElems;
+    const T* vs = ks + BK * C::kLDK;
 
     // S = Q·Kᵀ: s[mt][n][e] at (row 16mt + g + 8(e / 2), key k0 + 8n + 2t
     // + e % 2); a K fragment is read and split once for every m-tile
     float s[MT][NS][4];
+    if constexpr (C::kFmaS) {
+      // on the FMA units: keys 8n + 2t and 8n + 2t + 1 as float4s
 #pragma unroll
-    for (int kg = 0; kg < KS; kg += C::kGroup) {
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][n][e] = 0.f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        const T* kr = ks + (n * 8 + 2 * t) * C::kLDK;
+#pragma unroll
+        for (int c = 0; c < HD; c += 4) {
+          const float4 y0 = *reinterpret_cast<const float4*>(kr + c);
+          const float4 y1 =
+              *reinterpret_cast<const float4*>(kr + C::kLDK + c);
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const float4 x = make_float4(qrow[mt][r][c], qrow[mt][r][c + 1],
+                                           qrow[mt][r][c + 2],
+                                           qrow[mt][r][c + 3]);
+              s[mt][n][2 * r] = dot4(s[mt][n][2 * r], x, y0);
+              s[mt][n][2 * r + 1] = dot4(s[mt][n][2 * r + 1], x, y1);
+            }
+        }
+      }
+    }
+#pragma unroll
+    for (int kg = 0; kg < (C::kFmaS ? 0 : KS); kg += C::kGroup) {
       float p[MT][NS][4];
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -296,14 +435,13 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int n = 0; n < NS; ++n) {
           // B fragment: (dim 2t, key g) and (dim 2t + 1, key g)
-          const float2 kx = *reinterpret_cast<const float2*>(
-              ks + (n * 8 + g) * C::kLDK + kk * 8 + 2 * t);
+          const float2 kx = lds2(ks + (n * 8 + g) * C::kLDK + kk * 8 + 2 * t);
           uint32_t bh0, bl0, bh1, bl1;
           split3(kx.x, bh0, bl0);
           split3(kx.y, bh1, bl1);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
-            mma3(p[mt][n], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+            mma_split<LO, LO>(p[mt][n], ah[mt], al[mt], bh0, bh1, bl0, bl1);
         }
       }
 #pragma unroll
@@ -315,11 +453,11 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             s[mt][n][e] = kg == 0 ? p[mt][n][e] : s[mt][n][e] + p[mt][n][e];
     }
 
-    // online softmax: a tile every row of the warp keeps skips the mask
-    // arithmetic, and its scale is folded into the exponent
+    // online softmax (natural units of the scaled logits; m_r is a row's
+    // max of s·scale): a tile every row of the warp keeps skips the mask
+    // arithmetic, and a masked logit is kMaskedLogit
     const bool full = MASKED ? mk.full<C::kRows, BK>(k0, qw)
                              : k0 + BK <= Tk;
-    float sc = scale_log2;
     if (!full) {
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt)
@@ -330,30 +468,30 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
             const int kpos = k0 + 8 * n + 2 * t + e % 2;
             const int qpos = qw + 16 * mt + g + 8 * (e / 2);
             const bool ok = MASKED ? mk.ok(kpos, qpos) : kpos < Tk;
-            s[mt][n][e] = ok ? s[mt][n][e] * scale_log2 : kNegInf;
+            s[mt][n][e] = ok ? s[mt][n][e] : kMaskedLogit;
           }
-      sc = 1.f;
     }
     float corr[MT][2];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        float mx = kNegInf;
+        float mx = kMaskedLogit;
 #pragma unroll
         for (int n = 0; n < NS; ++n)
           mx = fmaxf(mx, fmaxf(s[mt][n][2 * r], s[mt][n][2 * r + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        // sc > 0 keeps the max
-        const float m_new = fmaxf(m_r[mt][r], mx * sc);
-        corr[mt][r] = hp::ex2(m_r[mt][r] - m_new);
+        // scale > 0 keeps the max
+        const float m_new = fmaxf(m_r[mt][r], mx * scale);
+        corr[mt][r] = hp::ex2((m_r[mt][r] - m_new) * kLog2e);
         float sum = 0.f;
 #pragma unroll
         for (int n = 0; n < NS; ++n)
 #pragma unroll
           for (int e = 2 * r; e < 2 * r + 2; ++e) {
-            s[mt][n][e] = hp::ex2(fmaf(s[mt][n][e], sc, -m_new));
+            s[mt][n][e] =
+                hp::ex2(fmaf(s[mt][n][e], scale, -m_new) * kLog2e);
             sum += s[mt][n][e];
           }
         l_r[mt][r] = l_r[mt][r] * corr[mt][r] + sum;
@@ -381,15 +519,15 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         split3(s[mt][j][1], ph[mt][2], pl[mt][2]);
         split3(s[mt][j][3], ph[mt][3], pl[mt][3]);
       }
-      const float* vr = vs + (j * 8 + 2 * t) * C::kLDV + g;
+      const T* vr = vs + (j * 8 + 2 * t) * C::kLDV + g;
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n) {
         uint32_t bh0, bl0, bh1, bl1;
-        split3(vr[n * 8], bh0, bl0);
-        split3(vr[C::kLDV + n * 8], bh1, bl1);
+        split3(lds1(vr + n * 8), bh0, bl0);
+        split3(lds1(vr + C::kLDV + n * 8), bh1, bl1);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma3(pv[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+          mma_split<true, LO>(pv[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
       }
     }
 #pragma unroll
@@ -402,7 +540,7 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   rt::cp_async_wait<0>();
 
-  float* op = o + (long)b * S * rs + (long)h * HD;
+  T* op = o + (long)b * S * rs + (long)h * hd;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
@@ -418,35 +556,39 @@ tf32_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       // the row's natural log-sum-exp for the backward; blockIdx.y is
       // b·H + h
       if (LSE && t == 0)
-        lse[(long)blockIdx.y * S + row] = m_r[mt][r] * kLn2 + logf(l);
+        lse[(long)blockIdx.y * S + row] = m_r[mt][r] + logf(l);
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
-        *reinterpret_cast<float2*>(op + row * rs + 8 * n + 2 * t) =
-            make_float2(acc[mt][n][2 * r] * inv, acc[mt][n][2 * r + 1] * inv);
+        if (8 * n + 2 * t < hd)
+          rt::store2(op + row * rs + 8 * n + 2 * t, acc[mt][n][2 * r] * inv,
+                     acc[mt][n][2 * r + 1] * inv);
     }
 }
 
-// Launch on `st`; the signature of flash_attention.cu's Launch.
-template <int HD, bool MASKED, bool LSE>
+// Launch on `st`; the signature of flash_attention.cu's Launch: rows of
+// hd elements (hd <= HD), the scale 1/sqrt(scale_hd).
+template <typename T, int HD, bool MASKED, bool LSE>
 int launch_tf32(const void* q, const void* k, const void* v, void* o,
-                float* lse, int B, int S, int H, int Hkv, Mask mk,
-                cudaStream_t st) {
-  using C = Tf32Fwd<HD>;
+                float* lse, int B, int S, int H, int Hkv, int hd,
+                int scale_hd, Mask mk, cudaStream_t st) {
+  using C = Tf32Fwd<T, HD>;
   // above 48 KB only after the opt-in (hd 64 and 128; hd 16 needs none)
   if constexpr (C::kSmem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tf32_fwd_kernel<HD, MASKED, LSE>,
+        tf32_fwd_kernel<T, HD, MASKED, LSE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(C::kSmem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((S + C::kBQ - 1) / C::kBQ, B * H);
-  // softmax runs in base 2: fold log2(e) into the logit scale
-  const float scale_log2 = 1.4426950408889634f / sqrtf(static_cast<float>(HD));
-  tf32_fwd_kernel<HD, MASKED, LSE><<<grid, C::kThreads, C::kSmem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, Hkv,
-      mk, scale_log2);
+  // 1/√scale_hd rounded once (1.f / sqrtf rounds twice: an ulp off at
+  // 24, 72 or 96, a temperature error that sharp logits read)
+  const float scale =
+      static_cast<float>(1.0 / sqrt(static_cast<double>(scale_hd)));
+  tf32_fwd_kernel<T, HD, MASKED, LSE><<<grid, C::kThreads, C::kSmem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, S, H, Hkv, hd, mk,
+      scale);
   return cudaGetLastError();
 }
 

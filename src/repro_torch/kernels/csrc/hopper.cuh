@@ -303,8 +303,9 @@ inline EncodeTiled encode_tiled() {
 }
 
 // the 4-D map (hd, heads, tokens, batch) of a contiguous bf16 [B, T, Hh,
-// HD] tensor, boxes of 64 x 1 x rows x 1 with the 128-byte swizzle; rows
-// past T read as zeros
+// HD] tensor (HD a multiple of 8: 16-byte strides), boxes of 64 x 1 x
+// rows x 1 with the 128-byte swizzle; rows past T and columns past HD
+// (a box at 64 of HD 72) read as zeros
 inline int tensor_map(CUtensorMap* map, const void* base, int B, int T, int Hh,
                int HD, int rows) {
   const EncodeTiled encode = encode_tiled();

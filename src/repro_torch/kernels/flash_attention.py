@@ -9,38 +9,63 @@ from.  float32 forwards run on the TF32 tensor cores with each operand
 split hi + lo (three products, float32 accuracy; the template
 ``csrc/flash_fwd_tf32.cuh``).
 
-The forms each kernel takes (``_check``):
+The forms each kernel takes (``_check``), every mask and GQA:
 
-- head width 64 or 128 (``HEAD_DIMS``): the forward in bf16 and float32,
-  the backward in bf16 (a float32 backward there is queued in
-  ``ROADMAP.md``);
-- head width 16 or 32 (``F32_HEAD_DIMS``), float32: the library
+- any head width up to 128 (``MAX_HEAD_DIM``), run on the instance
+  above it (``instance``: 16, 32, 64 or 128), the columns past it
+  zero-filled in the kernels' own loads and the scale 1/√hd the true
+  width's.  The kernels read rows of a multiple of 16 bytes (8 bf16, 4
+  floats); another width runs on a zero-padded copy (``row_width``);
+- up to 32 (``SMALL_HEAD_DIM``), float32 and bf16: the library
   ``csrc/flash_attention_f32.cu`` (``flash_attention_f32``, the template
   at 16 and 32, and ``flash_attention_f32_bwd``, its backward on the
-  same split products, each with its own launch count), every mask and
-  GQA; bf16 at these widths is queued in ``ROADMAP.md``;
-- every other width raises.
+  same split products, each with its own launch count; the library
+  keeps the name of its first type);
+- from 33 to 128: the forward in bf16 and float32, the backward in bf16
+  (a float32 backward there is queued in ``ROADMAP.md``);
+- wider heads raise, naming ``ROADMAP.md``, where they are queued.
 
-Both entry points send the small widths there.  CUDA tensors only; the
-op layer sends CPU tensors to ``ref.attention_ref``, which autograd
-differentiates.
+CUDA tensors only; the op layer sends CPU tensors to
+``ref.attention_ref``, which autograd differentiates.
 Any S and T are taken: the kernels mask ragged tile edges.  On ``meta``
 tensors the wrappers record their work (``fwd_work`` / ``bwd_work``,
-``kernels.meta``) and return empty outputs; ``attention_pairs`` counts
-the (query, key) pairs a mask keeps, which both formulas read.
+``kernels.meta``, at the true width) and return empty outputs;
+``attention_pairs`` counts the (query, key) pairs a mask keeps, which
+both formulas read.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build, meta
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-HEAD_DIMS = (64, 128)      # flash_attention(_bwd).cu's widths
-F32_HEAD_DIMS = (16, 32)   # flash_attention_f32.cu's: float32, every form
+HEAD_DIMS = (64, 128)      # flash_attention(_bwd).cu's instances
+F32_HEAD_DIMS = (16, 32)   # flash_attention_f32.cu's: float32 and bf16
+SMALL_HEAD_DIM = F32_HEAD_DIMS[-1]
+MAX_HEAD_DIM = HEAD_DIMS[-1]
+
+
+def instance(hd: int) -> int:
+    """The kernel instance a head width runs on: the narrowest of 16,
+    32, 64 and 128 that holds it."""
+    return next(w for w in F32_HEAD_DIMS + HEAD_DIMS if hd <= w)
+
+
+def row_width(hd: int, dtype: torch.dtype) -> int:
+    """The row width the kernels read: ``hd`` rounded up to 16 bytes (8
+    bf16, 4 floats), their copies' and TMA's unit."""
+    vec = 16 * 8 // torch.finfo(dtype).bits
+    return -(-hd // vec) * vec
+
+
+def _pad(x: torch.Tensor, width: int) -> torch.Tensor:
+    """x [..., hd] as a contiguous zero-padded copy of ``width`` columns."""
+    return F.pad(x, (0, width - x.shape[-1])).contiguous()
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -61,16 +86,11 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"v {tuple(v.shape)}, q_per_kv {q_per_kv}")
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError(f"{name}: q, k, v must share one type")
-    if hd in F32_HEAD_DIMS:
-        if q.dtype != torch.float32:
-            raise ValueError(
-                f"{name}: head_dim {hd} takes float32 only "
-                f"(flash_attention_f32); {q.dtype} there is queued in "
-                "ROADMAP.md")
-    elif hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not in {HEAD_DIMS} (or "
-                         f"{F32_HEAD_DIMS} in float32); other widths are "
-                         "queued in ROADMAP.md")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: float32 or bfloat16, got {q.dtype}")
+    if not 0 < hd <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head_dim {hd} above {MAX_HEAD_DIM}; "
+                         "wider heads are queued in ROADMAP.md")
     return hkv
 
 
@@ -139,12 +159,30 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, S, H, hd]; k, v [B, T, H / q_per_kv, hd] -> [B, S, H, hd].
     Causal keeps ``k_pos <= q_pos``, ``window > 0`` keeps ``k_pos >
     q_pos − window``.  With ``return_lse``, ``(out, lse)`` with lse [B,
-    H, S] float32, the row log-sum-exp of the scaled, masked logits."""
+    H, S] float32, the row log-sum-exp of the scaled, masked logits.
+    Up to head width 32 the small library runs it
+    (``flash_attention_f32``)."""
     b, s, h, hd = q.shape
     hkv = _check("flash_attention", q, k, v, q_per_kv, window, causal)
-    if hd in F32_HEAD_DIMS:
+    width = row_width(hd, q.dtype)
+    if width != hd and not q.is_meta:
+        # rows of a 16-byte multiple: a zero-padded copy, the scale hd's
+        out = _fwd(*(_pad(x, width) for x in (q, k, v)), q_per_kv, causal,
+                   window, return_lse, hd)
+        if return_lse:
+            return out[0][..., :hd].contiguous(), out[1]
+        return out[..., :hd].contiguous()
+    return _fwd(q, k, v, q_per_kv, causal, window, return_lse, hd)
+
+
+def _fwd(q, k, v, q_per_kv, causal, window, return_lse, scale_hd):
+    """The forward on rows the kernels read (``row_width``), the logits
+    scaled by 1/√scale_hd."""
+    b, s, h, hd = q.shape
+    hkv = h // q_per_kv
+    if hd <= SMALL_HEAD_DIM:
         return flash_attention_f32(q, k, v, return_lse, q_per_kv, causal,
-                                   window)
+                                   window, scale_hd)
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -156,12 +194,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.require_cuda("flash_attention", q, k, v)
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
-    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                   _P]
+    fn.argtypes = [_P] * 5 + [_I] * 10 + [_P]
     fn.restype = _I
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), b, s, k.shape[1], h,
-                hkv, hd, int(causal), window, build.dtype_code(q),
+                hkv, hd, scale_hd, int(causal), window, build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention", status)
     flash_attention.launches += 1
@@ -177,9 +214,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0):
     """``(dq, dk, dv)`` of ``flash_attention`` from its output ``o``, its
     ``lse`` and the output's gradient ``do``: q, o, do [B, S, H, hd]; k,
-    v [B, T, H / q_per_kv, hd]; lse [B, H, S] float32; bf16 at head width
-    64 and 128 (a float32 backward at those widths is queued in
-    ``ROADMAP.md``), float32 at 16 and 32 (``flash_attention_f32_bwd``).
+    v [B, T, H / q_per_kv, hd]; lse [B, H, S] float32; bf16 at every
+    head width up to 128, float32 up to 32 (``flash_attention_f32_bwd``;
+    a float32 backward from 33 to 128 is queued in ``ROADMAP.md``).
     Each gradient in its input's type, float32 accumulation on the
     tensor cores (wgmma).  Three
     launches: the row statistics, dK and dV (one block per key tile and
@@ -188,17 +225,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     where the grid is small.  Each gradient row is written once and
     nothing is summed by atomics, so two calls are bitwise equal."""
     b, s, h, hd = q.shape
-    hkv = _check("flash_attention_bwd", q, k, v, q_per_kv, window, causal)
-    if hd in F32_HEAD_DIMS:
-        _check_bwd("flash_attention_bwd", q, o, lse, do)
-        return flash_attention_f32_bwd(q, k, v, o, lse, do, q_per_kv,
-                                       causal, window)
-    if q.dtype != torch.bfloat16:
+    _check("flash_attention_bwd", q, k, v, q_per_kv, window, causal)
+    if hd > SMALL_HEAD_DIM and q.dtype != torch.bfloat16:
         raise NotImplementedError(
             f"flash_attention_bwd: {q.dtype} inputs at head_dim {hd}; the "
-            "backward kernel takes bfloat16 only there (float32 at 64 and "
-            "128 is queued in ROADMAP.md)")
+            "backward kernel takes bfloat16 only above head width "
+            f"{SMALL_HEAD_DIM} (float32 there is queued in ROADMAP.md)")
     _check_bwd("flash_attention_bwd", q, o, lse, do)
+    width = row_width(hd, q.dtype)
+    if width != hd and not q.is_meta:
+        grads = _bwd(*(_pad(x, width) for x in (q, k, v, o)), lse,
+                     _pad(do, width), q_per_kv, causal, window, hd)
+        return tuple(g[..., :hd].contiguous() for g in grads)
+    return _bwd(q, k, v, o, lse, do, q_per_kv, causal, window, hd)
+
+
+def _bwd(q, k, v, o, lse, do, q_per_kv, causal, window, scale_hd):
+    """The backward on rows the kernels read, the logits scaled by
+    1/√scale_hd."""
+    b, s, h, hd = q.shape
+    hkv = h // q_per_kv
+    if hd <= SMALL_HEAD_DIM:
+        return flash_attention_f32_bwd(q, k, v, o, lse, do, q_per_kv,
+                                       causal, window, scale_hd)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.is_meta:
         return meta.stand_in("flash_attention_bwd", bwd_work(
@@ -212,12 +261,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     stats = torch.empty(scratch(b, s, k.shape[1], h, hkv, hd),
                         dtype=torch.float32, device=q.device)
     fn = lib.flash_attention_bwd
-    fn.argtypes = [_P] * 10 + [_I] * 9 + [_P]
+    fn.argtypes = [_P] * 10 + [_I] * 10 + [_P]
     fn.restype = _I
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), stats.data_ptr(), b, s, k.shape[1], h, hkv, hd,
-                int(causal), window, build.dtype_code(q),
+                scale_hd, int(causal), window, build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention_bwd", status)
     flash_attention_bwd.launches += 1
@@ -229,30 +278,33 @@ flash_attention_bwd.launches = 0
 
 def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         return_lse: bool = False, q_per_kv: int = 1,
-                        causal: bool = False, window: int = 0):
-    """The float32 forward at head width 16 or 32 (``csrc/
-    flash_attention_f32.cu``, the 3xTF32 tensor-core template), every
-    form: q [B, S, H, hd], k, v [B, T, H / q_per_kv, hd] float32 -> [B,
-    S, H, hd] (and lse [B, H, S] with ``return_lse``).  Reached through
-    ``flash_attention``, which checks the inputs."""
+                        causal: bool = False, window: int = 0,
+                        scale_hd: int = 0):
+    """The forward at head width up to 32 (``csrc/flash_attention_f32.cu``,
+    the tensor-core template at 16 and 32), float32 or bf16, every form:
+    q [B, S, H, hd], k, v [B, T, H / q_per_kv, hd] -> [B, S, H, hd] (and
+    lse [B, H, S] with ``return_lse``), the logits scaled by
+    1/√``scale_hd`` (default hd).  Reached through ``flash_attention``,
+    which checks the inputs."""
     b, s, h, hd = q.shape
     hkv = h // q_per_kv
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if q.is_meta:
-        work = fwd_work(b, s, k.shape[1], h, hkv, hd, "float32", causal,
+        work = fwd_work(b, s, k.shape[1], h, hkv, hd, _dtype_name(q), causal,
                         window, return_lse)
         return meta.stand_in("flash_attention_f32", work,
                              *((out, lse) if return_lse else (out,)))
     build.require_cuda("flash_attention_f32", q, k, v)
     lib = build.load("flash_attention_f32")
     fn = lib.flash_attention_f32_fwd
-    fn.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 5 + [_I] * 10 + [_P]
     fn.restype = _I
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), b, s, k.shape[1], h,
-                hkv, hd, int(causal), window,
+                hkv, hd, scale_hd or hd, int(causal), window,
+                build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention_f32", status)
     flash_attention_f32.launches += 1
@@ -266,23 +318,25 @@ def flash_attention_f32_bwd(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             lse: torch.Tensor, do: torch.Tensor,
                             q_per_kv: int = 1, causal: bool = False,
-                            window: int = 0):
+                            window: int = 0, scale_hd: int = 0):
     """``(dq, dk, dv)`` of ``flash_attention_f32`` from its output, its
-    lse and the output's gradient, float32 on the TF32 tensor cores
-    (three products of hi + lo splits), every form.  Two launches: dQ
-    with the row statistics (into a float32 scratch of the library's own
-    size), then dK and dV, a kv head's sum over its group of query heads
-    taken in one warp in head order; each gradient row is written once
-    by one warp and nothing is summed by atomics, so two calls are
-    bitwise equal.  Reached through ``flash_attention_bwd``, which
-    checks the inputs."""
+    lse and the output's gradient, on the TF32 tensor cores (the float32
+    operands split hi + lo, three products; bf16 operands exact; in
+    float32 S = Q·Kᵀ on the FMA units, rounded as float32 rounds), every
+    form, each gradient in the inputs' type.  Two launches: dQ with the
+    row statistics (into a float32 scratch of the library's own size),
+    then dK and dV, a kv head's sum over its group of query heads taken
+    in one warp in head order; each gradient row is written once by one
+    warp and nothing is summed by atomics, so two calls are bitwise
+    equal.  Reached through ``flash_attention_bwd``, which checks the
+    inputs."""
     b, s, h, hd = q.shape
     hkv = h // q_per_kv
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.is_meta:
         return meta.stand_in("flash_attention_f32_bwd", bwd_work(
             b, s, k.shape[1], h, hkv, hd, causal, window,
-            dtype_name="float32"), dq, dk, dv)
+            dtype_name=_dtype_name(q)), dq, dk, dv)
     build.require_cuda("flash_attention_f32_bwd", q, k, v, o, lse, do)
     lib = build.load("flash_attention_f32")
     scratch = lib.flash_attention_f32_bwd_scratch
@@ -291,12 +345,12 @@ def flash_attention_f32_bwd(q: torch.Tensor, k: torch.Tensor,
     stats = torch.empty(scratch(b, s, h), dtype=torch.float32,
                         device=q.device)
     fn = lib.flash_attention_f32_bwd
-    fn.argtypes = [_P] * 10 + [_I] * 8 + [_P]
+    fn.argtypes = [_P] * 10 + [_I] * 10 + [_P]
     fn.restype = _I
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), stats.data_ptr(), b, s, k.shape[1], h, hkv, hd,
-                int(causal), window,
+                scale_hd or hd, int(causal), window, build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
     build.check(lib, "flash_attention_f32_bwd", status)
     flash_attention_f32_bwd.launches += 1

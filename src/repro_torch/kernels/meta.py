@@ -8,10 +8,11 @@ then returns empty meta outputs of the kernel's shapes and records the
 kernel's work from its own formulas (kept beside its shape predicates:
 ``flash_attention.fwd_work``, ``ssd_scan.fwd_work`` and so on) instead
 of launching.  Each records under its library's name and its operands'
-type: float32 attention at head width 16 or 32 (dit-small's, the
-reduced LM configs') records as ``flash_attention_f32`` /
-``flash_attention_f32_bwd`` with TF32 FLOPs (both run on the TF32
-tensor cores), which ``roofline.analysis`` puts at the TF32 peak.
+type: attention at head widths up to 32 (dit-small's, the reduced LM
+configs') records as ``flash_attention_f32`` / ``flash_attention_f32_bwd``
+(the small-width library, either type), float32 with TF32 FLOPs, which
+``roofline.analysis`` puts at the TF32 peak, bf16 with bf16 FLOPs; every
+kernel records its work at the true head width.
 Nothing is built or loaded, and the wrapper's launch count does not
 move.  ``roofline.op_analysis`` listens while it counts a step.
 """

@@ -8,17 +8,36 @@ block's are): the kernel reads them through their batch and token
 strides, so nothing is copied.
 
 The kernels are instantiated for heads of 16, 32 and 64
-(``HEAD_DIMS``; mamba2's 64, the reduced configs' 32) and for chunks of
-16, 32 and the multiples of 64 up to 256 (``CHUNKS``; a token tile of
-min(64, Q)).  Chunks that are no multiple of 16 and other head widths
-are queued in ``ROADMAP.md``.  A head of 64·r (jamba's 128) runs as r
-heads of 64 (``split_heads``): the scan
+(``HEAD_DIMS``; mamba2's 64, the reduced configs' 32), for chunks of 16,
+32 and the multiples of 64 up to 256 (``CHUNKS``; a token tile of
+min(64, Q)) and for a d_state that is a multiple of 8 up to 128.  Every
+other form the TPU kernel takes up to a chunk of 256 and a d_state of
+128 runs on those instances through a zero-padded copy of the operands
+(``kernel_form``), which computes the same scan exactly:
+
+- a chunk Q that no instance has runs as the instance above it (8 as
+  16, 24 as 32, 48 as 64, 100 as 128): each chunk's Q tokens are
+  followed by tokens with dt = 0 and x, B, C = 0.  Such a token adds
+  nothing to the chunk's cumsum of dt·A, to its state or to any output,
+  so each chunk's state, its −60 clips and its outputs are those of the
+  chunk of Q: a chunk of 8 is scanned as a chunk of 8, not of 16;
+- a head width p that no instance has runs on zero columns up to the
+  next instance (48 as 64, 80 as 128): y's columns are independent
+  (below), and a zero column of x gives zero y and adds nothing to the
+  gradients;
+- a d_state that is no multiple of 8 runs on zero columns of B and C up
+  to the next one (12 as 16): they add nothing to C·Bᵀ or the state.
+
+The copy's time is part of the call's.  A head of 64·r (jamba's 128)
+runs as r heads of 64 (``split_heads``): the scan
 is linear in x and the state ``[n, p]`` keeps its p columns apart, so
 ``y[..., j]`` depends on ``x[..., j]`` alone, through the head's dt and
 A and the shared B and C.  The split is a view of x (batch and token
 strides kept), dt and A are repeated r times per head, and the
 backward sums each head's r copies of ddt and dA back
 (``merge_head_grads``); dx is a view again, dB and dC are unchanged.
+Chunks over 256, d_state over 128 and chunks that do not divide S raise,
+naming ``ROADMAP.md``.
 
 The kernel is chunk-parallel (``ref.ssd_chunk_scan_parallel_ref`` is
 its algorithm in plain PyTorch): ``C Bᵀ`` once per (lane, chunk), each
@@ -45,6 +64,7 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build, meta
 
@@ -53,9 +73,28 @@ _I = ctypes.c_int
 _L = ctypes.c_long
 HEAD_DIMS = (16, 32, 64)   # the head widths of the kernels' instances
 HEAD_DIM = 64              # a wider head of 64·r runs as r heads of this
-MAX_STATE = 128            # largest d_state (a multiple of 8)
+MAX_STATE = 128            # largest d_state
+STATE_STEP = 8             # the kernels' d_state: a multiple of this
 TILE = 64                  # the largest token tile
 CHUNKS = (16, 32, 64, 128, 192, 256)   # the chunks the kernels take
+MAX_CHUNK = CHUNKS[-1]
+
+
+def kernel_chunk(q: int) -> int:
+    """The chunk instance a chunk of ``q`` runs on: the least of
+    ``CHUNKS`` that holds it."""
+    return next(c for c in CHUNKS if q <= c)
+
+
+def kernel_head(p: int) -> int:
+    """The head width a head of ``p`` runs on: 16, 32 or a multiple of
+    64."""
+    return next((w for w in HEAD_DIMS if p <= w), -(-p // HEAD_DIM) * HEAD_DIM)
+
+
+def kernel_state(n: int) -> int:
+    """The d_state the kernels run: ``n`` up to a multiple of 8."""
+    return -(-n // STATE_STEP) * STATE_STEP
 
 
 def token_tile(q: int) -> int:
@@ -79,14 +118,13 @@ def _check(name: str, x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         raise ValueError(f"{name}: x {tuple(x.shape)}, dt "
                          f"{tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B.shape)}, C {tuple(C.shape)}")
-    if (p not in HEAD_DIMS and p % HEAD_DIM) or n > MAX_STATE or n % 8:
-        raise ValueError(f"{name}: head_dim {p} (needs one of {HEAD_DIMS} "
-                         f"or a multiple of {HEAD_DIM}; other widths are "
-                         f"queued in ROADMAP.md), d_state {n} (needs a "
-                         f"multiple of 8 up to {MAX_STATE})")
-    if q not in CHUNKS or s % q:
-        raise ValueError(f"{name}: chunk {q} must be one of {CHUNKS} "
-                         f"dividing S={s} (other chunks are queued in "
+    if p < 1 or not 0 < n <= MAX_STATE:
+        raise ValueError(f"{name}: head_dim {p}, d_state {n} (up to "
+                         f"{MAX_STATE}; a wider state is queued in "
+                         "ROADMAP.md)")
+    if not 0 < q <= MAX_CHUNK or s % q:
+        raise ValueError(f"{name}: chunk {q} must divide S={s} and be at "
+                         f"most {MAX_CHUNK} (longer chunks are queued in "
                          "ROADMAP.md)")
     if not x.dtype == B.dtype == C.dtype or dt.dtype != torch.float32 \
             or A.dtype != torch.float32:
@@ -182,6 +220,39 @@ def merge_head_grads(grads, p: int):
             dA.view(h, r).sum(-1), dB, dC)
 
 
+def kernel_form(x, dt, B, C, q: int, dy=None):
+    """The operands on the kernels' instances (module docstring): ``(x,
+    dt, B, C, dy, qk)`` with the chunk ``qk`` they run, x and dy ``[b,
+    S / q · qk, h, p']``, dt ``[b, S / q · qk, h]``, B and C ``[b, S / q
+    · qk, n']``: zero-padded copies (each chunk's q tokens followed by
+    qk − q tokens of zeros, x's and dy's columns to p', B's and C's to
+    n'), or the inputs themselves where they already fit."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    qk, pk, nk = kernel_chunk(q), kernel_head(p), kernel_state(n)
+    if (qk, pk, nk) == (q, p, n):
+        return x, dt, B, C, dy, q
+    nc = s // q
+
+    def padded(t, width=None):
+        t = t.reshape(b, nc, q, *t.shape[2:])
+        extra = 0 if width is None else width - t.shape[-1]
+        t = F.pad(t, [0, extra] + [0, 0] * (t.dim() - 4) + [0, qk - q])
+        return t.reshape(b, nc * qk, *t.shape[3:])
+    return (padded(x, pk), padded(dt), padded(B, nk), padded(C, nk),
+            None if dy is None else padded(dy, pk), qk)
+
+
+def _crop(t: torch.Tensor, s: int, q: int, qk: int, width=None):
+    """A ``kernel_form`` result ``[b, S / q · qk, ...]`` back to ``[b, S,
+    ...]``, its last axis cut to ``width``."""
+    b = t.shape[0]
+    t = t.reshape(b, s // q, qk, *t.shape[2:])[:, :, :q]
+    if width is not None:
+        t = t[..., :width]
+    return t.reshape(b, s, *t.shape[3:])
+
+
 def _forward(x, dt, A, B, C, q: int, y):
     """The forward library's passes into new float32 workspaces: all
     four with ``y`` given (written), passes 1-3 with ``y`` None.  Returns
@@ -215,19 +286,22 @@ def _forward(x, dt, A, B, C, q: int, y):
 def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                    B: torch.Tensor, C: torch.Tensor,
                    chunk: int = 256) -> torch.Tensor:
-    """x [b, s, h, p] with p 16, 32 or 64·r; dt [b, s, h] float32; A [h]
-    float32; B, C [b, s, n] in x's type -> y [b, s, h, p] in x's type (r
-    > 1 through ``split_heads``)."""
+    """x [b, s, h, p]; dt [b, s, h] float32; A [h] float32; B, C [b, s,
+    n] in x's type -> y [b, s, h, p] in x's type (p = 64·r with r > 1
+    through ``split_heads``; the forms no instance has through
+    ``kernel_form``)."""
     build.require_no_grad("ssd_chunk_scan", x, dt, A, B, C)
     b, s, h, p, n, q = _check("ssd_chunk_scan", x, dt, A, B, C, chunk)
     if x.is_meta:
         return meta.stand_in("ssd_chunk_scan", fwd_work(
             b, s, h, p, n, q, x.element_size()), torch.empty_like(x))
-    xs, dts, As = split_heads(x, dt, A)
+    xk, dtk, Bk, Ck, _, qk = kernel_form(x, dt, B, C, q)
+    xs, dts, As = split_heads(xk, dtk, A)
     y = torch.empty(xs.shape, dtype=x.dtype, device=x.device)
-    _forward(xs, dts, As, B, C, q, y)
+    _forward(xs, dts, As, Bk, Ck, qk, y)
     ssd_chunk_scan.launches += 1
-    return y.view(b, s, h, p)
+    y = y.view(xk.shape)
+    return y if xk is x else _crop(y, s, q, qk, p)
 
 
 ssd_chunk_scan.launches = 0
@@ -238,7 +312,8 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                        chunk: int = 256):
     """``(dx, ddt, dA, dB, dC)`` of ``ssd_chunk_scan`` for the output
     gradient ``dy [b, s, h, p]`` (x's type; p = 64·r with r > 1 through
-    ``split_heads`` and ``merge_head_grads``), the wrapper of
+    ``split_heads`` and ``merge_head_grads``, the forms no instance has
+    through ``kernel_form``, the gradients cut back), the wrapper of
     ``csrc/ssd_scan_bwd.cu``: x, B, C as the forward takes them (strided
     column slices allowed); dx, dB, dC in x's type, ddt ``[b, s, h]``
     and dA ``[h]`` float32.  It reruns the forward's passes 1-3 (C Bᵀ
@@ -258,25 +333,29 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                                            x.element_size()),
             torch.empty_like(x), torch.empty_like(dt), torch.empty_like(A),
             torch.empty_like(B), torch.empty_like(C))
+    x0 = x
+    x, dt, B, C, dy, qk = kernel_form(x, dt, B, C, q, dy)
+    padded, pk = x, x.shape[-1]
     x, dt, A = split_heads(x, dt, A)
     h = x.shape[2]
+    s_k = x.shape[1]
     dy = dy.contiguous().view(x.shape)
     if dy.data_ptr() % 16:    # the kernel reads dy's rows 16 bytes at a time
         dy = dy.clone()
-    gram, states, decay = _forward(x, dt, A, B, C, q, None)
-    dev, nc = x.device, s // q
+    gram, states, decay = _forward(x, dt, A, B, C, qk, None)
+    dev, nc = x.device, s_k // qk
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
-    ddt = torch.empty((b, s, h), **f32)
+    ddt = torch.empty((b, s_k, h), **f32)
     dA = torch.empty((h,), **f32)
-    dB = torch.empty((b, s, n), dtype=x.dtype, device=dev)
+    dB = torch.empty((b, s_k, B.shape[-1]), dtype=x.dtype, device=dev)
     dC = torch.empty_like(dB)
     # the state's gradient per chunk; Z summed over the heads per chunk;
     # per (lane, chunk, head) and token cum, dt and the partials of ddt
     # (five, then two per token tile); dA per chunk
-    dstate = torch.empty((b, nc, h, n, x.shape[-1]), **f32)
-    zsum = torch.empty((b, nc, q, q), **f32)
-    tok = torch.empty((5 + 2 * (q // token_tile(q)), b, nc, h, q), **f32)
+    dstate = torch.empty((b, nc, h, B.shape[-1], x.shape[-1]), **f32)
+    zsum = torch.empty((b, nc, qk, qk), **f32)
+    tok = torch.empty((5 + 2 * (qk // token_tile(qk)), b, nc, h, qk), **f32)
     daw = torch.empty((b, nc, h), **f32)
     lib = build.load("ssd_scan_bwd")
     fn = lib.ssd_chunk_scan_bwd
@@ -291,11 +370,16 @@ def ssd_chunk_scan_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                 dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(),
                 dC.data_ptr(), dstate.data_ptr(), zsum.data_ptr(),
                 tok.data_ptr(), daw.data_ptr(),
-                b, s, h, n, q, x.shape[-1], build.dtype_code(x),
+                b, s_k, h, B.shape[-1], qk, x.shape[-1], build.dtype_code(x),
                 torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, "ssd_chunk_scan_bwd", status)
     ssd_chunk_scan_bwd.launches += 1
-    return merge_head_grads((dx, ddt, dA, dB, dC), p)
+    grads = merge_head_grads((dx, ddt, dA, dB, dC), pk)
+    if padded is x0:
+        return grads
+    dx, ddt, dA, dB, dC = grads
+    return (_crop(dx, s, q, qk, p), _crop(ddt, s, q, qk), dA,
+            _crop(dB, s, q, qk, n), _crop(dC, s, q, qk, n))
 
 
 ssd_chunk_scan_bwd.launches = 0

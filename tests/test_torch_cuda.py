@@ -930,26 +930,31 @@ def test_flash_f32_hd16_backward_tf32_control(card, b, s, t):
 
 
 def test_flash_hd16_cuda_refuses_other_forms(card):
-    """At head widths 16 and 32 a CUDA call in bf16 raises, naming
-    ``ROADMAP.md`` (queued there); the float32 causal and GQA forms are
-    taken (``test_flash_f32_small_forms``).  Nothing reaches the plain
-    version."""
+    """At head widths 16 and 32 a CUDA call in bf16 launches the small
+    library's kernel in every form (non-causal, causal, GQA) and matches
+    the plain version (bf16 2e-2), as the float32 causal and GQA forms
+    do; a head width of 256 raises, naming ``ROADMAP.md`` (queued
+    there), and launches nothing.  Nothing reaches the plain version."""
     from repro_torch.kernels import flash_attention as fa
     for hd in (16, 32):
         q, k, v, _ = _bwd_inputs(card, 128, 8, 8, hd, torch.float32)
         qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
         ops.reset_launch_counts()
-        for call in (lambda: fa.flash_attention(qb, kb, vb),
-                     lambda: fa.flash_attention(qb, kb, vb, causal=True),
-                     lambda: fa.flash_attention(qb, kb[:, :, :4],
-                                                vb[:, :, :4], 2)):
-            with pytest.raises(ValueError,
-                               match=f"head_dim {hd}.*ROADMAP"):
-                call()
-        assert not any(ops.launch_counts().values())
+        for form in ((1, False), (1, True), (2, False)):
+            g, causal = form
+            kf, vf = (x[:, :, :8 // g].contiguous() for x in (kb, vb))
+            _close((fa.flash_attention(qb, kf, vf, g, causal),),
+                   (ref.attention_ref(qb, kf, vf, g, causal),),
+                   torch.bfloat16)
+        assert ops.launch_counts()["flash_attention_f32"] == 3
         ops.flash(q, k, v, causal=True)
         ops.flash(q, k[:, :, :4], v[:, :, :4], 2)
-        assert ops.launch_counts()["flash_attention_f32"] == 2
+        assert ops.launch_counts()["flash_attention_f32"] == 5
+    ops.reset_launch_counts()
+    wide = torch.zeros((1, 64, 2, 256), device=card)
+    with pytest.raises(ValueError, match="head_dim 256.*ROADMAP"):
+        fa.flash_attention(wide, wide, wide)
+    assert not any(ops.launch_counts().values())
 
 
 # float32 at the small head widths in every form (``flash_attention_f32``:
@@ -1096,13 +1101,22 @@ def test_ssd_kernels_at_small_widths(card, dtype, s, p, n, chunk):
 
 
 def test_ssd_cuda_refuses_the_forms_still_queued(card):
-    """A head of 48 and a chunk of 8 raise on the card, naming
-    ``ROADMAP.md``; nothing is launched."""
+    """A head of 48 and a chunk of 8 now launch the kernel on the card
+    and match the plain version; a chunk of 512 and a d_state of 136
+    raise, naming ``ROADMAP.md``, and launch nothing."""
     from repro_torch.kernels import ssd_scan
     ops.reset_launch_counts()
     for p, chunk in ((48, 16), (32, 8)):
         x, dt, a, bm, cm, _ = _wide_head_inputs(card, torch.float32, 64, 16,
                                                 h=2, p=p)
+        _ssd_close((ssd_scan.ssd_chunk_scan(x, dt, a, bm, cm, chunk),),
+                   (ref.ssd_chunk_scan_ref(x, dt, a, bm, cm, chunk),),
+                   torch.float32)
+    assert ops.launch_counts()["ssd_chunk_scan"] == 2
+    ops.reset_launch_counts()
+    for s, n, chunk in ((1024, 16, 512), (64, 136, 16)):
+        x, dt, a, bm, cm, _ = _wide_head_inputs(card, torch.float32, s, n,
+                                                h=2, p=32)
         with pytest.raises(ValueError, match="ROADMAP"):
             ssd_scan.ssd_chunk_scan(x, dt, a, bm, cm, chunk)
     assert not any(ops.launch_counts().values())
@@ -1202,3 +1216,190 @@ def test_flash_tf32_sharp_softmax(card, hd, hq, hkv, causal):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = allow
     assert control > tol, (control, tol)
+
+
+# the forms slice: bf16 at head widths 16 and 32 and every head width up
+# to 128 (kernels 3 and 7), the SSD scan at any chunk, head and state
+# (kernels 6 and 8).  (dtype, B, S, T, Hq, Hkv, hd, causal, window): the
+# reference's dtype test (bf16 hd 32 causal GQA 4/2 at S 64), bf16 at hd
+# 16 and 32 in the masked forms with ragged S and T, hd 24 and 8 on the
+# small instances, 20 and 6 through the wrapper's zero-padded copy, 40,
+# 72, 96, 100 and 104 on the wide ones (DiT-XL's 72, Phi-3's 96)
+_ANY_WIDTH = [
+    (torch.bfloat16, 1, 64, 64, 4, 2, 32, True, 0),
+    (torch.bfloat16, 2, 333, 333, 8, 2, 16, True, 24),
+    (torch.bfloat16, 1, 300, 520, 4, 4, 32, False, 0),
+    (torch.bfloat16, 2, 200, 200, 6, 2, 24, True, 0),
+    (torch.float32, 2, 200, 200, 6, 2, 24, True, 0),
+    (torch.float32, 1, 300, 300, 4, 4, 8, False, 0),
+    (torch.bfloat16, 1, 130, 130, 4, 2, 20, True, 0),
+    (torch.float32, 1, 130, 130, 4, 2, 6, True, 0),
+    (torch.bfloat16, 2, 1024, 1024, 16, 16, 72, False, 0),
+    (torch.float32, 2, 1024, 1024, 16, 16, 72, False, 0),
+    (torch.bfloat16, 1, 1024, 1024, 8, 8, 96, True, 0),
+    (torch.bfloat16, 1, 520, 520, 8, 2, 40, True, 100),
+    (torch.float32, 1, 520, 520, 8, 2, 40, True, 100),
+    (torch.bfloat16, 2, 260, 390, 4, 2, 104, False, 0),
+    (torch.float32, 2, 260, 390, 4, 2, 100, False, 0),
+]
+
+
+@pytest.mark.parametrize("dtype,b,s,t,hq,hkv,hd,causal,window", _ANY_WIDTH)
+def test_flash_kernels_at_every_width(card, dtype, b, s, t, hq, hkv, hd,
+                                      causal, window):
+    """The forward (with its log-sum-exp) on the instance above hd
+    against the plain version, and the backward where it runs (bf16 at
+    every width, float32 up to 32): bf16 against the recompute twin at
+    2e-2, two launches bitwise equal; float32 against the float64 oracle
+    within max(1e-5, twice the float32 twin's own error), the forward
+    with a TF32 control that must miss that limit where cuBLAS takes
+    TF32 for the plain version's products (S of 200 and more, hd of 16
+    and more).  One launch a call on the library of its instance."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(card, s, hq, hkv, hd, dtype, b=b, t=t)
+    g = hq // hkv
+    small = hd <= fa.SMALL_HEAD_DIM
+    lib = "flash_attention_f32" if small else "flash_attention"
+    ops.reset_launch_counts()
+    out, lse = fa.flash_attention(q, k, v, g, causal, window,
+                                  return_lse=True)
+    assert ops.launch_counts()[lib] == 1
+    want_out, want_lse = ref.attention_lse_ref(q, k, v, g, causal, window)
+    if dtype == torch.bfloat16:
+        _close((out,), (want_out,), dtype)
+    else:
+        oracle = ref.attention_ref(*(x.double() for x in (q, k, v)), g,
+                                   causal, window)
+        lim = max(TOL[dtype], 2 * _rel64(want_out, oracle))
+        assert _rel64(out, oracle) <= lim, (_rel64(out, oracle), lim)
+        if s >= 200 and hd >= 16:
+            allow = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                control = _rel64(ref.attention_ref(q, k, v, g, causal,
+                                                   window), oracle)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = allow
+            assert control > lim, (control, lim)
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * float(
+        want_lse.abs().max())
+    if dtype == torch.float32 and not small:
+        return    # the float32 backward above 32 is queued (ROADMAP.md)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, g, causal, window)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, g, causal, window)
+    assert ops.launch_counts()[lib + "_bwd"] == 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+    if dtype == torch.bfloat16:
+        _close(got, ref.attention_bwd_ref(q, k, v, out, lse, do, g, causal,
+                                          window), dtype)
+        return
+    oracle = ref.attention_bwd_ref(*(x.double() for x in (q, k, v, out, lse,
+                                                          do)), g, causal,
+                                   window)
+    plain = ref.attention_bwd_ref(q, k, v, out, lse, do, g, causal, window)
+    for a, p, w in zip(got, plain, oracle, strict=True):
+        assert _rel64(a, w) <= max(TOL[dtype], 2 * _rel64(p, w))
+
+
+def test_flash_bf16_small_autograd(card):
+    """``ops.flash`` under autograd in bf16 at hd 32, causal GQA 4/2 (the
+    reference's dtype test's form): one forward and one backward launch
+    of the small library, the gradients equal to the backward wrapper's
+    on the same o and lse."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(card, 64, 4, 2, 32, b=1)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.reset_launch_counts()
+    out = ops.flash(*leaves, 2, causal=True)
+    out.backward(do)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_f32"] == counts[
+        "flash_attention_f32_bwd"] == 1 and sum(counts.values()) == 2
+    o, lse = fa.flash_attention(q, k, v, 2, True, return_lse=True)
+    want = fa.flash_attention_bwd(q, k, v, o, lse, do, 2, True)
+    assert all(torch.equal(x.grad, w) for x, w in zip(leaves, want,
+                                                      strict=True))
+
+
+def _sharp_draw(card, seed, b, s, t, hq=8, hkv=8, causal=False, window=0):
+    """q, k, v, dO of one seeded draw at head width 16, q scaled so that
+    the logits' std is ~80."""
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, do = (torch.randn(b, s, hq, 16, generator=g, device=card)
+             for _ in range(2))
+    k, v = (torch.randn(b, t, hkv, 16, generator=g, device=card)
+            for _ in range(2))
+    return q * 80.0, k, v, do
+
+
+@pytest.mark.parametrize("b,s,t", [(2, 333, 333), (1, 300, 520)])
+def test_flash_f32_hd16_backward_sharp_softmax_draws(card, b, s, t):
+    """``test_flash_f32_hd16_backward_sharp_softmax``'s rule on 60 seeded
+    draws: dQ, dK and dV against the float64 oracle within max(1e-5,
+    twice the float32 twin's own error) on every draw (the tensor cores'
+    truncated S sums missed it on 3 of 60 at (2, 333, 333) before S went
+    to the FMA units)."""
+    from repro_torch.kernels import flash_attention as fa
+    misses = []
+    for seed in range(60):
+        q, k, v, do = _sharp_draw(card, seed, b, s, t)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        oracle, plain = _f32_bwd_oracle(q, k, v, o, lse, do)
+        errs = [_rel64(a, w) for a, w in zip(got, oracle, strict=True)]
+        if any(e > max(TOL[torch.float32], 2 * p)
+               for e, p in zip(errs, plain)):
+            misses.append((seed, errs, plain))
+    assert not misses, misses
+
+
+def test_flash_f32_hd16_window_sharp_softmax_draws(card):
+    """The float32 hd-16 forward with a window of 24 (causal GQA 4/2, S
+    333) at sharp logits on 60 seeded draws: the output against the
+    float64 oracle within max(1e-5, twice the float32 plain version's own
+    error) on every draw (the scaled masked logits' rounding missed it on
+    3 of 60 before the softmax kept s·scale − m in one rounding)."""
+    from repro_torch.kernels import flash_attention as fa
+    misses = []
+    for seed in range(60):
+        q, k, v, _ = _sharp_draw(card, seed, 1, 333, 333, hq=4, hkv=2)
+        got = fa.flash_attention(q, k, v, 2, True, 24)
+        oracle = ref.attention_ref(*(x.double() for x in (q, k, v)), 2,
+                                   True, 24)
+        lim = max(TOL[torch.float32],
+                  2 * _rel64(ref.attention_ref(q, k, v, 2, True, 24),
+                             oracle))
+        if _rel64(got, oracle) > lim:
+            misses.append((seed, _rel64(got, oracle), lim))
+    assert not misses, misses
+
+
+# (S, P, N, chunk): the reference's chunk of 8, chunks of 24 and 48, a
+# head of 48 and of 40, states of 12 and 20, a chunk of 100 at S 200
+_SSD_FORMS = [(32, 16, 8, 8), (96, 16, 8, 24), (96, 32, 16, 48),
+              (256, 48, 16, 64), (480, 40, 20, 24), (256, 64, 12, 256),
+              (200, 32, 16, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,p,n,chunk", _SSD_FORMS)
+def test_ssd_kernels_at_every_form(card, dtype, s, p, n, chunk):
+    """Kernels 6 and 8 at the forms no instance has (run on the
+    instances through ``ssd_scan.kernel_form``'s zero-padded copy)
+    against their plain versions at ``_SSD_CARD_TOL`` (ddt 1e-4, dA
+    1e-3), two backward launches bitwise equal, one launch of each a
+    call."""
+    from repro_torch.kernels import ssd_scan
+    x, dt, a, bm, cm, dy = _wide_head_inputs(card, dtype, s, n, h=3, p=p)
+    ops.reset_launch_counts()
+    y = ssd_scan.ssd_chunk_scan(x, dt, a, bm, cm, chunk)
+    got = ssd_scan.ssd_chunk_scan_bwd(x, dt, a, bm, cm, dy, chunk)
+    again = ssd_scan.ssd_chunk_scan_bwd(x, dt, a, bm, cm, dy, chunk)
+    counts = ops.launch_counts()
+    assert counts["ssd_chunk_scan"] == 1 and counts[
+        "ssd_chunk_scan_bwd"] == 2
+    assert all(torch.equal(g, w) for g, w in zip(got, again, strict=True))
+    _ssd_close((y,), (ref.ssd_chunk_scan_ref(x, dt, a, bm, cm, chunk),),
+               dtype)
+    _ssd_close(got, ref.ssd_chunk_scan_bwd_ref(x, dt, a, bm, cm, dy, chunk),
+               dtype)

@@ -109,14 +109,15 @@ def test_flash_route_matches_reference(monkeypatch):
 
 def test_flash_threshold_and_widths(monkeypatch):
     """Only the sequence threshold routes; a CUDA-routed call at a head
-    width the kernel lacks raises instead of running the plain version."""
+    width the kernels lack (above 128, queued in ROADMAP.md) raises
+    instead of running the plain version."""
     assert tdit._flash_ok(4608) and tdit._flash_ok(1024)
     assert not tdit._flash_ok(1023)
     monkeypatch.setattr(tdit, "_FLASH_MIN_SEQ", 8)
     monkeypatch.setattr(ops, "_on_cuda", lambda t: True)
     ops.reset_launch_counts()
-    q = torch.zeros((1, 16, 2, 96))
-    with pytest.raises(ValueError, match="head_dim 96"):
+    q = torch.zeros((1, 16, 2, 256))
+    with pytest.raises(ValueError, match="head_dim 256.*ROADMAP"):
         tdit._attention(q, q, q)
     assert ops.launch_counts()["flash_attention"] == 0
 

@@ -338,11 +338,18 @@ def test_split_heads_is_the_scan_on_wide_heads(p, n, chunk):
 
 
 def test_kernel_check_admits_multiples_of_64_only():
-    """The wrapper's check takes a head of 64·r (128, jamba's) and
-    refuses another width, before it looks at the device."""
+    """The wrapper's check takes a head of 64·r (128, jamba's) as it is
+    and another width too (96 runs on zero columns up to 128, two heads
+    of 64), stopping at the device check; a d_state over 128 is refused,
+    naming ROADMAP.md, before it looks at the device."""
     x, dt, a, bm, cm, _ = _scan_inputs(1, 64, 2, 128, 16, seed=1)
     with pytest.raises(ValueError, match="CUDA"):
         ssd_scan._check("t", x, dt, a, bm, cm, 64)
     x96 = torch.zeros((1, 64, 2, 96))
-    with pytest.raises(ValueError, match="multiple of 64"):
+    assert ssd_scan.kernel_head(96) == 128 and ssd_scan.kernel_head(128) \
+        == 128
+    with pytest.raises(ValueError, match="CUDA"):
         ssd_scan._check("t", x96, dt, a, bm, cm, 64)
+    b136 = torch.zeros((1, 64, 136))
+    with pytest.raises(ValueError, match="d_state 136.*ROADMAP"):
+        ssd_scan._check("t", x96, dt, a, b136, b136, 64)

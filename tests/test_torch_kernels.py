@@ -430,25 +430,34 @@ def test_cpu_dispatch_leaves_launch_counts_untouched():
                                    "flash_attention_f32_bwd": 0}
 
 
-@pytest.mark.parametrize("bad", ["head_dim", "state", "chunk", "types"])
+@pytest.mark.parametrize("bad", ["head_dim", "state", "chunk", "types",
+                                 "divides"])
 def test_ssd_wrapper_rejects_shapes_the_kernel_lacks(bad):
-    """Checked before the device: the kernel takes head_dim 16, 32 or a
-    multiple of 64, d_state a multiple of 8 up to 128, a chunk of 16, 32
-    or a multiple of 64 up to 256 (head 48 and chunk 8 are queued in
-    ROADMAP.md)."""
+    """Checked before the device: the SSD kernels take any head width,
+    a d_state up to 128 and a chunk up to 256 that divides S (a d_state of
+    136 and a chunk of 512 are queued in ROADMAP.md), x, B and C of one
+    type; beside them, the flash kernels take head widths up to 128
+    (256 is queued there too)."""
     b, s, h, p, n, chunk = 1, 128, 2, 64, 16, 64
     if bad == "head_dim":
-        p = 48
-    elif bad == "state":
-        n = 12
+        q = torch.zeros((1, 16, 2, 256))
+        with pytest.raises(ValueError, match="head_dim 256.*ROADMAP"):
+            flash_attention.flash_attention(q, q, q)
+        return
+    if bad == "state":
+        n = 136
     elif bad == "chunk":
-        chunk = 8
+        s, chunk = 1024, 512
+    elif bad == "divides":
+        chunk = 48
     x, dt, a, bm, cm = (torch.from_numpy(t) for t in
                         _ssd_inputs(b, s, h, p, n, seed=17))
     if bad == "types":
         dt = dt.to(torch.bfloat16)
     with pytest.raises(TypeError if bad == "types" else ValueError,
-                       match="ssd_chunk_scan"):
+                       match="ssd_chunk_scan" + (
+                           ".*ROADMAP" if bad in ("state", "chunk")
+                           else "")):
         ssd_scan.ssd_chunk_scan(x, dt, a, bm, cm, chunk)
 
 

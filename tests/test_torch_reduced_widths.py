@@ -214,24 +214,24 @@ def test_meta_ssd_takes_every_small_form(p, chunk):
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_forms_still_queued_raise(device):
-    """bf16 attention at hd 32, the float32 backward at hd 64, an SSD
-    chunk of 8 and a head of 48 raise before any device check, each
+    """Attention at hd 256, the float32 backward at hd 64, an SSD chunk
+    of 512 and a d_state of 136 raise before any device check, each
     naming ``ROADMAP.md``, where they are queued."""
     def t(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
-    q32 = t(1, 64, 4, 32, dtype=torch.bfloat16)
-    kv32 = t(1, 64, 2, 32, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 32 takes float32.*"
-                                         "ROADMAP"):
-        fa.flash_attention(q32, kv32, kv32, 2, True)
+    q256 = t(1, 64, 4, 256, dtype=torch.bfloat16)
+    kv256 = t(1, 64, 2, 256, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 256 .*ROADMAP"):
+        fa.flash_attention(q256, kv256, kv256, 2, True)
     q64, lse = t(1, 64, 2, 64), t(1, 2, 64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fa.flash_attention_bwd(q64, q64, q64, q64, lse, q64)
-    dt, a, bm = t(1, 64, 2), t(2), t(1, 64, 16)
-    with pytest.raises(ValueError, match="chunk 8 .*ROADMAP"):
-        ssd_scan.ssd_chunk_scan(t(1, 64, 2, 32), dt, a, bm, bm, 8)
-    with pytest.raises(ValueError, match="head_dim 48 .*ROADMAP"):
-        ssd_scan.ssd_chunk_scan(t(1, 64, 2, 48), dt, a, bm, bm, 16)
+    dt, a, bm = t(1, 1024, 2), t(2), t(1, 1024, 16)
+    with pytest.raises(ValueError, match="chunk 512 .*ROADMAP"):
+        ssd_scan.ssd_chunk_scan(t(1, 1024, 2, 32), dt, a, bm, bm, 512)
+    bn = t(1, 1024, 136)
+    with pytest.raises(ValueError, match="d_state 136 .*ROADMAP"):
+        ssd_scan.ssd_chunk_scan(t(1, 1024, 2, 48), dt, a, bn, bn, 16)
 
 
 def _reference_init(specs, seed):

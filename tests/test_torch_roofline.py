@@ -143,14 +143,15 @@ def test_meta_route_records_each_kernel_and_launches_nothing():
 
 def test_meta_route_keeps_the_kernels_checks():
     """A shape the kernel refuses on the card is refused on meta too
-    (bf16 attention at head width 16; an SSD head of 48)."""
+    (attention at head width 256; an SSD d_state of 136)."""
     with pytest.raises(ValueError):
-        ops.flash(_meta(1, 8, 2, 16), _meta(1, 8, 2, 16), _meta(1, 8, 2, 16))
+        ops.flash(_meta(1, 8, 2, 256), _meta(1, 8, 2, 256),
+                  _meta(1, 8, 2, 256))
     with pytest.raises(ValueError):
         ssd_scan.ssd_chunk_scan(_meta(1, 64, 2, 48),
                                 _meta(1, 64, 2, dtype=torch.float32),
                                 _meta(2, dtype=torch.float32),
-                                _meta(1, 64, 16), _meta(1, 64, 16), 64)
+                                _meta(1, 64, 136), _meta(1, 64, 136), 64)
 
 
 def test_cpu_tensors_still_take_the_plain_versions():

@@ -19,9 +19,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
                and in the SSD libraries every instantiation (heads of
                16, 32 and 64, token tiles of 16, 32 and 64) of each
                product kernel must hold HMMA; in flash_attention_f32
-               (head widths up to 32, float32 and bf16), kernel by
-               kernel, the sixteen forward and the sixteen backward
-               kernels must hold TF32 HMMA, with no spills in any;
+               (head widths up to 32), kernel by kernel, the sixteen
+               float32 kernels (the TF32 template's forwards and the
+               two-pass backward) must hold TF32 HMMA, their SASS equal
+               to the parent commit's (``F32_SASS_DIGESTS``), and the
+               twenty bf16 kernels (flash_bf16_small.cuh) bf16 HMMA and
+               no TF32 HMMA, with no spills in any;
 3. kernels   — each kernel against its plain PyTorch version at the
                shapes its paths give it (FLUX.1-dev, one yi-9b attention
                layer, one mamba2-370m SSD layer; the FreqCa cache
@@ -53,7 +56,10 @@ Phases, each of which raises (and so exits non-zero) on failure:
                16, chunk 16, float32); and the forms the TPU kernels
                take beyond the instances (``FORM_FLASH_ROWS``,
                ``FORM_SSD_ROWS``): bf16 at head widths 16 and 32 in
-               three forms, hd 72 (bf16 and float32) and hd 96 on the
+               three forms and at dit-small's and the reduced LMs'
+               shapes (each small-width row with its exponentials' time
+               on the SFU logged beside its bound), hd 72 (bf16 and
+               float32) and hd 96 on the
                instance 128, SSD chunks of 8 and 48, a head of 48 and a
                state of 12, each forward and backward against its plain
                version, timed beside its bound and SDPA;
@@ -233,6 +239,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import hashlib
 import json
 import math
 import re
@@ -351,9 +358,11 @@ def log_f32_fwd_bounds(label: str, nbytes: float, flops) -> None:
               "tf32")
 
 
-# the float32 hd-16 backward's products a pair and head width, each run
-# as 3 TF32 products: (a) S, dP and dQ; (b) Sᵀ, dPᵀ, dV and dK
+# the small-width backwards' products a pair and head width: (a) S, dP
+# and dQ; (b) Sᵀ, dPᵀ, dV and dK; in float32 each run as 3 TF32
+# products, in bf16 once on the bf16 tensor cores
 F32_BWD_PRODUCTS = {"flash_bwd_f32_q": 3, "flash_bwd_f32_kv": 4}
+BF16_BWD_PRODUCTS = {"flash_bwd_bf16_q": 3, "flash_bwd_bf16_kv": 4}
 
 
 def log_f32_bwd_bounds(label: str, nbytes: float, flops) -> None:
@@ -1116,6 +1125,8 @@ def ab_trace() -> None:
     ``F32_HD16_ROWS`` beside SDPA's float32 backward (grad through SDPA
     less its forward), with each launch's device time (``device_ms``);
     kernels 3 and 7 at ``SMALL_FLASH_ROWS`` (CUDA events, 5 calls each);
+    kernels 3 and 7 in bf16 at the ``FORM_FLASH_ROWS`` of head width up
+    to 32 (CUDA events, 5 calls each; the backward's launches apart);
     kernels 6 and 8 at ``AB_SSD_ROWS`` in bf16 and float32 (CUDA
     events, 5 calls each); then dit-small's ``train_dit`` at latent
     128 (batch ``DIT_SMALL_TRAIN_BATCH``, ``DIT_SMALL_TRAIN_STEPS``
@@ -1192,6 +1203,30 @@ def ab_trace() -> None:
         log(f"ab_trace flash_attention {label} [{b}, {s}, {hq}/{hkv}, "
             f"{hd}]: forward (with its LSE) {t_f:.4f} ms, backward "
             f"{t_b:.4f} ms a call (CUDA events)")
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+    for label, dtn, b, s, hq, hkv, hd, causal, window, _ in \
+            FORM_FLASH_ROWS:
+        if dtn != "bfloat16" or hd > fa.SMALL_HEAD_DIM:
+            continue
+        q, do = (torch.randn((b, s, hq, hd), generator=gen,
+                             device=dev).bfloat16() for _ in range(2))
+        k, v = (torch.randn((b, s, hkv, hd), generator=gen,
+                            device=dev).bfloat16() for _ in range(2))
+        form = (hq // hkv, causal, window)
+        o, lse = fa.flash_attention(q, k, v, *form, return_lse=True)
+        t_f = time_ms(lambda: fa.flash_attention(q, k, v, *form,
+                                                 return_lse=True), 5)
+
+        def kern():
+            return fa.flash_attention_bwd(q, k, v, o, lse, do, *form)
+        t_b = time_ms(kern, 5)
+        parts = sorted(device_ms(kern, 5).items())
+        log(f"ab_trace flash_attention {label} [{b}, {s}, {hq}/{hkv}, "
+            f"{hd}] bfloat16: forward (with its LSE) {t_f:.4f} ms, backward "
+            f"{t_b:.4f} ms a call (CUDA events); per launch (torch.profiler, "
+            "5 calls) " + "; ".join(f"{n} {ms:.4f} ms" for n, (ms, _) in
+                                    parts))
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
     for label, (b, s, h, p, n, q) in AB_SSD_ROWS:
@@ -1477,6 +1512,214 @@ def bwd_variants(reps: int = 10) -> None:
                 del first, again, st, grads
         del q, k, v, do, o, lse, oracle
         torch.cuda.empty_cache()
+
+
+# ``bf16_variants``: layouts of flash_bf16_small.cuh's three kernels,
+# each (m16 tiles a warp, warps a block, blocks an SM) for the forward,
+# pass (a) and pass (b), compiled into copies of flash_attention_f32
+_BF16_LAYOUT = (r"constexpr int kFwdMT = \d+, kFwdWarps = \d+, "
+                r"kFwdMinBlocks = \d+;\nconstexpr int kQMT = \d+, kQWarps = "
+                r"\d+, kQMinBlocks = \d+;\nconstexpr int kKVMT = \d+, "
+                r"kKVWarps = \d+, kKVMinBlocks = \d+;")
+
+
+def _bf16_layout(fwd: tuple, q: tuple, kv: tuple) -> str:
+    return "\n".join(f"constexpr int k{n}MT = {mt}, k{n}Warps = {w}, "
+                     f"k{n}MinBlocks = {mb};"
+                     for n, (mt, w, mb) in (("Fwd", fwd), ("Q", q),
+                                            ("KV", kv)))
+
+
+# name: (layout or None, source edits (pattern, replacement)): the
+# alternatives the built layout was chosen against; the diagnostic
+# gives wrong numbers by design
+BF16_VARIANTS = {
+    "as built": (None, ()),
+    "1x4 everywhere": (((1, 4, 1), (1, 4, 1), (1, 4, 1)), ()),
+    "1x8 everywhere": (((1, 8, 1), (1, 8, 1), (1, 8, 1)), ()),
+    "masked forward 2x4": (None, ((r"kFwdMaskedMT = 1", "kFwdMaskedMT = 2"),)),
+    "forward keys 32": (None, ((r"kFwdBK = 64", "kFwdBK = 32"),)),
+    "forward 3 blocks an SM": (((2, 4, 3), (2, 4, 1), (2, 4, 1)), ()),
+    "eager rescaling": (None, ((r"kLazy = 8.f", "kLazy = 0.f"),)),
+    "backward 3 blocks an SM": (((2, 4, 1), (2, 4, 3), (2, 4, 3)), ()),
+    "backward 8 warps": (((2, 4, 1), (2, 8, 1), (2, 8, 1)), ()),
+    "no exp (diagnostic)": (None, ((r"hp::ex2\(fmaf\(", "(fmaf("),)),
+}
+
+
+def bf16_variants(reps: int = 20) -> None:
+    """Each of ``BF16_VARIANTS`` (layouts of flash_bf16_small.cuh) built
+    into a copy of flash_attention_f32 under ``build/bf16_variants/``
+    (each kernel's registers and spill bytes logged), then its bf16
+    forward (with the LSE) and backward timed in turn at the bf16
+    ``FORM_FLASH_ROWS`` of head width up to 32: CUDA events over
+    ``reps`` calls and each launch's device time (``device_ms``), beside
+    the max rel err against the plain versions and whether two backward
+    calls are bitwise equal; SDPA's forward and backward beside, on the
+    host's and the device's clocks.  It checks nothing:
+    ``python3 -c 'import chip_smoke; chip_smoke.bf16_variants()'``."""
+    import ctypes
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import build, ref
+    root = ROOT / "build" / "bf16_variants"
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for i, (name, (layout, edits)) in enumerate(BF16_VARIANTS.items()):
+        d = root / str(i)
+        shutil.copytree(build.CSRC, d)
+        f = d / "flash_bf16_small.cuh"
+        if layout is not None:
+            edits = ((_BF16_LAYOUT, _bf16_layout(*layout)),) + edits
+        for pattern, repl in edits:
+            text, n = re.subn(pattern, repl, f.read_text())
+            if n == 0:
+                raise AssertionError(f"bf16_variants {name}: {pattern!r} "
+                                     "matched nothing")
+            f.write_text(text)
+        procs[name] = d / "lib.so", subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(d / "lib.so"),
+             str(d / "flash_attention_f32.cu")], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, (path, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            log(f"bf16_variants {name}: build failed\n{out[-3000:]}")
+            continue
+        regs = {}
+        for part in out.split("Compiling entry function")[1:]:
+            head = part.splitlines()[0]
+            m = re.search(r"flash_(fwd|bwd)_bf16_(\w*?)_?kernelILi(\d+)E"
+                          r"(?:Li(\d)E)?Lb(\d)", head)
+            r = re.search(r"Used (\d+) registers", part)
+            sp = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                           r"loads", part)
+            if m and r:
+                key = "_".join(x for x in m.groups() if x)
+                regs[key] = (int(r.group(1)), int(sp.group(1))
+                             + int(sp.group(2)) if sp else -1)
+        log(f"bf16_variants {name}: (registers, spill bytes) {regs}")
+        libs[name] = ctypes.CDLL(str(path))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, dtn, b, s, hq, hkv, hd, causal, window, _ in \
+            FORM_FLASH_ROWS:
+        if dtn != "bfloat16" or hd > 32:
+            continue
+        q, do = (torch.randn((b, s, hq, hd), generator=gen,
+                             device=dev).bfloat16() for _ in "qd")
+        k, v = (torch.randn((b, s, hkv, hd), generator=gen,
+                            device=dev).bfloat16() for _ in "kv")
+        g = hq // hkv
+        want_o, want_l = ref.attention_lse_ref(q, k, v, g, causal, window)
+        form = (b, s, s, hq, hkv, hd, hd, int(causal), window, 1)
+        mask = ref.attention_mask(s, s, causal, window, dev) if window \
+            else None
+        leaves = [x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v)]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=g > 1)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(sdpa(), leaves, do.transpose(1, 2))
+        t_sf = time_ms(sdpa, reps)
+        t_sb = time_ms(sdpa_bwd, reps) - t_sf
+        d_sf = sum(m for m, _ in device_ms(sdpa, 5).values())
+        d_sb = sum(m for m, _ in device_ms(sdpa_bwd, 5).values()) - d_sf
+        log(f"bf16_variants {label} [{b}, {s}, {hq}/{hkv}, {hd}] SDPA: "
+            f"forward {t_sf:.4f} ms, backward {t_sb:.4f} ms (CUDA events); "
+            f"device forward {d_sf:.4f} ms, backward {d_sb:.4f} ms (every "
+            "launch of the call, torch.profiler)")
+        del leaves
+        for rnd in range(2):
+            for name, lib in libs.items():
+                fwd = lib.flash_attention_f32_fwd
+                fwd.argtypes, fwd.restype = [P] * 5 + [I] * 10 + [P], I
+                o = torch.empty_like(q)
+                lse = torch.empty((b, hq, s), device=dev)
+
+                def call_f(fwd=fwd, o=o, lse=lse):
+                    if fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), lse.data_ptr(), *form, stream):
+                        raise RuntimeError(f"bf16_variants {name}: fwd")
+                call_f()
+                e_f = max(max_rel(o, want_o), max_rel(lse, want_l))
+                scratch = lib.flash_attention_f32_bwd_scratch
+                scratch.argtypes, scratch.restype = [I] * 3, ctypes.c_long
+                st = torch.empty(scratch(b, s, hq), device=dev)
+                bwd = lib.flash_attention_f32_bwd
+                bwd.argtypes, bwd.restype = [P] * 10 + [I] * 10 + [P], I
+                grads = [torch.empty_like(x) for x in (q, k, v)]
+
+                def call_b(bwd=bwd, grads=grads, st=st, o=o, lse=lse):
+                    if bwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                           o.data_ptr(), lse.data_ptr(), do.data_ptr(),
+                           *(x.data_ptr() for x in grads), st.data_ptr(),
+                           *form, stream):
+                        raise RuntimeError(f"bf16_variants {name}: bwd")
+                    return [x.clone() for x in grads]
+                first, again = call_b(), call_b()
+                same = all(torch.equal(x, y) for x, y in zip(first, again))
+                want = ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal,
+                                             window)
+                e_b = max(max_rel(x, w) for x, w in zip(first, want))
+                del first, again, want
+                t_f, t_b = time_ms(call_f, reps), time_ms(call_b, reps)
+                split = "; ".join(
+                    f"{n.removeprefix('void bf16small::')[:24]} {m:.4f} ms"
+                    for n, (m, _) in sorted(device_ms(
+                        lambda: (call_f(), call_b()), 5).items())
+                    if "bf16" in n)
+                log(f"bf16_variants {label} [{b}, {s}, {hq}/{hkv}, {hd}] "
+                    f"round {rnd} {name}: forward {t_f:.4f} ms, backward "
+                    f"{t_b:.4f} ms (CUDA events); device {split}; max rel "
+                    f"err fwd {e_f:.1e} bwd {e_b:.1e}, bitwise {same}")
+                del o, lse, st, grads
+        del q, k, v, do, want_o, want_l
+        torch.cuda.empty_cache()
+
+
+def wrapper_overhead(reps: int = 200) -> None:
+    """The host's time a call of the small-width flash wrappers, at a
+    shape whose kernels take microseconds ([1, 64, 2, 16] bf16): the
+    forward with its LSE, the backward, and SDPA's forward beside them,
+    each the mean of ``reps`` calls on the host's clock ending in a
+    synchronize.  It checks nothing:
+    ``python3 -c 'import chip_smoke; chip_smoke.wrapper_overhead()'``."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    dev = torch.device("cuda")
+    q, k, v, do = (torch.randn((1, 64, 2, 16), device=dev).bfloat16()
+                   for _ in range(4))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    calls = {"flash_attention (LSE)": lambda: fa.flash_attention(
+                 q, k, v, return_lse=True),
+             "flash_attention_bwd": lambda: fa.flash_attention_bwd(
+                 q, k, v, o, lse, do),
+             "SDPA forward": lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt)}
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        log(f"wrapper_overhead {name} [1, 64, 2, 16] bf16: "
+            f"{(time.perf_counter() - t0) / reps * 1e3:.4f} ms a call "
+            f"(host clock, {reps} calls)")
 
 
 def profiler_probe() -> None:
@@ -6116,29 +6359,150 @@ F32_HD16_KERNELS = {
 }
 
 
+# flash_attention_f32's sixteen float32 kernels, whose source the bf16
+# redesign of the small widths left as it was: sha256 (first 16 hex
+# digits) of each one's cuobjdump listing as the parent commit built it,
+# and the nvcc release that built them (compared only under that one)
+F32_SASS_NVCC = "Build cuda_12.9.r12.9/compiler.36037853_0"
+F32_SASS_DIGESTS = {
+    "_ZN5flash15tf32_fwd_kernelIfLi16ELb0ELb0"
+    "EEEvPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "7035d3bdba00c42c",
+    "_ZN5flash15tf32_fwd_kernelIfLi16ELb0ELb1"
+    "EEEvPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "7a5ff84e2dcce99d",
+    "_ZN5flash15tf32_fwd_kernelIfLi16ELb1ELb0"
+    "EEEvPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "1c84a80536b4cece",
+    "_ZN5flash15tf32_fwd_kernelIfLi16ELb1ELb1"
+    "EEEvPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "ff73f04c4a2c7582",
+    "_ZN5flash15tf32_fwd_kernelIfLi32ELb0ELb0"
+    "EEEvPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "f21b2d55a44d3214",
+    "_ZN5flash15tf32_fwd_kernelIfLi32ELb0ELb1"
+    "EEEvPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "1f52da5cb3468c5b",
+    "_ZN5flash15tf32_fwd_kernelIfLi32ELb1ELb0"
+    "EEEvPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "7697c05d69b71e77",
+    "_ZN5flash15tf32_fwd_kernelIfLi32ELb1ELb1"
+    "EEEvPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "26a345428c568df6",
+    "_ZN6f32bwd22flash_bwd_f32_q_kernelIfLi16"
+    "ELb0EEEvPKT_S3_S3_S3_PKfS3_P6float2PS1_iiiiN5flash4MaskEif":
+        "596ec8251f1652a8",
+    "_ZN6f32bwd22flash_bwd_f32_q_kernelIfLi16"
+    "ELb1EEEvPKT_S3_S3_S3_PKfS3_P6float2PS1_iiiiN5flash4MaskEif":
+        "8fabdd60d19a5c64",
+    "_ZN6f32bwd22flash_bwd_f32_q_kernelIfLi32"
+    "ELb0EEEvPKT_S3_S3_S3_PKfS3_P6float2PS1_iiiiN5flash4MaskEif":
+        "9e2acccc104bb1d7",
+    "_ZN6f32bwd22flash_bwd_f32_q_kernelIfLi32"
+    "ELb1EEEvPKT_S3_S3_S3_PKfS3_P6float2PS1_iiiiN5flash4MaskEif":
+        "050426aa6e5ce27b",
+    "_ZN6f32bwd23flash_bwd_f32_kv_kernelIfLi1"
+    "6ELb0EEEvPKT_S3_S3_S3_PK6float2PS1_S7_iiiiN5flash4MaskEif":
+        "5a5f6b58828e4225",
+    "_ZN6f32bwd23flash_bwd_f32_kv_kernelIfLi1"
+    "6ELb1EEEvPKT_S3_S3_S3_PK6float2PS1_S7_iiiiN5flash4MaskEif":
+        "a65ab320427e4fef",
+    "_ZN6f32bwd23flash_bwd_f32_kv_kernelIfLi3"
+    "2ELb0EEEvPKT_S3_S3_S3_PK6float2PS1_S7_iiiiN5flash4MaskEif":
+        "5acb11861e67ffa2",
+    "_ZN6f32bwd23flash_bwd_f32_kv_kernelIfLi3"
+    "2ELb1EEEvPKT_S3_S3_S3_PK6float2PS1_S7_iiiiN5flash4MaskEif":
+        "fc21d5a595ade4e4",
+}
+
+
+def nvcc_release() -> str:
+    """The last line of ``nvcc --version`` (its build string)."""
+    from repro_torch.kernels import build
+    out = subprocess.run([build.nvcc(), "--version"], capture_output=True,
+                         text=True, check=True, timeout=60).stdout
+    return out.strip().splitlines()[-1]
+
+
+def sass_digests(funcs: dict) -> dict:
+    """{kernel: sha256 of its SASS listing, first 16 hex digits}, each
+    line's whitespace collapsed (cuobjdump pads its columns to the
+    library's longest line, which another kernel's name moves)."""
+    return {n: hashlib.sha256("\n".join(
+                " ".join(line.split()) for line in c.splitlines()
+                if line.strip()).encode()).hexdigest()[:16]
+            for n, c in funcs.items()}
+
+
+def f32_kernels(funcs: dict) -> dict:
+    """The float32 instantiations among flash_attention_f32's kernels
+    (template argument ``float``: ``...kernelIf...`` mangled)."""
+    return {n: c for n, c in funcs.items()
+            if any(f"{k}If" in n for k in ("tf32_fwd_kernel",
+                                            "flash_bwd_f32_q_kernel",
+                                            "flash_bwd_f32_kv_kernel"))}
+
+
+def f32_sass_record() -> None:
+    """Build flash_attention_f32 from the tree this file is imported
+    from and log the nvcc release and its float32 kernels' SASS digests,
+    ``F32_SASS_NVCC`` and ``F32_SASS_DIGESTS`` as that tree builds them;
+    from the root of the parent commit's checkout (this file copied
+    there): ``python3 -c 'import chip_smoke as c; c.f32_sass_record()'``."""
+    from repro_torch.kernels import build
+    build.build(["flash_attention_f32"])
+    f32 = f32_kernels(sass_functions("flash_attention_f32"))
+    log(f"F32_SASS_NVCC = {nvcc_release()!r}")
+    log(f"F32_SASS_DIGESTS = {sass_digests(f32)!r} ({len(f32)} kernels)")
+
+
+def bf16_hmma(code: str) -> int:
+    """The bf16 tensor-core instructions (mma.sync m16n8k16) in SASS."""
+    return sum(1 for line in code.splitlines()
+               if "HMMA.16816.F32.BF16" in line)
+
+
 def f32_build_checks() -> None:
-    """flash_attention_f32, kernel by kernel: its sixteen forward kernels
-    (the TF32 template at hd 16 and 32, float32 and bf16, masked or not,
-    with and without the LSE) and its sixteen backward kernels (at hd 16
-    and 32, float32 and bf16, masked or not: ``flash_bwd_f32_q_kernel``,
-    dQ and the row statistics; ``flash_bwd_f32_kv_kernel``, dK and dV;
-    the same split products) each hold TF32 HMMA, and ptxas reports no
-    spills in any of the thirty-two.
-    Their float32 accuracy rests on the tolerances and on their TF32
+    """flash_attention_f32, kernel by kernel.  Its sixteen float32
+    kernels (the TF32 template's forwards, ``tf32_fwd_kernel``, at hd 16
+    and 32, masked or not, with and without the LSE; the two-pass
+    backward's ``flash_bwd_f32_q_kernel`` and ``flash_bwd_f32_kv_kernel``
+    at 16 and 32, masked or not) each hold TF32 HMMA, and their SASS is
+    the parent commit's (``F32_SASS_DIGESTS``, under ``F32_SASS_NVCC``;
+    under another nvcc the log says so and nothing is compared).  Its
+    twenty bf16 kernels (``flash_bf16_small.cuh``: eight forwards
+    ``flash_fwd_bf16_kernel``, four dQ passes ``flash_bwd_bf16_q_kernel``
+    and eight dK/dV passes ``flash_bwd_bf16_kv_kernel``, at one and two
+    head slices) each hold bf16 HMMA and no TF32 HMMA.  ptxas reports no
+    spills in any of the thirty-six.
+    Their accuracy rests on the tolerances and on the float32 TF32
     controls that must fail (``f32_hd16_rows``, ``small_flash_rows``,
     the dit_small serve and reference checks)."""
-    counts = {n: tf32_hmma(c)
-              for n, c in sass_functions("flash_attention_f32").items()}
-    fwd = [n for n in counts if "tf32_fwd_kernel" in n]
-    bwd = [n for n in counts if "flash_bwd_f32_" in n]
+    funcs = sass_functions("flash_attention_f32")
+    f32 = f32_kernels(funcs)
+    bf = {n: c for n, c in funcs.items()
+          if "flash_fwd_bf16_kernel" in n or "flash_bwd_bf16_" in n}
+    tf = {n: tf32_hmma(c) for n, c in funcs.items()}
+    bh = {n: bf16_hmma(c) for n, c in bf.items()}
     spills = ptxas_spills("flash_attention_f32")
-    log(f"flash_attention_f32 TF32 HMMA by kernel: {counts}; spill bytes "
-        f"{sorted(set(spills.values()))} over {len(spills)} kernels")
-    if len(fwd) != 16 or len(bwd) != 16 or len(counts) != 32 \
-            or not all(counts.values()) \
-            or len(spills) != 32 or any(spills.values()):
-        raise AssertionError(f"flash_attention_f32 build: SASS {counts}, "
-                             f"spills {spills}")
+    digests = sass_digests(f32)
+    release = nvcc_release()
+    same = digests == F32_SASS_DIGESTS if release == F32_SASS_NVCC else None
+    log(f"flash_attention_f32 TF32 HMMA by kernel: {tf}; bf16 HMMA of the "
+        f"bf16 kernels: {bh}; spill bytes {sorted(set(spills.values()))} "
+        f"over {len(spills)} kernels")
+    log(f"flash_attention_f32 float32 SASS digests ({release}): {digests}; "
+        + ("equal to the parent's" if same else
+           "not compared: the parent's were recorded under "
+           f"{F32_SASS_NVCC!r}" if same is None else
+           f"DIFFERENT from the parent's {F32_SASS_DIGESTS}"))
+    if len(f32) != 16 or len(bf) != 20 or len(funcs) != 36 \
+            or not all(tf[n] for n in f32) or any(tf[n] for n in bf) \
+            or not all(bh.values()) or same is False \
+            or len(spills) != 36 or any(spills.values()):
+        raise AssertionError(f"flash_attention_f32 build: TF32 HMMA {tf}, "
+                             f"bf16 HMMA {bh}, float32 SASS as the "
+                             f"parent's: {same}, spills {spills}")
 
 
 @contextlib.contextmanager
@@ -6160,24 +6524,50 @@ def max_rel(got, want) -> float:
             / want.double().abs().max()).item()
 
 
-def f32_bwd_split(name: str, fn, flops: float, reps: int = 5) -> None:
-    """Log each launch of one float32 hd-16 backward call ``fn``
+def small_bwd_split(name: str, fn, flops: float, reps: int = 5) -> None:
+    """Log each launch of one small-width backward call ``fn``
     (``bwd_work``'s count ``flops``) apart, device times from
-    ``device_ms``, each beside the rate of the TF32 products its pass
-    runs (``F32_BWD_PRODUCTS``, 3 TF32 products each)."""
+    ``device_ms``, each beside the rate of the products its pass runs:
+    float32 ``F32_BWD_PRODUCTS`` (3 TF32 products each), bf16
+    ``BF16_BWD_PRODUCTS`` (one bf16 product each)."""
     rec = device_ms(fn, reps)
     parts = []
     for n, (ms, k) in sorted(rec.items()):
         ms = ms * reps / k    # one launch a call: the mean of those recorded
         text = f"{n} {ms:.4f} ms"
-        if n in F32_BWD_PRODUCTS:
-            ops_n = flops * 2 * F32_BWD_PRODUCTS[n] * 3 / 10
-            text += (f" ({rate(ops_n, ms, bound_ms(0, ops_n, 'tf32')[0])}, "
-                     "of its TF32 products)")
+        for table, runs, op in ((F32_BWD_PRODUCTS, 3, "tf32"),
+                                (BF16_BWD_PRODUCTS, 1, "bfloat16")):
+            if n in table:
+                ops_n = flops * 2 * table[n] * runs / 10
+                text += (f" ({rate(ops_n, ms, bound_ms(0, ops_n, op)[0])}, "
+                         f"of its {op} products)")
         parts.append(text)
     log(f"kernel {name} per launch (torch.profiler, {reps} calls): "
         + ("; ".join(parts) if parts else
            "the profiler recorded no launch"))
+
+
+_SM_CLOCK_MHZ = []
+
+
+def log_exp_bound(label: str, pairs: int, exps: int) -> None:
+    """Beside a small-width flash row's bound (its products at the
+    tensor-core peak): the SFU's least time for its exponentials,
+    ``pairs`` kept (query, key) pairs and heads at ``exps`` MUFU.EX2 a
+    pair (the forward 1; the backward 2, P recomputed in both passes),
+    16 a clock an SM at the maximum SM clock ``nvidia-smi`` reports."""
+    import torch
+    if not _SM_CLOCK_MHZ:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm",
+             "--format=csv,noheader,nounits"], capture_output=True,
+            text=True, check=True, timeout=60)
+        _SM_CLOCK_MHZ.append(float(out.stdout.split()[0]))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ms = pairs * exps / (sms * 16 * _SM_CLOCK_MHZ[0] * 1e6) * 1e3
+    log(f"kernel {label} exp_ms={ms:.4f} ({exps} MUFU.EX2 a kept pair and "
+        f"head, {pairs} of them; {sms} SMs x 16 a clock at "
+        f"{_SM_CLOCK_MHZ[0]:.0f} MHz)")
 
 
 def f32_hd16_rows(row) -> None:
@@ -6194,7 +6584,7 @@ def f32_hd16_rows(row) -> None:
     peak's and the design's products logged beside); library: SDPA's
     float32 forward, and its backward (grad through SDPA less its
     forward), timed only; each backward launch timed apart
-    (``f32_bwd_split``)."""
+    (``small_bwd_split``)."""
     import torch
     import torch.nn.functional as F
 
@@ -6224,6 +6614,7 @@ def f32_hd16_rows(row) -> None:
                 lambda lse=lse: fa.flash_attention(q, k, v, return_lse=lse),
                 plain, nb, work["tf32"], library_ms=t_sf, op_dtype="tf32")
             log_f32_fwd_bounds(f"{name} [float32]", nb, work["tf32"])
+            log_exp_bound(f"{name} [float32]", b * h * s * s, 1)
         want = ref.attention_ref(q, k, v)
         with tf32_on():
             control = [max_rel(ref.attention_ref(q, k, v), want)]
@@ -6265,7 +6656,8 @@ def f32_hd16_rows(row) -> None:
             work["tf32"], library_ms=t_sb, checked=(err, max(rels)),
             op_dtype="tf32")
         log_f32_bwd_bounds(f"{name} [float32]", nb, work["tf32"])
-        f32_bwd_split(name, kern, work["tf32"])
+        log_exp_bound(f"{name} [float32]", b * h * s * s, 2)
+        small_bwd_split(name, kern, work["tf32"])
         del q, k, v, do, o, lse, leaves
         torch.cuda.empty_cache()
 
@@ -6358,6 +6750,8 @@ def small_flash_rows(row) -> None:
             lambda: ref.attention_lse_ref(q, k, v, *form), nb, work["tf32"],
             library_ms=t_sf, op_dtype="tf32")
         log_f32_fwd_bounds(f"{name} [float32]", nb, work["tf32"])
+        pairs = b * hq * fa.attention_pairs(s, causal, window, t)
+        log_exp_bound(f"{name} [float32]", pairs, 1)
         o, lse = fa.flash_attention(q, k, v, *form, return_lse=True)
 
         def kern():
@@ -6402,7 +6796,8 @@ def small_flash_rows(row) -> None:
             work["tf32"], library_ms=t_sb, checked=(err, max(rels)),
             op_dtype="tf32")
         log_f32_bwd_bounds(f"{name} [float32]", nb, work["tf32"])
-        f32_bwd_split(name, kern, work["tf32"])
+        log_exp_bound(f"{name} [float32]", pairs, 2)
+        small_bwd_split(name, kern, work["tf32"])
         del q, k, v, do, o, lse, leaves
         torch.cuda.empty_cache()
 
@@ -6451,7 +6846,9 @@ def small_ssd_rows(row) -> None:
 # non-causal at [2, 1024, 16] (DiT-XL/2's and PixArt-α's head at 512²,
 # instance 128), bf16 with its backward and float32 forward alone (a
 # float32 backward above 32 is queued); hd 96 causal MHA at [1, 4096,
-# 32] in bf16 (Phi-3-mini's head, instance 128) with its backward
+# 32] in bf16 (Phi-3-mini's head, instance 128) with its backward; and
+# bf16 at the float32 small-width rows' shapes: dit-small's [2, 4096, 8,
+# 16] MHA and the reduced LMs' [16, 2048, 4/2, 32] causal GQA
 FORM_FLASH_ROWS = tuple(
     (f"forms bf16_hd{hd} {form}", "bfloat16", 2, 2048, 8, hkv, hd, causal,
      window, True)
@@ -6463,7 +6860,11 @@ FORM_FLASH_ROWS = tuple(
     ("forms hd72 mha", "bfloat16", 2, 1024, 16, 16, 72, False, 0, True),
     ("forms f32_hd72 mha", "float32", 2, 1024, 16, 16, 72, False, 0, False),
     ("forms hd96 causal mha", "bfloat16", 1, 4096, 32, 32, 96, True, 0,
-     True))
+     True),
+    ("forms bf16_hd16 mha 2x4096", "bfloat16", 2, 4096, 8, 8, 16, False, 0,
+     True),
+    ("forms bf16_hd32 causal gqa 4/2 16x2048", "bfloat16", 16, 2048, 4, 2,
+     32, True, 0, True))
 # kernels 6 and 8 at the new forms, bf16 (the main path's type), on one
 # mamba2-370m layer's widths (32 heads of 64, N 128, chunk 256) with one
 # width changed: (label, b, s, h, p, n, q) — a chunk of 8 (the reference
@@ -6509,7 +6910,10 @@ def form_flash_rows(row) -> None:
     equal; bounds from ``fwd_work`` / ``bwd_work`` at the true width (the
     padded instance's waste shows as distance from them); library:
     SDPA's forward and its backward (grad through SDPA less its forward),
-    a boolean mask for the window."""
+    a boolean mask for the window.  At head widths up to 32 the
+    exponentials' time on the SFU is logged beside the bound
+    (``log_exp_bound``) and the backward's two launches are timed apart
+    (``small_bwd_split``)."""
     import torch
     import torch.nn.functional as F
 
@@ -6546,6 +6950,10 @@ def form_flash_rows(row) -> None:
             library_ms=t_sf, op_dtype=op)
         log(f"kernel {name} [{dtn}] runs on the instance of head width "
             f"{fa.instance(hd)}")
+        small = hd <= fa.SMALL_HEAD_DIM
+        pairs = b * hq * fa.attention_pairs(s, causal, window)
+        if small:
+            log_exp_bound(f"{name} [{dtn}]", pairs, 1)
         if bwd:
             t_sb = time_ms(lambda: torch.autograd.grad(
                 sdpa(), leaves, do.transpose(1, 2)), 5) - t_sf
@@ -6565,8 +6973,11 @@ def form_flash_rows(row) -> None:
             work, nb = fa.bwd_work(b, s, s, hq, hkv, hd, causal, window,
                                    dtype_name=dtn)
             (op, fl), = work.items()
-            row(f"flash_attention_bwd[{label}]", dtn, kern, plain, nb, fl,
-                library_ms=t_sb, op_dtype=op)
+            name = f"flash_attention_bwd[{label}]"
+            row(name, dtn, kern, plain, nb, fl, library_ms=t_sb, op_dtype=op)
+            if small:
+                log_exp_bound(f"{name} [{dtn}]", pairs, 2)
+                small_bwd_split(name, kern, fl)
             del o, lse
         del q, k, v, do, leaves
         torch.cuda.empty_cache()
@@ -6811,22 +7222,23 @@ def forms_phase(device: str = "cuda") -> dict:
 # replaced)
 def forms_kernels() -> list:
     out = []
-    fwd_src = {True: "src/repro_torch/kernels/csrc/flash_fwd_tf32.cuh",
-               False: "src/repro_torch/kernels/csrc/flash_attention.cu"}
+    csrc = "src/repro_torch/kernels/csrc/"
     for label, dtn, b, s, hq, hkv, hd, causal, window, bwd in \
             FORM_FLASH_ROWS:
         small = hd <= 32
-        src = (fwd_src[True] if small or dtn == "float32"
-               else fwd_src[False])
+        if small and dtn == "bfloat16":
+            src = bwd_src = csrc + "flash_bf16_small.cuh"
+        else:
+            src = csrc + ("flash_fwd_tf32.cuh" if dtn == "float32"
+                          else "flash_attention.cu")
+            bwd_src = csrc + ("flash_attention_f32.cu" if small
+                              else "flash_attention_bwd.cu")
         out.append((f"flash_attention[{label}]", dtn, _flash_counter(hd),
                     src, "src/repro/kernels/flash_attention.py:79", label))
         if bwd:
             out.append((
                 f"flash_attention_bwd[{label}]", dtn,
-                _flash_counter(hd, True),
-                "src/repro_torch/kernels/csrc/" + (
-                    "flash_attention_f32.cu" if small
-                    else "flash_attention_bwd.cu"),
+                _flash_counter(hd, True), bwd_src,
                 "none: XLA autodiff of src/repro/models/attention.py:89 "
                 "blockwise_sdpa", label))
     for label, *_ in FORM_SSD_ROWS:

@@ -98,6 +98,22 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
+_fns: Dict[tuple, object] = {}
+
+
+def function(name: str, symbol: str, argtypes, restype=ctypes.c_int):
+    """Library ``name``'s C function ``symbol`` with its argument and
+    result types set, configured once (setting ``argtypes`` costs a few
+    microseconds of host time a call, which the small kernels feel)."""
+    key = (name, symbol)
+    fn = _fns.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes, fn.restype = list(argtypes), restype
+        _fns[key] = fn
+    return fn
+
+
 def dtype_code(t) -> int:
     """The kernels' element-type code (``rt::DType`` in common.cuh)."""
     codes = {torch.float32: 0, torch.bfloat16: 1}

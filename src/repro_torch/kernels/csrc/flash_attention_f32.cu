@@ -1,12 +1,14 @@
 // Flash attention at the small head widths (instances 16 and 32, any hd
-// up to 32 on the next one up), float32 and bf16, forward and backward
-// on the TF32 tensor cores, in every form the TPU kernel takes:
-// non-causal, causal and sliding-window, one kv head per query head or
-// grouped (GQA).  dit-small's joint attention takes hd 16 non-causal MHA
-// (d_model 128 in 8 heads) from 1024 tokens up; the reduced LM configs
-// take hd 32, causal GQA 4/2 (seamless's encoder and cross attention
-// also non-causal) from 2048 tokens up; the reference's kernel tests run
-// bf16 at hd 32.  (The library keeps the name of its first type.)
+// up to 32 on the next one up), forward and backward, in every form the
+// TPU kernel takes: non-causal, causal and sliding-window, one kv head
+// per query head or grouped (GQA).  float32 runs on the TF32 tensor cores
+// (this file and flash_fwd_tf32.cuh), bf16 on the bf16 tensor cores
+// (flash_bf16_small.cuh); the C entry points below take both.
+// dit-small's joint attention takes hd 16 non-causal MHA (d_model 128 in
+// 8 heads) from 1024 tokens up; the reduced LM configs take hd 32, causal
+// GQA 4/2 (seamless's encoder and cross attention also non-causal) from
+// 2048 tokens up; the reference's kernel tests run bf16 at hd 32.  (The
+// library keeps the name of its first type.)
 //
 // The forward replaces the Pallas kernel repro/kernels/flash_attention.py::
 // flash_attention (_flash_kernel) at these widths:
@@ -20,14 +22,14 @@
 // the reference differentiates the attention with XLA's autodiff of its
 // model's attention.
 //
-// What bounds it on an H100: operations.  The forward does 4·hd FLOP a
-// kept (query, key) pair and head (Q·Kᵀ and P·V), the backward 10·hd
-// (S again, dV, dP, dQ, dK): at [2, 4096, 8, 16] 17.2 GFLOP forward,
-// 0.035 ms at the 495 TFLOP/s TF32 peak, against 16.8 MB of q, k, v and
-// o (5 us); the backward's 43 GFLOP are 0.087 ms at that peak.  Both run
-// each float32 tensor-core product three times (the split below), and
-// the backward runs S and dP in both its passes: 7 products of 2·hd a
-// pair.  In float32 the three S (forward, both backward passes) run on
+// What bounds the float32 kernels on an H100: operations.  The forward
+// does 4·hd FLOP a kept (query, key) pair and head (Q·Kᵀ and P·V), the
+// backward 10·hd (S again, dV, dP, dQ, dK): at [2, 4096, 8, 16] 17.2
+// GFLOP forward, 0.035 ms at the 495 TFLOP/s TF32 peak, against 16.8 MB
+// of q, k, v and o (5 us); the backward's 43 GFLOP are 0.087 ms at that
+// peak.  Both run each tensor-core product three times (the split
+// below), and the backward runs S and dP in both its passes: 7 products
+// of 2·hd a pair.  The three S (forward, both backward passes) run on
 // the FMA units (0.13 ms each at the 67 TFLOP/s float32 peak at that
 // shape), the other 4 products as 12 on the tensor cores.  Beside the
 // products each pair costs an exp2 on the SFU and a few float32 and
@@ -36,19 +38,16 @@
 //
 // - Forward: the 3xTF32 template of flash_fwd_tf32.cuh at hd 16 and 32
 //   (each float32 operand split hi + lo in TF32, three mma.sync products
-//   a product, so float32 accuracy; a bf16 operand is exact in TF32 and
-//   needs no lo part; at 16 a warp owns 32 queries, two m16 tiles; at 32
-//   the 64/128 layout, 8 warps of 16 rows; in float32 S = Q·Kᵀ runs on
-//   the FMA units, the backward's own chains, Q's rows in registers),
+//   a product, so float32 accuracy; at 16 a warp owns 32 queries, two
+//   m16 tiles; at 32 the 64/128 layout, 8 warps of 16 rows; S = Q·Kᵀ
+//   runs on the FMA units, the backward's own chains, Q's rows in
+//   registers),
 //   with and without the float32 log-sum-exp [B, H, S] (natural log) the
 //   backward reads, masked (causal, window) and not.
 // - Backward: the same pieces (flash::split3, flash::mma_split,
 //   accumulators relabelled into A fragments), two launches and no
 //   atomics: each gradient row is written once by the one warp that owns
-//   it, so two calls are bitwise equal.  In bf16 Q, K, V, O and dO are
-//   exact in TF32: S and dP are one TF32 product each, and dQ, dK and dV
-//   two (P and dS, float32, keep their split); gradients are rounded to
-//   bf16 once, at the store.
+//   it, so two calls are bitwise equal.
 //   (a) dQ and the row statistics (flash_bwd_f32_q_kernel): a warp owns
 //       16·kMT queries of one head, Q and dO split into A fragments in
 //       registers, and walks the tiles of 64 keys of its kv head that
@@ -94,6 +93,7 @@
 //   float32 accumulators by plain adds.  The scale 1/√hd of dQ and dK is
 //   applied once, at the end.
 #include "common.cuh"
+#include "flash_bf16_small.cuh"
 #include "flash_fwd_tf32.cuh"
 
 namespace f32bwd {
@@ -116,12 +116,9 @@ constexpr int kKVMT = 2, kKVWarps = 8, kKVMinBlocks = 1;
 
 template <typename E, int HD>
 struct Bwd {
-  // float32 operands are split hi + lo; a bf16 one is exact in TF32
-  static constexpr bool kLo = sizeof(E) == 4;
   static constexpr int kVec = 16 / sizeof(E);   // elements a 16-byte copy
   static constexpr int kKS = HD / 8;            // k-steps of 8 head dims
-  // elements a staged row: float32 HD + 4, bf16 HD + 8 (16-byte rows)
-  static constexpr int kLD = kLo ? HD + 4 : HD + 8;
+  static constexpr int kLD = HD + 4;            // elements a staged row
   // the cp.async ring: three stages at 16, two at 32 (pass (a)'s static
   // shared memory stays under 48 KB)
   static constexpr int kStages = HD == 16 ? 3 : 2;
@@ -134,8 +131,8 @@ struct Bwd {
   // pass (b)'s stage: Q's and dO's rows, then the (lse, D) float2 of each
   static constexpr int kRowsBytes = kTile * kLD * sizeof(E);
   static constexpr int kStageBytes = 2 * kRowsBytes + kTile * 8;
-  // float32: pass (b)'s K rows, staged once for S on the FMA units
-  static constexpr int kKBytes = kLo ? kKVBlock * kLD * 4 : 0;
+  // pass (b)'s K rows, staged once for S on the FMA units
+  static constexpr int kKBytes = kKVBlock * kLD * 4;
   static constexpr size_t kKVSmem = size_t(kStages) * kStageBytes + kKBytes;
   static_assert(kQBlock % kTile == 0, "a dQ block covers whole stats tiles");
   static_assert(kStageBytes % 16 == 0, "16-byte aligned stages");
@@ -255,20 +252,17 @@ __device__ __forceinline__ void frag_b_dims(const E* rows, int g, int t,
   }
 }
 
-// d += a·b over the head dims (a [kk][hi, lo], b from frag_b_dims): with
-// LO the cross products (~2^-11 of the sum) first, then the hi·hi, so
-// that of the tensor cores' truncating adds only those act at the sum's
-// scale; without LO (bf16 operands, exact in TF32) the hi·hi alone
-template <int KS, bool LO>
+// d += a·b over the head dims (a [kk][hi, lo], b from frag_b_dims): the
+// cross products (~2^-11 of the sum) first, then the hi·hi, so that of
+// the tensor cores' truncating adds only those act at the sum's scale
+template <int KS>
 __device__ __forceinline__ void mma_dims(float (&d)[4],
                                          const uint32_t (&a)[KS][2][4],
                                          const uint32_t (&b)[KS][4]) {
-  if constexpr (LO) {
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      rt::mma_tf32(d, a[kk][1], b[kk][0], b[kk][1]);
-      rt::mma_tf32(d, a[kk][0], b[kk][2], b[kk][3]);
-    }
+  for (int kk = 0; kk < KS; ++kk) {
+    rt::mma_tf32(d, a[kk][1], b[kk][0], b[kk][1]);
+    rt::mma_tf32(d, a[kk][0], b[kk][2], b[kk][3]);
   }
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk)
@@ -311,7 +305,6 @@ flash_bwd_f32_q_kernel(const E* __restrict__ q, const E* __restrict__ k,
                        int S, int H, int Hkv, int hd, Mask mk, int s_pad,
                        float scale) {
   using C = Bwd<E, HD>;
-  constexpr bool LO = C::kLo;
   constexpr int MT = C::kQTiles, KS = C::kKS, LD = C::kLD, NST = C::kStages;
   constexpr int VEC = C::kVec;
   constexpr int kRows = 16 * MT;
@@ -358,14 +351,13 @@ flash_bwd_f32_q_kernel(const E* __restrict__ q, const E* __restrict__ k,
     rt::cp_async_commit();
   }
 
-  // dO as split A fragments, and Q: float32 as its rows in registers for
-  // S on the FMA units, bf16 as A fragments (exact: hi alone); D from dO
-  // and O at the same places, each thread's share summed over its quad;
-  // the statistics written
-  float qr[LO ? MT : 1][2][LO ? HD : 4];
-  uint32_t qa[LO ? 1 : MT][LO ? 1 : KS][2][4], ga[MT][KS][2][4];
+  // dO as split A fragments, and Q as its rows in registers for S on the
+  // FMA units; D from dO and O at the same places, each thread's share
+  // summed over its quad; the statistics written
+  float qr[MT][2][HD];
+  uint32_t ga[MT][KS][2][4];
   float ls[MT][2], dd[MT][2];
-  if constexpr (LO) rows_regs<MT, HD>(q + q_off, rs, qw, S, hd, g, qr);
+  rows_regs<MT, HD>(q + q_off, rs, qw, S, hd, g, qr);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     float part[2] = {0.f, 0.f};
@@ -376,11 +368,6 @@ flash_bwd_f32_q_kernel(const E* __restrict__ q, const E* __restrict__ k,
       frag_a(o + q_off, rs, qw + 16 * mt, S, hd, kk, g, t, xo);
 #pragma unroll
       for (int i = 0; i < 4; ++i) part[i & 1] = fmaf(xg[i], xo[i], part[i & 1]);
-      if constexpr (!LO) {
-        float xq[4];
-        frag_a(q + q_off, rs, qw + 16 * mt, S, hd, kk, g, t, xq);
-        split_a(xq, qa[mt][kk]);
-      }
       split_a(xg, ga[mt][kk]);
     }
 #pragma unroll
@@ -439,17 +426,11 @@ flash_bwd_f32_q_kernel(const E* __restrict__ q, const E* __restrict__ k,
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mt][e] = dp[mt][e] = 0.f;
+      dots_regs<MT, HD, LD>(s, qr, ks + 8 * j * LD, t);
       uint32_t bf[KS][4];
-      if constexpr (LO) {
-        dots_regs<MT, HD, LD>(s, qr, ks + 8 * j * LD, t);
-      } else {
-        frag_b_dims<E, HD>(ks + 8 * j * LD, g, t, bf);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_dims<KS, false>(s[mt], qa[mt], bf);
-      }
       frag_b_dims<E, HD>(vs + 8 * j * LD, g, t, bf);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_dims<KS, LO>(dp[mt], ga[mt], bf);
+      for (int mt = 0; mt < MT; ++mt) mma_dims<KS>(dp[mt], ga[mt], bf);
       // dS = P∘(dP − D), split in place as the A fragment of dS·K
       uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
@@ -471,8 +452,7 @@ flash_bwd_f32_q_kernel(const E* __restrict__ q, const E* __restrict__ k,
         frag_b_rows<E, HD>(ks + 8 * j * LD, n, g, t, bh0, bh1, bl0, bl1);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma_split<true, LO>(part[mt][n], ah[mt], al[mt], bh0, bh1, bl0,
-                              bl1);
+          mma_split(part[mt][n], ah[mt], al[mt], bh0, bh1, bl0, bl1);
       }
     }
 #pragma unroll
@@ -520,12 +500,10 @@ flash_bwd_f32_kv_kernel(const E* __restrict__ q, const E* __restrict__ k,
                         E* __restrict__ dk, E* __restrict__ dv, int S, int H,
                         int Hkv, int hd, Mask mk, int s_pad, float scale) {
   using C = Bwd<E, HD>;
-  constexpr bool LO = C::kLo;
   constexpr int MT = C::kKVTiles, KS = C::kKS, LD = C::kLD, NST = C::kStages;
   constexpr int VEC = C::kVec;
   constexpr int kRows = 16 * MT;
-  // the ring of NST stages (Q, dO, (lse, D)), then, in float32, the
-  // block's K rows
+  // the ring of NST stages (Q, dO, (lse, D)), then the block's K rows
   extern __shared__ __align__(16) unsigned char kv_smem[];
   float* kt = reinterpret_cast<float*>(kv_smem + NST * C::kStageBytes);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -564,15 +542,13 @@ flash_bwd_f32_kv_kernel(const E* __restrict__ q, const E* __restrict__ k,
     for (int e = tid; e < kTile / 2; e += C::kKVThreads)
       rt::cp_async16(ld + 4 * e, sp + q0 + 2 * e, true);
   };
-  // float32: the block's K rows (keys past T and dims past hd zeros), in
-  // the first commit group
-  if constexpr (LO) {
-    for (int e = tid; e < C::kKVBlock * HD / 4; e += C::kKVThreads) {
-      const int j = e / (HD / 4), c = (e % (HD / 4)) * 4;
-      const bool ok = k0 + j < T && c < hd;
-      const long off = ok ? (long)(k0 + j) * rk + c : 0;
-      rt::cp_async16(kt + j * LD + c, k + kv_off + off, ok);
-    }
+  // the block's K rows (keys past T and dims past hd zeros), in the
+  // first commit group
+  for (int e = tid; e < C::kKVBlock * HD / 4; e += C::kKVThreads) {
+    const int j = e / (HD / 4), c = (e % (HD / 4)) * 4;
+    const bool ok = k0 + j < T && c < hd;
+    const long off = ok ? (long)(k0 + j) * rk + c : 0;
+    rt::cp_async16(kt + j * LD + c, k + kv_off + off, ok);
   }
 #pragma unroll
   for (int s = 0; s < NST - 1; ++s) {
@@ -580,17 +556,13 @@ flash_bwd_f32_kv_kernel(const E* __restrict__ q, const E* __restrict__ k,
     rt::cp_async_commit();
   }
 
-  // V, and in bf16 K, as split A fragments (float32 reads K's staged rows)
-  uint32_t ka[LO ? 1 : MT][LO ? 1 : KS][2][4], va[MT][KS][2][4];
+  // V as split A fragments (S reads K's staged rows)
+  uint32_t va[MT][KS][2][4];
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
       float x[4];
-      if constexpr (!LO) {
-        frag_a(k + kv_off, rk, kw + 16 * mt, T, hd, kk, g, t, x);
-        split_a(x, ka[mt][kk]);
-      }
       frag_a(v + kv_off, rk, kw + 16 * mt, T, hd, kk, g, t, x);
       split_a(x, va[mt][kk]);
     }
@@ -643,18 +615,12 @@ flash_bwd_f32_kv_kernel(const E* __restrict__ q, const E* __restrict__ k,
       for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[mt][e] = dp[mt][e] = 0.f;
+      dots_smem<MT, HD, LD>(s, kt + (warp * kRows + g) * LD,
+                            qs + 8 * j * LD, t);
       uint32_t bf[KS][4];
-      if constexpr (LO) {
-        dots_smem<MT, HD, LD>(s, kt + (warp * kRows + g) * LD,
-                              qs + 8 * j * LD, t);
-      } else {
-        frag_b_dims<E, HD>(qs + 8 * j * LD, g, t, bf);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma_dims<KS, false>(s[mt], ka[mt], bf);
-      }
       frag_b_dims<E, HD>(gs + 8 * j * LD, g, t, bf);
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) mma_dims<KS, LO>(dp[mt], va[mt], bf);
+      for (int mt = 0; mt < MT; ++mt) mma_dims<KS>(dp[mt], va[mt], bf);
       // (lse, D) of this thread's queries 8j + 2t and 8j + 2t + 1
       const float4 st = *reinterpret_cast<const float4*>(sts + 2 * (8 * j +
                                                                     2 * t));
@@ -680,11 +646,11 @@ flash_bwd_f32_kv_kernel(const E* __restrict__ q, const E* __restrict__ k,
         frag_b_rows<E, HD>(gs + 8 * j * LD, n, g, t, bh0, bh1, bl0, bl1);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma_split<true, LO>(pv[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+          mma_split(pv[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
         frag_b_rows<E, HD>(qs + 8 * j * LD, n, g, t, bh0, bh1, bl0, bl1);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma_split<true, LO>(pk[mt][n], sh[mt], sl[mt], bh0, bh1, bl0, bl1);
+          mma_split(pk[mt][n], sh[mt], sl[mt], bh0, bh1, bl0, bl1);
       }
     }
 #pragma unroll
@@ -778,6 +744,25 @@ BwdLaunch pick_bwd(int hd, bool masked) {
              : (masked ? launch_bwd<E, 32, true> : launch_bwd<E, 32, false>);
 }
 
+// bf16: the bf16 tensor-core kernels of flash_bf16_small.cuh
+FwdLaunch bf16_fwd(int hd, bool masked, bool lse) {
+  namespace b = bf16small;
+  return hd <= 16 ? (masked ? (lse ? b::launch_fwd<16, true, true>
+                                   : b::launch_fwd<16, true, false>)
+                            : (lse ? b::launch_fwd<16, false, true>
+                                   : b::launch_fwd<16, false, false>))
+                  : (masked ? (lse ? b::launch_fwd<32, true, true>
+                                   : b::launch_fwd<32, true, false>)
+                            : (lse ? b::launch_fwd<32, false, true>
+                                   : b::launch_fwd<32, false, false>));
+}
+BwdLaunch bf16_bwd(int hd, bool masked) {
+  namespace b = bf16small;
+  return hd <= 16
+             ? (masked ? b::launch_bwd<16, true> : b::launch_bwd<16, false>)
+             : (masked ? b::launch_bwd<32, true> : b::launch_bwd<32, false>);
+}
+
 // the forms the library takes: rows of 16 bytes' multiple up to 32
 // elements (instances 16 and 32), float32 or bf16
 bool bad(int B, int S, int T, int H, int Hkv, int hd, int scale_hd,
@@ -817,7 +802,7 @@ extern "C" int flash_attention_f32_fwd(const void* q, const void* k,
   const bool m = causal || window > 0;
   const FwdLaunch fn = dtype == rt::kF32
                            ? pick_fwd<float>(hd, m, lse != nullptr)
-                           : pick_fwd<__nv_bfloat16>(hd, m, lse != nullptr);
+                           : bf16_fwd(hd, m, lse != nullptr);
   return fn(q, k, v, o, lse, B, S, H, Hkv, hd, scale_hd, mk, st);
 }
 
@@ -842,7 +827,7 @@ extern "C" int flash_attention_f32_bwd(const void* q, const void* k,
   const Mask mk{T, causal, window};
   const bool m = causal || window > 0;
   const BwdLaunch fn = dtype == rt::kF32 ? pick_bwd<float>(hd, m)
-                                         : pick_bwd<__nv_bfloat16>(hd, m);
+                                         : bf16_bwd(hd, m);
   return fn(q, k, v, o, lse, dout, dq, dk, dv, st2, B, S, H, Hkv, hd,
             scale_hd, mk, st);
 }

@@ -1,17 +1,18 @@
 // The flash forward on the TF32 tensor cores, to float32 accuracy: one
 // template, instantiated in float32 at head width 16 and 32
 // (flash_attention_f32.cu: dit-small's non-causal MHA, the reduced
-// configs' causal GQA) and at 64 and 128 (flash_attention.cu), and in
-// bf16 at 16 and 32 (flash_attention_f32.cu), every form: non-causal,
-// causal, window and GQA, with or without the log-sum-exp.  All replace
-// the Pallas kernel repro/kernels/flash_attention.py::flash_attention
-// (_flash_kernel), which computes in float32 whatever its inputs' type.
+// configs' causal GQA) and at 64 and 128 (flash_attention.cu), every
+// form: non-causal, causal, window and GQA, with or without the
+// log-sum-exp.  All replace the Pallas kernel
+// repro/kernels/flash_attention.py::flash_attention (_flash_kernel),
+// which computes in float32 whatever its inputs' type.  (bf16 at the
+// small widths runs on the bf16 tensor cores: flash_bf16_small.cuh.)
 //   o[b, s, h] = softmax_t(q[b, s, h] · k[b, t, h / g] / sqrt(hd)) ·
 //                v[b, t, h / g]                      (g = q_per_kv)
-// q, o: [B, S, H, hd]; k, v: [B, T, H / g, hd]; contiguous, float32 or
-// bf16.  Any hd up to the instance's width HD runs on it: the row width
-// hd is a run-time argument (a multiple of 16 bytes, so 4 floats or 8
-// bf16), columns at or past hd are zero-filled in the loads (they add
+// q, o: [B, S, H, hd]; k, v: [B, T, H / g, hd]; contiguous float32.  Any
+// hd up to the instance's width HD runs on it: the row width hd is a
+// run-time argument (a multiple of 16 bytes, so 4 floats), columns at or
+// past hd are zero-filled in the loads (they add
 // exact zeros to Q·Kᵀ and P·V) and never stored, and the scale
 // 1/sqrt(scale_hd) is the true width's.
 //
@@ -28,11 +29,7 @@
 // so every float32 operand is split hi + lo in TF32 and each product is
 // taken three times on mma.sync m16n8k8, a_lo·b_hi + a_hi·b_lo, then
 // a_hi·b_hi (lo·lo, ~2^-22 relative, is dropped): float32 accuracy at
-// 3x the TF32 work.  A bf16 value is exact in TF32 (8 bits of mantissa
-// in TF32's 10), so in bf16 Q, K and V need no lo part: Q·Kᵀ is one
-// TF32 product and P·V two (P, float32, keeps its split), float32
-// arithmetic on bf16 inputs as in the TPU kernel, the output rounded to
-// bf16 once.
+// 3x the TF32 work.
 // - A block owns 128 queries of one (b, h): 8 warps of 16 rows at hd 64
 //   and 128; at hd 16, 4 warps of 32 rows (two m16 tiles, which share
 //   every K and V fragment the warp reads and splits).  A warp's Q
@@ -42,11 +39,10 @@
 //   thread's Q rows whole in registers instead, for S on the FMA units.
 // - K and V tiles of kBK keys run through a cp.async ring of 16-byte
 //   copies (rows past T and columns past hd zero-filled) into padded
-//   tiles: float32 K rows padded to HD + 8 floats (8-byte fragment reads
-//   hit 32 distinct banks; HD + 4 where S runs on the FMA units, read as
-//   float4s), V rows to HD + 4 (4-byte reads); bf16 rows to HD + 8
-//   elements (16-byte rows for the copies).  A warp splits the K and V
-//   values it reads in registers.
+//   tiles: K rows padded to HD + 8 floats (8-byte fragment reads hit 32
+//   distinct banks; HD + 4 where S runs on the FMA units, read as
+//   float4s), V rows to HD + 4 (4-byte reads).  A warp splits the K and
+//   V values it reads in registers.
 // - Relabelling instead of shuffles.  Within each 8-wide k-step the A
 //   fragment's columns t and t + 4 stand for head dims 2t and 2t + 1, so
 //   a thread reads K's two values as one float2.  For P·V the logits'
@@ -138,16 +134,15 @@ __device__ __forceinline__ void split3(float v, uint32_t& hi, uint32_t& lo) {
   lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;
 }
 
-// a += (a_hi + a_lo)·(b_hi + b_lo) without lo·lo, and without the lo
-// products of an operand that is exact in TF32 (ALO / BLO false: bf16)
-template <bool ALO, bool BLO>
+// a += (a_hi + a_lo)·(b_hi + b_lo) without lo·lo: the cross products
+// first, then hi·hi
 __device__ __forceinline__ void mma_split(float (&d)[4],
                                           const uint32_t (&ah)[4],
                                           const uint32_t (&al)[4],
                                           uint32_t bh0, uint32_t bh1,
                                           uint32_t bl0, uint32_t bl1) {
-  if constexpr (ALO) rt::mma_tf32(d, al, bh0, bh1);
-  if constexpr (BLO) rt::mma_tf32(d, ah, bl0, bl1);
+  rt::mma_tf32(d, al, bh0, bh1);
+  rt::mma_tf32(d, ah, bl0, bl1);
   rt::mma_tf32(d, ah, bh0, bh1);
 }
 
@@ -163,41 +158,19 @@ __device__ __forceinline__ float dot4(float s, float4 x, float4 y) {
   return fmaf(x.w, y.w, s);
 }
 
-// loads of float32 or bf16 values as float32: one value or two
-// neighbours from global memory through the read-only path, and from
-// shared memory (a bf16's float32 bits are its own, shifted up 16)
+// loads of one value or two neighbours from global memory through the
+// read-only path, and from shared memory
 __device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ldg1(const __nv_bfloat16* p) {
-  const unsigned u = __ldg(reinterpret_cast<const unsigned short*>(p));
-  return __uint_as_float(u << 16);
-}
 __device__ __forceinline__ float2 ldg2(const float* p) {
   return __ldg(reinterpret_cast<const float2*>(p));
 }
-__device__ __forceinline__ float2 ldg2(const __nv_bfloat16* p) {
-  const unsigned u = __ldg(reinterpret_cast<const unsigned*>(p));
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
-}
 __device__ __forceinline__ float lds1(const float* p) { return *p; }
-__device__ __forceinline__ float lds1(const __nv_bfloat16* p) {
-  return __uint_as_float(
-      static_cast<unsigned>(*reinterpret_cast<const unsigned short*>(p))
-      << 16);
-}
 __device__ __forceinline__ float2 lds2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 lds2(const __nv_bfloat16* p) {
-  const unsigned u = *reinterpret_cast<const unsigned*>(p);
-  return make_float2(__uint_as_float(u << 16),
-                     __uint_as_float(u & 0xffff0000u));
 }
 
 template <typename T, int HD>
 struct Tf32Fwd {
-  // float32 operands are split hi + lo; a bf16 one is exact in TF32
-  static constexpr bool kLo = sizeof(T) == 4;
   static constexpr int kVec = 16 / sizeof(T);      // elements a copy
   // m16 row tiles a warp: two at hd 16, where the K and V fragments a
   // warp reads and splits then serve 32 rows; one at 64 and 128, where
@@ -214,7 +187,7 @@ struct Tf32Fwd {
   // float32 at 16 and 32: S on the FMA units (dot4), Q's rows in
   // registers; the tensor cores' truncated sums biased the log-sum-exp
   // against the backward's exact logits
-  static constexpr bool kFmaS = kLo && HD <= 32;
+  static constexpr bool kFmaS = HD <= 32;
   static constexpr int kKS = HD / 8;                // k-steps of S
   static constexpr int kGroup = kKS < 4 ? kKS : 4;  // k-steps a fresh sum
   static constexpr int kNS = kBK / 8;               // 8-key slabs a tile
@@ -223,7 +196,7 @@ struct Tf32Fwd {
   // the four t of a quarter-warp read rows 2t as float4s from distinct
   // banks (at HD + 8 two of them collide)
   static constexpr int kLDK = kFmaS ? HD + 4 : HD + 8;
-  static constexpr int kLDV = kLo ? HD + 4 : HD + 8;   // elements a V row
+  static constexpr int kLDV = HD + 4;               // elements a V row
   // the pre-split Q fragments: per warp [m-tile][k-step][hi, lo][lane][4]
   static constexpr size_t kQFloats =
       kQRegs || kFmaS ? 0 : size_t(kBQ) * HD * 2;
@@ -244,7 +217,6 @@ tf32_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 Mask mk, float scale) {
   using C = Tf32Fwd<T, HD>;
   constexpr int BK = C::kBK, NS = C::kNS, KS = C::kKS, MT = C::kMT;
-  constexpr bool LO = C::kLo;
   constexpr int VEC = C::kVec;
   extern __shared__ __align__(16) float smem[];
   T* kv = reinterpret_cast<T*>(smem + C::kQFloats);
@@ -441,7 +413,7 @@ tf32_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
           split3(kx.y, bh1, bl1);
 #pragma unroll
           for (int mt = 0; mt < MT; ++mt)
-            mma_split<LO, LO>(p[mt][n], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+            mma_split(p[mt][n], ah[mt], al[mt], bh0, bh1, bl0, bl1);
         }
       }
 #pragma unroll
@@ -527,7 +499,7 @@ tf32_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         split3(lds1(vr + C::kLDV + n * 8), bh1, bl1);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt)
-          mma_split<true, LO>(pv[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+          mma_split(pv[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
       }
     }
 #pragma unroll

@@ -17,10 +17,11 @@ The forms each kernel takes (``_check``), every mask and GQA:
   width's.  The kernels read rows of a multiple of 16 bytes (8 bf16, 4
   floats); another width runs on a zero-padded copy (``row_width``);
 - up to 32 (``SMALL_HEAD_DIM``), float32 and bf16: the library
-  ``csrc/flash_attention_f32.cu`` (``flash_attention_f32``, the template
-  at 16 and 32, and ``flash_attention_f32_bwd``, its backward on the
-  same split products, each with its own launch count; the library
-  keeps the name of its first type);
+  ``csrc/flash_attention_f32.cu`` (``flash_attention_f32`` and
+  ``flash_attention_f32_bwd``, each with its own launch count; float32
+  on the TF32 template at 16 and 32 and its backward on the same split
+  products, bf16 on the bf16 tensor cores, ``csrc/flash_bf16_small.cuh``;
+  the library keeps the name of its first type);
 - from 33 to 128: the forward in bf16 and float32, the backward in bf16
   (a float32 backward there is queued in ``ROADMAP.md``);
 - wider heads raise, naming ``ROADMAP.md``, where they are queued.
@@ -192,15 +193,13 @@ def _fwd(q, k, v, q_per_kv, causal, window, return_lse, scale_hd):
         return meta.stand_in("flash_attention", work,
                              *((out, lse) if return_lse else (out,)))
     build.require_cuda("flash_attention", q, k, v)
-    lib = build.load("flash_attention")
-    fn = lib.flash_attention_fwd
-    fn.argtypes = [_P] * 5 + [_I] * 10 + [_P]
-    fn.restype = _I
+    fn = build.function("flash_attention", "flash_attention_fwd",
+                        [_P] * 5 + [_I] * 10 + [_P])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), b, s, k.shape[1], h,
                 hkv, hd, scale_hd, int(causal), window, build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, "flash_attention", status)
+    build.check(build.load("flash_attention"), "flash_attention", status)
     flash_attention.launches += 1
     return (out, lse) if return_lse else out
 
@@ -253,22 +252,22 @@ def _bwd(q, k, v, o, lse, do, q_per_kv, causal, window, scale_hd):
         return meta.stand_in("flash_attention_bwd", bwd_work(
             b, s, k.shape[1], h, hkv, hd, causal, window), dq, dk, dv)
     build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
-    lib = build.load("flash_attention_bwd")
-    scratch = lib.flash_attention_bwd_scratch
-    scratch.argtypes, scratch.restype = [_I] * 6, ctypes.c_long
+    scratch = build.function("flash_attention_bwd",
+                             "flash_attention_bwd_scratch", [_I] * 6,
+                             ctypes.c_long)
     # the kernel's row statistics (lse·log2 e and D = rowsum(dO ∘ O)) and,
     # where it splits a GQA group over blocks, their partial dK and dV
     stats = torch.empty(scratch(b, s, k.shape[1], h, hkv, hd),
                         dtype=torch.float32, device=q.device)
-    fn = lib.flash_attention_bwd
-    fn.argtypes = [_P] * 10 + [_I] * 10 + [_P]
-    fn.restype = _I
+    fn = build.function("flash_attention_bwd", "flash_attention_bwd",
+                        [_P] * 10 + [_I] * 10 + [_P])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), stats.data_ptr(), b, s, k.shape[1], h, hkv, hd,
                 scale_hd, int(causal), window, build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, "flash_attention_bwd", status)
+    build.check(build.load("flash_attention_bwd"), "flash_attention_bwd",
+                status)
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -280,8 +279,9 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         return_lse: bool = False, q_per_kv: int = 1,
                         causal: bool = False, window: int = 0,
                         scale_hd: int = 0):
-    """The forward at head width up to 32 (``csrc/flash_attention_f32.cu``,
-    the tensor-core template at 16 and 32), float32 or bf16, every form:
+    """The forward at head width up to 32 (``csrc/flash_attention_f32.cu``:
+    float32 on the TF32 template at 16 and 32, bf16 on the bf16 tensor
+    cores), every form:
     q [B, S, H, hd], k, v [B, T, H / q_per_kv, hd] -> [B, S, H, hd] (and
     lse [B, H, S] with ``return_lse``), the logits scaled by
     1/√``scale_hd`` (default hd).  Reached through ``flash_attention``,
@@ -297,16 +297,15 @@ def flash_attention_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return meta.stand_in("flash_attention_f32", work,
                              *((out, lse) if return_lse else (out,)))
     build.require_cuda("flash_attention_f32", q, k, v)
-    lib = build.load("flash_attention_f32")
-    fn = lib.flash_attention_f32_fwd
-    fn.argtypes = [_P] * 5 + [_I] * 10 + [_P]
-    fn.restype = _I
+    fn = build.function("flash_attention_f32", "flash_attention_f32_fwd",
+                        [_P] * 5 + [_I] * 10 + [_P])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 None if lse is None else lse.data_ptr(), b, s, k.shape[1], h,
                 hkv, hd, scale_hd or hd, int(causal), window,
                 build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, "flash_attention_f32", status)
+    build.check(build.load("flash_attention_f32"), "flash_attention_f32",
+                status)
     flash_attention_f32.launches += 1
     return (out, lse) if return_lse else out
 
@@ -320,13 +319,15 @@ def flash_attention_f32_bwd(q: torch.Tensor, k: torch.Tensor,
                             q_per_kv: int = 1, causal: bool = False,
                             window: int = 0, scale_hd: int = 0):
     """``(dq, dk, dv)`` of ``flash_attention_f32`` from its output, its
-    lse and the output's gradient, on the TF32 tensor cores (the float32
-    operands split hi + lo, three products; bf16 operands exact; in
-    float32 S = Q·Kᵀ on the FMA units, rounded as float32 rounds), every
-    form, each gradient in the inputs' type.  Two launches: dQ with the
-    row statistics (into a float32 scratch of the library's own size),
-    then dK and dV, a kv head's sum over its group of query heads taken
-    in one warp in head order; each gradient row is written once by one
+    lse and the output's gradient, every form, each gradient in the
+    inputs' type: float32 on the TF32 tensor cores (each operand split hi
+    + lo, three products; S = Q·Kᵀ on the FMA units, rounded as float32
+    rounds), bf16 on the bf16 tensor cores (one product each, P and dS
+    rounded to bf16 once).  Two launches: dQ with the row statistics
+    (into a float32 scratch of the library's own size), then dK and dV,
+    a kv head's sum over its group of query heads taken in a fixed order
+    (float32: in one warp, head by head; bf16: two head slices' partials
+    joined in shared memory); each gradient row is written once by one
     warp and nothing is summed by atomics, so two calls are bitwise
     equal.  Reached through ``flash_attention_bwd``, which checks the
     inputs."""
@@ -338,21 +339,21 @@ def flash_attention_f32_bwd(q: torch.Tensor, k: torch.Tensor,
             b, s, k.shape[1], h, hkv, hd, causal, window,
             dtype_name=_dtype_name(q)), dq, dk, dv)
     build.require_cuda("flash_attention_f32_bwd", q, k, v, o, lse, do)
-    lib = build.load("flash_attention_f32")
-    scratch = lib.flash_attention_f32_bwd_scratch
-    scratch.argtypes, scratch.restype = [_I] * 3, ctypes.c_long
+    scratch = build.function("flash_attention_f32",
+                             "flash_attention_f32_bwd_scratch", [_I] * 3,
+                             ctypes.c_long)
     # the row statistics: lse·log2 e and D = rowsum(dO ∘ O), a float2 a row
     stats = torch.empty(scratch(b, s, h), dtype=torch.float32,
                         device=q.device)
-    fn = lib.flash_attention_f32_bwd
-    fn.argtypes = [_P] * 10 + [_I] * 10 + [_P]
-    fn.restype = _I
+    fn = build.function("flash_attention_f32", "flash_attention_f32_bwd",
+                        [_P] * 10 + [_I] * 10 + [_P])
     status = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), stats.data_ptr(), b, s, k.shape[1], h, hkv, hd,
                 scale_hd or hd, int(causal), window, build.dtype_code(q),
                 torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(lib, "flash_attention_f32_bwd", status)
+    build.check(build.load("flash_attention_f32"),
+                "flash_attention_f32_bwd", status)
     flash_attention_f32_bwd.launches += 1
     return dq, dk, dv
 

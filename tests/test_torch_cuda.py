@@ -1321,6 +1321,68 @@ def test_flash_bf16_small_autograd(card):
                                                       strict=True))
 
 
+# the bf16 small widths on the bf16 tensor cores (flash_bf16_small.cuh):
+# (B, S, T, Hq, Hkv, causal, window) of four forms, each at head widths
+# 16, 24 (instance 32, a zero-filled column block) and 32: non-causal
+# MHA, causal MHA on a ragged S, causal GQA 4/2 with a window of 24, and
+# cross attention (S != T, both ragged)
+_BF16_SMALL_FORMS = {"mha": (2, 256, 256, 4, 4, False, 0),
+                     "causal": (1, 300, 300, 4, 4, True, 0),
+                     "gqa window": (1, 333, 333, 4, 2, True, 24),
+                     "cross": (1, 200, 520, 4, 2, False, 0)}
+
+
+@pytest.mark.parametrize("hd", [16, 24, 32])
+@pytest.mark.parametrize("form", list(_BF16_SMALL_FORMS))
+def test_flash_bf16_small_forms(card, hd, form):
+    """The bf16 forward (with its log-sum-exp) and backward at the small
+    widths against the plain versions: the output and each gradient at
+    2e-2 (``ref.attention_lse_ref`` / ``attention_bwd_ref`` round P and
+    dS to bf16 where the kernels do), the log-sum-exp at 1e-5 of its
+    largest; one forward launch, two backward launches bitwise equal."""
+    from repro_torch.kernels import flash_attention as fa
+    b, s, t, hq, hkv, causal, window = _BF16_SMALL_FORMS[form]
+    q, k, v, do = _bwd_inputs(card, s, hq, hkv, hd, b=b, t=t)
+    form_ = (hq // hkv, causal, window)
+    ops.reset_launch_counts()
+    out, lse = fa.flash_attention(q, k, v, *form_, return_lse=True)
+    want_out, want_lse = ref.attention_lse_ref(q, k, v, *form_)
+    _close((out,), (want_out,), torch.bfloat16)
+    assert float((lse - want_lse).abs().max()) <= 1e-5 * float(
+        want_lse.abs().max())
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *form_)
+    again = fa.flash_attention_bwd(q, k, v, out, lse, do, *form_)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_f32"] == 1
+    assert counts["flash_attention_f32_bwd"] == 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+    _close(got, ref.attention_bwd_ref(q, k, v, out, lse, do, *form_),
+           torch.bfloat16)
+
+
+@pytest.mark.parametrize("hd,hq,hkv,causal", [(16, 8, 8, False),
+                                              (32, 4, 2, True)])
+def test_flash_bf16_small_float64_guard(card, hd, hq, hkv, causal):
+    """The bf16 kernels against the float64 oracle (the plain versions on
+    float64 inputs, which round nothing): the output, and each gradient
+    from the kernel's own o and lse, no further from it than twice the
+    bf16 plain version's own error."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(card, 1024, hq, hkv, hd)
+    form = (hq // hkv, causal)
+    out, lse = fa.flash_attention(q, k, v, *form, return_lse=True)
+    oracle = ref.attention_ref(*(x.double() for x in (q, k, v)), *form)
+    twin = _rel64(ref.attention_ref(q, k, v, *form), oracle)
+    assert _rel64(out, oracle) <= 2 * twin, (_rel64(out, oracle), twin)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, *form)
+    oracle = ref.attention_bwd_ref(*(x.double() for x in (q, k, v, out,
+                                                          lse, do)), *form)
+    plain = ref.attention_bwd_ref(q, k, v, out, lse, do, *form)
+    for a, p, w in zip(got, plain, oracle, strict=True):
+        assert _rel64(a, w) <= 2 * _rel64(p, w), (_rel64(a, w),
+                                                   _rel64(p, w))
+
+
 def _sharp_draw(card, seed, b, s, t, hq=8, hkv=8, causal=False, window=0):
     """q, k, v, dO of one seeded draw at head width 16, q scaled so that
     the logits' std is ~80."""

@@ -24,7 +24,14 @@ to 128 (kernels 6 and 8).
 - On ``meta`` tensors the wrappers take every new form and record the
   work at the true widths; the forms still queued in ``ROADMAP.md``
   raise, naming it, before any device check.
+
+XLA's CPU compile of each reference program is most of these tests'
+time, so each form's references (the Pallas kernel and the ``jax.vjp``)
+are one program, compiled once a module at XLA's optimisation level 0
+(``_FAST``: the same HLO, only the machine code is less tuned) and shared
+by the form's forward and backward tests, which draw the same inputs.
 """
+import functools
 import math
 
 import jax
@@ -83,18 +90,49 @@ def _jnp(t):
     return a.astype(jnp.bfloat16) if t.dtype == BF else a
 
 
+# the references' compile options: level 0 cuts XLA's CPU compile ~3x
+_FAST = {"xla_backend_optimization_level": 0,
+         "xla_llvm_disable_expensive_passes": True}
+
+
+def _run(fn, *args):
+    """``fn`` on ``args``, jitted and compiled with ``_FAST``."""
+    return jax.jit(fn).lower(*args).compile(_FAST)(*args)
+
+
+@functools.cache
+def _flash_refs(form):
+    """One ``FLASH_FORMS`` entry's inputs (seed 42) and its references,
+    computed once a module in one program: the Pallas kernel in
+    interpret mode (blocks of 32) and ``jax.vjp`` of the reference's
+    ``blockwise_sdpa`` (float32 on the inputs' values) at dO."""
+    dtype, b, s, hq, hkv, hd, causal, window = form
+    inputs = _flash_inputs(b, s, hq, hkv, hd, dtype, seed=42)
+    g = hq // hkv
+
+    def refs(qj, kj, vj, *f32):
+        out = jfa.flash_attention(qj, kj, vj, g, causal=causal,
+                                  window=window, q_block=32, kv_block=32,
+                                  interpret=True)
+        _, vjp = jax.vjp(lambda a, c, e: jattn.blockwise_sdpa(
+            a, c, e, g, causal=causal, window=window, kv_block=32),
+            *f32[:3])
+        return out, vjp(f32[3])
+    out, grads = _run(refs, *(_jnp(x) for x in inputs[:3]),
+                      *(jnp.asarray(_np(x)) for x in inputs))
+    return inputs, np.asarray(out, np.float32), [np.asarray(x)
+                                                 for x in grads]
+
+
 @pytest.mark.parametrize("dtype,b,s,hq,hkv,hd,causal,window", FLASH_FORMS)
 def test_flash_forms_match_pallas(dtype, b, s, hq, hkv, hd, causal, window):
     """The plain attention (the op layer's CPU route) against the Pallas
     kernel in interpret mode (blocks of 32) on the same inputs."""
-    q, k, v, _ = _flash_inputs(b, s, hq, hkv, hd, dtype, seed=41)
-    g = hq // hkv
-    want = jfa.flash_attention(_jnp(q), _jnp(k), _jnp(v), g, causal=causal,
-                               window=window, q_block=32, kv_block=32,
-                               interpret=True)
-    got = ops.flash(q, k, v, g, causal=causal, window=window)
+    (q, k, v, _), want, _ = _flash_refs((dtype, b, s, hq, hkv, hd, causal,
+                                         window))
+    got = ops.flash(q, k, v, hq // hkv, causal=causal, window=window)
     assert got.dtype == dtype and got.shape == q.shape
-    assert _rel(_np(got), np.asarray(want, np.float32)) <= TOL[dtype]
+    assert _rel(_np(got), want) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype,b,s,hq,hkv,hd,causal,window", FLASH_FORMS)
@@ -103,12 +141,9 @@ def test_flash_forms_backward_match_jax(dtype, b, s, hq, hkv, hd, causal,
     """The backward twin (the kernels' recompute from o and lse) and
     autograd through the op layer's CPU route against ``jax.vjp`` of
     the reference's ``blockwise_sdpa`` (float32 on the inputs' values)."""
-    q, k, v, do = _flash_inputs(b, s, hq, hkv, hd, dtype, seed=42)
+    (q, k, v, do), _, want = _flash_refs((dtype, b, s, hq, hkv, hd, causal,
+                                          window))
     g = hq // hkv
-    _, vjp = jax.vjp(lambda a, c, e: jattn.blockwise_sdpa(
-        a, c, e, g, causal=causal, window=window, kv_block=32),
-        *(jnp.asarray(_np(x)) for x in (q, k, v)))
-    want = vjp(jnp.asarray(_np(do)))
     o, lse = ref.attention_lse_ref(q, k, v, g, causal, window)
     got = ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal, window)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
@@ -132,12 +167,27 @@ def _ssd_inputs(s, p, n, seed, h=2):
     return x, dt, a, bm, cm, dy
 
 
+@functools.cache
+def _ssd_refs(form):
+    """One ``SSD_FORMS`` entry's inputs (seed 44) and its references,
+    computed once a module in one program: the Pallas kernel in
+    interpret mode and ``jax.vjp`` of the reference's ``ssd_chunked``
+    (the gradient of y) at dy."""
+    s, p, n, chunk = form
+    inputs = _ssd_inputs(s, p, n, seed=44)
+
+    def refs(*t):
+        y = jssd.ssd_chunk_scan(*t[:5], chunk, interpret=True)
+        _, vjp = jax.vjp(lambda *u: jssm.ssd_chunked(*u, chunk)[0], *t[:5])
+        return y, vjp(t[5])
+    y, grads = _run(refs, *(jnp.asarray(t) for t in inputs))
+    return inputs, np.asarray(y), [np.asarray(x) for x in grads]
+
+
 @pytest.mark.parametrize("s,p,n,chunk", SSD_FORMS)
 def test_ssd_forms_match_pallas(s, p, n, chunk):
     """The plain SSD scan against the Pallas kernel in interpret mode."""
-    x, dt, a, bm, cm, _ = _ssd_inputs(s, p, n, seed=43)
-    want = jssd.ssd_chunk_scan(*(jnp.asarray(t) for t in (x, dt, a, bm, cm)),
-                               chunk, interpret=True)
+    (x, dt, a, bm, cm, _), want, _ = _ssd_refs((s, p, n, chunk))
     got = ops.ssd(*(torch.from_numpy(t) for t in (x, dt, a, bm, cm)), chunk)
     assert got.shape == (2, s, 2, p)
     assert _rel(got.numpy(), want) <= TOL[F32]
@@ -149,12 +199,9 @@ def test_ssd_forms_backward_match_jax(s, p, n, chunk):
     route against ``jax.vjp`` of the reference's ``ssd_chunked`` (the
     gradient of y), on inputs whose cum stays above −60 (``ssd_chunked``
     does not clip)."""
-    x, dt, a, bm, cm, dy = _ssd_inputs(s, p, n, seed=44)
+    (x, dt, a, bm, cm, dy), _, want = _ssd_refs((s, p, n, chunk))
     cum = (dt * a).reshape(2, s // chunk, chunk, 2).cumsum(axis=2)
     assert cum.min() > -60.0
-    _, vjp = jax.vjp(lambda *t: jssm.ssd_chunked(*t, chunk)[0],
-                     *(jnp.asarray(t) for t in (x, dt, a, bm, cm)))
-    want = vjp(jnp.asarray(dy))
     tensors = [torch.from_numpy(t) for t in (x, dt, a, bm, cm)]
     got = ref.ssd_chunk_scan_bwd_ref(*tensors, torch.from_numpy(dy), chunk)
     leaves = [t.clone().requires_grad_() for t in tensors]

@@ -169,12 +169,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
                layers) on 2880 prefix embeddings and 29888 text tokens,
                ``train_lm`` cut to 4 layers (2 steps, batch 8, S 4096),
                2 layers card against CPU in float32;
-18. launcher — ``launch.serve.main`` in this process at dit-small, three
-               times: closed-loop bursts, the threaded open loop and two
-               replica processes; every request its 4 full steps, a
-               finite PSNR against the uncached run, 0 steady-state
-               first runs; kernels 1 and 2 held against their plain
-               versions at its shapes;
+18. launcher — ``launch.serve.main`` in this process at dit-small,
+               twice: closed-loop bursts and two replica processes (the
+               threaded open loop runs in the examples phase, at the
+               serve_batch example's sizes); every request its 4 full
+               steps, a finite PSNR against the uncached run, 0
+               steady-state first runs; kernels 1 and 2 held against
+               their plain versions at its shapes;
 19. fleet    — two replica processes on the card behind a
                ``FleetRouter``, each with its own copy of the train
                phase's flux1-dev cut (shipped as a numpy tree): six
@@ -212,9 +213,25 @@ Phases, each of which raises (and so exits non-zero) on failure:
                engine, card against CPU within dit-small's latents
                limit, a TF32 control that must miss it (``PHASES`` runs
                it after dit_small);
-21. dryrun   — first, ``launch.dryrun --all`` on the 16 x 16 mesh in
-               this process (10 LM configs x 4 shapes and the two DiTs'
-               full and cached steps on meta tensors, the CPU's work):
+24. examples — the five twins of the repo's examples
+               (``examples/torch_*.py``) through their ``run`` at the
+               reference scripts' sizes on the card: quickstart and edit
+               (dit-small trained 120 steps, 50 Euler steps uncached and
+               under FreqCa, dct and fft: kernels 1 and 2), Fig 2 (200
+               steps, the trajectory's bands: kernel 4), serve_batch
+               (``launch.serve.main`` with its 16 Poisson requests, mixed
+               policies, four client threads) and the ten reduced LMs'
+               tour (3 train steps, a greedy decode: kernels 6 and 8);
+               every launch signature against its plain version on its
+               own inputs; card against CPU from the same weights and
+               inputs (latents, Fig-2 statistics, losses, greedy tokens)
+               with a TF32 and a kernel-output control that must miss;
+               then ``python examples/torch_quickstart.py`` in a
+               subprocess (``PHASES`` runs it after dit_small);
+21. dryrun   — first, ``launch.dryrun --all`` on the 16 x 16 mesh in a
+               process of its own beside the other phases, read at the
+               end (10 LM configs x 4 shapes and the two DiTs' full and
+               cached steps on meta tensors, the CPU's work):
                one ``dryrun_row`` line each, failing on any failed
                combo; then the prediction of the one-card mesh against
                the card for five steps (``DRYRUN_ROWS``: flux1-dev's full
@@ -237,6 +254,7 @@ the phases named (``PHASES``), in their usual order.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import gc
 import hashlib
@@ -279,7 +297,7 @@ SERVE_KERNELS = ("band_split_spectral", "freqca_predict_fused_spectral",
 # for the kernels line
 FORM_ROWS = {}
 FORM_TAGS = ("jamba", "seamless", "llava", "f32_hd16", "f32_hd32",
-             "p32 q16", "forms ")
+             "p32 q16", "forms ", "examples ")
 
 
 def log(msg: str) -> None:
@@ -714,6 +732,7 @@ def kernel_phase(main_dtype: dict) -> dict:
             small_ssd_rows(row)
             form_flash_rows(row)
             form_ssd_rows(row)
+            example_rows(row)
     return rows
 
 
@@ -3200,14 +3219,15 @@ DECODE_RUNS = (("yi_decode_32k", "yi-9b", "decode_32k", 16),
                ("mamba_decode_32k", "mamba2-370m", "decode_32k", 128),
                ("mamba_long_500k", "mamba2-370m", "long_500k", 1))
 DECODE_TIMED = 8          # timed steps after one warm step
-# the decode-against-forward checks: yi-9b cut to 4 layers on a prompt
-# long enough for the forward's flash route, mamba2-370m cut to 16
-# layers in bf16 (48 until the reduced phase needed its time) and to 8
-# for the float32 check: its prefill is host-bound, ~1 ms of eager ops a
-# layer and token
-DECODE_YI_LAYERS, DECODE_YI_PROMPT = 4, 2048
+# the decode-against-forward checks: yi-9b cut to 2 layers on a prompt
+# long enough for the forward's flash route, mamba2-370m cut to 8 layers
+# in bf16 and in float32 (yi 4 and mamba2 16 until the examples phase
+# needed their time, mamba2 48 before the reduced phase): the prefill is
+# host-bound, ~1 ms of eager ops a layer and token, and runs twice a
+# check (``prefill``, then ``generate``)
+DECODE_YI_LAYERS, DECODE_YI_PROMPT = 2, 2048
 DECODE_MAMBA_PROMPT = 512
-DECODE_MAMBA_LAYERS = 16
+DECODE_MAMBA_LAYERS = 8
 DECODE_MAMBA_F32_LAYERS = 8
 DECODE_NEW = 16
 # card against CPU, relative L2 of the logits and of the updated cache:
@@ -3217,8 +3237,8 @@ DECODE_NEW = 16
 # tolerance
 DECODE_CARD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # decode against forward: the prefill's last logits against the
-# forward's last row, relative L2; bf16 takes the same 2e-2 over yi's 4
-# layers and 5e-2 over mamba2's 16, whose chunk scan (bf16 inputs) and
+# forward's last row, relative L2; bf16 takes the same 2e-2 over yi's
+# layers and 5e-2 over mamba2's, whose chunk scan (bf16 inputs) and
 # float32 recurrence round the residual stream in other places in
 # every layer; float32 1e-3 (a sharper check of the same wiring)
 DECODE_FWD_TOL = {("yi-9b", "bfloat16"): 2e-2,
@@ -3654,12 +3674,12 @@ def decode_phase(yi_params=None, yi_cfg=None, mamba_cfg=None,
                      yi_len=seq or 32768)
     ops.reset_launch_counts()
     yi = dataclasses.replace(cfgs["yi-9b"], n_layers=DECODE_YI_LAYERS)
-    m16 = min(DECODE_MAMBA_LAYERS, m_cfg.n_layers)
-    m32 = min(DECODE_MAMBA_F32_LAYERS, m_cfg.n_layers)
+    m_bf16 = min(DECODE_MAMBA_LAYERS, m_cfg.n_layers)
+    m_f32 = min(DECODE_MAMBA_F32_LAYERS, m_cfg.n_layers)
     checks = ((yi, "bfloat16", prompts[0]), (yi, "float32", prompts[0]),
-              (dataclasses.replace(m_cfg, n_layers=m16), "bfloat16",
+              (dataclasses.replace(m_cfg, n_layers=m_bf16), "bfloat16",
                prompts[1]),
-              (dataclasses.replace(m_cfg, n_layers=m32), "float32",
+              (dataclasses.replace(m_cfg, n_layers=m_f32), "float32",
                prompts[1]))
     for seed, (full, dtype, prompt) in enumerate(checks, start=91):
         cfg = dataclasses.replace(full, dtype=dtype)
@@ -3669,7 +3689,7 @@ def decode_phase(yi_params=None, yi_cfg=None, mamba_cfg=None,
     counts = ops.launch_counts()
     # two forwards a check, three in bf16 (the float32 control)
     want = {"flash_attention": 5 * yi.n_layers,
-            "ssd_chunk_scan": 3 * m16 + 2 * m32}
+            "ssd_chunk_scan": 3 * m_bf16 + 2 * m_f32}
     if on_card and any(counts[k] != n for k, n in want.items()):
         raise AssertionError(f"decode: launches {counts}, expected {want}")
     log(f"decode: the checks' forwards launched "
@@ -5674,14 +5694,14 @@ LAUNCHER_ARGS = ["--requests", "10", "--steps", "10", "--train-steps", "10",
                  "--batch", "4"]
 # dB: every launcher request against its uncached twin.  Measured 39.75
 # min on the H100 and 40.67 on the CPU, in every mode; the control (the
-# next request's uncached output) at most 5.34 and 5.36 dB.  It catches
+# next request's uncached output) at most 5.34 and 5.36 dB.  (The
+# threaded open loop is the examples phase's serve_batch run, with its
+# own floor.)  It catches
 # a wrong lane, not a stale cache, whose output on this barely trained
 # model need not fall far from FreqCa's; the cache kernels' own checks
 # at the launcher's shape guard that path.
 LAUNCHER_PSNR_FLOOR = 30.0
-LAUNCHER_MODES = {"burst": [],
-                  "poisson": ["--arrival", "poisson", "--clients", "2"],
-                  "replicas": ["--replicas", "2"]}
+LAUNCHER_MODES = {"burst": [], "replicas": ["--replicas", "2"]}
 
 
 def cache_kernel_checks(b: int, s: int, d: int, device: str,
@@ -5714,11 +5734,12 @@ def cache_kernel_checks(b: int, s: int, d: int, device: str,
 
 
 def launcher_phase(device: str = "cuda") -> dict:
-    """``repro_torch.launch.serve.main`` in this process, three times, at
+    """``repro_torch.launch.serve.main`` in this process, twice, at
     dit-small (8 blocks, d 128, S 256, float32; 10 training steps, 10
     requests of 10 steps, FreqCa interval 5, max batch 4, every fifth an
-    edit): closed-loop bursts, the threaded open loop (Poisson arrivals,
-    two clients) and two replica processes (``--replicas 2``).  Each run
+    edit): closed-loop bursts and two replica processes (``--replicas
+    2``); the threaded open loop is the examples phase's serve_batch
+    run.  Each run
     must give every request 4 full steps (steps 0, 1, 2, 5), a PSNR
     against the uncached run (for the fleet, an uncached engine in this
     process on the weights the launcher trained) of at least
@@ -7663,6 +7684,562 @@ def dit_small_phase(device: str = "cuda", serve_args=None,
     return by_phase
 
 
+# the examples phase's twins (``examples/torch_*.py``, each through its
+# ``run`` at the reference script's sizes), each with its run's key in
+# the launch counts and the kernels it must launch (by counter) and no
+# other: the DiT twins at latent 32 (S 256) stay below the flash
+# threshold, and the tour's reduced LMs at 32 tokens below the blockwise
+# one
+EXAMPLES_KERNELS = {
+    "torch_quickstart": ("examples_quickstart", (
+        "band_split_spectral", "freqca_predict_fused_spectral")),
+    "torch_edit_image": ("examples_edit", (
+        "band_split_spectral", "freqca_predict_fused_spectral")),
+    "torch_freq_analysis": ("examples_fig2", ("token_basis_matmul",)),
+    "torch_serve_batch": ("examples_serve", (
+        "band_split_spectral", "freqca_predict_fused_spectral")),
+    "torch_lm_backbones": ("examples_lm_backbones", (
+        "ssd_chunk_scan", "ssd_chunk_scan_bwd")),
+}
+# the serve_batch run (the threaded open loop: Poisson arrivals, four
+# client threads, mixed policies): dB, every request against its
+# uncached twin, while the next request's uncached output (a wrong
+# lane) stays below it.  Read 22.19 min on the H100 (the weights it
+# trains there; the mixed lanes) and 31.36 on the CPU's weights; the
+# control at most 11.14 on the CPU's
+EXAMPLES_PSNR_FLOOR = 16.0
+# card against CPU from the same parameters and inputs, float32 with TF32
+# off on both sides: the sampled latents' relative L2 after 50 Euler
+# steps (read 1.0e-7 to 9.4e-7 on the trained weights, the edit's FreqCa
+# run the most: the limit is 5.3x the worst; TF32 on reads 1.2e-4 to
+# 4.1e-4); each Fig-2 statistic's absolute difference (read up to 1.3e-5,
+# a continuity ratio of ~1.5 whose second differences cancel; the
+# similarities ~1e-6); the tour's first loss, relative (read up to 3.3e-6)
+EXAMPLES_TOL = {"latents": 5e-6, "fig2": 5e-5, "loss": 1e-4}
+# the sampling checks' kernel control: the band split's low band scaled
+# by 1 + this on the card (a wrong cache update), which the latents'
+# limit must catch in the FreqCa run.  (Scaling its input instead is no
+# control: the final layer's norm undoes a scale of the whole CRF.)
+EXAMPLES_PERTURB = 1e-3
+# the rows of kernels 1 and 2 (by counter) in the fft form at the edit
+# example's shape
+EXAMPLES_FFT_ROWS = {
+    "band_split_spectral": "band_split_spectral[examples fft 2x256x128]",
+    "freqca_predict_fused_spectral":
+        "freqca_predict_fused_spectral[examples fft 2x256x128]"}
+
+
+def load_example(name: str):
+    """The module ``examples/<name>.py``, imported by its path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_rows(row) -> None:
+    """Kernels 1 and 2 in the fft form at the edit example's shape: the
+    float32 CRF of two lanes of dit-small at latent 32, [2, 256, 128],
+    the high ring of 3 (Hermite order 2), the band split's m = 17 (dct's
+    16, rounded up to an odd count).  The arithmetic runs on the TF32
+    tensor cores: the bound counts the products once at the TF32 peak."""
+    import torch
+
+    from repro_torch.core import frequency
+    from repro_torch.kernels import dct, freqca_fused, ops, ref
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    b, s, d, k = 2, 256, 128, 3
+    x = torch.randn((b, s, d), generator=gen, device=dev)
+    m = frequency.spectral_kept_bins(s, 0.0625, "fft")
+    work, nb = dct.spectral_work(b, s, d, m, 4)
+    row(EXAMPLES_FFT_ROWS["band_split_spectral"], "float32",
+        lambda: dct.band_split_spectral(x, 0.0625, "fft"),
+        lambda: ref.band_split_spectral_ref(x, 0.0625, "fft"),
+        nb, work["tf32"], reps=50, op_dtype="tf32")
+    low = torch.randn((b, m, d), generator=gen, device=dev)
+    hist = torch.randn((b, k, s, d), generator=gen, device=dev)
+    synth = frequency.low_band_basis(s, 0.0625, "fft", device=dev).T
+    ts = torch.tensor([[0.9, 0.85, 0.75], [0.75, 0.9, 0.85]], device=dev)
+    w = ops.hermite_weights(ts, torch.tensor(0.7, device=dev), 2)
+    work, nb = freqca_fused.spectral_work(b, k, s, d, m, 4)
+    row(EXAMPLES_FFT_ROWS["freqca_predict_fused_spectral"], "float32",
+        lambda: freqca_fused.freqca_predict_fused_spectral(low, synth, hist,
+                                                           w),
+        lambda: ref.freqca_predict_spectral_ref(low, synth, hist, w),
+        nb, work["tf32"], reps=50, op_dtype="tf32")
+
+
+class LaunchRecorder:
+    """While active, the op-layer entries of kernels 1, 2, 4 and 6 keep
+    the inputs and output of the first call of each signature (the
+    entry, its tensors' shapes and types, its other arguments), on the
+    card only; kernel 6's output, where it needs a gradient, keeps the
+    first gradient it is given, the input of kernel 8.  ``check`` then
+    holds each against its plain version on the same inputs."""
+
+    OPS = ("band_split_spectral", "freqca_predict_spectral", "band_split",
+           "ssd")
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.calls = {}
+        self._real = {op: getattr(ops, op) for op in self.OPS}
+        for op, real in self._real.items():
+            setattr(ops, op, self._wrap(op, real))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for op, real in self._real.items():
+            setattr(ops, op, real)
+
+    def _wrap(self, op, real):
+        import torch
+
+        def call(*args):
+            y = real(*args)
+            key = (op,) + tuple((tuple(a.shape), str(a.dtype))
+                                if torch.is_tensor(a) else a for a in args)
+            if key in self.calls or not args[0].is_cuda:
+                return y
+            rec = self.calls[key] = {
+                "args": tuple(a.detach().clone() if torch.is_tensor(a)
+                              else a for a in args),
+                "out": tuple(t.detach().clone() for t in (
+                    y if isinstance(y, tuple) else (y,)))}
+            if op == "ssd" and y.requires_grad:
+                def keep(g):
+                    rec.setdefault("dy", g.detach().clone())
+                y.register_hook(keep)
+            return y
+        return call
+
+    def check(self, label: str) -> list:
+        """Each recorded call against its plain version on its own
+        inputs (``compare``'s tolerance for the type; kernel 8's outputs
+        to ``SSD_BWD_TOL``, run twice on the recorded gradient, bitwise
+        equal); returns ``[(entry, shape, max rel err)]``."""
+        import torch
+
+        from repro_torch.kernels import ref, ssd_scan
+        out = []
+        for key, rec in self.calls.items():
+            op, args, got = key[0], rec["args"], rec["out"]
+            x = args[0]
+            dtype = str(x.dtype).removeprefix("torch.")
+            shape = list(x.shape)
+            with torch.no_grad():
+                if op == "band_split_spectral":
+                    want = ref.band_split_spectral_ref(*args)
+                elif op == "band_split":
+                    want = ref.band_split_ref(*args)
+                elif op == "freqca_predict_spectral":
+                    want = ref.freqca_predict_spectral_ref(*args)
+                    shape = list(args[2].shape)
+                else:
+                    xs, dt, a, bm, cm, chunk = args
+                    want = ref.ssd_chunk_scan_ref(xs, dt.float(), a.float(),
+                                                  bm, cm, chunk)
+            shape += [a for a in args if not torch.is_tensor(a)]
+            name = f"{op}[{label} {'x'.join(map(str, shape))}]"
+            err, rel = compare(name, dtype, got if len(got) > 1 else got[0],
+                               want)
+            out.append((op, shape, rel))
+            if op == "ssd" and "dy" in rec:
+                xs, dt, a, bm, cm, chunk = args
+                dy = rec["dy"]
+                with torch.no_grad():
+                    kern = [ssd_scan.ssd_chunk_scan_bwd(
+                        xs, dt.float(), a.float(), bm, cm, dy, chunk)
+                        for _ in range(2)]
+                    plain = ref.ssd_chunk_scan_bwd_ref(
+                        xs, dt.float(), a.float(), bm, cm, dy, chunk)
+                _, rel = ssd_bwd_check(f"ssd_chunk_scan_bwd[{label} "
+                                       f"{'x'.join(map(str, shape))}]",
+                                       dtype, *kern, plain)
+                out.append(("ssd_bwd", shape, rel))
+        log(f"examples: {label}: {len(out)} launch signatures held against "
+            "their plain versions on the same inputs: "
+            + "; ".join(f"{op} {shape} rel {rel:.3e}"
+                        for op, shape, rel in out))
+        return out
+
+
+def _perturbed_band_split(scale: float):
+    """``ops.band_split_spectral`` with its low band scaled by ``scale``
+    on the card (a control)."""
+    from unittest import mock
+
+    from repro_torch.kernels import ops
+    real = ops.band_split_spectral
+
+    def split(x, *a):
+        low, high = real(x, *a)
+        return (low * scale if x.is_cuda else low), high
+    return mock.patch.object(ops, "band_split_spectral", split)
+
+
+def greedy_logits(params, cfg, tokens, n_prompt: int, device):
+    """The decode's logits ``[n_new, V]`` (float32, on the CPU) at each
+    position ``tokens [1, P + n_new]`` generated past its ``n_prompt``
+    prompt tokens, teacher-forced: ``LMEngine``'s prefill of the prompt,
+    then ``decode_step`` on each given token."""
+    import torch
+
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import LMEngine
+    eng = LMEngine(params, cfg, max_len=16, device=device)
+    tokens = tokens.to(eng.device)
+    with torch.inference_mode():
+        logits, cache = eng.prefill(tokens[:, :n_prompt])
+        rows = [logits[0, -1]]
+        for i in range(n_prompt, tokens.shape[1] - 1):
+            logits, cache = transformer.decode_step(
+                params, tokens[:, i:i + 1], cache, cfg, window=eng.window)
+            rows.append(logits[0, -1])
+    return torch.stack(rows).float().cpu()
+
+
+def examples_phase(device: str = "cuda", sizes=None) -> dict:
+    """The five twins of the repo's examples, each through its ``run`` at
+    the reference script's sizes on ``device``, the launch counters set
+    to 0 just before each run and read just after; each must launch its
+    kernels (``EXAMPLES_KERNELS``) and no other, and every launch
+    signature of kernels 1, 2, 4, 6 and 8 is held against its plain
+    version on the same inputs (``LaunchRecorder``).  Card against CPU,
+    the CPU's work in a thread beside the card's:
+    - quickstart and edit: the card-trained parameters copied to the
+      CPU; both devices sample the same x0 uncached and under FreqCa:
+      full steps equal, final latents within ``EXAMPLES_TOL``; two
+      controls on the card must each miss it, TF32 on (both runs) and
+      the band split's input scaled by ``1 + EXAMPLES_PERTURB`` (the
+      FreqCa run);
+    - Fig 2: the card's CRF trajectory; its statistics from the card's
+      bands (kernel 4) against the CPU's from the same trajectory, and
+      against ``fig2_stats`` on the card, within ``EXAMPLES_TOL``; the
+      three claims logged;
+    - serve_batch (the threaded open loop, four clients): every request
+      answered once with finite latents, the freqca lanes (every third)
+      with their scheduled full steps, a PSNR
+      against the uncached run of at least ``EXAMPLES_PSNR_FLOOR`` while
+      the next request's uncached output stays below it, 0 steady-state
+      first runs;
+    - the tour: every loss finite, the first step's loss against the
+      CPU's from the same parameters and batch within ``EXAMPLES_TOL``
+      (with experts, routings apart only within 4δ of a tie), the greedy
+      tokens against the CPU's teacher-forced argmax wherever its top-2
+      margin is clear of 4δ, δ the largest logit difference;
+    - ``python examples/torch_quickstart.py`` run from the root in a
+      subprocess, as the README gives it, beside the serve_batch run:
+      exit 0 and its three lines.
+    Every check runs; the phase raises at its end if any failed.
+    ``sizes`` ({twin: run keywords}) and ``device`` let it be rehearsed
+    small on the CPU (the launch checks and controls are then skipped).
+    Returns the launch counts by run."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+    from unittest import mock
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.core import frequency
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adamw
+    on_card = torch.device(device).type == "cuda"
+    sizes = sizes or {}
+    twin = {name: load_example(name) for name in EXAMPLES_KERNELS}
+    by_phase, problems = {}, []
+
+    def expect(ok: bool, what: str) -> None:
+        if not ok:
+            problems.append(what)
+            log(f"examples: FAILED: {what}")
+
+    def run(name: str):
+        """``twin[name].run`` with its launches counted and recorded."""
+        key, want = EXAMPLES_KERNELS[name]
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with LaunchRecorder() as rec:
+            # no device on the card: the twin's own default
+            res = twin[name].run(device=None if on_card else device,
+                                 **sizes.get(name, {}))
+        counts = by_phase[key] = ops.launch_counts()
+        wall = time.perf_counter() - t0
+        log(f"examples: {name}.run on {device} in {wall:.1f} s, launches "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if on_card:
+            expect(all(counts[k] > 0 for k in want)
+                   and not any(v for k, v in counts.items()
+                               if k not in want),
+                   f"{name}: launches {counts}, expected {want} and "
+                   "nothing else")
+            try:
+                rec.check(key.removeprefix("examples_"))
+            except AssertionError as e:
+                expect(False, f"{name}: {e}")
+        return res
+
+    def to_cpu(tree):
+        return adamw.tree_map(lambda p: p.detach().to("cpu", copy=True),
+                              tree)
+
+    def sampling(name: str, fn, pool):
+        """quickstart's / edit's run and controls on the card, its CPU
+        side submitted to ``pool``; returns the card-vs-CPU check, to be
+        called once the card has other work done.  ``fn(params, device)``
+        samples."""
+        res = run(name)
+        cpu = pool.submit(fn, to_cpu(res["params"]), "cpu")
+        log(f"examples: {name}: uncached {res['full_steps']} full steps, "
+            f"FreqCa {res['freqca_steps']} of {res['n_steps']}"
+            + (f" ({res['saving']:.2f}x scheduled compute saving)"
+               if "saving" in res else "")
+            + f", rel err vs uncached {res['rel_err']:.4f}")
+        controls = {}
+        if on_card:
+            with tf32_on():
+                controls["TF32"] = fn(res["params"], device)
+            with _perturbed_band_split(1 + EXAMPLES_PERTURB):
+                controls[f"low band x (1 + {EXAMPLES_PERTURB:.0e})"] = \
+                    fn(res["params"], device)
+        return lambda: check_sampling(name, res, controls, cpu.result())
+
+    def check_sampling(name: str, res: dict, controls: dict, want: dict):
+        """The card's run ``res`` and ``controls`` against the CPU's
+        ``want``."""
+        tol = EXAMPLES_TOL["latents"]
+        rels = {k: rel_l2(res[k], want[k]) for k in ("x_full", "x_freqca")}
+        missed = {c: {k: rel_l2(out[k], want[k]) for k in (
+            ("x_full", "x_freqca") if c == "TF32" else ("x_freqca",))}
+            for c, out in controls.items()}
+        log(f"examples: {name}: card vs CPU from the same parameters and "
+            f"x0: full steps {res['full_steps']}/{res['freqca_steps']} vs "
+            f"{want['full_steps']}/{want['freqca_steps']}; final latents "
+            "rel L2 " + ", ".join(f"{k} {v:.3e}" for k, v in rels.items())
+            + f" (tol {tol:.0e}); controls (each must exceed it) "
+            + "; ".join(f"{c} " + ", ".join(f"{k} {v:.3e}"
+                                            for k, v in m.items())
+                        for c, m in missed.items()))
+        expect((res["full_steps"], res["freqca_steps"])
+               == (want["full_steps"], want["freqca_steps"])
+               and res["freqca_steps"] == full_steps(res["n_steps"], 5),
+               f"{name}: full steps")
+        expect(max(rels.values()) <= tol and all(
+            bool(torch.isfinite(res[k]).all()) for k in rels),
+            f"{name}: card vs CPU {rels}")
+        expect(all(min(m.values()) > tol for m in missed.values()),
+               f"{name}: a control within the tolerance: {missed}")
+
+    sub = None
+
+    def stop_sub():
+        if sub is not None and sub.poll() is None:
+            sub.kill()
+            sub.wait()
+    with contextlib.ExitStack() as stack:
+        pool = stack.enter_context(ThreadPoolExecutor(1))
+        stack.callback(stop_sub)       # on the way out, if still running
+        dit_small = configs.get_config("dit-small")
+        q, e = twin["torch_quickstart"], twin["torch_edit_image"]
+        kw_q, kw_e = ({k: v for k, v in sizes.get(name, {}).items()
+                       if k in ("n_steps", "n_images", "size")}
+                      for name in ("torch_quickstart", "torch_edit_image"))
+        # each CPU side is read after the serve run, which it overlaps
+        checks = [sampling("torch_quickstart", lambda p, dev: q.sample(
+            p, dit_small, device=dev, **kw_q), pool),
+            sampling("torch_edit_image", lambda p, dev: e.edit(
+                p, dit_small, device=dev, **kw_e), pool)]
+
+        # Fig 2: the CPU's statistics from the card's trajectory, and its
+        # claims from its own trajectory on the same weights
+        f = twin["torch_freq_analysis"]
+        res = run("torch_freq_analysis")
+        kw_f = {k: v for k, v in sizes.get("torch_freq_analysis",
+                                           {}).items()
+                if k in ("n_steps", "size")}
+
+        def on_cpu(crfs, params):
+            with torch.no_grad():
+                return f.fig2(crfs), f.claims(f.fig2(f.trajectory(
+                    params, dit_small, device="cpu", **kw_f)))
+        cpu = pool.submit(on_cpu, res["crfs"].to("cpu"),
+                          to_cpu(res["params"]))
+
+        def split(z, rho, method):
+            return tuple(frequency.decompose(z, rho, method))
+        with torch.no_grad():
+            own = fig2_stats(res["crfs"], split)
+        fig = {k: res[k] for k in ("stats", "rows", "claims")}
+        del res
+        _free(device)
+
+        # serve_batch, with ``python examples/torch_quickstart.py`` in a
+        # subprocess beside it: the open loop leaves the card idle between
+        # arrivals, while beside the training twins two processes
+        # launching small kernels slowed each other several times over
+        # (107 s beside the twins, 15-21 s alone, on the H100)
+        if on_card:
+            t_sub = time.perf_counter()
+            sub = subprocess.Popen(
+                [sys.executable, "examples/torch_quickstart.py"], cwd=ROOT,
+                env=dict(os.environ, PYTHONPATH="src"),
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        s = twin["torch_serve_batch"]
+        res = run("torch_serve_batch")
+        args = serve.build_parser().parse_args(
+            s.arguments(**sizes.get("torch_serve_batch", {})))
+        outs, uncached = res["freqca"]["outs"], res["full"]["outs"]
+        fulls = [o.n_full_steps for o in outs]
+        control = [serve.psnr(o.latents,
+                              uncached[(i + 1) % len(uncached)].latents)
+                   for i, o in enumerate(outs)]
+        steady = [res[k]["steady_recompiles"] for k in ("freqca", "full")]
+        log(f"examples: serve_batch: {len(outs)} requests, full steps "
+            f"{fulls} (freqca, fora, freqca_a cycling), uncached "
+            f"{sorted({o.n_full_steps for o in uncached})}; PSNR vs "
+            f"uncached min {min(res['psnr']):.2f} / mean "
+            f"{sum(res['psnr']) / len(outs):.2f} dB (floor "
+            f"{EXAMPLES_PSNR_FLOOR}; the next request's uncached output: "
+            f"max {max(control):.2f} dB); steady recompiles {steady}; "
+            f"FreqCa {res['freqca']['wall']:.2f} s, uncached "
+            f"{res['full']['wall']:.2f} s")
+        expect([o.request_id for o in outs] == list(range(args.requests))
+               and fulls[::3] == [full_steps(args.steps, args.interval)]
+               * len(fulls[::3])
+               and all(bool(torch.isfinite(torch.as_tensor(o.latents))
+                            .all()) for o in outs),
+               f"serve_batch: ids {[o.request_id for o in outs]}, full "
+               f"steps {fulls}")
+        expect(min(res["psnr"]) >= EXAMPLES_PSNR_FLOOR > max(control)
+               and steady == [0, 0],
+               f"serve_batch: PSNR {res['psnr']}, control {control}, "
+               f"steady recompiles {steady}")
+        del res
+        _free(device)
+
+        for check in checks:
+            check()
+        # Fig 2's comparison, its CPU side done meanwhile
+        want, cpu_claims = cpu.result()
+        diffs = {"the CPU's": {}, "fig2_stats'": {}}
+        for key, st in fig["stats"].items():
+            for band in ("low", "high"):
+                for k in f.INTERVALS:
+                    got = st[f"sim_{band}"][k]
+                    diffs["the CPU's"][key, f"sim_{band}@{k}"] = abs(
+                        got - want[key][f"sim_{band}"][k])
+                    diffs["fig2_stats'"][key, f"sim_{band}@{k}"] = abs(
+                        got - own[key][f"sim_{band}@{k}"])
+                got = st[f"c_{band}"]
+                diffs["the CPU's"][key, f"cont_{band}"] = abs(
+                    got - want[key][f"c_{band}"])
+                diffs["fig2_stats'"][key, f"cont_{band}"] = abs(
+                    got - own[key][f"cont_{band}"])
+        worst = {n: max(d, key=d.get) for n, d in diffs.items()}
+        log("examples: fig2 rows on the card: " + json.dumps(fig["rows"]))
+        log("examples: fig2: 40 statistics on the card against "
+            + "; ".join(f"{n} worst |diff| {diffs[n][w]:.3e} ({w})"
+                        for n, w in worst.items())
+            + f" (tol {EXAMPLES_TOL['fig2']:.0e}); the claims on the card "
+            + "; ".join(f"{m} {r}: {c}" for (m, r), c in
+                        fig["claims"].items())
+            + "; on the CPU from its own trajectory on the same weights "
+            + "; ".join(f"{m} {r}: {c}" for (m, r), c in
+                        cpu_claims.items()))
+        far = {n: diffs[n][w] for n, w in worst.items()}
+        expect(max(far.values()) <= EXAMPLES_TOL["fig2"],
+               f"fig2: statistics differ: {far}")
+
+        # the tour: the parameters and batch of each config's first loss
+        # call (each train_lm asks loss_fn for its config's once)
+        first = []
+        real_loss_fn = steps_lib.loss_fn
+
+        def loss_fn(cfg):
+            fn, fresh = real_loss_fn(cfg), [True]
+
+            def call(p, b, c):
+                if fresh[0]:
+                    fresh[0] = False
+                    first.append((cfg, to_cpu(p), {k: v.detach().cpu()
+                                                   for k, v in b.items()}))
+                return fn(p, b, c)
+            return call
+        with mock.patch.object(steps_lib, "loss_fn", loss_fn):
+            tour = run("torch_lm_backbones")
+        for (cfg, p_cpu, b_cpu), (arch, res) in zip(first, tour.items(),
+                                                    strict=True):
+            with torch.no_grad(), MoESpy() as spy_cpu:
+                l_cpu = real_loss_fn(cfg)(p_cpu, b_cpu, cfg)[0].item()
+            note = ""
+            if cfg.moe is not None:
+                with torch.no_grad(), MoESpy() as spy_card:
+                    real_loss_fn(cfg)(_to(p_cpu, device),
+                                      {k: v.to(device)
+                                       for k, v in b_cpu.items()}, cfg)
+                try:
+                    route_check(f"examples: tour {arch} step 0",
+                                spy_card.routes, spy_cpu.routes,
+                                strict=False)
+                except AssertionError as err:
+                    expect(False, str(err))
+            rel = abs(res["losses"][0] - l_cpu) / abs(l_cpu)
+            if res["tokens"] is not None:
+                toks = torch.tensor([res["tokens"]])
+                l_card = greedy_logits(res["params"], cfg, toks, 4, device)
+                l_host = greedy_logits(to_cpu(res["params"]), cfg, toks, 4,
+                                       "cpu")
+                delta = (l_card - l_host).abs().max().item()
+                top2 = torch.topk(l_host, 2, dim=-1)
+                clear = (top2.values[:, 0] - top2.values[:, 1]) > 4 * delta
+                new = toks[0, 4:]
+                wrong = clear & (top2.indices[:, 0] != new)
+                own_ok = bool((l_card.argmax(-1) == new).all())
+                note = (f"; decode {res['tokens']}: δ {delta:.3e}, "
+                        f"{int(clear.sum())} of {len(new)} tokens clear of "
+                        f"4δ, {int(wrong.sum())} of them not the CPU's "
+                        f"argmax; the card's own teacher-forced argmax "
+                        f"{'agrees' if own_ok else 'DIFFERS'}")
+                expect(not wrong.any() and own_ok,
+                       f"tour {arch}: greedy tokens")
+            log(f"examples: tour {arch} ({res['family']}): losses "
+                f"{[round(x, 6) for x in res['losses']]}, step 0 card vs "
+                f"CPU {res['losses'][0]:.6f} / {l_cpu:.6f} (rel {rel:.2e}, "
+                f"tol {EXAMPLES_TOL['loss']:.0e}){note}")
+            expect(all(math.isfinite(x) for x in res["losses"])
+                   and rel <= EXAMPLES_TOL["loss"], f"tour {arch}: losses")
+        del tour, first
+
+        if sub is not None:
+            try:
+                text, _ = sub.communicate(timeout=300)
+                rc = sub.returncode
+            except subprocess.TimeoutExpired:
+                sub.kill()
+                sub.communicate()
+                rc, text = "timeout (300 s)", ""
+            lines = [ln for ln in text.splitlines() if ln.startswith((
+                "registered cache policies:", "uncached:",
+                "relative output error"))]
+            log(f"examples: python examples/torch_quickstart.py "
+                f"(PYTHONPATH=src, from the root): exit {rc} after "
+                f"{time.perf_counter() - t_sub:.1f} s; its lines: "
+                + " | ".join(lines))
+            expect(rc == 0 and len(lines) == 3,
+                   "python examples/torch_quickstart.py")
+    if problems:
+        raise AssertionError(f"examples: {len(problems)} checks failed: "
+                             + "; ".join(problems))
+    return by_phase
+
+
 # the phases after the build and kernel phases, in the order they run
 # the reduced phase: every ``--reduced`` config of the launcher on the
 # card, the ten LMs at S 2048 (their attention's flash route) and the two
@@ -7827,8 +8404,8 @@ def reduced_phase(archs=REDUCED_LMS + REDUCED_DITS, seq: int = REDUCED_SEQ,
 
 PHASES = ("dryrun", "reference", "analysis", "serve", "slo", "backbone",
           "lm", "decode", "train", "lm_train", "moe", "lm_configs", "jamba",
-          "encdec", "vlm", "dit_small", "forms", "reduced", "launcher",
-          "fleet")
+          "encdec", "vlm", "dit_small", "examples", "forms", "reduced",
+          "launcher", "fleet")
 
 
 def run_phases(phases) -> dict:
@@ -7848,9 +8425,18 @@ def run_phases(phases) -> dict:
         t_last[0] = now
     dry = "dryrun" in phases
     smi = nvidia_smi()
+    sweep = None
     if dry:
-        dryrun_sweep()
-        done("dryrun (the 16 x 16 sweep)")
+        # the sweep is the CPU's work alone (meta tensors): a process of
+        # its own runs it beside the card's phases, read at the end
+        t_sweep = time.perf_counter()
+        sweep_log = open(ROOT / "build" / "dryrun_sweep.log", "w+")
+        sweep = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke; "
+             "chip_smoke.dryrun_sweep()"], cwd=ROOT, stdout=sweep_log,
+            stderr=subprocess.STDOUT, text=True)
+        # a phase that raises ends this process: the sweep goes with it
+        atexit.register(lambda: sweep.poll() is None and sweep.kill())
     if "reference" in phases:
         reference_phase()
         done("reference")
@@ -7890,7 +8476,8 @@ def run_phases(phases) -> dict:
                      ("moe", moe_phase), ("lm_configs", lm_configs_phase),
                      ("jamba", jamba_phase), ("encdec", encdec_phase),
                      ("vlm", vlm_phase), ("dit_small", dit_small_phase),
-                     ("forms", forms_phase), ("reduced", reduced_phase)):
+                     ("examples", examples_phase), ("forms", forms_phase),
+                     ("reduced", reduced_phase)):
         if name in phases:
             by_phase.update(fn())
             free()
@@ -7906,6 +8493,21 @@ def run_phases(phases) -> dict:
     if "fleet" in phases:
         by_phase.update(fleet_phase())
         done("fleet")
+    if sweep is not None:
+        try:
+            sweep.wait(timeout=900)
+        finally:
+            if sweep.poll() is None:
+                sweep.kill()
+                sweep.wait()
+        sweep_log.seek(0)
+        print(sweep_log.read(), end="", flush=True)
+        sweep_log.close()
+        log(f"phase dryrun (the 16 x 16 sweep, in its own process beside "
+            f"the others): exit {sweep.returncode} after "
+            f"{time.perf_counter() - t_sweep:.1f} s")
+        if sweep.returncode != 0:
+            raise AssertionError("dryrun: the 16 x 16 sweep failed")
     return by_phase
 
 
@@ -7966,13 +8568,14 @@ def main(argv=None) -> int:
     # summed; without those phases nothing was counted and the line
     # says null
     by_phase = run_phases(phases)
-    # the reduced phase's launches are the small widths' entries'
-    # (SMALL_KERNELS), the forms phase's those of its forms, the other
-    # phases' the entries of the wider forms
+    # the reduced phase's and the examples tour's launches are the small
+    # widths' entries' (SMALL_KERNELS), the forms phase's those of its
+    # forms, the other phases' the entries of the wider forms
+    small_runs = ("reduced_", EXAMPLES_KERNELS["torch_lm_backbones"][0])
     wide = {ph: c for ph, c in by_phase.items()
-            if not ph.startswith(("reduced_", "forms_"))}
+            if not ph.startswith(small_runs + ("forms_",))}
     small = {ph: c for ph, c in by_phase.items()
-             if ph.startswith("reduced_")}
+             if ph.startswith(small_runs)}
     paths = {name: [ph for ph in wide if wide[ph][name] > 0]
              for name in main_dtype}
 
@@ -8053,7 +8656,8 @@ def main(argv=None) -> int:
         form_rows = {label: v for label, v in FORM_ROWS.items()
                      if label.startswith(name + "[")
                      and not any(tag in label for tag in (
-                         "f32_hd16", "f32_hd32", "p32 q16", "forms "))}
+                         "f32_hd16", "f32_hd32", "p32 q16", "forms ",
+                         "examples "))}
         if form_rows:
             k["form_rows"] = form_rows
         kernels.append(k)
@@ -8096,7 +8700,8 @@ def main(argv=None) -> int:
                       + ("[16, 2048, 4/2, 32]; the non-causal form "
                          "(seamless's encoder and cross attention) in "
                          "form_rows" if "flash" in name else
-                         "x [16, 2048, 8, 32], N 16, chunk 16"))
+                         "x [16, 2048, 8, 32], N 16, chunk 16; the "
+                         "examples tour's launches at x [2, 32, 8, 32]"))
         rows_of = {lab: v for lab, v in FORM_ROWS.items()
                    if lab.startswith(name.split("[")[0] + "[")
                    and ("f32_hd32" in lab or "p32 q16" in lab)
@@ -8118,6 +8723,21 @@ def main(argv=None) -> int:
         if runs:
             k["launches_by_phase"] = runs
         k["forms"] = f"{label.removeprefix('forms ')}, {dtn}"
+        kernels.append(k)
+    # the fft forms of kernels 1 and 2 at the edit example's shape, with
+    # that example's launches (all of them fft; also counted in the
+    # kernels' own entries above)
+    edit = EXAMPLES_KERNELS["torch_edit_image"][0]
+    for name, label in EXAMPLES_FFT_ROWS.items():
+        src, rep = replaces[name]
+        k = dict(name=label, route="cuda", source=src, replaces=rep,
+                 launches=by_phase[edit][name] if edit in by_phase else None,
+                 **FORM_ROWS[label]["float32"])
+        if edit in by_phase:
+            k["launches_by_phase"] = {edit: by_phase[edit][name]}
+        k["forms"] = ("fft, float32 [2, 256, 128] (dit-small's CRF at "
+                      "latent 32, two lanes): the examples phase's edit "
+                      "example, whose launches are all of this form")
         kernels.append(k)
     log(f"chip_smoke: phases {list(phases)} done in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -17,12 +17,13 @@ from repro_torch.configs import (command_r_plus_104b, deepseek_coder_33b,
                                  seamless_m4t_medium, yi_9b)
 from repro_torch.configs.base import DiTConfig, ModelConfig
 
+# in the reference's order, so that ``list_archs`` lists as it does
 REGISTRY: Dict[str, Union[ModelConfig, DiTConfig]] = {
     m.CONFIG.arch_id: m.CONFIG
-    for m in (dit_small, flux1_dev, yi_9b, mamba2_370m, granite_moe_3b,
-              phi35_moe_42b, deepseek_coder_33b, llama3_405b,
-              command_r_plus_104b, jamba_15_large, seamless_m4t_medium,
-              llava_next_34b)
+    for m in (mamba2_370m, deepseek_coder_33b, seamless_m4t_medium,
+              phi35_moe_42b, granite_moe_3b, llama3_405b, yi_9b,
+              jamba_15_large, command_r_plus_104b, llava_next_34b,
+              dit_small, flux1_dev)
 }
 
 # the ten assigned LM architectures, the reference's dry-run targets
@@ -49,6 +50,10 @@ LONG_CONTEXT_WINDOW = 8192
 
 def get_config(arch_id: str):
     return REGISTRY[arch_id]
+
+
+def list_archs():
+    return list(REGISTRY)
 
 
 def needs_sliding_window(cfg: ModelConfig, shape_name: str) -> bool:

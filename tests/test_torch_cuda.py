@@ -1465,3 +1465,65 @@ def test_ssd_kernels_at_every_form(card, dtype, s, p, n, chunk):
                dtype)
     _ssd_close(got, ref.ssd_chunk_scan_bwd_ref(x, dt, a, bm, cm, dy, chunk),
                dtype)
+
+
+def _example(name: str):
+    """``examples/<name>.py``, imported by its path."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "examples" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the quickstart's sampled latents, card against CPU from the same
+# parameters and x0 (relative L2; float32 with TF32 off on both sides):
+# chip_smoke's limit over 50 steps, EXAMPLES_TOL["latents"]
+_EXAMPLE_TOL = 5e-6
+
+
+def test_quickstart_example_on_card(card):
+    """The quickstart twin's ``run`` at 4 train and 10 sampling steps on
+    the card: kernels 1 and 2 launched (a band split on each of the 4
+    full steps, a fused step on each of the 6 cached ones) and nothing
+    else; its samples against the CPU's from the same parameters."""
+    from repro_torch import configs
+    from repro_torch.optim import adamw
+    mod = _example("torch_quickstart")
+    ops.reset_launch_counts()
+    res = mod.run(train_steps=4, n_steps=10)
+    counts = ops.launch_counts()
+    assert counts["band_split_spectral"] == 4
+    assert counts["freqca_predict_fused_spectral"] == 6
+    assert sum(counts.values()) == 10
+    params = adamw.tree_map(lambda p: p.detach().cpu(), res["params"])
+    want = mod.sample(params, configs.get_config("dit-small"), n_steps=10,
+                      device="cpu")
+    assert (res["full_steps"], res["freqca_steps"]) == (
+        want["full_steps"], want["freqca_steps"]) == (10, 4)
+    for key in ("x_full", "x_freqca"):
+        got = res[key].cpu()
+        assert torch.isfinite(got).all()
+        assert float((got - want[key]).norm() / want[key].norm()) \
+            <= _EXAMPLE_TOL
+
+
+def test_fft_cache_kernels_at_the_edit_examples_shape(card):
+    """Kernels 1 and 2 in the fft form on the float32 CRF of the edit
+    example, [2, 256, 128] (m 17), the high ring of 3."""
+    x = torch.randn(2, 256, 128, device=card)
+    ops.reset_launch_counts()
+    low, high = ops.band_split_spectral(x, 0.0625, "fft")
+    _close((low, high), ref.band_split_spectral_ref(x, 0.0625, "fft"),
+           torch.float32)
+    assert low.shape == (2, 17, 128)
+    synth = frequency.low_band_basis(256, 0.0625, "fft", device=card).T
+    hist = torch.randn(2, 3, 256, 128, device=card)
+    w = torch.randn(2, 3, device=card)
+    got = ops.freqca_predict_spectral(low, synth, hist, w)
+    _close((got,), (ref.freqca_predict_spectral_ref(low, synth, hist, w),),
+           torch.float32)
+    assert ops.launch_counts()["band_split_spectral"] == 1
+    assert ops.launch_counts()["freqca_predict_fused_spectral"] == 1

@@ -381,15 +381,21 @@ def log_f32_fwd_bounds(label: str, nbytes: float, flops) -> None:
 # products, in bf16 once on the bf16 tensor cores
 F32_BWD_PRODUCTS = {"flash_bwd_f32_q": 3, "flash_bwd_f32_kv": 4}
 BF16_BWD_PRODUCTS = {"flash_bwd_bf16_q": 3, "flash_bwd_bf16_kv": 4}
+# the float32 backward at head widths 33 to 128 (flash_bwd_tf32.cuh): (a)
+# S, dP and dQ; (b) Sᵀ and dV; then Sᵀ, dPᵀ and dK; each 3 TF32 products
+F32_WIDE_BWD_PRODUCTS = {"flash_bwd_tf32_q": 3, "flash_bwd_tf32_dv": 2,
+                         "flash_bwd_tf32_dk": 3}
 
 
-def log_f32_bwd_bounds(label: str, nbytes: float, flops) -> None:
-    """Beside the float32 hd-16 backward's row (its bound: ``bwd_work``'s
+def log_f32_bwd_bounds(label: str, nbytes: float, flops,
+                       products=F32_BWD_PRODUCTS) -> None:
+    """Beside a float32 flash backward's row (its bound: ``bwd_work``'s
     count, 10·hd a kept pair, once at the TF32 peak), the same work at
-    the float32 FMA peak and the design's: 7 products of 2·hd a pair (S
-    and dP in both passes), each 3 TF32 products."""
+    the float32 FMA peak and the design's: ``products`` of 2·hd a pair
+    (the small widths' 7: S and dP in both passes; the wide widths' 8: S
+    in all three launches), each 3 TF32 products."""
     log_bound(f"{label} at the float32 FMA peak", nbytes, flops, "float32")
-    n = sum(F32_BWD_PRODUCTS.values())
+    n = sum(products.values())
     log_bound(f"{label} the design's ({n} products x 3 TF32 products)",
               nbytes, flops * 2 * n * 3 / 10, "tf32")
 
@@ -445,7 +451,8 @@ def flash_build_checks() -> None:
     kernels, and for every kernel of the backward.  The forward's eight
     float32 kernels (the 3xTF32 template, ``tf32_fwd_kernel``: hd 64 and
     128, masked or not, with or without the LSE) each hold TF32 HMMA and
-    spill nothing."""
+    spill nothing, and so do the backward's eight float32 kernels
+    (``flash_bwd_tf32.cuh``)."""
     from repro_torch.kernels import build
     funcs = sass_functions("flash_attention")
     tf32 = {n: tf32_hmma(c) for n, c in funcs.items()
@@ -457,6 +464,17 @@ def flash_build_checks() -> None:
             or any(spills.values()):
         raise AssertionError(f"flash_attention float32 build: TF32 HMMA "
                              f"{tf32}, spills {spills}")
+    # the float32 backward's eight (flash_bwd_tf32.cuh: dQ, dV and dK at
+    # 64 and 128, dQ masked or not), each TF32 HMMA (spills: below, with
+    # every backward kernel)
+    tf32_bwd = {n: tf32_hmma(c) for n, c in
+                sass_functions("flash_attention_bwd").items()
+                if "flash_bwd_tf32_" in n}
+    log(f"flash_attention_bwd float32 kernels: TF32 HMMA "
+        f"{sorted(tf32_bwd.values())}")
+    if len(tf32_bwd) != 8 or min(tf32_bwd.values()) == 0:
+        raise AssertionError(f"flash_attention_bwd float32 build: TF32 HMMA "
+                             f"{tf32_bwd}")
     for name, entry in (("flash_attention", "flash_fwd_hopper_kernel"),
                         ("flash_attention_bwd", "")):
         code = sass(name)
@@ -1140,7 +1158,8 @@ def ab_trace() -> None:
     """The pieces the float32 flash kernels touch, for an A/B of two
     trees in one call; it checks nothing.  Kernel 3 in float32 at
     ``AB_F32_ROWS`` beside SDPA's float32 forward on the same inputs
-    (CUDA events, 5 calls each); kernel 7 in float32 at
+    (CUDA events, 5 calls each), and kernel 7 there above head width 32
+    where the tree has it; kernel 7 in float32 at
     ``F32_HD16_ROWS`` beside SDPA's float32 backward (grad through SDPA
     less its forward), with each launch's device time (``device_ms``);
     kernels 3 and 7 at ``SMALL_FLASH_ROWS`` (CUDA events, 5 calls each);
@@ -1183,6 +1202,19 @@ def ab_trace() -> None:
         log(f"ab_trace flash_attention float32 {label} [{b}, {s}, "
             f"{hq}/{hkv}, {hd}] causal {causal}: kernel {t_k:.4f} ms, SDPA "
             f"{t_s:.4f} ms a call (CUDA events)")
+        if hd > fa.SMALL_HEAD_DIM:
+            do = torch.randn(q.shape, generator=gen, device=dev)
+            o, lse = fa.flash_attention(q, k, v, hq // hkv, causal,
+                                        return_lse=True)
+            try:
+                t_b = time_ms(lambda: fa.flash_attention_bwd(
+                    q, k, v, o, lse, do, hq // hkv, causal), 5)
+                text = f"{t_b:.4f} ms a call (CUDA events)"
+            except NotImplementedError:   # a tree before the kernel
+                text = "not in this tree"
+            log(f"ab_trace flash_attention_bwd float32 {label} [{b}, {s}, "
+                f"{hq}/{hkv}, {hd}] causal {causal}: kernel {text}")
+            del do, o, lse
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     for label, b, s in F32_HD16_ROWS:
@@ -1307,8 +1339,8 @@ FWD_VARIANTS = {
         ("kWarps = HD == 16 ? 4 : 8;", "kWarps = 8;"),
         ("kMinBlocks = HD == 16 ? 2 : 1;", "kMinBlocks = 1;")),
     "one product (diagnostic)": (
-        ("  if constexpr (ALO) rt::mma_tf32(d, al, bh0, bh1);\n"
-         "  if constexpr (BLO) rt::mma_tf32(d, ah, bl0, bl1);\n", ""),),
+        ("  rt::mma_tf32(d, al, bh0, bh1);\n"
+         "  rt::mma_tf32(d, ah, bl0, bl1);\n", ""),),
     "split by cvt.rna (rt::split)": (
         ("  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
          "  lo = __float_as_uint(v - __uint_as_float(hi)) + 0x1000u;",
@@ -1530,6 +1562,128 @@ def bwd_variants(reps: int = 10) -> None:
                     f"{errs}, bitwise {same}")
                 del first, again, st, grads
         del q, k, v, do, o, lse, oracle
+        torch.cuda.empty_cache()
+
+
+# ``wide_bwd_variants``: edits of the float32 flash templates at head
+# widths 64 and 128 ((file, old, new) each), compiled into copies of the
+# two wide libraries: "as built" (two k-steps a loop iteration in S, the
+# forward's and the backward's, and in the backward's dP); one k-step a
+# loop iteration; the k-step loops unrolled (as first written: ptxas
+# spilled)
+_FWD_KK = "#pragma unroll 2\n    for (int kk = 0; kk < (C::kFmaS"
+_BWD_KK = "#pragma unroll 2\n  for (int kk = 0; kk < HD / 8; ++kk) {"
+WIDE_BWD_VARIANTS = {
+    "as built": (),
+    "k-steps one at a time": (
+        ("flash_fwd_tf32.cuh", _FWD_KK, _FWD_KK.replace("2", "1", 1)),
+        ("flash_bwd_tf32.cuh", _BWD_KK, _BWD_KK.replace("2", "1", 1))),
+    "k-steps unrolled": (
+        ("flash_fwd_tf32.cuh", _FWD_KK, _FWD_KK.replace(" 2", "", 1)),
+        ("flash_bwd_tf32.cuh", _BWD_KK, _BWD_KK.replace(" 2", "", 1))),
+}
+# its shapes: (label, B, S, Hq, Hkv, hd, causal)
+WIDE_BWD_ROWS = (("DiT", 2, 4608, 24, 24, 128, False),
+                 ("causal gqa 32/4", 1, 4096, 32, 4, 128, True),
+                 ("hd64 causal gqa 24/8", 1, 4096, 24, 8, 64, True))
+
+
+def wide_bwd_variants(reps: int = 5) -> None:
+    """Each of ``WIDE_BWD_VARIANTS`` built beside the tree's own
+    libraries (under ``build/wide_bwd_variants/``): the registers and
+    spill bytes ptxas reports for each float32 kernel at hd 64 and 128
+    (``tf32_fwd_kernel``, ``flash_bwd_tf32_q_kernel`` and
+    ``flash_bwd_tf32_kv_kernel``), then, in turn and twice, the float32
+    forward with its log-sum-exp and the backward at ``WIDE_BWD_ROWS``
+    with CUDA events, the backward's max rel err against the plain
+    version logged beside.  It checks nothing: ``python3 -c 'import
+    chip_smoke; chip_smoke.wide_bwd_variants()'``."""
+    import ctypes
+    import shutil
+
+    import torch
+
+    from repro_torch.kernels import build, ref
+    root = ROOT / "build" / "wide_bwd_variants"
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for i, (name, edits) in enumerate(WIDE_BWD_VARIANTS.items()):
+        d = root / str(i)
+        shutil.copytree(build.CSRC, d)
+        for file, old, new in edits:
+            text = (d / file).read_text()
+            if old not in text:
+                raise AssertionError(f"wide_bwd_variants {name}: {old!r} "
+                                     "absent")
+            (d / file).write_text(text.replace(old, new))
+        for lib in ("flash_attention", "flash_attention_bwd"):
+            procs[name, lib] = d / f"{lib}.so", subprocess.Popen(
+                [build.nvcc(), *build.NVCC_FLAGS, "-o", str(d / f"{lib}.so"),
+                 str(d / f"{lib}.cu")], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for (name, lib), (path, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"wide_bwd_variants {name} {lib}:\n{out}")
+        for part in out.split("Compiling entry function")[1:]:
+            kernel = part.split("'")[1]
+            if not re.search(r"tf32_fwd_kernelIfLi(64|128)|flash_bwd_tf32",
+                             kernel):
+                continue
+            regs = re.search(r"Used (\d+) registers", part).group(1)
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                              r"spill loads", part).groups()
+            log(f"wide_bwd_variants {name}: {kernel} registers {regs}, "
+                f"spill stores / loads {spill[0]} / {spill[1]} bytes")
+        libs[name, lib] = ctypes.CDLL(str(path))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+    for label, b, s, hq, hkv, hd, causal in WIDE_BWD_ROWS:
+        q, do = (torch.randn((b, s, hq, hd), generator=gen, device=dev)
+                 for _ in "qd")
+        k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=dev)
+                for _ in "kv")
+        o, lse = torch.empty_like(q), q.new_empty((b, hq, s))
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        form = (b, s, s, hq, hkv, hd, hd, int(causal), 0, 0, stream)
+        want = None
+        for rnd in range(2):
+            for name in WIDE_BWD_VARIANTS:
+                fwd = libs[name, "flash_attention"].flash_attention_fwd
+                fwd.argtypes, fwd.restype = [P] * 5 + [I] * 10 + [P], I
+                lb = libs[name, "flash_attention_bwd"]
+                lb.flash_attention_bwd_scratch.argtypes = [I] * 7
+                lb.flash_attention_bwd_scratch.restype = ctypes.c_long
+                stats = torch.empty(lb.flash_attention_bwd_scratch(
+                    b, s, s, hq, hkv, hd, 0), device=dev)
+                bwd = lb.flash_attention_bwd
+                bwd.argtypes, bwd.restype = [P] * 10 + [I] * 10 + [P], I
+
+                def f_call(fwd=fwd):
+                    return fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               o.data_ptr(), lse.data_ptr(), *form)
+
+                def b_call(bwd=bwd, stats=stats):
+                    return bwd(*(x.data_ptr() for x in (q, k, v, o, lse, do,
+                                                         *grads, stats)),
+                               *form)
+                if f_call() != 0 or b_call() != 0:
+                    raise RuntimeError(f"wide_bwd_variants {name}: launch")
+                torch.cuda.synchronize()
+                if want is None:
+                    want = ref.attention_bwd_ref(q, k, v, o, lse, do,
+                                                 hq // hkv, causal)
+                err = max(max_rel(a, w) for a, w in zip(grads, want))
+                log(f"wide_bwd_variants {label} [{b}, {s}, {hq}/{hkv}, "
+                    f"{hd}] causal {causal} round {rnd} {name}: forward "
+                    f"(with its LSE) {time_ms(f_call, reps):.4f} ms, "
+                    f"backward {time_ms(b_call, reps):.4f} ms, the "
+                    f"backward's max rel err {err:.1e}")
+        del q, k, v, do, o, lse, grads, want, stats
         torch.cuda.empty_cache()
 
 
@@ -3864,6 +4018,101 @@ def train_phase(cfg=None, size: int = 128, batch: int = 2,
     return {"train": counts, "train_serve": serve_counts}
 
 
+# the train_f32 phase: flux1-dev at full width in float32, its 38 single
+# blocks cut to 14 (16 bytes a parameter with its gradient and AdamW's
+# moments, and twice bf16's activations: at 10 blocks the peak read 47.4
+# GiB, ~4.6 GiB a block, so 16 would need ~75 of the card's 74.5), batch
+# 2 (the train phase's), 3 steps
+TRAIN_F32_LAYERS = 14
+TRAIN_F32_STEPS = 3
+
+
+def train_f32_phase(cfg=None, size: int = 128, batch: int = 2,
+                    steps: int = TRAIN_F32_STEPS,
+                    device: str = "cuda") -> dict:
+    """``launch.train.train_dit`` at full flux1-dev width in float32
+    (``train_config`` with ``dtype="float32"``, cut to
+    ``TRAIN_F32_LAYERS`` single blocks) on two 1024² latents (S 4096): a
+    step runs one float32 flash forward (the 3xTF32 template) and one
+    float32 backward (``flash_bwd_tf32.cuh``: 24 heads of 128, the
+    instance 128) a layer.  Logs each step's loss, grad norm and times,
+    the peak memory; checks the losses are finite and that on step 1
+    every leaf the forward uses has a finite non-zero gradient; every
+    flash launch signature (``LaunchRecorder(("flash",), ...)``) is held
+    against the plain forward and backward on its recorded inputs (two
+    backward launches bitwise equal).  Returns the launch counts
+    (``train_f32``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import dit
+    cfg = cfg or dataclasses.replace(train_config(), dtype="float32",
+                                     n_layers=TRAIN_F32_LAYERS)
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    s_img = (size // cfg.patch_size) ** 2
+    params = dit.init_params(cfg, seed=44, device=dev)
+    redraw_zero_leaves(params, seed=45)
+    n_params = sum(p.numel() for p in _leaves(params))
+    log(f"train_f32: {cfg.arch_id} cut to n_double {cfg.n_double}, n_layers "
+        f"{cfg.n_layers} (d {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, {cfg.dtype}): params {n_params / 1e9:.3f} B; batch "
+        f"{batch} x {size}² latents (S {s_img}), {steps} steps")
+    records, bad = [], []
+
+    def on_step(i, metrics, grads):
+        records.append(metrics)
+        if i:
+            return
+        for path, g in checkpoint._flatten_with_paths(grads).items():
+            used = not path.startswith("text_proj/")
+            if used != (g is not None) or (used and not (
+                    bool(torch.isfinite(g).all()) and bool(g.any()))):
+                bad.append(path)
+    _reset_peak(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with LaunchRecorder(("flash",), "train_f32") as rec:
+        train.train_dit(cfg, steps, batch, "", seed=44, log_every=1,
+                        size=size, device=dev, params=params,
+                        on_step=on_step)
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    for i, m in enumerate(records):
+        log(f"train_f32: step {i} loss {m['loss']:.6f} grad_norm "
+            f"{m['grad_norm']:.4e} lr {m['lr']:.3e}" + (
+                f"; forward {m['forward_ms']:.1f} ms, backward "
+                f"{m['backward_ms']:.1f} ms, AdamW {m['adamw_ms']:.1f} ms, "
+                f"step wall {m['step_ms']:.1f} ms, "
+                f"{batch * s_img / m['step_ms'] * 1e3:.0f} tokens/s"
+                if on_card else ""))
+    log(f"train_f32: {steps} steps in {wall:.1f} s; peak memory "
+        f"{_peak_gib(dev):.2f} GiB; launch counts "
+        f"{ {n: c for n, c in counts.items() if c} }; step 1 gradients off "
+        f"{bad}")
+    if len(records) != steps or bad or not all(
+            math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+            for m in records):
+        raise AssertionError(f"train_f32: losses {records}, gradient leaves "
+                             f"off {bad}")
+    want = {"flash_attention": steps * cfg.n_layers,
+            "flash_attention_bwd": steps * cfg.n_layers}
+    if on_card and {n: c for n, c in counts.items() if c} != want:
+        raise AssertionError(f"train_f32: launches {counts}, expected {want}")
+    del params
+    _free(dev)
+    checked = rec.check(cfg.arch_id)
+    if on_card and len(checked) != 2:
+        raise AssertionError(f"train_f32: recorded {checked}, expected one "
+                             "forward and one backward signature")
+    return {"train_f32": counts}
+
+
 LM_TRAIN_STEPS = 4
 LM_TRAIN_SEQ = 4096
 LM_TRAIN_MAMBA_BATCH = 8     # train_4k's global batch of 256, cut
@@ -4673,22 +4922,19 @@ def moe_phi(phi_cfg=None, s: int = MOE_SEQ, train_seq: int = LM_TRAIN_SEQ,
     return out
 
 
-def dense_reference(devices=("cpu", "cuda"), cfgs=None) -> None:
-    """Each dense config of this slice at full width (d_model, heads and
-    kv heads; d_ff cut to 2048 and the vocabulary to 8192, so that the
-    CPU side stays short) cut to 2 layers, float32, attention projections
-    at std 1/sqrt(fan-in) (``decode_params``), through
-    ``transformer.forward`` at 2048 tokens: the causal GQA flash kernel
-    on the card (groups of 7, 16 and 12), the blockwise plain version on
-    the CPU; logits and CRF rel L2 DENSE_CARD_TOL (1e-4).  A control,
-    the card's forward with TF32 matmuls, must fail that limit."""
+def dense_reference_first(cfgs=None, device: str = "cpu") -> dict:
+    """``dense_reference``'s first side: each dense config of this slice
+    cut to 2 layers (``dense_reference``), its float32 parameters and
+    2048 tokens drawn from a seed on the CPU, through
+    ``transformer.forward`` on ``device``; returns ``{arch: (cfg,
+    params, tokens, forward)}``."""
     import dataclasses
 
     import torch
 
     from repro_torch import configs
-    from repro_torch.kernels import ops
     from repro_torch.models import transformer
+    out = {}
     for seed, (arch, _) in enumerate(LM_CONFIG_LAYERS, start=130):
         full = (cfgs or configs.get_config)(arch)
         cfg = dataclasses.replace(full, n_layers=2, d_ff=min(full.d_ff, 2048),
@@ -4697,25 +4943,49 @@ def dense_reference(devices=("cpu", "cuda"), cfgs=None) -> None:
         params_cpu = decode_params(cfg, 2, seed, "cpu")
         tokens = torch.randint(0, cfg.vocab_size, (1, 2048),
                                generator=torch.Generator().manual_seed(seed))
-        outs, control = {}, None
-        for dev in devices:
-            ops.reset_launch_counts()
-            params = _to(params_cpu, dev)
-            with torch.no_grad():
-                outs[dev] = transformer.forward(params, tokens.to(dev), cfg)
-                n = ops.launch_counts()["flash_attention"]
-                if torch.device(dev).type == "cuda":
-                    if n != cfg.n_layers:
-                        raise AssertionError(f"dense reference {arch}: {n} "
-                                             "flash launches")
-                    torch.backends.cuda.matmul.allow_tf32 = True
-                    try:
-                        control = transformer.forward(params, tokens.to(dev),
-                                                      cfg)
-                    finally:
-                        torch.backends.cuda.matmul.allow_tf32 = False
-            del params
-        want, got = (outs[d] for d in devices)
+        with torch.no_grad():
+            out[arch] = (cfg, params_cpu, tokens, transformer.forward(
+                _to(params_cpu, device), tokens.to(device), cfg))
+    return out
+
+
+def dense_reference(devices=("cpu", "cuda"), cfgs=None,
+                    first=None) -> None:
+    """Each dense config of this slice at full width (d_model, heads and
+    kv heads; d_ff cut to 2048 and the vocabulary to 8192, so that the
+    CPU side stays short) cut to 2 layers, float32, attention projections
+    at std 1/sqrt(fan-in) (``decode_params``), through
+    ``transformer.forward`` at 2048 tokens: the causal GQA flash kernel
+    on the card (groups of 7, 16 and 12), the blockwise plain version on
+    the CPU; logits and CRF rel L2 DENSE_CARD_TOL (1e-4).  A control,
+    the card's forward with TF32 matmuls, must fail that limit.
+    ``first``: ``dense_reference_first``'s result on ``devices[0]``, if
+    it was computed already (the lm_configs phase runs it in a thread
+    beside its prefills)."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    first = first or dense_reference_first(cfgs, devices[0])
+    dev = devices[1]
+    for arch, (cfg, params_cpu, tokens, want) in first.items():
+        control = None
+        ops.reset_launch_counts()
+        params = _to(params_cpu, dev)
+        with torch.no_grad():
+            got = transformer.forward(params, tokens.to(dev), cfg)
+            n = ops.launch_counts()["flash_attention"]
+            if torch.device(dev).type == "cuda":
+                if n != cfg.n_layers:
+                    raise AssertionError(f"dense reference {arch}: {n} "
+                                         "flash launches")
+                torch.backends.cuda.matmul.allow_tf32 = True
+                try:
+                    control = transformer.forward(params, tokens.to(dev),
+                                                  cfg)
+                finally:
+                    torch.backends.cuda.matmul.allow_tf32 = False
+        del params
         for name in ("logits", "crf"):
             rel = rel_l2(getattr(got, name), getattr(want, name))
             ctrl = (None if control is None else
@@ -4732,8 +5002,9 @@ def dense_reference(devices=("cpu", "cuda"), cfgs=None) -> None:
             if ctrl is not None and not ctrl > DENSE_CARD_TOL:
                 raise AssertionError(f"dense reference {arch} [{name}]: the "
                                      f"TF32 control {ctrl:.3e} passes")
-        del outs, control, params_cpu
+        del got, control
         gc.collect()
+    del first
 
 
 def lm_configs_phase(cfgs=None, s: int = MOE_SEQ,
@@ -4743,15 +5014,19 @@ def lm_configs_phase(cfgs=None, s: int = MOE_SEQ,
     32768 tokens (one causal GQA flash launch a layer: groups of 7, 16
     and 12 at hd 128), each model freed before the next is drawn, then
     the flash launch at that config's shape held against its plain
-    version and timed (``flash_check``); last, ``dense_reference``.
-    Returns each prefill's launch counts."""
+    version and timed (``flash_check``); last, ``dense_reference``, its
+    CPU side computed in a thread beside the prefills (they wait on the
+    card; it on the CPU).  Returns each prefill's launch counts."""
     import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
     from repro_torch import configs
     dev = torch.device(device)
     out = {}
+    pool = ThreadPoolExecutor(1)
+    cpu_side = pool.submit(dense_reference_first, cfgs)
     for seed, (arch, n_layers) in enumerate(LM_CONFIG_LAYERS, start=140):
         full = (cfgs or configs.get_config)(arch)
         cfg = dataclasses.replace(full, n_layers=min(n_layers,
@@ -4771,7 +5046,9 @@ def lm_configs_phase(cfgs=None, s: int = MOE_SEQ,
         gc.collect()
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    dense_reference(devices=("cpu", device), cfgs=cfgs)
+    dense_reference(devices=("cpu", device), cfgs=cfgs,
+                    first=cpu_side.result())
+    pool.shutdown()
     return out
 
 
@@ -6437,6 +6714,64 @@ F32_SASS_DIGESTS = {
 }
 
 
+# the float32 kernels at head widths 64 and 128, the forward's eight
+# (tf32_fwd_kernel in flash_attention: S summed a k-step and P·V an
+# 8-key slab at a time in fresh fragments since the float32 backward
+# came) and the backward's
+# eight (flash_bwd_tf32.cuh in flash_attention_bwd), as the commit that
+# brought the backward built them under ``F32_SASS_NVCC``
+WIDE_F32_SASS_DIGESTS = {
+    "_ZN5flash15tf32_fwd_kernelIfLi64ELb0ELb0EEEv"
+    "PKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "f4080336dea82f8c",
+    "_ZN5flash15tf32_fwd_kernelIfLi64ELb0ELb1EEEv"
+    "PKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "2a379ffcab9413e4",
+    "_ZN5flash15tf32_fwd_kernelIfLi64ELb1ELb0EEEv"
+    "PKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "e2826bb8eab41927",
+    "_ZN5flash15tf32_fwd_kernelIfLi64ELb1ELb1EEEv"
+    "PKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "195dafdd8e36697d",
+    "_ZN5flash15tf32_fwd_kernelIfLi128ELb0ELb0EEE"
+    "vPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "e9c3ef27b96ebfd9",
+    "_ZN5flash15tf32_fwd_kernelIfLi128ELb0ELb1EEE"
+    "vPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "fac69d5f80578a03",
+    "_ZN5flash15tf32_fwd_kernelIfLi128ELb1ELb0EEE"
+    "vPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "8a071a682147cf24",
+    "_ZN5flash15tf32_fwd_kernelIfLi128ELb1ELb1EEE"
+    "vPKT_S3_S3_PS1_PfiiiiNS_4MaskEf":
+        "81b35a2fbbaf5508",
+    "_ZN7tf32bwd23flash_bwd_tf32_q_kernelILi128EL"
+    "b0EEEvPKfS2_S2_S2_S2_S2_P6float2PfiiiiN5flash4MaskEif":
+        "d13a51a5035f35ab",
+    "_ZN7tf32bwd24flash_bwd_tf32_dk_kernelILi128E"
+    "EEvPKfS2_S2_S2_PK6float2PfiiiiN5flash4MaskEif":
+        "37c1ba05fd955192",
+    "_ZN7tf32bwd24flash_bwd_tf32_dv_kernelILi128E"
+    "EEvPKfS2_S2_S2_PK6float2PfiiiiN5flash4MaskEif":
+        "3449936d77315bc1",
+    "_ZN7tf32bwd23flash_bwd_tf32_q_kernelILi128EL"
+    "b1EEEvPKfS2_S2_S2_S2_S2_P6float2PfiiiiN5flash4MaskEif":
+        "6f69aa80a192e475",
+    "_ZN7tf32bwd23flash_bwd_tf32_q_kernelILi64ELb"
+    "0EEEvPKfS2_S2_S2_S2_S2_P6float2PfiiiiN5flash4MaskEif":
+        "ad7f2846fb381ca4",
+    "_ZN7tf32bwd24flash_bwd_tf32_dk_kernelILi64EE"
+    "EvPKfS2_S2_S2_PK6float2PfiiiiN5flash4MaskEif":
+        "15ad559339b582f1",
+    "_ZN7tf32bwd24flash_bwd_tf32_dv_kernelILi64EE"
+    "EvPKfS2_S2_S2_PK6float2PfiiiiN5flash4MaskEif":
+        "8ea047bbc07f7c8a",
+    "_ZN7tf32bwd23flash_bwd_tf32_q_kernelILi64ELb"
+    "1EEEvPKfS2_S2_S2_S2_S2_P6float2PfiiiiN5flash4MaskEif":
+        "92e997cdf7c5c4bb",
+}
+
+
 def nvcc_release() -> str:
     """The last line of ``nvcc --version`` (its build string)."""
     from repro_torch.kernels import build
@@ -6464,17 +6799,34 @@ def f32_kernels(funcs: dict) -> dict:
                                             "flash_bwd_f32_kv_kernel"))}
 
 
+def wide_f32_kernels() -> dict:
+    """The float32 kernels of the wide flash libraries: the forward's
+    ``tf32_fwd_kernel`` instances and the backward's ``flash_bwd_tf32_``
+    ones."""
+    out = {}
+    for lib, frag in (("flash_attention", "tf32_fwd_kernelIf"),
+                      ("flash_attention_bwd", "flash_bwd_tf32_")):
+        out.update({n: c for n, c in sass_functions(lib).items()
+                    if frag in n})
+    return out
+
+
 def f32_sass_record() -> None:
-    """Build flash_attention_f32 from the tree this file is imported
-    from and log the nvcc release and its float32 kernels' SASS digests,
-    ``F32_SASS_NVCC`` and ``F32_SASS_DIGESTS`` as that tree builds them;
-    from the root of the parent commit's checkout (this file copied
-    there): ``python3 -c 'import chip_smoke as c; c.f32_sass_record()'``."""
+    """Build the three flash libraries from the tree this file is
+    imported from and log the nvcc release and the float32 kernels' SASS
+    digests, ``F32_SASS_NVCC``, ``F32_SASS_DIGESTS`` (flash_attention_f32)
+    and ``WIDE_F32_SASS_DIGESTS`` as that tree builds them; from the root
+    of a checkout (this file copied there): ``python3 -c 'import
+    chip_smoke as c; c.f32_sass_record()'``."""
     from repro_torch.kernels import build
-    build.build(["flash_attention_f32"])
+    build.build(["flash_attention_f32", "flash_attention",
+                 "flash_attention_bwd"])
     f32 = f32_kernels(sass_functions("flash_attention_f32"))
+    wide = wide_f32_kernels()
     log(f"F32_SASS_NVCC = {nvcc_release()!r}")
     log(f"F32_SASS_DIGESTS = {sass_digests(f32)!r} ({len(f32)} kernels)")
+    log(f"WIDE_F32_SASS_DIGESTS = {sass_digests(wide)!r} ({len(wide)} "
+        "kernels)")
 
 
 def bf16_hmma(code: str) -> int:
@@ -6509,6 +6861,15 @@ def f32_build_checks() -> None:
     digests = sass_digests(f32)
     release = nvcc_release()
     same = digests == F32_SASS_DIGESTS if release == F32_SASS_NVCC else None
+    wide = sass_digests(wide_f32_kernels())
+    same_wide = (wide == WIDE_F32_SASS_DIGESTS
+                 if release == F32_SASS_NVCC and WIDE_F32_SASS_DIGESTS
+                 else None)
+    log(f"the wide float32 kernels' SASS digests ({len(wide)}): {wide}; "
+        + ("equal to the recorded ones" if same_wide else
+           "not compared (another nvcc, or none recorded)"
+           if same_wide is None else
+           f"DIFFERENT from the recorded {WIDE_F32_SASS_DIGESTS}"))
     log(f"flash_attention_f32 TF32 HMMA by kernel: {tf}; bf16 HMMA of the "
         f"bf16 kernels: {bh}; spill bytes {sorted(set(spills.values()))} "
         f"over {len(spills)} kernels")
@@ -6520,6 +6881,7 @@ def f32_build_checks() -> None:
     if len(f32) != 16 or len(bf) != 20 or len(funcs) != 36 \
             or not all(tf[n] for n in f32) or any(tf[n] for n in bf) \
             or not all(bh.values()) or same is False \
+            or same_wide is False or len(wide) != 16 \
             or len(spills) != 36 or any(spills.values()):
         raise AssertionError(f"flash_attention_f32 build: TF32 HMMA {tf}, "
                              f"bf16 HMMA {bh}, float32 SASS as the "
@@ -6545,18 +6907,20 @@ def max_rel(got, want) -> float:
             / want.double().abs().max()).item()
 
 
-def small_bwd_split(name: str, fn, flops: float, reps: int = 5) -> None:
-    """Log each launch of one small-width backward call ``fn``
-    (``bwd_work``'s count ``flops``) apart, device times from
+def flash_bwd_split(name: str, fn, flops: float, reps: int = 5) -> None:
+    """Log each launch of one float32 or small-width flash backward call
+    ``fn`` (``bwd_work``'s count ``flops``) apart, device times from
     ``device_ms``, each beside the rate of the products its pass runs:
-    float32 ``F32_BWD_PRODUCTS`` (3 TF32 products each), bf16
-    ``BF16_BWD_PRODUCTS`` (one bf16 product each)."""
+    float32 ``F32_BWD_PRODUCTS`` and ``F32_WIDE_BWD_PRODUCTS`` (3 TF32
+    products each), bf16 ``BF16_BWD_PRODUCTS`` (one bf16 product
+    each)."""
     rec = device_ms(fn, reps)
     parts = []
     for n, (ms, k) in sorted(rec.items()):
         ms = ms * reps / k    # one launch a call: the mean of those recorded
         text = f"{n} {ms:.4f} ms"
         for table, runs, op in ((F32_BWD_PRODUCTS, 3, "tf32"),
+                                (F32_WIDE_BWD_PRODUCTS, 3, "tf32"),
                                 (BF16_BWD_PRODUCTS, 1, "bfloat16")):
             if n in table:
                 ops_n = flops * 2 * table[n] * runs / 10
@@ -6605,7 +6969,7 @@ def f32_hd16_rows(row) -> None:
     peak's and the design's products logged beside); library: SDPA's
     float32 forward, and its backward (grad through SDPA less its
     forward), timed only; each backward launch timed apart
-    (``small_bwd_split``)."""
+    (``flash_bwd_split``)."""
     import torch
     import torch.nn.functional as F
 
@@ -6678,7 +7042,7 @@ def f32_hd16_rows(row) -> None:
             op_dtype="tf32")
         log_f32_bwd_bounds(f"{name} [float32]", nb, work["tf32"])
         log_exp_bound(f"{name} [float32]", b * h * s * s, 2)
-        small_bwd_split(name, kern, work["tf32"])
+        flash_bwd_split(name, kern, work["tf32"])
         del q, k, v, do, o, lse, leaves
         torch.cuda.empty_cache()
 
@@ -6818,7 +7182,7 @@ def small_flash_rows(row) -> None:
             op_dtype="tf32")
         log_f32_bwd_bounds(f"{name} [float32]", nb, work["tf32"])
         log_exp_bound(f"{name} [float32]", pairs, 2)
-        small_bwd_split(name, kern, work["tf32"])
+        flash_bwd_split(name, kern, work["tf32"])
         del q, k, v, do, o, lse, leaves
         torch.cuda.empty_cache()
 
@@ -6865,11 +7229,14 @@ def small_ssd_rows(row) -> None:
 # GQA 8/4 and causal GQA 8/4 with a window of 24 at [2, 2048] (the
 # reference kernel tests' forms at a length that reaches flash); hd 72
 # non-causal at [2, 1024, 16] (DiT-XL/2's and PixArt-α's head at 512²,
-# instance 128), bf16 with its backward and float32 forward alone (a
-# float32 backward above 32 is queued); hd 96 causal MHA at [1, 4096,
-# 32] in bf16 (Phi-3-mini's head, instance 128) with its backward; and
-# bf16 at the float32 small-width rows' shapes: dit-small's [2, 4096, 8,
-# 16] MHA and the reduced LMs' [16, 2048, 4/2, 32] causal GQA
+# instance 128), bf16 and float32, each with its backward; hd 96 causal
+# MHA at [1, 4096, 32] in bf16 (Phi-3-mini's head, instance 128) with its
+# backward; bf16 at the float32 small-width rows' shapes: dit-small's [2,
+# 4096, 8, 16] MHA and the reduced LMs' [16, 2048, 4/2, 32] causal GQA;
+# and float32 at the wide instances' own widths with the backward:
+# flux1-dev's training attention [2, 4096, 24, 128] (the train_f32
+# phase's launches), granite-moe's [1, 4096, 24/8, 64] and yi-9b's [1,
+# 4096, 32/4, 128] causal GQA, the latter with a window of 512
 FORM_FLASH_ROWS = tuple(
     (f"forms bf16_hd{hd} {form}", "bfloat16", 2, 2048, 8, hkv, hd, causal,
      window, True)
@@ -6879,7 +7246,15 @@ FORM_FLASH_ROWS = tuple(
                                       ("causal gqa 8/4 window 24", 4, True,
                                        24))) + (
     ("forms hd72 mha", "bfloat16", 2, 1024, 16, 16, 72, False, 0, True),
-    ("forms f32_hd72 mha", "float32", 2, 1024, 16, 16, 72, False, 0, False),
+    ("forms f32_hd72 mha", "float32", 2, 1024, 16, 16, 72, False, 0, True),
+    ("forms f32_hd128 mha 2x4096", "float32", 2, 4096, 24, 24, 128, False,
+     0, True),
+    ("forms f32_hd64 causal gqa 24/8", "float32", 1, 4096, 24, 8, 64, True,
+     0, True),
+    ("forms f32_hd128 causal gqa 32/4", "float32", 1, 4096, 32, 4, 128,
+     True, 0, True),
+    ("forms f32_hd128 causal gqa 32/4 window 512", "float32", 1, 4096, 32,
+     4, 128, True, 512, True),
     ("forms hd96 causal mha", "bfloat16", 1, 4096, 32, 32, 96, True, 0,
      True),
     ("forms bf16_hd16 mha 2x4096", "bfloat16", 2, 4096, 8, 8, 16, False, 0,
@@ -6911,6 +7286,12 @@ FORM_SSD_SMALL = ((2, 32, 2, 16, 8, 8), (2, 96, 2, 16, 8, 48),
 # from the same random weights, at dit-small's latents limit
 # (``DIT_SMALL_TOL``)
 FORMS_DIT = dict(d_model=576, d_ff=2304)
+# the forms phase's float32 forms with T != S above head width 32 (B, S,
+# T, Hq, Hkv, hd), non-causal: seamless's cross attention (16 heads of
+# 64, 1024 queries on a 4096-frame memory) and S > T in GQA 32/4 at 128
+FORM_F32_CROSS = ((2, 1024, 4096, 16, 16, 64), (1, 4096, 1024, 32, 4, 128))
+# forms_dit_train: two train_dit steps at latent 64 on batch 2
+FORMS_DIT_TRAIN = dict(steps=2, batch=2, size=64)
 FORMS_DIT_ARGS = ["--requests", "2", "--steps", "6", "--batch", "2",
                   "--sizes", "64"]
 
@@ -6923,6 +7304,39 @@ def _flash_counter(hd: int, bwd: bool = False) -> str:
     return name + ("_bwd" if bwd else "")
 
 
+def f32_bwd_oracle(name: str, inputs, form, got) -> tuple:
+    """The float32 flash backward's ``got`` (dq, dk, dv) against the
+    float64 oracle (``ref.attention_bwd_ref`` on float64 ``inputs``: q,
+    k, v and the kernel's own o and lse, dO), each gradient within
+    max(1e-5, twice the float32 plain version's own error); the plain
+    version with TF32 on must miss that limit on some gradient (the
+    control).  Logs the three; raises on a miss.  Returns (max abs err,
+    max rel err) against the oracle."""
+    from repro_torch.kernels import ref
+    oracle = ref.attention_bwd_ref(*(x.double() for x in inputs), *form)
+    lims = [max(1e-5, 2 * max_rel(p, w)) for p, w in zip(
+        ref.attention_bwd_ref(*inputs, *form), oracle, strict=True)]
+    rels = [max_rel(a, w) for a, w in zip(got, oracle, strict=True)]
+    err = max((a.double() - w).abs().max().item()
+              for a, w in zip(got, oracle, strict=True))
+    with tf32_on():
+        control = [max_rel(c, w) for c, w in zip(
+            ref.attention_bwd_ref(*inputs, *form), oracle, strict=True)]
+    del oracle
+    log(f"kernel {name} [float32] against the float64 oracle: max rel err "
+        "(dq, dk, dv) " + ", ".join(f"{r:.3e}" for r in rels) + " within "
+        + ", ".join(f"{lim:.3e}" for lim in lims) + " (max(1e-5, twice the "
+        "float32 plain version's own error)); the TF32 control's "
+        + ", ".join(f"{c:.3e}" for c in control) + " (one must exceed its "
+        "limit)")
+    if any(r > lim for r, lim in zip(rels, lims)) \
+            or not any(c > lim for c, lim in zip(control, lims)) \
+            or not all(bool(a.isfinite().all()) for a in got):
+        raise AssertionError(f"{name}: rel errs {rels}, limits {lims}, "
+                             f"TF32 control {control}")
+    return err, max(rels)
+
+
 def form_flash_rows(row) -> None:
     """Kernels 3 and 7 at ``FORM_FLASH_ROWS``: the forward writing its
     log-sum-exp (the training path's) against ``ref.attention_lse_ref``
@@ -6933,8 +7347,12 @@ def form_flash_rows(row) -> None:
     SDPA's forward and its backward (grad through SDPA less its forward),
     a boolean mask for the window.  At head widths up to 32 the
     exponentials' time on the SFU is logged beside the bound
-    (``log_exp_bound``) and the backward's two launches are timed apart
-    (``small_bwd_split``)."""
+    (``log_exp_bound``); there and in float32 above 32 the backward's
+    launches are timed apart (``flash_bwd_split``).  The float32
+    backward above 32 is held against the float64 oracle instead
+    (``f32_bwd_oracle``: within twice the float32 plain version's own
+    error, a TF32 control that must miss), the design's bound logged
+    beside."""
     import torch
     import torch.nn.functional as F
 
@@ -6990,15 +7408,23 @@ def form_flash_rows(row) -> None:
                                                          strict=True)):
                 raise AssertionError(f"flash_attention_bwd[{label}]: two "
                                      "launches differ")
+            name = f"flash_attention_bwd[{label}]"
+            wide32 = dtn == "float32" and not small
+            checked = (f32_bwd_oracle(name, (q, k, v, o, lse, do), form, got)
+                       if wide32 else None)
             del got, again
             work, nb = fa.bwd_work(b, s, s, hq, hkv, hd, causal, window,
                                    dtype_name=dtn)
             (op, fl), = work.items()
-            name = f"flash_attention_bwd[{label}]"
-            row(name, dtn, kern, plain, nb, fl, library_ms=t_sb, op_dtype=op)
+            row(name, dtn, kern, plain, nb, fl, library_ms=t_sb, op_dtype=op,
+                checked=checked)
             if small:
                 log_exp_bound(f"{name} [{dtn}]", pairs, 2)
-                small_bwd_split(name, kern, fl)
+            if small or wide32:
+                flash_bwd_split(name, kern, fl)
+            if wide32:
+                log_f32_bwd_bounds(f"{name} [float32]", nb, fl,
+                                   F32_WIDE_BWD_PRODUCTS)
             del o, lse
         del q, k, v, do, leaves
         torch.cuda.empty_cache()
@@ -7043,21 +7469,25 @@ def form_ssd_rows(row) -> None:
 
 def _forms_flash_check(label: str, dt, b: int, s: int, hq: int, hkv: int,
                        hd: int, causal: bool, window: int, bwd: bool,
-                       device: str) -> dict:
-    """One attention form through ``ops.flash`` (under autograd where the
-    backward runs) against ``ref.attention_ref`` and, for the
-    gradients, ``ref.attention_bwd_ref`` from the plain o and lse, at
-    ``TOLERANCE``; returns the launch counts of the kernel run."""
+                       device: str, t: int = 0) -> dict:
+    """One attention form (``t`` keys, default ``s``) through
+    ``ops.flash`` (under autograd where the backward runs) against
+    ``ref.attention_ref`` and, for the gradients, ``ref.attention_bwd_ref``
+    from the plain o and lse, at ``TOLERANCE``; on the card the float32
+    gradients above head width 32 against the float64 oracle instead
+    (``f32_bwd_oracle``, from the kernel's o and lse).  Returns the launch
+    counts of the kernel run."""
     import torch
 
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops, ref
     dtn = str(dt).removeprefix("torch.")
     gen = torch.Generator(device=device).manual_seed(14)
     g = hq // hkv
     q, do = (torch.randn((b, s, hq, hd), generator=gen, device=device).to(dt)
              for _ in range(2))
-    k, v = (torch.randn((b, s, hkv, hd), generator=gen, device=device).to(dt)
-            for _ in range(2))
+    k, v = (torch.randn((b, t or s, hkv, hd), generator=gen,
+                        device=device).to(dt) for _ in range(2))
     form = (g, causal, window)
     leaves = [x.clone().requires_grad_(bwd) for x in (q, k, v)]
     ops.reset_launch_counts()
@@ -7068,19 +7498,26 @@ def _forms_flash_check(label: str, dt, b: int, s: int, hq: int, hkv: int,
     counts = ops.launch_counts()
     o, lse = ref.attention_lse_ref(q, k, v, *form)
     outs, want = [out.detach()], [o]
-    if bwd:
+    wide32 = (bwd and dt == torch.float32 and hd > fa.SMALL_HEAD_DIM
+              and _on_card(device))
+    if bwd and not wide32:
         outs += [x.grad for x in leaves]
         want += list(ref.attention_bwd_ref(q, k, v, o, lse, do, *form))
     err, rel = compare(label, dtn, tuple(outs), tuple(want))
+    if wide32:
+        del o, lse, want
+        inputs = (q, k, v, *fa.flash_attention(q, k, v, *form,
+                                                return_lse=True), do)
+        f32_bwd_oracle(label, inputs, form, tuple(x.grad for x in leaves))
     need = {_flash_counter(hd): 1, **({_flash_counter(hd, True): 1}
                                       if bwd else {})}
     if _on_card(device) and counts != {n: need.get(n, 0) for n in counts}:
         raise AssertionError(f"{label}: launches {counts}, expected "
                              f"{need}")
-    log(f"{label} [{dtn}] [{b}, {s}, {hq}/{hkv}, {hd}] causal "
-        f"{causal} window {window}: max_rel_err {rel:.3e} (tol "
-        f"{TOLERANCE[dtn]:.0e}) over the output"
-        + (" and dq, dk, dv" if bwd else "") + f"; launches "
+    log(f"{label} [{dtn}] [{b}, {s}" + (f" on {t}" if t else "")
+        + f", {hq}/{hkv}, {hd}] causal {causal} window {window}: "
+        f"max_rel_err {rel:.3e} (tol {TOLERANCE[dtn]:.0e}) over the output"
+        + (" and dq, dk, dv" if bwd and not wide32 else "") + f"; launches "
         f"{ {n: c for n, c in counts.items() if c} }")
     return counts
 
@@ -7195,6 +7632,126 @@ def forms_dit(device: str = "cuda", cpu: str = "cpu",
     return counts
 
 
+def forms_dit_train(device: str = "cuda", cpu: str = "cpu",
+                    steps: int = FORMS_DIT_TRAIN["steps"],
+                    batch: int = FORMS_DIT_TRAIN["batch"],
+                    size: int = FORMS_DIT_TRAIN["size"]) -> dict:
+    """``forms_dit``'s model (dit-small's architecture at d_model 576 in 8
+    heads of 72, float32, the AdaLN-zero leaves redrawn) trained by
+    ``launch.train.train_dit`` for ``steps`` steps at latent ``size``
+    (S 1024: its joint attention reaches flash, the float32 forward and
+    backward on the instance 128) on ``device`` and on ``cpu`` from the
+    same weights and the same draws (the card run's shapes batches,
+    times and noise, recorded through a wrapper of ``training.rf_loss``
+    and handed to the CPU's); each of the CPU's steps after the first
+    starts from the card run's weights (AdamW's first update, lr·g/|g|,
+    turns the two devices' float32 differences in a near-zero gradient
+    into whole steps of the learning rate, which moved the second step's
+    gradients 1.7e-4 apart): each step's loss and every gradient leaf at
+    ``DIT_SMALL_TOL``; the card run again with TF32 on, on the same
+    weights, as a control whose worst gradient leaf must miss that
+    limit.  Returns the launch counts of the card's run."""
+    import dataclasses
+    from unittest import mock
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.checkpointing import checkpoint
+    from repro_torch.diffusion import training
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import dit
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(configs.get_config("dit-small"), **FORMS_DIT)
+    params_cpu = dit.init_params(cfg, seed=94, device=cpu)
+    with torch.no_grad():
+        redraw_zero_leaves(params_cpu, seed=95)
+    real_loss = training.rf_loss
+    drawn = []
+
+    def recording(apply_fn, params, batch, generator=None):
+        # rf_loss's own draws, in its order, kept for the other runs
+        x = batch["latents"]
+        t = torch.sigmoid(torch.randn((x.shape[0],), generator=generator,
+                                      device=x.device))
+        noise = torch.randn(x.shape, generator=generator, device=x.device,
+                            dtype=x.dtype)
+        drawn.append(tuple(a.cpu() for a in (x, t, noise)))
+        return real_loss(apply_fn, params, batch, t=t, noise=noise)
+
+    def replaying(apply_fn, params, batch, generator=None):
+        i = len(seen)
+        if i:   # from the card run's weights after step i - 1
+            with torch.no_grad():
+                for k, p in checkpoint._flatten_with_paths(params).items():
+                    p.copy_(weights[i - 1][k])
+        x, t, noise = (a.to(batch["latents"].device) for a in drawn[i])
+        return real_loss(apply_fn, params, {"latents": x}, t=t, noise=noise)
+
+    def run(dev, loss_fn):
+        params = adamw.tree_map(lambda p: p.to(dev, copy=True), params_cpu)
+        seen.clear()
+
+        def on_step(i, metrics, grads):
+            seen.append((metrics["loss"], {
+                k: g.detach().cpu() for k, g in
+                checkpoint._flatten_with_paths(grads).items()}))
+            if loss_fn is recording:   # the weights after this step
+                weights.append({
+                    k: p.detach().cpu().clone() for k, p in
+                    checkpoint._flatten_with_paths(params).items()})
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(training, "rf_loss", loss_fn):
+            train.train_dit(cfg, steps, batch, "", seed=96, log_every=steps,
+                            size=size, device=dev, params=params,
+                            on_step=on_step)
+        _sync(dev)
+        return list(seen), ops.launch_counts(), time.perf_counter() - t0
+    seen, weights = [], []
+    card, counts, wall = run(device, recording)
+    plain, _, wall_cpu = run(cpu, replaying)
+    control = None
+    if _on_card(device):
+        with tf32_on():
+            control, _, _ = run(device, replaying)
+
+    def worst(got, want):
+        """The worst leaf of each step: [(rel L2, path)]."""
+        return [max((rel_l2(g[1][k], w[1][k]), k) for k in w[1])
+                for g, w in zip(got, want, strict=True)]
+    losses = [abs(g[0] - w[0]) / abs(w[0])
+              for g, w in zip(card, plain, strict=True)]
+    steps_worst = worst(card, plain)
+    grad = max(r for r, _ in steps_worst)
+    ctrl = max(r for r, _ in worst(control, plain)) if control else None
+    zero = [k for k, g in card[0][1].items() if not bool(g.any())]
+    log(f"forms dit train: d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.head_dim}, {steps} train_dit steps at latent {size} on batch "
+        f"{batch}: card {wall:.1f} s, CPU {wall_cpu:.1f} s; losses "
+        + ", ".join(f"{g[0]:.7f}" for g in card) + " (CPU "
+        + ", ".join(f"{w[0]:.7f}" for w in plain) + "), rel "
+        + ", ".join(f"{r:.2e}" for r in losses)
+        + f" (tol {DIT_SMALL_TOL['loss']:.0e}); worst gradient leaf rel L2 "
+        "by step " + ", ".join(f"{r:.2e} ({k})" for r, k in steps_worst)
+        + f" over {len(plain[0][1])} leaves (tol "
+        f"{DIT_SMALL_TOL['grad']:.0e}); the TF32 control's "
+        + (f"{ctrl:.2e} (must exceed it)" if ctrl is not None else "none")
+        + f"; zero leaves {zero}; launches "
+        f"{ {n: c for n, c in counts.items() if c} }")
+    if (max(losses) > DIT_SMALL_TOL["loss"] or grad > DIT_SMALL_TOL["grad"]
+            or zero or len(card) != steps
+            or (ctrl is not None and ctrl <= DIT_SMALL_TOL["grad"])
+            or (_on_card(device) and (
+                counts["flash_attention"] != steps * cfg.n_layers
+                or counts["flash_attention_bwd"] != steps * cfg.n_layers))):
+        raise AssertionError(f"forms dit train: losses {losses}, gradients "
+                             f"{grad}, control {ctrl}, zero {zero}, "
+                             f"launches {counts}")
+    return counts
+
+
 def forms_key(label: str) -> str:
     """The launch-count key of a forms row's run: ``forms_<form>``."""
     return "forms_" + label.removeprefix("forms ")
@@ -7205,11 +7762,13 @@ def forms_phase(device: str = "cuda") -> dict:
     driven through the op layer on ``device``: every ``FORM_FLASH_ROWS``
     and ``FORM_SSD_ROWS`` form (in the rows' types and shapes) and the
     reference tests' small forms (``FORM_FLASH_SMALL`` in bf16 at hd 16
-    and 32, ``FORM_SSD_SMALL`` in both types), forward and backward
+    and 32, ``FORM_SSD_SMALL`` in both types) and the float32 forms of T
+    != S above head width 32 (``FORM_F32_CROSS``), forward and backward
     through ``ops.flash`` / ``ops.ssd`` under autograd against the plain
-    versions, each form's launches counted apart (reset just before it,
-    read just after); then ``forms_dit``.  Returns the counts by form
-    (``forms_key``)."""
+    versions (the float32 gradients above 32 against the float64
+    oracle), each form's launches counted apart (reset just before it,
+    read just after); then ``forms_dit`` and ``forms_dit_train``.
+    Returns the counts by form (``forms_key``)."""
     import torch
     by_form = {}
     for label, dtn, b, s, hq, hkv, hd, causal, window, bwd in \
@@ -7224,6 +7783,11 @@ def forms_phase(device: str = "cuda") -> dict:
                      f"window {window}")
             _forms_flash_check(label, torch.bfloat16, b, s, hq, hkv, hd,
                                causal, window, True, device)
+    for b, s, t, hq, hkv, hd in FORM_F32_CROSS:
+        _forms_flash_check(f"forms f32_hd{hd} {hq}/{hkv} {s} on {t}",
+                           torch.float32, b, s, hq, hkv, hd, False, 0, True,
+                           device, t=t)
+        _free(device)
     for label, b, s, h, p, n, q in FORM_SSD_ROWS:
         by_form[forms_key(label)] = _forms_ssd_check(
             label, torch.bfloat16, b, s, h, p, n, q, device)
@@ -7233,6 +7797,7 @@ def forms_phase(device: str = "cuda") -> dict:
             _forms_ssd_check(f"forms small p{p} n{n} q{q}", dt, b, s, h, p,
                              n, q, device)
     by_form["forms_dit"] = forms_dit(device)
+    by_form["forms_dit_train"] = forms_dit_train(device)
     return by_form
 
 
@@ -7252,7 +7817,8 @@ def forms_kernels() -> list:
         else:
             src = csrc + ("flash_fwd_tf32.cuh" if dtn == "float32"
                           else "flash_attention.cu")
-            bwd_src = csrc + ("flash_attention_f32.cu" if small
+            bwd_src = csrc + ("flash_attention_f32.cu" if small else
+                              "flash_bwd_tf32.cuh" if dtn == "float32"
                               else "flash_attention_bwd.cu")
         out.append((f"flash_attention[{label}]", dtn, _flash_counter(hd),
                     src, "src/repro/kernels/flash_attention.py:79", label))
@@ -7773,20 +8339,24 @@ def example_rows(row) -> None:
 
 
 class LaunchRecorder:
-    """While active, the op-layer entries of kernels 1, 2, 4 and 6 keep
-    the inputs and output of the first call of each signature (the
-    entry, its tensors' shapes and types, its other arguments), on the
-    card only; kernel 6's output, where it needs a gradient, keeps the
-    first gradient it is given, the input of kernel 8.  ``check`` then
+    """While active, the op-layer entries of kernels 1, 2, 4 and 6 (or
+    those named in ``ops``: ``flash`` is kernel 3's) keep the inputs and
+    output of the first call of each signature (the entry, its tensors'
+    shapes and types, its other arguments), on the card only; kernel 6's
+    and kernel 3's outputs, where they need a gradient, keep the first
+    gradient they are given, the input of kernel 8 or 7.  ``check`` then
     holds each against its plain version on the same inputs."""
 
     OPS = ("band_split_spectral", "freqca_predict_spectral", "band_split",
            "ssd")
 
+    def __init__(self, ops=OPS, phase: str = "examples"):
+        self.ops, self.phase = tuple(ops), phase
+
     def __enter__(self):
         from repro_torch.kernels import ops
         self.calls = {}
-        self._real = {op: getattr(ops, op) for op in self.OPS}
+        self._real = {op: getattr(ops, op) for op in self.ops}
         for op, real in self._real.items():
             setattr(ops, op, self._wrap(op, real))
         return self
@@ -7797,9 +8367,15 @@ class LaunchRecorder:
             setattr(ops, op, real)
 
     def _wrap(self, op, real):
+        import inspect
+
         import torch
 
-        def call(*args):
+        def call(*args, **kw):
+            # every argument by position, defaults filled in
+            bound = inspect.signature(real).bind(*args, **kw)
+            bound.apply_defaults()
+            args = bound.args
             y = real(*args)
             key = (op,) + tuple((tuple(a.shape), str(a.dtype))
                                 if torch.is_tensor(a) else a for a in args)
@@ -7810,7 +8386,7 @@ class LaunchRecorder:
                               else a for a in args),
                 "out": tuple(t.detach().clone() for t in (
                     y if isinstance(y, tuple) else (y,)))}
-            if op == "ssd" and y.requires_grad:
+            if op in ("ssd", "flash") and y.requires_grad:
                 def keep(g):
                     rec.setdefault("dy", g.detach().clone())
                 y.register_hook(keep)
@@ -7824,6 +8400,7 @@ class LaunchRecorder:
         equal); returns ``[(entry, shape, max rel err)]``."""
         import torch
 
+        from repro_torch.kernels import flash_attention as fa
         from repro_torch.kernels import ref, ssd_scan
         out = []
         for key, rec in self.calls.items():
@@ -7839,6 +8416,8 @@ class LaunchRecorder:
                 elif op == "freqca_predict_spectral":
                     want = ref.freqca_predict_spectral_ref(*args)
                     shape = list(args[2].shape)
+                elif op == "flash":
+                    want = ref.attention_ref(*args)
                 else:
                     xs, dt, a, bm, cm, chunk = args
                     want = ref.ssd_chunk_scan_ref(xs, dt.float(), a.float(),
@@ -7861,8 +8440,27 @@ class LaunchRecorder:
                                        f"{'x'.join(map(str, shape))}]",
                                        dtype, *kern, plain)
                 out.append(("ssd_bwd", shape, rel))
-        log(f"examples: {label}: {len(out)} launch signatures held against "
-            "their plain versions on the same inputs: "
+            if op == "flash" and "dy" in rec:
+                # kernel 7 twice from the kernel's o and lse, bitwise
+                q, k, v, *form = args
+                dy = rec["dy"].contiguous()
+                with torch.no_grad():
+                    o, lse = fa.flash_attention(q, k, v, *form,
+                                                return_lse=True)
+                    kern = [fa.flash_attention_bwd(q, k, v, o, lse, dy,
+                                                   *form)
+                            for _ in range(2)]
+                    plain = ref.attention_bwd_ref(q, k, v, o, lse, dy,
+                                                  *form)
+                bwd_name = (f"flash_attention_bwd[{label} "
+                            f"{'x'.join(map(str, shape))}]")
+                if not all(torch.equal(a, c) for a, c in zip(*kern)):
+                    raise AssertionError(f"{bwd_name}: two launches differ")
+                _, rel = compare(bwd_name, dtype, kern[0], plain)
+                out.append(("flash_bwd", shape, rel))
+                del o, lse, kern, plain, dy
+        log(f"{self.phase}: {label}: {len(out)} launch signatures held "
+            "against their plain versions on the same inputs: "
             + "; ".join(f"{op} {shape} rel {rel:.3e}"
                         for op, shape, rel in out))
         return out
@@ -8403,9 +9001,9 @@ def reduced_phase(archs=REDUCED_LMS + REDUCED_DITS, seq: int = REDUCED_SEQ,
 
 
 PHASES = ("dryrun", "reference", "analysis", "serve", "slo", "backbone",
-          "lm", "decode", "train", "lm_train", "moe", "lm_configs", "jamba",
-          "encdec", "vlm", "dit_small", "examples", "forms", "reduced",
-          "launcher", "fleet")
+          "lm", "decode", "train", "train_f32", "lm_train", "moe",
+          "lm_configs", "jamba", "encdec", "vlm", "dit_small", "examples",
+          "forms", "reduced", "launcher", "fleet")
 
 
 def run_phases(phases) -> dict:
@@ -8472,7 +9070,8 @@ def run_phases(phases) -> dict:
             done("decode")
         del yi_params
         free()
-    for name, fn in (("train", train_phase), ("lm_train", lm_train_phase),
+    for name, fn in (("train", train_phase), ("train_f32", train_f32_phase),
+                     ("lm_train", lm_train_phase),
                      ("moe", moe_phase), ("lm_configs", lm_configs_phase),
                      ("jamba", jamba_phase), ("encdec", encdec_phase),
                      ("vlm", vlm_phase), ("dit_small", dit_small_phase),
@@ -8573,7 +9172,7 @@ def main(argv=None) -> int:
     # forms, the other phases' the entries of the wider forms
     small_runs = ("reduced_", EXAMPLES_KERNELS["torch_lm_backbones"][0])
     wide = {ph: c for ph, c in by_phase.items()
-            if not ph.startswith(small_runs + ("forms_",))}
+            if not ph.startswith(small_runs + ("forms_", "train_f32"))}
     small = {ph: c for ph, c in by_phase.items()
              if ph.startswith(small_runs)}
     paths = {name: [ph for ph in wide if wide[ph][name] > 0]
@@ -8710,13 +9309,16 @@ def main(argv=None) -> int:
             k["form_rows"] = rows_of
         kernels.append(k)
     # the forms slice's rows, each with its form's launches in the forms
-    # phase (reset just before it, read just after)
-    # (the float32 hd-72 forward's also the forms phase's model's)
+    # phase (reset just before it, read just after); the float32 hd-72
+    # rows' also the forms phase's model's (served: the forward; trained:
+    # both), the float32 [2, 4096, 24, 128] rows' the train_f32 phase's
+    extra = {"forms_dit": "f32_hd72", "forms_dit_train": "f32_hd72",
+             "train_f32": "f32_hd128 mha 2x4096"}
     for name, dtn, counter, src, rep, label in forms_kernels():
         runs = {ph: by_phase[ph][counter]
-                for ph in (forms_key(label), "forms_dit")
-                if ph in by_phase and (ph != "forms_dit" or "f32_hd72" in
-                                       label)}
+                for ph in (forms_key(label), *extra)
+                if ph in by_phase and (ph == forms_key(label)
+                                       or extra[ph] in label)}
         k = dict(name=name, route="cuda", source=src, replaces=rep,
                  launches=sum(runs.values()) if runs else None,
                  **FORM_ROWS[name][dtn])

@@ -1,5 +1,7 @@
-// Flash attention backward, bf16, head width 64 or 128 (any multiple of
-// 8 up to 128 runs on the instance above it: the row width hd is a
+// Flash attention backward, bf16 (this file) and float32
+// (flash_bwd_tf32.cuh, dispatched by the C entry point at the end), head
+// width 64 or 128 (any multiple of 8 up to 128 runs on the instance
+// above it: the row width hd is a
 // run-time argument, the tensor maps' inner dimension is the true hd so
 // TMA zero-fills the columns past it, the stores skip them and the scale
 // is 1/√ of the true width), in the four forms of the forward:
@@ -87,6 +89,7 @@
 // 10; it needs the dS tile in shared memory and a third warpgroup's
 // registers for dQ, which a 255-register budget does not leave.
 #include "common.cuh"
+#include "flash_bwd_tf32.cuh"   // float32: tf32bwd
 #include "hopper.cuh"
 
 namespace {
@@ -755,25 +758,29 @@ int launch(const void* q, const void* k, const void* v, const bf16* o,
 
 }  // namespace
 
-// Floats of the scratch flash_attention_bwd takes: lse·log2 e and D,
-// each [B, H, S padded to a multiple of 128]; then, where pass (b) splits
-// the query heads of a group over `splits` blocks, their partial dK and
-// dV, each [splits, B, Tk, Hkv, hd].
+// Floats of the scratch flash_attention_bwd takes: bf16, lse·log2 e and
+// D, each [B, H, S padded to a multiple of 128]; then, where pass (b)
+// splits the query heads of a group over `splits` blocks, their partial
+// dK and dV, each [splits, B, Tk, Hkv, hd]; float32 (dtype rt::kF32),
+// the (lse, D) float2 of each row, [B, H, S padded to 128].
 extern "C" long flash_attention_bwd_scratch(int B, int S, int Tk, int H,
-                                            int Hkv, int hd) {
+                                            int Hkv, int hd, int dtype) {
   if (Hkv <= 0 || H % Hkv != 0) return 0;
+  if (dtype == rt::kF32) return 2L * B * H * tf32bwd::padded(S);
   const int splits = kv_splits(B, Tk, H, Hkv);
   return 2L * B * H * padded(S) +
          (splits > 1 ? 2L * splits * B * Tk * Hkv * hd : 0);
 }
 
-// q, o, dO, dq [B, S, H, hd] and k, v, dk, dv [B, Tk, Hkv, hd], bf16,
-// with H a multiple of Hkv; lse float32 [B, H, S]; stats a float32
-// scratch of flash_attention_bwd_scratch(B, S, Tk, H, Hkv, hd) floats;
-// contiguous and 16-byte aligned; hd a multiple of 8 up to 128, run on
-// the instance 64 or 128 above it, the logits scaled by 1/sqrt(scale_hd);
-// causal 0/1, window 0 (none) or > 0.  Any other type or width returns
-// cudaErrorInvalidValue.
+// q, o, dO, dq [B, S, H, hd] and k, v, dk, dv [B, Tk, Hkv, hd], bf16 or
+// float32 (dtype, rt::DType), with H a multiple of Hkv; lse float32 [B,
+// H, S]; stats a float32 scratch of flash_attention_bwd_scratch(B, S, Tk,
+// H, Hkv, hd, dtype) floats; contiguous and 16-byte aligned; hd a
+// multiple of 8 (bf16) or 4 (float32) up to 128, run on the instance 64
+// or 128 above it, the logits scaled by 1/sqrt(scale_hd); causal 0/1,
+// window 0 (none) or > 0.  bf16 runs the wgmma kernels above, float32
+// the 3xTF32 kernels of flash_bwd_tf32.cuh (three launches).  Any other
+// type or width returns cudaErrorInvalidValue.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const float* lse, const void* dO,
@@ -782,11 +789,25 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    int Hkv, int hd, int scale_hd, int causal,
                                    int window, int dtype, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype != rt::kBF16 || Hkv <= 0 || H % Hkv != 0 || hd < 8 ||
-      hd > 128 || hd % 8 != 0 || scale_hd < 1)
+  const int vec = dtype == rt::kF32 ? 4 : 8;
+  if ((dtype != rt::kBF16 && dtype != rt::kF32) || Hkv <= 0 ||
+      H % Hkv != 0 || hd < vec || hd > 128 || hd % vec != 0 ||
+      scale_hd < 1 || B * H > 65535)
     return cudaErrorInvalidValue;
-  const Mask mk{S, Tk, causal, window};
   const bool m = causal || window > 0;
+  if (dtype == rt::kF32) {
+    namespace tb = tf32bwd;
+    const flash::Mask fm{Tk, causal, window};
+    const auto fn = hd <= 64
+                        ? (m ? tb::launch<64, true> : tb::launch<64, false>)
+                        : (m ? tb::launch<128, true> : tb::launch<128, false>);
+    return fn(static_cast<const float*>(q), static_cast<const float*>(k),
+              static_cast<const float*>(v), static_cast<const float*>(o),
+              lse, static_cast<const float*>(dO), static_cast<float*>(dq),
+              static_cast<float*>(dk), static_cast<float*>(dv), stats, B, S,
+              H, Hkv, hd, scale_hd, fm, st);
+  }
+  const Mask mk{S, Tk, causal, window};
   const auto* ob = static_cast<const bf16*>(o);
   const auto* db = static_cast<const bf16*>(dO);
   auto* dqb = static_cast<bf16*>(dq);

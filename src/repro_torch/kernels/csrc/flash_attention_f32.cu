@@ -98,16 +98,17 @@
 
 namespace f32bwd {
 
+using flash::a_index;
 using flash::dot4;
 using flash::ldg1;
 using flash::lds1;
 using flash::Mask;
 using flash::mma_split;
+using flash::prob;
 using flash::split3;
 
 constexpr int kTile = 64;      // rows of the streamed operands a stage
 constexpr int kSlabs = kTile / 8;
-constexpr float kLog2e = 1.4426950408889634f;
 
 // the passes' layouts at hd 16: m16 row tiles a warp, warps a block,
 // blocks an SM (at hd 32 a warp takes one m16 tile: its fragments double)
@@ -269,12 +270,6 @@ __device__ __forceinline__ void mma_dims(float (&d)[4],
     rt::mma_tf32(d, a[kk][0], b[kk][0], b[kk][1]);
 }
 
-// exp(s/√hd − lse) for the unscaled logit s: s/√hd − lse in one
-// rounding (near 0 where p matters), then base 2
-__device__ __forceinline__ float prob(float s, float scale, float lse) {
-  return hp::ex2(fmaf(s, scale, -lse) * kLog2e);
-}
-
 // B of a product over the 8 staged rows at `rows` (relabelled: k-rows t
 // and t + 4 stand for rows 2t and 2t + 1), head dims 8n + g, split
 template <typename E, int HD>
@@ -286,12 +281,6 @@ __device__ __forceinline__ void frag_b_rows(const E* rows, int n, int g,
   const E* p = rows + 2 * t * LD + 8 * n + g;
   split3(lds1(p), bh0, bl0);
   split3(lds1(p + LD), bh1, bl1);
-}
-
-// accumulator element e (row g + 8(e / 2), column 2t + e % 2) as the A
-// fragment's index (column t for 2t, t + 4 for 2t + 1)
-__device__ __forceinline__ constexpr int a_index(int e) {
-  return (e & 1) * 2 + (e >> 1);
 }
 
 // (a) dQ, and the row statistics into `stats` ([B·H, s_pad] float2)
@@ -479,18 +468,6 @@ flash_bwd_f32_q_kernel(const E* __restrict__ q, const E* __restrict__ k,
     }
 }
 
-// [u0, u1): the query tiles of which some query sees a key in [k0, k0 +
-// R): from the key's diagonal under the causal mask, to the band's end
-// under a window
-template <int R>
-__device__ __forceinline__ void query_tiles(const Mask& mk, int S, int k0,
-                                            int& u0, int& u1) {
-  const int qb = mk.causal ? k0 : 0;
-  const int qe = mk.window > 0 ? min(S, k0 + R - 1 + mk.window) : S;
-  u0 = qb / kTile;
-  u1 = qe > qb ? (qe + kTile - 1) / kTile : u0;
-}
-
 // (b) dK and dV from the statistics (a) wrote
 template <typename E, int HD, bool MASKED>
 __global__ void __launch_bounds__(Bwd<E, HD>::kKVThreads, kKVMinBlocks)
@@ -517,7 +494,8 @@ flash_bwd_f32_kv_kernel(const E* __restrict__ q, const E* __restrict__ k,
   const int k0 = blockIdx.x * C::kKVBlock;
   const int kw = k0 + warp * kRows;   // the warp's keys
   int u0 = 0, u1 = (S + kTile - 1) / kTile;
-  if constexpr (MASKED) query_tiles<C::kKVBlock>(mk, S, k0, u0, u1);
+  if constexpr (MASKED)
+    flash::query_tiles<C::kKVBlock, kTile>(mk, S, k0, u0, u1);
   const int nq = u1 - u0;
   const int n_iter = grp * nq;   // (query head, query tile) in that order
 

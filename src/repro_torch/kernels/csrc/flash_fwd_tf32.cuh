@@ -61,12 +61,25 @@
 //   crosses the 4 threads of a quad, its sum only at the end.  P is split
 //   hi + lo after the exp2.
 // - Rounding: the tensor cores' float32 sums round toward zero, so no
-//   long sum runs inside them.  S sums 32 head dims at a time in a fresh
-//   fragment and joins by float32 adds; each key tile's P·V sums in a
-//   fresh fragment and joins the running output by the float32
-//   rescale-and-add o = o·corr + pv.  In float32 at hd 16 and 32 S runs
-//   on the FMA units instead (kFmaS: 2·hd FLOP a pair, rounded as
-//   float32 rounds), the same chains as the backward's: the backward
+//   long sum runs inside them.  S sums each k-step's 8 head dims (its
+//   three products) in a fresh fragment and joins them by float32 adds,
+//   as the float32 backward recomputes it (flash_bwd_tf32.cuh): summed
+//   32 dims at a time, the truncation, a bias toward zero at the scale
+//   of the running sum, put the backward past twice the float32 plain
+//   version's error on sharp logits (scaled std ~80) on seeded draws
+//   at hd 64 (non-causal MHA from the first draw on; causal GQA with a
+//   window of 24) and on 1 of 60 at hd 128 causal GQA.  P·V at 64 and
+//   128: O is rescaled by the tile's correction first and each 8-key
+//   slab's three products sum in a fresh fragment that joins O by a
+//   float32 add (kSlabPV).  Summed a key tile (64 or 32 keys) at a
+//   time, O's truncation bias reached the backward's D = rowsum(dO ∘ O):
+//   a float32 DiT's q_norm and k_norm gradients, sums that cancel, read
+//   1.65e-4 card against CPU where the limit is 1e-4
+//   (chip_smoke.forms_dit_train).  At 16 and 32 each key tile's P·V
+//   sums in a fresh fragment and joins the running output by the
+//   float32 rescale-and-add o = o·corr + pv.  In float32 at hd 16 and 32
+//   S runs on the FMA units instead (kFmaS: 2·hd FLOP a pair, rounded
+//   as float32 rounds), the same chains as the backward's: the backward
 //   needs exact logits at sharp softmaxes, and a log-sum-exp from
 //   truncated ones put the reduced seamless cross attention's input
 //   gradient twice as far from the CPU's.
@@ -158,6 +171,32 @@ __device__ __forceinline__ float dot4(float s, float4 x, float4 y) {
   return fmaf(x.w, y.w, s);
 }
 
+// The backwards' shared pieces (flash_attention_f32.cu at the small
+// widths, flash_bwd_tf32.cuh at 64 and 128).
+// P = exp(s/√hd − lse) for the unscaled logit s: s/√hd − lse in one
+// rounding (near 0 where P matters), then base 2
+__device__ __forceinline__ float prob(float s, float scale, float lse) {
+  return hp::ex2(fmaf(s, scale, -lse) * kLog2e);
+}
+
+// accumulator element e (row g + 8(e / 2), column 2t + e % 2) as the A
+// fragment's index (column t for 2t, t + 4 for 2t + 1)
+__device__ __forceinline__ constexpr int a_index(int e) {
+  return (e & 1) * 2 + (e >> 1);
+}
+
+// [u0, u1): the tiles of QT queries of which some query sees a key in
+// [k0, k0 + KEYS): from the keys' diagonal under the causal mask, to the
+// band's end under a window
+template <int KEYS, int QT>
+__device__ __forceinline__ void query_tiles(const Mask& mk, int S, int k0,
+                                            int& u0, int& u1) {
+  const int qb = mk.causal ? k0 : 0;
+  const int qe = mk.window > 0 ? min(S, k0 + KEYS - 1 + mk.window) : S;
+  u0 = qb / QT;
+  u1 = qe > qb ? (qe + QT - 1) / QT : u0;
+}
+
 // loads of one value or two neighbours from global memory through the
 // read-only path, and from shared memory
 __device__ __forceinline__ float ldg1(const float* p) { return __ldg(p); }
@@ -189,7 +228,6 @@ struct Tf32Fwd {
   // against the backward's exact logits
   static constexpr bool kFmaS = HD <= 32;
   static constexpr int kKS = HD / 8;                // k-steps of S
-  static constexpr int kGroup = kKS < 4 ? kKS : 4;  // k-steps a fresh sum
   static constexpr int kNS = kBK / 8;               // 8-key slabs a tile
   // elements a K row: HD + 8 for the 8-byte fragment reads of the
   // tensor-core S (32 distinct banks); for S on the FMA units HD + 4, so
@@ -376,53 +414,46 @@ tf32_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
     }
+    // two k-steps a loop iteration: unrolled further, ptxas overlapped
+    // their fresh fragments and spilled (chip_smoke.wide_bwd_variants)
+#pragma unroll 2
+    for (int kk = 0; kk < (C::kFmaS ? 0 : KS); ++kk) {
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-    for (int kg = 0; kg < (C::kFmaS ? 0 : KS); kg += C::kGroup) {
-      float p[MT][NS][4];
+      for (int mt = 0; mt < MT; ++mt) {
+        if constexpr (C::kQRegs) {
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int n = 0; n < NS; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) p[mt][n][e] = 0.f;
-#pragma unroll
-      for (int kk = kg; kk < kg + C::kGroup; ++kk) {
-        uint32_t ah[MT][4], al[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          if constexpr (C::kQRegs) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              ah[mt][i] = qreg[mt][kk][i];
-              al[mt][i] = qreg[mt][kk][4 + i];
-            }
-          } else {
-            const float* at = qf + (mt * KS + kk) * 256;
-            const uint4 x = reinterpret_cast<const uint4*>(at)[lane];
-            const uint4 y = reinterpret_cast<const uint4*>(at + 128)[lane];
-            ah[mt][0] = x.x; ah[mt][1] = x.y; ah[mt][2] = x.z; ah[mt][3] = x.w;
-            al[mt][0] = y.x; al[mt][1] = y.y; al[mt][2] = y.z; al[mt][3] = y.w;
+          for (int i = 0; i < 4; ++i) {
+            ah[mt][i] = qreg[mt][kk][i];
+            al[mt][i] = qreg[mt][kk][4 + i];
           }
-        }
-#pragma unroll
-        for (int n = 0; n < NS; ++n) {
-          // B fragment: (dim 2t, key g) and (dim 2t + 1, key g)
-          const float2 kx = lds2(ks + (n * 8 + g) * C::kLDK + kk * 8 + 2 * t);
-          uint32_t bh0, bl0, bh1, bl1;
-          split3(kx.x, bh0, bl0);
-          split3(kx.y, bh1, bl1);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt)
-            mma_split(p[mt][n], ah[mt], al[mt], bh0, bh1, bl0, bl1);
+        } else {
+          const float* at = qf + (mt * KS + kk) * 256;
+          const uint4 x = reinterpret_cast<const uint4*>(at)[lane];
+          const uint4 y = reinterpret_cast<const uint4*>(at + 128)[lane];
+          ah[mt][0] = x.x; ah[mt][1] = x.y; ah[mt][2] = x.z; ah[mt][3] = x.w;
+          al[mt][0] = y.x; al[mt][1] = y.y; al[mt][2] = y.z; al[mt][3] = y.w;
         }
       }
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      for (int n = 0; n < NS; ++n) {
+        // B fragment: (dim 2t, key g) and (dim 2t + 1, key g)
+        const float2 kx = lds2(ks + (n * 8 + g) * C::kLDK + kk * 8 + 2 * t);
+        uint32_t bh0, bl0, bh1, bl1;
+        split3(kx.x, bh0, bl0);
+        split3(kx.y, bh1, bl1);
 #pragma unroll
-        for (int n = 0; n < NS; ++n)
+        for (int mt = 0; mt < MT; ++mt) {
+          // the k-step's three products in a fresh fragment, joined to S
+          // by a float32 add (flash_bwd_tf32.cuh's products(): the same
+          // sums)
+          float f[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_split(f, ah[mt], al[mt], bh0, bh1, bl0, bl1);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            s[mt][n][e] = kg == 0 ? p[mt][n][e] : s[mt][n][e] + p[mt][n][e];
+            s[mt][n][e] = kk == 0 ? f[e] : s[mt][n][e] + f[e];
+        }
+      }
     }
 
     // online softmax (natural units of the scaled logits; m_r is a row's
@@ -470,17 +501,26 @@ tf32_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         m_r[mt][r] = m_new;
       }
 
-    // O = O·corr + P·V, the tile's P·V summed in a fresh fragment.  A
-    // slab's A fragment is its P in place: columns t and t + 4 stand for
-    // keys 2t and 2t + 1, so B reads V's rows 2t and 2t + 1; a V
-    // fragment is read and split once for every m-tile.
-    float pv[MT][HD / 8][4];
+    // O = O·corr + P·V.  A slab's A fragment is its P in place: columns
+    // t and t + 4 stand for keys 2t and 2t + 1, so B reads V's rows 2t
+    // and 2t + 1; a V fragment is read and split once for every m-tile.
+    // At 16 and 32 the tile's P·V sums in a fresh fragment and joins O by
+    // the float32 rescale-and-add; at 64 and 128 (kSlabPV) O is rescaled
+    // first and each slab's three products sum in a fresh fragment that
+    // joins O by a float32 add (no tile sum held beside O).
+    constexpr bool kSlabPV = !C::kFmaS;
+    float pv[MT][kSlabPV ? 1 : HD / 8][4];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pv[mt][n][e] = 0.f;
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (kSlabPV)
+            acc[mt][n][e] *= corr[mt][e / 2];
+          else
+            pv[mt][n][e] = 0.f;
+        }
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       uint32_t ph[MT][4], pl[MT][4];
@@ -498,17 +538,34 @@ tf32_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
         split3(lds1(vr + n * 8), bh0, bl0);
         split3(lds1(vr + C::kLDV + n * 8), bh1, bl1);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt)
-          mma_split(pv[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (kSlabPV) {
+            // the fresh fragment starts from O·0 (a zero, O being finite)
+            // so that it waits for the previous slab's add, as a sum in
+            // place does: started from a constant 0, ptxas issued every
+            // slab's products at once and spilled at 255 registers
+            float f[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) f[e] = acc[mt][n][e] * 0.f;
+            mma_split(f, ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mt][n][e] += f[e];
+          } else {
+            mma_split(pv[mt][n], ph[mt], pl[mt], bh0, bh1, bl0, bl1);
+          }
+        }
       }
     }
+    if constexpr (!kSlabPV) {
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int n = 0; n < HD / 8; ++n)
+        for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e)
-          acc[mt][n][e] = fmaf(acc[mt][n][e], corr[mt][e / 2], pv[mt][n][e]);
+          for (int e = 0; e < 4; ++e)
+            acc[mt][n][e] =
+                fmaf(acc[mt][n][e], corr[mt][e / 2], pv[mt][n][e]);
+    }
   }
   rt::cp_async_wait<0>();
 

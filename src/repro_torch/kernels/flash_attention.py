@@ -4,10 +4,10 @@ and grouped-query forms, forward and backward.
 ``flash_attention`` is the wrapper of ``csrc/flash_attention.cu`` (the
 counterpart of ``repro.kernels.flash_attention``); with ``return_lse``
 it also returns each row's log-sum-exp, which ``flash_attention_bwd``
-(``csrc/flash_attention_bwd.cu``, bf16) recomputes the probabilities
-from.  float32 forwards run on the TF32 tensor cores with each operand
-split hi + lo (three products, float32 accuracy; the template
-``csrc/flash_fwd_tf32.cuh``).
+(``csrc/flash_attention_bwd.cu``) recomputes the probabilities from.
+float32 runs on the TF32 tensor cores with each operand split hi + lo
+(three products, float32 accuracy): the forward's template
+``csrc/flash_fwd_tf32.cuh``, the backward's ``csrc/flash_bwd_tf32.cuh``.
 
 The forms each kernel takes (``_check``), every mask and GQA:
 
@@ -22,8 +22,7 @@ The forms each kernel takes (``_check``), every mask and GQA:
   on the TF32 template at 16 and 32 and its backward on the same split
   products, bf16 on the bf16 tensor cores, ``csrc/flash_bf16_small.cuh``;
   the library keeps the name of its first type);
-- from 33 to 128: the forward in bf16 and float32, the backward in bf16
-  (a float32 backward there is queued in ``ROADMAP.md``);
+- from 33 to 128: the forward and the backward in bf16 and float32;
 - wider heads raise, naming ``ROADMAP.md``, where they are queued.
 
 CUDA tensors only; the op layer sends CPU tensors to
@@ -213,23 +212,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: int = 0):
     """``(dq, dk, dv)`` of ``flash_attention`` from its output ``o``, its
     ``lse`` and the output's gradient ``do``: q, o, do [B, S, H, hd]; k,
-    v [B, T, H / q_per_kv, hd]; lse [B, H, S] float32; bf16 at every
-    head width up to 128, float32 up to 32 (``flash_attention_f32_bwd``;
-    a float32 backward from 33 to 128 is queued in ``ROADMAP.md``).
+    v [B, T, H / q_per_kv, hd]; lse [B, H, S] float32; bf16 and float32
+    at every head width up to 128 (up to 32 ``flash_attention_f32_bwd``).
     Each gradient in its input's type, float32 accumulation on the
-    tensor cores (wgmma).  Three
-    launches: the row statistics, dK and dV (one block per key tile and
-    kv head), dQ (one per query tile and head); a fourth sums, in a
-    fixed order, the partial dK and dV of blocks that split a GQA group
-    where the grid is small.  Each gradient row is written once and
-    nothing is summed by atomics, so two calls are bitwise equal."""
+    tensor cores.  bf16 (wgmma): three launches, the row statistics, dK
+    and dV (one block per key tile and kv head), dQ (one per query tile
+    and head); a fourth sums, in a fixed order, the partial dK and dV of
+    blocks that split a GQA group where the grid is small.  float32
+    (3xTF32 mma.sync, the logits computed as the forward's): three, dQ
+    with the row statistics, then dV, then dK, a kv head's group of
+    query heads summed in one warp in head order.  Each gradient row is
+    written once and nothing is summed by atomics, so two calls are
+    bitwise equal."""
     b, s, h, hd = q.shape
     _check("flash_attention_bwd", q, k, v, q_per_kv, window, causal)
-    if hd > SMALL_HEAD_DIM and q.dtype != torch.bfloat16:
-        raise NotImplementedError(
-            f"flash_attention_bwd: {q.dtype} inputs at head_dim {hd}; the "
-            "backward kernel takes bfloat16 only above head width "
-            f"{SMALL_HEAD_DIM} (float32 there is queued in ROADMAP.md)")
     _check_bwd("flash_attention_bwd", q, o, lse, do)
     width = row_width(hd, q.dtype)
     if width != hd and not q.is_meta:
@@ -250,14 +246,17 @@ def _bwd(q, k, v, o, lse, do, q_per_kv, causal, window, scale_hd):
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if q.is_meta:
         return meta.stand_in("flash_attention_bwd", bwd_work(
-            b, s, k.shape[1], h, hkv, hd, causal, window), dq, dk, dv)
+            b, s, k.shape[1], h, hkv, hd, causal, window,
+            dtype_name=_dtype_name(q)), dq, dk, dv)
     build.require_cuda("flash_attention_bwd", q, k, v, o, lse, do)
     scratch = build.function("flash_attention_bwd",
-                             "flash_attention_bwd_scratch", [_I] * 6,
+                             "flash_attention_bwd_scratch", [_I] * 7,
                              ctypes.c_long)
-    # the kernel's row statistics (lse·log2 e and D = rowsum(dO ∘ O)) and,
-    # where it splits a GQA group over blocks, their partial dK and dV
-    stats = torch.empty(scratch(b, s, k.shape[1], h, hkv, hd),
+    # the kernel's row statistics (lse and D = rowsum(dO ∘ O)) and, where
+    # the bf16 kernel splits a GQA group over blocks, their partial dK
+    # and dV
+    stats = torch.empty(scratch(b, s, k.shape[1], h, hkv, hd,
+                                build.dtype_code(q)),
                         dtype=torch.float32, device=q.device)
     fn = build.function("flash_attention_bwd", "flash_attention_bwd",
                         [_P] * 10 + [_I] * 10 + [_P])

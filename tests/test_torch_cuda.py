@@ -435,12 +435,91 @@ def test_flash_autograd_function(card, causal, hkv):
     assert ops.launch_counts()["flash_attention_bwd"] == 0
 
 
-def test_flash_bwd_refuses_float32(card):
+# float32 at head widths 33 to 128 (``flash_bwd_tf32.cuh``, instances 64
+# and 128): (B, S, T, Hq, Hkv, hd, causal, window) in every form at hd
+# 64, 72 (DiT-XL's), 96 (Phi-3's) and 128: non-causal MHA and GQA, causal
+# GQA, causal and non-causal windows, T != S both ways, T shorter than a
+# tile; S and T off the 128-row blocks and the 32- and 64-row tiles
+_F32_WIDE_FORMS = [
+    (2, 333, 333, 4, 4, 64, False, 0),
+    (2, 300, 300, 8, 2, 64, True, 0),
+    (1, 400, 400, 4, 4, 64, False, 90),
+    (2, 1024, 1024, 8, 8, 72, False, 0),
+    (1, 333, 333, 6, 2, 72, True, 24),
+    (1, 1000, 1000, 8, 8, 96, True, 0),
+    (1, 200, 700, 4, 1, 96, False, 0),
+    (1, 520, 520, 8, 2, 128, True, 100),
+    (2, 260, 390, 4, 2, 128, False, 0),
+    (1, 300, 20, 4, 4, 128, False, 0),
+    (2, 300, 300, 4, 1, 128, True, 0),
+]
+
+
+@pytest.mark.parametrize("b,s,t,hq,hkv,hd,causal,window", _F32_WIDE_FORMS)
+def test_flash_f32_wide_backward_forms(card, b, s, t, hq, hkv, hd, causal,
+                                       window):
+    """Kernel 7 in float32 at head widths 33 to 128 in every form: dQ,
+    dK, dV against the float64 oracle (the recompute twin on float64
+    inputs, from the kernel's own o and lse) within twice the float32
+    twin's own error (at least 1e-5), and against the twin itself at
+    1e-5; two launches bitwise equal, one launch a call on
+    ``flash_attention_bwd``; ``ops.flash`` under autograd reaching the
+    forward and this backward, its gradients those of the direct call."""
     from repro_torch.kernels import flash_attention as fa
-    q, k, v, do = _bwd_inputs(card, 64, 2, 2, 64, torch.float32)
-    o, lse = fa.flash_attention(q, k, v, return_lse=True)
-    with pytest.raises(NotImplementedError):
-        fa.flash_attention_bwd(q, k, v, o, lse, do)
+    q, k, v, do = _bwd_inputs(card, s, hq, hkv, hd, torch.float32, b=b,
+                              t=t)
+    g = hq // hkv
+    o, lse = fa.flash_attention(q, k, v, g, causal, window, return_lse=True)
+    ops.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window)
+    counts = ops.launch_counts()
+    assert counts["flash_attention_bwd"] == 2 and sum(counts.values()) == 2
+    assert all(torch.equal(a, c) for a, c in zip(got, again, strict=True))
+    assert all(a.dtype == torch.float32 for a in got)
+    plain = ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal, window)
+    _close(got, plain, torch.float32)
+    oracle = ref.attention_bwd_ref(*(x.double() for x in (q, k, v, o, lse,
+                                                          do)), g, causal,
+                                   window)
+    for a, p, w in zip(got, plain, oracle, strict=True):
+        lim = max(TOL[torch.float32], 2 * _rel64(p, w))
+        assert _rel64(a, w) <= lim, (_rel64(a, w), lim)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ops.reset_launch_counts()
+    (ops.flash(*leaves, g, causal, window) * do).sum().backward()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == counts["flash_attention_bwd"] == 1
+    _close(tuple(x.grad for x in leaves), got, torch.float32)
+
+
+@pytest.mark.parametrize("hd,b,s,t,hq,hkv,causal", [
+    (64, 2, 333, 333, 8, 8, False), (128, 1, 300, 520, 4, 2, False),
+    (128, 1, 333, 333, 4, 2, True)])
+def test_flash_f32_wide_backward_tf32_control(card, hd, b, s, t, hq, hkv,
+                                              causal):
+    """The control of the float32 wide backward's limits: the recompute
+    twin with TF32 on misses 1e-4 (the kernel's limit in ``chip_smoke``)
+    against the float64 oracle on every gradient, where the kernel, on
+    the same inputs, stays within it."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v, do = _bwd_inputs(card, s, hq, hkv, hd, torch.float32, b=b, t=t)
+    g = hq // hkv
+    o, lse = fa.flash_attention(q, k, v, g, causal, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal)
+    oracle = ref.attention_bwd_ref(*(x.double() for x in (q, k, v, o, lse,
+                                                          do)), g, causal)
+    assert max(_rel64(a, w) for a, w in zip(got, oracle, strict=True)) \
+        <= 1e-4
+    allow = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        control = [_rel64(a, w) for a, w in zip(
+            ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal), oracle,
+            strict=True)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = allow
+    assert min(control) > 1e-4, control
 
 
 def _guarded_cuda_calls(card):
@@ -1248,13 +1327,13 @@ _ANY_WIDTH = [
 def test_flash_kernels_at_every_width(card, dtype, b, s, t, hq, hkv, hd,
                                       causal, window):
     """The forward (with its log-sum-exp) on the instance above hd
-    against the plain version, and the backward where it runs (bf16 at
-    every width, float32 up to 32): bf16 against the recompute twin at
-    2e-2, two launches bitwise equal; float32 against the float64 oracle
-    within max(1e-5, twice the float32 twin's own error), the forward
-    with a TF32 control that must miss that limit where cuBLAS takes
-    TF32 for the plain version's products (S of 200 and more, hd of 16
-    and more).  One launch a call on the library of its instance."""
+    against the plain version, and the backward: bf16 against the
+    recompute twin at 2e-2, two launches bitwise equal; float32 against
+    the float64 oracle within max(1e-5, twice the float32 twin's own
+    error), the forward with a TF32 control that must miss that limit
+    where cuBLAS takes TF32 for the plain version's products (S of 200
+    and more, hd of 16 and more).  One launch a call on the library of
+    its instance."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v, do = _bwd_inputs(card, s, hq, hkv, hd, dtype, b=b, t=t)
     g = hq // hkv
@@ -1283,8 +1362,6 @@ def test_flash_kernels_at_every_width(card, dtype, b, s, t, hq, hkv, hd,
             assert control > lim, (control, lim)
     assert float((lse - want_lse).abs().max()) <= 1e-5 * float(
         want_lse.abs().max())
-    if dtype == torch.float32 and not small:
-        return    # the float32 backward above 32 is queued (ROADMAP.md)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, g, causal, window)
     again = fa.flash_attention_bwd(q, k, v, out, lse, do, g, causal, window)
     assert ops.launch_counts()[lib + "_bwd"] == 2
@@ -1383,13 +1460,14 @@ def test_flash_bf16_small_float64_guard(card, hd, hq, hkv, causal):
                                                    _rel64(p, w))
 
 
-def _sharp_draw(card, seed, b, s, t, hq=8, hkv=8, causal=False, window=0):
-    """q, k, v, dO of one seeded draw at head width 16, q scaled so that
-    the logits' std is ~80."""
+def _sharp_draw(card, seed, b, s, t, hq=8, hkv=8, causal=False, window=0,
+                hd=16):
+    """q, k, v, dO of one seeded draw at head width ``hd``, q scaled so
+    that the scaled logits' std is ~80."""
     g = torch.Generator(device=card).manual_seed(seed)
-    q, do = (torch.randn(b, s, hq, 16, generator=g, device=card)
+    q, do = (torch.randn(b, s, hq, hd, generator=g, device=card)
              for _ in range(2))
-    k, v = (torch.randn(b, t, hkv, 16, generator=g, device=card)
+    k, v = (torch.randn(b, t, hkv, hd, generator=g, device=card)
             for _ in range(2))
     return q * 80.0, k, v, do
 
@@ -1413,6 +1491,48 @@ def test_flash_f32_hd16_backward_sharp_softmax_draws(card, b, s, t):
                for e, p in zip(errs, plain)):
             misses.append((seed, errs, plain))
     assert not misses, misses
+
+
+@pytest.mark.parametrize("hd,b,s,t,hq,hkv,causal,window", [
+    (64, 2, 333, 333, 8, 8, False, 0), (64, 1, 333, 333, 4, 2, True, 24),
+    (128, 1, 300, 520, 4, 2, False, 0), (128, 1, 333, 333, 4, 2, True, 0)])
+def test_flash_f32_wide_backward_sharp_softmax_draws(card, hd, b, s, t, hq,
+                                                     hkv, causal, window):
+    """The float32 wide backward (head widths 64 and 128) at sharp logits
+    (q x 80) on 60 seeded draws: dQ, dK and dV against the float64 oracle
+    within max(1e-5, twice the float32 twin's own error) on every draw,
+    the logits recomputed on the tensor cores as the forward computes
+    them; and on the first draw the twin with TF32 on misses that limit
+    on some gradient (the control)."""
+    from repro_torch.kernels import flash_attention as fa
+    g = hq // hkv
+    misses = []
+    for seed in range(60):
+        q, k, v, do = _sharp_draw(card, seed, b, s, t, hq, hkv, hd=hd)
+        o, lse = fa.flash_attention(q, k, v, g, causal, window,
+                                    return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, g, causal, window)
+        oracle = ref.attention_bwd_ref(*(x.double() for x in (
+            q, k, v, o, lse, do)), g, causal, window)
+        plain = ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal, window)
+        lims = [max(TOL[torch.float32], 2 * _rel64(p, w))
+                for p, w in zip(plain, oracle, strict=True)]
+        errs = [_rel64(a, w) for a, w in zip(got, oracle, strict=True)]
+        if not all(bool(torch.isfinite(a).all()) for a in got) or any(
+                e > lim for e, lim in zip(errs, lims)):
+            misses.append((seed, errs, lims))
+        if seed == 0:
+            allow = torch.backends.cuda.matmul.allow_tf32
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                control = [_rel64(c, w) for c, w in zip(
+                    ref.attention_bwd_ref(q, k, v, o, lse, do, g, causal,
+                                          window), oracle, strict=True)]
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = allow
+            assert any(c > lim for c, lim in zip(control, lims)), (control,
+                                                                   lims)
+    assert not misses, (len(misses), misses[:3])
 
 
 def test_flash_f32_hd16_window_sharp_softmax_draws(card):

@@ -203,12 +203,16 @@ def test_guarded_wrappers_raise_under_grad(name):
 
 
 def test_flash_bwd_wrapper_refuses_float32():
-    """The backward kernel is bf16 only; a float32 call raises before
+    """The backward wrapper no longer refuses float32 above head width
+    32: a float32 call at hd 64 passes its checks as a bf16 one does
+    and, on CPU tensors, stops at the device check (the op layer sends
+    CPU tensors to the plain version); float64 is still refused, before
     any device check."""
     q = torch.zeros((1, 16, 2, 64))
     lse = torch.zeros((1, 2, 16))
-    with pytest.raises(NotImplementedError, match="bfloat16 only"):
-        flash_attention.flash_attention_bwd(q, q, q, q, lse, q)
-    with pytest.raises(ValueError, match="CUDA"):
-        qb = q.to(torch.bfloat16)
-        flash_attention.flash_attention_bwd(qb, qb, qb, qb, lse, qb)
+    for x in (q, q.to(torch.bfloat16)):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention.flash_attention_bwd(x, x, x, x, lse, x)
+    qd = q.double()
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        flash_attention.flash_attention_bwd(qd, qd, qd, qd, lse, qd)

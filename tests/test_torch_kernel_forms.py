@@ -53,12 +53,16 @@ BF = torch.bfloat16
 F32 = torch.float32
 # (dtype, B, S, Hq, Hkv, hd, causal, window): the reference's dtype test
 # (bf16 at hd 32, causal GQA 4/2), bf16 at hd 16 with a window, DiT-XL's
-# head of 72 non-causal, Phi-3's 96 causal GQA, and 24 (instance 32)
+# head of 72 non-causal, Phi-3's 96 causal GQA, 24 (instance 32), and
+# float32 at the wide instances' own widths: 64 non-causal MHA, 128
+# causal GQA with a window
 FLASH_FORMS = [(BF, 1, 64, 4, 2, 32, True, 0), (BF, 1, 64, 4, 2, 16, True, 24),
                (BF, 2, 128, 2, 2, 72, False, 0),
                (F32, 2, 128, 2, 2, 72, False, 0),
                (F32, 1, 128, 4, 2, 96, True, 0),
-               (F32, 2, 64, 4, 2, 24, True, 24)]
+               (F32, 2, 64, 4, 2, 24, True, 24),
+               (F32, 2, 128, 2, 2, 64, False, 0),
+               (F32, 1, 128, 4, 2, 128, True, 24)]
 # (S, P, N, chunk): the reference's SSD test at chunk 8, chunks of 24
 # and 48, a head of 48 and a state of 12
 SSD_FORMS = [(32, 16, 8, 8), (96, 16, 8, 24), (96, 16, 8, 48),
@@ -366,10 +370,10 @@ def test_instances_and_row_widths():
 @pytest.mark.parametrize("hd", [8, 20, 24, 40, 72, 96, 100, 128])
 def test_meta_flash_takes_every_width(dtype, hd):
     """On meta tensors the wrappers take every width up to 128 in both
-    types (the backward in float32 up to 32) and record their work at the
-    true width, under the small library's names up to 32; nothing
-    launches.  The float32 backward above 32 raises, naming
-    ``ROADMAP.md``."""
+    types, forward and backward, and record their work at the true
+    width and in the inputs' type, under the small library's names up
+    to 32 and ``flash_attention`` / ``flash_attention_bwd`` above;
+    nothing launches."""
     b, s, hq, hkv, t = 2, 96, 4, 2, 96
     q, do = _meta(b, s, hq, hd, dtype=dtype), _meta(b, s, hq, hd, dtype=dtype)
     k = _meta(b, t, hkv, hd, dtype=dtype)
@@ -381,17 +385,13 @@ def test_meta_flash_takes_every_width(dtype, hd):
     ops.reset_launch_counts()
     with meta.listening(log):
         out, l2 = fa.flash_attention(q, k, k, 2, True, 0, return_lse=True)
-        if small or dtype == BF:
-            grads = fa.flash_attention_bwd(q, k, k, out, lse, do, 2, True)
-            assert [g_.shape for g_ in grads] == [q.shape, k.shape, k.shape]
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                fa.flash_attention_bwd(q, k, k, out, lse, do, 2, True)
+        grads = fa.flash_attention_bwd(q, k, k, out, lse, do, 2, True)
+    assert [g_.shape for g_ in grads] == [q.shape, k.shape, k.shape]
+    assert all(g_.dtype == dtype for g_ in grads)
     assert out.shape == q.shape and l2.shape == (b, hq, s)
-    want = [(name, *fa.fwd_work(b, s, t, hq, hkv, hd, dn, True, lse=True))]
-    if small or dtype == BF:
-        want.append((name + "_bwd", *fa.bwd_work(b, s, t, hq, hkv, hd, True,
-                                                 dtype_name=dn)))
+    want = [(name, *fa.fwd_work(b, s, t, hq, hkv, hd, dn, True, lse=True)),
+            (name + "_bwd", *fa.bwd_work(b, s, t, hq, hkv, hd, True,
+                                         dtype_name=dn))]
     assert log == want
     assert not any(ops.launch_counts().values())
 

@@ -214,9 +214,11 @@ def test_meta_ssd_takes_every_small_form(p, chunk):
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
 def test_forms_still_queued_raise(device):
-    """Attention at hd 256, the float32 backward at hd 64, an SSD chunk
-    of 512 and a d_state of 136 raise before any device check, each
-    naming ``ROADMAP.md``, where they are queued."""
+    """Attention at hd 256, an SSD chunk of 512 and a d_state of 136
+    raise before any device check, each naming ``ROADMAP.md``, where they
+    are queued.  The float32 backward at hd 64, queued there until its
+    kernel came, now passes the checks: on the CPU it stops at the device
+    check, on meta tensors it records its work."""
     def t(*shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
     q256 = t(1, 64, 4, 256, dtype=torch.bfloat16)
@@ -224,8 +226,12 @@ def test_forms_still_queued_raise(device):
     with pytest.raises(ValueError, match="head_dim 256 .*ROADMAP"):
         fa.flash_attention(q256, kv256, kv256, 2, True)
     q64, lse = t(1, 64, 2, 64), t(1, 2, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fa.flash_attention_bwd(q64, q64, q64, q64, lse, q64)
+    if device == "cpu":
+        with pytest.raises(ValueError, match="CUDA"):
+            fa.flash_attention_bwd(q64, q64, q64, q64, lse, q64)
+    else:
+        grads = fa.flash_attention_bwd(q64, q64, q64, q64, lse, q64)
+        assert [g.shape for g in grads] == [q64.shape] * 3
     dt, a, bm = t(1, 1024, 2), t(2), t(1, 1024, 16)
     with pytest.raises(ValueError, match="chunk 512 .*ROADMAP"):
         ssd_scan.ssd_chunk_scan(t(1, 1024, 2, 32), dt, a, bm, bm, 512)
